@@ -1,0 +1,318 @@
+// Fused MFCC frontend for Hopper (sm_90a): audio -> mel power, then
+// mel -> dB with the top_db clip -> DCT-II. Plain C launchers, loaded with
+// ctypes (modulation_mfcc_tpu_torch/kernels/_build.py); each returns the
+// cudaError_t of its launch. Both kernels compute in true FP32 on the CUDA
+// cores (FFMA): no TF32, no tensor cores, no fast-math intrinsics.
+#include <cuda_runtime.h>
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// fused_mel_f32
+//
+// Replaces the Pallas frontend kernel of modulation_mfcc_tpu/pallas/
+// fused_frontend.py (fused_mel_frontend -> _launch -> _kernel, algorithm
+// 'f32', concat frame mode).
+//
+// Computes, for every utterance b and frame f < nf,
+//   frame[k] = audio[b, f*hop - eff_pad + k]  (zero outside [0, T): the
+//              centered zero pad, shifted by the trimmed window support)
+//   reim     = frame @ wri                    ([K] x [K, 2*bins_pad])
+//   power    = re^2 + im^2                    ([bins_pad])
+//   mel      = power @ melw                   ([bins_pad] x [bins_pad, n_mels])
+// and one float per block: the max of mel over the block's frames (< nf),
+// which the wrapper reduces to the per-utterance top_db peak.
+//
+// Bound: FP32 FFMA throughput. A 128 x 30 s batch at 16 kHz is ~315 GFLOP
+// of DFT and ~50 GFLOP of mel projection; the audio read (246 MB) and the
+// mel write (~400 MB) are small beside that at 3.35 TB/s.
+//
+// Design: a block owns 64 consecutive frames of one utterance. It copies the
+// contiguous audio span those frames cover into shared memory once (about
+// 21 KB at hop 80, K 400), so frames never exist in device memory. The DFT
+// is an SGEMM against that implicit [64, K] operand, 16 contraction rows at
+// a time. The basis slice is double-buffered in shared memory and fetched
+// with cp.async one step ahead, so its L2 latency hides behind the current
+// step's FFMAs; the frame slice is staged transposed ([k][frame]) from the
+// audio span. Each thread keeps an 8-frame by 4-bin tile of re and im (64
+// accumulators) in registers; a warp's 8 frame samples are two float4
+// broadcasts and a lane's 4 re and 4 im basis values are 8 conflict-free
+// words: 10 shared-memory wavefronts per 64 FFMA. Power goes to shared memory (transposed,
+// [bin][frame], in the same space as the slices) and is projected onto the
+// mel bank into a [64, 128] shared accumulator, 128 bins at a time, so the
+// mel sum over bins runs in bin order. Blocks run in no order, so the block
+// max is written per block, not carried.
+// ---------------------------------------------------------------------------
+
+constexpr int kBF = 64;        // frames per block
+constexpr int kBT = 128;       // DFT bins per tile (re and im columns each)
+constexpr int kKC = 16;        // contraction rows staged per step
+constexpr int kMelMax = 128;   // mel columns a block holds
+constexpr int kThreads = 256;  // warp w owns frames 4w..4w+3 and 32+4w..32+4w+3; lane owns columns lane + 32j
+constexpr int kPitch = kBF + 4;  // row pitch of the [k][frame] and [bin][frame] tiles: 16-byte rows, few bank conflicts
+
+constexpr int kSlice = kKC * 2 * kBT;  // floats of one staged basis slice
+constexpr int kStage = 2 * kSlice + kKC * kPitch;  // two basis slices + the frame slice
+constexpr int kShared = kStage > kBT * kPitch ? kStage : kBT * kPitch;  // power tile reuses the space
+
+__device__ __forceinline__ int owned_frame(int warp, int i) { return (i < 4 ? 0 : 28) + 4 * warp + i; }
+
+// 16-byte global -> shared copy that bypasses registers; zero-fills when !valid
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid)
+{
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 16 : 0));
+}
+
+// rows [k0, k0 + kKC) of the bin tile's re and im columns -> w_dst, one commit group
+__device__ __forceinline__ void stage_basis(float* w_dst, const float* __restrict__ wri, int k0,
+                                            int K, int bt, int bins_pad, int tid)
+{
+    for (int i = tid; i < kSlice / 4; i += kThreads) {
+        const int kk = i / (2 * kBT / 4);
+        const int c = (i % (2 * kBT / 4)) * 4;
+        const int k = k0 + kk;
+        const int col = c < kBT ? bt + c : bins_pad + bt + (c - kBT);
+        // rows past K are zero, so the unrolled loop adds exact zeros
+        cp_async16(w_dst + kk * 2 * kBT + c, wri + (size_t)(k < K ? k : 0) * 2 * bins_pad + col, k < K);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+fused_mel_f32_kernel(const float* __restrict__ audio, const float* __restrict__ wri,
+                     const float* __restrict__ melw, float* __restrict__ mel,
+                     float* __restrict__ bmax, int T, int K, int hop, int eff_pad,
+                     int nf, int bins_pad, int n_mels, int span_pad)
+{
+    extern __shared__ __align__(16) float smem[];
+    float* span_s = smem;                      // [span_pad] audio samples
+    float* w_s = span_s + span_pad;            // 2 x [kKC][2*kBT] basis slices
+    float* a_s = w_s + 2 * kSlice;             // [kKC][kPitch] frame slice, transposed
+    float* p_s = w_s;                          // [kBT][kPitch] power tile, transposed
+    float* mel_s = w_s + kShared;              // [kBF][kMelMax] mel accumulator
+    __shared__ float red_s[kThreads / 32];
+
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const int b = blockIdx.y;
+    const int f0 = blockIdx.x * kBF;
+    const float* x = audio + (size_t)b * T;
+    const int n_steps = (K + kKC - 1) / kKC;
+
+    const long long start = (long long)f0 * hop - eff_pad;
+    for (int i = tid; i < span_pad; i += kThreads) {
+        const long long s = start + i;
+        span_s[i] = (s >= 0 && s < T) ? x[s] : 0.0f;
+    }
+    for (int i = tid; i < kBF * kMelMax; i += kThreads) mel_s[i] = 0.0f;
+
+    for (int bt = 0; bt < bins_pad; bt += kBT) {
+        float re[8][4], im[8][4];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) { re[i][j] = 0.0f; im[i][j] = 0.0f; }
+
+        __syncthreads();  // the previous tile's power (same space) fully read
+        stage_basis(w_s, wri, 0, K, bt, bins_pad, tid);
+        for (int step = 0; step < n_steps; ++step) {
+            const int k0 = step * kKC;
+            __syncthreads();  // the previous step's slices fully read
+            if (step + 1 < n_steps)
+                stage_basis(w_s + ((step + 1) & 1) * kSlice, wri, k0 + kKC, K, bt, bins_pad, tid);
+            for (int i = tid; i < kKC * kBF; i += kThreads) {
+                const int kk = i % kKC;
+                const int f = i / kKC;
+                a_s[kk * kPitch + f] = span_s[f * hop + k0 + kk];
+            }
+            if (step + 1 < n_steps) asm volatile("cp.async.wait_group 1;\n" ::);
+            else asm volatile("cp.async.wait_group 0;\n" ::);
+            __syncthreads();
+            const float* w_cur = w_s + (step & 1) * kSlice;
+#pragma unroll
+            for (int kk = 0; kk < kKC; ++kk) {
+                const float4 a_lo = *reinterpret_cast<const float4*>(a_s + kk * kPitch + 4 * warp);
+                const float4 a_hi = *reinterpret_cast<const float4*>(a_s + kk * kPitch + 32 + 4 * warp);
+                const float a[8] = {a_lo.x, a_lo.y, a_lo.z, a_lo.w, a_hi.x, a_hi.y, a_hi.z, a_hi.w};
+                float wr[4], wi[4];
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    wr[j] = w_cur[kk * 2 * kBT + lane + 32 * j];
+                    wi[j] = w_cur[kk * 2 * kBT + kBT + lane + 32 * j];
+                }
+#pragma unroll
+                for (int i = 0; i < 8; ++i)
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+                        re[i][j] = fmaf(a[i], wr[j], re[i][j]);
+                        im[i][j] = fmaf(a[i], wi[j], im[i][j]);
+                    }
+            }
+        }
+
+        __syncthreads();  // every warp is done with the slices the power tile overwrites
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            float pw[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) pw[i] = re[i][j] * re[i][j] + im[i][j] * im[i][j];
+            float* row = p_s + (lane + 32 * j) * kPitch + 4 * warp;
+            *reinterpret_cast<float4*>(row) = make_float4(pw[0], pw[1], pw[2], pw[3]);
+            *reinterpret_cast<float4*>(row + 32) = make_float4(pw[4], pw[5], pw[6], pw[7]);
+        }
+        __syncthreads();
+
+        // each thread owns mel_s entries (its 8 frames, mel lane + 32j)
+        float acc[8][4];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = mel_s[owned_frame(warp, i) * kMelMax + lane + 32 * j];
+        for (int c = 0; c < kBT; ++c) {
+            const float4 p_lo = *reinterpret_cast<const float4*>(p_s + c * kPitch + 4 * warp);
+            const float4 p_hi = *reinterpret_cast<const float4*>(p_s + c * kPitch + 32 + 4 * warp);
+            const float pv[8] = {p_lo.x, p_lo.y, p_lo.z, p_lo.w, p_hi.x, p_hi.y, p_hi.z, p_hi.w};
+            float mw[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const int m = lane + 32 * j;
+                mw[j] = m < n_mels ? __ldg(melw + (size_t)(bt + c) * n_mels + m) : 0.0f;
+            }
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], mw[j], acc[i][j]);
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) mel_s[owned_frame(warp, i) * kMelMax + lane + 32 * j] = acc[i][j];
+    }
+    __syncthreads();
+
+    // write the valid frames; block max over them (mel >= 0, so 0 is neutral)
+    float vmax = 0.0f;
+    for (int i = tid; i < kBF * n_mels; i += kThreads) {
+        const int f = i / n_mels;
+        const int m = i % n_mels;
+        if (f0 + f < nf) {
+            const float v = mel_s[f * kMelMax + m];
+            mel[((size_t)b * nf + f0 + f) * n_mels + m] = v;
+            vmax = fmaxf(vmax, v);
+        }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) vmax = fmaxf(vmax, __shfl_xor_sync(0xffffffffu, vmax, o));
+    if (lane == 0) red_s[warp] = vmax;
+    __syncthreads();
+    if (tid == 0) {
+        float m = red_s[0];
+        for (int w = 1; w < kThreads / 32; ++w) m = fmaxf(m, red_s[w]);
+        bmax[(size_t)b * gridDim.x + blockIdx.x] = m;
+    }
+}
+
+// ---------------------------------------------------------------------------
+// mfcc_tail_f32
+//
+// Replaces the Pallas tail kernels of modulation_mfcc_tpu/pallas/
+// fused_frontend.py (mfcc_tail -> _tail_kernel_t, coef-major, and
+// _tail_kernel, frame-major).
+//
+// Computes out[b, c, f] (coef-major) or out[b, f, c] (frame-major) =
+//   sum_m dct[m, c] * max(10*log10(max(mel[b, f, m], 1e-10)), peak[b] - 80).
+//
+// Bound: device memory. It reads the mel tensor once (~400 MB for a
+// 128 x 30 s batch at 16 kHz) and writes 13 floats per frame; the 13 dot
+// products of 128 terms and one log10f per element are light beside that.
+//
+// Design: a block stages 128 frame rows of mel in shared memory with
+// coalesced loads (row stride n_mels + 1, so the one-thread-per-row reads
+// hit distinct banks), then each thread computes one frame: log10f, the
+// clip, and the DCT from a shared copy of the matrix (broadcast reads).
+// The coef-major write is coalesced along frames, which is the layout the
+// trajectory filters consume.
+// ---------------------------------------------------------------------------
+
+constexpr int kTF = 128;       // frames per block, one thread each
+constexpr int kMfccMax = 32;
+
+__global__ void __launch_bounds__(kTF)
+mfcc_tail_f32_kernel(const float* __restrict__ mel, const float* __restrict__ peak,
+                     const float* __restrict__ dct, float* __restrict__ out,
+                     int nf, int n_mels, int n_mfcc, int coef_major)
+{
+    extern __shared__ __align__(16) float sm[];
+    const int ld = n_mels + 1;
+    float* tile = sm;                 // [kTF][ld]
+    float* dct_s = sm + kTF * ld;     // [n_mels][n_mfcc]
+
+    const int tid = threadIdx.x;
+    const int b = blockIdx.y;
+    const int f0 = blockIdx.x * kTF;
+    const int nrows = min(kTF, nf - f0);
+    const float* src = mel + ((size_t)b * nf + f0) * n_mels;
+    for (int i = tid; i < nrows * n_mels; i += kTF) tile[(i / n_mels) * ld + i % n_mels] = src[i];
+    for (int i = tid; i < n_mels * n_mfcc; i += kTF) dct_s[i] = dct[i];
+    __syncthreads();
+    if (tid >= nrows) return;
+
+    const float floor_db = peak[b] - 80.0f;
+    float acc[kMfccMax];
+#pragma unroll
+    for (int c = 0; c < kMfccMax; ++c) acc[c] = 0.0f;
+    const float* row = tile + tid * ld;
+    for (int m = 0; m < n_mels; ++m) {
+        const float d = fmaxf(10.0f * log10f(fmaxf(row[m], 1e-10f)), floor_db);
+#pragma unroll
+        for (int c = 0; c < kMfccMax; ++c)
+            if (c < n_mfcc) acc[c] = fmaf(d, dct_s[m * n_mfcc + c], acc[c]);
+    }
+    const int f = f0 + tid;
+#pragma unroll
+    for (int c = 0; c < kMfccMax; ++c) {
+        if (c < n_mfcc) {
+            if (coef_major) out[((size_t)b * n_mfcc + c) * nf + f] = acc[c];
+            else out[((size_t)b * nf + f) * n_mfcc + c] = acc[c];
+        }
+    }
+}
+
+}  // namespace
+
+extern "C" int fused_mel_f32(const float* audio, const float* wri, const float* melw,
+                             float* mel, float* bmax, int B, int T, int K, int hop,
+                             int eff_pad, int nf, int bins_pad, int n_mels, void* stream)
+{
+    if (B < 1 || nf < 1 || K < 1 || hop < 1 || n_mels < 1 || n_mels > kMelMax ||
+        bins_pad < kBT || bins_pad % kBT)
+        return (int)cudaErrorInvalidValue;
+    const int n_blocks = (nf + kBF - 1) / kBF;
+    const int span = (kBF - 1) * hop + (K + kKC - 1) / kKC * kKC;
+    const int span_pad = (span + 3) / 4 * 4;
+    const size_t smem = sizeof(float) * ((size_t)span_pad + kShared + kBF * kMelMax);
+    cudaError_t err = cudaFuncSetAttribute(
+        fused_mel_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    fused_mel_f32_kernel<<<dim3(n_blocks, B), kThreads, smem, (cudaStream_t)stream>>>(
+        audio, wri, melw, mel, bmax, T, K, hop, eff_pad, nf, bins_pad, n_mels, span_pad);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int mfcc_tail_f32(const float* mel, const float* peak, const float* dct,
+                             float* out, int B, int nf, int n_mels, int n_mfcc,
+                             int coef_major, void* stream)
+{
+    if (B < 1 || nf < 1 || n_mels < 1 || n_mfcc < 1 || n_mfcc > kMfccMax)
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = sizeof(float) * ((size_t)kTF * (n_mels + 1) + (size_t)n_mels * n_mfcc);
+    cudaError_t err = cudaFuncSetAttribute(
+        mfcc_tail_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int n_blocks = (nf + kTF - 1) / kTF;
+    mfcc_tail_f32_kernel<<<dim3(n_blocks, B), kTF, smem, (cudaStream_t)stream>>>(
+        mel, peak, dct, out, nf, n_mels, n_mfcc, coef_major);
+    return (int)cudaGetLastError();
+}

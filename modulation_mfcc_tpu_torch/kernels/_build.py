@@ -1,0 +1,69 @@
+"""Build the hand-written CUDA kernels and load them with ctypes.
+
+``csrc/*.cu`` compile with nvcc into one shared library with a plain C
+interface, at first use, into ``modulation_mfcc_tpu_torch/_build/`` (listed
+in .gitignore). The file name carries a hash of the sources and flags, so an
+edited source rebuilds and an unchanged one loads the cached library.
+Nothing here runs at import: the CPU-only test machine has no nvcc.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from functools import lru_cache
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+# No --use_fast_math: it would turn log10f and division into approximations.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libmodmfcc_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile ``csrc/*.cu`` unless the library for these sources exists.
+    ``verbose`` prints nvcc's ptxas report (registers, shared memory, spills)."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    sources = [str(s) for s in sorted(CSRC.glob("*.cu"))]
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    if verbose:
+        print(proc.stderr, end="")
+    os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
+    return out
+
+
+@lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """The built library, loaded once per process."""
+    return ctypes.CDLL(str(build()))

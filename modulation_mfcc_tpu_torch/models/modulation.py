@@ -1,0 +1,304 @@
+"""MFCC rate-of-change ("modulation cepstrum"), the flagship pipeline.
+
+PyTorch port of the reference's ``get_MFCCS_change`` (script/mfcc.py:291-427,
+Goldstein-2019 formulation):
+
+    audio → centered frames → (window·DFT → power → mel → dB → DCT) → drop C0
+          → per-coefficient zero-phase Butterworth low-pass (12 Hz default)
+          → np.gradient → sqrt(Σ_coef d²)/n_coef → final low-pass
+
+The MFCC stage runs through the fused CUDA kernels by default
+(``spectrum='fused'``, the counterpart of the JAX package's 'pallas' f32
+mode); 'fft' and 'matmul' are the plain torch spectra. The trajectory stage
+is the probed FIR operator as matmuls. :class:`MfccChange` holds every
+designed constant as a buffer and moves with ``.to(device)``; the functional
+entry points build one for the input's device.
+"""
+from __future__ import annotations
+
+import numpy as np
+import scipy.signal as sps
+import torch
+
+from modulation_mfcc_tpu_torch.kernels.fused_frontend import frontend_weights, fused_mfcc, tail_dct
+from modulation_mfcc_tpu_torch.models.config import MfccConfig
+from modulation_mfcc_tpu_torch.ops import filters as F
+from modulation_mfcc_tpu_torch.ops.derivatives import np_gradient
+from modulation_mfcc_tpu_torch.ops.framing import frame_signal, frame_times_mfcc, n_frames_centered
+from modulation_mfcc_tpu_torch.ops.masked import masked_gradient, masked_sosfiltfilt_fir
+from modulation_mfcc_tpu_torch.ops.spectral import mfcc_from_frames
+from modulation_mfcc_tpu_torch.utils.helpers import resolve_device
+
+__all__ = [
+    "MfccChange", "mfcc_trajectories", "mfcc_change", "change_times",
+    "min_frames_for_fir", "extract_mfcc_change", "extract_mfcc_matrix",
+]
+
+SPECTRA = ("fused", "fft", "matmul")
+
+
+def _traj_design(cfg: MfccConfig) -> tuple:
+    """(sos, zi, padlen) of the coefficient-trajectory low-pass."""
+    cut_norm = cfg.filtCutoff / ((1.0 / cfg.tStep) / 2.0)
+    return F.design_butter_sos(cfg.filtOrd, (cut_norm,), "lowpass")
+
+
+def _out_design(cfg: MfccConfig) -> tuple | None:
+    """(sos, zi, padlen) of the final low-pass: the trajectory design when
+    ``outFilter`` is None, the validated 'iir' out-filter, or None for the
+    'fir'/'sg' out-filters, which only the host tail runs."""
+    if cfg.outFilter is None:
+        return _traj_design(cfg)
+    if cfg.outFilter == "iir":
+        return F.iir_design(1.0 / cfg.tStep, cfg.outFiltCutOff, cfg.outFiltLen, cfg.outFiltType)
+    if cfg.outFilter in ("fir", "sg"):
+        return None
+    raise ValueError(f"Unknown outFilter {cfg.outFilter!r}")
+
+
+class MfccChange(torch.nn.Module):
+    """The flagship pipeline with its designed constants as buffers:
+
+    * ``wri`` [K, 2·bins_pad], ``melw`` [bins_pad, n_mels]: packed windowed
+      real-DFT bases and mel matrix of the fused frontend;
+    * ``dct`` [n_mels, n_mfcc]: DCT-II ortho of the MFCC tail;
+    * ``traj_filter`` / ``out_filter``: the two zero-phase low-passes, each
+      with its probed FIR operator (``kernel``, ``left``, ``right``).
+    """
+
+    def __init__(self, cfg: MfccConfig = MfccConfig()):
+        super().__init__()
+        self.cfg = cfg
+        wri, melw = frontend_weights(
+            cfg.signal_sample_rate, cfg.n_fft, cfg.win_length, cfg.n_mels, cfg.minFreq, cfg.maxFreq
+        )
+        self.register_buffer("wri", torch.tensor(wri))
+        self.register_buffer("melw", torch.tensor(melw))
+        self.register_buffer("dct", torch.tensor(tail_dct(cfg.n_mfcc, cfg.n_mels)))
+        self.traj_filter = F.FiltFilt(*_traj_design(cfg))
+        out = _out_design(cfg)
+        self.out_filter = None if out is None else F.FiltFilt(*out)
+
+    def trajectories(
+        self,
+        y: torch.Tensor,
+        *,
+        frame_mask: torch.Tensor | None = None,
+        spectrum: str = "fused",
+        coef_major: bool = False,
+    ) -> torch.Tensor:
+        """MFCC matrix [..., n_frames, n_mfcc] (librosa semantics), or
+        [..., n_mfcc, n_frames] with ``coef_major=True``. ``frame_mask``
+        [..., n_frames] (1 = valid) keeps padding out of the top_db peak."""
+        cfg = self.cfg
+        if spectrum not in SPECTRA:
+            raise ValueError(f"Unknown spectrum {spectrum!r}; one of {', '.join(SPECTRA)}")
+        if spectrum == "fused":
+            return fused_mfcc(
+                y, sr=cfg.signal_sample_rate, n_fft=cfg.n_fft, hop=cfg.hop_length,
+                win_length=cfg.win_length, frame_mask=frame_mask, transposed=coef_major,
+                weights=(self.wri, self.melw, self.dct),
+            )
+        m = mfcc_from_frames(
+            frame_signal(y, cfg.n_fft, cfg.hop_length),
+            sr=cfg.signal_sample_rate,
+            n_fft=cfg.n_fft,
+            n_mfcc=cfg.n_mfcc,
+            n_mels=cfg.n_mels,
+            fmin=cfg.minFreq,
+            fmax=cfg.maxFreq,
+            win_length=cfg.win_length,
+            use_fft=(spectrum == "fft"),
+            mask=None if frame_mask is None else frame_mask[..., :, None],
+        )
+        return m.transpose(-1, -2) if coef_major else m
+
+    def forward(
+        self,
+        y: torch.Tensor,
+        *,
+        frame_lengths: torch.Tensor | None = None,
+        spectrum: str = "fused",
+        masked_fir: bool = False,
+    ) -> torch.Tensor:
+        """Total MFCC change over time, [..., n_frames], of audio [..., T].
+
+        For padded batches [B, T] pass ``frame_lengths`` [B] (valid frames per
+        utterance) with ``masked_fir=True``: the top_db peak, filter edges and
+        gradient edges are then anchored at each utterance's length, so each
+        output equals its single-file result on valid frames (zeros beyond).
+        Every length must be at least :func:`min_frames_for_fir`.
+        """
+        cfg = self.cfg
+        if cfg.diffMethod != "grad":
+            raise NotImplementedError(
+                f"diffMethod={cfg.diffMethod!r} (Savitzky-Golay) is not ported yet (ROADMAP A.5)"
+            )
+        if self.out_filter is None:
+            raise NotImplementedError(
+                f"outFilter={cfg.outFilter!r} on device is not ported yet (ROADMAP A.6)"
+            )
+        frame_mask = None
+        if frame_lengths is not None:
+            if not masked_fir:
+                raise NotImplementedError(
+                    "masked filters need masked_fir=True; the scan-based masked "
+                    "filters are not ported yet (ROADMAP A.7)"
+                )
+            if self.traj_filter.min_len is None or self.out_filter.min_len is None:
+                raise ValueError("masked_fir=True needs FIR operators for both filters")
+            nf = n_frames_centered(y.shape[-1], cfg.n_fft, cfg.hop_length)
+            frame_lengths = torch.as_tensor(frame_lengths, device=y.device)
+            frame_mask = (
+                torch.arange(nf, device=y.device)[None, :] < frame_lengths[:, None]
+            ).to(y.dtype)
+        # coef-major trajectories, so the filters run along the last (time) axis
+        m = self.trajectories(y, frame_mask=frame_mask, spectrum=spectrum, coef_major=True)
+        if cfg.removeFirst:
+            m = m[..., 1:, :]
+        n_coef = m.shape[-2]
+        if frame_lengths is None:
+            diff = np_gradient(self.traj_filter(m))
+        else:
+            lengths = frame_lengths[:, None]
+            filt = masked_sosfiltfilt_fir(self.traj_filter, m, lengths)
+            diff = masked_gradient(filt, lengths)
+        tot = torch.sqrt(torch.sum(diff * diff, dim=-2)) / n_coef
+        if frame_lengths is None:
+            return self.out_filter(tot)
+        return masked_sosfiltfilt_fir(self.out_filter, tot, frame_lengths)
+
+
+def mfcc_trajectories(
+    y: torch.Tensor,
+    cfg: MfccConfig,
+    *,
+    frame_mask: torch.Tensor | None = None,
+    spectrum: str = "fused",
+    coef_major: bool = False,
+) -> torch.Tensor:
+    """MFCC matrix [..., n_frames, n_mfcc] of audio [..., T] (see
+    :meth:`MfccChange.trajectories`), computed on ``y``'s device."""
+    return MfccChange(cfg).to(y.device).trajectories(
+        y, frame_mask=frame_mask, spectrum=spectrum, coef_major=coef_major
+    )
+
+
+def mfcc_change(
+    y: torch.Tensor,
+    cfg: MfccConfig,
+    *,
+    frame_lengths: torch.Tensor | None = None,
+    spectrum: str = "fused",
+    masked_fir: bool = False,
+) -> torch.Tensor:
+    """Total MFCC change over time, [..., n_frames] (see
+    :meth:`MfccChange.forward`), computed on ``y``'s device."""
+    return MfccChange(cfg).to(y.device)(
+        y, frame_lengths=frame_lengths, spectrum=spectrum, masked_fir=masked_fir
+    )
+
+
+def change_times(n_samples: int, cfg: MfccConfig) -> np.ndarray:
+    """Host-side time anchors (reference script/mfcc.py:390)."""
+    nf = n_frames_centered(n_samples, cfg.n_fft, cfg.hop_length)
+    return frame_times_mfcc(nf, cfg.tStep, cfg.winLen)
+
+
+def min_frames_for_fir(cfg: MfccConfig) -> int | None:
+    """Minimum valid frame count for the masked FIR filter path (None when
+    an operator probe declined, or the out-filter has no FIR operator)."""
+    sos, _, padlen = _traj_design(cfg)
+    d1 = F.design_filtfilt_operator(F._key_of(sos), padlen)
+    if d1 is None:
+        return None
+    if cfg.outFilter is None:
+        return d1.min_len
+    if cfg.outFilter != "iir":
+        return None  # fir/sg out-filters have no FIR operator
+    sos2, _, padlen2 = _out_design(cfg)
+    d2 = F.design_filtfilt_operator(F._key_of(sos2), padlen2)
+    if d2 is None:
+        return None
+    return max(d1.min_len, d2.min_len)
+
+
+def _host_trajectory_tail(m: np.ndarray, cfg: MfccConfig) -> np.ndarray:
+    """The trajectory-rate tail on host with scipy (float64), for files too
+    short for the FIR operator. Bit-identical to the scipy calls the
+    reference makes (script/mfcc.py:393-425)."""
+    if cfg.removeFirst:
+        m = m[:, 1:]
+    traj = m.T.astype(np.float64)  # [n_coef, NF]
+    fs_traj = 1.0 / cfg.tStep
+    cut_norm = cfg.filtCutoff / (fs_traj / 2.0)
+    sos = sps.butter(cfg.filtOrd, cut_norm, btype="low", output="sos")
+    filt = sps.sosfiltfilt(sos, traj)
+    if cfg.diffMethod == "grad":
+        diff = np.gradient(filt, axis=1)
+    else:
+        diff = sps.savgol_filter(filt, 3, 2, deriv=1, axis=1, mode="interp")
+    tot = np.sqrt(np.sum(diff**2, axis=0)) / traj.shape[0]
+    if cfg.outFilter is None:
+        return sps.sosfiltfilt(sos, tot)
+    if cfg.outFilter == "iir":
+        ftype = F.resolve_filt_type(cfg.outFiltType)
+        cut = np.asarray([c for c in cfg.outFiltCutOff if c is not None])
+        wn = cut / (fs_traj / 2.0)
+        sos2 = sps.butter(cfg.outFiltLen, wn if wn.size > 1 else wn[0], btype=ftype, output="sos")
+        return sps.sosfiltfilt(sos2, tot)
+    if cfg.outFilter == "fir":
+        ftype = F.resolve_filt_type(cfg.outFiltType)
+        cut = np.asarray([c for c in cfg.outFiltCutOff if c is not None])
+        b = sps.firwin(cfg.outFiltLen, cut / (fs_traj / 2.0), window=("kaiser", 7.4), pass_zero=ftype)
+        return sps.filtfilt(b, 1.0, tot)
+    if cfg.outFilter == "sg":
+        return sps.savgol_filter(tot, cfg.outFiltLen, cfg.outFiltPolyOrd, deriv=0, mode="interp")
+    raise ValueError(f"Unknown outFilter {cfg.outFilter!r}")
+
+
+def extract_mfcc_change(
+    y,
+    cfg: MfccConfig = MfccConfig(),
+    *,
+    spectrum: str = "fused",
+    device=None,
+):
+    """User-facing: (tot_change tensor, times ndarray) for one utterance [T]
+    or a batch [B, T]; the reference's Mfcc DataSource (script/main.py:726-770).
+
+    Computes on ``device`` (default: ``y``'s own if it is a tensor, else the
+    CPU). One utterance runs at its exact length: through the masked FIR
+    filters when it has at least :func:`min_frames_for_fir` frames, else the
+    MFCC stage on the device and the 200 Hz filter tail on the host with
+    scipy (exact by construction). Long recordings run whole-file.
+    """
+    device = resolve_device(device, y)
+    y = torch.as_tensor(y, dtype=torch.float32, device=device)
+    if y.ndim != 1:
+        return mfcc_change(y, cfg, spectrum=spectrum), change_times(y.shape[-1], cfg)
+    n = y.shape[-1]
+    nf_valid = 1 + n // cfg.hop_length
+    t = change_times(n, cfg)
+    mf = min_frames_for_fir(cfg)
+    if mf is not None and nf_valid >= mf:
+        fl = torch.tensor([nf_valid], device=device)
+        tot = mfcc_change(y[None], cfg, frame_lengths=fl, spectrum=spectrum, masked_fir=True)
+        return tot[0], t
+    m = mfcc_trajectories(y[None], cfg, spectrum=spectrum)
+    tot = _host_trajectory_tail(m[0].double().cpu().numpy(), cfg)
+    return torch.tensor(np.ascontiguousarray(tot), dtype=torch.float32, device=device), t
+
+
+def extract_mfcc_matrix(
+    y,
+    cfg: MfccConfig = MfccConfig(),
+    *,
+    spectrum: str = "fused",
+    device=None,
+):
+    """(times, mfcc [NF, n_mfcc]) for one utterance (or [B, NF, n_mfcc] for
+    a batch), on ``device`` as in :func:`extract_mfcc_change`."""
+    device = resolve_device(device, y)
+    y = torch.as_tensor(y, dtype=torch.float32, device=device)
+    return change_times(y.shape[-1], cfg), mfcc_trajectories(y, cfg, spectrum=spectrum)

@@ -1,0 +1,103 @@
+"""PyTorch port: the rules it keeps. No JAX, no silent CPU fallback, no build
+at import, and only hand-written kernels on the kernel path."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import modulation_mfcc_tpu_torch as mt
+from modulation_mfcc_tpu_torch.kernels import _build
+from modulation_mfcc_tpu_torch.kernels import fused_frontend as ff
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "modulation_mfcc_tpu_torch"
+
+
+def _run(code: str, **env) -> subprocess.CompletedProcess:
+    return subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(REPO), **env},
+    )
+
+
+def test_port_runs_without_jax():
+    """With jax made unimportable, the port imports and runs mfcc_change."""
+    proc = _run(
+        "import sys; sys.modules['jax'] = None\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        "import modulation_mfcc_tpu_torch as mt\n"
+        "y = torch.tensor(np.random.default_rng(0).standard_normal((1, 40000)), dtype=torch.float32)\n"
+        "tot = mt.mfcc_change(y, mt.MfccConfig())\n"
+        "assert tot.shape == (1, 801) and bool(torch.isfinite(tot).all())\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib', 'modulation_mfcc_tpu.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_kernel_module_imports_without_nvcc_or_triton():
+    """Importing the kernel module builds nothing and needs no toolchain."""
+    proc = _run(
+        "import sys; sys.modules['triton'] = None\n"
+        "from modulation_mfcc_tpu_torch.kernels import fused_frontend as ff, _build\n"
+        "assert _build.load_library.cache_info().currsize == 0\n"
+        "assert ff._lib.cache_info().currsize == 0\n"
+        "print('ok')\n",
+        PATH="/nonexistent",
+    )
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_cuda_request_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the rule concerns machines without it")
+    y = np.zeros(16_000, np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mt.extract_mfcc_change(y, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mt.models.modulation.extract_mfcc_matrix(y, device="cuda")
+
+
+def test_wrappers_raise_on_devices_without_a_kernel():
+    """Only a CPU tensor takes the plain version; any other device launches
+    the kernel or raises (a meta tensor stands in for a non-CPU device)."""
+    audio = torch.empty((1, 4000), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ff.fused_mel_frontend(audio, sr=16_000, hop=80, win_length=400, fmax=8000.0)
+    mel = torch.empty((1, 51, 128), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ff.mfcc_tail(mel, torch.empty(1, device="meta"), 13)
+    with pytest.raises(ValueError, match="float32"):
+        ff.fused_mel_frontend(torch.zeros((1, 4000), dtype=torch.float64), sr=16_000)
+
+
+def test_build_is_true_fp32_for_sm90a():
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "fast_math" not in flags and "fast-math" not in flags
+    assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == ["fused_frontend.cu"]
+    assert _build.library_path().parent == _build.BUILD_DIR
+    assert "modulation_mfcc_tpu_torch/_build/" in (REPO / ".gitignore").read_text()
+
+
+def test_package_source_rules():
+    """No jax, no library kernels on the kernel path, and no try/except that
+    could turn a failed build or launch into the plain version."""
+    banned = re.compile(r"^\s*(import jax|from jax)|torch\.compile|scaled_dot_product_attention|"
+                        r"torch\.backends\.cudnn|conv1d|conv_general", re.M)
+    for path in PKG.rglob("*.py"):
+        if "_build" in path.relative_to(PKG).parts:
+            continue
+        src = path.read_text()
+        assert not banned.search(src), path
+    for path in (PKG / "kernels").glob("*.py"):
+        assert not re.search(r"^\s*(try|except)\b", path.read_text(), re.M), path
