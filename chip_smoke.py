@@ -4,21 +4,33 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``modulation_mfcc_tpu_torch/csrc``
-(nvcc, sm_90a), checks each against its plain PyTorch version on the card,
-drives the flagship ``mfcc_change`` at full size (128 × 30 s at 16 kHz)
-through the kernels and checks it against the plain path, runs both
-``extract_mfcc_change`` routes against the CPU path, and times the kernels
-and the pipeline with CUDA events. Phases:
+(nvcc, sm_90a, one process per source), checks each against its plain
+PyTorch version on the card, drives the three paths of the port at full
+size through the kernels and checks them against their plain paths on the
+card and against the CPU, and times kernels and paths with CUDA events.
+Phases:
 
   0  card, power limit, versions, TF32 flags (exits 2 without CUDA)
   1  kernel build
-  2  kernel vs plain version on the card, both configurations
-  3  main path at full size, with launch counts and checks
+  2  MFCC kernels vs plain versions on the card, both configurations
+  3  MFCC path at full size (mfcc_change, 128 × 30 s at 16 kHz), launch counts
   4  single utterances (masked-FIR route, host-tail route)
-  5  times: one warm-up, median of 5, kernels beside their plain versions
+  5  MFCC times: one warm-up, median of 5, kernels beside their plain versions
+  6  tracker kernels vs plain versions on the card: sinc_refine_f32 on the
+     pitch tracker's own autocorrelation (4 × 30 s at 16 kHz, also at
+     veryAccurate depth 70 and at the 10 kHz band), burg_lpc_f32 in both
+     modes on lpc_formants' own frames and on the JAX kernel test's input
+  7  F0 path at full size: batched_f0 on 32 × 30 s at 16 kHz, praatac and
+     praatcc, launch counts, against the plain sinc engine and the CPU
+  8  formant path at full size: batched_formants on the same audio resampled
+     on the host to 11 kHz, launch counts, against the plain Burg and the CPU
+  9  single files: extract_f0 and formants_with_gating on one 30 s
+     utterance, the card against the CPU
+ 10  tracker times: kernels beside plain versions, both paths end to end, the
+     Viterbi loop's and the root finder's shares, peak memory
 
 Every check raises on failure, so the script exits 0 only when all phases
-passed. The second-to-last line is the card's name and power limit; the
+passed. The line before the last is the card's name and power limit; the
 last line is the device JSON. Imports no JAX.
 """
 from __future__ import annotations
@@ -28,6 +40,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import ExitStack, contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -36,17 +49,33 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import modulation_mfcc_tpu_torch as mt  # noqa: E402
+from modulation_mfcc_tpu_torch.io.wav import resample  # noqa: E402
 from modulation_mfcc_tpu_torch.kernels import _build  # noqa: E402
+from modulation_mfcc_tpu_torch.kernels import burg as BK  # noqa: E402
 from modulation_mfcc_tpu_torch.kernels import fused_frontend as ff  # noqa: E402
+from modulation_mfcc_tpu_torch.kernels import sinc_refine as SK  # noqa: E402
+from modulation_mfcc_tpu_torch.ops import lpc as L  # noqa: E402
+from modulation_mfcc_tpu_torch.ops import pitch as P  # noqa: E402
 
 FLAGSHIP = mt.MfccConfig(signal_sample_rate=16_000, maxFreq=8000.0)
 DEFAULT_10K = mt.MfccConfig()
 BATCH, SECONDS = 128, 30
-SOURCE = "modulation_mfcc_tpu_torch/csrc/fused_frontend.cu"
+TRACK_BATCH, TRACK_SR, LPC_SR = 32, 16_000, 11_000.0
+CSRC = "modulation_mfcc_tpu_torch/csrc"
+SOURCES = {
+    "fused_mel_f32": f"{CSRC}/fused_frontend.cu",
+    "mfcc_tail_f32": f"{CSRC}/fused_frontend.cu",
+    "sinc_refine_f32": f"{CSRC}/sinc_refine.cu",
+    "burg_lpc_f32": f"{CSRC}/burg.cu",
+}
 REPLACES = {
     "fused_mel_f32": "modulation_mfcc_tpu/pallas/fused_frontend.py:990",
     "mfcc_tail_f32": "modulation_mfcc_tpu/pallas/fused_frontend.py:1190",
+    "sinc_refine_f32": "modulation_mfcc_tpu/pallas/sinc_refine.py:150",
+    "burg_lpc_f32": "modulation_mfcc_tpu/pallas/burg.py:94",
 }
+# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bytes/s and FP32 CUDA-core FLOP/s
+PEAK_BYTES_S, PEAK_FP32_S = 3.35e12, 67e12
 
 
 def check(ok: bool, what: str) -> None:
@@ -93,6 +122,66 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(least ms on the card, what binds it) for work that moves ``n_bytes``
+    and does ``n_ops`` FP32 operations."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S * 1e3, n_ops / PEAK_FP32_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def reset(*counters: dict) -> None:
+    for c in counters:
+        for k in c:
+            c[k] = 0
+
+
+@contextmanager
+def spy(module, name: str):
+    """Record every call of ``module.name`` while the block runs, as
+    (args, kwargs, start event, end event), CUDA events around the call;
+    the calls themselves go through unchanged."""
+    orig = getattr(module, name)
+    calls = []
+
+    def recorded(*args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(*args, **kw)
+        end.record()
+        calls.append((args, kw, start, end))
+        return out
+
+    setattr(module, name, recorded)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def path_ms(fn, stages: list[tuple], reps: int = 5) -> tuple[float, dict[str, float]]:
+    """Median milliseconds of ``fn`` end to end and, within the same runs, of
+    each (module, name) stage it calls, after one warm-up."""
+    fn()
+    total, parts = [], {name: [] for _, name in stages}
+    for _ in range(reps):
+        with ExitStack() as stack:
+            calls = {name: stack.enter_context(spy(m, name)) for m, name in stages}
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+        torch.cuda.synchronize()
+        total.append(start.elapsed_time(end))
+        for name, recs in calls.items():
+            parts[name].append(sum(a.elapsed_time(b) for *_, a, b in recs))
+    return statistics.median(total), {name: statistics.median(v) for name, v in parts.items()}
+
+
+# ---------------------------------------------------------------------------
+# MFCC path (phases 2-5)
+# ---------------------------------------------------------------------------
+
+
 def frontend_args(cfg: mt.MfccConfig, dev) -> dict:
     wri, melw = ff.frontend_weights(
         cfg.signal_sample_rate, cfg.n_fft, cfg.win_length, cfg.n_mels, cfg.minFreq, cfg.maxFreq
@@ -132,29 +221,7 @@ def mel_errors(mel_k, bmax_k, mel_p, bmax_p) -> tuple[float, float, float]:
     return mel_rel, peak_rel, float((mel_k - mel_p).abs().max())
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
-        return 2
-    dev = torch.device("cuda", 0)
-    card = card_line()
-    # parity paths run in true FP32: no TF32 in matmuls or (unused) convolutions
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(f"[0] card: {card}")
-    print(f"[0] torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    print(f"[0] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
-          f"cudnn={torch.backends.cudnn.allow_tf32} "
-          f"float32_matmul_precision={torch.get_float32_matmul_precision()}")
-
-    # -- 1: build ---------------------------------------------------------
-    t0 = time.perf_counter()
-    lib_path = _build.build(verbose=True)
-    _build.load_library()
-    print(f"[1] built {lib_path.name} from {SOURCE} (nvcc {' '.join(_build.NVCC_FLAGS)}) "
-          f"in {time.perf_counter() - t0:.3f} s")
-
-    # -- 2: kernels vs plain versions on the card (4 x 30 s) -----------------
+def mfcc_kernel_checks(dev) -> None:
     for name, cfg in (("10k default (packed Nyquist)", DEFAULT_10K), ("16k fmax 8k", FLAGSHIP)):
         sr = cfg.signal_sample_rate
         audio = torch.tensor(speechlike(4, SECONDS * sr, sr, seed=1), device=dev)
@@ -175,17 +242,17 @@ def main() -> int:
             print(f"[2] {name}: mfcc_tail_f32 ({'coef' if transposed else 'frame'}-major) "
                   f"vs plain: max-abs {err:.3e} (bar 1e-4)")
             check(out_k.shape == out_p.shape and err <= 1e-4, f"mfcc_tail_f32 {name}")
-        del audio, mel_k, mel_p
 
-    # -- 3: main path at full size -----------------------------------------
+
+def mfcc_path(dev, card: str) -> list[dict]:
+    """Phases 3-5; the kernel rows of the MFCC path."""
     cfg = FLAGSHIP
     sr = cfg.signal_sample_rate
     y_np = speechlike(BATCH, SECONDS * sr, sr, seed=0)
     y = torch.tensor(y_np, device=dev)
     print(f"[3] mfcc_change on [{BATCH}, {SECONDS * sr}] float32 "
           f"({y.numel() * 4 / 1e6:.1f} MB of audio), sr {sr}, fmax {cfg.maxFreq}")
-    for k in ff.LAUNCHES:
-        ff.LAUNCHES[k] = 0
+    reset(ff.LAUNCHES)
     tot = mt.mfcc_change(y, cfg)
     torch.cuda.synchronize()
     launches = dict(ff.LAUNCHES)
@@ -205,14 +272,14 @@ def main() -> int:
     check(err_cpu <= 1e-5, "main path vs CPU path")
     del tot_plain
 
-    # -- 4: single utterances ----------------------------------------------
     sig = speechlike(1, SECONDS * DEFAULT_10K.signal_sample_rate, DEFAULT_10K.signal_sample_rate, 2)[0]
     for label, cfg1, x in (
         ("30 s at 10 kHz (masked-FIR route)", DEFAULT_10K, sig),
         ("utterance_16k.wav (host-tail route)", FLAGSHIP, read_fixture()),
     ):
-        got, t_gpu = mt.extract_mfcc_change(x, cfg1, device=dev)
+        got, t_gpu = mt.extract_mfcc_change(x, cfg1)
         torch.cuda.synchronize()
+        check(got.device.type == "cuda", "extract_mfcc_change computes on CUDA by default")
         want, t_cpu = mt.extract_mfcc_change(x, cfg1, device="cpu")
         err = float((got.cpu() - want).abs().max())
         print(f"[4] extract_mfcc_change {label}: {tuple(got.shape)} frames, vs CPU max-abs "
@@ -220,7 +287,6 @@ def main() -> int:
         check(got.shape == want.shape == t_gpu.shape and np.array_equal(t_gpu, t_cpu), label)
         check(bool(torch.isfinite(got).all()) and err <= 1e-5, label)
 
-    # -- 5: times at the main path's shapes -------------------------------
     a = frontend_args(cfg, dev)
     mel_p, bmax_p = frontend_plain(y, cfg, a)
     mel_k, bmax_k = frontend_kernel(y, cfg, a)
@@ -250,12 +316,310 @@ def main() -> int:
     print(f"[5] mfcc_change end to end: {e2e:.3f} ms = {hours / (e2e / 1e3):.3f} audio-h/s; "
           f"plain spectrum {e2e_plain:.3f} ms = {hours / (e2e_plain / 1e3):.3f} audio-h/s ({card})")
     print(f"[5] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    bsz, nfr, n_mels = mel_k.shape
+    k_sup, two_bins = a["wri"].shape
+    n_mfcc = a["dct"].shape[1]
+    mel_bytes = mel_k.numel() * 4
+    bounds = {
+        "fused_mel_f32": bound(
+            y.numel() * 4 + (a["wri"].numel() + a["melw"].numel()) * 4 + mel_bytes + bmax_k.numel() * 4,
+            2 * bsz * nfr * k_sup * two_bins + 3 * bsz * nfr * (two_bins // 2) + 2 * bsz * nfr * (two_bins // 2) * n_mels,
+        ),
+        "mfcc_tail_f32": bound(
+            mel_bytes + bsz * 4 + a["dct"].numel() * 4 + tail_k.numel() * 4,
+            bsz * nfr * n_mels * (2 * n_mfcc + 3),
+        ),
+    }
     errs = {"fused_mel_f32": mel_abs, "mfcc_tail_f32": tail_abs}
-    print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES[k],
-         "launches": launches[k], "max_abs_err": errs[k], "ms": ms[k][0], "plain_ms": ms[k][1]}
-        for k in ff.LAUNCHES
-    ]}))
+    return [kernel_row(k, launches[k], errs[k], ms[k], bounds[k]) for k in ff.LAUNCHES]
+
+
+def kernel_row(name: str, launches: int, err: float, ms: tuple[float, float], b: tuple[float, str]) -> dict:
+    return {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": launches, "max_abs_err": err, "ms": ms[0], "plain_ms": ms[1],
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+
+
+# ---------------------------------------------------------------------------
+# Trackers (phases 6-10)
+# ---------------------------------------------------------------------------
+
+
+def sinc_errors(got: tuple, want: tuple) -> tuple[float, float, float]:
+    """(max value error, share of positions off by more than 1e-4, max
+    position error): the bars of the JAX kernel test are 1e-5, < 5 %, 0.26."""
+    dv = float((got[1] - want[1]).abs().max())
+    dp = (got[0] - want[0]).abs()
+    return dv, float((dp > 1e-4).float().mean()), float(dp.max())
+
+
+def sinc_ok(errs: tuple[float, float, float]) -> bool:
+    return errs[0] <= 1e-5 and errs[1] < 0.05 and errs[2] <= 0.26
+
+
+def burg_accuracy(frames: torch.Tensor, levinson: bool) -> tuple[float, float, float]:
+    """(max |kernel − plain|, kernel's and plain version's max error against
+    the float64 recursion on the same frames)."""
+    got = (BK.burg_lpc if levinson else BK.burg_reflections)(frames, 10)
+    plain = BK.burg_lpc_reference(frames, 10, levinson=levinson)
+    exact = BK.burg_lpc_reference(frames.double(), 10, levinson=levinson)
+    return (float((got - plain).abs().max()), float((got.double() - exact).abs().max()),
+            float((plain.double() - exact).abs().max()))
+
+
+def track_agreement(got: torch.Tensor, want: torch.Tensor) -> tuple[int, float, int]:
+    """(frames whose voicing differs, max |Δf0| in Hz where both are voiced,
+    frames voiced in both)."""
+    g, w = got.cpu(), want.cpu()
+    both = (g > 0) & (w > 0)
+    dmax = float((g - w).abs()[both].max()) if bool(both.any()) else 0.0
+    return int(((g > 0) != (w > 0)).sum()), dmax, int(both.sum())
+
+
+def formant_agreement(got: torch.Tensor, want: torch.Tensor, truth: torch.Tensor) -> tuple[float, int, float]:
+    """Formants [..., NF, n] of two float32 chains against each other on the
+    frames where float32 is well conditioned: where ``want`` has the float64
+    chain's NaN pattern and is within 0.05 Hz of it (quiet frames at silence
+    boundaries are not: there Burg in float32 moves with the summation
+    order). (share of such frames, how many of them differ in NaN pattern or
+    by more than 0.05 Hz, max |Δ| Hz over the others)."""
+    g, w, t = got.cpu(), want.cpu(), truth.cpu()
+    same_nan = (torch.isfinite(w) == torch.isfinite(t)).all(-1)
+    close = torch.where(torch.isfinite(w) & torch.isfinite(t), (w - t).abs(), 0.0).le(0.05).all(-1)
+    cond = same_nan & close
+    gc, wc = g[cond], w[cond]
+    both = torch.isfinite(gc) & torch.isfinite(wc)
+    delta = torch.where(both, (gc - wc).abs(), 0.0)
+    bad = (torch.isfinite(gc) != torch.isfinite(wc)).any(-1) | delta.gt(0.05).any(-1)
+    dmax = float(delta[~bad].max()) if bool((~bad).any()) else 0.0
+    return float(cond.float().mean()), int(bad.sum()), dmax
+
+
+def formants_ok(a: tuple[float, int, float], n_frames: int) -> bool:
+    """Bars: > 95 % of frames well conditioned; of those, at most one in
+    10,000 (at least one) differs. In float32 a root of a near-double pair
+    can move by 0.1-0.2 Hz for a 1e-7 change of the LPC coefficients, and
+    the fixed 40 Durand-Kerner iterations leave a rare frame unconverged,
+    where the roots depend on rounding; every other frame agrees to 0.05 Hz."""
+    return a[0] > 0.95 and a[1] <= max(1, 1e-4 * a[0] * n_frames) and a[2] <= 0.05
+
+
+def agreement_text(a: tuple[float, int, float]) -> str:
+    return (f"well-conditioned frames {a[0]:.4%}, of which {a[1]} differ (bar ≤ 1e-4 of them, at least 1); "
+            f"max |Δ| {a[2]:.3e} Hz over the rest (bar 0.05)")
+
+
+def tracker_kernel_checks(dev) -> None:
+    """Phase 6: both tracker kernels against their plain versions on the
+    inputs their paths hand them."""
+    for label, sr, va in (("16 kHz", 16_000, False), ("16 kHz veryAccurate", 16_000, True), ("10 kHz", 10_000, False)):
+        x = torch.tensor(speechlike(4, SECONDS * sr, sr, seed=3), device=dev)
+        with spy(P, "refine_sinc_band") as calls:
+            P.pitch_ac(x, sr=float(sr), very_accurate=va)
+        args, kw = calls[0][:2]
+        r_ext, ext_left, lag_lo, lag_max, depth = args
+        errs = sinc_errors(SK.refine_sinc_band(*args, **kw), SK.refine_sinc_band_reference(*args, **kw))
+        torch.cuda.synchronize()
+        print(f"[6] sinc_refine_f32 {label}: r_ext {tuple(r_ext.shape)}, band {lag_lo}..{lag_max}, depth {depth}: "
+              f"value err {errs[0]:.3e} (bar 1e-5), positions off > 1e-4 {errs[1]:.4%} (bar 5 %), "
+              f"max position err {errs[2]:.4f} (bar 0.26)")
+        check(sinc_ok(errs), f"sinc_refine_f32 {label}")
+
+    test_frames = torch.tensor(np.random.default_rng(0).standard_normal((3, 41, 213)).astype(np.float32) * 0.3,
+                               device=dev)
+    for levinson in (True, False):
+        err = float(((BK.burg_lpc if levinson else BK.burg_reflections)(test_frames, 10)
+                     - BK.burg_lpc_reference(test_frames, 10, levinson=levinson)).abs().max())
+        print(f"[6] burg_lpc_f32 levinson={levinson} on the JAX kernel test's frames: max-abs {err:.3e} (bar 2e-6)")
+        check(err <= 2e-6, "burg_lpc_f32 on the JAX test's frames")
+    x = torch.tensor(speechlike(4, SECONDS * TRACK_SR, TRACK_SR, seed=3), dtype=torch.float64)
+    xr = torch.tensor(resample(x.numpy(), TRACK_SR, LPC_SR), dtype=torch.float32, device=dev)
+    with spy(BK, "burg_lpc") as calls:
+        L.lpc_formants(xr, sr=LPC_SR)
+    frames = calls[0][0][0]
+    for levinson in (True, False):
+        diff, err_k, err_p = burg_accuracy(frames, levinson)
+        torch.cuda.synchronize()
+        print(f"[6] burg_lpc_f32 levinson={levinson} on lpc_formants' frames {tuple(frames.shape)}: "
+              f"max-abs vs plain {diff:.3e}; against float64 kernel {err_k:.3e}, plain {err_p:.3e} "
+              f"(bar: kernel ≤ 2 × plain + 2e-6)")
+        check(err_k <= 2 * err_p + 2e-6, "burg_lpc_f32 as accurate as its plain version")
+
+
+def f0_path(dev, y_np: np.ndarray, batch: mt.AudioBatch, card: str) -> tuple[dict, dict]:
+    """Phase 7: the F0 path at full size. (launches, captured inputs)."""
+    launches, inputs = 0, {}
+    for method in ("praatac", "praatcc"):
+        cfg = mt.F0Config(method=method)
+        reset(SK.LAUNCHES)
+        with spy(P, "refine_sinc_band") as sinc_calls:
+            f0, valid = mt.batched_f0(batch, TRACK_SR, cfg)
+            torch.cuda.synchronize()
+        n = SK.LAUNCHES["sinc_refine_f32"]
+        launches += n
+        print(f"[7] batched_f0 {method} on {tuple(batch.samples.shape)}: f0 {tuple(f0.shape)}, "
+              f"voiced {float((f0 > 0).float().mean()):.3f}, sinc_refine_f32 launches {n}")
+        check(n > 0, f"sinc_refine_f32 launched in the {method} path")
+        check(bool(torch.isfinite(f0).all()) and bool(valid.all()), f"finite {method} tracks, all frames valid")
+        inputs[method] = sinc_calls[0][:2]
+        plain, _ = mt.batched_f0(batch, TRACK_SR, cfg, sinc_engine="plain")
+        flips, dmax, nboth = track_agreement(f0, plain)
+        print(f"[7] {method} vs sinc_engine='plain' on the card: {flips} voicing flips of {f0.numel()}, "
+              f"max |Δf0| {dmax:.3e} Hz over {nboth} voiced frames (bars 0, 0.05 Hz)")
+        check(flips == 0 and dmax <= 0.05, f"{method} path vs plain sinc engine")
+        cpu, _ = mt.batched_f0(mt.pad_batch(list(y_np[:2]), bucket_multiple=1, device="cpu"), TRACK_SR, cfg)
+        flips, dmax, nboth = track_agreement(f0[:2], cpu)
+        print(f"[7] {method} utterances 0-1 vs the CPU path: {flips} voicing flips, max |Δf0| {dmax:.3e} Hz "
+              f"(bars 0, 0.05 Hz)")
+        check(flips == 0 and dmax <= 0.05, f"{method} path vs the CPU")
+    return {"sinc_refine_f32": launches}, inputs
+
+
+def formant_path(dev, xr_np: np.ndarray) -> tuple[dict, tuple]:
+    """Phase 8: the formant path at full size. (launches, captured inputs)."""
+    xr = torch.tensor(xr_np, device=dev)
+    reset(BK.LAUNCHES)
+    with spy(BK, "burg_lpc") as burg_calls:
+        freqs, bw = mt.batched_formants(xr, LPC_SR, mt.FormantConfig())
+        torch.cuda.synchronize()
+    n = BK.LAUNCHES["burg_lpc_f32"]
+    print(f"[8] batched_formants on {tuple(xr.shape)} at {LPC_SR:.0f} Hz: freqs {tuple(freqs.shape)}, "
+          f"finite {float(torch.isfinite(freqs).float().mean()):.3f}, burg_lpc_f32 launches {n}")
+    check(n > 0, "burg_lpc_f32 launched in the formant path")
+    check(bool(torch.isfinite(bw[torch.isfinite(freqs)]).all()), "finite bandwidths of finite formants")
+    plain, _ = mt.batched_formants(xr, LPC_SR, mt.FormantConfig(), burg_engine="plain")
+    truth, _ = mt.batched_formants(xr.double(), LPC_SR, mt.FormantConfig(), burg_engine="plain")
+    agree = formant_agreement(freqs, plain, truth)
+    print(f"[8] vs burg_engine='plain' on the card: {agreement_text(agree)}")
+    check(formants_ok(agree, freqs.shape[0] * freqs.shape[1]), "formant path vs plain Burg")
+    x2 = torch.tensor(xr_np[:2])
+    cpu, _ = mt.batched_formants(x2, LPC_SR, mt.FormantConfig())
+    truth2, _ = mt.batched_formants(x2.double(), LPC_SR, mt.FormantConfig())
+    agree = formant_agreement(freqs[:2], cpu, truth2)
+    print(f"[8] utterances 0-1 vs the CPU path: {agreement_text(agree)}")
+    check(formants_ok(agree, 2 * freqs.shape[1]), "formant path vs the CPU")
+    return {"burg_lpc_f32": n}, burg_calls[0][:2]
+
+
+def single_files(y: np.ndarray) -> None:
+    """Phase 9: one 30 s utterance through the per-file entry points, on the
+    card (the default device) against the CPU."""
+    got, t = mt.extract_f0(y, TRACK_SR, mt.F0Config())
+    want, t_cpu = mt.extract_f0(y, TRACK_SR, mt.F0Config(), device="cpu")
+    g, w = got.cpu().numpy(), want.numpy()
+    same_nan = np.array_equal(np.isnan(g), np.isnan(w))
+    err = float(np.nanmax(np.abs(g - w)))
+    print(f"[9] extract_f0 (interp + iir) on 30 s: {g.shape[0]} frames on {got.device}, vs CPU max |Δ| "
+          f"{err:.3e} Hz (bar 0.05), NaN patterns equal {same_nan}")
+    check(got.device.type == "cuda" and np.array_equal(t, t_cpu) and same_nan and err <= 0.05, "extract_f0")
+    t_g, f_g, keep_g = mt.formants_with_gating(y, TRACK_SR)
+    t_c, f_c, keep_c = mt.formants_with_gating(y, TRACK_SR, device="cpu")
+    kept = torch.as_tensor(keep_c)
+    truth = mt.FormantTracker(mt.FormantConfig(), TRACK_SR)
+    truth = truth.lpc(torch.tensor(truth.resample(y.astype(np.float64))))[0][:, :3]
+    agree = formant_agreement(torch.stack(f_g, -1).cpu()[kept], torch.stack(f_c, -1)[kept], truth[kept])
+    print(f"[9] formants_with_gating on 30 s: {len(t_g)} frames, {int(keep_g.sum())} kept; kept frames vs CPU: "
+          f"{agreement_text(agree)}")
+    check(np.array_equal(t_g, t_c) and np.array_equal(keep_g, keep_c) and formants_ok(agree, int(kept.sum())),
+          "formants_with_gating")
+    t_e, f_e = mt.extract_formants(y, TRACK_SR)
+    check(np.array_equal(t_e, t_g[keep_g]) and f_e[0].device.type == "cuda", "extract_formants")
+
+
+def tracker_times(batch: mt.AudioBatch, xr: torch.Tensor, f0_inputs: dict, lpc_inputs: tuple, card: str):
+    """Phase 10: (kernel ms pairs, kernel errors at full size, bounds)."""
+    hours = TRACK_BATCH * SECONDS / 3600.0
+    s_args, s_kw = f0_inputs["praatac"]
+    sinc_k = SK.refine_sinc_band(*s_args, **s_kw)
+    sinc_p = SK.refine_sinc_band_reference(*s_args, **s_kw)
+    sinc_err = sinc_errors(sinc_k, sinc_p)
+    check(sinc_ok(sinc_err), "sinc_refine_f32 at full size")
+    b_frames = lpc_inputs[0][0]
+    burg_err = float((BK.burg_lpc(b_frames, 10) - BK.burg_lpc_reference(b_frames, 10)).abs().max())
+    del sinc_k, sinc_p
+    ms = {
+        "sinc_refine_f32": (cuda_ms(lambda: SK.refine_sinc_band(*s_args, **s_kw)),
+                            cuda_ms(lambda: SK.refine_sinc_band_reference(*s_args, **s_kw))),
+        "burg_lpc_f32": (cuda_ms(lambda: BK.burg_lpc(b_frames, 10)),
+                         cuda_ms(lambda: BK.burg_lpc_reference(b_frames, 10))),
+    }
+    for k, (t_k, t_p) in ms.items():
+        print(f"[10] {k}: {t_k:.3f} ms, plain {t_p:.3f} ms ({card})")
+    for method in ("praatac", "praatcc"):
+        cfg = mt.F0Config(method=method)
+        torch.cuda.reset_peak_memory_stats()
+        e2e, parts = path_ms(lambda: mt.batched_f0(batch, TRACK_SR, cfg),
+                             [(P, "refine_sinc_band"), (P, "viterbi_path")])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        sinc_ms, vit_ms = parts["refine_sinc_band"], parts["viterbi_path"]
+        print(f"[10] batched_f0 {method} end to end: {e2e:.3f} ms = {hours / (e2e / 1e3):.3f} audio-h/s; within it "
+              f"sinc_refine_f32 {sinc_ms:.3f} ms ({sinc_ms / e2e:.1%}), the Viterbi loop {vit_ms:.3f} ms "
+              f"({vit_ms / e2e:.1%}), the rest {e2e - sinc_ms - vit_ms:.3f} ms; peak memory {peak:.2f} GiB ({card})")
+    torch.cuda.reset_peak_memory_stats()
+    e2e, parts = path_ms(lambda: mt.batched_formants(xr, LPC_SR, mt.FormantConfig()),
+                         [(BK, "burg_lpc"), (L, "poly_roots_dk")])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    burg_ms, roots = parts["burg_lpc"], parts["poly_roots_dk"]
+    print(f"[10] batched_formants end to end: {e2e:.3f} ms = {hours / (e2e / 1e3):.3f} audio-h/s; within it "
+          f"burg_lpc_f32 {burg_ms:.3f} ms ({burg_ms / e2e:.1%}), poly_roots_dk {roots:.3f} ms ({roots / e2e:.1%}), "
+          f"the rest {e2e - burg_ms - roots:.3f} ms; peak memory {peak:.2f} GiB ({card})")
+
+    r_ext, _, lag_lo, lag_max, depth = s_args
+    m_rows, length = r_ext.shape[0] * r_ext.shape[1], r_ext.shape[-1]
+    nl, s = lag_max - lag_lo + 1, 2 * depth + 3
+    m_fr, nw = b_frames.shape[0] * b_frames.shape[1], b_frames.shape[-1]
+    bounds = {
+        "sinc_refine_f32": bound(m_rows * length * 4 + s * SK.GRID * 4 + 2 * m_rows * nl * 4,
+                                 2 * m_rows * nl * s * SK.GRID),
+        "burg_lpc_f32": bound(m_fr * nw * 4 + m_fr * 10 * 4, m_fr * sum(10 * (nw - 1 - m) for m in range(10))),
+    }
+    return ms, {"sinc_refine_f32": sinc_err[0], "burg_lpc_f32": burg_err}, bounds
+
+
+def tracker_paths(dev, card: str) -> list[dict]:
+    """Phases 6-10; the kernel rows of the tracker paths."""
+    tracker_kernel_checks(dev)
+    y_np = speechlike(TRACK_BATCH, SECONDS * TRACK_SR, TRACK_SR, seed=5)
+    batch = mt.pad_batch(list(y_np), bucket_multiple=1, device=dev)
+    f0_launches, f0_inputs = f0_path(dev, y_np, batch, card)
+    t0 = time.perf_counter()
+    xr_np = resample(y_np.astype(np.float64), TRACK_SR, LPC_SR).astype(np.float32)
+    print(f"[8] host resampling {y_np.shape} → {xr_np.shape} ({time.perf_counter() - t0:.3f} s, outside the timed window)")
+    lpc_launches, lpc_inputs = formant_path(dev, xr_np)
+    single_files(y_np[0])
+    xr = torch.tensor(xr_np, device=dev)
+    ms, errs, bounds = tracker_times(batch, xr, f0_inputs, lpc_inputs, card)
+    launches = {**f0_launches, **lpc_launches}
+    return [kernel_row(k, launches[k], errs[k], ms[k], bounds[k]) for k in ("sinc_refine_f32", "burg_lpc_f32")]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    # parity paths run in true FP32: no TF32 in matmuls or (unused) convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[0] card: {card}")
+    print(f"[0] torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    print(f"[0] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn={torch.backends.cudnn.allow_tf32} "
+          f"float32_matmul_precision={torch.get_float32_matmul_precision()}")
+
+    t0 = time.perf_counter()
+    lib_path = _build.build(verbose=True)
+    _build.load_library()
+    print(f"[1] built {lib_path.name} from {CSRC}/*.cu (nvcc {' '.join(_build.NVCC_FLAGS)}, one process "
+          f"per source) in {time.perf_counter() - t0:.3f} s")
+
+    mfcc_kernel_checks(dev)
+    rows = mfcc_path(dev, card)
+    torch.cuda.empty_cache()
+    rows += tracker_paths(dev, card)
+    print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

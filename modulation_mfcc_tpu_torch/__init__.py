@@ -1,21 +1,35 @@
-"""modulation_mfcc_tpu_torch: the MFCC modulation-cepstrum pipeline in PyTorch,
-with hand-written CUDA kernels for NVIDIA Hopper (H100).
+"""modulation_mfcc_tpu_torch: the MFCC modulation-cepstrum pipeline and the
+Praat F0 and formant trackers in PyTorch, with hand-written CUDA kernels for
+NVIDIA Hopper (H100).
 
 A port of ``modulation_mfcc_tpu`` (JAX), which stays the reference it is
 tested against. This package imports torch, numpy and scipy, never jax.
+Entry points compute on CUDA unless given ``device="cpu"`` (or a CPU tensor).
 
     import modulation_mfcc_tpu_torch as mt
-    tot, times = mt.extract_mfcc_change(y, device="cuda")     # one utterance
+    tot, times = mt.extract_mfcc_change(y)                    # one utterance, on CUDA
     tot = mt.mfcc_change(batch_on_cuda, mt.MfccConfig(signal_sample_rate=16000, maxFreq=8000.0))
+    f0, t = mt.extract_f0(y, 16000, mt.F0Config())            # Praat ac, interpolated + filtered
+    t, (f1, f2, f3) = mt.extract_formants(y, 16000, mt.FormantConfig())
+    f0, valid = mt.batched_f0(mt.pad_batch(signals), 16000, mt.F0Config())
 
 The CUDA kernels build with nvcc at first use (kernels/_build.py).
 """
-from modulation_mfcc_tpu_torch.models.config import MfccConfig
+from modulation_mfcc_tpu_torch.models.config import F0Config, FormantConfig, MfccConfig
+from modulation_mfcc_tpu_torch.models.formants import FormantTracker, extract_formants, formants_with_gating
 from modulation_mfcc_tpu_torch.models.modulation import (
     MfccChange,
     extract_mfcc_change,
     mfcc_change,
     mfcc_trajectories,
 )
+from modulation_mfcc_tpu_torch.models.pitch import PitchTracker, extract_f0
+from modulation_mfcc_tpu_torch.parallel.batch import AudioBatch, pad_batch
+from modulation_mfcc_tpu_torch.parallel.features_batch import batched_f0, batched_formants
 
-__all__ = ["MfccConfig", "MfccChange", "extract_mfcc_change", "mfcc_change", "mfcc_trajectories"]
+__all__ = [
+    "MfccConfig", "MfccChange", "extract_mfcc_change", "mfcc_change", "mfcc_trajectories",
+    "F0Config", "PitchTracker", "extract_f0", "FormantConfig", "FormantTracker",
+    "extract_formants", "formants_with_gating", "AudioBatch", "pad_batch", "batched_f0",
+    "batched_formants",
+]

@@ -17,13 +17,16 @@ Keys of ``arrays``:
   ``out_left``, ``out_right``: the FIR operators
   (``ops.filters.design_filtfilt_operator``) of the trajectory low-pass and
   the final low-pass. Their K, E, W and min_len follow from the shapes.
+
+:func:`pitch_params_from_jax` and :func:`formant_params_from_jax` do the
+same for :class:`PitchTracker` and :class:`FormantTracker`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "pitch_params_from_jax", "formant_params_from_jax"]
 
 
 def params_from_jax(arrays: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
@@ -39,3 +42,37 @@ def params_from_jax(arrays: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
                 np.asarray(arrays[f"{prefix}_{name}"], dtype=np.float64)
             )
     return params
+
+
+def _f32(a) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, dtype=np.float32))
+
+
+def pitch_params_from_jax(arrays: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """State dict of :class:`PitchTracker` from the JAX package's constants:
+
+    * ``sinc_weights`` [S, 17]: ``ops.pitch._sinc_weights(linspace(-1, 1,
+      17), depth)``, the columns of ``_sinc_band_matrix``;
+    * 'ac' only: ``window`` [nw], the AC_HANNING taper the tracker builds
+      (or ``ops.windows.praat_gauss(nw)`` with veryAccurate), and ``wac``
+      [lag_hi+1], its autocorrelation as the tracker's host code computes it.
+    """
+    params = {"sinc_w": _f32(arrays["sinc_weights"])}
+    if "window" in arrays:
+        wac = np.asarray(arrays["wac"], dtype=np.float64)
+        params["window"] = _f32(arrays["window"])
+        params["rw"] = _f32(wac / (wac[0] + 1e-30))
+    return params
+
+
+def formant_params_from_jax(arrays: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """State dict of :class:`FormantTracker` from the JAX package's constants:
+    ``window`` [nw] (``ops.windows.praat_gauss``), ``kaiser`` [2·hws+1]
+    (``ops.intensity._kaiser20``, unnormalized) and ``taps``
+    (``io.wav.design_hq_taps(up, down)``, empty without resampling)."""
+    kaiser = np.asarray(arrays["kaiser"], dtype=np.float64)
+    return {
+        "window": _f32(arrays["window"]),
+        "kaiser": _f32(kaiser / np.sum(kaiser)),
+        "taps": torch.tensor(np.asarray(arrays["taps"], dtype=np.float64)),
+    }

@@ -1,8 +1,9 @@
 """Build the hand-written CUDA kernels and load them with ctypes.
 
-``csrc/*.cu`` compile with nvcc into one shared library with a plain C
-interface, at first use, into ``modulation_mfcc_tpu_torch/_build/`` (listed
-in .gitignore). The file name carries a hash of the sources and flags, so an
+Each ``csrc/*.cu`` compiles with its own nvcc process, all started together,
+and the objects link into one shared library with a plain C interface, at
+first use, into ``modulation_mfcc_tpu_torch/_build/`` (listed in
+.gitignore). The file name carries a hash of the sources and flags, so an
 edited source rebuilds and an unchanged one loads the cached library.
 Nothing here runs at import: the CPU-only test machine has no nvcc.
 """
@@ -22,8 +23,9 @@ BUILD_DIR = _PKG / "_build"
 # No --use_fast_math: it would turn log10f and division into approximations.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 
 def _nvcc() -> str:
@@ -35,11 +37,21 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cu")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libmodmfcc_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands in parallel; their stderr, or raise on the first failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}{err}")
+    return [err for _, err in outs]
 
 
 def build(verbose: bool = False) -> Path:
@@ -49,16 +61,17 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    reports = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(sources, objs)])
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    sources = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]])
+    for o in objs:
+        o.unlink()
     if verbose:
-        print(proc.stderr, end="")
+        print("".join(reports), end="")
     os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
     return out
 

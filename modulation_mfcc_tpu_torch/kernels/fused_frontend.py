@@ -38,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as tnf
 
+from modulation_mfcc_tpu_torch.kernels._launch import check_cuda, raise_on, route, stream_of
 from modulation_mfcc_tpu_torch.ops.framing import frame_by_slices
 from modulation_mfcc_tpu_torch.ops.spectral import dct_matrix, dft_bases, mel_filterbank
 from modulation_mfcc_tpu_torch.utils.helpers import round_up_to_multiple
@@ -154,31 +155,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(
-                f"{name}: every operand must be a contiguous float32 tensor on "
-                f"{dev}; got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
-            )
-
-
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed with cudaError_t {rc}")
-
-
-def _route(t: torch.Tensor, name: str) -> bool:
-    """True for the CUDA kernel, False for the plain version (CPU tensors
-    only); any other device raises."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {t.device}")
-    return True
-
-
 # ---------------------------------------------------------------------------
 # fused_mel_f32
 # ---------------------------------------------------------------------------
@@ -229,9 +205,9 @@ def fused_mel_frontend(
         weights = _weights_on(audio, sr, n_fft, win_length, n_mels, fmin, fmax)
     wri, melw = weights
     pad = eff_pad(n_fft, win_length)
-    if not _route(audio, "fused_mel_frontend"):
+    if not route(audio, "fused_mel_frontend"):
         return fused_mel_frontend_reference(audio, wri, melw, hop=hop, eff_pad=pad)
-    _check_cuda("fused_mel_frontend", audio, wri, melw)
+    check_cuda("fused_mel_frontend", audio, wri, melw)
     bsz, t = audio.shape
     k, two_bins = wri.shape
     bins_pad, n_mels = melw.shape
@@ -246,9 +222,9 @@ def fused_mel_frontend(
     rc = _lib().fused_mel_f32(
         audio.data_ptr(), wri.data_ptr(), melw.data_ptr(), mel.data_ptr(), bmax.data_ptr(),
         bsz, t, k, hop, pad, nf, bins_pad, n_mels,
-        torch.cuda.current_stream(audio.device).cuda_stream,
+        stream_of(audio),
     )
-    _raise_on(rc, "fused_mel_f32")
+    raise_on(rc, "fused_mel_f32")
     LAUNCHES["fused_mel_f32"] += 1
     return mel, bmax
 
@@ -285,9 +261,9 @@ def mfcc_tail(
         dct = torch.as_tensor(tail_dct(n_mfcc, n_mels), dtype=torch.float32, device=mel.device)
     if dct.shape != (n_mels, n_mfcc):
         raise ValueError(f"mfcc_tail: dct {tuple(dct.shape)} != {(n_mels, n_mfcc)}")
-    if not _route(mel, "mfcc_tail"):
+    if not route(mel, "mfcc_tail"):
         return mfcc_tail_reference(mel, peak, dct, transposed=transposed)
-    _check_cuda("mfcc_tail", mel, peak, dct)
+    check_cuda("mfcc_tail", mel, peak, dct)
     if peak.shape != (bsz,) or n_mfcc > _MFCC_MAX:
         raise ValueError(f"mfcc_tail: peak {tuple(peak.shape)} != ({bsz},) or n_mfcc > {_MFCC_MAX}")
     shape = (bsz, n_mfcc, nf) if transposed else (bsz, nf, n_mfcc)
@@ -295,9 +271,9 @@ def mfcc_tail(
     rc = _lib().mfcc_tail_f32(
         mel.data_ptr(), peak.data_ptr(), dct.data_ptr(), out.data_ptr(),
         bsz, nf, n_mels, n_mfcc, int(transposed),
-        torch.cuda.current_stream(mel.device).cuda_stream,
+        stream_of(mel),
     )
-    _raise_on(rc, "mfcc_tail_f32")
+    raise_on(rc, "mfcc_tail_f32")
     LAUNCHES["mfcc_tail_f32"] += 1
     return out
 

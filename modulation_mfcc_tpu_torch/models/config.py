@@ -1,4 +1,4 @@
-"""Typed configuration of the modulation-cepstrum pipeline.
+"""Typed configuration of the modulation-cepstrum pipeline and the trackers.
 
 Same field names and defaults as the reference's JSON schema (``tStep``,
 ``winLen``, ``outFiltCutOff``, ...). Frozen, so a config can key the host
@@ -8,7 +8,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-__all__ = ["MfccConfig"]
+__all__ = ["MfccConfig", "FormantConfig", "F0Config"]
 
 
 @dataclass(frozen=True)
@@ -42,3 +42,55 @@ class MfccConfig:
     @property
     def hop_length(self) -> int:
         return int(self.tStep * self.signal_sample_rate)
+
+
+@dataclass(frozen=True)
+class FormantConfig:
+    """Parameters of calc_formants (reference script/calc.py:131-141)."""
+
+    energy_threshold: float = 20.0
+    time_step: float = 0.005
+    max_num_formants: int = 5
+    max_formant: float = 5500.0
+    window_length: float = 0.025
+    pre_emphasis_from: float = 50.0
+
+
+@dataclass(frozen=True)
+class F0Config:
+    """Parameters of get_f0 (reference script/calc.py:386-420)."""
+
+    method: str = "praatac"  # praatac | praatcc | pyin
+    hopSize: float = 0.01
+    minPitch: float = 75.0
+    maxPitch: float = 600.0
+    interpUnvoiced: str | None = "linear"
+    outFilter: str | None = "iir"
+    outFiltType: str = "low"
+    outFiltCutOff: tuple = (12.0,)
+    outFiltLen: int = 6
+    outFiltPolyOrd: int = 3
+    # Praat-specific cost parameters (script/calc.py:400-406)
+    minMaxQuant: tuple | None = None
+    maxCandNum: int = 15
+    veryAccurate: bool = False
+    silenceThresh: float = 0.03
+    voicingThresh: float = 0.45
+    octaveCost: float = 0.01
+    octaveJumpCost: float = 0.35
+    voicedUnvoicedCost: float = 0.14
+    # pyin-specific (script/calc.py:408-419); pyin is not ported yet (ROADMAP B.9)
+    pyinframe_length: int = 2048
+    pyinwin_length: int | None = None
+    n_thresholds: int = 100
+    beta_parameters: tuple = (2, 18)
+    boltzmann_parameter: int = 2
+    resolution: float = 0.1
+    max_transition_rate: float = 35.92
+    switch_prob: float = 0.01
+    no_trough_prob: float = 0.01
+    # fill value for unvoiced frames (None = NaN), centered framing flag and
+    # pad mode for the centered frames (script/calc.py:417-419)
+    pyinfill_na: float | None = None
+    pyincenter: bool = True
+    pyinpad_mode: str = "constant"

@@ -10,6 +10,14 @@ def round_up_to_multiple(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def next_pow2(n: int) -> int:
+    """Smallest power of two >= n."""
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
 def pad_center(data: np.ndarray, size: int, axis: int = -1) -> np.ndarray:
     """Center-pad a 1-D window to ``size`` samples with zeros
     (librosa.util.pad_center: a 250-sample window inside a 512-point FFT)."""
@@ -24,11 +32,15 @@ def pad_center(data: np.ndarray, size: int, axis: int = -1) -> np.ndarray:
 
 def resolve_device(device, like=None) -> torch.device:
     """The device a public function computes on: ``device`` when given, else
-    the device of tensor ``like``, else the CPU. Asking for CUDA where no
-    CUDA device exists raises; nothing silently runs on the CPU instead."""
+    the device of tensor ``like``, else the first CUDA device. Passing
+    ``device="cpu"`` is the way onto the CPU. Needing CUDA where no CUDA
+    device exists raises; nothing silently runs on the CPU instead."""
     if device is None:
-        return like.device if torch.is_tensor(like) else torch.device("cpu")
+        device = like.device if torch.is_tensor(like) else torch.device("cuda")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but CUDA is not available")
+        raise RuntimeError(
+            f"device {device} requested (the default for non-tensor input) but CUDA "
+            "is not available; pass device='cpu' to compute on the CPU"
+        )
     return device

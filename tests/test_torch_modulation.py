@@ -93,7 +93,7 @@ def test_extract_mfcc_change_matches_jax_and_oracle(seconds):
     assert route_fir == (seconds == 4.0)
     with pltpu.force_tpu_interpret_mode():
         want, want_t = jax_mod.extract_mfcc_change(y, JaxMfccConfig(), spectrum="pallas")
-    got, t = extract_mfcc_change(y, cfg)
+    got, t = extract_mfcc_change(y, cfg, device="cpu")
     assert got.dtype == torch.float32 and got.shape == (len(t),)
     assert np.array_equal(t, want_t) and np.array_equal(t, mod.change_times(len(y), cfg))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
@@ -108,7 +108,7 @@ def test_extract_mfcc_matrix_matches_jax(noise):
     y = noise[0, :24_000]
     with pltpu.force_tpu_interpret_mode():
         want_t, want = jax_mod.extract_mfcc_matrix(y, JaxMfccConfig(**CONFIGS["16k"]), spectrum="pallas")
-    t, got = mod.extract_mfcc_matrix(y, cfg)
+    t, got = mod.extract_mfcc_matrix(y, cfg, device="cpu")
     assert np.array_equal(t, want_t)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-4)
 
@@ -166,6 +166,6 @@ def test_host_tail_route_runs_every_out_filter():
     """Short files take the host-scipy tail, which has every out-filter."""
     cfg = MfccConfig(outFilter="fir", outFiltLen=31)
     y = speechlike(2.0, cfg.signal_sample_rate)
-    got, _ = extract_mfcc_change(y, cfg)
+    got, _ = extract_mfcc_change(y, cfg, device="cpu")
     want = get_mfccs_change_np(y.astype(np.float64), cfg.signal_sample_rate, out_filter="fir", out_filt_len=31)[0]
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import modulation_mfcc_tpu_torch as mt
-from modulation_mfcc_tpu_torch.kernels import _build
+from modulation_mfcc_tpu_torch.kernels import _build, burg, sinc_refine
 from modulation_mfcc_tpu_torch.kernels import fused_frontend as ff
 
 torch.set_num_threads(1)
@@ -28,15 +28,22 @@ def _run(code: str, **env) -> subprocess.CompletedProcess:
 
 
 def test_port_runs_without_jax():
-    """With jax made unimportable, the port imports and runs mfcc_change."""
+    """With jax made unimportable, the port imports and runs mfcc_change,
+    pitch_ac and lpc_formants."""
     proc = _run(
         "import sys; sys.modules['jax'] = None\n"
         "import numpy as np, torch\n"
         "torch.set_num_threads(1)\n"
         "import modulation_mfcc_tpu_torch as mt\n"
+        "from modulation_mfcc_tpu_torch.ops.pitch import pitch_ac\n"
+        "from modulation_mfcc_tpu_torch.ops.lpc import lpc_formants\n"
         "y = torch.tensor(np.random.default_rng(0).standard_normal((1, 40000)), dtype=torch.float32)\n"
         "tot = mt.mfcc_change(y, mt.MfccConfig())\n"
         "assert tot.shape == (1, 801) and bool(torch.isfinite(tot).all())\n"
+        "f0 = pitch_ac(y, sr=10000.0)\n"
+        "assert f0.shape == (1, 397) and bool(torch.isfinite(f0).all())\n"
+        "freqs, bw = lpc_formants(y[:, :11000], sr=11000.0)\n"
+        "assert freqs.shape == (1, 191, 5)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib', 'modulation_mfcc_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"
@@ -48,9 +55,10 @@ def test_kernel_module_imports_without_nvcc_or_triton():
     """Importing the kernel module builds nothing and needs no toolchain."""
     proc = _run(
         "import sys; sys.modules['triton'] = None\n"
-        "from modulation_mfcc_tpu_torch.kernels import fused_frontend as ff, _build\n"
+        "from modulation_mfcc_tpu_torch.kernels import fused_frontend as ff, _build, burg, sinc_refine\n"
+        "import modulation_mfcc_tpu_torch\n"
         "assert _build.load_library.cache_info().currsize == 0\n"
-        "assert ff._lib.cache_info().currsize == 0\n"
+        "assert all(m._lib.cache_info().currsize == 0 for m in (ff, burg, sinc_refine))\n"
         "print('ok')\n",
         PATH="/nonexistent",
     )
@@ -58,13 +66,27 @@ def test_kernel_module_imports_without_nvcc_or_triton():
 
 
 def test_cuda_request_without_cuda_raises():
+    """CUDA is the default device of every entry point given non-tensor
+    input: asking for it, or leaving the default, raises where CUDA is
+    missing; only device="cpu" (or a CPU tensor) computes on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA; the rule concerns machines without it")
     y = np.zeros(16_000, np.float32)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        mt.extract_mfcc_change(y, device="cuda")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        mt.models.modulation.extract_mfcc_matrix(y, device="cuda")
+    calls = {
+        "extract_mfcc_change": lambda **kw: mt.extract_mfcc_change(y, **kw),
+        "extract_mfcc_matrix": lambda **kw: mt.models.modulation.extract_mfcc_matrix(y, **kw),
+        "extract_f0": lambda **kw: mt.extract_f0(y, 16_000, **kw),
+        "extract_formants": lambda **kw: mt.extract_formants(y, 16_000, **kw),
+        "formants_with_gating": lambda **kw: mt.formants_with_gating(y, 16_000, **kw),
+        "pad_batch": lambda **kw: mt.pad_batch([y], **kw),
+    }
+    for call in calls.values():
+        for kw in ({"device": "cuda"}, {}):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                call(**kw)
+        call(device="cpu")  # the CPU on request
+    tot, _ = mt.extract_mfcc_change(torch.tensor(y))  # a CPU tensor keeps its device
+    assert tot.device.type == "cpu"
 
 
 def test_wrappers_raise_on_devices_without_a_kernel():
@@ -78,13 +100,20 @@ def test_wrappers_raise_on_devices_without_a_kernel():
         ff.mfcc_tail(mel, torch.empty(1, device="meta"), 13)
     with pytest.raises(ValueError, match="float32"):
         ff.fused_mel_frontend(torch.zeros((1, 4000), dtype=torch.float64), sr=16_000)
+    r_ext = torch.empty((4, 300), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        sinc_refine.refine_sinc_band(r_ext, 37, 16, 134, 35)
+    frames = torch.empty((4, 550), device="meta")
+    for fn in (burg.burg_lpc, burg.burg_reflections):
+        with pytest.raises(ValueError, match="no kernel"):
+            fn(frames, 10)
 
 
 def test_build_is_true_fp32_for_sm90a():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
-    assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == ["fused_frontend.cu"]
+    assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == ["burg.cu", "fused_frontend.cu", "sinc_refine.cu"]
     assert _build.library_path().parent == _build.BUILD_DIR
     assert "modulation_mfcc_tpu_torch/_build/" in (REPO / ".gitignore").read_text()
 
