@@ -28,6 +28,16 @@ Phases:
      utterance, the card against the CPU
  10  tracker times: kernels beside plain versions, both paths end to end, the
      Viterbi loop's and the root finder's shares, peak memory
+ 11  pyin Viterbi kernels vs plain versions on the card, bit for bit: random
+     dense trellises (batched and single), pyin's own trellis of 4 × 30 s at
+     16 kHz and at 10 kHz, a batch of one
+ 12  pyin path at full size: batched_f0 pyin on the phase-7 batch, one launch
+     of each Viterbi kernel, states and f0 identical to the plain engine on
+     the card, against the CPU; extract_f0 pyin on one 30 s utterance
+ 13  pyin times: both kernels beside their plain versions, the path end to
+     end with its stage split (CMNDF, candidates and observations, forward,
+     backtrace), peak memory, and the device time by kernel of one call
+     (torch.profiler)
 
 Every check raises on failure, so the script exits 0 only when all phases
 passed. The line before the last is the card's name and power limit; the
@@ -54,8 +64,10 @@ from modulation_mfcc_tpu_torch.kernels import _build  # noqa: E402
 from modulation_mfcc_tpu_torch.kernels import burg as BK  # noqa: E402
 from modulation_mfcc_tpu_torch.kernels import fused_frontend as ff  # noqa: E402
 from modulation_mfcc_tpu_torch.kernels import sinc_refine as SK  # noqa: E402
+from modulation_mfcc_tpu_torch.kernels import viterbi as VK  # noqa: E402
 from modulation_mfcc_tpu_torch.ops import lpc as L  # noqa: E402
 from modulation_mfcc_tpu_torch.ops import pitch as P  # noqa: E402
+from modulation_mfcc_tpu_torch.ops import yin as Y  # noqa: E402
 
 FLAGSHIP = mt.MfccConfig(signal_sample_rate=16_000, maxFreq=8000.0)
 DEFAULT_10K = mt.MfccConfig()
@@ -67,12 +79,16 @@ SOURCES = {
     "mfcc_tail_f32": f"{CSRC}/fused_frontend.cu",
     "sinc_refine_f32": f"{CSRC}/sinc_refine.cu",
     "burg_lpc_f32": f"{CSRC}/burg.cu",
+    "viterbi_fwd_f32": f"{CSRC}/viterbi.cu",
+    "viterbi_bwd_f32": f"{CSRC}/viterbi.cu",
 }
 REPLACES = {
     "fused_mel_f32": "modulation_mfcc_tpu/pallas/fused_frontend.py:990",
     "mfcc_tail_f32": "modulation_mfcc_tpu/pallas/fused_frontend.py:1190",
     "sinc_refine_f32": "modulation_mfcc_tpu/pallas/sinc_refine.py:150",
     "burg_lpc_f32": "modulation_mfcc_tpu/pallas/burg.py:94",
+    "viterbi_fwd_f32": "modulation_mfcc_tpu/pallas/viterbi.py:218 and :454",
+    "viterbi_bwd_f32": "modulation_mfcc_tpu/pallas/viterbi.py:295 and :492",
 }
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bytes/s and FP32 CUDA-core FLOP/s
 PEAK_BYTES_S, PEAK_FP32_S = 3.35e12, 67e12
@@ -591,7 +607,185 @@ def tracker_paths(dev, card: str) -> list[dict]:
     xr = torch.tensor(xr_np, device=dev)
     ms, errs, bounds = tracker_times(batch, xr, f0_inputs, lpc_inputs, card)
     launches = {**f0_launches, **lpc_launches}
-    return [kernel_row(k, launches[k], errs[k], ms[k], bounds[k]) for k in ("sinc_refine_f32", "burg_lpc_f32")]
+    rows = [kernel_row(k, launches[k], errs[k], ms[k], bounds[k]) for k in ("sinc_refine_f32", "burg_lpc_f32")]
+    del xr
+    torch.cuda.empty_cache()
+    viterbi_kernel_checks(dev)
+    vit_launches, vit_inputs = pyin_path(dev, y_np, batch)
+    ms, errs, bounds = pyin_times(batch, vit_inputs, card)
+    return rows + [kernel_row(k, vit_launches[k], errs[k], ms[k], bounds[k]) for k in VK.LAUNCHES]
+
+
+# ---------------------------------------------------------------------------
+# pyin (phases 11-13)
+# ---------------------------------------------------------------------------
+
+
+def viterbi_compare(args: tuple) -> tuple[float, float, tuple]:
+    """Both kernels against their plain versions on one trellis (log_obs,
+    delta0, log_tri, c_stay, c_sw): (max |Δ| over δ_f and the history, max
+    |Δ| of the state paths, the plain forward's (δ_f, history)). The
+    backtrace runs on the plain forward's output; the fused decode is
+    compared too."""
+    f_k, h_k = VK.viterbi_forward(*args)
+    f_p, h_p = VK.viterbi_forward_reference(*args)
+    path_k = VK.viterbi_backtrace(h_p, f_p, *args[2:])
+    path_p = VK.viterbi_backtrace_reference(h_p, f_p, *args[2:])
+    dec_k = VK.viterbi_decode(*args)
+    torch.cuda.synchronize()
+    delta_err = max(float((f_k - f_p).abs().max()), float((h_k - h_p).abs().max()))
+    path_err = float(torch.maximum((path_k - path_p).abs(), (dec_k - path_p).abs()).max())
+    return delta_err, path_err, (f_p, h_p)
+
+
+def viterbi_kernel_checks(dev) -> None:
+    """Phase 11: both Viterbi kernels bit for bit against their plain
+    versions, on the random dense trellises of the CPU test, on pyin's own
+    trellises and on a batch of one."""
+    rng = np.random.default_rng(11)
+    c_stay, c_sw = float(np.log(np.float32(0.99))), float(np.log(np.float32(0.01)))
+    for n_bins, nf, nb in ((360, 40, 3), (130, 7, 3), (37, 25, 3), (40, 600, 3), (360, 40, None), (40, 1, 2)):
+        lead = () if nb is None else (nb,)
+        tri = rng.random((n_bins, n_bins))
+        args = (torch.tensor(np.log(rng.random((*lead, nf, 2 * n_bins)) + 1e-12), dtype=torch.float32, device=dev),
+                torch.tensor(np.log(rng.random((*lead, 2 * n_bins)) + 1e-12), dtype=torch.float32, device=dev),
+                torch.tensor(np.log(tri / tri.sum(0) + 1e-30), dtype=torch.float32, device=dev), c_stay, c_sw)
+        if nf == 1:
+            f_k, h_k = VK.viterbi_forward(*args)
+            f_p, h_p = VK.viterbi_forward_reference(*args)
+            torch.cuda.synchronize()
+            ok = torch.equal(f_k, f_p) and h_k.shape == h_p.shape == (nb, 0, 2 * n_bins)
+            print(f"[11] viterbi_fwd_f32 on one frame, batch {nb}: δ_f identical {ok}")
+            check(ok, "viterbi_fwd_f32 on one frame")
+            continue
+        err, path_err, _ = viterbi_compare(args)
+        print(f"[11] random trellis n={n_bins} NF={nf} batch {nb or 'none'}: δ max |Δ| {err:.3e}, "
+              f"state paths max |Δ| {path_err:.0f} (bars 0, 0)")
+        check(err == 0.0 and path_err == 0.0, f"Viterbi kernels on the random trellis n={n_bins} NF={nf}")
+    for sr in (16_000, 10_000):
+        x = torch.tensor(speechlike(4, SECONDS * sr, sr, seed=3), device=dev)
+        with spy(Y, "viterbi_decode") as calls:
+            Y.pyin_f0(x, sr=float(sr))
+        args = calls[0][0]
+        err, path_err, _ = viterbi_compare(args)
+        print(f"[11] pyin's trellis at {sr} Hz, log_obs {tuple(args[0].shape)}: δ max |Δ| {err:.3e}, "
+              f"state paths max |Δ| {path_err:.0f} (bars 0, 0)")
+        check(err == 0.0 and path_err == 0.0, f"Viterbi kernels on pyin's trellis at {sr} Hz")
+        one = (args[0][:1].contiguous(), args[1][:1].contiguous(), *args[2:])
+        single = (args[0][0].contiguous(), args[1][0].contiguous(), *args[2:])
+        ok = viterbi_compare(one)[:2] == (0.0, 0.0) and viterbi_compare(single)[:2] == (0.0, 0.0)
+        ok = ok and torch.equal(VK.viterbi_decode(*one)[0], VK.viterbi_decode(*single))
+        print(f"[11] a batch of one and a single trellis at {sr} Hz: identical to the plain versions {ok}")
+        check(ok, f"Viterbi kernels on a batch of one at {sr} Hz")
+
+
+def state_agreement(got: torch.Tensor, want: torch.Tensor) -> tuple[int, int, int]:
+    """(frames whose decoded state differs, of them where voicing differs, frames)."""
+    g, w = got.cpu(), want.cpu()
+    n_bins = Y.pyin_geometry(float(TRACK_SR)).n_bins
+    return int((g != w).sum()), int(((g < n_bins) != (w < n_bins)).sum()), g.numel()
+
+
+def pyin_path(dev, y_np: np.ndarray, batch: mt.AudioBatch) -> tuple[dict, tuple]:
+    """Phase 12: the pyin path at full size. (launches, captured trellis)."""
+    cfg = mt.F0Config(method="pyin")
+    torch.cuda.reset_peak_memory_stats()
+    reset(VK.LAUNCHES)
+    with spy(Y, "viterbi_decode") as calls:
+        f0, valid = mt.batched_f0(batch, TRACK_SR, cfg)
+        torch.cuda.synchronize()
+    launches = dict(VK.LAUNCHES)
+    print(f"[12] batched_f0 pyin on {tuple(batch.samples.shape)}: f0 {tuple(f0.shape)}, voiced "
+          f"{float((f0 > 0).float().mean()):.3f}, launches {launches}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(launches == {"viterbi_fwd_f32": 1, "viterbi_bwd_f32": 1}, "one launch of each Viterbi kernel per call")
+    check(bool(torch.isfinite(f0).all()) and bool(valid.all()), "finite pyin tracks, all frames valid")
+    tracker = mt.PyinTracker(cfg, TRACK_SR).to(dev)
+    f0_k, st_k = tracker(batch.samples, return_states=True)
+    f0_p, st_p = tracker(batch.samples, return_states=True, viterbi_engine="plain")
+    torch.cuda.synchronize()
+    same = torch.equal(f0_k, f0_p) and torch.equal(st_k, st_p) and torch.equal(f0_k, f0)
+    print(f"[12] vs viterbi_engine='plain' on the card: f0 and states identical {same} (bar: identical)")
+    check(same, "pyin path vs the plain Viterbi engine")
+    f0_c, st_c = mt.PyinTracker(cfg, TRACK_SR)(torch.tensor(y_np[:2]), return_states=True)
+    diff, vflips, total = state_agreement(st_k[:2], st_c)
+    flips, dmax, nboth = track_agreement(f0_k[:2], f0_c)
+    print(f"[12] utterances 0-1 vs the CPU path: states differ on {diff} of {total} frames ({vflips} in voicing; "
+          f"bar ≤ 0.1 %), max |Δf0| {dmax:.3e} Hz over {nboth} frames voiced in both")
+    check(diff <= 1e-3 * total, "pyin path vs the CPU")
+
+    y = y_np[0]
+    raw = mt.F0Config(method="pyin", interpUnvoiced=None, outFilter=None)
+    got, t = mt.extract_f0(y, TRACK_SR, raw)
+    want, t_cpu = mt.extract_f0(y, TRACK_SR, raw, device="cpu")
+    g, w = got.cpu().numpy(), want.numpy()
+    n_diff = int(np.sum(np.isnan(g) != np.isnan(w)) + np.sum(np.abs(g - w) > 1e-3 * np.abs(w)))
+    print(f"[12] extract_f0 pyin (raw) on 30 s: {g.shape[0]} frames on {got.device}, frames differing from the "
+          f"CPU {n_diff} (bar ≤ 0.1 %)")
+    check(got.device.type == "cuda" and np.array_equal(t, t_cpu) and n_diff <= 1e-3 * g.shape[0], "extract_f0 pyin")
+    got, _ = mt.extract_f0(y, TRACK_SR, mt.F0Config(method="pyin"))
+    want, _ = mt.extract_f0(y, TRACK_SR, mt.F0Config(method="pyin"), device="cpu")
+    err = float(np.max(np.abs(got.cpu().numpy() - want.numpy())))
+    print(f"[12] extract_f0 pyin (linear interp + iir) on 30 s vs CPU: max |Δ| {err:.3e} Hz "
+          f"(bar 0.05 Hz when the raw tracks agree on every frame)")
+    check(bool(torch.isfinite(got).all()) and (n_diff > 0 or err <= 0.05), "extract_f0 pyin, interpolated and filtered")
+    return launches, calls[0][0]
+
+
+def device_breakdown(fn, top: int = 10) -> tuple[float, list[tuple[str, float]]]:
+    """(device-busy ms, the ``top`` kernels by device time [(name, ms)]) of
+    one call of ``fn`` under torch.profiler, after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [(e.key[:70], e.self_device_time_total / 1e3) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    kernels.sort(key=lambda kv: -kv[1])
+    return sum(t for _, t in kernels), kernels[:top]
+
+
+def pyin_times(batch: mt.AudioBatch, args: tuple, card: str):
+    """Phase 13: (kernel ms pairs, kernel errors at full size, bounds)."""
+    hours = TRACK_BATCH * SECONDS / 3600.0
+    fwd_err, bwd_err, (delta_f, hist) = viterbi_compare(args)
+    rest = args[2:]
+    check(fwd_err == 0.0 and bwd_err == 0.0, "Viterbi kernels at full size")
+    ms = {
+        "viterbi_fwd_f32": (cuda_ms(lambda: VK.viterbi_forward(*args)),
+                            cuda_ms(lambda: VK.viterbi_forward_reference(*args))),
+        "viterbi_bwd_f32": (cuda_ms(lambda: VK.viterbi_backtrace(hist, delta_f, *rest)),
+                            cuda_ms(lambda: VK.viterbi_backtrace_reference(hist, delta_f, *rest))),
+    }
+    for k, (t_k, t_p) in ms.items():
+        print(f"[13] {k}: {t_k:.3f} ms, plain {t_p:.3f} ms ({card})")
+    cfg = mt.F0Config(method="pyin")
+    torch.cuda.reset_peak_memory_stats()
+    stages = [(Y, "_sliding_cmndf"), (Y, "pyin_observations"), (VK, "viterbi_forward"), (VK, "viterbi_backtrace")]
+    e2e, parts = path_ms(lambda: mt.batched_f0(batch, TRACK_SR, cfg), stages)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    split = ", ".join(f"{name} {t:.3f} ms ({t / e2e:.1%})" for name, t in parts.items())
+    print(f"[13] batched_f0 pyin end to end: {e2e:.3f} ms = {hours / (e2e / 1e3):.3f} audio-h/s; within it {split}, "
+          f"the rest {e2e - sum(parts.values()):.3f} ms; peak memory {peak:.2f} GiB ({card})")
+
+    busy, top = device_breakdown(lambda: mt.batched_f0(batch, TRACK_SR, cfg))
+    print(f"[13] torch.profiler, one batched_f0 pyin call: device busy {busy:.3f} ms; by kernel: "
+          + "; ".join(f"{name} {t:.3f} ms" for name, t in top))
+
+    log_obs, _, log_tri = args[:3]
+    nb, nf, two_n = log_obs.shape
+    n = two_n // 2
+    state_bytes = nb * two_n * 4
+    bounds = {
+        "viterbi_fwd_f32": bound(log_obs.numel() * 4 + 2 * state_bytes + log_tri.numel() * 4 + hist.numel() * 4,
+                                 nb * (nf - 1) * (4 * n * n + 8 * n)),
+        "viterbi_bwd_f32": bound(hist.numel() * 4 + state_bytes + log_tri.numel() * 4 + nb * nf * 4,
+                                 nb * (nf - 1) * 5 * n),
+    }
+    return ms, {"viterbi_fwd_f32": fwd_err, "viterbi_bwd_f32": bwd_err}, bounds
 
 
 def main() -> int:

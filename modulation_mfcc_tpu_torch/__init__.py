@@ -1,6 +1,6 @@
-"""modulation_mfcc_tpu_torch: the MFCC modulation-cepstrum pipeline and the
-Praat F0 and formant trackers in PyTorch, with hand-written CUDA kernels for
-NVIDIA Hopper (H100).
+"""modulation_mfcc_tpu_torch: the MFCC modulation-cepstrum pipeline, the
+Praat and pyin F0 trackers and the formant tracker in PyTorch, with
+hand-written CUDA kernels for NVIDIA Hopper (H100).
 
 A port of ``modulation_mfcc_tpu`` (JAX), which stays the reference it is
 tested against. This package imports torch, numpy and scipy, never jax.
@@ -12,6 +12,8 @@ Entry points compute on CUDA unless given ``device="cpu"`` (or a CPU tensor).
     f0, t = mt.extract_f0(y, 16000, mt.F0Config())            # Praat ac, interpolated + filtered
     t, (f1, f2, f3) = mt.extract_formants(y, 16000, mt.FormantConfig())
     f0, valid = mt.batched_f0(mt.pad_batch(signals), 16000, mt.F0Config())
+    f0, t = mt.extract_f0(y, 16000, mt.F0Config(method="pyin"))  # pyin, unvoiced NaN-filled
+    f0 = mt.pyin_f0(batch_on_cuda, sr=16000.0)                 # raw pyin tracks, 0 = unvoiced
 
 The CUDA kernels build with nvcc at first use (kernels/_build.py).
 """
@@ -23,13 +25,14 @@ from modulation_mfcc_tpu_torch.models.modulation import (
     mfcc_change,
     mfcc_trajectories,
 )
-from modulation_mfcc_tpu_torch.models.pitch import PitchTracker, extract_f0
+from modulation_mfcc_tpu_torch.models.pitch import PitchTracker, PyinTracker, extract_f0
+from modulation_mfcc_tpu_torch.ops.yin import pyin_f0
 from modulation_mfcc_tpu_torch.parallel.batch import AudioBatch, pad_batch
 from modulation_mfcc_tpu_torch.parallel.features_batch import batched_f0, batched_formants
 
 __all__ = [
     "MfccConfig", "MfccChange", "extract_mfcc_change", "mfcc_change", "mfcc_trajectories",
-    "F0Config", "PitchTracker", "extract_f0", "FormantConfig", "FormantTracker",
+    "F0Config", "PitchTracker", "PyinTracker", "pyin_f0", "extract_f0", "FormantConfig", "FormantTracker",
     "extract_formants", "formants_with_gating", "AudioBatch", "pad_batch", "batched_f0",
     "batched_formants",
 ]

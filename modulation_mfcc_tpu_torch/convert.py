@@ -18,15 +18,16 @@ Keys of ``arrays``:
   (``ops.filters.design_filtfilt_operator``) of the trajectory low-pass and
   the final low-pass. Their K, E, W and min_len follow from the shapes.
 
-:func:`pitch_params_from_jax` and :func:`formant_params_from_jax` do the
-same for :class:`PitchTracker` and :class:`FormantTracker`.
+:func:`pitch_params_from_jax`, :func:`pyin_params_from_jax` and
+:func:`formant_params_from_jax` do the same for :class:`PitchTracker`,
+:class:`PyinTracker` and :class:`FormantTracker`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "pitch_params_from_jax", "formant_params_from_jax"]
+__all__ = ["params_from_jax", "pitch_params_from_jax", "pyin_params_from_jax", "formant_params_from_jax"]
 
 
 def params_from_jax(arrays: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
@@ -63,6 +64,26 @@ def pitch_params_from_jax(arrays: dict[str, np.ndarray]) -> dict[str, torch.Tens
         params["window"] = _f32(arrays["window"])
         params["rw"] = _f32(wac / (wac[0] + 1e-30))
     return params
+
+
+def pyin_params_from_jax(arrays: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """State dict of :class:`PyinTracker` from the JAX package's host arrays
+    (float64, as ``ops/yin._pyin_f0_jit`` builds them):
+
+    * ``transition`` [n, n]: ``ops.yin._transition_local(n_bins, width)``;
+    * ``beta_probs`` [T]: ``ops.yin._beta_threshold_probs(T, a, b)``;
+    * ``thresholds`` [T]: ``linspace(0, 1, T + 1)[1:]``;
+    * ``p_init`` [2n]: zeros, then 1/n on the unvoiced states.
+
+    The logs take float32's ``tiny``, as the JAX package's float32 decode
+    adds it (``log(tri + tiny)``, ``log(p_init + tiny)``)."""
+    tiny = float(np.finfo(np.float32).tiny)
+    return {
+        "log_tri": _f32(np.log(np.asarray(arrays["transition"], dtype=np.float64) + tiny)),
+        "beta_probs": _f32(arrays["beta_probs"]),
+        "thresholds": _f32(arrays["thresholds"]),
+        "log_p_init": _f32(np.log(np.asarray(arrays["p_init"], dtype=np.float64) + tiny)),
+    }
 
 
 def formant_params_from_jax(arrays: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:

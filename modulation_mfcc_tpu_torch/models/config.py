@@ -79,7 +79,7 @@ class F0Config:
     octaveCost: float = 0.01
     octaveJumpCost: float = 0.35
     voicedUnvoicedCost: float = 0.14
-    # pyin-specific (script/calc.py:408-419); pyin is not ported yet (ROADMAP B.9)
+    # pyin-specific (script/calc.py:408-419)
     pyinframe_length: int = 2048
     pyinwin_length: int | None = None
     n_thresholds: int = 100

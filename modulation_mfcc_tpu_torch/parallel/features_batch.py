@@ -1,11 +1,13 @@
 """Batched F0 and formant tracking over padded batches, on the batch
 tensor's device.
 
-  * F0: frames are local, but the path finder decodes over the padded frame
-    range; padded frames are strongly unvoiced, so the valid region matches
-    the single-file decode except occasionally at the final voiced/padding
-    boundary (tolerance-grade, like the tracker). The global mean and peak
-    are per utterance (``valid_len``).
+  * F0: frames are local, but the path finder (praat) and the Viterbi
+    decode (pyin) run over the padded frame range; padded frames are
+    strongly unvoiced, so the valid region matches the single-file decode
+    except occasionally at the final voiced/padding boundary
+    (tolerance-grade, like the tracker). The praat global mean and peak are
+    per utterance (``valid_len``); pyin's centred constant padding equals
+    the batch's zero padding, so its frames are exact on the valid range.
   * Formants: per-frame LPC is local, so valid frames are exact.
 """
 from __future__ import annotations
@@ -15,21 +17,30 @@ import torch
 
 from modulation_mfcc_tpu_torch.models.config import F0Config, FormantConfig
 from modulation_mfcc_tpu_torch.models.formants import FormantTracker
-from modulation_mfcc_tpu_torch.models.pitch import PitchTracker
+from modulation_mfcc_tpu_torch.models.pitch import PitchTracker, PyinTracker
 from modulation_mfcc_tpu_torch.parallel.batch import AudioBatch
 
 __all__ = ["batched_f0", "batched_formants"]
 
 
-def batched_f0(batch: AudioBatch, sr: float, cfg: F0Config = F0Config(), *, sinc_engine: str = "auto"):
-    """(f0 [B, NF], valid [B, NF]): raw tracks, 0 = unvoiced, for praatac and
-    praatcc; ``valid`` marks frames whose analysis span lies inside the
-    utterance. Post-processing (NaN interpolation, filtering) is per file,
-    as in extract_f0."""
+def batched_f0(batch: AudioBatch, sr: float, cfg: F0Config = F0Config(), *, sinc_engine: str = "auto",
+               viterbi_engine: str = "auto"):
+    """(f0 [B, NF], valid [B, NF]): raw tracks, 0 = unvoiced, for praatac,
+    praatcc and pyin. ``valid`` marks, for praat, the frames whose analysis
+    span lies inside the utterance and, for pyin, the centred frames of the
+    utterance (1 + length // hop). Post-processing (NaN interpolation,
+    filtering) is per file, as in extract_f0. With pyinpad_mode other than
+    'constant' the tail frames see the batch's zeros instead of the
+    extension: use extract_f0 for those."""
+    hop_s = max(1, int(round(cfg.hopSize * sr)))
+    if cfg.method == "pyin":
+        f0 = PyinTracker(cfg, sr).to(batch.samples.device)(batch.samples, viterbi_engine=viterbi_engine)
+        nf = f0.shape[-1]
+        valid = torch.arange(nf, device=f0.device)[None, :] < torch.clamp(1 + batch.lengths // hop_s, max=nf)[:, None]
+        return torch.where(valid, f0, 0.0), valid
     tracker = PitchTracker(cfg, sr).to(batch.samples.device)
     f0 = tracker(batch.samples, valid_len=batch.lengths, sinc_engine=sinc_engine)
     nf = f0.shape[-1]
-    hop_s = max(1, int(round(cfg.hopSize * sr)))
     periods = (6.0 if cfg.veryAccurate else 3.0) if cfg.method == "praatac" else 1.0
     nw = int(round(periods / cfg.minPitch * sr))
     span = nw if cfg.method == "praatac" else nw + int(np.ceil(sr / cfg.minPitch))

@@ -154,8 +154,10 @@ def test_extract_f0_matches_goldens(speechlike, method, golden):
 
 def test_extract_f0_unported_and_invalid_options(speechlike):
     y, sr = speechlike
-    with pytest.raises(NotImplementedError, match="ROADMAP B.9"):
-        extract_f0(y, sr, F0Config(method="pyin"), device="cpu")
+    with pytest.raises(ValueError, match="pad_mode"):
+        extract_f0(y, sr, F0Config(method="pyin", pyinpad_mode="median"), device="cpu")
+    with pytest.raises(ValueError, match="Unknown f0 method"):
+        extract_f0(y, sr, F0Config(method="yin"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
         extract_f0(y, sr, F0Config(outFilter="fir", outFiltLen=31), device="cpu")
     with pytest.raises(ValueError, match="not interpolated"):
@@ -197,8 +199,8 @@ def test_batched_f0_matches_jax(method):
     want_f0 = np.asarray(want_f0)
     for i in range(3):
         assert_tracks_agree(got_f0[i].numpy(), want_f0[i])
-    with pytest.raises(NotImplementedError, match="ROADMAP B.9"):
-        batched_f0(pad_batch(signals, device="cpu"), float(sr), F0Config(method="pyin"))
+    with pytest.raises(ValueError, match="Unknown f0 method"):
+        batched_f0(pad_batch(signals, device="cpu"), float(sr), F0Config(method="yin"))
 
 
 def jax_pitch_constants(method: str, very_accurate: bool, sr: float) -> dict:

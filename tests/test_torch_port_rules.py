@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import modulation_mfcc_tpu_torch as mt
-from modulation_mfcc_tpu_torch.kernels import _build, burg, sinc_refine
+from modulation_mfcc_tpu_torch.kernels import _build, burg, sinc_refine, viterbi
 from modulation_mfcc_tpu_torch.kernels import fused_frontend as ff
 
 torch.set_num_threads(1)
@@ -29,7 +29,7 @@ def _run(code: str, **env) -> subprocess.CompletedProcess:
 
 def test_port_runs_without_jax():
     """With jax made unimportable, the port imports and runs mfcc_change,
-    pitch_ac and lpc_formants."""
+    pitch_ac, pyin_f0 and lpc_formants."""
     proc = _run(
         "import sys; sys.modules['jax'] = None\n"
         "import numpy as np, torch\n"
@@ -42,6 +42,8 @@ def test_port_runs_without_jax():
         "assert tot.shape == (1, 801) and bool(torch.isfinite(tot).all())\n"
         "f0 = pitch_ac(y, sr=10000.0)\n"
         "assert f0.shape == (1, 397) and bool(torch.isfinite(f0).all())\n"
+        "f0 = mt.pyin_f0(y[:, :15000], sr=10000.0)\n"
+        "assert f0.shape == (1, 151) and bool(torch.isfinite(f0).all())\n"
         "freqs, bw = lpc_formants(y[:, :11000], sr=11000.0)\n"
         "assert freqs.shape == (1, 191, 5)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib', 'modulation_mfcc_tpu.'))\n"
@@ -55,10 +57,10 @@ def test_kernel_module_imports_without_nvcc_or_triton():
     """Importing the kernel module builds nothing and needs no toolchain."""
     proc = _run(
         "import sys; sys.modules['triton'] = None\n"
-        "from modulation_mfcc_tpu_torch.kernels import fused_frontend as ff, _build, burg, sinc_refine\n"
+        "from modulation_mfcc_tpu_torch.kernels import fused_frontend as ff, _build, burg, sinc_refine, viterbi\n"
         "import modulation_mfcc_tpu_torch\n"
         "assert _build.load_library.cache_info().currsize == 0\n"
-        "assert all(m._lib.cache_info().currsize == 0 for m in (ff, burg, sinc_refine))\n"
+        "assert all(m._lib.cache_info().currsize == 0 for m in (ff, burg, sinc_refine, viterbi))\n"
         "print('ok')\n",
         PATH="/nonexistent",
     )
@@ -76,6 +78,8 @@ def test_cuda_request_without_cuda_raises():
         "extract_mfcc_change": lambda **kw: mt.extract_mfcc_change(y, **kw),
         "extract_mfcc_matrix": lambda **kw: mt.models.modulation.extract_mfcc_matrix(y, **kw),
         "extract_f0": lambda **kw: mt.extract_f0(y, 16_000, **kw),
+        "extract_f0 pyin": lambda **kw: mt.extract_f0(y, 16_000, mt.F0Config(method="pyin"), **kw),
+        "batched_f0 pyin": lambda **kw: mt.batched_f0(mt.pad_batch([y], **kw), 16_000, mt.F0Config(method="pyin")),
         "extract_formants": lambda **kw: mt.extract_formants(y, 16_000, **kw),
         "formants_with_gating": lambda **kw: mt.formants_with_gating(y, 16_000, **kw),
         "pad_batch": lambda **kw: mt.pad_batch([y], **kw),
@@ -107,13 +111,22 @@ def test_wrappers_raise_on_devices_without_a_kernel():
     for fn in (burg.burg_lpc, burg.burg_reflections):
         with pytest.raises(ValueError, match="no kernel"):
             fn(frames, 10)
+    log_obs, delta0 = torch.empty((2, 30, 722), device="meta"), torch.empty((2, 722), device="meta")
+    log_tri = torch.empty((361, 361), device="meta")
+    for fn in (viterbi.viterbi_forward, viterbi.viterbi_decode):
+        with pytest.raises(ValueError, match="no kernel"):
+            fn(log_obs, delta0, log_tri, -0.01, -4.6)
+    with pytest.raises(ValueError, match="no kernel"):
+        viterbi.viterbi_backtrace(log_obs[:, 1:], delta0, log_tri, -0.01, -4.6)
+    with pytest.raises(ValueError, match="no kernel"):
+        mt.pyin_f0(torch.empty((1, 4000), device="meta"), sr=10_000.0)
 
 
 def test_build_is_true_fp32_for_sm90a():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
-    assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == ["burg.cu", "fused_frontend.cu", "sinc_refine.cu"]
+    assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == ["burg.cu", "fused_frontend.cu", "sinc_refine.cu", "viterbi.cu"]
     assert _build.library_path().parent == _build.BUILD_DIR
     assert "modulation_mfcc_tpu_torch/_build/" in (REPO / ".gitignore").read_text()
 
