@@ -38,6 +38,21 @@ Phases:
      end with its stage split (CMNDF, candidates and observations, forward,
      backtrace), peak memory, and the device time by kernel of one call
      (torch.profiler)
+ 14  frontend-mode kernels (fused_mel_bf16, _x3, _i16, _i24, and
+     fused_mel_f32 on int16 input) vs plain versions on the card, both
+     configurations, float32, int16 and int16 hop-rows input, a quiet
+     (-60 dBFS) int16 utterance for i16; rows equal flat bit for bit; the
+     i16 scales exact powers of two
+ 15  mfcc_change at 128 × 30 s at 16 kHz on int16 hop rows for each fused
+     spectrum: one launch of its frontend kernel per call, against the
+     float64 'fft' path; a ragged masked batch against per-file results
+ 16  the corpus sweep over 256 synthetic int16 WAVs (1.5-35 s, about 0.9 h)
+     with 'fused_i16', 'fused_bf16' and 'fused': audio-h/s, stage busy
+     times, link rate; resume skips everything; records against per-file
+     extract_mfcc_change
+ 17  frontend-mode times: the four kernels beside their plain versions at
+     128 × 30 s on int16 rows, mfcc_change end to end per spectrum, peak
+     memory
 
 Every check raises on failure, so the script exits 0 only when all phases
 passed. The line before the last is the card's name and power limit; the
@@ -46,9 +61,11 @@ last line is the device JSON. Imports no JAX.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import ExitStack, contextmanager
 from pathlib import Path
@@ -68,6 +85,8 @@ from modulation_mfcc_tpu_torch.kernels import viterbi as VK  # noqa: E402
 from modulation_mfcc_tpu_torch.ops import lpc as L  # noqa: E402
 from modulation_mfcc_tpu_torch.ops import pitch as P  # noqa: E402
 from modulation_mfcc_tpu_torch.ops import yin as Y  # noqa: E402
+from modulation_mfcc_tpu_torch.parallel.batch import batched_mfcc_change  # noqa: E402
+from modulation_mfcc_tpu_torch.parallel.corpus import CorpusSweep, sweep_mfcc_change  # noqa: E402
 
 FLAGSHIP = mt.MfccConfig(signal_sample_rate=16_000, maxFreq=8000.0)
 DEFAULT_10K = mt.MfccConfig()
@@ -81,6 +100,10 @@ SOURCES = {
     "burg_lpc_f32": f"{CSRC}/burg.cu",
     "viterbi_fwd_f32": f"{CSRC}/viterbi.cu",
     "viterbi_bwd_f32": f"{CSRC}/viterbi.cu",
+    "fused_mel_bf16": f"{CSRC}/fused_frontend.cu",
+    "fused_mel_x3": f"{CSRC}/fused_frontend.cu",
+    "fused_mel_i16": f"{CSRC}/fused_frontend_int.cu",
+    "fused_mel_i24": f"{CSRC}/fused_frontend_int.cu",
 }
 REPLACES = {
     "fused_mel_f32": "modulation_mfcc_tpu/pallas/fused_frontend.py:990",
@@ -89,9 +112,17 @@ REPLACES = {
     "burg_lpc_f32": "modulation_mfcc_tpu/pallas/burg.py:94",
     "viterbi_fwd_f32": "modulation_mfcc_tpu/pallas/viterbi.py:218 and :454",
     "viterbi_bwd_f32": "modulation_mfcc_tpu/pallas/viterbi.py:295 and :492",
+    "fused_mel_bf16": "modulation_mfcc_tpu/pallas/fused_frontend.py:990 (_kernel, _kernel_pipe, algorithm bf16)",
+    "fused_mel_x3": "modulation_mfcc_tpu/pallas/fused_frontend.py:990 (_kernel, _kernel_pipe, algorithm x3)",
+    "fused_mel_i16": "modulation_mfcc_tpu/pallas/fused_frontend.py:990 (_kernel_i16, _kernel_i16_pipe)",
+    "fused_mel_i24": "modulation_mfcc_tpu/pallas/fused_frontend.py:990 (_kernel_i24, _kernel_i24_pipe)",
 }
-# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bytes/s and FP32 CUDA-core FLOP/s
-PEAK_BYTES_S, PEAK_FP32_S = 3.35e12, 67e12
+# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bytes/s, FP32 CUDA-core FLOP/s,
+# dense bf16 tensor-core FLOP/s and int8 tensor-core OP/s
+PEAK_BYTES_S, PEAK_FP32_S, PEAK_BF16_S, PEAK_INT8_S = 3.35e12, 67e12, 989e12, 1979e12
+MODES = ("bf16", "x3", "i16", "i24")  # the frontend modes of phases 14-17
+SPECTRUM = {"f32": "fused", "bf16": "fused_bf16", "x3": "fused_x3", "i16": "fused_i16", "i24": "fused_i24"}
+SPECTRUM_ALG = {v: k for k, v in SPECTRUM.items()}
 
 
 def check(ok: bool, what: str) -> None:
@@ -212,7 +243,7 @@ def frontend_args(cfg: mt.MfccConfig, dev) -> dict:
 def frontend_kernel(audio, cfg, a):
     return ff.fused_mel_frontend(
         audio, sr=cfg.signal_sample_rate, n_fft=cfg.n_fft, hop=cfg.hop_length,
-        win_length=cfg.win_length, weights=(a["wri"], a["melw"]),
+        win_length=cfg.win_length, weights={"wri": a["wri"], "melw": a["melw"]},
     )
 
 
@@ -273,7 +304,7 @@ def mfcc_path(dev, card: str) -> list[dict]:
     torch.cuda.synchronize()
     launches = dict(ff.LAUNCHES)
     print(f"[3] launches in the main path: {launches}")
-    check(all(v > 0 for v in launches.values()), "every kernel launched in the main path")
+    check(launches["fused_mel_f32"] > 0 and launches["mfcc_tail_f32"] > 0, "every kernel launched in the main path")
     nf = 1 + y.shape[1] // cfg.hop_length
     check(tot.shape == (BATCH, nf) and bool(torch.isfinite(tot).all()), "finite [B, nf] output")
     tot_plain = mt.mfcc_change(y, cfg, spectrum="matmul")
@@ -348,7 +379,7 @@ def mfcc_path(dev, card: str) -> list[dict]:
         ),
     }
     errs = {"fused_mel_f32": mel_abs, "mfcc_tail_f32": tail_abs}
-    return [kernel_row(k, launches[k], errs[k], ms[k], bounds[k]) for k in ff.LAUNCHES]
+    return [kernel_row(k, launches[k], errs[k], ms[k], bounds[k]) for k in ("fused_mel_f32", "mfcc_tail_f32")]
 
 
 def kernel_row(name: str, launches: int, err: float, ms: tuple[float, float], b: tuple[float, str]) -> dict:
@@ -788,6 +819,287 @@ def pyin_times(batch: mt.AudioBatch, args: tuple, card: str):
     return ms, {"viterbi_fwd_f32": fwd_err, "viterbi_bwd_f32": bwd_err}, bounds
 
 
+# ---------------------------------------------------------------------------
+# Frontend modes and the corpus sweep (phases 14-17)
+# ---------------------------------------------------------------------------
+
+
+def mode_weights(cfg: mt.MfccConfig, alg: str, dev) -> dict:
+    return ff.mode_tensors(alg, dev, cfg.signal_sample_rate, cfg.n_fft, cfg.win_length, cfg.n_mels,
+                           cfg.minFreq, cfg.maxFreq)
+
+
+def mode_kernel(audio, cfg, alg, w, n_samples=None):
+    return ff.fused_mel_frontend(
+        audio, sr=cfg.signal_sample_rate, n_fft=cfg.n_fft, hop=cfg.hop_length, win_length=cfg.win_length,
+        algorithm=alg, n_samples=n_samples, weights=w,
+    )
+
+
+def mode_plain(audio, cfg, alg, w, n_samples=None):
+    return ff.fused_mel_frontend_reference(
+        audio, w["planes"] if alg in ("i16", "i24") else w["wri"], w["melw"], hop=cfg.hop_length,
+        eff_pad=ff.eff_pad(cfg.n_fft, cfg.win_length), algorithm=alg, n_samples=n_samples,
+        sw=w.get("sw"), corr=w.get("corr"),
+    )
+
+
+def rows_of(pcm: np.ndarray, cfg: mt.MfccConfig, dev) -> torch.Tensor:
+    return torch.tensor(ff.pack_hop_rows(pcm, n_fft=cfg.n_fft, hop=cfg.hop_length, win_length=cfg.win_length),
+                        device=dev)
+
+
+def bf16_ulps(mel_k: torch.Tensor, mel_p: torch.Tensor) -> tuple[float, float]:
+    """(max |kernel − plain| of two bf16 mels in units of the plain value's
+    bf16 ulp, 2^(e−8) for a value m·2^e with m in [0.5, 1); share of entries
+    more than one ulp apart)."""
+    k, p = mel_k.float(), mel_p.float()
+    ulp = torch.ldexp(torch.ones_like(p), torch.frexp(p)[1] - 8)
+    d = (k - p).abs()
+    u = torch.where(p > 0, d / ulp, torch.where(d > 0, torch.inf, 0.0))
+    return float(u.max()), float((u > 1.0).float().mean())
+
+
+def mode_error_ok(alg: str, mel_k, bmax_k, mel_p, bmax_p) -> tuple[bool, str]:
+    """Phase 2's bars (mel ≤ 1e-4 relative above the top_db floor, peak ≤
+    1e-5) for f32, i16 and i24, whose power is the plain version's to f32
+    rounding (bit for bit in i16 and i24). x3 splits the power into bf16 hi
+    and lo before the mel projection: a one-ulp f32 difference in a bin's
+    power (the DFT's sum order) can move the split, which changes that
+    product's dropped lo·lo term and lo's rounding by up to 2^-17 of the
+    bin's share: peak bar 2^-16. For bf16 the power is rounded to bf16
+    before the mel projection, so an f32 sum-order difference of 1e-7 in the
+    DFT can move one bin's power by a bf16 ulp (2^-8), which moves the mel
+    bands it dominates by up to one ulp more, and the peak (taken before the
+    mel's own rounding) by up to 2^-8: bars 2 ulps, at most 0.1 % of entries
+    beyond 1 ulp, and a peak within 2^-8."""
+    mel_rel, peak_rel, _ = mel_errors(mel_k.float(), bmax_k, mel_p.float(), bmax_p)
+    if alg == "x3":
+        return mel_rel <= 1e-4 and peak_rel <= 2.0**-16, (f"mel rel err {mel_rel:.3e} (bar 1e-4), peak rel err "
+                                                          f"{peak_rel:.3e} (bar 2^-16)")
+    if alg == "bf16":
+        ulps, share = bf16_ulps(mel_k, mel_p)
+        ok = ulps <= 2.0 and share <= 1e-3 and peak_rel <= 2.0**-8
+        return ok, (f"mel {ulps:.2f} bf16 ulp (bar 2), {share:.2e} of entries beyond 1 ulp (bar 1e-3), "
+                    f"peak rel err {peak_rel:.3e} (bar 2^-8)")
+    return mel_rel <= 1e-4 and peak_rel <= 1e-5, (f"mel rel err {mel_rel:.3e} (bar 1e-4), peak rel err "
+                                                   f"{peak_rel:.3e} (bar 1e-5)")
+
+
+def is_pow2(s: torch.Tensor) -> bool:
+    return bool((torch.frexp(s)[0] == 0.5).all())
+
+
+def mode_kernel_checks(dev) -> None:
+    """Phase 14: every frontend kernel against its plain version on float32,
+    int16 and int16 hop-rows input at both configurations."""
+    for name, cfg in (("10k default (packed Nyquist)", DEFAULT_10K), ("16k fmax 8k", FLAGSHIP)):
+        sr = cfg.signal_sample_rate
+        y = speechlike(4, SECONDS * sr, sr, seed=1) * 0.5
+        pcm = np.round(y * 32767.0).astype(np.int16)
+        quiet = np.random.default_rng(7).integers(-33, 34, (1, SECONDS * sr)).astype(np.int16)  # about -60 dBFS
+        n = pcm.shape[1]
+        inputs = {
+            "float32": (torch.tensor(y, device=dev), None),
+            "int16": (torch.tensor(pcm, device=dev), None),
+            "int16 rows": (rows_of(pcm, cfg, dev), n),
+            "quiet int16 rows": (rows_of(quiet, cfg, dev), n),
+        }
+        for alg in ("f32",) + MODES:
+            w = mode_weights(cfg, alg, dev)
+            flat_k = None
+            for label, (x, ns) in inputs.items():
+                if (alg == "f32" and label == "float32") or (label.startswith("quiet") and alg != "i16"):
+                    continue  # f32 on float32 is phase 2; the quiet utterance is the i16 mode's worst case
+                mel_k, bmax_k = mode_kernel(x, cfg, alg, w, ns)
+                mel_p, bmax_p = mode_plain(x, cfg, alg, w, ns)
+                torch.cuda.synchronize()
+                ok, text = mode_error_ok(alg, mel_k, bmax_k, mel_p, bmax_p)
+                extra = ""
+                if label == "int16":
+                    flat_k = (mel_k, bmax_k)
+                elif label == "int16 rows":
+                    same = torch.equal(mel_k, flat_k[0]) and torch.equal(bmax_k, flat_k[1])
+                    extra = f"; identical to the flat int16 launch {same}"
+                    ok = ok and same
+                if alg == "i16":
+                    sc = ff.quant_scales(x, "i16", w["sw"])
+                    extra += f"; s16 powers of two {is_pow2(sc[:, 0])} ({sc[:, 0].tolist()})"
+                    ok = ok and is_pow2(sc[:, 0])
+                print(f"[14] {name}: fused_mel_{alg} on {label} {tuple(x.shape)} vs plain: {text}{extra}")
+                check(ok, f"fused_mel_{alg} {name} {label}")
+
+
+def modes_path(dev) -> tuple[dict, torch.Tensor, int]:
+    """Phase 15: (launches per kernel in one mfcc_change call, the int16
+    rows batch, its n_samples)."""
+    cfg = FLAGSHIP
+    sr = cfg.signal_sample_rate
+    pcm = np.round(speechlike(BATCH, SECONDS * sr, sr, seed=0) * 0.5 * 32767.0).astype(np.int16)
+    n = pcm.shape[1]
+    rows = rows_of(pcm, cfg, dev)
+    print(f"[15] int16 hop rows {tuple(rows.shape)} ({rows.numel() * 2 / 1e6:.1f} MB) of [{BATCH}, {n}]")
+    y64 = torch.tensor(pcm, device=dev).double() / 32768.0
+    want = mt.mfcc_change(y64, cfg, spectrum="fft")
+    del y64
+    launches = {}
+    for alg in ("f32",) + MODES:
+        reset(ff.LAUNCHES)
+        tot = mt.mfcc_change(rows, cfg, spectrum=SPECTRUM[alg], n_samples=n)
+        torch.cuda.synchronize()
+        counts = dict(ff.LAUNCHES)
+        kname = f"fused_mel_{alg}"
+        launches[kname] = counts[kname]
+        others = {k: v for k, v in counts.items() if k not in (kname, "mfcc_tail_f32")}
+        err = float((tot.double() - want).abs().max())
+        bar = 1e-1 if alg == "bf16" else 1e-4
+        print(f"[15] mfcc_change spectrum={SPECTRUM[alg]!r} on the rows: launches {kname} {counts[kname]}, "
+              f"mfcc_tail_f32 {counts['mfcc_tail_f32']}; vs the float64 'fft' path max-abs {err:.3e} (bar {bar:g})")
+        check(counts[kname] == 1 and counts["mfcc_tail_f32"] == 1 and not any(others.values()),
+              f"one launch of {kname} per mfcc_change call")
+        check(tot.shape == want.shape and bool(torch.isfinite(tot).all()) and err <= bar, f"{SPECTRUM[alg]} vs fft")
+    del want, tot
+
+    rng = np.random.default_rng(15)
+    lens = rng.integers(int(1.5 * sr), int(9.0 * sr), 8)
+    lens[0] = int(8.5 * sr)  # one utterance on the masked-FIR route per file
+    t_pad = int(-(-lens.max() // 16_384) * 16_384)
+    src = np.round(speechlike(8, t_pad, sr, seed=151) * 0.5 * 32767.0).astype(np.int16)
+    ragged = np.zeros((8, t_pad), np.int16)
+    for i, m in enumerate(lens):
+        ragged[i, :m] = src[i, :m]
+    r_rows = rows_of(ragged, cfg, dev)
+    lengths = torch.tensor(lens, device=dev)
+    for alg in ("f32",) + MODES:
+        spec = SPECTRUM[alg]
+        tot, mask = batched_mfcc_change(mt.AudioBatch(r_rows, lengths), cfg, spectrum=spec, masked_fir=False,
+                                        n_samples=t_pad)
+        err = 0.0
+        for i, m in enumerate(lens):
+            single, _ = mt.extract_mfcc_change(src[i, :m].astype(np.float32) / 32768.0, cfg, spectrum=spec,
+                                               device=dev)
+            nf = single.shape[0]
+            err = max(err, float((tot[i, :nf] - single).abs().max()))
+            check(float(mask[i].sum()) == nf and not bool(tot[i, nf:].any()), f"ragged batch item {i} frames")
+        print(f"[15] ragged masked batch (8 utterances, {lens.min() / sr:.2f}-{lens.max() / sr:.2f} s, scan filters) "
+              f"spectrum={spec!r} vs per-file extract_mfcc_change: max-abs {err:.3e} (bar 1e-5)")
+        check(err <= 1e-5, f"ragged batch {spec} vs per-file")
+    return launches, rows, n
+
+
+def write_corpus(root: str, n_files: int, sr: int, seed: int, max_s: float = 35.0) -> tuple[list[str], float]:
+    """``n_files`` 16-bit WAVs of speech-like audio with seeded lengths of
+    1.5-35 s (mean about 12.5 s, LibriSpeech's range); (paths, hours)."""
+    import scipy.io.wavfile as wavfile
+
+    rng = np.random.default_rng(seed)
+    secs = np.clip(rng.gamma(2.2, 5.7, n_files), 1.5, max_s)
+    paths = []
+    for i, s in enumerate(secs):
+        y = speechlike(1, int(s * sr), sr, seed=seed + 1 + i)[0] * 0.5
+        p = os.path.join(root, f"spk{i % 16:02d}", f"utt{i:04d}.wav")
+        os.makedirs(os.path.dirname(p), exist_ok=True)
+        wavfile.write(p, sr, np.round(y * 32767.0).astype(np.int16))
+        paths.append(p)
+    return paths, float(secs.sum()) / 3600.0
+
+
+def sweep_phase(dev, card: str) -> None:
+    """Phase 16: the corpus sweep on the card, three spectra, resume, and
+    its records against per-file extract_mfcc_change."""
+    from modulation_mfcc_tpu_torch.io.wav import load_channel
+    from modulation_mfcc_tpu_torch.parallel.corpus import _output_names
+
+    cfg = FLAGSHIP
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths, hours = write_corpus(os.path.join(tmp, "wav"), 256, cfg.signal_sample_rate, seed=16)
+        print(f"[16] wrote {len(paths)} int16 WAVs, {hours:.4f} h of audio, in {time.perf_counter() - t0:.3f} s")
+        names = _output_names(paths)
+        picks = [int(i) for i in np.random.default_rng(161).choice(len(paths), 12, replace=False)]
+        for spec in ("fused_i16", "fused_bf16", "fused"):
+            out = os.path.join(tmp, spec)
+            reset(ff.LAUNCHES)
+            rep = sweep_mfcc_change(paths, CorpusSweep(out, cfg=cfg, spectrum=spec, device=dev))
+            kname = f"fused_mel_{SPECTRUM_ALG[spec]}"
+            n_launch = ff.LAUNCHES[kname]
+            print(f"[16] sweep {spec!r}: {rep['items']} files, {rep['audio_hours']} h in {rep['elapsed_sec']} s = "
+                  f"{rep['audio_hours_per_sec']} audio-h/s; {kname} launches {n_launch}; stages {rep['stages']} "
+                  f"({card})")
+            check(rep["items"] == len(paths) and n_launch > 0, f"sweep {spec} ran every file through {kname}")
+            again = sweep_mfcc_change(paths, CorpusSweep(out, cfg=cfg, spectrum=spec, device=dev))
+            check(again["items"] == 0, f"resumed sweep {spec} skips every finished file")
+            err = 0.0
+            for i in picks:
+                rec = np.load(os.path.join(out, names[paths[i]]))
+                y = load_channel(paths[i], cfg.signal_sample_rate).astype(np.float32)
+                single, t = mt.extract_mfcc_change(y, cfg, spectrum=spec, device=dev)
+                check(np.array_equal(rec["times"], t) and rec["mod_cepstr"].shape == tuple(single.shape),
+                      f"sweep record {i} layout")
+                err = max(err, float(np.abs(rec["mod_cepstr"] - single.cpu().numpy()).max()))
+            print(f"[16] resume: second run processed {again['items']} files; {len(picks)} records vs per-file "
+                  f"extract_mfcc_change: max-abs {err:.3e} (bar 1e-5)")
+            check(err <= 1e-5, f"sweep {spec} records vs per-file")
+
+
+def modes_times(dev, rows: torch.Tensor, n: int, launches: dict, card: str) -> list[dict]:
+    """Phase 17: the kernel rows of the four frontend modes."""
+    cfg = FLAGSHIP
+    hours = BATCH * SECONDS / 3600.0
+    out = []
+    model = mt.MfccChange(cfg).to(dev)
+    for alg in MODES:
+        kname = f"fused_mel_{alg}"
+        w = mode_weights(cfg, alg, dev)
+        mel_k, bmax_k = mode_kernel(rows, cfg, alg, w, n)
+        mel_p, bmax_p = mode_plain(rows, cfg, alg, w, n)
+        ok, text = mode_error_ok(alg, mel_k, bmax_k, mel_p, bmax_p)
+        err = float((mel_k.float() - mel_p.float()).abs().max())
+        print(f"[17] {kname} at full size vs plain: {text}; max-abs {err:.3e}")
+        check(ok, f"{kname} at full size")
+        del mel_p, bmax_p
+        t_k = cuda_ms(lambda: mode_kernel(rows, cfg, alg, w, n))
+        torch.cuda.empty_cache()
+        t_p = cuda_ms(lambda: mode_plain(rows, cfg, alg, w, n))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        e2e = cuda_ms(lambda: model(rows, spectrum=SPECTRUM[alg], n_samples=n))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        bsz, nf, n_mels = mel_k.shape
+        k = (w["planes"] if alg in ("i16", "i24") else w["wri"]).shape[-2]
+        bins = w["melw"].shape[-2]
+        two_bins = 2 * bins
+        dft = 2.0 * bsz * nf * k * two_bins  # one K-row pass
+        mel_ops = 2.0 * bsz * nf * bins * n_mels
+        t_ops = {"bf16": (dft + mel_ops) / PEAK_BF16_S, "x3": 3 * (dft + mel_ops) / PEAK_BF16_S,
+                 "i16": 5 * dft / PEAK_INT8_S + 3 * mel_ops / PEAK_BF16_S,
+                 "i24": 6 * dft / PEAK_INT8_S + 3 * mel_ops / PEAK_BF16_S}[alg] * 1e3
+        n_bytes = (rows.numel() * rows.element_size() + sum(v.numel() * v.element_size() for v in w.values())
+                   + mel_k.numel() * mel_k.element_size() + bmax_k.numel() * 4)
+        t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+        b = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        print(f"[17] {kname}: {t_k:.3f} ms, plain {t_p:.3f} ms, bound {b[0]:.3f} ms ({b[1]}); mfcc_change "
+              f"spectrum={SPECTRUM[alg]!r} on the rows end to end {e2e:.3f} ms = {hours / (e2e / 1e3):.3f} audio-h/s, "
+              f"peak memory {peak:.2f} GiB ({card})")
+        out.append(kernel_row(kname, launches[kname], err, (t_k, t_p), b))
+        del mel_k, bmax_k
+        torch.cuda.empty_cache()
+    e2e = cuda_ms(lambda: model(rows, spectrum="fused", n_samples=n))
+    print(f"[17] mfcc_change spectrum='fused' on the rows end to end {e2e:.3f} ms = "
+          f"{hours / (e2e / 1e3):.3f} audio-h/s ({card})")
+    return out
+
+
+def frontend_modes(dev, card: str) -> list[dict]:
+    """Phases 14-17; the kernel rows of the four frontend modes."""
+    mode_kernel_checks(dev)
+    launches, rows, n = modes_path(dev)
+    torch.cuda.empty_cache()
+    sweep_phase(dev, card)
+    torch.cuda.empty_cache()
+    return modes_times(dev, rows, n, launches, card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -813,6 +1125,8 @@ def main() -> int:
     rows = mfcc_path(dev, card)
     torch.cuda.empty_cache()
     rows += tracker_paths(dev, card)
+    torch.cuda.empty_cache()
+    rows += frontend_modes(dev, card)
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

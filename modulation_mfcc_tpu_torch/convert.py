@@ -18,6 +18,10 @@ Keys of ``arrays``:
   (``ops.filters.design_filtfilt_operator``) of the trajectory low-pass and
   the final low-pass. Their K, E, W and min_len follow from the shapes.
 
+:func:`frontend_modes_from_jax` maps the constants of the JAX frontend's
+other arithmetic modes (bf16, x3, i16, i24) onto the port's
+``kernels.fused_frontend.mode_weights``.
+
 :func:`pitch_params_from_jax`, :func:`pyin_params_from_jax` and
 :func:`formant_params_from_jax` do the same for :class:`PitchTracker`,
 :class:`PyinTracker` and :class:`FormantTracker`.
@@ -27,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "pitch_params_from_jax", "pyin_params_from_jax", "formant_params_from_jax"]
+__all__ = ["params_from_jax", "frontend_modes_from_jax", "pitch_params_from_jax", "pyin_params_from_jax", "formant_params_from_jax"]
 
 
 def params_from_jax(arrays: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
@@ -43,6 +47,30 @@ def params_from_jax(arrays: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
                 np.asarray(arrays[f"{prefix}_{name}"], dtype=np.float64)
             )
     return params
+
+
+def frontend_modes_from_jax(arrays: dict[str, np.ndarray]) -> dict[str, dict[str, np.ndarray]]:
+    """``mode_weights`` of 'bf16', 'x3', 'i16' and 'i24' from the JAX
+    frontend's constants, keyed as the JAX host code names them:
+
+    * ``wri_bf16``, ``melw_bf16``: ``_stack_weights(·, 'bf16')[0]`` (bf16);
+    * ``wri_x3``, ``melw_x3``: ``_stack_weights(·, 'x3')`` ([2, ...] bf16);
+    * ``w2``, ``w1``, ``w0``, ``sw``: ``_int8_weight_planes(wri)``;
+    * ``corr`` [8, 2·bins_pad] float32: the i16 offset correction (row 0
+      live), as the i16 kernel receives it.
+    """
+    def f32(a):
+        return np.asarray(a, dtype=np.float32)
+
+    planes = np.stack([np.asarray(arrays[k], dtype=np.int8) for k in ("w2", "w1", "w0")])
+    sw = np.asarray(arrays["sw"], dtype=np.float32)
+    melw_x3 = f32(arrays["melw_x3"])
+    return {
+        "bf16": {"wri": f32(arrays["wri_bf16"]), "melw": f32(arrays["melw_bf16"])},
+        "x3": {"wri": f32(arrays["wri_x3"]), "melw": melw_x3},
+        "i16": {"planes": planes, "sw": sw, "melw": melw_x3, "corr": f32(arrays["corr"])[0]},
+        "i24": {"planes": planes, "sw": sw, "melw": melw_x3},
+    }
 
 
 def _f32(a) -> torch.Tensor:

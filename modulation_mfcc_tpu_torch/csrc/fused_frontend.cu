@@ -1,31 +1,57 @@
-// Fused MFCC frontend for Hopper (sm_90a): audio -> mel power, then
-// mel -> dB with the top_db clip -> DCT-II. Plain C launchers, loaded with
-// ctypes (modulation_mfcc_tpu_torch/kernels/_build.py); each returns the
-// cudaError_t of its launch. Both kernels compute in true FP32 on the CUDA
-// cores (FFMA): no TF32, no tensor cores, no fast-math intrinsics.
+// Fused MFCC frontend for Hopper (sm_90a), float modes: audio -> mel power,
+// then mel -> dB with the top_db clip -> DCT-II. Plain C launchers, loaded
+// with ctypes (modulation_mfcc_tpu_torch/kernels/_build.py); each returns the
+// cudaError_t of its launch. All arithmetic runs on the CUDA cores (FFMA, no
+// tensor cores, no fast-math intrinsics). fused_mel_f32 and mfcc_tail_f32
+// compute in true FP32; fused_mel_bf16 and fused_mel_x3 round their operands
+// to bf16 as their TPU modes do (a product of two bf16 values is exact in
+// FP32, so each such product is accumulated in FP32). The fixed-point modes
+// are in fused_frontend_int.cu.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cstdint>
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// fused_mel_f32
+// fused_mel_f32, fused_mel_bf16, fused_mel_x3
 //
-// Replaces the Pallas frontend kernel of modulation_mfcc_tpu/pallas/
-// fused_frontend.py (fused_mel_frontend -> _launch -> _kernel, algorithm
-// 'f32', concat frame mode).
+// Replace the Pallas frontend kernel of modulation_mfcc_tpu/pallas/
+// fused_frontend.py (fused_mel_frontend -> _launch -> _kernel and
+// _kernel_pipe, concat frame mode), with algorithm 'f32', 'bf16' and 'x3'
+// (_mxu) respectively. The pipelined _kernel_pipe computes _kernel's numbers
+// bit for bit, so one kernel serves both.
 //
 // Computes, for every utterance b and frame f < nf,
-//   frame[k] = audio[b, f*hop - eff_pad + k]  (zero outside [0, T): the
-//              centered zero pad, shifted by the trimmed window support)
+//   frame[k] = x[b, f*hop + off + k]          (zero outside [0, T): T is the
+//              length of one utterance's buffer, off = -eff_pad for flat
+//              audio and 0 for hop rows, whose pad is in the buffer; int16
+//              samples are dequantized as v * 2^-15, exact)
 //   reim     = frame @ wri                    ([K] x [K, 2*bins_pad])
 //   power    = re^2 + im^2                    ([bins_pad])
 //   mel      = power @ melw                   ([bins_pad] x [bins_pad, n_mels])
 // and one float per block: the max of mel over the block's frames (< nf),
 // which the wrapper reduces to the per-utterance top_db peak.
 //
-// Bound: FP32 FFMA throughput. A 128 x 30 s batch at 16 kHz is ~315 GFLOP
-// of DFT and ~50 GFLOP of mel projection; the audio read (246 MB) and the
-// mel write (~400 MB) are small beside that at 3.35 TB/s.
+//   'f32':  as above, FP32.
+//   'bf16': frame samples, wri, power and melw rounded to bf16 (nearest
+//           even; wri and melw arrive rounded); mel stored as bf16, the
+//           block max taken over the FP32 mel before that rounding.
+//   'x3':   each product a*w becomes hi(a)*hi(w) + hi(a)*lo(w) + lo(a)*hi(w)
+//           with hi = bf16(v), lo = bf16(v - hi); wri and melw arrive as
+//           [2, ...] (hi, lo) stacks, the frame and power splits are made
+//           here by __float2bfloat16_rn. As the TPU mode sums the hi*hi
+//           pass apart from the two small ones, the hi*hi products and the
+//           small products accumulate in separate FP32 sums, added at the
+//           end: one running sum of all three reorders the rounding enough
+//           to move low mel bins by ~1e-4 relative.
+//
+// Bound: FFMA throughput on the CUDA cores here. A 128 x 30 s batch at
+// 16 kHz is ~315 GFLOP of DFT and ~50 GFLOP of mel projection (x3: three
+// times that); the audio read (123-246 MB) and the mel write (200-400 MB)
+// are small beside it at 3.35 TB/s. The unit the bf16 and x3 modes are
+// made for is the bf16 tensor core (989 TFLOP/s): about 0.4 ms (bf16) and
+// 1.1 ms (x3) a batch; this kernel does not use it.
 //
 // Design: a block owns 64 consecutive frames of one utterance. It copies the
 // contiguous audio span those frames cover into shared memory once (about
@@ -41,7 +67,9 @@ namespace {
 // [bin][frame], in the same space as the slices) and is projected onto the
 // mel bank into a [64, 128] shared accumulator, 128 bins at a time, so the
 // mel sum over bins runs in bin order. Blocks run in no order, so the block
-// max is written per block, not carried.
+// max is written per block, not carried. The x3 mode stages two of every
+// operand (hi and lo), runs three FFMA per term into two sums, and keeps a
+// second mel accumulator.
 // ---------------------------------------------------------------------------
 
 constexpr int kBF = 64;        // frames per block
@@ -51,11 +79,28 @@ constexpr int kMelMax = 128;   // mel columns a block holds
 constexpr int kThreads = 256;  // warp w owns frames 4w..4w+3 and 32+4w..32+4w+3; lane owns columns lane + 32j
 constexpr int kPitch = kBF + 4;  // row pitch of the [k][frame] and [bin][frame] tiles: 16-byte rows, few bank conflicts
 
-constexpr int kSlice = kKC * 2 * kBT;  // floats of one staged basis slice
-constexpr int kStage = 2 * kSlice + kKC * kPitch;  // two basis slices + the frame slice
-constexpr int kShared = kStage > kBT * kPitch ? kStage : kBT * kPitch;  // power tile reuses the space
+constexpr int kF32 = 0, kBF16 = 1, kX3 = 2;
+
+constexpr int kSlice = kKC * 2 * kBT;  // floats of one staged basis slice (one plane)
+
+// floats of the space the basis slices, the frame slice and the power tile share
+__host__ __device__ constexpr int shared_floats(int mode)
+{
+    const int planes = mode == kX3 ? 2 : 1;
+    const int stage = 2 * planes * kSlice + planes * kKC * kPitch;  // two steps of slices + the frame slice
+    const int power = planes * kBT * kPitch;
+    return stage > power ? stage : power;
+}
 
 __device__ __forceinline__ int owned_frame(int warp, int i) { return (i < 4 ? 0 : 28) + 4 * warp + i; }
+
+__device__ __forceinline__ float bf16r(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+
+__device__ __forceinline__ float load_sample(const float* x, long long s) { return x[s]; }
+__device__ __forceinline__ float load_sample(const int16_t* x, long long s)
+{
+    return static_cast<float>(x[s]) * (1.0f / 32768.0f);  // exact
+}
 
 // 16-byte global -> shared copy that bypasses registers; zero-fills when !valid
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid)
@@ -64,33 +109,42 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool va
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 16 : 0));
 }
 
-// rows [k0, k0 + kKC) of the bin tile's re and im columns -> w_dst, one commit group
+// rows [k0, k0 + kKC) of the bin tile's re and im columns of each plane ->
+// w_dst (plane p at w_dst + p * kSlice), one commit group
+template <int PLANES>
 __device__ __forceinline__ void stage_basis(float* w_dst, const float* __restrict__ wri, int k0,
                                             int K, int bt, int bins_pad, int tid)
 {
-    for (int i = tid; i < kSlice / 4; i += kThreads) {
-        const int kk = i / (2 * kBT / 4);
-        const int c = (i % (2 * kBT / 4)) * 4;
+    for (int i = tid; i < PLANES * kSlice / 4; i += kThreads) {
+        const int p = i / (kSlice / 4);
+        const int r = i % (kSlice / 4);
+        const int kk = r / (2 * kBT / 4);
+        const int c = (r % (2 * kBT / 4)) * 4;
         const int k = k0 + kk;
         const int col = c < kBT ? bt + c : bins_pad + bt + (c - kBT);
         // rows past K are zero, so the unrolled loop adds exact zeros
-        cp_async16(w_dst + kk * 2 * kBT + c, wri + (size_t)(k < K ? k : 0) * 2 * bins_pad + col, k < K);
+        cp_async16(w_dst + p * kSlice + kk * 2 * kBT + c,
+                   wri + ((size_t)p * K + (k < K ? k : 0)) * 2 * bins_pad + col, k < K);
     }
     asm volatile("cp.async.commit_group;\n" ::);
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
-fused_mel_f32_kernel(const float* __restrict__ audio, const float* __restrict__ wri,
-                     const float* __restrict__ melw, float* __restrict__ mel,
-                     float* __restrict__ bmax, int T, int K, int hop, int eff_pad,
-                     int nf, int bins_pad, int n_mels, int span_pad)
+template <int MODE, typename In>
+__global__ void __launch_bounds__(kThreads, MODE == kX3 ? 1 : 2)
+fused_mel_kernel(const In* __restrict__ audio, const float* __restrict__ wri,
+                 const float* __restrict__ melw, void* __restrict__ mel_out,
+                 float* __restrict__ bmax, int T, int K, int hop, int off,
+                 int nf, int bins_pad, int n_mels, int span_pad)
 {
+    constexpr int P = MODE == kX3 ? 2 : 1;  // planes per operand: (hi, lo) for x3
+    constexpr int kShared = shared_floats(MODE);
     extern __shared__ __align__(16) float smem[];
     float* span_s = smem;                      // [span_pad] audio samples
-    float* w_s = span_s + span_pad;            // 2 x [kKC][2*kBT] basis slices
-    float* a_s = w_s + 2 * kSlice;             // [kKC][kPitch] frame slice, transposed
-    float* p_s = w_s;                          // [kBT][kPitch] power tile, transposed
+    float* w_s = span_s + span_pad;            // 2 steps x P planes x [kKC][2*kBT] basis slices
+    float* a_s = w_s + 2 * P * kSlice;         // P x [kKC][kPitch] frame slice, transposed
+    float* p_s = w_s;                          // P x [kBT][kPitch] power tile, transposed
     float* mel_s = w_s + kShared;              // [kBF][kMelMax] mel accumulator
+    float* mel2_s = mel_s + kBF * kMelMax;     // x3: [kBF][kMelMax] accumulator of the small products
     __shared__ float red_s[kThreads / 32];
 
     const int tid = threadIdx.x;
@@ -98,39 +152,49 @@ fused_mel_f32_kernel(const float* __restrict__ audio, const float* __restrict__ 
     const int warp = tid >> 5;
     const int b = blockIdx.y;
     const int f0 = blockIdx.x * kBF;
-    const float* x = audio + (size_t)b * T;
+    const In* x = audio + (size_t)b * T;
     const int n_steps = (K + kKC - 1) / kKC;
+    const float* mel_lo = melw + (size_t)bins_pad * n_mels;  // x3 only
 
-    const long long start = (long long)f0 * hop - eff_pad;
+    const long long start = (long long)f0 * hop + off;
     for (int i = tid; i < span_pad; i += kThreads) {
         const long long s = start + i;
-        span_s[i] = (s >= 0 && s < T) ? x[s] : 0.0f;
+        const float v = (s >= 0 && s < T) ? load_sample(x, s) : 0.0f;
+        span_s[i] = MODE == kBF16 ? bf16r(v) : v;
     }
-    for (int i = tid; i < kBF * kMelMax; i += kThreads) mel_s[i] = 0.0f;
+    for (int i = tid; i < P * kBF * kMelMax; i += kThreads) mel_s[i] = 0.0f;
 
     for (int bt = 0; bt < bins_pad; bt += kBT) {
-        float re[8][4], im[8][4];
+        float re[8][4], im[8][4];    // the (hi*hi) products
+        float res[8][4], ims[8][4];  // x3: the hi*lo and lo*hi products
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) { re[i][j] = 0.0f; im[i][j] = 0.0f; }
+            for (int j = 0; j < 4; ++j) { re[i][j] = 0.0f; im[i][j] = 0.0f; res[i][j] = 0.0f; ims[i][j] = 0.0f; }
 
         __syncthreads();  // the previous tile's power (same space) fully read
-        stage_basis(w_s, wri, 0, K, bt, bins_pad, tid);
+        stage_basis<P>(w_s, wri, 0, K, bt, bins_pad, tid);
         for (int step = 0; step < n_steps; ++step) {
             const int k0 = step * kKC;
             __syncthreads();  // the previous step's slices fully read
             if (step + 1 < n_steps)
-                stage_basis(w_s + ((step + 1) & 1) * kSlice, wri, k0 + kKC, K, bt, bins_pad, tid);
+                stage_basis<P>(w_s + ((step + 1) & 1) * P * kSlice, wri, k0 + kKC, K, bt, bins_pad, tid);
             for (int i = tid; i < kKC * kBF; i += kThreads) {
                 const int kk = i % kKC;
                 const int f = i / kKC;
-                a_s[kk * kPitch + f] = span_s[f * hop + k0 + kk];
+                const float v = span_s[f * hop + k0 + kk];
+                if constexpr (MODE == kX3) {
+                    const float hi = bf16r(v);
+                    a_s[kk * kPitch + f] = hi;
+                    a_s[kKC * kPitch + kk * kPitch + f] = bf16r(v - hi);
+                } else {
+                    a_s[kk * kPitch + f] = v;
+                }
             }
             if (step + 1 < n_steps) asm volatile("cp.async.wait_group 1;\n" ::);
             else asm volatile("cp.async.wait_group 0;\n" ::);
             __syncthreads();
-            const float* w_cur = w_s + (step & 1) * kSlice;
+            const float* w_cur = w_s + (step & 1) * P * kSlice;
 #pragma unroll
             for (int kk = 0; kk < kKC; ++kk) {
                 const float4 a_lo = *reinterpret_cast<const float4*>(a_s + kk * kPitch + 4 * warp);
@@ -142,34 +206,72 @@ fused_mel_f32_kernel(const float* __restrict__ audio, const float* __restrict__ 
                     wr[j] = w_cur[kk * 2 * kBT + lane + 32 * j];
                     wi[j] = w_cur[kk * 2 * kBT + kBT + lane + 32 * j];
                 }
-#pragma unroll
-                for (int i = 0; i < 8; ++i)
+                if constexpr (MODE == kX3) {
+                    const float* a2 = a_s + kKC * kPitch + kk * kPitch;
+                    const float4 l_lo = *reinterpret_cast<const float4*>(a2 + 4 * warp);
+                    const float4 l_hi = *reinterpret_cast<const float4*>(a2 + 32 + 4 * warp);
+                    const float al[8] = {l_lo.x, l_lo.y, l_lo.z, l_lo.w, l_hi.x, l_hi.y, l_hi.z, l_hi.w};
+                    float wrl[4], wil[4];
 #pragma unroll
                     for (int j = 0; j < 4; ++j) {
-                        re[i][j] = fmaf(a[i], wr[j], re[i][j]);
-                        im[i][j] = fmaf(a[i], wi[j], im[i][j]);
+                        wrl[j] = w_cur[kSlice + kk * 2 * kBT + lane + 32 * j];
+                        wil[j] = w_cur[kSlice + kk * 2 * kBT + kBT + lane + 32 * j];
                     }
+#pragma unroll
+                    for (int i = 0; i < 8; ++i)
+#pragma unroll
+                        for (int j = 0; j < 4; ++j) {
+                            re[i][j] = fmaf(a[i], wr[j], re[i][j]);
+                            res[i][j] = fmaf(a[i], wrl[j], res[i][j]);
+                            res[i][j] = fmaf(al[i], wr[j], res[i][j]);
+                            im[i][j] = fmaf(a[i], wi[j], im[i][j]);
+                            ims[i][j] = fmaf(a[i], wil[j], ims[i][j]);
+                            ims[i][j] = fmaf(al[i], wi[j], ims[i][j]);
+                        }
+                } else {
+#pragma unroll
+                    for (int i = 0; i < 8; ++i)
+#pragma unroll
+                        for (int j = 0; j < 4; ++j) {
+                            re[i][j] = fmaf(a[i], wr[j], re[i][j]);
+                            im[i][j] = fmaf(a[i], wi[j], im[i][j]);
+                        }
+                }
             }
         }
 
         __syncthreads();  // every warp is done with the slices the power tile overwrites
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-            float pw[8];
+            float pw[8], pl[8];
 #pragma unroll
-            for (int i = 0; i < 8; ++i) pw[i] = re[i][j] * re[i][j] + im[i][j] * im[i][j];
+            for (int i = 0; i < 8; ++i) {
+                const float r = MODE == kX3 ? re[i][j] + res[i][j] : re[i][j];
+                const float m = MODE == kX3 ? im[i][j] + ims[i][j] : im[i][j];
+                const float v = r * r + m * m;
+                pw[i] = MODE == kF32 ? v : bf16r(v);
+                pl[i] = MODE == kX3 ? bf16r(v - pw[i]) : 0.0f;
+            }
             float* row = p_s + (lane + 32 * j) * kPitch + 4 * warp;
             *reinterpret_cast<float4*>(row) = make_float4(pw[0], pw[1], pw[2], pw[3]);
             *reinterpret_cast<float4*>(row + 32) = make_float4(pw[4], pw[5], pw[6], pw[7]);
+            if constexpr (MODE == kX3) {
+                float* row_l = row + kBT * kPitch;
+                *reinterpret_cast<float4*>(row_l) = make_float4(pl[0], pl[1], pl[2], pl[3]);
+                *reinterpret_cast<float4*>(row_l + 32) = make_float4(pl[4], pl[5], pl[6], pl[7]);
+            }
         }
         __syncthreads();
 
         // each thread owns mel_s entries (its 8 frames, mel lane + 32j)
-        float acc[8][4];
+        float acc[8][4], acc2[8][4];  // acc2: x3's small products
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = mel_s[owned_frame(warp, i) * kMelMax + lane + 32 * j];
+            for (int j = 0; j < 4; ++j) {
+                acc[i][j] = mel_s[owned_frame(warp, i) * kMelMax + lane + 32 * j];
+                acc2[i][j] = MODE == kX3 ? mel2_s[owned_frame(warp, i) * kMelMax + lane + 32 * j] : 0.0f;
+            }
         for (int c = 0; c < kBT; ++c) {
             const float4 p_lo = *reinterpret_cast<const float4*>(p_s + c * kPitch + 4 * warp);
             const float4 p_hi = *reinterpret_cast<const float4*>(p_s + c * kPitch + 32 + 4 * warp);
@@ -180,15 +282,39 @@ fused_mel_f32_kernel(const float* __restrict__ audio, const float* __restrict__ 
                 const int m = lane + 32 * j;
                 mw[j] = m < n_mels ? __ldg(melw + (size_t)(bt + c) * n_mels + m) : 0.0f;
             }
+            if constexpr (MODE == kX3) {
+                const float* pl_row = p_s + kBT * kPitch + c * kPitch;
+                const float4 q_lo = *reinterpret_cast<const float4*>(pl_row + 4 * warp);
+                const float4 q_hi = *reinterpret_cast<const float4*>(pl_row + 32 + 4 * warp);
+                const float pvl[8] = {q_lo.x, q_lo.y, q_lo.z, q_lo.w, q_hi.x, q_hi.y, q_hi.z, q_hi.w};
+                float mwl[4];
 #pragma unroll
-            for (int i = 0; i < 8; ++i)
+                for (int j = 0; j < 4; ++j) {
+                    const int m = lane + 32 * j;
+                    mwl[j] = m < n_mels ? __ldg(mel_lo + (size_t)(bt + c) * n_mels + m) : 0.0f;
+                }
 #pragma unroll
-                for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], mw[j], acc[i][j]);
+                for (int i = 0; i < 8; ++i)
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+                        acc[i][j] = fmaf(pv[i], mw[j], acc[i][j]);
+                        acc2[i][j] = fmaf(pv[i], mwl[j], acc2[i][j]);
+                        acc2[i][j] = fmaf(pvl[i], mw[j], acc2[i][j]);
+                    }
+            } else {
+#pragma unroll
+                for (int i = 0; i < 8; ++i)
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], mw[j], acc[i][j]);
+            }
         }
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) mel_s[owned_frame(warp, i) * kMelMax + lane + 32 * j] = acc[i][j];
+            for (int j = 0; j < 4; ++j) {
+                mel_s[owned_frame(warp, i) * kMelMax + lane + 32 * j] = acc[i][j];
+                if constexpr (MODE == kX3) mel2_s[owned_frame(warp, i) * kMelMax + lane + 32 * j] = acc2[i][j];
+            }
     }
     __syncthreads();
 
@@ -198,8 +324,10 @@ fused_mel_f32_kernel(const float* __restrict__ audio, const float* __restrict__ 
         const int f = i / n_mels;
         const int m = i % n_mels;
         if (f0 + f < nf) {
-            const float v = mel_s[f * kMelMax + m];
-            mel[((size_t)b * nf + f0 + f) * n_mels + m] = v;
+            const float v = MODE == kX3 ? mel_s[f * kMelMax + m] + mel2_s[f * kMelMax + m] : mel_s[f * kMelMax + m];
+            const size_t o = ((size_t)b * nf + f0 + f) * n_mels + m;
+            if constexpr (MODE == kBF16) static_cast<__nv_bfloat16*>(mel_out)[o] = __float2bfloat16_rn(v);
+            else static_cast<float*>(mel_out)[o] = v;
             vmax = fmaxf(vmax, v);
         }
     }
@@ -214,6 +342,35 @@ fused_mel_f32_kernel(const float* __restrict__ audio, const float* __restrict__ 
     }
 }
 
+template <int MODE, typename In>
+int launch_mel(const void* audio, const float* wri, const float* melw, void* mel, float* bmax,
+               int B, int T, int K, int hop, int off, int nf, int bins_pad, int n_mels, void* stream)
+{
+    if (B < 1 || T < 1 || nf < 1 || K < 1 || hop < 1 || n_mels < 1 || n_mels > kMelMax ||
+        bins_pad < kBT || bins_pad % kBT)
+        return (int)cudaErrorInvalidValue;
+    const int n_blocks = (nf + kBF - 1) / kBF;
+    const int span = (kBF - 1) * hop + (K + kKC - 1) / kKC * kKC;
+    const int span_pad = (span + 3) / 4 * 4;
+    const size_t smem = sizeof(float) * ((size_t)span_pad + shared_floats(MODE) + (MODE == kX3 ? 2 : 1) * kBF * kMelMax);
+    cudaError_t err = cudaFuncSetAttribute(
+        fused_mel_kernel<MODE, In>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    fused_mel_kernel<MODE, In><<<dim3(n_blocks, B), kThreads, smem, (cudaStream_t)stream>>>(
+        static_cast<const In*>(audio), wri, melw, mel, bmax, T, K, hop, off, nf, bins_pad, n_mels, span_pad);
+    return (int)cudaGetLastError();
+}
+
+template <int MODE>
+int launch_mel_any(const void* audio, int audio_i16, const float* wri, const float* melw, void* mel,
+                   float* bmax, int B, int T, int K, int hop, int off, int nf, int bins_pad, int n_mels,
+                   void* stream)
+{
+    return audio_i16
+        ? launch_mel<MODE, int16_t>(audio, wri, melw, mel, bmax, B, T, K, hop, off, nf, bins_pad, n_mels, stream)
+        : launch_mel<MODE, float>(audio, wri, melw, mel, bmax, B, T, K, hop, off, nf, bins_pad, n_mels, stream);
+}
+
 // ---------------------------------------------------------------------------
 // mfcc_tail_f32
 //
@@ -222,11 +379,14 @@ fused_mel_f32_kernel(const float* __restrict__ audio, const float* __restrict__ 
 // _tail_kernel, frame-major).
 //
 // Computes out[b, c, f] (coef-major) or out[b, f, c] (frame-major) =
-//   sum_m dct[m, c] * max(10*log10(max(mel[b, f, m], 1e-10)), peak[b] - 80).
+//   sum_m dct[m, c] * max(10*log10(max(mel[b, f, m], 1e-10)), peak[b] - 80),
+// reading a float32 mel, or a bf16 one widened to float32 as the TPU tail
+// reads the bf16 mode's mel (mel_ref[0].astype(f32)).
 //
 // Bound: device memory. It reads the mel tensor once (~400 MB for a
-// 128 x 30 s batch at 16 kHz) and writes 13 floats per frame; the 13 dot
-// products of 128 terms and one log10f per element are light beside that.
+// 128 x 30 s batch at 16 kHz, half that in bf16) and writes 13 floats per
+// frame; the 13 dot products of 128 terms and one log10f per element are
+// light beside that.
 //
 // Design: a block stages 128 frame rows of mel in shared memory with
 // coalesced loads (row stride n_mels + 1, so the one-thread-per-row reads
@@ -239,10 +399,14 @@ fused_mel_f32_kernel(const float* __restrict__ audio, const float* __restrict__ 
 constexpr int kTF = 128;       // frames per block, one thread each
 constexpr int kMfccMax = 32;
 
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename M>
 __global__ void __launch_bounds__(kTF)
-mfcc_tail_f32_kernel(const float* __restrict__ mel, const float* __restrict__ peak,
-                     const float* __restrict__ dct, float* __restrict__ out,
-                     int nf, int n_mels, int n_mfcc, int coef_major)
+mfcc_tail_kernel(const M* __restrict__ mel, const float* __restrict__ peak,
+                 const float* __restrict__ dct, float* __restrict__ out,
+                 int nf, int n_mels, int n_mfcc, int coef_major)
 {
     extern __shared__ __align__(16) float sm[];
     const int ld = n_mels + 1;
@@ -253,8 +417,8 @@ mfcc_tail_f32_kernel(const float* __restrict__ mel, const float* __restrict__ pe
     const int b = blockIdx.y;
     const int f0 = blockIdx.x * kTF;
     const int nrows = min(kTF, nf - f0);
-    const float* src = mel + ((size_t)b * nf + f0) * n_mels;
-    for (int i = tid; i < nrows * n_mels; i += kTF) tile[(i / n_mels) * ld + i % n_mels] = src[i];
+    const M* src = mel + ((size_t)b * nf + f0) * n_mels;
+    for (int i = tid; i < nrows * n_mels; i += kTF) tile[(i / n_mels) * ld + i % n_mels] = widen(src[i]);
     for (int i = tid; i < n_mels * n_mfcc; i += kTF) dct_s[i] = dct[i];
     __syncthreads();
     if (tid >= nrows) return;
@@ -280,39 +444,54 @@ mfcc_tail_f32_kernel(const float* __restrict__ mel, const float* __restrict__ pe
     }
 }
 
-}  // namespace
-
-extern "C" int fused_mel_f32(const float* audio, const float* wri, const float* melw,
-                             float* mel, float* bmax, int B, int T, int K, int hop,
-                             int eff_pad, int nf, int bins_pad, int n_mels, void* stream)
+template <typename M>
+int launch_tail(const void* mel, const float* peak, const float* dct, float* out, int B, int nf,
+                int n_mels, int n_mfcc, int coef_major, void* stream)
 {
-    if (B < 1 || nf < 1 || K < 1 || hop < 1 || n_mels < 1 || n_mels > kMelMax ||
-        bins_pad < kBT || bins_pad % kBT)
-        return (int)cudaErrorInvalidValue;
-    const int n_blocks = (nf + kBF - 1) / kBF;
-    const int span = (kBF - 1) * hop + (K + kKC - 1) / kKC * kKC;
-    const int span_pad = (span + 3) / 4 * 4;
-    const size_t smem = sizeof(float) * ((size_t)span_pad + kShared + kBF * kMelMax);
+    const size_t smem = sizeof(float) * ((size_t)kTF * (n_mels + 1) + (size_t)n_mels * n_mfcc);
     cudaError_t err = cudaFuncSetAttribute(
-        fused_mel_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        mfcc_tail_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    fused_mel_f32_kernel<<<dim3(n_blocks, B), kThreads, smem, (cudaStream_t)stream>>>(
-        audio, wri, melw, mel, bmax, T, K, hop, eff_pad, nf, bins_pad, n_mels, span_pad);
+    const int n_blocks = (nf + kTF - 1) / kTF;
+    mfcc_tail_kernel<M><<<dim3(n_blocks, B), kTF, smem, (cudaStream_t)stream>>>(
+        static_cast<const M*>(mel), peak, dct, out, nf, n_mels, n_mfcc, coef_major);
     return (int)cudaGetLastError();
 }
 
-extern "C" int mfcc_tail_f32(const float* mel, const float* peak, const float* dct,
+}  // namespace
+
+extern "C" int fused_mel_f32(const void* audio, int audio_i16, const float* wri, const float* melw,
+                             float* mel, float* bmax, int B, int T, int K, int hop, int off,
+                             int nf, int bins_pad, int n_mels, void* stream)
+{
+    return launch_mel_any<kF32>(audio, audio_i16, wri, melw, mel, bmax, B, T, K, hop, off, nf, bins_pad,
+                                n_mels, stream);
+}
+
+// wri and melw hold bf16-rounded values as float32; mel is bf16
+extern "C" int fused_mel_bf16(const void* audio, int audio_i16, const float* wri, const float* melw,
+                              void* mel, float* bmax, int B, int T, int K, int hop, int off,
+                              int nf, int bins_pad, int n_mels, void* stream)
+{
+    return launch_mel_any<kBF16>(audio, audio_i16, wri, melw, mel, bmax, B, T, K, hop, off, nf, bins_pad,
+                                 n_mels, stream);
+}
+
+// wri [2, K, 2*bins_pad] and melw [2, bins_pad, n_mels]: the (hi, lo) stacks
+extern "C" int fused_mel_x3(const void* audio, int audio_i16, const float* wri, const float* melw,
+                            float* mel, float* bmax, int B, int T, int K, int hop, int off,
+                            int nf, int bins_pad, int n_mels, void* stream)
+{
+    return launch_mel_any<kX3>(audio, audio_i16, wri, melw, mel, bmax, B, T, K, hop, off, nf, bins_pad,
+                               n_mels, stream);
+}
+
+extern "C" int mfcc_tail_f32(const void* mel, int mel_bf16, const float* peak, const float* dct,
                              float* out, int B, int nf, int n_mels, int n_mfcc,
                              int coef_major, void* stream)
 {
     if (B < 1 || nf < 1 || n_mels < 1 || n_mfcc < 1 || n_mfcc > kMfccMax)
         return (int)cudaErrorInvalidValue;
-    const size_t smem = sizeof(float) * ((size_t)kTF * (n_mels + 1) + (size_t)n_mels * n_mfcc);
-    cudaError_t err = cudaFuncSetAttribute(
-        mfcc_tail_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const int n_blocks = (nf + kTF - 1) / kTF;
-    mfcc_tail_f32_kernel<<<dim3(n_blocks, B), kTF, smem, (cudaStream_t)stream>>>(
-        mel, peak, dct, out, nf, n_mels, n_mfcc, coef_major);
-    return (int)cudaGetLastError();
+    return mel_bf16 ? launch_tail<__nv_bfloat16>(mel, peak, dct, out, B, nf, n_mels, n_mfcc, coef_major, stream)
+                    : launch_tail<float>(mel, peak, dct, out, B, nf, n_mels, n_mfcc, coef_major, stream);
 }

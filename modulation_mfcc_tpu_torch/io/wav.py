@@ -1,5 +1,9 @@
-"""Resampling to an analysis rate (host-side, scipy float64).
+"""WAV decoding and resampling to an analysis rate (host-side, numpy and
+scipy float64).
 
+:func:`read_wav` decodes PCM and float WAV files with plain numpy over the
+RIFF layout; :func:`load_channel` decodes, resamples and selects a channel,
+as the reference's ``librosa.load`` call does (script/mfcc.py:262-289).
 The formant tracker resamples to twice its ceiling before the LPC stage,
 as Praat does. The polyphase filter is kaiser_best grade
 (:func:`design_hq_taps`), the JAX package's own design, so both packages
@@ -7,13 +11,77 @@ resample identically.
 """
 from __future__ import annotations
 
+import struct
 from fractions import Fraction
 from functools import lru_cache
 
 import numpy as np
 from scipy.signal import firwin, resample_poly
 
-__all__ = ["design_hq_taps", "resample", "resample_ratio"]
+__all__ = ["read_wav", "load_channel", "design_hq_taps", "resample", "resample_ratio"]
+
+
+def read_wav(path: str) -> tuple[np.ndarray, int]:
+    """Read a WAV file → (float32 samples [channels, n] or [n], sample_rate).
+
+    Integer PCM is scaled to [-1, 1) like librosa/soundfile (int16 → /2**15,
+    int32 → /2**31, 24-bit → /2**23, uint8 → offset binary); float32 and
+    float64 pass through. WAVE_FORMAT_EXTENSIBLE reads its SubFormat code.
+    """
+    with open(path, "rb") as f:
+        riff, _size, wave_id = struct.unpack("<4sI4s", f.read(12))
+        if riff != b"RIFF" or wave_id != b"WAVE":
+            raise ValueError(f"{path}: not a RIFF/WAVE file")
+        fmt = None
+        fmt_payload = b""
+        data = None
+        while True:
+            hdr = f.read(8)
+            if len(hdr) < 8:
+                break
+            cid, csize = struct.unpack("<4sI", hdr)
+            payload = f.read(csize + (csize & 1))
+            if cid == b"fmt ":
+                fmt = struct.unpack("<HHIIHH", payload[:16])
+                fmt_payload = payload
+            elif cid == b"data":
+                data = payload[:csize]
+        if fmt is None or data is None:
+            raise ValueError(f"{path}: missing fmt/data chunk")
+    audio_format, n_ch, sr, _brate, _align, bits = fmt
+    if audio_format == 0xFFFE:
+        audio_format = struct.unpack("<H", fmt_payload[24:26])[0] if len(fmt_payload) >= 26 else 1
+    if audio_format == 1:  # PCM
+        if bits == 16:
+            x = np.frombuffer(data, "<i2").astype(np.float32) / 2**15
+        elif bits == 32:
+            x = np.frombuffer(data, "<i4").astype(np.float32) / 2**31
+        elif bits == 8:
+            x = (np.frombuffer(data, "u1").astype(np.float32) - 128.0) / 128.0
+        elif bits == 24:
+            raw = np.frombuffer(data, "u1").reshape(-1, 3)
+            as32 = raw[:, 0].astype(np.int32) | (raw[:, 1].astype(np.int32) << 8) | (raw[:, 2].astype(np.int32) << 16)
+            as32 = (as32 ^ 0x800000) - 0x800000  # sign-extend
+            x = as32.astype(np.float32) / 2**23
+        else:
+            raise ValueError(f"Unsupported PCM bit depth {bits}")
+    elif audio_format == 3:  # IEEE float
+        x = np.frombuffer(data, "<f4" if bits == 32 else "<f8").astype(np.float32)
+    else:
+        raise ValueError(f"Unsupported WAV format code {audio_format}")
+    if n_ch > 1:
+        x = x.reshape(-1, n_ch).T
+    return x, sr
+
+
+def load_channel(path: str, signal_sample_rate: float = 10_000, channel_nb: int = 0) -> np.ndarray:
+    """Decode, resample to the analysis rate (float64) and select a channel:
+    mono input returns 1-D, multichannel input its channel ``channel_nb``."""
+    x, sr = read_wav(path)
+    y = resample(x.astype(np.float64), sr, signal_sample_rate)
+    if y.ndim > 1:
+        y = y[channel_nb]
+    return y
 
 
 @lru_cache(maxsize=16)

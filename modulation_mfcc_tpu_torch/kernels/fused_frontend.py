@@ -1,33 +1,58 @@
-"""Fused spectral frontend: audio → mel power → MFCC, through two CUDA kernels.
+"""Fused spectral frontend: audio → mel power → MFCC, through CUDA kernels.
 
-Two hand-written kernels (csrc/fused_frontend.cu) carry the MFCC stage of
-the flagship path on the GPU:
+Hand-written kernels carry the MFCC stage on the GPU, one frontend kernel
+per arithmetic mode of the JAX frontend and one tail kernel:
 
-  * ``fused_mel_f32`` (wrapper :func:`fused_mel_frontend`) replaces the
-    Pallas frontend of modulation_mfcc_tpu/pallas/fused_frontend.py
-    (``fused_mel_frontend`` → ``_launch`` → ``_kernel``, algorithm 'f32').
+  * ``fused_mel_f32``, ``fused_mel_bf16``, ``fused_mel_x3``
+    (csrc/fused_frontend.cu) and ``fused_mel_i16``, ``fused_mel_i24``
+    (csrc/fused_frontend_int.cu), all behind :func:`fused_mel_frontend`,
+    replace the Pallas frontend of modulation_mfcc_tpu/pallas/
+    fused_frontend.py (``fused_mel_frontend`` → ``_launch`` → ``_kernel``,
+    ``_kernel_pipe``, ``_kernel_i16(_pipe)``, ``_kernel_i24(_pipe)``; the
+    pipelined kernels compute their plain kernels' numbers bit for bit).
     Frames are built in shared memory from the contiguous audio span of a
     64-frame block, so no frame matrix exists in device memory; the
-    windowed real DFT, power and mel projection run as FP32 FFMA GEMMs, and
-    each block writes the max of its valid frames for the top_db clip.
-    Bound: FP32 CUDA-core FLOPs (~315 GFLOP DFT + ~50 GFLOP mel per
-    128 × 30 s batch at 16 kHz).
+    windowed real DFT, power and mel projection run in the mode's
+    arithmetic, and each block writes the max of its valid frames for the
+    top_db clip:
+
+      - 'f32': FP32 FFMA;
+      - 'bf16': operands rounded to bf16, products accumulated in f32; mel
+        stored as bf16 (the corpus throughput mode);
+      - 'x3': each operand split into bf16 (hi, lo), three products
+        hi·Whi + hi·Wlo + lo·Whi per term, for the DFT and the mel;
+      - 'i16' / 'i24': a fixed-point DFT. Samples are scaled per utterance
+        (:func:`quant_scales`) and split into two (i16) or three (i24) int8
+        digits; the windowed-DFT matrix into three int8 planes
+        (:func:`int8_weight_planes`). The digit products are exact int32
+        dot products, recombined in f32; the mel projection runs as x3.
+
+    Bound: the DFT's operations (~315 GFLOP + ~50 GFLOP of mel per
+    128 × 30 s batch at 16 kHz), on the unit each mode's arithmetic is made
+    for (FP32 CUDA cores for f32, bf16 tensor cores for bf16 and x3, int8
+    for i16 and i24).
   * ``mfcc_tail_f32`` (wrapper :func:`mfcc_tail`) replaces the Pallas tail
     kernels (``mfcc_tail`` → ``_tail_kernel_t`` / ``_tail_kernel``):
     10·log10(max(mel, 1e-10)), the clip at peak − 80 dB, and the DCT-II,
-    written coef-major [B, n_mfcc, NF] or frame-major [B, NF, n_mfcc].
-    Bound: the one read of the mel tensor.
+    written coef-major [B, n_mfcc, NF] or frame-major [B, NF, n_mfcc]; it
+    reads a float32 or a bf16 mel. Bound: the one read of the mel tensor.
 
-Beside each wrapper is its plain PyTorch version
+Every frontend takes float32 or int16 audio (int16 is dequantized as
+v·2⁻¹⁵, exact), flat [B, T] or as hop rows [B, rows, hop]
+(:func:`pack_hop_rows`, the corpus sweep's upload format) with
+``n_samples``. Beside each wrapper is its plain PyTorch version
 (:func:`fused_mel_frontend_reference`, :func:`mfcc_tail_reference`). A
 wrapper takes the plain version only for a tensor on the CPU; for a CUDA
 tensor it launches the kernel or raises. ``LAUNCHES`` counts kernel
 launches, so a run can show that its main path went through the kernels.
 
-The weight construction (window-support trim, zero-mel-bin trim, Nyquist
-packing) is a verbatim numpy port of the JAX frontend's host code
-(fused_mel_frontend, lines 746-799, and mfcc_tail, lines 1179-1181): it
-decides the numbers, so both packages compute from identical constants.
+The host designs (window-support trim, zero-mel-bin trim, Nyquist packing,
+the int8 weight planes, the bf16 and x3 weight stacks, the i16 offset
+correction, the per-utterance scales and the hop-rows geometry) are
+verbatim ports of the JAX frontend's host code (fused_mel_frontend, lines
+698-866, _int8_weight_planes, _stack_weights, hop_rows_geometry,
+pack_hop_rows): they decide the numbers, so both packages compute from
+identical constants.
 """
 from __future__ import annotations
 
@@ -41,20 +66,26 @@ import torch.nn.functional as tnf
 from modulation_mfcc_tpu_torch.kernels._launch import check_cuda, raise_on, route, stream_of
 from modulation_mfcc_tpu_torch.ops.framing import frame_by_slices
 from modulation_mfcc_tpu_torch.ops.spectral import dct_matrix, dft_bases, mel_filterbank
-from modulation_mfcc_tpu_torch.utils.helpers import round_up_to_multiple
+from modulation_mfcc_tpu_torch.utils.helpers import dequantize_samples, round_up_to_multiple
 
 __all__ = [
-    "LAUNCHES", "frontend_weights", "tail_dct", "eff_pad",
+    "ALGORITHMS", "LAUNCHES", "frontend_weights", "mode_weights", "int8_weight_planes",
+    "quant_scales", "tail_dct", "eff_pad", "hop_rows_geometry", "pack_hop_rows",
     "fused_mel_frontend", "fused_mel_frontend_reference",
     "mfcc_tail", "mfcc_tail_reference", "fused_mfcc",
 ]
 
-LAUNCHES = {"fused_mel_f32": 0, "mfcc_tail_f32": 0}
+ALGORITHMS = ("f32", "bf16", "x3", "i16", "i24")
+LAUNCHES = {f"fused_mel_{a}": 0 for a in ALGORITHMS} | {"mfcc_tail_f32": 0}
 
-BLOCK_FRAMES = 64  # frames per fused_mel_f32 block: one bmax entry each (kBF in the .cu)
+BLOCK_FRAMES = 64  # frames per frontend block: one bmax entry each (kBF in the .cu)
 _BIN_TILE = 128    # bins_pad must be a multiple (kBT)
 _MEL_MAX = 128     # kMelMax
 _MFCC_MAX = 32     # kMfccMax
+_KC_INT = 16       # contraction rows per step of the integer kernels (kKC in fused_frontend_int.cu)
+ROWS_BLKF = 1024   # the JAX frontend's default frame block, which sizes a hop-rows batch
+_TAIL_ROWS = 16    # spare hop rows after the last block (JAX _TAIL_ROWS)
+_I24_FULL = 127.0 * 65536.0 - 33000.0  # 24-bit quantization full scale (exact in f32)
 
 
 # ---------------------------------------------------------------------------
@@ -118,6 +149,81 @@ def frontend_weights(
     return wri_p, m_p
 
 
+def int8_weight_planes(w: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray, float]:
+    """Balanced base-256 digit planes of a weight matrix: ``(w2, w1, w0, Sw)``
+    int8 arrays with ``w ≈ (w2·65536 + w1·256 + w0) / Sw`` to ±0.5/Sw
+    (≈ 2⁻²⁴·max|w|), every plane in [−128, 127]. Host-side, float64,
+    ``np.round``'s half-to-even rule (JAX _int8_weight_planes)."""
+    maxw = float(np.max(np.abs(w))) or 1.0
+    sw = (127.0 * 65536.0 - 33000.0) / maxw
+    r = np.round(np.asarray(w, np.float64) * sw).astype(np.int64)
+    w0 = ((r + 128) % 256) - 128
+    r1 = (r - w0) // 256
+    w1 = ((r1 + 128) % 256) - 128
+    w2 = (r1 - w1) // 256
+    if np.abs(w2).max() > 127:
+        raise ValueError("int8 plane overflow")
+    return w2.astype(np.int8), w1.astype(np.int8), w0.astype(np.int8), sw
+
+
+def _bf16_round(a) -> np.ndarray:
+    """float32 values rounded to bf16 (nearest even), kept as float32."""
+    t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+    return t.to(torch.bfloat16).to(torch.float32).numpy()
+
+
+def _x3_stack(w: np.ndarray) -> np.ndarray:
+    """[2, ...] float32: the bf16 (hi, lo) split of ``w`` (JAX _stack_weights x3)."""
+    hi = _bf16_round(w)
+    return np.stack([hi, _bf16_round(np.asarray(w, np.float32) - hi)])
+
+
+@lru_cache(maxsize=32)
+def mode_weights(
+    algorithm: str,
+    sr: float,
+    n_fft: int = 512,
+    win_length: int | None = None,
+    n_mels: int = 128,
+    fmin: float = 100.0,
+    fmax: float | None = None,
+) -> dict[str, np.ndarray]:
+    """The constants one frontend mode computes from, as numpy arrays:
+
+    * 'f32': ``wri`` [K, 2·bins_pad], ``melw`` [bins_pad, n_mels];
+    * 'bf16': the same rounded to bf16 (held as float32);
+    * 'x3': ``wri`` [2, K, 2·bins_pad] and ``melw`` [2, bins_pad, n_mels],
+      the (hi, lo) bf16 splits;
+    * 'i16' / 'i24': ``planes`` int8 [3, K, 2·bins_pad] (w2, w1, w0 of
+      :func:`int8_weight_planes`), ``sw`` (Sw as a float32 scalar, the
+      value the device scale arithmetic uses), ``melw`` as for 'x3'; and
+      for 'i16' ``corr`` [2·bins_pad] float32 = 128·Σ_k round(W·Sw), the
+      low digit's +128 offset (float64 sum, then float32).
+    """
+    if algorithm not in ALGORITHMS:
+        raise ValueError(f"Unknown algorithm {algorithm!r}; one of {', '.join(ALGORITHMS)}")
+    wri, melw = frontend_weights(sr, n_fft, win_length, n_mels, fmin, fmax)
+    if algorithm == "f32":
+        return {"wri": wri, "melw": melw}
+    if algorithm == "bf16":
+        return {"wri": _bf16_round(wri), "melw": _bf16_round(melw)}
+    if algorithm == "x3":
+        return {"wri": _x3_stack(wri), "melw": _x3_stack(melw)}
+    w2, w1, w0, sw = int8_weight_planes(wri)
+    out = {"planes": np.stack([w2, w1, w0]), "sw": np.asarray(sw, np.float32), "melw": _x3_stack(melw)}
+    if algorithm == "i16":
+        r_int = w2.astype(np.float64) * 65536.0 + w1.astype(np.float64) * 256.0 + w0.astype(np.float64)
+        out["corr"] = (128.0 * r_int.sum(axis=0)).astype(np.float32)
+    return out
+
+
+def mode_tensors(algorithm: str, device, sr: float, n_fft: int = 512, win_length: int | None = None,
+                 n_mels: int = 128, fmin: float = 100.0, fmax: float | None = None) -> dict[str, torch.Tensor]:
+    """:func:`mode_weights` as tensors on ``device``."""
+    w = mode_weights(algorithm, sr, n_fft, win_length, n_mels, fmin, fmax)
+    return {k: torch.as_tensor(v, device=device) for k, v in w.items()}
+
+
 @lru_cache(maxsize=16)
 def tail_dct(n_mfcc: int, n_mels: int) -> np.ndarray:
     """DCT-II ortho as [n_mels, n_mfcc] float32 (the live columns of the JAX
@@ -131,10 +237,86 @@ def eff_pad(n_fft: int, win_length: int | None) -> int:
     return n_fft // 2 - (n_fft - win_length) // 2
 
 
-def _weights_on(audio: torch.Tensor, sr, n_fft, win_length, n_mels, fmin, fmax):
-    wri, melw = frontend_weights(sr, n_fft, win_length, n_mels, fmin, fmax)
-    to = dict(dtype=torch.float32, device=audio.device)
-    return torch.as_tensor(wri, **to), torch.as_tensor(melw, **to)
+def hop_rows_geometry(
+    n_samples: int, *, n_fft: int = 512, hop: int = 80, win_length: int | None = None,
+) -> tuple[int, int]:
+    """(rows_total, eff_pad) of the hop-rows input for ``n_samples``: the
+    JAX frontend's geometry at its default frame block of 1024,
+    rows_total = ceil(nf/1024)·1024 + 16 hop rows, the audio at sample
+    offset ``eff_pad`` (centered framing, shifted by the trimmed window
+    support)."""
+    nf = 1 + n_samples // hop
+    return -(-nf // ROWS_BLKF) * ROWS_BLKF + _TAIL_ROWS, eff_pad(n_fft, win_length)
+
+
+def pack_hop_rows(audio, *, n_fft: int = 512, hop: int = 80, win_length: int | None = None):
+    """[B, T] (or [T]) samples → [B, rows_total, hop] zero-padded hop rows,
+    the frontends' rows input (dtype-preserving: int16 rows stay int16).
+    numpy in → numpy out (the corpus batch assembler's case); a tensor in →
+    a tensor on its device."""
+    if audio.ndim == 1:
+        audio = audio[None, :]
+    b, t = audio.shape
+    rows_total, pad = hop_rows_geometry(t, n_fft=n_fft, hop=hop, win_length=win_length)
+    if isinstance(audio, np.ndarray):
+        out = np.zeros((b, rows_total * hop), dtype=audio.dtype)
+        out[:, pad : pad + t] = audio
+        return out.reshape(b, rows_total, hop)
+    return tnf.pad(audio, (pad, rows_total * hop - t - pad)).reshape(b, rows_total, hop)
+
+
+def _geometry(audio: torch.Tensor, hop: int, n_fft: int, win_length: int | None,
+              n_samples: int | None) -> tuple[int, int, int]:
+    """(n_samples, buffer length per utterance, offset of frame 0's first
+    sample in that buffer) of a flat [B, T] or hop-rows [B, rows, hop] batch;
+    raises on what the frontends do not take."""
+    if audio.dtype not in (torch.float32, torch.int16):
+        raise ValueError(f"fused_mel_frontend: audio must be float32 or int16, got {audio.dtype}")
+    pad = eff_pad(n_fft, win_length)
+    if audio.ndim == 2:
+        return audio.shape[1], audio.shape[1], -pad
+    if audio.ndim != 3:
+        raise ValueError(f"fused_mel_frontend: audio must be [B, T] or [B, rows, hop], got {tuple(audio.shape)}")
+    if n_samples is None:
+        raise ValueError("rows input [B, rows, hop] requires n_samples")
+    rows_total, _ = hop_rows_geometry(int(n_samples), n_fft=n_fft, hop=hop, win_length=win_length)
+    if audio.shape[1:] != (rows_total, hop):
+        raise ValueError(
+            f"rows input {tuple(audio.shape)} does not match the geometry [B, {rows_total}, {hop}] "
+            f"of n_samples={n_samples}; build it with pack_hop_rows"
+        )
+    return int(n_samples), rows_total * hop, 0
+
+
+# ---------------------------------------------------------------------------
+# Per-utterance scales of the fixed-point modes (device side)
+# ---------------------------------------------------------------------------
+
+
+def _pow2(k: torch.Tensor) -> torch.Tensor:
+    """2^k as float32, built from the exponent bits (exact; k in [-126, 127])."""
+    return ((k.to(torch.int32) + 127).clamp(1, 254) << 23).view(torch.float32)
+
+
+def quant_scales(audio: torch.Tensor, algorithm: str, sw: torch.Tensor) -> torch.Tensor:
+    """sc [B, 2] float32 = (s, 1/(s·Sw)) per utterance, from the samples as
+    the kernel sees them (dequantized; rows include their zero pad, which
+    moves no bound): for 'i24' s = (127·65536 − 33000) / max|x|; for 'i16'
+    the largest power of two with max(x)·s ≤ 32767 and −min(x)·s ≤ 32768
+    (frexp, then halved where f32 rounding overshot), at most 2⁶⁰."""
+    af = dequantize_samples(audio).reshape(audio.shape[0], -1)
+    if algorithm == "i24":
+        amax = torch.clamp(af.abs().amax(dim=1), min=1e-20)
+        s = torch.tensor(_I24_FULL, dtype=torch.float32, device=af.device) / amax
+    else:
+        pmax = af.amax(dim=1)
+        nmax = -af.amin(dim=1)
+        ratio = torch.tensor(32768.0, dtype=torch.float32, device=af.device) / torch.clamp(
+            torch.maximum(pmax, nmax), min=1e-30)
+        s = _pow2(torch.frexp(ratio)[1] - 1)
+        over = (pmax * s > 32767.0) | (nmax * s > 32768.0)
+        s = torch.clamp(torch.where(over, s * 0.5, s), max=2.0**60)
+    return torch.stack([s, 1.0 / (s * sw.to(torch.float32))], dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -148,35 +330,116 @@ def _lib() -> ctypes.CDLL:
 
     lib = load_library()
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_mel_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
-    lib.fused_mel_f32.restype = i
-    lib.mfcc_tail_f32.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    for alg in ("f32", "bf16", "x3"):
+        fn = getattr(lib, f"fused_mel_{alg}")
+        fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        fn.restype = i
+    for alg in ("i16", "i24"):
+        fn = getattr(lib, f"fused_mel_{alg}")
+        fn.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+        fn.restype = i
+    lib.mfcc_tail_f32.argtypes = [p, i, p, p, p, i, i, i, i, i, p]
     lib.mfcc_tail_f32.restype = i
     return lib
 
 
 # ---------------------------------------------------------------------------
-# fused_mel_f32
+# The frontend kernels
 # ---------------------------------------------------------------------------
 
 
+def _bf16r(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _x3_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """hi·Whi + hi·Wlo + lo·Whi in the JAX order, w = [2, K, C] (hi, lo)."""
+    hi = _bf16r(x)
+    lo = _bf16r(x - hi)
+    return (hi @ w[0] + hi @ w[1]) + lo @ w[0]
+
+
+def _fixed_point_reim(frames: torch.Tensor, planes: torch.Tensor, sc: torch.Tensor,
+                      algorithm: str, corr: torch.Tensor | None) -> torch.Tensor:
+    """The i16/i24 windowed DFT: digits of round(x·s), exact digit × plane
+    products (each an integer below 2²⁴, so an f32 matmul is exact; summed
+    as int32), recombined in f32 in the JAX order, times 1/(s·Sw)."""
+    s, inv = sc[:, 0, None, None], sc[:, 1, None, None]
+    x = torch.round(frames * s)  # half to even, as jnp.round
+    if algorithm == "i16":
+        x = torch.clamp(x, -32768.0, 32767.0)
+        x1 = torch.floor(x * (1.0 / 256.0))
+        digits = (x1, x - 256.0 * x1 - 128.0)
+    else:
+        q1 = torch.floor((x + 128.0) * (1.0 / 256.0))
+        q2 = torch.floor((q1 + 128.0) * (1.0 / 256.0))
+        digits = (q2, q1 - 256.0 * q2, x - 256.0 * q1)
+    w2, w1, w0 = planes.to(torch.float32)
+
+    def dot(a, w):
+        return (a @ w).to(torch.int32)
+
+    if algorithm == "i16":
+        x1, x0 = digits
+        d1 = dot(x1, w2)
+        d2 = dot(x1, w1) + dot(x0, w2)
+        d3 = dot(x1, w0) + dot(x0, w1)
+        return (d1.float() * 16777216.0 + d2.float() * 65536.0 + d3.float() * 256.0 + corr) * inv
+    x2, x1, x0 = digits
+    d1 = dot(x2, w2)
+    d2 = dot(x2, w1) + dot(x1, w2)
+    d3 = dot(x2, w0) + dot(x1, w1) + dot(x0, w2)
+    return (d1.float() * 4294967296.0 + d2.float() * 16777216.0 + d3.float() * 65536.0) * inv
+
+
 def fused_mel_frontend_reference(
-    audio: torch.Tensor, wri: torch.Tensor, melw: torch.Tensor, *, hop: int, eff_pad: int
+    audio: torch.Tensor, wri: torch.Tensor, melw: torch.Tensor, *, hop: int, eff_pad: int,
+    algorithm: str = "f32", n_samples: int | None = None, sw: torch.Tensor | None = None,
+    corr: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of ``fused_mel_f32``: frame matrix, then matmuls."""
-    bsz, t = audio.shape
-    k = wri.shape[0]
-    bins_pad = wri.shape[1] // 2
+    """Plain PyTorch version of the frontend kernels: frame matrix, then
+    matmuls in the mode's arithmetic. ``wri``/``melw``/``sw``/``corr`` are
+    the mode's :func:`mode_weights` (``wri`` = ``planes`` for i16/i24).
+    Audio as for :func:`fused_mel_frontend`."""
+    bsz = audio.shape[0]
+    k = wri.shape[-2]
+    bins_pad = melw.shape[-2]
+    if audio.ndim == 3:
+        t, flat, left = int(n_samples), dequantize_samples(audio).reshape(bsz, -1), 0
+    else:
+        t, flat, left = audio.shape[1], dequantize_samples(audio), eff_pad
     nf = 1 + t // hop
-    right = max(0, (nf - 1) * hop + k - eff_pad - t)
-    frames = frame_by_slices(tnf.pad(audio, (eff_pad, right)), 0, nf, k, hop)
-    reim = frames @ wri
+    right = max(0, (nf - 1) * hop + k - left - flat.shape[1])
+    frames = frame_by_slices(tnf.pad(flat, (left, right)), 0, nf, k, hop)
+    if algorithm == "f32":
+        reim = frames @ wri
+    elif algorithm == "bf16":
+        reim = _bf16r(frames) @ wri
+    elif algorithm == "x3":
+        reim = _x3_matmul(frames, wri)
+    else:
+        reim = _fixed_point_reim(frames, wri, quant_scales(audio, algorithm, sw), algorithm, corr)
     re, im = reim[..., :bins_pad], reim[..., bins_pad:]
-    mel = (re * re + im * im) @ melw
+    p = re * re + im * im
+    if algorithm == "f32":
+        mel = p @ melw
+    elif algorithm == "bf16":
+        mel = _bf16r(p) @ melw
+    else:
+        mel = _x3_matmul(p, melw)
     n_blocks = -(-nf // BLOCK_FRAMES)
     fmax = tnf.pad(torch.amax(mel, dim=-1), (0, n_blocks * BLOCK_FRAMES - nf))
     bmax = torch.amax(fmax.reshape(bsz, n_blocks, BLOCK_FRAMES), dim=-1)
-    return mel, bmax
+    return (mel.to(torch.bfloat16) if algorithm == "bf16" else mel), bmax
+
+
+def _pack_quads(planes: torch.Tensor) -> torch.Tensor:
+    """int8 [3, K, C] → int32 [3, Kpad/4, C]: four consecutive rows per word
+    (row 4q + i in byte i), K zero-padded to a multiple of 16."""
+    n, k, c = planes.shape
+    kpad = round_up_to_multiple(k, _KC_INT)
+    p = tnf.pad(planes, (0, 0, 0, kpad - k)).reshape(n, kpad // 4, 4, c)
+    return p.permute(0, 1, 3, 2).contiguous().view(torch.int32).reshape(n, kpad // 4, c)
 
 
 def fused_mel_frontend(
@@ -189,43 +452,74 @@ def fused_mel_frontend(
     n_mels: int = 128,
     fmin: float = 100.0,
     fmax: float | None = None,
-    weights: tuple[torch.Tensor, torch.Tensor] | None = None,
+    algorithm: str = "f32",
+    n_samples: int | None = None,
+    weights: dict[str, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(mel [B, nf, n_mels], block_maxes [B, ceil(nf/64)]) for audio [B, T]
-    float32, nf = 1 + T // hop (librosa centered framing, zero pad).
+    """(mel [B, nf, n_mels], block_maxes [B, ceil(nf/64)]), nf = 1 + T // hop
+    (librosa centered framing, zero pad), in the arithmetic of
+    ``algorithm`` ∈ :data:`ALGORITHMS`; mel is bf16 for 'bf16', float32
+    otherwise.
 
-    ``block_maxes[b, j]`` is the max of mel over frames [64j, 64j+64) ∩
-    [0, nf); their max over j is the utterance's peak mel power.
-    ``weights`` = (wri, melw) on the audio's device (a module's buffers);
-    designed from the other arguments when None.
+    ``audio`` is float32 or int16 (dequantized as v·2⁻¹⁵): flat [B, T], or
+    hop rows [B, rows, hop] from :func:`pack_hop_rows` with ``n_samples`` =
+    T. ``block_maxes[b, j]`` is the max of the float32 mel over frames
+    [64j, 64j+64) ∩ [0, nf); their max over j is the utterance's peak mel
+    power. ``weights`` = the mode's :func:`mode_tensors` on the audio's
+    device (a module's buffers); designed from the other arguments when
+    None.
     """
-    if audio.ndim != 2 or audio.dtype != torch.float32:
-        raise ValueError(f"fused_mel_frontend: audio must be float32 [B, T], got {audio.dtype} {tuple(audio.shape)}")
+    t, buf_len, off = _geometry(audio, hop, n_fft, win_length, n_samples)
+    if algorithm not in ALGORITHMS:
+        raise ValueError(f"Unknown algorithm {algorithm!r}; one of {', '.join(ALGORITHMS)}")
     if weights is None:
-        weights = _weights_on(audio, sr, n_fft, win_length, n_mels, fmin, fmax)
-    wri, melw = weights
+        weights = mode_tensors(algorithm, audio.device, sr, n_fft, win_length, n_mels, fmin, fmax)
+    fixed = algorithm in ("i16", "i24")
+    wri, melw = weights["planes" if fixed else "wri"], weights["melw"]
     pad = eff_pad(n_fft, win_length)
     if not route(audio, "fused_mel_frontend"):
-        return fused_mel_frontend_reference(audio, wri, melw, hop=hop, eff_pad=pad)
-    check_cuda("fused_mel_frontend", audio, wri, melw)
-    bsz, t = audio.shape
-    k, two_bins = wri.shape
-    bins_pad, n_mels = melw.shape
+        return fused_mel_frontend_reference(
+            audio, wri, melw, hop=hop, eff_pad=pad, algorithm=algorithm, n_samples=t,
+            sw=weights.get("sw"), corr=weights.get("corr"),
+        )
+    name = f"fused_mel_{algorithm}"
+    if not audio.is_contiguous():
+        raise ValueError(f"{name}: audio must be contiguous")
+    check_cuda(name, melw, *([] if fixed else [wri]))
+    k, two_bins = wri.shape[-2:]
+    bins_pad, n_mels = melw.shape[-2:]
     if two_bins != 2 * bins_pad or bins_pad % _BIN_TILE or n_mels > _MEL_MAX:
         raise ValueError(
-            f"fused_mel_frontend: wri {tuple(wri.shape)} / melw {tuple(melw.shape)} need "
+            f"{name}: weights {tuple(wri.shape)} / melw {tuple(melw.shape)} need "
             f"2·bins_pad columns, bins_pad a multiple of {_BIN_TILE}, n_mels ≤ {_MEL_MAX}"
         )
+    bsz = audio.shape[0]
     nf = 1 + t // hop
-    mel = torch.empty((bsz, nf, n_mels), dtype=torch.float32, device=audio.device)
+    mel_dtype = torch.bfloat16 if algorithm == "bf16" else torch.float32
+    mel = torch.empty((bsz, nf, n_mels), dtype=mel_dtype, device=audio.device)
     bmax = torch.empty((bsz, -(-nf // BLOCK_FRAMES)), dtype=torch.float32, device=audio.device)
-    rc = _lib().fused_mel_f32(
-        audio.data_ptr(), wri.data_ptr(), melw.data_ptr(), mel.data_ptr(), bmax.data_ptr(),
-        bsz, t, k, hop, pad, nf, bins_pad, n_mels,
-        stream_of(audio),
-    )
-    raise_on(rc, "fused_mel_f32")
-    LAUNCHES["fused_mel_f32"] += 1
+    is_i16 = int(audio.dtype == torch.int16)
+    if fixed:
+        if wri.dtype != torch.int8 or wri.shape[0] != 3:
+            raise ValueError(f"{name}: planes must be int8 [3, K, 2·bins_pad], got {wri.dtype} {tuple(wri.shape)}")
+        sc = quant_scales(audio, algorithm, weights["sw"])
+        corr = weights["corr"] if algorithm == "i16" else torch.zeros(two_bins, device=audio.device)
+        check_cuda(name, sc, corr)
+        quads = _pack_quads(wri)
+        rc = getattr(_lib(), name)(
+            audio.data_ptr(), is_i16, quads.data_ptr(), sc.data_ptr(), corr.data_ptr(), melw.data_ptr(),
+            mel.data_ptr(), bmax.data_ptr(),
+            bsz, buf_len, k, quads.shape[1], hop, off, nf, bins_pad, n_mels,
+            stream_of(audio),
+        )
+    else:
+        rc = getattr(_lib(), name)(
+            audio.data_ptr(), is_i16, wri.data_ptr(), melw.data_ptr(), mel.data_ptr(), bmax.data_ptr(),
+            bsz, buf_len, k, hop, off, nf, bins_pad, n_mels,
+            stream_of(audio),
+        )
+    raise_on(rc, name)
+    LAUNCHES[name] += 1
     return mel, bmax
 
 
@@ -238,7 +532,7 @@ def mfcc_tail_reference(
     mel: torch.Tensor, peak: torch.Tensor, dct: torch.Tensor, *, transposed: bool = False
 ) -> torch.Tensor:
     """Plain PyTorch version of ``mfcc_tail_f32``."""
-    db = 10.0 * torch.log10(torch.clamp(mel, min=1e-10))
+    db = 10.0 * torch.log10(torch.clamp(mel.float(), min=1e-10))
     db = torch.maximum(db, (peak - 80.0)[:, None, None])
     out = db @ dct
     return out.transpose(-1, -2).contiguous() if transposed else out
@@ -252,10 +546,11 @@ def mfcc_tail(
     transposed: bool = False,
     dct: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """dB/clip/DCT over mel [B, nf, n_mels] with per-utterance dB peaks [B]
-    (librosa power_to_db top_db=80 + DCT-II ortho): [B, nf, n_mfcc], or
-    coef-major [B, n_mfcc, nf] with ``transposed=True``. ``dct`` is the
-    [n_mels, n_mfcc] matrix on mel's device (designed when None)."""
+    """dB/clip/DCT over mel [B, nf, n_mels] (float32 or bf16) with
+    per-utterance dB peaks [B] (librosa power_to_db top_db=80 + DCT-II
+    ortho): [B, nf, n_mfcc], or coef-major [B, n_mfcc, nf] with
+    ``transposed=True``. ``dct`` is the [n_mels, n_mfcc] matrix on mel's
+    device (designed when None)."""
     bsz, nf, n_mels = mel.shape
     if dct is None:
         dct = torch.as_tensor(tail_dct(n_mfcc, n_mels), dtype=torch.float32, device=mel.device)
@@ -263,13 +558,15 @@ def mfcc_tail(
         raise ValueError(f"mfcc_tail: dct {tuple(dct.shape)} != {(n_mels, n_mfcc)}")
     if not route(mel, "mfcc_tail"):
         return mfcc_tail_reference(mel, peak, dct, transposed=transposed)
-    check_cuda("mfcc_tail", mel, peak, dct)
+    if mel.dtype not in (torch.float32, torch.bfloat16) or not mel.is_contiguous():
+        raise ValueError(f"mfcc_tail: mel must be a contiguous float32 or bf16 tensor, got {mel.dtype}")
+    check_cuda("mfcc_tail", peak, dct)
     if peak.shape != (bsz,) or n_mfcc > _MFCC_MAX:
         raise ValueError(f"mfcc_tail: peak {tuple(peak.shape)} != ({bsz},) or n_mfcc > {_MFCC_MAX}")
     shape = (bsz, n_mfcc, nf) if transposed else (bsz, nf, n_mfcc)
     out = torch.empty(shape, dtype=torch.float32, device=mel.device)
     rc = _lib().mfcc_tail_f32(
-        mel.data_ptr(), peak.data_ptr(), dct.data_ptr(), out.data_ptr(),
+        mel.data_ptr(), int(mel.dtype == torch.bfloat16), peak.data_ptr(), dct.data_ptr(), out.data_ptr(),
         bsz, nf, n_mels, n_mfcc, int(transposed),
         stream_of(mel),
     )
@@ -279,7 +576,7 @@ def mfcc_tail(
 
 
 # ---------------------------------------------------------------------------
-# Both kernels
+# Frontend and tail together
 # ---------------------------------------------------------------------------
 
 
@@ -296,32 +593,36 @@ def fused_mfcc(
     fmax: float | None = None,
     frame_mask: torch.Tensor | None = None,
     transposed: bool = False,
-    weights: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
+    algorithm: str = "f32",
+    n_samples: int | None = None,
+    weights: dict[str, torch.Tensor] | None = None,
+    dct: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """MFCC [B, nf, n_mfcc] of float32 audio [B, T] (or [T]) via the fused
-    kernels, or coef-major [B, n_mfcc, nf] with ``transposed=True``.
+    """MFCC [B, nf, n_mfcc] of audio [B, T] (or [T], or hop rows with
+    ``n_samples``, float32 or int16) via the fused kernels, or coef-major
+    [B, n_mfcc, nf] with ``transposed=True``.
 
     librosa semantics (power=2, power_to_db top_db=80, DCT-II ortho), the
     contract of ops/spectral.mfcc_from_frames. The top_db peak comes from
     the kernel's block maxes, or, with ``frame_mask`` [B, nf] (1 = valid),
-    from one masked reduction over mel. ``weights`` = (wri, melw, dct) on
-    the audio's device; designed from the other arguments when None.
+    from one masked reduction over mel. ``weights`` (the mode's
+    :func:`mode_tensors`) and ``dct`` on the audio's device; designed from
+    the other arguments when None.
     """
     single = audio.ndim == 1
     if single:
         audio = audio[None, :]
     if weights is None:
-        wri, melw = _weights_on(audio, sr, n_fft, win_length, n_mels, fmin, fmax)
+        weights = mode_tensors(algorithm, audio.device, sr, n_fft, win_length, n_mels, fmin, fmax)
+    if dct is None:
         dct = torch.as_tensor(tail_dct(n_mfcc, n_mels), dtype=torch.float32, device=audio.device)
-    else:
-        wri, melw, dct = weights
     mel, bmax = fused_mel_frontend(
-        audio, sr=sr, n_fft=n_fft, hop=hop, win_length=win_length,
-        weights=(wri, melw),
+        audio, sr=sr, n_fft=n_fft, hop=hop, win_length=win_length, algorithm=algorithm,
+        n_samples=n_samples, weights=weights,
     )
     if frame_mask is not None:
         valid = frame_mask[..., : mel.shape[1], None] > 0
-        pmax = torch.amax(torch.where(valid, mel, torch.zeros_like(mel)), dim=(1, 2))
+        pmax = torch.amax(torch.where(valid, mel.float(), 0.0), dim=(1, 2))
     else:
         pmax = torch.amax(bmax, dim=1)
     peak = 10.0 * torch.log10(torch.clamp(pmax, min=1e-10))

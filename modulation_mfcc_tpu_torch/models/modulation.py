@@ -9,23 +9,31 @@ Goldstein-2019 formulation):
 
 The MFCC stage runs through the fused CUDA kernels by default
 (``spectrum='fused'``, the counterpart of the JAX package's 'pallas' f32
-mode); 'fft' and 'matmul' are the plain torch spectra. The trajectory stage
-is the probed FIR operator as matmuls. :class:`MfccChange` holds every
-designed constant as a buffer and moves with ``.to(device)``; the functional
-entry points build one for the input's device.
+mode; 'fused_bf16', 'fused_x3', 'fused_i16' and 'fused_i24' are its
+'pallas_bf16', 'pallas_x3', 'pallas_i16' and 'pallas_i24' modes); 'fft'
+and 'matmul' are the plain torch spectra. The fused spectra also take int16
+audio and hop rows [B, rows, hop] with ``n_samples`` (the corpus sweep's
+upload format). The trajectory stage is the probed FIR operator as
+matmuls, or for padded batches the length-masked filters; it runs in
+float32 in every mode (the JAX package's bf16 filter precision is a TPU
+speed choice). :class:`MfccChange` holds every designed constant as a
+buffer and moves with ``.to(device)``; the functional entry points use one
+per configuration and device.
 """
 from __future__ import annotations
+
+from functools import lru_cache
 
 import numpy as np
 import scipy.signal as sps
 import torch
 
-from modulation_mfcc_tpu_torch.kernels.fused_frontend import frontend_weights, fused_mfcc, tail_dct
+from modulation_mfcc_tpu_torch.kernels.fused_frontend import fused_mfcc, mode_weights, tail_dct
 from modulation_mfcc_tpu_torch.models.config import MfccConfig
 from modulation_mfcc_tpu_torch.ops import filters as F
 from modulation_mfcc_tpu_torch.ops.derivatives import np_gradient
 from modulation_mfcc_tpu_torch.ops.framing import frame_signal, frame_times_mfcc, n_frames_centered
-from modulation_mfcc_tpu_torch.ops.masked import masked_gradient, masked_sosfiltfilt_fir
+from modulation_mfcc_tpu_torch.ops.masked import masked_gradient, masked_sosfiltfilt, masked_sosfiltfilt_fir
 from modulation_mfcc_tpu_torch.ops.spectral import mfcc_from_frames
 from modulation_mfcc_tpu_torch.utils.helpers import resolve_device
 
@@ -34,7 +42,9 @@ __all__ = [
     "min_frames_for_fir", "extract_mfcc_change", "extract_mfcc_matrix",
 ]
 
-SPECTRA = ("fused", "fft", "matmul")
+# fused spectrum → frontend algorithm (kernels/fused_frontend.py)
+FUSED = {"fused": "f32", "fused_bf16": "bf16", "fused_x3": "x3", "fused_i16": "i16", "fused_i24": "i24"}
+SPECTRA = (*FUSED, "fft", "matmul")
 
 
 def _traj_design(cfg: MfccConfig) -> tuple:
@@ -60,7 +70,9 @@ class MfccChange(torch.nn.Module):
     """The flagship pipeline with its designed constants as buffers:
 
     * ``wri`` [K, 2·bins_pad], ``melw`` [bins_pad, n_mels]: packed windowed
-      real-DFT bases and mel matrix of the fused frontend;
+      real-DFT bases and mel matrix of the fused frontend (f32 mode); the
+      other modes' constants (kernels/fused_frontend.mode_weights) ride
+      along as non-persistent buffers ``<mode>_<name>``;
     * ``dct`` [n_mels, n_mfcc]: DCT-II ortho of the MFCC tail;
     * ``traj_filter`` / ``out_filter``: the two zero-phase low-passes, each
       with its probed FIR operator (``kernel``, ``left``, ``right``).
@@ -69,15 +81,24 @@ class MfccChange(torch.nn.Module):
     def __init__(self, cfg: MfccConfig = MfccConfig()):
         super().__init__()
         self.cfg = cfg
-        wri, melw = frontend_weights(
-            cfg.signal_sample_rate, cfg.n_fft, cfg.win_length, cfg.n_mels, cfg.minFreq, cfg.maxFreq
-        )
-        self.register_buffer("wri", torch.tensor(wri))
-        self.register_buffer("melw", torch.tensor(melw))
+        design = (cfg.signal_sample_rate, cfg.n_fft, cfg.win_length, cfg.n_mels, cfg.minFreq, cfg.maxFreq)
+        for alg in FUSED.values():
+            for name, arr in mode_weights(alg, *design).items():
+                if alg == "f32":
+                    self.register_buffer(name, torch.tensor(arr))
+                else:
+                    self.register_buffer(f"{alg}_{name}", torch.tensor(arr), persistent=False)
         self.register_buffer("dct", torch.tensor(tail_dct(cfg.n_mfcc, cfg.n_mels)))
         self.traj_filter = F.FiltFilt(*_traj_design(cfg))
         out = _out_design(cfg)
         self.out_filter = None if out is None else F.FiltFilt(*out)
+
+    def frontend_weights(self, algorithm: str) -> dict[str, torch.Tensor]:
+        """The buffers of one frontend mode, keyed as mode_weights keys them."""
+        if algorithm == "f32":
+            return {"wri": self.wri, "melw": self.melw}
+        prefix = f"{algorithm}_"
+        return {k[len(prefix):]: v for k, v in self.named_buffers() if k.startswith(prefix)}
 
     def trajectories(
         self,
@@ -86,19 +107,26 @@ class MfccChange(torch.nn.Module):
         frame_mask: torch.Tensor | None = None,
         spectrum: str = "fused",
         coef_major: bool = False,
+        n_samples: int | None = None,
     ) -> torch.Tensor:
         """MFCC matrix [..., n_frames, n_mfcc] (librosa semantics), or
         [..., n_mfcc, n_frames] with ``coef_major=True``. ``frame_mask``
-        [..., n_frames] (1 = valid) keeps padding out of the top_db peak."""
+        [..., n_frames] (1 = valid) keeps padding out of the top_db peak.
+        The fused spectra also take int16 audio and hop rows [B, rows, hop]
+        with ``n_samples``."""
         cfg = self.cfg
         if spectrum not in SPECTRA:
             raise ValueError(f"Unknown spectrum {spectrum!r}; one of {', '.join(SPECTRA)}")
-        if spectrum == "fused":
+        if spectrum in FUSED:
+            alg = FUSED[spectrum]
             return fused_mfcc(
                 y, sr=cfg.signal_sample_rate, n_fft=cfg.n_fft, hop=cfg.hop_length,
-                win_length=cfg.win_length, frame_mask=frame_mask, transposed=coef_major,
-                weights=(self.wri, self.melw, self.dct),
+                win_length=cfg.win_length, n_mels=cfg.n_mels, frame_mask=frame_mask,
+                transposed=coef_major, algorithm=alg, n_samples=n_samples,
+                weights=self.frontend_weights(alg), dct=self.dct,
             )
+        if y.ndim == 3 or not y.is_floating_point():
+            raise ValueError("hop rows and int16 audio need a fused spectrum; fft/matmul take float [..., T]")
         m = mfcc_from_frames(
             frame_signal(y, cfg.n_fft, cfg.hop_length),
             sr=cfg.signal_sample_rate,
@@ -120,14 +148,18 @@ class MfccChange(torch.nn.Module):
         frame_lengths: torch.Tensor | None = None,
         spectrum: str = "fused",
         masked_fir: bool = False,
+        n_samples: int | None = None,
     ) -> torch.Tensor:
-        """Total MFCC change over time, [..., n_frames], of audio [..., T].
+        """Total MFCC change over time, [..., n_frames], of audio [..., T]
+        (or hop rows [B, rows, hop] with ``n_samples``).
 
         For padded batches [B, T] pass ``frame_lengths`` [B] (valid frames per
-        utterance) with ``masked_fir=True``: the top_db peak, filter edges and
-        gradient edges are then anchored at each utterance's length, so each
-        output equals its single-file result on valid frames (zeros beyond).
-        Every length must be at least :func:`min_frames_for_fir`.
+        utterance): the top_db peak, filter edges and gradient edges are then
+        anchored at each utterance's length, so each output equals its
+        single-file result on valid frames (zeros beyond). ``masked_fir=True``
+        takes the FIR-operator filters, which need every length to be at
+        least :func:`min_frames_for_fir`; ``False`` the scan filters, which
+        take any length.
         """
         cfg = self.cfg
         if cfg.diffMethod != "grad":
@@ -140,20 +172,16 @@ class MfccChange(torch.nn.Module):
             )
         frame_mask = None
         if frame_lengths is not None:
-            if not masked_fir:
-                raise NotImplementedError(
-                    "masked filters need masked_fir=True; the scan-based masked "
-                    "filters are not ported yet (ROADMAP A.7)"
-                )
-            if self.traj_filter.min_len is None or self.out_filter.min_len is None:
+            if masked_fir and (self.traj_filter.min_len is None or self.out_filter.min_len is None):
                 raise ValueError("masked_fir=True needs FIR operators for both filters")
-            nf = n_frames_centered(y.shape[-1], cfg.n_fft, cfg.hop_length)
+            t = int(n_samples) if y.ndim == 3 else y.shape[-1]
+            nf = n_frames_centered(t, cfg.n_fft, cfg.hop_length)
             frame_lengths = torch.as_tensor(frame_lengths, device=y.device)
             frame_mask = (
                 torch.arange(nf, device=y.device)[None, :] < frame_lengths[:, None]
-            ).to(y.dtype)
+            ).to(torch.float32)
         # coef-major trajectories, so the filters run along the last (time) axis
-        m = self.trajectories(y, frame_mask=frame_mask, spectrum=spectrum, coef_major=True)
+        m = self.trajectories(y, frame_mask=frame_mask, spectrum=spectrum, coef_major=True, n_samples=n_samples)
         if cfg.removeFirst:
             m = m[..., 1:, :]
         n_coef = m.shape[-2]
@@ -161,12 +189,26 @@ class MfccChange(torch.nn.Module):
             diff = np_gradient(self.traj_filter(m))
         else:
             lengths = frame_lengths[:, None]
-            filt = masked_sosfiltfilt_fir(self.traj_filter, m, lengths)
+            filt = self._masked_filter(self.traj_filter, m, lengths, masked_fir)
             diff = masked_gradient(filt, lengths)
         tot = torch.sqrt(torch.sum(diff * diff, dim=-2)) / n_coef
         if frame_lengths is None:
             return self.out_filter(tot)
-        return masked_sosfiltfilt_fir(self.out_filter, tot, frame_lengths)
+        return self._masked_filter(self.out_filter, tot, frame_lengths, masked_fir)
+
+    @staticmethod
+    def _masked_filter(filt: F.FiltFilt, x: torch.Tensor, lengths: torch.Tensor, fir: bool) -> torch.Tensor:
+        if fir:
+            return masked_sosfiltfilt_fir(filt, x, lengths)
+        # the scan is a loop of small launches, bound by their count: float64
+        # costs nothing there and keeps the recursion's rounding out of the result
+        return masked_sosfiltfilt(filt.sos, filt.zi, filt.padlen, x.double(), lengths).to(x.dtype)
+
+
+@lru_cache(maxsize=8)
+def _model(cfg: MfccConfig, device: torch.device) -> MfccChange:
+    """One :class:`MfccChange` per configuration and device."""
+    return MfccChange(cfg).to(device)
 
 
 def mfcc_trajectories(
@@ -176,11 +218,12 @@ def mfcc_trajectories(
     frame_mask: torch.Tensor | None = None,
     spectrum: str = "fused",
     coef_major: bool = False,
+    n_samples: int | None = None,
 ) -> torch.Tensor:
     """MFCC matrix [..., n_frames, n_mfcc] of audio [..., T] (see
     :meth:`MfccChange.trajectories`), computed on ``y``'s device."""
-    return MfccChange(cfg).to(y.device).trajectories(
-        y, frame_mask=frame_mask, spectrum=spectrum, coef_major=coef_major
+    return _model(cfg, y.device).trajectories(
+        y, frame_mask=frame_mask, spectrum=spectrum, coef_major=coef_major, n_samples=n_samples
     )
 
 
@@ -191,11 +234,12 @@ def mfcc_change(
     frame_lengths: torch.Tensor | None = None,
     spectrum: str = "fused",
     masked_fir: bool = False,
+    n_samples: int | None = None,
 ) -> torch.Tensor:
     """Total MFCC change over time, [..., n_frames] (see
     :meth:`MfccChange.forward`), computed on ``y``'s device."""
-    return MfccChange(cfg).to(y.device)(
-        y, frame_lengths=frame_lengths, spectrum=spectrum, masked_fir=masked_fir
+    return _model(cfg, y.device)(
+        y, frame_lengths=frame_lengths, spectrum=spectrum, masked_fir=masked_fir, n_samples=n_samples
     )
 
 
@@ -267,11 +311,12 @@ def extract_mfcc_change(
     """User-facing: (tot_change tensor, times ndarray) for one utterance [T]
     or a batch [B, T]; the reference's Mfcc DataSource (script/main.py:726-770).
 
-    Computes on ``device`` (default: ``y``'s own if it is a tensor, else the
-    CPU). One utterance runs at its exact length: through the masked FIR
-    filters when it has at least :func:`min_frames_for_fir` frames, else the
-    MFCC stage on the device and the 200 Hz filter tail on the host with
-    scipy (exact by construction). Long recordings run whole-file.
+    Computes on ``device`` (default: ``y``'s own if it is a tensor, else
+    CUDA; ``device="cpu"`` for the CPU). One utterance runs at its exact
+    length: through the masked FIR filters when it has at least
+    :func:`min_frames_for_fir` frames, else the MFCC stage on the device
+    and the 200 Hz filter tail on the host with scipy (exact by
+    construction). Long recordings run whole-file.
     """
     device = resolve_device(device, y)
     y = torch.as_tensor(y, dtype=torch.float32, device=device)
@@ -285,7 +330,9 @@ def extract_mfcc_change(
         fl = torch.tensor([nf_valid], device=device)
         tot = mfcc_change(y[None], cfg, frame_lengths=fl, spectrum=spectrum, masked_fir=True)
         return tot[0], t
-    m = mfcc_trajectories(y[None], cfg, spectrum=spectrum)
+    # the peak over the valid frames' stored mel, as the masked routes take it
+    # (the bf16 mode stores a rounded mel)
+    m = mfcc_trajectories(y[None], cfg, spectrum=spectrum, frame_mask=torch.ones((1, nf_valid), device=device))
     tot = _host_trajectory_tail(m[0].double().cpu().numpy(), cfg)
     return torch.tensor(np.ascontiguousarray(tot), dtype=torch.float32, device=device), t
 
@@ -301,4 +348,5 @@ def extract_mfcc_matrix(
     a batch), on ``device`` as in :func:`extract_mfcc_change`."""
     device = resolve_device(device, y)
     y = torch.as_tensor(y, dtype=torch.float32, device=device)
-    return change_times(y.shape[-1], cfg), mfcc_trajectories(y, cfg, spectrum=spectrum)
+    mask = torch.ones((1, 1 + y.shape[-1] // cfg.hop_length), device=device) if y.ndim == 1 else None
+    return change_times(y.shape[-1], cfg), mfcc_trajectories(y, cfg, spectrum=spectrum, frame_mask=mask)

@@ -15,9 +15,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as tnf
 
-from modulation_mfcc_tpu_torch.ops.filters import _as, _conv_valid_lastaxis
+import numpy as np
 
-__all__ = ["masked_sosfiltfilt_fir", "masked_gradient"]
+from modulation_mfcc_tpu_torch.ops.filters import _as, _conv_valid_lastaxis, sosfilt
+
+__all__ = ["masked_odd_ext", "masked_reverse", "masked_sosfiltfilt", "masked_sosfiltfilt_fir", "masked_gradient"]
 
 
 def _shift_clamped(x: torch.Tensor, s: int) -> torch.Tensor:
@@ -42,6 +44,64 @@ def _dyn_window(x: torch.Tensor, start: torch.Tensor, out_len: int) -> torch.Ten
     inside = (idx >= 0) & (idx < t)
     w = torch.gather(x, -1, idx.clamp(0, t - 1))
     return torch.where(inside, w, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _rev_window(x: torch.Tensor, c: torch.Tensor, out_len: int) -> torch.Tensor:
+    """r[..., j] = x[..., c - j] for j in [0, out_len); zero outside [0, t)."""
+    t = x.shape[-1]
+    return _dyn_window(torch.flip(x, dims=(-1,)), t - 1 - c, out_len)
+
+
+def masked_odd_ext(x: torch.Tensor, length: torch.Tensor, padlen: int) -> torch.Tensor:
+    """Odd extension around [0, length) inside a static buffer: [..., T +
+    2·padlen] whose first ``length + 2·padlen`` entries equal scipy's
+    odd_ext of x[..., :length], zeros after. Assumes ``padlen < length``
+    (scipy's own filtfilt rejects shorter inputs)."""
+    t = x.shape[-1]
+    out_t = t + 2 * padlen
+    j = torch.arange(out_t, device=x.device) - padlen
+    L = torch.as_tensor(length, device=x.device)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    if padlen == 0:
+        return torch.where(j < L[..., None], x, zero)
+    xe = _dyn_window(x, torch.clamp(L - 1, 0, t - 1), 1)
+    npad = min(padlen, t - 1)
+    lcore = torch.flip(x[..., 1 : npad + 1], dims=(-1,))
+    if npad < padlen:  # degenerate tiny buffer: clamp at the buffer's edge
+        lcore = torch.cat([x[..., -1:].expand(*x.shape[:-1], padlen - npad), lcore], dim=-1)
+    left = 2.0 * x[..., :1] - tnf.pad(lcore, (0, out_t - padlen))
+    mid = tnf.pad(x, (padlen, padlen))
+    right = 2.0 * xe - _rev_window(x, 2 * L - 2 + padlen, out_t)
+    Lj = L[..., None]
+    vals = torch.where(j < 0, left, torch.where(j < Lj, mid, right))
+    return torch.where(j < Lj + padlen, vals, zero)
+
+
+def masked_reverse(y: torch.Tensor, ext_len: torch.Tensor) -> torch.Tensor:
+    """Reverse the valid prefix [0, ext_len) of y along the last axis (zeros
+    beyond it)."""
+    return _rev_window(y, torch.as_tensor(ext_len, device=y.device) - 1, y.shape[-1])
+
+
+def masked_sosfiltfilt(
+    sos: np.ndarray, zi: np.ndarray, padlen: int, x: torch.Tensor, length: torch.Tensor
+) -> torch.Tensor:
+    """scipy.signal.sosfiltfilt of x[..., :length] inside the static buffer
+    [..., T], for any length above ``padlen``: odd extension at the true end,
+    causal forward pass, reversal of the valid prefix, second pass, reversal.
+    Causality keeps the junk beyond each prefix out of the valid samples;
+    output positions >= length are zero."""
+    t = x.shape[-1]
+    L = torch.as_tensor(length, device=x.device)
+    ext = masked_odd_ext(x, L, padlen)
+    zi_c = _as(zi, x).reshape((zi.shape[0],) + (1,) * (x.ndim - 1) + (2,))
+    y = sosfilt(sos, ext, zi=zi_c * ext[..., :1])
+    ext_len = L + 2 * padlen
+    yr = masked_reverse(y, ext_len)
+    y2 = sosfilt(sos, yr, zi=zi_c * yr[..., :1])
+    out = masked_reverse(y2, ext_len)[..., padlen : padlen + t]
+    i = torch.arange(t, device=x.device)
+    return torch.where(i < L[..., None], out, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def masked_sosfiltfilt_fir(design, x: torch.Tensor, length: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,7 @@
-"""Padded batches of variable-length audio."""
+"""Padded batches of variable-length audio and the batched modulation
+cepstrum: one padded [B, T] batch (or hop rows [B, rows, hop], the corpus
+sweep's upload format) in, each utterance's result on its valid frames out,
+equal to its single-file result there."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -6,14 +9,18 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from modulation_mfcc_tpu_torch.utils.helpers import resolve_device, round_up_to_multiple
+from modulation_mfcc_tpu_torch.models.config import MfccConfig
+from modulation_mfcc_tpu_torch.models.modulation import mfcc_change
+from modulation_mfcc_tpu_torch.ops.framing import n_frames_centered
+from modulation_mfcc_tpu_torch.utils.helpers import dequantize_samples, resolve_device, round_up_to_multiple
 
-__all__ = ["AudioBatch", "pad_batch"]
+__all__ = ["AudioBatch", "pad_batch", "dequantize_samples", "frame_validity_mask", "batched_mfcc_change"]
 
 
 @dataclass
 class AudioBatch:
-    """A padded batch of utterances: samples [B, T_pad], lengths [B]."""
+    """A padded batch of utterances: samples [B, T_pad] (or hop rows
+    [B, rows, hop]), lengths [B]."""
 
     samples: torch.Tensor
     lengths: torch.Tensor
@@ -35,3 +42,56 @@ def pad_batch(signals: list[np.ndarray], *, bucket_multiple: int = 2048, dtype=n
     for i, s in enumerate(signals):
         out[i, : len(s)] = s
     return AudioBatch(torch.as_tensor(out, device=device), torch.as_tensor(lengths, device=device))
+
+
+def frame_validity_mask(lengths: torch.Tensor, t_pad: int, cfg: MfccConfig) -> torch.Tensor:
+    """[B, n_frames] 1.0 where the frame index is a real frame of the
+    unpadded signal (librosa frame count: 1 + len//hop for centered STFT)."""
+    nf_pad = n_frames_centered(t_pad, cfg.n_fft, cfg.hop_length)
+    nf_real = 1 + lengths // cfg.hop_length
+    fidx = torch.arange(nf_pad, device=lengths.device)[None, :]
+    return (fidx < nf_real[:, None]).to(torch.float32)
+
+
+def batched_mfcc_change(
+    batch: AudioBatch,
+    cfg: MfccConfig,
+    *,
+    spectrum: str = "fused",
+    uniform_lengths: bool = False,
+    masked_fir: bool = False,
+    n_samples: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Masked batched modulation cepstrum: (tot_change [B, NF], frame_mask
+    [B, NF]), each utterance equal to its single-file result on its valid
+    frames (the filter and gradient edges are anchored at each length,
+    ops/masked.py).
+
+    ``masked_fir=True`` takes the FIR-operator filters, valid when every
+    utterance has at least ``min_frames_for_fir`` frames; ``False`` the scan
+    filters, for any length. ``uniform_lengths=True`` asserts that every
+    utterance fills the batch and skips the masked edges.
+
+    Samples are float32 or int16 (dequantized as v·2⁻¹⁵, exact). 3-D
+    samples are hop rows [B, rows, hop] (``n_samples`` = the batch's padded
+    sample count then required; fused spectra only): int16 rows go straight
+    into the fused kernel, which dequantizes while it stages them.
+    """
+    if batch.samples.ndim == 3:
+        if n_samples is None:
+            raise ValueError("hop-rows batch requires n_samples")
+        samples = batch.samples
+        t_pad = int(n_samples)
+    else:
+        samples = batch.samples if spectrum.startswith("fused") else dequantize_samples(batch.samples)
+        t_pad = samples.shape[-1]
+        n_samples = None
+    lengths = torch.as_tensor(batch.lengths, device=samples.device)
+    mask = frame_validity_mask(lengths, t_pad, cfg)
+    if uniform_lengths:
+        return mfcc_change(samples, cfg, spectrum=spectrum, n_samples=n_samples), mask
+    nf_real = 1 + lengths // cfg.hop_length
+    tot = mfcc_change(
+        samples, cfg, frame_lengths=nf_real, spectrum=spectrum, masked_fir=masked_fir, n_samples=n_samples,
+    )
+    return tot, mask

@@ -30,6 +30,14 @@ def pad_center(data: np.ndarray, size: int, axis: int = -1) -> np.ndarray:
     return np.pad(data, lengths, mode="constant")
 
 
+def dequantize_samples(samples: torch.Tensor) -> torch.Tensor:
+    """int16 PCM → float32 as v·2⁻¹⁵ (exact for every int16); floats pass
+    through unchanged."""
+    if samples.is_floating_point():
+        return samples
+    return samples.to(torch.float32) * 2.0**-15
+
+
 def resolve_device(device, like=None) -> torch.device:
     """The device a public function computes on: ``device`` when given, else
     the device of tensor ``like``, else the first CUDA device. Passing

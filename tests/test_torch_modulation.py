@@ -152,14 +152,21 @@ def test_params_from_jax_whole_slice(noise, name):
         assert torch.equal(carried(y, **kw), own(y, **kw))
 
 
-def test_unported_options_raise(noise):
+def test_unported_options_raise(noise, tmp_path):
+    """Savitzky-Golay (A.5), the device 'fir' out-filter (A.6) and the sweep's
+    native loader (A.16) raise; the scan-based masked filters (A.7) are
+    ported, so frame_lengths without masked_fir now runs."""
+    from modulation_mfcc_tpu_torch.parallel.corpus import CorpusSweep, sweep_mfcc_change
+
     y = torch.tensor(noise)
     with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
         mfcc_change(y, MfccConfig(diffMethod="sg"))
     with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
         mfcc_change(y, MfccConfig(outFilter="fir", outFiltLen=31))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        mfcc_change(y, MfccConfig(), frame_lengths=torch.tensor([801, 801]))
+    with pytest.raises(NotImplementedError, match="ROADMAP A.16"):
+        sweep_mfcc_change([], CorpusSweep(str(tmp_path), use_native_loader=True, device="cpu"))
+    tot = mfcc_change(y, MfccConfig(), frame_lengths=torch.tensor([801, 801]))
+    np.testing.assert_allclose(tot.numpy(), mfcc_change(y, MfccConfig()).numpy(), rtol=0, atol=1e-5)
 
 
 def test_host_tail_route_runs_every_out_filter():

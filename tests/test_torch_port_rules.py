@@ -29,7 +29,8 @@ def _run(code: str, **env) -> subprocess.CompletedProcess:
 
 def test_port_runs_without_jax():
     """With jax made unimportable, the port imports and runs mfcc_change,
-    pitch_ac, pyin_f0 and lpc_formants."""
+    pitch_ac, pyin_f0, lpc_formants and batched_mfcc_change ('fused_i16'
+    on int16 hop rows)."""
     proc = _run(
         "import sys; sys.modules['jax'] = None\n"
         "import numpy as np, torch\n"
@@ -46,6 +47,13 @@ def test_port_runs_without_jax():
         "assert f0.shape == (1, 151) and bool(torch.isfinite(f0).all())\n"
         "freqs, bw = lpc_formants(y[:, :11000], sr=11000.0)\n"
         "assert freqs.shape == (1, 191, 5)\n"
+        "from modulation_mfcc_tpu_torch.kernels.fused_frontend import pack_hop_rows\n"
+        "from modulation_mfcc_tpu_torch.parallel.batch import batched_mfcc_change\n"
+        "pcm = (y * 3000).to(torch.int16).repeat(2, 1)\n"
+        "rows = torch.tensor(pack_hop_rows(pcm.numpy(), hop=50, win_length=250))\n"
+        "tot, mask = batched_mfcc_change(mt.AudioBatch(rows, torch.tensor([40000, 30000])), mt.MfccConfig(),\n"
+        "                                spectrum='fused_i16', n_samples=40000)\n"
+        "assert tot.shape == (2, 801) and bool(torch.isfinite(tot).all()) and not bool(tot[1, 601:].any())\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib', 'modulation_mfcc_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"
@@ -67,12 +75,15 @@ def test_kernel_module_imports_without_nvcc_or_triton():
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
-def test_cuda_request_without_cuda_raises():
+def test_cuda_request_without_cuda_raises(tmp_path):
     """CUDA is the default device of every entry point given non-tensor
     input: asking for it, or leaving the default, raises where CUDA is
     missing; only device="cpu" (or a CPU tensor) computes on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA; the rule concerns machines without it")
+    from modulation_mfcc_tpu_torch.parallel.corpus import CorpusSweep, sweep_mfcc_change
+    from modulation_mfcc_tpu_torch.parallel.prefetch import prefetch_to_device
+
     y = np.zeros(16_000, np.float32)
     calls = {
         "extract_mfcc_change": lambda **kw: mt.extract_mfcc_change(y, **kw),
@@ -83,6 +94,9 @@ def test_cuda_request_without_cuda_raises():
         "extract_formants": lambda **kw: mt.extract_formants(y, 16_000, **kw),
         "formants_with_gating": lambda **kw: mt.formants_with_gating(y, 16_000, **kw),
         "pad_batch": lambda **kw: mt.pad_batch([y], **kw),
+        "extract_mfcc_change fused_i16": lambda **kw: mt.extract_mfcc_change(y, spectrum="fused_i16", **kw),
+        "sweep_mfcc_change": lambda **kw: sweep_mfcc_change([], CorpusSweep(str(tmp_path), **kw)),
+        "prefetch_to_device": lambda **kw: list(prefetch_to_device(iter([{"a": y}]), **kw)),
     }
     for call in calls.values():
         for kw in ({"device": "cuda"}, {}):
@@ -120,13 +134,24 @@ def test_wrappers_raise_on_devices_without_a_kernel():
         viterbi.viterbi_backtrace(log_obs[:, 1:], delta0, log_tri, -0.01, -4.6)
     with pytest.raises(ValueError, match="no kernel"):
         mt.pyin_f0(torch.empty((1, 4000), device="meta"), sr=10_000.0)
+    rows = torch.empty((1, 1040, 80), dtype=torch.int16, device="meta")
+    for alg in ("f32", "bf16", "x3", "i16", "i24"):
+        for x, n in ((audio, None), (audio.to(torch.int16), None), (rows, 4000)):
+            with pytest.raises(ValueError, match="no kernel"):
+                ff.fused_mel_frontend(x, sr=16_000, hop=80, win_length=400, fmax=8000.0, algorithm=alg, n_samples=n)
+    with pytest.raises(ValueError, match="no kernel"):
+        ff.mfcc_tail(mel.to(torch.bfloat16), torch.empty(1, device="meta"), 13)
+    with pytest.raises(ValueError, match="no kernel"):
+        mt.mfcc_change(rows, mt.MfccConfig(signal_sample_rate=16_000, maxFreq=8000.0), spectrum="fused_i16",
+                       n_samples=4000)
 
 
 def test_build_is_true_fp32_for_sm90a():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
-    assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == ["burg.cu", "fused_frontend.cu", "sinc_refine.cu", "viterbi.cu"]
+    assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
+        "burg.cu", "fused_frontend.cu", "fused_frontend_int.cu", "sinc_refine.cu", "viterbi.cu"]
     assert _build.library_path().parent == _build.BUILD_DIR
     assert "modulation_mfcc_tpu_torch/_build/" in (REPO / ".gitignore").read_text()
 
