@@ -53,6 +53,22 @@ Phases:
  17  frontend-mode times: the four kernels beside their plain versions at
      128 × 30 s on int16 rows, mfcc_change end to end per spectrum, peak
      memory
+ 18  fold kernels (fused_mel_fold_f32, _bf16, _x3) vs plain versions on the
+     card, 4 × 30 s at both configurations; the f32 fold vs fused_mel_f32
+ 19  the fold path at full size: fused_mel_frontend(fold=True) → peak →
+     mfcc_tail on 128 × 30 s at 16 kHz, one launch of each fold kernel,
+     against the unfolded MFCC and, through the trajectory tail, the
+     float64 'fft' path
+ 20  long-form: a seeded 1 h recording at 48 kHz made on the card →
+     resample_device to 16 kHz (checked against the host resampler on a
+     30 s excerpt) → chunked_mfcc_change against whole-file mfcc_change;
+     extract_mfcc_change takes the chunked route; times and peak memory of
+     the chunked and whole-file routes
+ 21  modulation_spectrum at 128 × 30 s at 16 kHz with 'fused' and
+     'fused_bf16' against the float64 'fft' path, one launch of each kernel
+ 22  times: the fold kernels beside their plain versions and the unfolded
+     kernels, the frame-major mfcc_tail_f32, the fold path and the
+     modulation spectrum end to end, bounds
 
 Every check raises on failure, so the script exits 0 only when all phases
 passed. The line before the last is the card's name and power limit; the
@@ -86,6 +102,7 @@ from modulation_mfcc_tpu_torch.ops import lpc as L  # noqa: E402
 from modulation_mfcc_tpu_torch.ops import pitch as P  # noqa: E402
 from modulation_mfcc_tpu_torch.ops import yin as Y  # noqa: E402
 from modulation_mfcc_tpu_torch.parallel.batch import batched_mfcc_change  # noqa: E402
+from modulation_mfcc_tpu_torch.parallel import streaming  # noqa: E402
 from modulation_mfcc_tpu_torch.parallel.corpus import CorpusSweep, sweep_mfcc_change  # noqa: E402
 
 FLAGSHIP = mt.MfccConfig(signal_sample_rate=16_000, maxFreq=8000.0)
@@ -104,6 +121,9 @@ SOURCES = {
     "fused_mel_x3": f"{CSRC}/fused_frontend.cu",
     "fused_mel_i16": f"{CSRC}/fused_frontend_int.cu",
     "fused_mel_i24": f"{CSRC}/fused_frontend_int.cu",
+    "fused_mel_fold_f32": f"{CSRC}/fused_frontend_fold.cu",
+    "fused_mel_fold_bf16": f"{CSRC}/fused_frontend_fold.cu",
+    "fused_mel_fold_x3": f"{CSRC}/fused_frontend_fold.cu",
 }
 REPLACES = {
     "fused_mel_f32": "modulation_mfcc_tpu/pallas/fused_frontend.py:990",
@@ -116,6 +136,9 @@ REPLACES = {
     "fused_mel_x3": "modulation_mfcc_tpu/pallas/fused_frontend.py:990 (_kernel, _kernel_pipe, algorithm x3)",
     "fused_mel_i16": "modulation_mfcc_tpu/pallas/fused_frontend.py:990 (_kernel_i16, _kernel_i16_pipe)",
     "fused_mel_i24": "modulation_mfcc_tpu/pallas/fused_frontend.py:990 (_kernel_i24, _kernel_i24_pipe)",
+    "fused_mel_fold_f32": "modulation_mfcc_tpu/pallas/fused_frontend.py:1096 (_folded_frontend, _fold_kernel, f32)",
+    "fused_mel_fold_bf16": "modulation_mfcc_tpu/pallas/fused_frontend.py:1096 (_folded_frontend, _fold_kernel, bf16)",
+    "fused_mel_fold_x3": "modulation_mfcc_tpu/pallas/fused_frontend.py:1096 (_folded_frontend, _fold_kernel, x3)",
 }
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bytes/s, FP32 CUDA-core FLOP/s,
 # dense bf16 tensor-core FLOP/s and int8 tensor-core OP/s
@@ -123,6 +146,8 @@ PEAK_BYTES_S, PEAK_FP32_S, PEAK_BF16_S, PEAK_INT8_S = 3.35e12, 67e12, 989e12, 19
 MODES = ("bf16", "x3", "i16", "i24")  # the frontend modes of phases 14-17
 SPECTRUM = {"f32": "fused", "bf16": "fused_bf16", "x3": "fused_x3", "i16": "fused_i16", "i24": "fused_i24"}
 SPECTRUM_ALG = {v: k for k, v in SPECTRUM.items()}
+FOLD_MODES = ff.FOLD_ALGORITHMS  # the fold kernels of phases 18-22
+LONG_SR, LONG_SECONDS = 48_000, 3600
 
 
 def check(ok: bool, what: str) -> None:
@@ -1100,6 +1125,312 @@ def frontend_modes(dev, card: str) -> list[dict]:
     return modes_times(dev, rows, n, launches, card)
 
 
+# ---------------------------------------------------------------------------
+# The folded frontend, long-form and the modulation spectrum (phases 18-22)
+# ---------------------------------------------------------------------------
+
+
+def fold_weights(cfg: mt.MfccConfig, alg: str, dev) -> dict:
+    return ff.fold_tensors(alg, dev, cfg.signal_sample_rate, cfg.n_fft, cfg.win_length, cfg.n_mels,
+                           cfg.minFreq, cfg.maxFreq)
+
+
+def fold_kernel(audio, cfg, alg, w):
+    return ff.fused_mel_frontend(
+        audio, sr=cfg.signal_sample_rate, n_fft=cfg.n_fft, hop=cfg.hop_length, win_length=cfg.win_length,
+        algorithm=alg, weights=w, fold=True,
+    )
+
+
+def fold_plain(audio, cfg, alg, w):
+    return ff.fused_mel_fold_reference(audio, w["wc"], w["ws"], w["melw"], hop=cfg.hop_length,
+                                       eff_pad=ff.eff_pad(cfg.n_fft, cfg.win_length), algorithm=alg)
+
+
+def fold_kernel_checks(dev) -> None:
+    """Phase 18: the fold kernels against their plain versions (the
+    unfolded modes' bars, mode_error_ok), and the f32 fold against
+    fused_mel_f32 on the same audio (the JAX fold test's bar: 1e-5 of the
+    largest mel)."""
+    for name, cfg in (("10k default (packed Nyquist)", DEFAULT_10K), ("16k fmax 8k", FLAGSHIP)):
+        sr = cfg.signal_sample_rate
+        audio = torch.tensor(speechlike(4, SECONDS * sr, sr, seed=18), device=dev)
+        for alg in FOLD_MODES:
+            w = fold_weights(cfg, alg, dev)
+            mel_k, bmax_k = fold_kernel(audio, cfg, alg, w)
+            mel_p, bmax_p = fold_plain(audio, cfg, alg, w)
+            torch.cuda.synchronize()
+            ok, text = mode_error_ok(alg, mel_k, bmax_k, mel_p, bmax_p)
+            print(f"[18] {name}: fused_mel_fold_{alg} on {tuple(audio.shape)} vs plain: {text}")
+            check(ok, f"fused_mel_fold_{alg} {name}")
+        mel_f, _ = fold_kernel(audio, cfg, "f32", fold_weights(cfg, "f32", dev))
+        mel_u, _ = mode_kernel(audio, cfg, "f32", mode_weights(cfg, "f32", dev))
+        torch.cuda.synchronize()
+        rel = float((mel_f - mel_u).abs().max() / mel_u.abs().max())
+        print(f"[18] {name}: fused_mel_fold_f32 vs fused_mel_f32 on the same audio: max-abs {rel:.3e} of the "
+              f"largest mel (bar 1e-5)")
+        check(rel <= 1e-5, f"fold vs unfolded {name}")
+
+
+def fold_mfcc(y, cfg, alg, w, dct) -> torch.Tensor:
+    """The fold path: folded frontend → peak of the block maxima → tail, coef-major."""
+    mel, bmax = fold_kernel(y, cfg, alg, w)
+    return ff.mfcc_tail(mel, peak_db(bmax), cfg.n_mfcc, transposed=True, dct=dct)
+
+
+def fold_path(dev, y: torch.Tensor) -> dict:
+    """Phase 19: the fold path at full size; launches per kernel."""
+    cfg = FLAGSHIP
+    model = mt.MfccChange(cfg).to(dev)
+    ws = {alg: fold_weights(cfg, alg, dev) for alg in FOLD_MODES}
+    reset(ff.LAUNCHES)
+    mf = {alg: fold_mfcc(y, cfg, alg, ws[alg], model.dct) for alg in FOLD_MODES}
+    torch.cuda.synchronize()
+    counts = dict(ff.LAUNCHES)
+    launches = {f"fused_mel_fold_{alg}": counts[f"fused_mel_fold_{alg}"] for alg in FOLD_MODES}
+    print(f"[19] fold path on {tuple(y.shape)}, one call per mode: launches {counts}")
+    check(all(v == 1 for v in launches.values()) and counts["mfcc_tail_f32"] == len(FOLD_MODES)
+          and not any(counts[f"fused_mel_{a}"] for a in ff.ALGORITHMS), "one launch of each fold kernel")
+    nf = 1 + y.shape[1] // cfg.hop_length
+    check(mf["f32"].shape == (BATCH, cfg.n_mfcc, nf) and bool(torch.isfinite(mf["f32"]).all()), "fold MFCC shape")
+    # The fold and the direct DFT sum in other orders. Where a bin's power is
+    # many decades below its frame's energy (a narrow low mel band of a noise
+    # frame that happens to be near zero, or a quiet band of a loud speech
+    # frame), float32 rounding is a large part of it, and the two differ
+    # there by up to ~1e-3 at the MFCC over 768,000 frames. The bar: the
+    # fold's MFCC no further from the float64 'fft' MFCC than twice the
+    # unfolded kernel's
+    g = torch.Generator(device="cuda").manual_seed(191)
+    noise = 0.3 * torch.randn(y.shape, generator=g, device="cuda")
+    for label, x, fold_m in (("speech-like", y, mf["f32"]), ("noise", noise, None)):
+        if fold_m is None:
+            fold_m = fold_mfcc(x, cfg, "f32", ws["f32"], model.dct)
+        unf = mt.mfcc_trajectories(x, cfg, spectrum="fused", coef_major=True)
+        f64 = mt.mfcc_trajectories(x.double(), cfg, spectrum="fft", coef_major=True)
+        d = (fold_m - unf).abs()
+        e_fold, e_unf = float((fold_m.double() - f64).abs().max()), float((unf.double() - f64).abs().max())
+        print(f"[19] fold f32 MFCC vs mfcc_trajectories(spectrum='fused', coef_major=True) on the {label} batch "
+              f"{tuple(x.shape)}: max-abs {float(d.max()):.3e}, {float((d > 1e-4).float().mean()):.2e} of entries "
+              f"beyond 1e-4; against the float64 'fft' MFCC: fold {e_fold:.3e}, unfolded {e_unf:.3e} "
+              f"(bar: fold ≤ 2 × unfolded)")
+        check(e_fold <= 2.0 * e_unf, f"fold MFCC as accurate as the unfolded one on the {label} batch")
+        del unf, f64, d
+    del noise
+    torch.cuda.empty_cache()
+    want = mt.mfcc_change(y.double(), cfg, spectrum="fft")
+    for alg in FOLD_MODES:
+        tot = model.trajectory_tail(mf[alg])
+        err = float((tot.double() - want).abs().max())
+        bar = 1e-1 if alg == "bf16" else 1e-4  # phase 15's bars for the unfolded modes
+        print(f"[19] fold {alg} MFCC through the trajectory tail vs the float64 'fft' mfcc_change: max-abs "
+              f"{err:.3e} (bar {bar:g})")
+        check(tot.shape == want.shape and bool(torch.isfinite(tot).all()) and err <= bar, f"fold {alg} vs fft")
+    return launches
+
+
+def speechlike_on_card(n: int, sr: int, seed: int) -> torch.Tensor:
+    """[n] float32 made on the card from a seed: harmonics of a gliding f0
+    under a 4 Hz envelope that changes rate every minute, plus noise."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    t = torch.arange(n, dtype=torch.float64, device="cuda") / sr
+    minute = (t // 60.0).long()
+    rates = torch.rand(int(minute.max()) + 1, generator=g, device="cuda", dtype=torch.float64)
+    f0 = 100.0 + 80.0 * rates[minute] + 30.0 * torch.sin(2 * np.pi * 2.5 * t)
+    phase = 2 * np.pi * torch.cumsum(f0, 0) / sr
+    sig = sum((0.6 / k) * torch.sin(k * phase) for k in range(1, 6))
+    env = 0.5 * (1 + torch.sin(2 * np.pi * (3.0 + 2.0 * rates[minute]) * t - np.pi / 2))
+    noise = torch.randn(n, generator=g, device="cuda", dtype=torch.float64)
+    return (sig * env + 0.01 * noise).to(torch.float32)
+
+
+def peak_gib(fn) -> tuple[float, float]:
+    """(ms of one call, GiB it allocated above what was live before it)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def longform(dev, card: str) -> None:
+    """Phase 20: one hour at 48 kHz, resampled on the card, through the
+    chunked route; its times and peak memory beside the whole-file route."""
+    from modulation_mfcc_tpu_torch.ops.resample import resample_poly_device
+
+    cfg = FLAGSHIP
+    n48 = LONG_SR * LONG_SECONDS
+    t0 = time.perf_counter()
+    y48 = speechlike_on_card(n48, LONG_SR, seed=20)
+    torch.cuda.synchronize()
+    print(f"[20] made a {LONG_SECONDS} s recording at {LONG_SR} Hz on the card: {n48} samples "
+          f"({y48.numel() * 4 / 1e6:.1f} MB) in {time.perf_counter() - t0:.3f} s")
+    x = y48[600 * LONG_SR : 630 * LONG_SR].contiguous()
+    host = torch.tensor(resample(x.double().cpu().numpy(), LONG_SR, cfg.signal_sample_rate))
+    flat = mt.resample_device(x, LONG_SR, cfg.signal_sample_rate)
+    blocked = resample_poly_device(x, 1, 3, block_threshold=0)
+    torch.cuda.synchronize()
+    err, err_b = float((flat.cpu().double() - host).abs().max()), float((blocked - flat).abs().max())
+    print(f"[20] resample_device on a 30 s excerpt vs the host resampler (float64): max-abs {err:.3e} (bar 1e-5); "
+          f"blocked form vs flat: {err_b:.3e} (bar 1e-5)")
+    check(flat.shape == host.shape and err <= 1e-5 and err_b <= 1e-5, "resample_device vs the host resampler")
+
+    t_rs, gib_rs = peak_gib(lambda: mt.resample_device(y48, LONG_SR, cfg.signal_sample_rate))
+    y16 = mt.resample_device(y48, LONG_SR, cfg.signal_sample_rate)
+    del y48, x
+    torch.cuda.empty_cache()
+    nf = 1 + y16.shape[0] // cfg.hop_length
+    print(f"[20] resample_device 48 → 16 kHz of the hour: {y16.shape[0]} samples in {t_rs:.3f} ms, "
+          f"{gib_rs:.2f} GiB above its input ({card})")
+    with spy(streaming, "chunked_mfcc_change") as calls:
+        routed, times = mt.extract_mfcc_change(y16, cfg)
+        torch.cuda.synchronize()
+    chunked = mt.chunked_mfcc_change(y16, cfg)
+    whole = mt.mfcc_change(y16, cfg, spectrum="fft")
+    torch.cuda.synchronize()
+    err = float((chunked - whole).abs().max())
+    same = float((routed - chunked).abs().max())
+    print(f"[20] chunked_mfcc_change [{nf}] vs whole-file mfcc_change(spectrum='fft'): max-abs {err:.3e} "
+          f"(bar 1e-5); extract_mfcc_change took the chunked route {len(calls)} time(s), max-abs {same:.3e} "
+          f"from chunked_mfcc_change (bar 1e-6), {len(times)} time anchors")
+    check(chunked.shape == whole.shape == (nf,) and bool(torch.isfinite(chunked).all()) and err <= 1e-5,
+          "chunked vs whole-file")
+    check(len(calls) == 1 and same <= 1e-6 and len(times) == nf, "extract_mfcc_change takes the chunked route")
+    del whole, routed
+    torch.cuda.empty_cache()
+    for label, fn in (("chunked_mfcc_change", lambda: mt.chunked_mfcc_change(y16, cfg)),
+                      ("whole-file mfcc_change spectrum='fused'", lambda: mt.mfcc_change(y16, cfg)),
+                      ("whole-file mfcc_change spectrum='fft'", lambda: mt.mfcc_change(y16, cfg, spectrum="fft"))):
+        fn()
+        ms_, gib = peak_gib(fn)
+        ms_med = cuda_ms(fn, reps=3)
+        print(f"[20] {label} on the hour: {ms_med:.3f} ms (median of 3; one call {ms_:.3f} ms) = "
+              f"{1.0 / (ms_med / 1e3):.3f} audio-h/s; {gib:.2f} GiB above its input ({card})")
+        torch.cuda.empty_cache()
+
+
+def modspec(dev, y: torch.Tensor) -> None:
+    """Phase 21: the modulation spectrum at full size against the float64
+    'fft' path."""
+    cfg = FLAGSHIP
+    want = mt.modulation_spectrum(y.double(), cfg, spectrum="fft")
+    m_want = mt.mfcc_trajectories(y.double(), cfg, spectrum="fft")
+    peak = want.amax(dim=(1, 2, 3))
+    for spec in ("fused", "fused_bf16"):
+        kname = f"fused_mel_{SPECTRUM_ALG[spec]}"
+        reset(ff.LAUNCHES)
+        got = mt.modulation_spectrum(y, cfg, spectrum=spec)
+        torch.cuda.synchronize()
+        counts = dict(ff.LAUNCHES)
+        others = {k: v for k, v in counts.items() if k not in (kname, "mfcc_tail_f32")}
+        check(counts[kname] == 1 and counts["mfcc_tail_f32"] == 1 and not any(others.values()),
+              f"one launch of {kname} and of mfcc_tail_f32 per modulation_spectrum call")
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()), f"modulation_spectrum {spec} shape")
+        delta = (got.double() - want).abs()
+        rel = float((delta.amax(dim=(1, 2, 3)) / peak).max())
+        if spec == "fused":
+            print(f"[21] modulation_spectrum spectrum='fused' {tuple(got.shape)}: launches {kname} 1, mfcc_tail_f32 1; "
+                  f"vs the float64 'fft' path max-abs {rel:.3e} of each utterance's peak (bar 1e-4)")
+            check(rel <= 1e-4, "modulation_spectrum fused vs fft")
+            continue
+        # bf16's bar from its own MFCC error e: the mean-removed trajectory is
+        # off by at most 2e, so each windowed sum by at most E = 2e·Σw (Σw =
+        # n/2 for the periodic Hann), and |X + dX|² − |X|² by at most
+        # 2|X|E + E²; plus 1e-4 of the peak for float32 rounding
+        e = float((mt.mfcc_trajectories(y, cfg, spectrum=spec).double()[..., 1:] - m_want[..., 1:]).abs().max())
+        big_e = 2.0 * e * 64.0
+        bound_ = 2.0 * want.sqrt() * big_e + big_e**2 + 1e-4 * peak[:, None, None, None]
+        over = float((delta / bound_).max())
+        print(f"[21] modulation_spectrum spectrum='fused_bf16': launches {kname} 1, mfcc_tail_f32 1; MFCC max-abs "
+              f"{e:.3e} against float64; spectrum max-abs {rel:.3e} of each utterance's peak, at most {over:.3f} of "
+              f"the bound 2·sqrt(P)·E + E² + 1e-4·peak with E = 2·64·e (bar 1)")
+        check(over <= 1.0, "modulation_spectrum fused_bf16 within its MFCC error's bound")
+
+
+def fold_times(dev, y: torch.Tensor, launches: dict, card: str) -> list[dict]:
+    """Phase 22: the kernel rows of the fold kernels, the frame-major tail's
+    time, and the new paths end to end."""
+    cfg = FLAGSHIP
+    hours = BATCH * SECONDS / 3600.0
+    rows = []
+    for alg in FOLD_MODES:
+        kname = f"fused_mel_fold_{alg}"
+        w = fold_weights(cfg, alg, dev)
+        mel_k, bmax_k = fold_kernel(y, cfg, alg, w)
+        mel_p, bmax_p = fold_plain(y, cfg, alg, w)
+        ok, text = mode_error_ok(alg, mel_k, bmax_k, mel_p, bmax_p)
+        err = float((mel_k.float() - mel_p.float()).abs().max())
+        print(f"[22] {kname} at full size vs plain: {text}; max-abs {err:.3e}")
+        check(ok, f"{kname} at full size")
+        del mel_p, bmax_p
+        wu = mode_weights(cfg, alg, dev)
+        t_k = cuda_ms(lambda: fold_kernel(y, cfg, alg, w))
+        t_u = cuda_ms(lambda: mode_kernel(y, cfg, alg, wu))
+        torch.cuda.empty_cache()
+        t_p = cuda_ms(lambda: fold_plain(y, cfg, alg, w))
+        torch.cuda.empty_cache()
+        bsz, nf, n_mels = mel_k.shape
+        k, bins = w["wc"].shape[-2:]
+        im_cols = w["ws"].shape[-1]
+        dft = 2.0 * bsz * nf * k * (bins + im_cols)
+        mel_ops = 2.0 * bsz * nf * bins * n_mels
+        t_ops = {"f32": (dft + 2.0 * bsz * nf * k + 3.0 * bsz * nf * bins + mel_ops) / PEAK_FP32_S,
+                 "bf16": (dft + mel_ops) / PEAK_BF16_S, "x3": 3 * (dft + mel_ops) / PEAK_BF16_S}[alg] * 1e3
+        n_bytes = (y.numel() * 4 + sum(v.numel() * 4 for v in w.values())
+                   + mel_k.numel() * mel_k.element_size() + bmax_k.numel() * 4)
+        t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+        b = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        print(f"[22] {kname}: {t_k:.3f} ms, plain {t_p:.3f} ms, unfolded fused_mel_{alg} {t_u:.3f} ms, bound "
+              f"{b[0]:.3f} ms ({b[1]}), {b[0] / t_k:.1%} of it ({card})")
+        rows.append(kernel_row(kname, launches[kname], err, (t_k, t_p), b))
+        del mel_k, bmax_k
+        torch.cuda.empty_cache()
+
+    model = mt.MfccChange(cfg).to(dev)
+    mel, bmax = mode_kernel(y, cfg, "f32", mode_weights(cfg, "f32", dev))
+    pk = peak_db(bmax)
+    out_k = ff.mfcc_tail(mel, pk, cfg.n_mfcc, dct=model.dct)
+    out_p = ff.mfcc_tail_reference(mel, pk, model.dct)
+    err = float((out_k - out_p).abs().max())
+    check(err <= 1e-4, "frame-major mfcc_tail_f32 at full size")
+    t_k = cuda_ms(lambda: ff.mfcc_tail(mel, pk, cfg.n_mfcc, dct=model.dct))
+    t_p = cuda_ms(lambda: ff.mfcc_tail_reference(mel, pk, model.dct))
+    bsz, nf, n_mels = mel.shape
+    b = bound(mel.numel() * 4 + bsz * 4 + model.dct.numel() * 4 + out_k.numel() * 4,
+              bsz * nf * n_mels * (2 * cfg.n_mfcc + 3))
+    print(f"[22] mfcc_tail_f32 frame-major {tuple(out_k.shape)}: {t_k:.3f} ms, plain {t_p:.3f} ms, bound "
+          f"{b[0]:.3f} ms ({b[1]}), {b[0] / t_k:.1%} of it; max-abs vs plain {err:.3e} ({card})")
+    del mel, out_k, out_p
+    torch.cuda.empty_cache()
+    w = fold_weights(cfg, "f32", dev)
+    e2e = cuda_ms(lambda: fold_mfcc(y, cfg, "f32", w, model.dct))
+    print(f"[22] fold path (f32) end to end: {e2e:.3f} ms = {hours / (e2e / 1e3):.3f} audio-h/s ({card})")
+    for spec in ("fused", "fused_bf16"):
+        torch.cuda.reset_peak_memory_stats()
+        e2e = cuda_ms(lambda: mt.modulation_spectrum(y, cfg, spectrum=spec))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[22] modulation_spectrum spectrum={spec!r} end to end: {e2e:.3f} ms = "
+              f"{hours / (e2e / 1e3):.3f} audio-h/s, peak memory {peak:.2f} GiB ({card})")
+    return rows
+
+
+def fold_longform_modspec(dev, card: str) -> list[dict]:
+    """Phases 18-22; the kernel rows of the fold kernels."""
+    fold_kernel_checks(dev)
+    sr = FLAGSHIP.signal_sample_rate
+    y = torch.tensor(speechlike(BATCH, SECONDS * sr, sr, seed=19), device=dev)
+    launches = fold_path(dev, y)
+    torch.cuda.empty_cache()
+    longform(dev, card)
+    torch.cuda.empty_cache()
+    modspec(dev, y)
+    torch.cuda.empty_cache()
+    return fold_times(dev, y, launches, card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -1127,6 +1458,8 @@ def main() -> int:
     rows += tracker_paths(dev, card)
     torch.cuda.empty_cache()
     rows += frontend_modes(dev, card)
+    torch.cuda.empty_cache()
+    rows += fold_longform_modspec(dev, card)
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

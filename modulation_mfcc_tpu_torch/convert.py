@@ -20,7 +20,8 @@ Keys of ``arrays``:
 
 :func:`frontend_modes_from_jax` maps the constants of the JAX frontend's
 other arithmetic modes (bf16, x3, i16, i24) onto the port's
-``kernels.fused_frontend.mode_weights``.
+``kernels.fused_frontend.mode_weights``, and :func:`fold_weights_from_jax`
+those of its folded frontend onto ``kernels.fused_frontend.fold_weights``.
 
 :func:`pitch_params_from_jax`, :func:`pyin_params_from_jax` and
 :func:`formant_params_from_jax` do the same for :class:`PitchTracker`,
@@ -31,7 +32,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "frontend_modes_from_jax", "pitch_params_from_jax", "pyin_params_from_jax", "formant_params_from_jax"]
+__all__ = ["params_from_jax", "frontend_modes_from_jax", "fold_weights_from_jax", "pitch_params_from_jax",
+           "pyin_params_from_jax", "formant_params_from_jax"]
 
 
 def params_from_jax(arrays: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
@@ -71,6 +73,19 @@ def frontend_modes_from_jax(arrays: dict[str, np.ndarray]) -> dict[str, dict[str
         "i16": {"planes": planes, "sw": sw, "melw": melw_x3, "corr": f32(arrays["corr"])[0]},
         "i24": {"planes": planes, "sw": sw, "melw": melw_x3},
     }
+
+
+def fold_weights_from_jax(arrays: dict[str, dict[str, np.ndarray]]) -> dict[str, dict[str, np.ndarray]]:
+    """``fold_weights`` of each algorithm from the operands the JAX folded
+    frontend hands its kernel, keyed ``{algorithm: {"wc_in", "ws_in",
+    "mel_in"}}``: ``_stack_weights(C | S | mel, algorithm)``, [1, ...]
+    float32 or bf16 planes, or the [2, ...] (hi, lo) bf16 stacks of 'x3'."""
+    out = {}
+    for alg, ops in arrays.items():
+        w = {name: np.asarray(ops[f"{jax_name}_in"], dtype=np.float32)
+             for name, jax_name in (("wc", "wc"), ("ws", "ws"), ("melw", "mel"))}
+        out[alg] = w if alg == "x3" else {k: v[0] for k, v in w.items()}
+    return out
 
 
 def _f32(a) -> torch.Tensor:

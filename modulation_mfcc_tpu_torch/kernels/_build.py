@@ -1,7 +1,7 @@
 """Build the hand-written CUDA kernels and load them with ctypes.
 
-Each ``csrc/*.cu`` compiles with its own nvcc process, all started together,
-and the objects link into one shared library with a plain C interface, at
+Each ``csrc/*.cu`` (with the ``*.cuh`` headers it includes) compiles with
+its own nvcc process, all started together, and the objects link into one shared library with a plain C interface, at
 first use, into ``modulation_mfcc_tpu_torch/_build/`` (listed in
 .gitignore). The file name carries a hash of the sources and flags, so an
 edited source rebuilds and an unchanged one loads the cached library.
@@ -38,7 +38,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libmodmfcc_kernels_{h.hexdigest()[:16]}.so"

@@ -41,7 +41,8 @@ Every frontend takes float32 or int16 audio (int16 is dequantized as
 v·2⁻¹⁵, exact), flat [B, T] or as hop rows [B, rows, hop]
 (:func:`pack_hop_rows`, the corpus sweep's upload format) with
 ``n_samples``. Beside each wrapper is its plain PyTorch version
-(:func:`fused_mel_frontend_reference`, :func:`mfcc_tail_reference`). A
+(:func:`fused_mel_frontend_reference`, :func:`fused_mel_fold_reference`,
+:func:`mfcc_tail_reference`). A
 wrapper takes the plain version only for a tensor on the CPU; for a CUDA
 tensor it launches the kernel or raises. ``LAUNCHES`` counts kernel
 launches, so a run can show that its main path went through the kernels.
@@ -51,8 +52,8 @@ the int8 weight planes, the bf16 and x3 weight stacks, the i16 offset
 correction, the per-utterance scales and the hop-rows geometry) are
 verbatim ports of the JAX frontend's host code (fused_mel_frontend, lines
 698-866, _int8_weight_planes, _stack_weights, hop_rows_geometry,
-pack_hop_rows): they decide the numbers, so both packages compute from
-identical constants.
+pack_hop_rows; the fold's design of _folded_frontend): they decide the
+numbers, so both packages compute from identical constants.
 """
 from __future__ import annotations
 
@@ -66,17 +67,20 @@ import torch.nn.functional as tnf
 from modulation_mfcc_tpu_torch.kernels._launch import check_cuda, raise_on, route, stream_of
 from modulation_mfcc_tpu_torch.ops.framing import frame_by_slices
 from modulation_mfcc_tpu_torch.ops.spectral import dct_matrix, dft_bases, mel_filterbank
+from modulation_mfcc_tpu_torch.ops.windows import hann
 from modulation_mfcc_tpu_torch.utils.helpers import dequantize_samples, round_up_to_multiple
 
 __all__ = [
-    "ALGORITHMS", "LAUNCHES", "frontend_weights", "mode_weights", "int8_weight_planes",
-    "quant_scales", "tail_dct", "eff_pad", "hop_rows_geometry", "pack_hop_rows",
-    "fused_mel_frontend", "fused_mel_frontend_reference",
+    "ALGORITHMS", "FOLD_ALGORITHMS", "LAUNCHES", "frontend_weights", "mode_weights", "int8_weight_planes",
+    "quant_scales", "tail_dct", "eff_pad", "hop_rows_geometry", "pack_hop_rows", "fold_ok", "fold_weights",
+    "fused_mel_frontend", "fused_mel_frontend_reference", "fused_mel_fold_reference",
     "mfcc_tail", "mfcc_tail_reference", "fused_mfcc",
 ]
 
 ALGORITHMS = ("f32", "bf16", "x3", "i16", "i24")
-LAUNCHES = {f"fused_mel_{a}": 0 for a in ALGORITHMS} | {"mfcc_tail_f32": 0}
+FOLD_ALGORITHMS = ("f32", "bf16", "x3")
+LAUNCHES = ({f"fused_mel_{a}": 0 for a in ALGORITHMS} | {"mfcc_tail_f32": 0}
+            | {f"fused_mel_fold_{a}": 0 for a in FOLD_ALGORITHMS})
 
 BLOCK_FRAMES = 64  # frames per frontend block: one bmax entry each (kBF in the .cu)
 _BIN_TILE = 128    # bins_pad must be a multiple (kBT)
@@ -224,6 +228,89 @@ def mode_tensors(algorithm: str, device, sr: float, n_fft: int = 512, win_length
     return {k: torch.as_tensor(v, device=device) for k, v in w.items()}
 
 
+def fold_ok(n_fft: int, hop: int, win_length: int | None) -> bool:
+    """Whether the folded frontend takes this geometry: an even support
+    that is a whole number of hops, at most 16 of them, and a fold centre
+    inside the FFT frame (the JAX frontend's rule)."""
+    sup = win_length or n_fft
+    pw = (n_fft - sup) // 2
+    return sup % hop == 0 and sup % 2 == 0 and sup // hop <= _TAIL_ROWS and n_fft // 2 - pw >= 1
+
+
+@lru_cache(maxsize=32)
+def fold_weights(
+    sr: float,
+    n_fft: int = 512,
+    win_length: int | None = None,
+    n_mels: int = 128,
+    fmin: float = 100.0,
+    fmax: float | None = None,
+    algorithm: str = "f32",
+) -> dict[str, np.ndarray]:
+    """The folded frontend's constants for ``algorithm`` ∈
+    :data:`FOLD_ALGORITHMS`, float32 numpy arrays:
+
+    * ``wc`` [K, re_cols]: C[u, b] = w[u]·cos(2πb(u + pw)/N), u ∈ [0, K),
+      K = sup/2 + 1, with w the periodic Hann taper of the support and
+      w[sup/2] halved (the self-point of the fold);
+    * ``ws`` [K, im_cols]: S = −w·sin(·), zero at u = sup/2, the Nyquist
+      column dropped (its sine is zero);
+    * ``melw`` [re_cols, n_mels].
+
+    Trailing bins with zero mel weight are trimmed. When every bin is live,
+    the Nyquist cosine column rides C's dead DC slot and mel row 0 takes the
+    Nyquist weights. 'bf16' rounds the three to bf16; 'x3' stacks each as
+    [2, ...] (hi, lo) bf16 splits. Verbatim from the JAX frontend's
+    _folded_frontend and _stack_weights.
+    """
+    if algorithm not in FOLD_ALGORITHMS:
+        raise ValueError(f"fold=True takes algorithm {', '.join(FOLD_ALGORITHMS)}, got {algorithm!r}")
+    sup = win_length or n_fft
+    pw = (n_fft - sup) // 2
+    half = n_fft // 2
+    k_half = sup // 2 + 1
+    w = np.zeros(k_half, np.float64)
+    w_full = hann(sup, periodic=True)
+    w[: sup // 2] = w_full[: sup // 2]
+    w[sup // 2] = 0.5 * w_full[sup // 2]
+    m_full = mel_filterbank(sr, n_fft, n_mels, fmin, fmax)
+    nz = np.flatnonzero(np.abs(m_full).sum(axis=0) > 0)
+    n_bins = int(nz[-1]) + 1 if nz.size else half + 1
+    th = 2.0 * np.pi * np.outer(np.arange(k_half) + pw, np.arange(n_bins)) / n_fft
+    c = w[:, None] * np.cos(th)
+    s = -w[:, None] * np.sin(th)
+    s[sup // 2, :] = 0.0  # the self-point is cosine-only
+    packed = n_bins == half + 1 and half % 128 == 0 and nz.size and int(nz[0]) >= 1
+    if packed:
+        re_cols = half
+        c[:, 0] = c[:, half]  # the Nyquist cosine column rides the DC slot
+        c = c[:, :half]
+        m_p = np.zeros((re_cols, n_mels), np.float32)
+        m_p[:half, :] = m_full.T[:half]
+        m_p[0, :] = m_full.T[half]
+    else:
+        re_cols = round_up_to_multiple(n_bins, 128)
+        c = np.pad(c, ((0, 0), (0, re_cols - n_bins)))
+        m_p = np.zeros((re_cols, n_mels), np.float32)
+        m_p[:n_bins, :] = m_full.T[:n_bins]
+    nb_im = min(n_bins, half)  # the Nyquist sine is identically zero
+    im_cols = round_up_to_multiple(nb_im, 128)
+    s = np.pad(s[:, :nb_im], ((0, 0), (0, im_cols - nb_im)))
+    out = {"wc": c.astype(np.float32), "ws": s.astype(np.float32), "melw": m_p}
+    if algorithm == "bf16":
+        return {k: _bf16_round(v) for k, v in out.items()}
+    if algorithm == "x3":
+        return {k: _x3_stack(v) for k, v in out.items()}
+    return out
+
+
+def fold_tensors(algorithm: str, device, sr: float, n_fft: int = 512, win_length: int | None = None,
+                 n_mels: int = 128, fmin: float = 100.0, fmax: float | None = None) -> dict[str, torch.Tensor]:
+    """:func:`fold_weights` as tensors on ``device``."""
+    w = fold_weights(sr, n_fft, win_length, n_mels, fmin, fmax, algorithm)
+    return {k: torch.as_tensor(v, device=device) for k, v in w.items()}
+
+
 @lru_cache(maxsize=16)
 def tail_dct(n_mfcc: int, n_mels: int) -> np.ndarray:
     """DCT-II ortho as [n_mels, n_mfcc] float32 (the live columns of the JAX
@@ -338,6 +425,10 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, f"fused_mel_{alg}")
         fn.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
         fn.restype = i
+    for alg in FOLD_ALGORITHMS:
+        fn = getattr(lib, f"fused_mel_fold_{alg}")
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
+        fn.restype = i
     lib.mfcc_tail_f32.argtypes = [p, i, p, p, p, i, i, i, i, i, p]
     lib.mfcc_tail_f32.restype = i
     return lib
@@ -420,17 +511,54 @@ def fused_mel_frontend_reference(
     else:
         reim = _fixed_point_reim(frames, wri, quant_scales(audio, algorithm, sw), algorithm, corr)
     re, im = reim[..., :bins_pad], reim[..., bins_pad:]
-    p = re * re + im * im
+    return _mel_of_power(re * re + im * im, melw, algorithm)
+
+
+def _mel_of_power(p: torch.Tensor, melw: torch.Tensor, algorithm: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mel, block maxima) of the power [B, nf, bins_pad] in the mode's
+    arithmetic, as every frontend kernel ends."""
     if algorithm == "f32":
         mel = p @ melw
     elif algorithm == "bf16":
         mel = _bf16r(p) @ melw
     else:
         mel = _x3_matmul(p, melw)
+    bsz, nf = mel.shape[:2]
     n_blocks = -(-nf // BLOCK_FRAMES)
     fmax = tnf.pad(torch.amax(mel, dim=-1), (0, n_blocks * BLOCK_FRAMES - nf))
     bmax = torch.amax(fmax.reshape(bsz, n_blocks, BLOCK_FRAMES), dim=-1)
     return (mel.to(torch.bfloat16) if algorithm == "bf16" else mel), bmax
+
+
+def fused_mel_fold_reference(
+    audio: torch.Tensor, wc: torch.Tensor, ws: torch.Tensor, melw: torch.Tensor, *, hop: int, eff_pad: int,
+    algorithm: str = "f32",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the fold kernels, in the JAX order: frames
+    of sup + 1 samples of the audio padded by ``eff_pad`` on the left,
+    s[u] = z[a+u] + z[a+sup−u] and d[u] = z[a+u] − z[a+sup−u] for
+    u ∈ [0, sup/2], then re = s·wc and im = d·ws in the mode's arithmetic
+    ('bf16' rounds the audio to bf16 before the fold and s, d again at the
+    products), power and mel as the unfolded frontend. ``wc``/``ws``/``melw``
+    are the mode's :func:`fold_weights`; audio float32 [B, T]."""
+    bsz, t = audio.shape
+    k = wc.shape[-2]
+    sup = 2 * (k - 1)
+    nf = 1 + t // hop
+    x = _bf16r(audio) if algorithm == "bf16" else audio
+    right = max(0, (nf - 1) * hop + sup + 1 - eff_pad - t)
+    frames = frame_by_slices(tnf.pad(x, (eff_pad, right)), 0, nf, sup + 1, hop)
+    fwd = frames[..., :k]
+    rev = torch.flip(frames[..., sup // 2 :], dims=(-1,))  # rev[u] = frame[sup − u]
+    s, d = fwd + rev, fwd - rev
+    if algorithm == "f32":
+        re, im = s @ wc, d @ ws
+    elif algorithm == "bf16":
+        re, im = _bf16r(s) @ wc, _bf16r(d) @ ws
+    else:
+        re, im = _x3_matmul(s, wc), _x3_matmul(d, ws)
+    im = tnf.pad(im, (0, re.shape[-1] - im.shape[-1]))
+    return _mel_of_power(re * re + im * im, melw, algorithm)
 
 
 def _pack_quads(planes: torch.Tensor) -> torch.Tensor:
@@ -455,6 +583,7 @@ def fused_mel_frontend(
     algorithm: str = "f32",
     n_samples: int | None = None,
     weights: dict[str, torch.Tensor] | None = None,
+    fold: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(mel [B, nf, n_mels], block_maxes [B, ceil(nf/64)]), nf = 1 + T // hop
     (librosa centered framing, zero pad), in the arithmetic of
@@ -465,13 +594,20 @@ def fused_mel_frontend(
     hop rows [B, rows, hop] from :func:`pack_hop_rows` with ``n_samples`` =
     T. ``block_maxes[b, j]`` is the max of the float32 mel over frames
     [64j, 64j+64) ∩ [0, nf); their max over j is the utterance's peak mel
-    power. ``weights`` = the mode's :func:`mode_tensors` on the audio's
-    device (a module's buffers); designed from the other arguments when
-    None.
+    power. ``weights`` = the mode's :func:`mode_tensors` (:func:`fold_tensors`
+    with ``fold``) on the audio's device (a module's buffers); designed
+    from the other arguments when None.
+
+    ``fold=True`` takes the folded real DFT (``fused_mel_fold_*``): float32
+    flat audio, :data:`FOLD_ALGORITHMS`, and a geometry :func:`fold_ok`
+    accepts; anything else raises.
     """
     t, buf_len, off = _geometry(audio, hop, n_fft, win_length, n_samples)
     if algorithm not in ALGORITHMS:
         raise ValueError(f"Unknown algorithm {algorithm!r}; one of {', '.join(ALGORITHMS)}")
+    if fold:
+        return _fused_mel_fold(audio, sr=sr, n_fft=n_fft, hop=hop, win_length=win_length, n_mels=n_mels,
+                               fmin=fmin, fmax=fmax, algorithm=algorithm, weights=weights)
     if weights is None:
         weights = mode_tensors(algorithm, audio.device, sr, n_fft, win_length, n_mels, fmin, fmax)
     fixed = algorithm in ("i16", "i24")
@@ -518,6 +654,51 @@ def fused_mel_frontend(
             bsz, buf_len, k, hop, off, nf, bins_pad, n_mels,
             stream_of(audio),
         )
+    raise_on(rc, name)
+    LAUNCHES[name] += 1
+    return mel, bmax
+
+
+def _fused_mel_fold(audio: torch.Tensor, *, sr, n_fft, hop, win_length, n_mels, fmin, fmax, algorithm,
+                    weights) -> tuple[torch.Tensor, torch.Tensor]:
+    """``fused_mel_frontend(fold=True)``: the JAX fold's guards, then the
+    fold kernel of ``algorithm`` (its plain version for a CPU tensor)."""
+    if audio.ndim == 3:
+        raise ValueError("fold=True unsupported with rows input")
+    if audio.dtype != torch.float32:
+        raise ValueError(f"fold=True takes float32 audio, got {audio.dtype}")
+    if algorithm not in FOLD_ALGORITHMS or not fold_ok(n_fft, hop, win_length):
+        raise ValueError("fold=True unsupported for this geometry/algorithm")
+    if weights is None:
+        weights = fold_tensors(algorithm, audio.device, sr, n_fft, win_length, n_mels, fmin, fmax)
+    wc, ws, melw = weights["wc"], weights["ws"], weights["melw"]
+    pad = eff_pad(n_fft, win_length)
+    if not route(audio, "fused_mel_frontend"):
+        return fused_mel_fold_reference(audio, wc, ws, melw, hop=hop, eff_pad=pad, algorithm=algorithm)
+    name = f"fused_mel_fold_{algorithm}"
+    if not audio.is_contiguous():
+        raise ValueError(f"{name}: audio must be contiguous")
+    check_cuda(name, wc, ws, melw)
+    sup = win_length or n_fft
+    k, bins_pad = wc.shape[-2:]
+    im_cols = ws.shape[-1]
+    n_mels = melw.shape[-1]
+    if (k != sup // 2 + 1 or ws.shape[-2] != k or melw.shape[-2] != bins_pad or bins_pad % _BIN_TILE
+            or im_cols % _BIN_TILE or im_cols > bins_pad or n_mels > _MEL_MAX):
+        raise ValueError(
+            f"{name}: wc {tuple(wc.shape)} / ws {tuple(ws.shape)} / melw {tuple(melw.shape)} need "
+            f"sup/2 + 1 = {sup // 2 + 1} rows, column counts multiples of {_BIN_TILE}, n_mels ≤ {_MEL_MAX}"
+        )
+    bsz, t = audio.shape
+    nf = 1 + t // hop
+    mel_dtype = torch.bfloat16 if algorithm == "bf16" else torch.float32
+    mel = torch.empty((bsz, nf, n_mels), dtype=mel_dtype, device=audio.device)
+    bmax = torch.empty((bsz, -(-nf // BLOCK_FRAMES)), dtype=torch.float32, device=audio.device)
+    rc = getattr(_lib(), name)(
+        audio.data_ptr(), wc.data_ptr(), ws.data_ptr(), melw.data_ptr(), mel.data_ptr(), bmax.data_ptr(),
+        bsz, t, k, sup, hop, -pad, nf, bins_pad, im_cols, n_mels,
+        stream_of(audio),
+    )
     raise_on(rc, name)
     LAUNCHES[name] += 1
     return mel, bmax

@@ -5,7 +5,9 @@ Goldstein-2019 formulation):
 
     audio → centered frames → (window·DFT → power → mel → dB → DCT) → drop C0
           → per-coefficient zero-phase Butterworth low-pass (12 Hz default)
-          → np.gradient → sqrt(Σ_coef d²)/n_coef → final low-pass
+          → time derivative (np.gradient, or Savitzky-Golay with
+            ``diffMethod='sg'``) → sqrt(Σ_coef d²)/n_coef
+          → final filter (the low-pass, or the 'iir', 'fir' or 'sg' out-filter)
 
 The MFCC stage runs through the fused CUDA kernels by default
 (``spectrum='fused'``, the counterpart of the JAX package's 'pallas' f32
@@ -19,6 +21,11 @@ float32 in every mode (the JAX package's bf16 filter precision is a TPU
 speed choice). :class:`MfccChange` holds every designed constant as a
 buffer and moves with ``.to(device)``; the functional entry points use one
 per configuration and device.
+
+:func:`modulation_spectrum` is the second-stage STFT over the MFCC
+trajectories (BASELINE config #3); recordings of at least
+``longform_threshold`` samples stream through
+``parallel/streaming.chunked_mfcc_change`` (config #4).
 """
 from __future__ import annotations
 
@@ -33,13 +40,21 @@ from modulation_mfcc_tpu_torch.models.config import MfccConfig
 from modulation_mfcc_tpu_torch.ops import filters as F
 from modulation_mfcc_tpu_torch.ops.derivatives import np_gradient
 from modulation_mfcc_tpu_torch.ops.framing import frame_signal, frame_times_mfcc, n_frames_centered
-from modulation_mfcc_tpu_torch.ops.masked import masked_gradient, masked_sosfiltfilt, masked_sosfiltfilt_fir
-from modulation_mfcc_tpu_torch.ops.spectral import mfcc_from_frames
+from modulation_mfcc_tpu_torch.ops.masked import (
+    masked_filtfilt,
+    masked_gradient,
+    masked_savgol,
+    masked_sosfiltfilt,
+    masked_sosfiltfilt_fir,
+)
+from modulation_mfcc_tpu_torch.ops.savgol import savgol_filter
+from modulation_mfcc_tpu_torch.ops.spectral import analysis_window, mfcc_from_frames, power_spectrum_fft
 from modulation_mfcc_tpu_torch.utils.helpers import resolve_device
 
 __all__ = [
     "MfccChange", "mfcc_trajectories", "mfcc_change", "change_times",
     "min_frames_for_fir", "extract_mfcc_change", "extract_mfcc_matrix",
+    "modulation_spectrum", "modulation_spectrum_axes",
 ]
 
 # fused spectrum → frontend algorithm (kernels/fused_frontend.py)
@@ -53,16 +68,20 @@ def _traj_design(cfg: MfccConfig) -> tuple:
     return F.design_butter_sos(cfg.filtOrd, (cut_norm,), "lowpass")
 
 
-def _out_design(cfg: MfccConfig) -> tuple | None:
-    """(sos, zi, padlen) of the final low-pass: the trajectory design when
-    ``outFilter`` is None, the validated 'iir' out-filter, or None for the
-    'fir'/'sg' out-filters, which only the host tail runs."""
+def _out_design(cfg: MfccConfig) -> tuple[str, tuple | None]:
+    """The validated final filter: ('iir', (sos, zi, padlen)) for the
+    trajectory low-pass (``outFilter`` None) or the 'iir' out-filter,
+    ('fir', (b, zi, padlen)) for the Kaiser FIR, or ('sg', None)."""
+    fs = 1.0 / cfg.tStep
     if cfg.outFilter is None:
-        return _traj_design(cfg)
+        return "iir", _traj_design(cfg)
     if cfg.outFilter == "iir":
-        return F.iir_design(1.0 / cfg.tStep, cfg.outFiltCutOff, cfg.outFiltLen, cfg.outFiltType)
-    if cfg.outFilter in ("fir", "sg"):
-        return None
+        return "iir", F.iir_design(fs, cfg.outFiltCutOff, cfg.outFiltLen, cfg.outFiltType)
+    if cfg.outFilter == "fir":
+        return "fir", F.fir_design(fs, cfg.outFiltCutOff, cfg.outFiltLen, cfg.outFiltType)
+    if cfg.outFilter == "sg":
+        F.validated_cutoffs(fs, "sg", cfg.outFiltCutOff, cfg.outFiltType)
+        return "sg", None
     raise ValueError(f"Unknown outFilter {cfg.outFilter!r}")
 
 
@@ -74,8 +93,10 @@ class MfccChange(torch.nn.Module):
       other modes' constants (kernels/fused_frontend.mode_weights) ride
       along as non-persistent buffers ``<mode>_<name>``;
     * ``dct`` [n_mels, n_mfcc]: DCT-II ortho of the MFCC tail;
-    * ``traj_filter`` / ``out_filter``: the two zero-phase low-passes, each
-      with its probed FIR operator (``kernel``, ``left``, ``right``).
+    * ``traj_filter`` / ``out_filter``: the two zero-phase Butterworth
+      filters, each with its probed FIR operator (``kernel``, ``left``,
+      ``right``); ``out_filter`` is None for the 'fir' out-filter, whose
+      taps are ``out_fir`` = (b, zi, padlen), and for 'sg'.
     """
 
     def __init__(self, cfg: MfccConfig = MfccConfig()):
@@ -90,8 +111,9 @@ class MfccChange(torch.nn.Module):
                     self.register_buffer(f"{alg}_{name}", torch.tensor(arr), persistent=False)
         self.register_buffer("dct", torch.tensor(tail_dct(cfg.n_mfcc, cfg.n_mels)))
         self.traj_filter = F.FiltFilt(*_traj_design(cfg))
-        out = _out_design(cfg)
-        self.out_filter = None if out is None else F.FiltFilt(*out)
+        self.out_kind, out = _out_design(cfg)
+        self.out_filter = F.FiltFilt(*out) if self.out_kind == "iir" else None
+        self.out_fir = out if self.out_kind == "fir" else None
 
     def frontend_weights(self, algorithm: str) -> dict[str, torch.Tensor]:
         """The buffers of one frontend mode, keyed as mode_weights keys them."""
@@ -157,23 +179,17 @@ class MfccChange(torch.nn.Module):
         utterance): the top_db peak, filter edges and gradient edges are then
         anchored at each utterance's length, so each output equals its
         single-file result on valid frames (zeros beyond). ``masked_fir=True``
-        takes the FIR-operator filters, which need every length to be at
-        least :func:`min_frames_for_fir`; ``False`` the scan filters, which
-        take any length.
+        takes the FIR-operator forms of the Butterworth filters, which need
+        every length to be at least :func:`min_frames_for_fir`; ``False``
+        the scan filters, which take any length. The 'fir' and 'sg'
+        out-filters have one masked form each, used either way.
         """
         cfg = self.cfg
-        if cfg.diffMethod != "grad":
-            raise NotImplementedError(
-                f"diffMethod={cfg.diffMethod!r} (Savitzky-Golay) is not ported yet (ROADMAP A.5)"
-            )
-        if self.out_filter is None:
-            raise NotImplementedError(
-                f"outFilter={cfg.outFilter!r} on device is not ported yet (ROADMAP A.6)"
-            )
         frame_mask = None
         if frame_lengths is not None:
-            if masked_fir and (self.traj_filter.min_len is None or self.out_filter.min_len is None):
-                raise ValueError("masked_fir=True needs FIR operators for both filters")
+            if masked_fir and (self.traj_filter.min_len is None
+                               or (self.out_filter is not None and self.out_filter.min_len is None)):
+                raise ValueError("masked_fir=True needs FIR operators for the Butterworth filters")
             t = int(n_samples) if y.ndim == 3 else y.shape[-1]
             nf = n_frames_centered(t, cfg.n_fft, cfg.hop_length)
             frame_lengths = torch.as_tensor(frame_lengths, device=y.device)
@@ -182,19 +198,40 @@ class MfccChange(torch.nn.Module):
             ).to(torch.float32)
         # coef-major trajectories, so the filters run along the last (time) axis
         m = self.trajectories(y, frame_mask=frame_mask, spectrum=spectrum, coef_major=True, n_samples=n_samples)
+        return self.trajectory_tail(m, frame_lengths=frame_lengths, masked_fir=masked_fir)
+
+    def trajectory_tail(
+        self, m: torch.Tensor, *, frame_lengths: torch.Tensor | None = None, masked_fir: bool = False
+    ) -> torch.Tensor:
+        """The trajectory-rate tail (script/mfcc.py:393-425) over coef-major
+        MFCCs [..., n_mfcc, NF]: drop C0, low-pass, derivative, √Σd²/n_coef,
+        final filter; with ``frame_lengths`` [B] the length-masked forms
+        (see :meth:`forward`)."""
+        cfg = self.cfg
         if cfg.removeFirst:
             m = m[..., 1:, :]
         n_coef = m.shape[-2]
         if frame_lengths is None:
-            diff = np_gradient(self.traj_filter(m))
-        else:
-            lengths = frame_lengths[:, None]
-            filt = self._masked_filter(self.traj_filter, m, lengths, masked_fir)
+            filt = self.traj_filter(m)
+            diff = np_gradient(filt) if cfg.diffMethod == "grad" else savgol_filter(filt, 3, 2, deriv=1)
+            tot = torch.sqrt(torch.sum(diff * diff, dim=-2)) / n_coef
+            if self.out_kind == "iir":
+                return self.out_filter(tot)
+            if self.out_kind == "fir":
+                return F.filtfilt(*self.out_fir, tot)
+            return savgol_filter(tot, cfg.outFiltLen, cfg.outFiltPolyOrd, deriv=0)
+        lengths = frame_lengths[:, None]
+        filt = self._masked_filter(self.traj_filter, m, lengths, masked_fir)
+        if cfg.diffMethod == "grad":
             diff = masked_gradient(filt, lengths)
+        else:
+            diff = masked_savgol(filt, 3, 2, lengths, deriv=1)
         tot = torch.sqrt(torch.sum(diff * diff, dim=-2)) / n_coef
-        if frame_lengths is None:
-            return self.out_filter(tot)
-        return self._masked_filter(self.out_filter, tot, frame_lengths, masked_fir)
+        if self.out_kind == "iir":
+            return self._masked_filter(self.out_filter, tot, frame_lengths, masked_fir)
+        if self.out_kind == "fir":
+            return masked_filtfilt(*self.out_fir, tot, frame_lengths)
+        return masked_savgol(tot, cfg.outFiltLen, cfg.outFiltPolyOrd, frame_lengths, deriv=0)
 
     @staticmethod
     def _masked_filter(filt: F.FiltFilt, x: torch.Tensor, lengths: torch.Tensor, fir: bool) -> torch.Tensor:
@@ -260,7 +297,7 @@ def min_frames_for_fir(cfg: MfccConfig) -> int | None:
         return d1.min_len
     if cfg.outFilter != "iir":
         return None  # fir/sg out-filters have no FIR operator
-    sos2, _, padlen2 = _out_design(cfg)
+    _, (sos2, _, padlen2) = _out_design(cfg)
     d2 = F.design_filtfilt_operator(F._key_of(sos2), padlen2)
     if d2 is None:
         return None
@@ -307,6 +344,7 @@ def extract_mfcc_change(
     *,
     spectrum: str = "fused",
     device=None,
+    longform_threshold: int = 4_194_304,
 ):
     """User-facing: (tot_change tensor, times ndarray) for one utterance [T]
     or a batch [B, T]; the reference's Mfcc DataSource (script/main.py:726-770).
@@ -316,13 +354,19 @@ def extract_mfcc_change(
     length: through the masked FIR filters when it has at least
     :func:`min_frames_for_fir` frames, else the MFCC stage on the device
     and the 200 Hz filter tail on the host with scipy (exact by
-    construction). Long recordings run whole-file.
+    construction). An utterance of at least ``longform_threshold`` samples
+    streams through ``parallel.streaming.chunked_mfcc_change`` (its fft
+    spectrum, whatever ``spectrum`` says), as the JAX package routes it.
     """
     device = resolve_device(device, y)
     y = torch.as_tensor(y, dtype=torch.float32, device=device)
     if y.ndim != 1:
         return mfcc_change(y, cfg, spectrum=spectrum), change_times(y.shape[-1], cfg)
     n = y.shape[-1]
+    if n >= longform_threshold:
+        from modulation_mfcc_tpu_torch.parallel.streaming import chunked_mfcc_change
+
+        return chunked_mfcc_change(y, cfg), change_times(n, cfg)
     nf_valid = 1 + n // cfg.hop_length
     t = change_times(n, cfg)
     mf = min_frames_for_fir(cfg)
@@ -350,3 +394,45 @@ def extract_mfcc_matrix(
     y = torch.as_tensor(y, dtype=torch.float32, device=device)
     mask = torch.ones((1, 1 + y.shape[-1] // cfg.hop_length), device=device) if y.ndim == 1 else None
     return change_times(y.shape[-1], cfg), mfcc_trajectories(y, cfg, spectrum=spectrum, frame_mask=mask)
+
+
+def modulation_spectrum_axes(
+    n_samples: int, cfg: MfccConfig, *, mod_n_fft: int = 128, mod_hop: int = 16
+) -> tuple[np.ndarray, np.ndarray]:
+    """(mod_freqs [n_bins], mod_times [n_modframes]) of
+    :func:`modulation_spectrum`: the modulation frequencies run to half the
+    trajectory rate 1/tStep (100 Hz at the default 200 Hz)."""
+    fs_traj = 1.0 / cfg.tStep
+    nf = n_frames_centered(n_samples, cfg.n_fft, cfg.hop_length)
+    n_mod = 1 + nf // mod_hop
+    freqs = np.linspace(0.0, fs_traj / 2.0, 1 + mod_n_fft // 2)
+    times = frame_times_mfcc(nf, cfg.tStep, cfg.winLen)[np.minimum(np.arange(n_mod) * mod_hop, nf - 1)]
+    return freqs, times
+
+
+def modulation_spectrum(
+    y,
+    cfg: MfccConfig,
+    *,
+    mod_n_fft: int = 128,
+    mod_hop: int = 16,
+    spectrum: str = "fused",
+    device=None,
+) -> torch.Tensor:
+    """Modulation power spectrum [..., n_coef, n_modframes, n_modbins] of
+    audio [..., T] (BASELINE config #3): each MFCC coefficient trajectory
+    (sampled at 1/tStep Hz), mean removed, analysed by a second centered,
+    Hann-windowed rFFT of ``mod_n_fft`` points every ``mod_hop`` frames.
+    ``spectrum`` selects the MFCC stage as in :func:`mfcc_change` (the
+    fused spectra run their frontend kernel and the frame-major tail
+    kernel). Computes on ``device`` (default: ``y``'s own if it is a
+    tensor, else CUDA)."""
+    device = resolve_device(device, y)
+    y = y.to(device) if torch.is_tensor(y) else torch.as_tensor(y, dtype=torch.float32, device=device)
+    m = mfcc_trajectories(y, cfg, spectrum=spectrum)
+    if cfg.removeFirst:
+        m = m[..., 1:]
+    traj = m.transpose(-1, -2)  # [..., n_coef, n_frames]
+    traj = traj - torch.mean(traj, dim=-1, keepdim=True)
+    frames = frame_signal(traj, mod_n_fft, mod_hop)
+    return power_spectrum_fft(frames, mod_n_fft, analysis_window(mod_n_fft, "hann", mod_n_fft))

@@ -1,17 +1,22 @@
-"""Zero-phase IIR filtering of trajectories (the 12 Hz Butterworth stages).
+"""Zero-phase filtering of trajectories: the 12 Hz Butterworth stages and the
+reference's applyFilter ('iir', 'fir', 'sg').
 
-Design is host-side: Butterworth SOS, steady-state ``zi`` and the probed FIR
-operator are computed once with scipy in float64 and cached. Application is
-tensor code along the last axis, vectorized over every leading axis, with
-the semantics of ``scipy.signal.sosfiltfilt`` (same odd extension, default
-``padlen`` and ``zi`` scaling by the first extended sample):
+Design is host-side: Butterworth SOS, Kaiser FIR taps, steady-state ``zi``
+and the probed FIR operator are computed once with scipy in float64 and
+cached. Application is tensor code along the last axis, vectorized over
+every leading axis, with the semantics of ``scipy.signal.sosfiltfilt`` and
+``filtfilt`` (same odd extension, default ``padlen`` and ``zi`` scaling by
+the first extended sample):
 
   * signals of at least ``min_len`` samples go through the FIR operator
     form (:func:`sosfiltfilt_fir`): one valid convolution with the probed
     zero-phase kernel, as a blocked Toeplitz matmul, plus two dense edge
     matmuls;
   * shorter signals run scipy's construction literally
-    (:func:`sosfiltfilt_scan`), a per-sample loop.
+    (:func:`sosfiltfilt_scan`), a per-sample loop;
+  * the transversal (FIR) filter of :func:`filtfilt` is a correlation plus
+    the initial state on its first outputs (:func:`lfilter_fir`), parallel
+    over time.
 
 Everything here is matmuls and elementwise ops; there is no convolution, so
 cuDNN's TF32 default never applies.
@@ -24,6 +29,8 @@ import numpy as np
 import scipy.signal as _sps
 import torch
 import torch.nn.functional as tnf
+
+from modulation_mfcc_tpu_torch.ops.savgol import savgol_filter
 
 # ---------------------------------------------------------------------------
 # Host-side design
@@ -45,6 +52,18 @@ def design_butter_sos(order: int, wn: tuple, btype: str) -> tuple:
     ntaps -= min((sos[:, 2] == 0).sum(), (sos[:, 5] == 0).sum())
     padlen = 3 * int(ntaps)
     return sos, zi, padlen
+
+
+@lru_cache(maxsize=128)
+def design_firwin(numtaps: int, wn: tuple, pass_zero, beta: float = 7.4) -> tuple:
+    """Kaiser-window FIR design of the reference's firwin call
+    (script/mfcc.py:120: ``firwin(filtLen, w, window=('kaiser', 7.4),
+    pass_zero=filtType)``): (b, zi, padlen) for :func:`filtfilt`."""
+    wn_arr = np.asarray(wn, dtype=np.float64)
+    b = _sps.firwin(numtaps, wn_arr if wn_arr.size > 1 else wn_arr[0], window=("kaiser", beta), pass_zero=pass_zero)
+    zi = _sps.lfilter_zi(b, np.array([1.0]))
+    padlen = 3 * len(b)
+    return b, zi, padlen
 
 
 # scipy's sosfiltfilt is a *linear* operator H on the input vector. Away from
@@ -240,6 +259,27 @@ def sosfiltfilt_fir(d, x: torch.Tensor) -> torch.Tensor:
     return torch.cat([left, mid, right], dim=-1)
 
 
+def lfilter_fir(b: np.ndarray, x: torch.Tensor, zi: torch.Tensor) -> torch.Tensor:
+    """scipy.signal.lfilter(b, [1], x, zi=zi)[0] along the last axis, in
+    parallel over time: y[n] = Σ_k b[k]·x[n−k] (zeros before the start),
+    plus zi[..., n] on the first len(b) − 1 outputs (the transposed direct
+    form's initial state reaches output n through n shifts)."""
+    nb = len(b)
+    y = _conv_valid_lastaxis(tnf.pad(x, (nb - 1, 0)), np.ascontiguousarray(b[::-1]))
+    m = min(nb - 1, x.shape[-1])
+    return torch.cat([y[..., :m] + zi[..., :m], y[..., m:]], dim=-1)
+
+
+def filtfilt(b: np.ndarray, zi: np.ndarray, padlen: int, x: torch.Tensor) -> torch.Tensor:
+    """Zero-phase transversal filtering == scipy.signal.filtfilt(b, 1, x)
+    (padtype odd), the reference's FIR branch (script/mfcc.py:126)."""
+    ext = odd_ext(x, padlen)
+    zi_t = _as(zi, x)
+    y = torch.flip(lfilter_fir(b, ext, zi_t * ext[..., :1]), dims=(-1,))
+    y = torch.flip(lfilter_fir(b, y, zi_t * y[..., :1]), dims=(-1,))
+    return y[..., padlen:-padlen] if padlen > 0 else y
+
+
 class FiltFilt(torch.nn.Module):
     """scipy.signal.sosfiltfilt of one SOS design along the last axis, with
     its probed FIR operator held as float64 buffers (``kernel``, ``left``,
@@ -280,14 +320,27 @@ def resolve_filt_type(filt_type: str) -> str:
     return matches[0]
 
 
-def iir_design(sr: float, cut_off, filt_len: int, filt_type: str) -> tuple:
-    """Validated Butterworth design of applyFilter's 'iir' branch:
-    (sos, zi, padlen). Cutoffs must be < sr/2 and increasing."""
-    if cut_off is None or any(c is None for c in cut_off):
+def validated_cutoffs(sr: float, filt: str, cut_off, filt_type: str) -> tuple[str, tuple | None]:
+    """applyFilter's validation (script/mfcc.py:29-135): (filter type,
+    normalized cutoffs cut/(sr/2)). Cutoffs must be < sr/2 and increasing,
+    one for low/high-pass and two for band-pass; 'sg' skips the cutoff
+    checks (its wn is None) but takes exactly one cutoff."""
+    if filt is None:
+        raise ValueError(
+            "Cannot apply filter without specifying a filter method among "
+            "'iir', 'fir' and 'sg' (filt is None)."
+        )
+    if cut_off is None or (filt != "sg" and any(c is None for c in cut_off)):
         raise ValueError(
             "Cannot apply filter without specifying a cut Off freq. (CutOff is None)."
         )
     ftype = resolve_filt_type(filt_type)
+    if filt == "sg":
+        if len(cut_off) != 1:
+            raise ValueError(
+                "sg (savitsky Golay) filters can only be lowpass (one cutOff freq allowed)"
+            )
+        return ftype, None
     cut = np.asarray(list(cut_off), dtype=np.float64)
     if np.any(cut >= sr / 2.0):
         raise ValueError(
@@ -304,7 +357,21 @@ def iir_design(sr: float, cut_off, filt_len: int, filt_type: str) -> tuple:
             "only one or two cut off frequencies allowed. If two freqs are "
             "provided, filtType must be bandpass"
         )
-    return design_butter_sos(filt_len, tuple((cut / (sr / 2.0)).tolist()), ftype)
+    return ftype, tuple((cut / (sr / 2.0)).tolist())
+
+
+def iir_design(sr: float, cut_off, filt_len: int, filt_type: str) -> tuple:
+    """Validated Butterworth design of applyFilter's 'iir' branch:
+    (sos, zi, padlen)."""
+    ftype, wn = validated_cutoffs(sr, "iir", cut_off, filt_type)
+    return design_butter_sos(filt_len, wn, ftype)
+
+
+def fir_design(sr: float, cut_off, filt_len: int, filt_type: str) -> tuple:
+    """Validated Kaiser FIR design of applyFilter's 'fir' branch:
+    (b, zi, padlen)."""
+    ftype, wn = validated_cutoffs(sr, "fir", cut_off, filt_type)
+    return design_firwin(filt_len, wn, ftype)
 
 
 def apply_filter(
@@ -317,17 +384,14 @@ def apply_filter(
     filt_type: str = "low",
     poly_ord: int = 3,
 ) -> torch.Tensor:
-    """The reference's applyFilter (script/mfcc.py:29-135) along the last axis.
-    Only the 'iir' (Butterworth sosfiltfilt) branch is ported."""
-    if filt is None:
-        raise ValueError(
-            "Cannot apply filter without specifying a filter method among "
-            "'iir', 'fir' and 'sg' (filt is None)."
-        )
+    """The reference's applyFilter (script/mfcc.py:29-135) along the last
+    axis: 'iir' (Butterworth sosfiltfilt), 'fir' (Kaiser firwin filtfilt)
+    or 'sg' (Savitzky-Golay smoothing of ``filt_len`` and ``poly_ord``)."""
+    ftype, wn = validated_cutoffs(sr, filt, cut_off, filt_type)
     if filt == "iir":
-        return sosfiltfilt(*iir_design(sr, cut_off, filt_len, filt_type), x)
-    if filt in ("fir", "sg"):
-        raise NotImplementedError(
-            f"apply_filter filt={filt!r} is not ported yet (ROADMAP A.6)"
-        )
+        return sosfiltfilt(*design_butter_sos(filt_len, wn, ftype), x)
+    if filt == "fir":
+        return filtfilt(*design_firwin(filt_len, wn, ftype), x)
+    if filt == "sg":
+        return savgol_filter(x, filt_len, poly_ord, deriv=0)
     raise ValueError(f"Unknown filter kind {filt!r}")

@@ -17,9 +17,11 @@ import torch.nn.functional as tnf
 
 import numpy as np
 
-from modulation_mfcc_tpu_torch.ops.filters import _as, _conv_valid_lastaxis, sosfilt
+from modulation_mfcc_tpu_torch.ops.filters import _as, _conv_valid_lastaxis, lfilter_fir, sosfilt
+from modulation_mfcc_tpu_torch.ops.savgol import _savgol_design
 
-__all__ = ["masked_odd_ext", "masked_reverse", "masked_sosfiltfilt", "masked_sosfiltfilt_fir", "masked_gradient"]
+__all__ = ["masked_odd_ext", "masked_reverse", "masked_sosfiltfilt", "masked_filtfilt", "masked_sosfiltfilt_fir",
+           "masked_gradient", "masked_savgol"]
 
 
 def _shift_clamped(x: torch.Tensor, s: int) -> torch.Tensor:
@@ -104,6 +106,24 @@ def masked_sosfiltfilt(
     return torch.where(i < L[..., None], out, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def masked_filtfilt(b: np.ndarray, zi: np.ndarray, padlen: int, x: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
+    """scipy.signal.filtfilt(b, 1, ·) of x[..., :length] inside the static
+    buffer [..., T]: the construction of :func:`masked_sosfiltfilt` with the
+    transversal filter :func:`~modulation_mfcc_tpu_torch.ops.filters.lfilter_fir`,
+    parallel over time. Output positions >= length are zero."""
+    t = x.shape[-1]
+    L = torch.as_tensor(length, device=x.device)
+    ext = masked_odd_ext(x, L, padlen)
+    zi_t = _as(zi, x)
+    y = lfilter_fir(b, ext, zi_t * ext[..., :1])
+    ext_len = L + 2 * padlen
+    yr = masked_reverse(y, ext_len)
+    y2 = lfilter_fir(b, yr, zi_t * yr[..., :1])
+    out = masked_reverse(y2, ext_len)[..., padlen : padlen + t]
+    i = torch.arange(t, device=x.device)
+    return torch.where(i < L[..., None], out, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def masked_sosfiltfilt_fir(design, x: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
     """FIR-operator sosfiltfilt of x[..., :length] in a static buffer.
 
@@ -144,3 +164,34 @@ def masked_gradient(x: torch.Tensor, length: torch.Tensor, spacing: float = 1.0)
     out = torch.where(i == 0, left, torch.where(i == L - 1, right, central))
     return torch.where(i < L, out, torch.zeros((), dtype=x.dtype, device=x.device))
 
+
+def masked_savgol(
+    x: torch.Tensor,
+    window_length: int,
+    polyorder: int,
+    length: torch.Tensor,
+    *,
+    deriv: int = 0,
+    delta: float = 1.0,
+) -> torch.Tensor:
+    """savgol_filter(mode='interp') of x[..., :length] in a static buffer:
+    the interior stencil as shifted-slice adds, the polynomial edge fits on
+    the first window and on the window ending at each item's length."""
+    t = x.shape[-1]
+    coeffs, edge_op = _savgol_design(window_length, polyorder, deriv, float(delta))
+    half = window_length // 2
+    i = torch.arange(t, device=x.device)
+    L = torch.as_tensor(length, device=x.device)[..., None]
+    # scipy applies convolve1d(x, coeffs): out[i] = Σ_j c[w-1-j]·x[i-half+j]
+    acc = torch.zeros_like(x)
+    for j, c in enumerate(np.asarray(coeffs)[::-1]):
+        acc = acc + float(c) * _shift_clamped(x, j - half)
+    e = _as(edge_op, x)
+    left = x[..., :window_length] @ e[:half].T
+    lastwin = _dyn_window(x, torch.clamp(L[..., 0] - window_length, 0, t - 1), window_length)
+    right = lastwin @ e[window_length - half :].T
+    out = acc
+    for r in range(half):
+        out = torch.where(i == r, left[..., r : r + 1], out)
+        out = torch.where(i == L - half + r, right[..., r : r + 1], out)
+    return torch.where(i < L, out, torch.zeros((), dtype=x.dtype, device=x.device))

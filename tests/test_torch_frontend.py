@@ -148,7 +148,8 @@ def test_plain_versions_compose_like_the_wrappers(audio):
 
 def test_wrapper_geometry_matches_cuda_source():
     """The block and tile sizes the wrappers assume are the kernel's own."""
-    src = (Path(ff.__file__).resolve().parent.parent / "csrc" / "fused_frontend.cu").read_text()
+    csrc = Path(ff.__file__).resolve().parent.parent / "csrc"
+    src = (csrc / "fused_frontend_common.cuh").read_text() + (csrc / "fused_frontend.cu").read_text()
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
     assert int(consts["kBF"]) == ff.BLOCK_FRAMES
     assert int(consts["kBT"]) == ff._BIN_TILE

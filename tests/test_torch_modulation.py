@@ -153,16 +153,16 @@ def test_params_from_jax_whole_slice(noise, name):
 
 
 def test_unported_options_raise(noise, tmp_path):
-    """Savitzky-Golay (A.5), the device 'fir' out-filter (A.6) and the sweep's
-    native loader (A.16) raise; the scan-based masked filters (A.7) are
-    ported, so frame_lengths without masked_fir now runs."""
+    """The sweep's native loader (A.16) still raises; Savitzky-Golay (A.5),
+    the 'fir'/'sg' out-filters (A.6) and the scan-based masked filters (A.7)
+    are ported, so they run and give finite results of the right shape
+    (tests/test_torch_savgol_fir.py holds them to JAX and the oracle)."""
     from modulation_mfcc_tpu_torch.parallel.corpus import CorpusSweep, sweep_mfcc_change
 
     y = torch.tensor(noise)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        mfcc_change(y, MfccConfig(diffMethod="sg"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        mfcc_change(y, MfccConfig(outFilter="fir", outFiltLen=31))
+    for kw in (dict(diffMethod="sg"), dict(outFilter="fir", outFiltLen=31), dict(outFilter="sg", outFiltLen=31)):
+        tot = mfcc_change(y, MfccConfig(**kw))
+        assert tot.shape == (2, 801) and bool(torch.isfinite(tot).all())
     with pytest.raises(NotImplementedError, match="ROADMAP A.16"):
         sweep_mfcc_change([], CorpusSweep(str(tmp_path), use_native_loader=True, device="cpu"))
     tot = mfcc_change(y, MfccConfig(), frame_lengths=torch.tensor([801, 801]))

@@ -6,6 +6,7 @@ from functools import partial
 
 import numpy as np
 import pytest
+import scipy.signal as sps
 import torch
 
 import jax.numpy as jnp
@@ -158,8 +159,11 @@ def test_extract_f0_unported_and_invalid_options(speechlike):
         extract_f0(y, sr, F0Config(method="pyin", pyinpad_mode="median"), device="cpu")
     with pytest.raises(ValueError, match="Unknown f0 method"):
         extract_f0(y, sr, F0Config(method="yin"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        extract_f0(y, sr, F0Config(outFilter="fir", outFiltLen=31), device="cpu")
+    # the 'fir' out-filter is ported: scipy's filtfilt of the unfiltered track
+    got, _ = extract_f0(y, sr, F0Config(outFilter="fir", outFiltLen=31), device="cpu")
+    raw, _ = extract_f0(y, sr, F0Config(outFilter=None), device="cpu")
+    b = sps.firwin(31, 12.0 / 50.0, window=("kaiser", 7.4), pass_zero="lowpass")
+    np.testing.assert_allclose(got.numpy(), sps.filtfilt(b, 1.0, raw.numpy().astype(np.float64)), rtol=0, atol=1e-3)
     with pytest.raises(ValueError, match="not interpolated"):
         extract_f0(y, sr, F0Config(interpUnvoiced=None), device="cpu")
     with pytest.raises(ValueError, match="one utterance"):

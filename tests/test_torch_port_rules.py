@@ -28,11 +28,18 @@ def _run(code: str, **env) -> subprocess.CompletedProcess:
 
 
 def test_port_runs_without_jax():
-    """With jax made unimportable, the port imports and runs mfcc_change,
-    pitch_ac, pyin_f0, lpc_formants and batched_mfcc_change ('fused_i16'
-    on int16 hop rows)."""
+    """With jax made unimportable, the port imports and runs mfcc_change
+    (also with diffMethod='sg'), pitch_ac, pyin_f0, lpc_formants,
+    batched_mfcc_change ('fused_i16' on int16 hop rows), the folded
+    frontend, resample_device, chunked_mfcc_change and modulation_spectrum."""
     proc = _run(
-        "import sys; sys.modules['jax'] = None\n"
+        "import sys, importlib.abc\n"
+        "class NoJax(importlib.abc.MetaPathFinder):  # jax and the JAX package are not installed\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        "        if name in ('jax', 'jaxlib', 'modulation_mfcc_tpu') or name.startswith(('jax.', 'jaxlib.',\n"
+        "                                                                             'modulation_mfcc_tpu.')):\n"
+        "            raise ImportError(f'no module named {name}')\n"
+        "sys.meta_path.insert(0, NoJax())\n"
         "import numpy as np, torch\n"
         "torch.set_num_threads(1)\n"
         "import modulation_mfcc_tpu_torch as mt\n"
@@ -54,6 +61,17 @@ def test_port_runs_without_jax():
         "tot, mask = batched_mfcc_change(mt.AudioBatch(rows, torch.tensor([40000, 30000])), mt.MfccConfig(),\n"
         "                                spectrum='fused_i16', n_samples=40000)\n"
         "assert tot.shape == (2, 801) and bool(torch.isfinite(tot).all()) and not bool(tot[1, 601:].any())\n"
+        "from modulation_mfcc_tpu_torch.kernels.fused_frontend import fused_mel_frontend\n"
+        "mel, bmax = fused_mel_frontend(y, sr=10000, hop=50, win_length=250, fold=True)\n"
+        "assert mel.shape == (1, 801, 128) and bool(torch.isfinite(mel).all())\n"
+        "tot = mt.mfcc_change(y, mt.MfccConfig(diffMethod='sg'))\n"
+        "assert tot.shape == (1, 801) and bool(torch.isfinite(tot).all())\n"
+        "y2 = mt.resample_device(y[0, :20000], 10000, 8000)\n"
+        "assert y2.shape == (16000,)\n"
+        "tot = mt.chunked_mfcc_change(y[0], mt.MfccConfig(), frames_per_chunk=256)\n"
+        "assert tot.shape == (801,) and bool(torch.isfinite(tot).all())\n"
+        "spec = mt.modulation_spectrum(y, mt.MfccConfig())\n"
+        "assert spec.shape == (1, 12, 51, 65) and bool(torch.isfinite(spec).all())\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib', 'modulation_mfcc_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"
@@ -97,6 +115,8 @@ def test_cuda_request_without_cuda_raises(tmp_path):
         "extract_mfcc_change fused_i16": lambda **kw: mt.extract_mfcc_change(y, spectrum="fused_i16", **kw),
         "sweep_mfcc_change": lambda **kw: sweep_mfcc_change([], CorpusSweep(str(tmp_path), **kw)),
         "prefetch_to_device": lambda **kw: list(prefetch_to_device(iter([{"a": y}]), **kw)),
+        "resample_device": lambda **kw: mt.resample_device(y, 16_000, 10_000, **kw),
+        "modulation_spectrum": lambda **kw: mt.modulation_spectrum(y, mt.MfccConfig(), **kw),
     }
     for call in calls.values():
         for kw in ({"device": "cuda"}, {}):
@@ -144,6 +164,11 @@ def test_wrappers_raise_on_devices_without_a_kernel():
     with pytest.raises(ValueError, match="no kernel"):
         mt.mfcc_change(rows, mt.MfccConfig(signal_sample_rate=16_000, maxFreq=8000.0), spectrum="fused_i16",
                        n_samples=4000)
+    for alg in ff.FOLD_ALGORITHMS:
+        with pytest.raises(ValueError, match="no kernel"):
+            ff.fused_mel_frontend(audio, sr=16_000, hop=80, win_length=400, fmax=8000.0, algorithm=alg, fold=True)
+    with pytest.raises(ValueError, match="no kernel"):
+        mt.modulation_spectrum(audio, mt.MfccConfig(signal_sample_rate=16_000, maxFreq=8000.0))
 
 
 def test_build_is_true_fp32_for_sm90a():
@@ -151,7 +176,8 @@ def test_build_is_true_fp32_for_sm90a():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
-        "burg.cu", "fused_frontend.cu", "fused_frontend_int.cu", "sinc_refine.cu", "viterbi.cu"]
+        "burg.cu", "fused_frontend.cu", "fused_frontend_fold.cu", "fused_frontend_int.cu", "sinc_refine.cu",
+        "viterbi.cu"]
     assert _build.library_path().parent == _build.BUILD_DIR
     assert "modulation_mfcc_tpu_torch/_build/" in (REPO / ".gitignore").read_text()
 

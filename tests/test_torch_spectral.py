@@ -61,7 +61,9 @@ def test_host_designs_bit_identical(name):
         jax_filters.design_butter_sos(cfg.filtOrd, (cfg.filtCutoff / (fs_traj / 2.0),), "lowpass"),
         jax_filters.design_butter_sos(cfg.outFiltLen, (cfg.outFiltCutOff[0] / (fs_traj / 2.0),), "lowpass"),
     ]
-    for (sos, zi, padlen), (jsos, jzi, jpadlen) in zip((_traj_design(cfg), _out_design(cfg)), jax_designs):
+    kind, out = _out_design(cfg)
+    assert kind == "iir"
+    for (sos, zi, padlen), (jsos, jzi, jpadlen) in zip((_traj_design(cfg), out), jax_designs):
         assert np.array_equal(sos, jsos) and np.array_equal(zi, jzi) and padlen == jpadlen
         _assert_operator_equal(
             filters.design_filtfilt_operator(filters._key_of(sos), padlen),
