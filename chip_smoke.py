@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --frontend DIR
 
 Builds the hand-written CUDA kernels from ``modulation_mfcc_tpu_torch/csrc``
 (nvcc, sm_90a, one process per source), checks each against its plain
@@ -11,11 +12,11 @@ card and against the CPU, and times kernels and paths with CUDA events.
 Phases:
 
   0  card, power limit, versions, TF32 flags (exits 2 without CUDA)
-  1  kernel build
+  1  kernel build, with ptxas's report (registers, spills) of every kernel
   2  MFCC kernels vs plain versions on the card, both configurations
   3  MFCC path at full size (mfcc_change, 128 × 30 s at 16 kHz), launch counts
   4  single utterances (masked-FIR route, host-tail route)
-  5  MFCC times: one warm-up, median of 5, kernels beside their plain versions
+  5  MFCC times, kernels beside their plain versions; the SM clock
   6  tracker kernels vs plain versions on the card: sinc_refine_f32 on the
      pitch tracker's own autocorrelation (4 × 30 s at 16 kHz, also at
      veryAccurate depth 70 and at the 10 kHz band), burg_lpc_f32 in both
@@ -42,7 +43,8 @@ Phases:
      fused_mel_f32 on int16 input) vs plain versions on the card, both
      configurations, float32, int16 and int16 hop-rows input, a quiet
      (-60 dBFS) int16 utterance for i16; rows equal flat bit for bit; the
-     i16 scales exact powers of two
+     i16 scales exact powers of two; x3 (tensor cores) also against the
+     float64 sums of its own products
  15  mfcc_change at 128 × 30 s at 16 kHz on int16 hop rows for each fused
      spectrum: one launch of its frontend kernel per call, against the
      float64 'fft' path; a ragged masked batch against per-file results
@@ -69,6 +71,28 @@ Phases:
  22  times: the fold kernels beside their plain versions and the unfolded
      kernels, the frame-major mfcc_tail_f32, the fold path and the
      modulation spectrum end to end, bounds
+ 23  the f32 MFCC's distance from the float64 'fft' MFCC at 128 x 30 s
+     (phase 19's noise and speech-like batches): fused_mel_f32 and
+     fused_mel_fold_f32 (their DFT summed in 16-row steps) beside their
+     plain versions in that order and in the one-sum order before it, and
+     the other routes ('fft' in float32; 'fused_x3' and 'fused_i24' beside
+     the plain versions of their kernels)
+
+``--frontend DIR`` runs none of these phases. It drives the package of the
+checkout at DIR instead of this one's, builds its kernels, times its
+frontend kernels at 128 × 30 s at 16 kHz as the frontend rows below are
+timed (fused_mel_f32 on float32 audio of phase 5's and phase 22's batches,
+seeds 0 and 19, in both orders; the f32 fold on both; x3, i24 and f32 on
+phase 15's int16 hop rows), and prints x3's and i24's MFCC distances from
+the float64 MFCC on phase 23's two batches, kernel and plain version.
+Every line carries DIR's name, the card's name and power limit, and the
+SM clock read after it. To compare two commits on one card, unpack the
+other (``git archive``) into a git-ignored directory and run parent,
+change, change, parent in one machine.
+
+Every frontend kernel row (phases 5, 17, 22) is timed the same way: three
+warm-up calls, then the median of 10, CUDA events (kernel_ms); the other
+rows one warm-up and the median of 5 (cuda_ms).
 
 Every check raises on failure, so the script exits 0 only when all phases
 passed. The line before the last is the card's name and power limit; the
@@ -88,8 +112,21 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as tnf
 
-sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+def package_root(argv: list[str]) -> Path | None:
+    """DIR of ``--frontend DIR`` (the checkout whose package the script then
+    drives), or None: this checkout's package, all phases."""
+    if argv[:1] != ["--frontend"]:
+        return None
+    if len(argv) != 2:
+        sys.exit("usage: chip_smoke.py [--frontend DIR]")
+    return Path(argv[1]).resolve()
+
+
+FRONTEND_ROOT = package_root(sys.argv[1:])
+sys.path.insert(0, str(FRONTEND_ROOT or Path(__file__).resolve().parent))
 
 import modulation_mfcc_tpu_torch as mt  # noqa: E402
 from modulation_mfcc_tpu_torch.io.wav import resample  # noqa: E402
@@ -118,9 +155,9 @@ SOURCES = {
     "viterbi_fwd_f32": f"{CSRC}/viterbi.cu",
     "viterbi_bwd_f32": f"{CSRC}/viterbi.cu",
     "fused_mel_bf16": f"{CSRC}/fused_frontend.cu",
-    "fused_mel_x3": f"{CSRC}/fused_frontend.cu",
+    "fused_mel_x3": f"{CSRC}/fused_frontend_tc.cu",
     "fused_mel_i16": f"{CSRC}/fused_frontend_int.cu",
-    "fused_mel_i24": f"{CSRC}/fused_frontend_int.cu",
+    "fused_mel_i24": f"{CSRC}/fused_frontend_tc.cu",
     "fused_mel_fold_f32": f"{CSRC}/fused_frontend_fold.cu",
     "fused_mel_fold_bf16": f"{CSRC}/fused_frontend_fold.cu",
     "fused_mel_fold_x3": f"{CSRC}/fused_frontend_fold.cu",
@@ -180,9 +217,10 @@ def speechlike(n_utt: int, n: int, sr: int, seed: int) -> np.ndarray:
     return out
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` runs after one warm-up."""
-    fn()
+def cuda_ms(fn, reps: int = 5, warm: int = 1) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` runs after ``warm`` warm-up calls."""
+    for _ in range(warm):
+        fn()
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -192,6 +230,19 @@ def cuda_ms(fn, reps: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_ms(fn) -> float:
+    """How every frontend kernel row is timed: median of 10 after 3 warm-ups."""
+    return cuda_ms(fn, reps=10, warm=3)
+
+
+def sm_clock() -> str:
+    """The SM clock, power draw and active throttle reasons, as nvidia-smi reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,clocks_throttle_reasons.active", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -371,8 +422,8 @@ def mfcc_path(dev, card: str) -> list[dict]:
     del mel_p, tail_p
     ms = {
         "fused_mel_f32": (
-            cuda_ms(lambda: frontend_kernel(y, cfg, a)),
-            cuda_ms(lambda: frontend_plain(y, cfg, a)),
+            kernel_ms(lambda: frontend_kernel(y, cfg, a)),
+            kernel_ms(lambda: frontend_plain(y, cfg, a)),
         ),
         "mfcc_tail_f32": (
             cuda_ms(lambda: ff.mfcc_tail(mel_k, pk, cfg.n_mfcc, transposed=True, dct=a["dct"])),
@@ -384,7 +435,8 @@ def mfcc_path(dev, card: str) -> list[dict]:
     e2e_plain = cuda_ms(lambda: model(y, spectrum="matmul"))
     hours = BATCH * SECONDS / 3600.0
     for k, (t_k, t_p) in ms.items():
-        print(f"[5] {k}: {t_k:.3f} ms, plain {t_p:.3f} ms at [{BATCH}, {SECONDS * sr}] ({card})")
+        print(f"[5] {k}: {t_k:.3f} ms, plain {t_p:.3f} ms at [{BATCH}, {SECONDS * sr}] ({card}; SM clock, "
+              f"power, throttle reasons: {sm_clock()})")
     print(f"[5] mfcc_change end to end: {e2e:.3f} ms = {hours / (e2e / 1e3):.3f} audio-h/s; "
           f"plain spectrum {e2e_plain:.3f} ms = {hours / (e2e_plain / 1e3):.3f} audio-h/s ({card})")
     print(f"[5] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -885,7 +937,46 @@ def bf16_ulps(mel_k: torch.Tensor, mel_p: torch.Tensor) -> tuple[float, float]:
     return float(u.max()), float((u > 1.0).float().mean())
 
 
-def mode_error_ok(alg: str, mel_k, bmax_k, mel_p, bmax_p) -> tuple[bool, str]:
+def x3_exact_mel(audio: torch.Tensor, cfg: mt.MfccConfig, w: dict, n_samples: int | None = None) -> torch.Tensor:
+    """The mel of the x3 arithmetic with every sum taken in float64: the
+    frames and the basis split into bf16 (hi, lo) as the mode splits them,
+    hi·Whi + hi·Wlo + lo·Whi summed in float64, the power rounded to
+    float32 and split, and the mel's three products summed in float64; one
+    utterance at a time. Audio as the frontends take it."""
+    from modulation_mfcc_tpu_torch.ops.framing import frame_by_slices
+    from modulation_mfcc_tpu_torch.utils.helpers import dequantize_samples
+
+    bsz, hop = audio.shape[0], cfg.hop_length
+    k, bins = w["wri"].shape[-2], w["melw"].shape[-2]
+    if audio.ndim == 3:
+        t, flat, left = n_samples, dequantize_samples(audio).reshape(bsz, -1), 0
+    else:
+        t, flat, left = audio.shape[1], dequantize_samples(audio), ff.eff_pad(cfg.n_fft, cfg.win_length)
+    nf = 1 + t // hop
+    right = max(0, (nf - 1) * hop + k - left - flat.shape[1])
+
+    def x3(x: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
+        hi = x.to(torch.bfloat16).float()
+        lo = (x - hi).to(torch.bfloat16).double()
+        hi, planes = hi.double(), planes.double()
+        return (hi @ planes[0] + hi @ planes[1]) + lo @ planes[0]
+
+    out = []
+    for b in range(bsz):
+        reim = x3(frame_by_slices(tnf.pad(flat[b : b + 1], (left, right)), 0, nf, k, hop), w["wri"])
+        out.append(x3((reim[..., :bins] ** 2 + reim[..., bins:] ** 2).float(), w["melw"]))
+    return torch.cat(out)
+
+
+def rel_above_floor(mel: torch.Tensor, ref: torch.Tensor) -> float:
+    """Max relative error of ``mel`` against ``ref`` over the entries of
+    ``ref`` above 1e-8 of its utterance's peak (the top_db floor)."""
+    live = ref > (ref.amax(dim=(1, 2)) * 1e-8)[:, None, None]
+    rel = (mel.double() - ref).abs() / torch.where(live, ref, torch.ones_like(ref))
+    return float(torch.where(live, rel, torch.zeros_like(rel)).max())
+
+
+def mode_error_ok(alg: str, mel_k, bmax_k, mel_p, bmax_p, exact: torch.Tensor | None = None) -> tuple[bool, str]:
     """Phase 2's bars (mel ≤ 1e-4 relative above the top_db floor, peak ≤
     1e-5) for f32, i16 and i24, whose power is the plain version's to f32
     rounding (bit for bit in i16 and i24). x3 splits the power into bf16 hi
@@ -897,8 +988,24 @@ def mode_error_ok(alg: str, mel_k, bmax_k, mel_p, bmax_p) -> tuple[bool, str]:
     DFT can move one bin's power by a bf16 ulp (2^-8), which moves the mel
     bands it dominates by up to one ulp more, and the peak (taken before the
     mel's own rounding) by up to 2^-8: bars 2 ulps, at most 0.1 % of entries
-    beyond 1 ulp, and a peak within 2^-8."""
+    beyond 1 ulp, and a peak within 2^-8.
+
+    fused_mel_x3 (``exact`` given: x3_exact_mel of the same input) runs on
+    the tensor cores, which sum each 16-row MMA in an order and rounding of
+    their own; the plain version sums in cuBLAS FP32 GEMMs. At the top_db
+    floor each of the two is up to ~2e-4 from the float64 sums of the same
+    x3 products (measured on the H100 at 16 kHz, phases 14 and 17: plain
+    1.7e-4 on 4 × 30 s and 2.3e-4 on 128 × 30 s, the kernel 1.3e-4 and
+    1.7e-4), so the two differ by up to the sum of both, beyond 1e-4. Its mel bar is therefore
+    restated against those float64 sums: the kernel no further from them
+    than twice the plain version; its peak bar stays 2^-16 of the plain
+    version's."""
     mel_rel, peak_rel, _ = mel_errors(mel_k.float(), bmax_k, mel_p.float(), bmax_p)
+    if alg == "x3" and exact is not None:
+        rel_k, rel_p = rel_above_floor(mel_k, exact), rel_above_floor(mel_p, exact)
+        return rel_k <= 2.0 * rel_p and peak_rel <= 2.0**-16, (
+            f"mel rel err {mel_rel:.3e}; against the float64 sums of the same x3 products: kernel {rel_k:.3e}, "
+            f"plain {rel_p:.3e} (bar: kernel ≤ 2 × plain); peak rel err {peak_rel:.3e} (bar 2^-16)")
     if alg == "x3":
         return mel_rel <= 1e-4 and peak_rel <= 2.0**-16, (f"mel rel err {mel_rel:.3e} (bar 1e-4), peak rel err "
                                                           f"{peak_rel:.3e} (bar 2^-16)")
@@ -930,6 +1037,7 @@ def mode_kernel_checks(dev) -> None:
             "int16 rows": (rows_of(pcm, cfg, dev), n),
             "quiet int16 rows": (rows_of(quiet, cfg, dev), n),
         }
+        exact = {}  # x3: the float64 sums of its products, per distinct input (int16 flat and rows are one)
         for alg in ("f32",) + MODES:
             w = mode_weights(cfg, alg, dev)
             flat_k = None
@@ -939,7 +1047,13 @@ def mode_kernel_checks(dev) -> None:
                 mel_k, bmax_k = mode_kernel(x, cfg, alg, w, ns)
                 mel_p, bmax_p = mode_plain(x, cfg, alg, w, ns)
                 torch.cuda.synchronize()
-                ok, text = mode_error_ok(alg, mel_k, bmax_k, mel_p, bmax_p)
+                ex = None
+                if alg == "x3":
+                    key = "float32" if label == "float32" else "int16"
+                    if key not in exact:
+                        exact[key] = x3_exact_mel(x, cfg, w, ns)
+                    ex = exact[key]
+                ok, text = mode_error_ok(alg, mel_k, bmax_k, mel_p, bmax_p, ex)
                 extra = ""
                 if label == "int16":
                     flat_k = (mel_k, bmax_k)
@@ -1078,14 +1192,16 @@ def modes_times(dev, rows: torch.Tensor, n: int, launches: dict, card: str) -> l
         w = mode_weights(cfg, alg, dev)
         mel_k, bmax_k = mode_kernel(rows, cfg, alg, w, n)
         mel_p, bmax_p = mode_plain(rows, cfg, alg, w, n)
-        ok, text = mode_error_ok(alg, mel_k, bmax_k, mel_p, bmax_p)
+        ex = x3_exact_mel(rows, cfg, w, n) if alg == "x3" else None
+        ok, text = mode_error_ok(alg, mel_k, bmax_k, mel_p, bmax_p, ex)
+        del ex
         err = float((mel_k.float() - mel_p.float()).abs().max())
         print(f"[17] {kname} at full size vs plain: {text}; max-abs {err:.3e}")
         check(ok, f"{kname} at full size")
         del mel_p, bmax_p
-        t_k = cuda_ms(lambda: mode_kernel(rows, cfg, alg, w, n))
+        t_k = kernel_ms(lambda: mode_kernel(rows, cfg, alg, w, n))
         torch.cuda.empty_cache()
-        t_p = cuda_ms(lambda: mode_plain(rows, cfg, alg, w, n))
+        t_p = kernel_ms(lambda: mode_plain(rows, cfg, alg, w, n))
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         e2e = cuda_ms(lambda: model(rows, spectrum=SPECTRUM[alg], n_samples=n))
@@ -1367,10 +1483,10 @@ def fold_times(dev, y: torch.Tensor, launches: dict, card: str) -> list[dict]:
         check(ok, f"{kname} at full size")
         del mel_p, bmax_p
         wu = mode_weights(cfg, alg, dev)
-        t_k = cuda_ms(lambda: fold_kernel(y, cfg, alg, w))
-        t_u = cuda_ms(lambda: mode_kernel(y, cfg, alg, wu))
+        t_k = kernel_ms(lambda: fold_kernel(y, cfg, alg, w))
+        t_u = kernel_ms(lambda: mode_kernel(y, cfg, alg, wu))
         torch.cuda.empty_cache()
-        t_p = cuda_ms(lambda: fold_plain(y, cfg, alg, w))
+        t_p = kernel_ms(lambda: fold_plain(y, cfg, alg, w))
         torch.cuda.empty_cache()
         bsz, nf, n_mels = mel_k.shape
         k, bins = w["wc"].shape[-2:]
@@ -1384,7 +1500,7 @@ def fold_times(dev, y: torch.Tensor, launches: dict, card: str) -> list[dict]:
         t_bytes = n_bytes / PEAK_BYTES_S * 1e3
         b = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
         print(f"[22] {kname}: {t_k:.3f} ms, plain {t_p:.3f} ms, unfolded fused_mel_{alg} {t_u:.3f} ms, bound "
-              f"{b[0]:.3f} ms ({b[1]}), {b[0] / t_k:.1%} of it ({card})")
+              f"{b[0]:.3f} ms ({b[1]}), {b[0] / t_k:.1%} of it ({card}; {sm_clock()})")
         rows.append(kernel_row(kname, launches[kname], err, (t_k, t_p), b))
         del mel_k, bmax_k
         torch.cuda.empty_cache()
@@ -1417,8 +1533,82 @@ def fold_times(dev, y: torch.Tensor, launches: dict, card: str) -> list[dict]:
     return rows
 
 
+def via_tail(mel_bmax, cfg: mt.MfccConfig, model) -> torch.Tensor:
+    """The coef-major MFCC of a frontend's (mel, block maxes), through mfcc_tail_f32."""
+    mel, bmax = mel_bmax
+    return ff.mfcc_tail(mel, peak_db(bmax), cfg.n_mfcc, transposed=True, dct=model.dct)
+
+
+def c2_batches(y: torch.Tensor) -> tuple[tuple[str, torch.Tensor], ...]:
+    """Phase 23's two batches: the speech-like ``y`` and noise of its shape (seed 191)."""
+    g = torch.Generator(device="cuda").manual_seed(191)
+    return ("speech-like", y), ("noise", 0.3 * torch.randn(y.shape, generator=g, device="cuda"))
+
+
+def tc_mode_distances(x: torch.Tensor, cfg: mt.MfccConfig, model, ws: dict, err) -> list[str]:
+    """x3's and i24's MFCC distance ``err`` from float64: the kernel (their
+    spectrum's mfcc_change trajectories) and its plain version through the
+    tail; ``ws`` maps the mode to its mode_weights."""
+    parts = []
+    for alg in ("x3", "i24"):
+        kernel = model.trajectories(x, spectrum=f"fused_{alg}", coef_major=True)
+        parts.append(f"spectrum='fused_{alg}' {err(kernel):.3e}")
+        plain = via_tail(mode_plain(x, cfg, alg, ws[alg]), cfg, model)
+        parts.append(f"fused_mel_{alg}'s plain version {err(plain):.3e}")
+        del kernel, plain
+        torch.cuda.empty_cache()
+    return parts
+
+
+def c2_distances(dev, y: torch.Tensor, card: str) -> None:
+    """Phase 23: the f32 MFCC against the float64 'fft' MFCC on phase 19's
+    two batches (BASELINE.md's bar: max-abs 1e-4). The kernels sum their DFT
+    in 16-row steps, each step's products into a fresh partial that is then
+    added to the running sum, and so do their plain versions; beside them
+    the plain versions in the one-sum order they had before, and the other
+    routes (x3 and i24 with their kernels' plain versions), and the fused
+    design's own floor (its float32-stored weights with every sum in
+    float64). A report: the bar is printed, not enforced."""
+    cfg = FLAGSHIP
+    model = mt.MfccChange(cfg).to(dev)
+    a, wf = frontend_args(cfg, dev), fold_weights(cfg, "f32", dev)
+    ws = {alg: mode_weights(cfg, alg, dev) for alg in ("x3", "i24")}
+    routes = {
+        "fused_mel_f32 (kernel)": lambda x: model.trajectories(x, coef_major=True),
+        "fused_mel_f32's plain version": lambda x: via_tail(frontend_plain(x, cfg, a), cfg, model),
+        "fused_mel_fold_f32 (kernel)": lambda x: fold_mfcc(x, cfg, "f32", wf, model.dct),
+        "fused_mel_fold_f32's plain version": lambda x: via_tail(fold_plain(x, cfg, "f32", wf), cfg, model),
+    }
+    for label, x in c2_batches(y):
+        f64 = model.trajectories(x.double(), spectrum="fft", coef_major=True)
+
+        def err(m: torch.Tensor) -> float:
+            check(m.shape == f64.shape and bool(torch.isfinite(m).all()), f"phase 23 {label} MFCC shape")
+            return float((m.double() - f64).abs().max())
+
+        parts = [f"{name} {err(fn(x)):.3e}" for name, fn in routes.items()]
+        stepped = ff._stepped_matmul
+        ff._stepped_matmul = lambda u, w: u @ w  # the order before the repair: one K-term sum
+        try:
+            parts += [f"{name} in one sum {err(fn(x)):.3e}" for name, fn in routes.items() if "plain" in name]
+        finally:
+            ff._stepped_matmul = stepped
+        parts.append(f"spectrum='fft' {err(model.trajectories(x, spectrum='fft', coef_major=True)):.3e}")
+        parts += tc_mode_distances(x, cfg, model, ws, err)
+        # the fused design's own floor: its float32-stored weights, every sum in float64
+        mel64, bmax64 = ff.fused_mel_frontend_reference(x.double(), a["wri"].double(), a["melw"].double(),
+                                                        hop=cfg.hop_length, eff_pad=a["eff_pad"])
+        db64 = torch.maximum(10.0 * torch.log10(torch.clamp(mel64, min=1e-10)), (peak_db(bmax64) - 80.0)[:, None, None])
+        parts.append(f"the fused design in float64 {err((db64 @ model.dct.double()).transpose(-1, -2)):.3e}")
+        del mel64, bmax64, db64
+        print(f"[23] f32 MFCC on the {label} batch {tuple(x.shape)} against the float64 'fft' MFCC, max-abs "
+              f"(BASELINE bar 1e-4; the f32 routes in 16-row steps): " + "; ".join(parts) + f" ({card})")
+        del f64
+        torch.cuda.empty_cache()
+
+
 def fold_longform_modspec(dev, card: str) -> list[dict]:
-    """Phases 18-22; the kernel rows of the fold kernels."""
+    """Phases 18-23; the kernel rows of the fold kernels."""
     fold_kernel_checks(dev)
     sr = FLAGSHIP.signal_sample_rate
     y = torch.tensor(speechlike(BATCH, SECONDS * sr, sr, seed=19), device=dev)
@@ -1428,7 +1618,58 @@ def fold_longform_modspec(dev, card: str) -> list[dict]:
     torch.cuda.empty_cache()
     modspec(dev, y)
     torch.cuda.empty_cache()
-    return fold_times(dev, y, launches, card)
+    rows = fold_times(dev, y, launches, card)
+    c2_distances(dev, y, card)
+    return rows
+
+
+def frontend_report(root: Path) -> int:
+    """``--frontend DIR``: the frontend kernel times and x3's and i24's MFCC
+    distances of the package at ``root`` (see the module docstring)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build()
+    _build.load_library()
+    dev = torch.device("cuda", 0)
+    card, label = card_line(), f"F {root.name}"
+    cfg = FLAGSHIP
+    sr = cfg.signal_sample_rate
+
+    def line(what: str, fn) -> None:
+        ms = kernel_ms(fn)
+        print(f"[{label}] {what}: {ms:.3f} ms ({card}; {sm_clock()})", flush=True)
+
+    ys = {s: torch.tensor(speechlike(BATCH, SECONDS * sr, sr, seed=s), device=dev) for s in (0, 19)}
+    w32, wf = mode_weights(cfg, "f32", dev), fold_weights(cfg, "f32", dev)
+    for s in (0, 19, 19, 0):
+        line(f"fused_mel_f32, float32, seed {s}", lambda: mode_kernel(ys[s], cfg, "f32", w32))
+    for s in (0, 19):
+        line(f"fused_mel_fold_f32, float32, seed {s}", lambda: fold_kernel(ys[s], cfg, "f32", wf))
+    y = ys.pop(19)
+    del ys
+    pcm = np.round(speechlike(BATCH, SECONDS * sr, sr, seed=0) * 0.5 * 32767.0).astype(np.int16)
+    rows, n = rows_of(pcm, cfg, dev), pcm.shape[1]
+    ws = {alg: mode_weights(cfg, alg, dev) for alg in ("x3", "i24", "f32")}
+    for alg, w in ws.items():
+        line(f"fused_mel_{alg}, int16 hop rows", lambda: mode_kernel(rows, cfg, alg, w, n))
+    del rows
+    torch.cuda.empty_cache()
+    model = mt.MfccChange(cfg).to(dev)
+    for what, x in c2_batches(y):
+        f64 = model.trajectories(x.double(), spectrum="fft", coef_major=True)
+
+        def err(m: torch.Tensor) -> float:
+            check(m.shape == f64.shape and bool(torch.isfinite(m).all()), f"{what} MFCC shape")
+            return float((m.double() - f64).abs().max())
+
+        print(f"[{label}] MFCC on the {what} batch {tuple(x.shape)} against the float64 'fft' MFCC, max-abs: "
+              + "; ".join(tc_mode_distances(x, cfg, model, ws, err)) + f" ({card})", flush=True)
+        del f64
+        torch.cuda.empty_cache()
+    return 0
 
 
 def main() -> int:
@@ -1477,4 +1718,4 @@ def read_fixture() -> np.ndarray:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(frontend_report(FRONTEND_ROOT) if FRONTEND_ROOT else main())

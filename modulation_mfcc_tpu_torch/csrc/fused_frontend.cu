@@ -1,12 +1,13 @@
-// Fused MFCC frontend for Hopper (sm_90a), float modes: audio -> mel power,
-// then mel -> dB with the top_db clip -> DCT-II. Plain C launchers, loaded
-// with ctypes (modulation_mfcc_tpu_torch/kernels/_build.py); each returns the
-// cudaError_t of its launch. All arithmetic runs on the CUDA cores (FFMA, no
-// tensor cores, no fast-math intrinsics). fused_mel_f32 and mfcc_tail_f32
-// compute in true FP32; fused_mel_bf16 and fused_mel_x3 round their operands
-// to bf16 as their TPU modes do (a product of two bf16 values is exact in
-// FP32, so each such product is accumulated in FP32). The fixed-point modes
-// are in fused_frontend_int.cu.
+// Fused MFCC frontend for Hopper (sm_90a), float modes f32 and bf16: audio
+// -> mel power, then mel -> dB with the top_db clip -> DCT-II. Plain C
+// launchers, loaded with ctypes (modulation_mfcc_tpu_torch/kernels/_build.py);
+// each returns the cudaError_t of its launch. All arithmetic here runs on
+// the CUDA cores (FFMA, no tensor cores, no fast-math intrinsics).
+// fused_mel_f32 and mfcc_tail_f32 compute in true FP32; fused_mel_bf16
+// rounds its operands to bf16 as its TPU mode does (a product of two bf16
+// values is exact in FP32, so each such product is accumulated in FP32). The
+// x3 mode runs on the tensor cores (fused_frontend_tc.cu), the fixed-point
+// modes in fused_frontend_int.cu and fused_frontend_tc.cu.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -18,13 +19,13 @@ namespace {
 using namespace frontend;
 
 // ---------------------------------------------------------------------------
-// fused_mel_f32, fused_mel_bf16, fused_mel_x3
+// fused_mel_f32, fused_mel_bf16
 //
 // Replace the Pallas frontend kernel of modulation_mfcc_tpu/pallas/
 // fused_frontend.py (fused_mel_frontend -> _launch -> _kernel and
-// _kernel_pipe, concat frame mode), with algorithm 'f32', 'bf16' and 'x3'
-// (_mxu) respectively. The pipelined _kernel_pipe computes _kernel's numbers
-// bit for bit, so one kernel serves both.
+// _kernel_pipe, concat frame mode), with algorithm 'f32' and 'bf16'
+// (_mxu). The pipelined _kernel_pipe computes _kernel's numbers bit for
+// bit, so one kernel serves both.
 //
 // Computes, for every utterance b and frame f < nf,
 //   frame[k] = x[b, f*hop + off + k]          (zero outside [0, T): T is the
@@ -37,25 +38,22 @@ using namespace frontend;
 // and one float per block: the max of mel over the block's frames (< nf),
 // which the wrapper reduces to the per-utterance top_db peak.
 //
-//   'f32':  as above, FP32.
+//   'f32':  as above, FP32. The DFT sums in steps of kKC = 16 rows: each
+//           step's 16 products go to a fresh partial sum, which is then
+//           added to the running re/im sum. One 400-term FFMA chain per
+//           value rounds enough to put the MFCC 2e-4 from the float64 one
+//           on 16 x 30 s of noise; the steps halve that. The plain version
+//           (kernels/fused_frontend._stepped_matmul) sums in the same steps.
 //   'bf16': frame samples, wri, power and melw rounded to bf16 (nearest
 //           even; wri and melw arrive rounded); mel stored as bf16, the
 //           block max taken over the FP32 mel before that rounding.
-//   'x3':   each product a*w becomes hi(a)*hi(w) + hi(a)*lo(w) + lo(a)*hi(w)
-//           with hi = bf16(v), lo = bf16(v - hi); wri and melw arrive as
-//           [2, ...] (hi, lo) stacks, the frame and power splits are made
-//           here by __float2bfloat16_rn. As the TPU mode sums the hi*hi
-//           pass apart from the two small ones, the hi*hi products and the
-//           small products accumulate in separate FP32 sums, added at the
-//           end: one running sum of all three reorders the rounding enough
-//           to move low mel bins by ~1e-4 relative.
 //
-// Bound: FFMA throughput on the CUDA cores here. A 128 x 30 s batch at
-// 16 kHz is ~315 GFLOP of DFT and ~50 GFLOP of mel projection (x3: three
-// times that); the audio read (123-246 MB) and the mel write (200-400 MB)
-// are small beside it at 3.35 TB/s. The unit the bf16 and x3 modes are
-// made for is the bf16 tensor core (989 TFLOP/s): about 0.4 ms (bf16) and
-// 1.1 ms (x3) a batch; this kernel does not use it.
+// Bound: FFMA throughput on the CUDA cores for f32, the unit its arithmetic
+// is made for. A 128 x 30 s batch at 16 kHz is ~315 GFLOP of DFT and ~50
+// GFLOP of mel projection; the audio read (123-246 MB) and the mel write
+// (200-400 MB) are small beside it at 3.35 TB/s. The unit the bf16 mode is
+// made for is the bf16 tensor core (989 TFLOP/s, about 0.4 ms a batch);
+// this kernel does not use it.
 //
 // Design: a block owns 64 consecutive frames of one utterance. It copies the
 // contiguous audio span those frames cover into shared memory once (about
@@ -64,26 +62,23 @@ using namespace frontend;
 // a time. The basis slice is double-buffered in shared memory and fetched
 // with cp.async one step ahead, so its L2 latency hides behind the current
 // step's FFMAs; the frame slice is staged transposed ([k][frame]) from the
-// audio span. Each thread keeps an 8-frame by 4-bin tile of re and im (64
-// accumulators) in registers; a warp's 8 frame samples are two float4
-// broadcasts and a lane's 4 re and 4 im basis values are 8 conflict-free
-// words: 10 shared-memory wavefronts per 64 FFMA. Power goes to shared memory (transposed,
-// [bin][frame], in the same space as the slices) and is projected onto the
-// mel bank into a [64, 128] shared accumulator, 128 bins at a time, so the
-// mel sum over bins runs in bin order. Blocks run in no order, so the block
-// max is written per block, not carried. The x3 mode stages two of every
-// operand (hi and lo), runs three FFMA per term into two sums, and keeps a
-// second mel accumulator.
+// audio span. For bf16 each thread keeps an 8-frame by 4-bin tile of re and
+// im (64 accumulators) of a 128-bin tile in registers; a warp's 8 frame
+// samples are two float4 broadcasts and a lane's 4 re and 4 im basis values
+// are 8 conflict-free words: 10 shared-memory wavefronts per 64 FFMA. f32
+// adds the step's partial sums, so it keeps 8 frames by 2 bins of a 64-bin
+// tile (32 running sums, 32 partials) at 6 wavefronts per 32 FFMA, within
+// the 128 registers of two blocks an SM. Power goes to shared memory
+// (transposed, [bin][frame], in the same space as the slices) and is
+// projected onto the mel bank into a [64, 128] shared accumulator, a tile
+// of bins at a time, so the mel sum over bins runs in bin order. Blocks run
+// in no order, so the block max is written per block, not carried.
 // ---------------------------------------------------------------------------
 
-// floats of the space the basis slices, the frame slice and the power tile share
-__host__ __device__ constexpr int shared_floats(int mode)
-{
-    const int planes = mode == kX3 ? 2 : 1;
-    const int stage = 2 * planes * kSlice + planes * kKC * kPitch;  // two steps of slices + the frame slice
-    const int power = planes * kBT * kPitch;
-    return stage > power ? stage : power;
-}
+// floats of the space the basis slices, the frame slice and the power tile share:
+// two steps of slices + the frame slice, or the power tile
+template <int MODE> constexpr int kShared = 2 * kTileSlice<MODE> + kKC * kPitch > kTile<MODE> * kPitch
+                                                ? 2 * kTileSlice<MODE> + kKC * kPitch : kTile<MODE> * kPitch;
 
 __device__ __forceinline__ float load_sample(const float* x, long long s) { return x[s]; }
 __device__ __forceinline__ float load_sample(const int16_t* x, long long s)
@@ -91,42 +86,65 @@ __device__ __forceinline__ float load_sample(const int16_t* x, long long s)
     return static_cast<float>(x[s]) * (1.0f / 32768.0f);  // exact
 }
 
-// rows [k0, k0 + kKC) of the bin tile's re and im columns of each plane ->
-// w_dst (plane p at w_dst + p * kSlice), one commit group
-template <int PLANES>
+// rows [k0, k0 + kKC) of the TB-bin tile's re and im columns -> w_dst, one
+// commit group
+template <int TB>
 __device__ __forceinline__ void stage_basis(float* w_dst, const float* __restrict__ wri, int k0,
                                             int K, int bt, int bins_pad, int tid)
 {
-    for (int i = tid; i < PLANES * kSlice / 4; i += kThreads) {
-        const int p = i / (kSlice / 4);
-        const int r = i % (kSlice / 4);
-        const int kk = r / (2 * kBT / 4);
-        const int c = (r % (2 * kBT / 4)) * 4;
+    for (int i = tid; i < kKC * 2 * TB / 4; i += kThreads) {
+        const int kk = i / (2 * TB / 4);
+        const int c = (i % (2 * TB / 4)) * 4;
         const int k = k0 + kk;
-        const int col = c < kBT ? bt + c : bins_pad + bt + (c - kBT);
+        const int col = c < TB ? bt + c : bins_pad + bt + (c - TB);
         // rows past K are zero, so the unrolled loop adds exact zeros
-        cp_async16(w_dst + p * kSlice + kk * 2 * kBT + c,
-                   wri + ((size_t)p * K + (k < K ? k : 0)) * 2 * bins_pad + col, k < K);
+        cp_async16(w_dst + kk * 2 * TB + c, wri + (size_t)(k < K ? k : 0) * 2 * bins_pad + col, k < K);
     }
     asm volatile("cp.async.commit_group;\n" ::);
 }
 
+// one step's products, rows [k0, k0 + kKC), added into (re, im) of the
+// thread's 8 frames and NJ bins (lane + 32 j of a 32 NJ-bin tile): a_s the
+// step's frame slice, w_cur its basis slice
+template <int NJ>
+__device__ __forceinline__ void dft_step(float (&re)[8][NJ], float (&im)[8][NJ], const float* a_s,
+                                         const float* w_cur, int lane, int warp)
+{
+#pragma unroll
+    for (int kk = 0; kk < kKC; ++kk) {
+        const float4 a_lo = *reinterpret_cast<const float4*>(a_s + kk * kPitch + 4 * warp);
+        const float4 a_hi = *reinterpret_cast<const float4*>(a_s + kk * kPitch + 32 + 4 * warp);
+        const float a[8] = {a_lo.x, a_lo.y, a_lo.z, a_lo.w, a_hi.x, a_hi.y, a_hi.z, a_hi.w};
+        float wr[NJ], wi[NJ];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+            wr[j] = w_cur[kk * 2 * 32 * NJ + lane + 32 * j];
+            wi[j] = w_cur[kk * 2 * 32 * NJ + 32 * NJ + lane + 32 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+                re[i][j] = fmaf(a[i], wr[j], re[i][j]);
+                im[i][j] = fmaf(a[i], wi[j], im[i][j]);
+            }
+    }
+}
+
 template <int MODE, typename In>
-__global__ void __launch_bounds__(kThreads, MODE == kX3 ? 1 : 2)
+__global__ void __launch_bounds__(kThreads, 2)
 fused_mel_kernel(const In* __restrict__ audio, const float* __restrict__ wri,
                  const float* __restrict__ melw, void* __restrict__ mel_out,
                  float* __restrict__ bmax, int T, int K, int hop, int off,
                  int nf, int bins_pad, int n_mels, int span_pad)
 {
-    constexpr int P = MODE == kX3 ? 2 : 1;  // planes per operand: (hi, lo) for x3
-    constexpr int kShared = shared_floats(MODE);
+    constexpr int TB = kTile<MODE>, NJ = TB / 32;
     extern __shared__ __align__(16) float smem[];
     float* span_s = smem;                      // [span_pad] audio samples
-    float* w_s = span_s + span_pad;            // 2 steps x P planes x [kKC][2*kBT] basis slices
-    float* a_s = w_s + 2 * P * kSlice;         // P x [kKC][kPitch] frame slice, transposed
-    float* p_s = w_s;                          // P x [kBT][kPitch] power tile, transposed
-    float* mel_s = w_s + kShared;              // [kBF][kMelMax] mel accumulator
-    float* mel2_s = mel_s + kBF * kMelMax;     // x3: [kBF][kMelMax] accumulator of the small products
+    float* w_s = span_s + span_pad;            // 2 steps x [kKC][2*TB] basis slices
+    float* a_s = w_s + 2 * kTileSlice<MODE>;   // [kKC][kPitch] frame slice, transposed
+    float* p_s = w_s;                          // [TB][kPitch] power tile, transposed
+    float* mel_s = w_s + kShared<MODE>;        // [kBF][kMelMax] mel accumulator
     __shared__ float red_s[kThreads / 32];
 
     const int tid = threadIdx.x;
@@ -143,87 +161,46 @@ fused_mel_kernel(const In* __restrict__ audio, const float* __restrict__ wri,
         const float v = (s >= 0 && s < T) ? load_sample(x, s) : 0.0f;
         span_s[i] = MODE == kBF16 ? bf16r(v) : v;
     }
-    for (int i = tid; i < P * kBF * kMelMax; i += kThreads) mel_s[i] = 0.0f;
+    for (int i = tid; i < kBF * kMelMax; i += kThreads) mel_s[i] = 0.0f;
 
-    for (int bt = 0; bt < bins_pad; bt += kBT) {
-        float re[8][4], im[8][4];    // the (hi*hi) products
-        float res[8][4], ims[8][4];  // x3: the hi*lo and lo*hi products
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) { re[i][j] = 0.0f; im[i][j] = 0.0f; res[i][j] = 0.0f; ims[i][j] = 0.0f; }
+    for (int bt = 0; bt < bins_pad; bt += TB) {
+        float re[8][NJ] = {}, im[8][NJ] = {};  // the running sums
 
         __syncthreads();  // the previous tile's power (same space) fully read
-        stage_basis<P>(w_s, wri, 0, K, bt, bins_pad, tid);
+        stage_basis<TB>(w_s, wri, 0, K, bt, bins_pad, tid);
         for (int step = 0; step < n_steps; ++step) {
             const int k0 = step * kKC;
             __syncthreads();  // the previous step's slices fully read
             if (step + 1 < n_steps)
-                stage_basis<P>(w_s + ((step + 1) & 1) * P * kSlice, wri, k0 + kKC, K, bt, bins_pad, tid);
+                stage_basis<TB>(w_s + ((step + 1) & 1) * kTileSlice<MODE>, wri, k0 + kKC, K, bt, bins_pad, tid);
             for (int i = tid; i < kKC * kBF; i += kThreads) {
                 const int kk = i % kKC;
                 const int f = i / kKC;
-                const float v = span_s[f * hop + k0 + kk];
-                if constexpr (MODE == kX3) {
-                    const float hi = bf16r(v);
-                    a_s[kk * kPitch + f] = hi;
-                    a_s[kKC * kPitch + kk * kPitch + f] = bf16r(v - hi);
-                } else {
-                    a_s[kk * kPitch + f] = v;
-                }
+                a_s[kk * kPitch + f] = span_s[f * hop + k0 + kk];
             }
             if (step + 1 < n_steps) asm volatile("cp.async.wait_group 1;\n" ::);
             else asm volatile("cp.async.wait_group 0;\n" ::);
             __syncthreads();
-            const float* w_cur = w_s + (step & 1) * P * kSlice;
+            const float* w_cur = w_s + (step & 1) * kTileSlice<MODE>;
+            if constexpr (MODE == kF32) {
+                // the step's own partial sums, added to re/im after the step
+                float pre[8][NJ] = {}, pim[8][NJ] = {};
+                dft_step<NJ>(pre, pim, a_s, w_cur, lane, warp);
 #pragma unroll
-            for (int kk = 0; kk < kKC; ++kk) {
-                const float4 a_lo = *reinterpret_cast<const float4*>(a_s + kk * kPitch + 4 * warp);
-                const float4 a_hi = *reinterpret_cast<const float4*>(a_s + kk * kPitch + 32 + 4 * warp);
-                const float a[8] = {a_lo.x, a_lo.y, a_lo.z, a_lo.w, a_hi.x, a_hi.y, a_hi.z, a_hi.w};
-                float wr[4], wi[4];
+                for (int i = 0; i < 8; ++i)
 #pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    wr[j] = w_cur[kk * 2 * kBT + lane + 32 * j];
-                    wi[j] = w_cur[kk * 2 * kBT + kBT + lane + 32 * j];
-                }
-                if constexpr (MODE == kX3) {
-                    const float* a2 = a_s + kKC * kPitch + kk * kPitch;
-                    const float4 l_lo = *reinterpret_cast<const float4*>(a2 + 4 * warp);
-                    const float4 l_hi = *reinterpret_cast<const float4*>(a2 + 32 + 4 * warp);
-                    const float al[8] = {l_lo.x, l_lo.y, l_lo.z, l_lo.w, l_hi.x, l_hi.y, l_hi.z, l_hi.w};
-                    float wrl[4], wil[4];
-#pragma unroll
-                    for (int j = 0; j < 4; ++j) {
-                        wrl[j] = w_cur[kSlice + kk * 2 * kBT + lane + 32 * j];
-                        wil[j] = w_cur[kSlice + kk * 2 * kBT + kBT + lane + 32 * j];
+                    for (int j = 0; j < NJ; ++j) {
+                        re[i][j] += pre[i][j];
+                        im[i][j] += pim[i][j];
                     }
-#pragma unroll
-                    for (int i = 0; i < 8; ++i)
-#pragma unroll
-                        for (int j = 0; j < 4; ++j) {
-                            re[i][j] = fmaf(a[i], wr[j], re[i][j]);
-                            res[i][j] = fmaf(a[i], wrl[j], res[i][j]);
-                            res[i][j] = fmaf(al[i], wr[j], res[i][j]);
-                            im[i][j] = fmaf(a[i], wi[j], im[i][j]);
-                            ims[i][j] = fmaf(a[i], wil[j], ims[i][j]);
-                            ims[i][j] = fmaf(al[i], wi[j], ims[i][j]);
-                        }
-                } else {
-#pragma unroll
-                    for (int i = 0; i < 8; ++i)
-#pragma unroll
-                        for (int j = 0; j < 4; ++j) {
-                            re[i][j] = fmaf(a[i], wr[j], re[i][j]);
-                            im[i][j] = fmaf(a[i], wi[j], im[i][j]);
-                        }
-                }
+            } else {
+                dft_step<NJ>(re, im, a_s, w_cur, lane, warp);
             }
         }
 
-        project_tile<MODE>(re, im, res, ims, p_s, mel_s, mel2_s, melw, bt, bins_pad, n_mels, lane, warp);
+        project_tile<MODE, NJ>(re, im, re, im, p_s, mel_s, nullptr, melw, bt, bins_pad, n_mels, lane, warp);
     }
-    write_block<MODE>(mel_s, mel2_s, mel_out, bmax, red_s, b, f0, nf, n_mels, tid, lane, warp);
+    write_block<MODE>(mel_s, nullptr, mel_out, bmax, red_s, b, f0, nf, n_mels, tid, lane, warp);
 }
 
 template <int MODE, typename In>
@@ -236,7 +213,7 @@ int launch_mel(const void* audio, const float* wri, const float* melw, void* mel
     const int n_blocks = (nf + kBF - 1) / kBF;
     const int span = (kBF - 1) * hop + (K + kKC - 1) / kKC * kKC;
     const int span_pad = (span + 3) / 4 * 4;
-    const size_t smem = sizeof(float) * ((size_t)span_pad + shared_floats(MODE) + (MODE == kX3 ? 2 : 1) * kBF * kMelMax);
+    const size_t smem = sizeof(float) * ((size_t)span_pad + kShared<MODE> + kBF * kMelMax);
     cudaError_t err = cudaFuncSetAttribute(
         fused_mel_kernel<MODE, In>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -359,15 +336,6 @@ extern "C" int fused_mel_bf16(const void* audio, int audio_i16, const float* wri
 {
     return launch_mel_any<kBF16>(audio, audio_i16, wri, melw, mel, bmax, B, T, K, hop, off, nf, bins_pad,
                                  n_mels, stream);
-}
-
-// wri [2, K, 2*bins_pad] and melw [2, bins_pad, n_mels]: the (hi, lo) stacks
-extern "C" int fused_mel_x3(const void* audio, int audio_i16, const float* wri, const float* melw,
-                            float* mel, float* bmax, int B, int T, int K, int hop, int off,
-                            int nf, int bins_pad, int n_mels, void* stream)
-{
-    return launch_mel_any<kX3>(audio, audio_i16, wri, melw, mel, bmax, B, T, K, hop, off, nf, bins_pad,
-                               n_mels, stream);
 }
 
 extern "C" int mfcc_tail_f32(const void* mel, int mel_bf16, const float* peak, const float* dct,

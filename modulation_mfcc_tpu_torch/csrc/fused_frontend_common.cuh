@@ -1,8 +1,8 @@
-// What the float frontend kernels share (fused_frontend.cu: fused_mel_f32,
-// _bf16, _x3; fused_frontend_fold.cu: fused_mel_fold_f32, _bf16, _x3): the
-// block geometry, the cp.async and bf16 helpers, and the end of each bin
-// tile and of each block. A block owns kBF consecutive frames of one
-// utterance; warp w owns frames 4w..4w+3 and 32+4w..32+4w+3, lane l the
+// What the CUDA-core float frontend kernels share (fused_frontend.cu:
+// fused_mel_f32, _bf16; fused_frontend_fold.cu: fused_mel_fold_f32, _bf16,
+// _x3): the block geometry, the cp.async and bf16 helpers, and the end of
+// each bin tile and of each block. A block owns kBF consecutive frames of
+// one utterance; warp w owns frames 4w..4w+3 and 32+4w..32+4w+3, lane l the
 // bins (and mel columns) l + 32j of a tile. Included by those sources only.
 #pragma once
 #include <cuda_bf16.h>
@@ -19,7 +19,11 @@ constexpr int kPitch = kBF + 4;  // row pitch of the [k][frame] and [bin][frame]
 
 constexpr int kF32 = 0, kBF16 = 1, kX3 = 2;
 
-constexpr int kSlice = kKC * 2 * kBT;  // floats of one staged basis slice (one plane)
+// DFT bins a tile holds (re and im columns each). f32 halves the tile: a
+// thread's 8 x 2 running sums and the step's partial sums then take 64
+// registers, which leaves room for two blocks an SM
+template <int MODE> constexpr int kTile = MODE == kF32 ? kBT / 2 : kBT;
+template <int MODE> constexpr int kTileSlice = kKC * 2 * kTile<MODE>;  // floats of one staged basis slice (one plane)
 
 __device__ __forceinline__ int owned_frame(int warp, int i) { return (i < 4 ? 0 : 28) + 4 * warp + i; }
 
@@ -32,23 +36,25 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool va
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 16 : 0));
 }
 
-// The end of bin tile bt: the thread's re and im sums (x3: the hi*hi sums
-// in re/im, the small products in res/ims) -> power, rounded as MODE says
-// ('bf16': to bf16; 'x3': split into bf16 hi and lo), written transposed
-// ([bin][frame]) to p_s, which may share space with the staged slices; then
-// the power tile projected onto melw's rows bt..bt+kBT-1 into the [kBF][kMelMax]
-// accumulator mel_s (x3: the small products into mel2_s, melw's lo plane
-// following its hi plane), in bin order.
-template <int MODE>
-__device__ __forceinline__ void project_tile(const float (&re)[8][4], const float (&im)[8][4],
-                                             const float (&res)[8][4], const float (&ims)[8][4], float* p_s,
+// The end of bin tile bt, of TB = 32 NJ bins: the thread's re and im sums
+// (x3: the hi*hi sums in re/im, the small products in res/ims) -> power,
+// rounded as MODE says ('bf16': to bf16; 'x3': split into bf16 hi and lo),
+// written transposed ([bin][frame]) to p_s, which may share space with the
+// staged slices; then the power tile projected onto melw's rows
+// bt..bt+TB-1 into the [kBF][kMelMax] accumulator mel_s (x3: the small
+// products into mel2_s, melw's lo plane following its hi plane), in bin
+// order.
+template <int MODE, int NJ = 4>
+__device__ __forceinline__ void project_tile(const float (&re)[8][NJ], const float (&im)[8][NJ],
+                                             const float (&res)[8][NJ], const float (&ims)[8][NJ], float* p_s,
                                              float* mel_s, float* mel2_s, const float* __restrict__ melw, int bt,
                                              int bins_pad, int n_mels, int lane, int warp)
 {
+    constexpr int TB = 32 * NJ;
     const float* mel_lo = melw + (size_t)bins_pad * n_mels;  // x3 only
     __syncthreads();  // every warp is done with the slices the power tile overwrites
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < NJ; ++j) {
         float pw[8], pl[8];
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
@@ -62,7 +68,7 @@ __device__ __forceinline__ void project_tile(const float (&re)[8][4], const floa
         *reinterpret_cast<float4*>(row) = make_float4(pw[0], pw[1], pw[2], pw[3]);
         *reinterpret_cast<float4*>(row + 32) = make_float4(pw[4], pw[5], pw[6], pw[7]);
         if constexpr (MODE == kX3) {
-            float* row_l = row + kBT * kPitch;
+            float* row_l = row + TB * kPitch;
             *reinterpret_cast<float4*>(row_l) = make_float4(pl[0], pl[1], pl[2], pl[3]);
             *reinterpret_cast<float4*>(row_l + 32) = make_float4(pl[4], pl[5], pl[6], pl[7]);
         }
@@ -78,7 +84,7 @@ __device__ __forceinline__ void project_tile(const float (&re)[8][4], const floa
             acc[i][j] = mel_s[owned_frame(warp, i) * kMelMax + lane + 32 * j];
             acc2[i][j] = MODE == kX3 ? mel2_s[owned_frame(warp, i) * kMelMax + lane + 32 * j] : 0.0f;
         }
-    for (int c = 0; c < kBT; ++c) {
+    for (int c = 0; c < TB; ++c) {
         const float4 p_lo = *reinterpret_cast<const float4*>(p_s + c * kPitch + 4 * warp);
         const float4 p_hi = *reinterpret_cast<const float4*>(p_s + c * kPitch + 32 + 4 * warp);
         const float pv[8] = {p_lo.x, p_lo.y, p_lo.z, p_lo.w, p_hi.x, p_hi.y, p_hi.z, p_hi.w};
@@ -89,7 +95,7 @@ __device__ __forceinline__ void project_tile(const float (&re)[8][4], const floa
             mw[j] = m < n_mels ? __ldg(melw + (size_t)(bt + c) * n_mels + m) : 0.0f;
         }
         if constexpr (MODE == kX3) {
-            const float* pl_row = p_s + kBT * kPitch + c * kPitch;
+            const float* pl_row = p_s + TB * kPitch + c * kPitch;
             const float4 q_lo = *reinterpret_cast<const float4*>(pl_row + 4 * warp);
             const float4 q_hi = *reinterpret_cast<const float4*>(pl_row + 32 + 4 * warp);
             const float pvl[8] = {q_lo.x, q_lo.y, q_lo.z, q_lo.w, q_hi.x, q_hi.y, q_hi.z, q_hi.w};

@@ -33,7 +33,9 @@ using namespace frontend;
 // when every bin is live the Nyquist cosine column rides wc's dead DC
 // column. Each block writes the max of mel over its valid frames (< nf).
 //
-//   'f32':  FP32 throughout.
+//   'f32':  FP32 throughout; the DFT sums in steps of kKC = 16 rows, each
+//           step's products into a fresh partial sum that is then added to
+//           the running one, as fused_mel_f32 and the plain version do.
 //   'bf16': samples rounded to bf16 as they are staged (the TPU path rounds
 //           the audio before the fold), s and d summed in FP32 and rounded to
 //           bf16 again for the products; power rounded to bf16; wc, ws and
@@ -59,44 +61,48 @@ using namespace frontend;
 // past the buffer's end), so the last frame of the last block stays in
 // bounds. Per step of 16 contraction rows the block stages the s and d
 // slices ([u][frame], transposed) from the span and the wc and ws columns of
-// its 128-bin tile (cp.async, double-buffered); a thread keeps an 8-frame by
-// 4-bin tile of re and im in registers. Power, mel and the block max are
+// its bin tile (cp.async, double-buffered); a thread keeps an 8-frame by
+// 4-bin tile of re and im of a 128-bin tile in registers, or for f32, which
+// adds the step's partial sums, 8 frames by 2 bins of a 64-bin tile (two
+// blocks an SM, as fused_mel_f32). Power, mel and the block max are
 // fused_mel_f32's.
 // ---------------------------------------------------------------------------
 
 // floats of the space the basis slices, the s and d slices and the power tile share
-__host__ __device__ constexpr int shared_floats(int mode)
+template <int MODE>
+__host__ __device__ constexpr int shared_floats()
 {
-    const int planes = mode == kX3 ? 2 : 1;
-    const int stage = 2 * planes * kSlice + 2 * planes * kKC * kPitch;  // two steps of slices + s and d
-    const int power = planes * kBT * kPitch;
+    const int planes = MODE == kX3 ? 2 : 1;
+    const int stage = 2 * planes * kTileSlice<MODE> + 2 * planes * kKC * kPitch;  // two steps of slices + s and d
+    const int power = planes * kTile<MODE> * kPitch;
     return stage > power ? stage : power;
 }
 
-// rows [k0, k0 + kKC) of the bin tile's wc and ws columns of each plane ->
-// w_dst (plane p at w_dst + p * kSlice; cosine columns first), one commit
-// group. Rows past K and sine tiles at or past im_cols are zero-filled.
-template <int PLANES>
+// rows [k0, k0 + kKC) of the TB-bin tile's wc and ws columns of each plane
+// -> w_dst (plane p at w_dst + p * kKC * 2 * TB; cosine columns first), one
+// commit group. Rows past K and sine tiles at or past im_cols are zero-filled.
+template <int PLANES, int TB>
 __device__ __forceinline__ void stage_basis(float* w_dst, const float* __restrict__ wc,
                                             const float* __restrict__ ws, int k0, int K, int bt,
                                             int bins_pad, int im_cols, int tid)
 {
-    for (int i = tid; i < PLANES * kSlice / 4; i += kThreads) {
-        const int p = i / (kSlice / 4);
-        const int r = i % (kSlice / 4);
-        const int kk = r / (2 * kBT / 4);
-        const int c = (r % (2 * kBT / 4)) * 4;
+    constexpr int slice = kKC * 2 * TB;
+    for (int i = tid; i < PLANES * slice / 4; i += kThreads) {
+        const int p = i / (slice / 4);
+        const int r = i % (slice / 4);
+        const int kk = r / (2 * TB / 4);
+        const int c = (r % (2 * TB / 4)) * 4;
         const int k = k0 + kk;
         const int kr = k < K ? k : 0;
         const float* src;
         bool valid = k < K;
-        if (c < kBT) {
+        if (c < TB) {
             src = wc + ((size_t)p * K + kr) * bins_pad + bt + c;
         } else {
             valid = valid && bt < im_cols;
-            src = ws + ((size_t)p * K + kr) * im_cols + (bt < im_cols ? bt : 0) + (c - kBT);
+            src = ws + ((size_t)p * K + kr) * im_cols + (bt < im_cols ? bt : 0) + (c - TB);
         }
-        cp_async16(w_dst + p * kSlice + kk * 2 * kBT + c, src, valid);
+        cp_async16(w_dst + p * slice + kk * 2 * TB + c, src, valid);
     }
     asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -109,13 +115,14 @@ fused_mel_fold_kernel(const float* __restrict__ audio, const float* __restrict__
                       int hop, int off, int nf, int bins_pad, int im_cols, int n_mels, int span_pad)
 {
     constexpr int P = MODE == kX3 ? 2 : 1;  // planes per operand: (hi, lo) for x3
-    constexpr int kShared = shared_floats(MODE);
+    constexpr int TB = kTile<MODE>, NJ = TB / 32, kSl = kTileSlice<MODE>;
+    constexpr int kShared = shared_floats<MODE>();
     extern __shared__ __align__(16) float smem[];
     float* span_s = smem;                      // [span_pad] audio samples
-    float* w_s = span_s + span_pad;            // 2 steps x P planes x [kKC][2*kBT] basis slices
-    float* s_s = w_s + 2 * P * kSlice;         // P x [kKC][kPitch] s slice, transposed
+    float* w_s = span_s + span_pad;            // 2 steps x P planes x [kKC][2*TB] basis slices
+    float* s_s = w_s + 2 * P * kSl;            // P x [kKC][kPitch] s slice, transposed
     float* d_s = s_s + P * kKC * kPitch;       // P x [kKC][kPitch] d slice, transposed
-    float* p_s = w_s;                          // P x [kBT][kPitch] power tile, transposed
+    float* p_s = w_s;                          // P x [TB][kPitch] power tile, transposed
     float* mel_s = w_s + kShared;              // [kBF][kMelMax] mel accumulator
     float* mel2_s = mel_s + kBF * kMelMax;     // x3: [kBF][kMelMax] accumulator of the small products
     __shared__ float red_s[kThreads / 32];
@@ -137,21 +144,17 @@ fused_mel_fold_kernel(const float* __restrict__ audio, const float* __restrict__
     }
     for (int i = tid; i < P * kBF * kMelMax; i += kThreads) mel_s[i] = 0.0f;
 
-    for (int bt = 0; bt < bins_pad; bt += kBT) {
-        float re[8][4], im[8][4];    // the (hi*hi) products
-        float res[8][4], ims[8][4];  // x3: the hi*lo and lo*hi products
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) { re[i][j] = 0.0f; im[i][j] = 0.0f; res[i][j] = 0.0f; ims[i][j] = 0.0f; }
+    for (int bt = 0; bt < bins_pad; bt += TB) {
+        float re[8][NJ] = {}, im[8][NJ] = {};    // the (hi*hi) products
+        float res[8][NJ] = {}, ims[8][NJ] = {};  // x3: the hi*lo and lo*hi products
 
         __syncthreads();  // the previous tile's power (same space) fully read
-        stage_basis<P>(w_s, wc, ws, 0, K, bt, bins_pad, im_cols, tid);
+        stage_basis<P, TB>(w_s, wc, ws, 0, K, bt, bins_pad, im_cols, tid);
         for (int step = 0; step < n_steps; ++step) {
             const int k0 = step * kKC;
             __syncthreads();  // the previous step's slices fully read
             if (step + 1 < n_steps)
-                stage_basis<P>(w_s + ((step + 1) & 1) * P * kSlice, wc, ws, k0 + kKC, K, bt, bins_pad, im_cols, tid);
+                stage_basis<P, TB>(w_s + ((step + 1) & 1) * P * kSl, wc, ws, k0 + kKC, K, bt, bins_pad, im_cols, tid);
             for (int i = tid; i < kKC * kBF; i += kThreads) {
                 const int kk = i % kKC;
                 const int f = i / kKC;
@@ -181,60 +184,91 @@ fused_mel_fold_kernel(const float* __restrict__ audio, const float* __restrict__
             if (step + 1 < n_steps) asm volatile("cp.async.wait_group 1;\n" ::);
             else asm volatile("cp.async.wait_group 0;\n" ::);
             __syncthreads();
-            const float* w_cur = w_s + (step & 1) * P * kSlice;
+            const float* w_cur = w_s + (step & 1) * P * kSl;
+            if constexpr (MODE == kF32) {
+                // the step's own partial sums, added to re/im after the step
+                float pre[8][NJ] = {}, pim[8][NJ] = {};
 #pragma unroll
-            for (int kk = 0; kk < kKC; ++kk) {
-                const float4 s_lo = *reinterpret_cast<const float4*>(s_s + kk * kPitch + 4 * warp);
-                const float4 s_hi = *reinterpret_cast<const float4*>(s_s + kk * kPitch + 32 + 4 * warp);
-                const float4 d_lo = *reinterpret_cast<const float4*>(d_s + kk * kPitch + 4 * warp);
-                const float4 d_hi = *reinterpret_cast<const float4*>(d_s + kk * kPitch + 32 + 4 * warp);
-                const float a[8] = {s_lo.x, s_lo.y, s_lo.z, s_lo.w, s_hi.x, s_hi.y, s_hi.z, s_hi.w};
-                const float e[8] = {d_lo.x, d_lo.y, d_lo.z, d_lo.w, d_hi.x, d_hi.y, d_hi.z, d_hi.w};
-                float wr[4], wi[4];
+                for (int kk = 0; kk < kKC; ++kk) {
+                    const float4 s_lo = *reinterpret_cast<const float4*>(s_s + kk * kPitch + 4 * warp);
+                    const float4 s_hi = *reinterpret_cast<const float4*>(s_s + kk * kPitch + 32 + 4 * warp);
+                    const float4 d_lo = *reinterpret_cast<const float4*>(d_s + kk * kPitch + 4 * warp);
+                    const float4 d_hi = *reinterpret_cast<const float4*>(d_s + kk * kPitch + 32 + 4 * warp);
+                    const float a[8] = {s_lo.x, s_lo.y, s_lo.z, s_lo.w, s_hi.x, s_hi.y, s_hi.z, s_hi.w};
+                    const float e[8] = {d_lo.x, d_lo.y, d_lo.z, d_lo.w, d_hi.x, d_hi.y, d_hi.z, d_hi.w};
 #pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    wr[j] = w_cur[kk * 2 * kBT + lane + 32 * j];
-                    wi[j] = w_cur[kk * 2 * kBT + kBT + lane + 32 * j];
-                }
-                if constexpr (MODE == kX3) {
-                    const float* s2 = s_s + kKC * kPitch + kk * kPitch;
-                    const float* d2 = d_s + kKC * kPitch + kk * kPitch;
-                    const float4 sl_lo = *reinterpret_cast<const float4*>(s2 + 4 * warp);
-                    const float4 sl_hi = *reinterpret_cast<const float4*>(s2 + 32 + 4 * warp);
-                    const float4 dl_lo = *reinterpret_cast<const float4*>(d2 + 4 * warp);
-                    const float4 dl_hi = *reinterpret_cast<const float4*>(d2 + 32 + 4 * warp);
-                    const float al[8] = {sl_lo.x, sl_lo.y, sl_lo.z, sl_lo.w, sl_hi.x, sl_hi.y, sl_hi.z, sl_hi.w};
-                    const float el[8] = {dl_lo.x, dl_lo.y, dl_lo.z, dl_lo.w, dl_hi.x, dl_hi.y, dl_hi.z, dl_hi.w};
-                    float wrl[4], wil[4];
+                    for (int j = 0; j < NJ; ++j) {
+                        const float wr = w_cur[kk * 2 * TB + lane + 32 * j];
+                        const float wi = w_cur[kk * 2 * TB + TB + lane + 32 * j];
 #pragma unroll
-                    for (int j = 0; j < 4; ++j) {
-                        wrl[j] = w_cur[kSlice + kk * 2 * kBT + lane + 32 * j];
-                        wil[j] = w_cur[kSlice + kk * 2 * kBT + kBT + lane + 32 * j];
+                        for (int i = 0; i < 8; ++i) {
+                            pre[i][j] = fmaf(a[i], wr, pre[i][j]);
+                            pim[i][j] = fmaf(e[i], wi, pim[i][j]);
+                        }
                     }
+                }
 #pragma unroll
-                    for (int i = 0; i < 8; ++i)
+                for (int i = 0; i < 8; ++i)
 #pragma unroll
-                        for (int j = 0; j < 4; ++j) {
-                            re[i][j] = fmaf(a[i], wr[j], re[i][j]);
-                            res[i][j] = fmaf(a[i], wrl[j], res[i][j]);
-                            res[i][j] = fmaf(al[i], wr[j], res[i][j]);
-                            im[i][j] = fmaf(e[i], wi[j], im[i][j]);
-                            ims[i][j] = fmaf(e[i], wil[j], ims[i][j]);
-                            ims[i][j] = fmaf(el[i], wi[j], ims[i][j]);
+                    for (int j = 0; j < NJ; ++j) {
+                        re[i][j] += pre[i][j];
+                        im[i][j] += pim[i][j];
+                    }
+            } else {
+#pragma unroll
+                for (int kk = 0; kk < kKC; ++kk) {
+                    const float4 s_lo = *reinterpret_cast<const float4*>(s_s + kk * kPitch + 4 * warp);
+                    const float4 s_hi = *reinterpret_cast<const float4*>(s_s + kk * kPitch + 32 + 4 * warp);
+                    const float4 d_lo = *reinterpret_cast<const float4*>(d_s + kk * kPitch + 4 * warp);
+                    const float4 d_hi = *reinterpret_cast<const float4*>(d_s + kk * kPitch + 32 + 4 * warp);
+                    const float a[8] = {s_lo.x, s_lo.y, s_lo.z, s_lo.w, s_hi.x, s_hi.y, s_hi.z, s_hi.w};
+                    const float e[8] = {d_lo.x, d_lo.y, d_lo.z, d_lo.w, d_hi.x, d_hi.y, d_hi.z, d_hi.w};
+                    float wr[NJ], wi[NJ];
+#pragma unroll
+                    for (int j = 0; j < NJ; ++j) {
+                        wr[j] = w_cur[kk * 2 * TB + lane + 32 * j];
+                        wi[j] = w_cur[kk * 2 * TB + TB + lane + 32 * j];
+                    }
+                    if constexpr (MODE == kX3) {
+                        const float* s2 = s_s + kKC * kPitch + kk * kPitch;
+                        const float* d2 = d_s + kKC * kPitch + kk * kPitch;
+                        const float4 sl_lo = *reinterpret_cast<const float4*>(s2 + 4 * warp);
+                        const float4 sl_hi = *reinterpret_cast<const float4*>(s2 + 32 + 4 * warp);
+                        const float4 dl_lo = *reinterpret_cast<const float4*>(d2 + 4 * warp);
+                        const float4 dl_hi = *reinterpret_cast<const float4*>(d2 + 32 + 4 * warp);
+                        const float al[8] = {sl_lo.x, sl_lo.y, sl_lo.z, sl_lo.w, sl_hi.x, sl_hi.y, sl_hi.z, sl_hi.w};
+                        const float el[8] = {dl_lo.x, dl_lo.y, dl_lo.z, dl_lo.w, dl_hi.x, dl_hi.y, dl_hi.z, dl_hi.w};
+                        float wrl[NJ], wil[NJ];
+#pragma unroll
+                        for (int j = 0; j < NJ; ++j) {
+                            wrl[j] = w_cur[kSl + kk * 2 * TB + lane + 32 * j];
+                            wil[j] = w_cur[kSl + kk * 2 * TB + TB + lane + 32 * j];
                         }
-                } else {
 #pragma unroll
-                    for (int i = 0; i < 8; ++i)
+                        for (int i = 0; i < 8; ++i)
 #pragma unroll
-                        for (int j = 0; j < 4; ++j) {
-                            re[i][j] = fmaf(a[i], wr[j], re[i][j]);
-                            im[i][j] = fmaf(e[i], wi[j], im[i][j]);
-                        }
+                            for (int j = 0; j < NJ; ++j) {
+                                re[i][j] = fmaf(a[i], wr[j], re[i][j]);
+                                res[i][j] = fmaf(a[i], wrl[j], res[i][j]);
+                                res[i][j] = fmaf(al[i], wr[j], res[i][j]);
+                                im[i][j] = fmaf(e[i], wi[j], im[i][j]);
+                                ims[i][j] = fmaf(e[i], wil[j], ims[i][j]);
+                                ims[i][j] = fmaf(el[i], wi[j], ims[i][j]);
+                            }
+                    } else {
+#pragma unroll
+                        for (int i = 0; i < 8; ++i)
+#pragma unroll
+                            for (int j = 0; j < NJ; ++j) {
+                                re[i][j] = fmaf(a[i], wr[j], re[i][j]);
+                                im[i][j] = fmaf(e[i], wi[j], im[i][j]);
+                            }
+                    }
                 }
             }
         }
 
-        project_tile<MODE>(re, im, res, ims, p_s, mel_s, mel2_s, melw, bt, bins_pad, n_mels, lane, warp);
+        project_tile<MODE, NJ>(re, im, res, ims, p_s, mel_s, mel2_s, melw, bt, bins_pad, n_mels, lane, warp);
     }
     write_block<MODE>(mel_s, mel2_s, mel_out, bmax, red_s, b, f0, nf, n_mels, tid, lane, warp);
 }
@@ -251,7 +285,7 @@ int launch_fold(const float* audio, const float* wc, const float* ws, const floa
     const int n_blocks = (nf + kBF - 1) / kBF;
     const int span = (kBF - 1) * hop + sup + 1;  // + 1: u = 0 reads one sample past the support
     const int span_pad = (span + 3) / 4 * 4;
-    const size_t smem = sizeof(float) * ((size_t)span_pad + shared_floats(MODE) + (MODE == kX3 ? 2 : 1) * kBF * kMelMax);
+    const size_t smem = sizeof(float) * ((size_t)span_pad + shared_floats<MODE>() + (MODE == kX3 ? 2 : 1) * kBF * kMelMax);
     cudaError_t err = cudaFuncSetAttribute(
         fused_mel_fold_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;

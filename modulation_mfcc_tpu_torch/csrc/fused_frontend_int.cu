@@ -1,7 +1,8 @@
-// Fused MFCC frontend for Hopper (sm_90a), fixed-point modes: audio -> mel
-// power through an int8-digit DFT. Plain C launchers, loaded with ctypes
-// (modulation_mfcc_tpu_torch/kernels/_build.py); each returns the
-// cudaError_t of its launch. No tensor cores, no fast-math intrinsics.
+// Fused MFCC frontend for Hopper (sm_90a), fixed-point mode i16: audio ->
+// mel power through an int8-digit DFT. A plain C launcher, loaded with
+// ctypes (modulation_mfcc_tpu_torch/kernels/_build.py); it returns the
+// cudaError_t of its launch. No tensor cores, no fast-math intrinsics. The
+// i24 mode runs on the tensor cores (fused_frontend_tc.cu).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -9,25 +10,21 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// fused_mel_i16, fused_mel_i24
+// fused_mel_i16
 //
-// Replace the Pallas frontend kernels of modulation_mfcc_tpu/pallas/
+// Replaces the Pallas frontend kernels of modulation_mfcc_tpu/pallas/
 // fused_frontend.py with algorithm 'i16' (_kernel_i16, _kernel_i16_pipe:
-// _i16_digits, _i16_reim) and 'i24' (_kernel_i24, _kernel_i24_pipe:
-// _i24_reim). The pipelined kernels compute their plain kernels' numbers
-// bit for bit, so one kernel serves each pair.
+// _i16_digits, _i16_reim). The pipelined kernel computes its plain kernel's
+// numbers bit for bit, so one kernel serves the pair.
 //
 // Computes, for every utterance b and frame f < nf (frame[k] as in
 // fused_frontend.cu: x[b, f*hop + off + k], zero outside the buffer, int16
 // dequantized as v * 2^-15), with (s, inv) = sc[b] from the wrapper:
 //   X = rint(frame * s)                        (half to even, as jnp.round)
-//   i16: X clipped to [-32768, 32767]; digits x1 = floor(X/256),
-//        x0 = X - 256 x1 - 128 (each in [-128, 127]);
-//        d1 = x1.w2, d2 = x1.w1 + x0.w2, d3 = x1.w0 + x0.w1;
-//        reim = (((d1 2^24 + d2 2^16) + d3 2^8) + corr) * inv
-//   i24: balanced digits x2, x1, x0 of X (X = x2 2^16 + x1 2^8 + x0);
-//        d1 = x2.w2, d2 = x2.w1 + x1.w2, d3 = x2.w0 + x1.w1 + x0.w2;
-//        reim = ((d1 2^32 + d2 2^24) + d3 2^16) * inv
+//   X clipped to [-32768, 32767]; digits x1 = floor(X/256),
+//   x0 = X - 256 x1 - 128 (each in [-128, 127]);
+//   d1 = x1.w2, d2 = x1.w1 + x0.w2, d3 = x1.w0 + x0.w1;
+//   reim = (((d1 2^24 + d2 2^16) + d3 2^8) + corr) * inv
 // where w2, w1, w0 are the int8 planes of the windowed-DFT matrix
 // (W ~ (w2 2^16 + w1 2^8 + w0) / Sw) and each dot runs over the K window
 // rows. The dots are exact in int32 and every later operation is a
@@ -38,12 +35,12 @@ namespace {
 // sums, as the TPU mode sums its passes apart) and the block max over
 // valid frames.
 //
-// Bound: the int8 digit products. A 128 x 30 s batch at 16 kHz is 5 (i16)
-// or 6 (i24) K-row passes of [6001 x 400] x [400 x 512] per utterance, about
-// 1.6-1.9 T int8 operations, plus 150 GFLOP of x3 mel. The unit these
-// modes are made for is the int8 tensor core (1,979 TOPS): about 0.95 ms
-// (i16) and 1.1 ms (i24) a batch. This kernel runs the products as __dp4a
-// on the CUDA cores and the mel as FFMA; it does not use the tensor cores.
+// Bound: the int8 digit products. A 128 x 30 s batch at 16 kHz is 5 K-row
+// passes of [6001 x 400] x [400 x 512] per utterance, about 1.6 T int8
+// operations, plus 150 GFLOP of x3 mel. The unit this mode is made for is
+// the int8 tensor core (1,979 TOPS): about 0.95 ms a batch. This kernel
+// runs the products as __dp4a on the CUDA cores and the mel as FFMA; it
+// does not use the tensor cores.
 //
 // Design: as fused_mel_f32, a block owns 64 consecutive frames of one
 // utterance and copies their audio span into shared memory once. The
@@ -69,17 +66,11 @@ constexpr int kThreads = 256;  // warp w owns frames 8w..8w+7; lane owns bins la
 constexpr int kPitch = kBF + 4;  // row pitch of the [bin][frame] power tiles
 constexpr int kPlanes = 3;     // weight planes w2, w1, w0
 constexpr int kWSlice = kPlanes * kQ * kCols;  // ints of one staged weight slice
-constexpr int kI16 = 16, kI24 = 24;
-
-__host__ __device__ constexpr int n_digits(int mode) { return mode == kI16 ? 2 : 3; }
+constexpr int ND = 2;          // audio digits x1, x0
 
 // words of the space the weight and digit slices and the power tiles share
-__host__ __device__ constexpr int shared_words(int mode)
-{
-    const int stage = 2 * kWSlice + n_digits(mode) * kQ * kBF;
-    const int power = 2 * kBT * kPitch;
-    return stage > power ? stage : power;
-}
+constexpr int kSharedWords = 2 * kWSlice + ND * kQ * kBF > 2 * kBT * kPitch
+                                 ? 2 * kWSlice + ND * kQ * kBF : 2 * kBT * kPitch;
 
 __device__ __forceinline__ float bf16r(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
 
@@ -111,39 +102,24 @@ __device__ __forceinline__ void stage_weights(int* w_dst, const int* __restrict_
     asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// the digit planes of round(v * s), highest first, as in _i16_digits / _i24_reim
-template <int MODE>
-__device__ __forceinline__ void digits(float v, float s, float (&d)[n_digits(MODE)])
+// the digit planes of round(v * s), highest first, as in _i16_digits
+__device__ __forceinline__ void digits(float v, float s, float (&d)[ND])
 {
-    float x = rintf(__fmul_rn(v, s));
-    if constexpr (MODE == kI16) {
-        x = fminf(fmaxf(x, -32768.0f), 32767.0f);
-        const float x1 = floorf(x * (1.0f / 256.0f));
-        d[0] = x1;
-        d[1] = x - 256.0f * x1 - 128.0f;
-    } else {
-        const float q1 = floorf((x + 128.0f) * (1.0f / 256.0f));
-        const float q2 = floorf((q1 + 128.0f) * (1.0f / 256.0f));
-        d[0] = q2;
-        d[1] = q1 - 256.0f * q2;
-        d[2] = x - 256.0f * q1;
-    }
+    const float x = fminf(fmaxf(rintf(__fmul_rn(v, s)), -32768.0f), 32767.0f);
+    const float x1 = floorf(x * (1.0f / 256.0f));
+    d[0] = x1;
+    d[1] = x - 256.0f * x1 - 128.0f;
 }
 
 // the exact int32 sums -> the DFT value, FP32 in the JAX order
-template <int MODE>
 __device__ __forceinline__ float recombine(int d1, int d2, int d3, float corr, float inv)
 {
     const float a = __int2float_rn(d1), b = __int2float_rn(d2), c = __int2float_rn(d3);
-    if constexpr (MODE == kI16)
-        return __fmul_rn(__fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(a, 16777216.0f), __fmul_rn(b, 65536.0f)),
-                                             __fmul_rn(c, 256.0f)), corr), inv);
-    else
-        return __fmul_rn(__fadd_rn(__fadd_rn(__fmul_rn(a, 4294967296.0f), __fmul_rn(b, 16777216.0f)),
-                                   __fmul_rn(c, 65536.0f)), inv);
+    return __fmul_rn(__fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(a, 16777216.0f), __fmul_rn(b, 65536.0f)),
+                                         __fmul_rn(c, 256.0f)), corr), inv);
 }
 
-template <int MODE, typename In>
+template <typename In>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_mel_int_kernel(const In* __restrict__ audio, const int* __restrict__ quads,
                      const float* __restrict__ sc, const float* __restrict__ corr,
@@ -151,13 +127,12 @@ fused_mel_int_kernel(const In* __restrict__ audio, const int* __restrict__ quads
                      float* __restrict__ bmax, int T, int Kq, int hop, int off,
                      int nf, int bins_pad, int n_mels, int span_pad)
 {
-    constexpr int ND = n_digits(MODE);
     extern __shared__ __align__(16) float smem[];
     float* span_s = smem;                                        // [span_pad] audio samples
     int* w_s = reinterpret_cast<int*>(span_s + span_pad);        // 2 steps x [3][kQ][kCols] weight quads
     int* dig_s = w_s + 2 * kWSlice;                              // [ND][kQ][kBF] digit quads
     float* p_s = span_s + span_pad;                              // 2 x [kBT][kPitch] power (hi, lo), transposed
-    float* mel_s = span_s + span_pad + shared_words(MODE);       // [kBF][kMelMax] mel accumulator (hi.hi)
+    float* mel_s = span_s + span_pad + kSharedWords;             // [kBF][kMelMax] mel accumulator (hi.hi)
     float* mel2_s = mel_s + kBF * kMelMax;                       // [kBF][kMelMax] the hi.lo + lo.hi products
     __shared__ float red_s[kThreads / 32];
 
@@ -204,7 +179,7 @@ fused_mel_int_kernel(const In* __restrict__ audio, const int* __restrict__ quads
 #pragma unroll
                 for (int i = 0; i < 4; ++i) {
                     float dg[ND];
-                    digits<MODE>(src[i], s, dg);
+                    digits(src[i], s, dg);
 #pragma unroll
                     for (int d = 0; d < ND; ++d) packed[d] |= (static_cast<int>(dg[d]) & 0xff) << (8 * i);
                 }
@@ -239,7 +214,6 @@ fused_mel_int_kernel(const In* __restrict__ audio, const int* __restrict__ quads
                         d2[i][j] = __dp4a(a[1][i], w[0][j], d2[i][j]);
                         d3[i][j] = __dp4a(a[0][i], w[2][j], d3[i][j]);
                         d3[i][j] = __dp4a(a[1][i], w[1][j], d3[i][j]);
-                        if constexpr (MODE == kI24) d3[i][j] = __dp4a(a[ND - 1][i], w[0][j], d3[i][j]);
                     }
             }
         }
@@ -253,8 +227,8 @@ fused_mel_int_kernel(const In* __restrict__ audio, const int* __restrict__ quads
             float ph[8], pl[8];
 #pragma unroll
             for (int i = 0; i < 8; ++i) {
-                const float re = recombine<MODE>(d1[i][jb], d2[i][jb], d3[i][jb], c_re, inv);
-                const float im = recombine<MODE>(d1[i][jb + 2], d2[i][jb + 2], d3[i][jb + 2], c_im, inv);
+                const float re = recombine(d1[i][jb], d2[i][jb], d3[i][jb], c_re, inv);
+                const float im = recombine(d1[i][jb + 2], d2[i][jb + 2], d3[i][jb + 2], c_im, inv);
                 const float pw = __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));
                 ph[i] = bf16r(pw);
                 pl[i] = bf16r(pw - ph[i]);
@@ -334,7 +308,7 @@ fused_mel_int_kernel(const In* __restrict__ audio, const int* __restrict__ quads
     }
 }
 
-template <int MODE, typename In>
+template <typename In>
 int launch_int(const void* audio, const int* quads, const float* sc, const float* corr, const float* melw,
                float* mel, float* bmax, int B, int T, int K, int Kq, int hop, int off, int nf,
                int bins_pad, int n_mels, void* stream)
@@ -344,26 +318,14 @@ int launch_int(const void* audio, const int* quads, const float* sc, const float
         return (int)cudaErrorInvalidValue;
     const int n_blocks = (nf + kBF - 1) / kBF;
     const int span_pad = ((kBF - 1) * hop + Kq * 4 + 3) / 4 * 4;
-    const size_t smem = sizeof(float) * ((size_t)span_pad + shared_words(MODE) + 2 * kBF * kMelMax);
+    const size_t smem = sizeof(float) * ((size_t)span_pad + kSharedWords + 2 * kBF * kMelMax);
     cudaError_t err = cudaFuncSetAttribute(
-        fused_mel_int_kernel<MODE, In>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        fused_mel_int_kernel<In>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    fused_mel_int_kernel<MODE, In><<<dim3(n_blocks, B), kThreads, smem, (cudaStream_t)stream>>>(
+    fused_mel_int_kernel<In><<<dim3(n_blocks, B), kThreads, smem, (cudaStream_t)stream>>>(
         static_cast<const In*>(audio), quads, sc, corr, melw, mel, bmax, T, Kq, hop, off, nf, bins_pad,
         n_mels, span_pad);
     return (int)cudaGetLastError();
-}
-
-template <int MODE>
-int launch_int_any(const void* audio, int audio_i16, const int* quads, const float* sc, const float* corr,
-                   const float* melw, float* mel, float* bmax, int B, int T, int K, int Kq, int hop, int off,
-                   int nf, int bins_pad, int n_mels, void* stream)
-{
-    return audio_i16
-        ? launch_int<MODE, int16_t>(audio, quads, sc, corr, melw, mel, bmax, B, T, K, Kq, hop, off, nf,
-                                    bins_pad, n_mels, stream)
-        : launch_int<MODE, float>(audio, quads, sc, corr, melw, mel, bmax, B, T, K, Kq, hop, off, nf,
-                                  bins_pad, n_mels, stream);
 }
 
 }  // namespace
@@ -375,15 +337,9 @@ extern "C" int fused_mel_i16(const void* audio, int audio_i16, const int* quads,
                              const float* corr, const float* melw, float* mel, float* bmax, int B, int T,
                              int K, int Kq, int hop, int off, int nf, int bins_pad, int n_mels, void* stream)
 {
-    return launch_int_any<kI16>(audio, audio_i16, quads, sc, corr, melw, mel, bmax, B, T, K, Kq, hop, off, nf,
-                                bins_pad, n_mels, stream);
-}
-
-// as fused_mel_i16; corr is read as zeros
-extern "C" int fused_mel_i24(const void* audio, int audio_i16, const int* quads, const float* sc,
-                             const float* corr, const float* melw, float* mel, float* bmax, int B, int T,
-                             int K, int Kq, int hop, int off, int nf, int bins_pad, int n_mels, void* stream)
-{
-    return launch_int_any<kI24>(audio, audio_i16, quads, sc, corr, melw, mel, bmax, B, T, K, Kq, hop, off, nf,
-                                bins_pad, n_mels, stream);
+    return audio_i16
+        ? launch_int<int16_t>(audio, quads, sc, corr, melw, mel, bmax, B, T, K, Kq, hop, off, nf, bins_pad,
+                              n_mels, stream)
+        : launch_int<float>(audio, quads, sc, corr, melw, mel, bmax, B, T, K, Kq, hop, off, nf, bins_pad,
+                            n_mels, stream);
 }

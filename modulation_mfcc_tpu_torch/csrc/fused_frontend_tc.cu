@@ -1,0 +1,409 @@
+// Fused MFCC frontend for Hopper (sm_90a) on the tensor cores: the x3 and
+// i24 modes, audio -> mel power. Plain C launchers, loaded with ctypes
+// (modulation_mfcc_tpu_torch/kernels/_build.py); each returns the
+// cudaError_t of its launch. No fast-math intrinsics.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <cstdint>
+
+#include "tensor_core.cuh"
+
+namespace {
+
+using namespace tc;
+
+// ---------------------------------------------------------------------------
+// fused_mel_x3, fused_mel_i24
+//
+// Replace the Pallas frontend kernels of modulation_mfcc_tpu/pallas/
+// fused_frontend.py (fused_mel_frontend -> _launch) with algorithm 'x3'
+// (_kernel and _kernel_pipe, _mxu's x3 branch) and 'i24' (_kernel_i24 and
+// _kernel_i24_pipe, _i24_reim). The pipelined kernels compute their plain
+// kernels' numbers bit for bit, so one kernel serves each pair.
+//
+// Computes, for every utterance b and frame f < nf, frame[k] = x[b, f*hop +
+// off + k] (zero outside the buffer of T samples; int16 dequantized as
+// v * 2^-15, exact), the windowed DFT's re and im, power = re^2 + im^2
+// (FP32 products, then their sum), and mel = power @ melw in x3
+// arithmetic (power and melw split into bf16 hi and lo; hi.hi products in
+// one FP32 sum, hi.lo + lo.hi in another, added at the end); and per block
+// of 64 frames the maximum of mel over its valid frames.
+//
+//   'x3':  the DFT in x3 arithmetic: frame samples split into bf16 (hi, lo)
+//          here (__float2bfloat16_rn), the basis arrives as (hi, lo) planes;
+//          hi.Whi in one FP32 sum, hi.Wlo + lo.Whi in another, re and im
+//          their sums. The apart sums keep low mel bins at the kernels' bar.
+//          The tensor cores do not round each FP32 add to nearest: on the
+//          H100 one chain of MMAs over the 400 rows came out twice as far
+//          from the float64 sum of the same x3 products as the plain
+//          version's FP32 GEMMs (relative, above the top_db floor, at
+//          16 kHz). So each 16-row MMA of the hi.hi sum starts from zero
+//          and is added to the running sum with FP32 adds (mma_bf16_add),
+//          as the mel projection does, which brings the kernel to the
+//          plain version's order of error (chip_smoke.py phases 14, 17).
+//          The small products, 2^-8 of it, chain.
+//   'i24': X = rint(frame * s) (half to even; (s, inv) per utterance from
+//          the wrapper) in balanced int8 digits x2, x1, x0; the basis as
+//          int8 planes w2, w1, w0; d1 = x2.w2, d2 = x2.w1 + x1.w2,
+//          d3 = x2.w0 + x1.w1 + x0.w2 as exact int32 sums (at most
+//          3 * 416 * 128^2 < 2^31), then ((d1 2^32 + d2 2^24) + d3 2^16) * inv
+//          in FP32 in the JAX order. The sums are exact whatever order the
+//          MMAs add in, so the power equals the plain version's bit for bit.
+//
+// Bound: the tensor cores' operations. A 128 x 30 s batch at 16 kHz is 315
+// GFLOP per K-row pass of the DFT and 50 GFLOP per pass of the mel
+// projection; x3 runs three bf16 passes of each (989 TFLOP/s dense: 1.1
+// ms), i24 six int8 passes of the DFT (1,979 TOPS) and three bf16 of the
+// mel (1.1 ms). The audio read and the mel write are ~0.2 ms at 3.35 TB/s.
+//
+// Design: a block owns 64 consecutive frames of one utterance (8 warps).
+//  * The A operand (frames) never exists in device memory, nor as a frame
+//    tile in shared memory: the block stages its audio span once, already
+//    in the MMA's element type (x3: the bf16 hi and lo planes; i24: the
+//    three int8 digit planes), and each thread loads its A fragments
+//    straight from it: frame f, column k is span[f*hop + k], so the 8 bytes
+//    a thread needs for a row are consecutive in the span. Where f*hop is
+//    not a multiple of those 8 bytes (the 10 kHz default's hop of 50), the
+//    span is staged 8 bytes / gcd more times, each copy shifted by gcd
+//    elements, and a row reads the copy that aligns it.
+//  * The B operand (basis planes) arrives pre-arranged by the wrapper (once
+//    per set of weights), as [tile][k-step][plane][column][k] with re and
+//    im columns interleaved, so that one 32-row chunk of a tile is one
+//    contiguous block: a single thread streams chunks with the bulk-copy
+//    engine into a ring of kStages shared-memory stages, each completing an
+//    mbarrier; one __syncthreads a chunk returns a stage to the ring.
+//  * A bin tile is kCols = 128 DFT columns (re and im of 64 bins). Warps
+//    tile it 2 (32 frames) x 4 (32 columns): a thread holds 2 x 4
+//    accumulator fragments per sum (x3: 2 sums, 64 registers; i24: 3 int32
+//    sums, 96), so re and im of a bin are neighbours in one thread, which
+//    forms the power and its bf16 split, into a [64 x 64 bins] tile in
+//    shared memory. The tile's mel weights come in by bulk copy while its
+//    DFT runs, and the tile is projected onto them (tensor_core.cuh
+//    mel_x3_tile) into the block's mel, held in registers (64 a thread)
+//    over all tiles. ptxas: 196 (x3) and 220 (i24) registers, no spills:
+//    one block of 8 warps per SM.
+// Times on the H100: PERF.md §6 (chip_smoke.py phase 17). A narrower i24
+// warp tile (16 x 32, 48 accumulators) and per-warp release of the weight
+// stages through mbarriers, in place of the block barrier per chunk, were
+// both slower there. wgmma (a warpgroup's 64-row MMAs, B straight from
+// shared memory) is the next step.
+// ---------------------------------------------------------------------------
+
+constexpr int kX3 = 0, kI24 = 1;
+constexpr int kChunkRows = 32;  // contraction rows a pipeline stage holds
+constexpr int kStages = 4;
+constexpr int kMT = 2;          // 16-frame MMA tiles a warp: warps 2 (frames) x 4 (columns)
+constexpr int kWN = 4;          // warps across a tile's columns, 32 each
+constexpr int kCols = 32 * kWN; // DFT columns per tile: re and im of 64 bins
+constexpr int kTileBins = kCols / 2;
+
+template <int MODE> struct Mode;
+template <> struct Mode<kX3> {
+    using T = __nv_bfloat16;          // element of the span planes and the basis
+    static constexpr int kPlanes = 2; // span planes (hi, lo) and basis planes (hi, lo)
+    static constexpr int kStep = 16;  // contraction rows per MMA
+};
+template <> struct Mode<kI24> {
+    using T = int8_t;
+    static constexpr int kPlanes = 3;  // digits x2, x1, x0 and planes w2, w1, w0
+    static constexpr int kStep = 32;
+};
+
+template <int MODE> constexpr int kAl = 8 / (int)sizeof(typename Mode<MODE>::T);  // elements per 8-byte load
+template <int MODE> constexpr int kChunkBytes =
+    kChunkRows * kCols * Mode<MODE>::kPlanes * (int)sizeof(typename Mode<MODE>::T);
+constexpr int kMelBytes = kTileBins * 2 * kMelCols * 2;  // a tile's mel weights, (hi, lo) bf16
+constexpr int kPitch = kTileBins + 16;                   // power row: 8 mod 32 words, conflict-free
+constexpr int kPowerBytes = 2 * kBF * kPitch * 2;
+
+static_assert(kMT * 16 * (kThreads / 32 / kWN) == kBF, "the warps cover the block's frames");
+
+__device__ __forceinline__ float load_sample(const float* x, long long s) { return x[s]; }
+__device__ __forceinline__ float load_sample(const int16_t* x, long long s)
+{
+    return static_cast<float>(x[s]) * (1.0f / 32768.0f);  // exact
+}
+
+// the span planes' values of one sample
+__device__ __forceinline__ void planes_of(float v, float, __nv_bfloat16 (&p)[2])
+{
+    const __nv_bfloat16 hi = __float2bfloat16_rn(v);
+    p[0] = hi;
+    p[1] = __float2bfloat16_rn(v - __bfloat162float(hi));
+}
+
+// balanced base-256 digits of rint(v * s), highest first, as _i24_reim
+__device__ __forceinline__ void planes_of(float v, float s, int8_t (&p)[3])
+{
+    const float x = rintf(__fmul_rn(v, s));
+    const float q1 = floorf((x + 128.0f) * (1.0f / 256.0f));
+    const float q2 = floorf((q1 + 128.0f) * (1.0f / 256.0f));
+    p[0] = static_cast<int8_t>(q2);
+    p[1] = static_cast<int8_t>(q1 - 256.0f * q2);
+    p[2] = static_cast<int8_t>(x - 256.0f * q1);
+}
+
+// the exact int32 sums -> the DFT value, FP32 in the JAX order
+__device__ __forceinline__ float recombine(int d1, int d2, int d3, float inv)
+{
+    const float a = __int2float_rn(d1), b = __int2float_rn(d2), c = __int2float_rn(d3);
+    return __fmul_rn(__fadd_rn(__fadd_rn(__fmul_rn(a, 4294967296.0f), __fmul_rn(b, 16777216.0f)),
+                               __fmul_rn(c, 65536.0f)), inv);
+}
+
+__device__ __forceinline__ float power_of(float re, float im)
+{
+    return __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));
+}
+
+template <int MODE>
+struct Acc;  // the DFT sums of a thread
+template <> struct Acc<kX3> { float hh[kMT][4][4], sm[kMT][4][4]; };
+template <> struct Acc<kI24> { int d[3][kMT][4][4]; };
+
+// one chunk (kChunkRows contraction rows from k0) of the tile's DFT
+template <int MODE>
+__device__ __forceinline__ void dft_chunk(Acc<MODE>& acc, const typename Mode<MODE>::T* span,
+                                          int span_plane, const int (&a_off)[kMT][2],
+                                          const typename Mode<MODE>::T* stage, int k0, int col0, int t)
+{
+    using M = Mode<MODE>;
+#pragma unroll
+    for (int j = 0; j < kChunkRows / M::kStep; ++j) {
+        uint32_t a[M::kPlanes][kMT][4];
+#pragma unroll
+        for (int p = 0; p < M::kPlanes; ++p)
+#pragma unroll
+            for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const uint2 v = *reinterpret_cast<const uint2*>(
+                        span + p * span_plane + a_off[mt][h] + k0 + M::kStep * j);
+                    a[p][mt][h] = v.x;
+                    a[p][mt][2 + h] = v.y;
+                }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+            // column col0 + 8 nt of step j, plane p: [j][p][kCols][kStep]
+            uint2 w[M::kPlanes];
+#pragma unroll
+            for (int p = 0; p < M::kPlanes; ++p)
+                w[p] = *reinterpret_cast<const uint2*>(
+                    stage + ((j * M::kPlanes + p) * kCols + col0 + 8 * nt) * M::kStep + kAl<MODE> * t);
+#pragma unroll
+            for (int mt = 0; mt < kMT; ++mt) {
+                if constexpr (MODE == kX3) {
+                    mma_bf16_add(acc.hh[mt][nt], a[0][mt], w[0].x, w[0].y);
+                    mma_bf16(acc.sm[mt][nt], a[0][mt], w[1].x, w[1].y);
+                    mma_bf16(acc.sm[mt][nt], a[1][mt], w[0].x, w[0].y);
+                } else {
+                    mma_s8(acc.d[0][mt][nt], a[0][mt], w[0].x, w[0].y);  // x2.w2
+                    mma_s8(acc.d[1][mt][nt], a[0][mt], w[1].x, w[1].y);  // x2.w1
+                    mma_s8(acc.d[1][mt][nt], a[1][mt], w[0].x, w[0].y);  // x1.w2
+                    mma_s8(acc.d[2][mt][nt], a[0][mt], w[2].x, w[2].y);  // x2.w0
+                    mma_s8(acc.d[2][mt][nt], a[1][mt], w[1].x, w[1].y);  // x1.w1
+                    mma_s8(acc.d[2][mt][nt], a[2][mt], w[0].x, w[0].y);  // x0.w2
+                }
+            }
+        }
+    }
+}
+
+template <int MODE, typename In>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* __restrict__ wtc,
+                    const __nv_bfloat16* __restrict__ mtc, const float* __restrict__ sc,
+                    float* __restrict__ mel, float* __restrict__ bmax, int T, int Kp, int hop, int off,
+                    int nf, int bins_pad, int n_mels, int span_pad, int n_copies, int shift_log2)
+{
+    using M = Mode<MODE>;
+    using E = typename M::T;
+    extern __shared__ __align__(128) unsigned char smem[];
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem);                 // [kStages] chunk barriers
+    uint64_t* mel_bar = full + kStages;                                  // the tile's mel weights
+    unsigned char* ring = smem + 128;                                    // kStages x kChunkBytes
+    auto* mel_w = reinterpret_cast<__nv_bfloat16*>(ring + kStages * kChunkBytes<MODE>);  // [steps][2][128][16]
+    auto* pw = reinterpret_cast<__nv_bfloat16*>(reinterpret_cast<unsigned char*>(mel_w) + kMelBytes);
+    E* span = reinterpret_cast<E*>(reinterpret_cast<unsigned char*>(pw) + kPowerBytes);
+    __shared__ float red_s[kThreads / 32];
+
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    const int b = blockIdx.y;
+    const int f0 = blockIdx.x * kBF;
+    const In* x = audio + (size_t)b * T;
+    const float s = MODE == kI24 ? sc[2 * b] : 0.0f;
+    const float inv = MODE == kI24 ? sc[2 * b + 1] : 0.0f;
+    const int n_chunks = Kp / kChunkRows;
+    const int n_tiles = 2 * bins_pad / kCols;
+    const int total = n_tiles * n_chunks;
+    const int span_plane = n_copies * span_pad;  // elements of one plane's copies
+
+    if (tid == 0) {
+        for (int i = 0; i < kStages + 1; ++i) mbar_init(full + i, 1);
+        mbar_fence_init();
+    }
+    // the span in the planes' element type: copy c holds span[i + c * 2^shift_log2]
+    const long long start = (long long)f0 * hop + off;
+    for (int i = tid; i < span_plane; i += kThreads) {
+        const int c = i / span_pad;
+        const long long smp = start + (i - c * span_pad) + ((long long)c << shift_log2);
+        const float v = (smp >= 0 && smp < T) ? load_sample(x, smp) : 0.0f;
+        E p[M::kPlanes];
+        planes_of(v, s, p);
+#pragma unroll
+        for (int q = 0; q < M::kPlanes; ++q) span[q * span_plane + i] = p[q];
+    }
+    __syncthreads();
+
+    auto issue = [&](int q) {  // chunk q of the (tile, chunk) sequence -> its stage
+        const int tile = q / n_chunks, chunk = q % n_chunks;
+        const E* src = wtc + ((size_t)tile * Kp + (size_t)chunk * kChunkRows) * kCols * M::kPlanes;
+        bulk_load(ring + (q % kStages) * kChunkBytes<MODE>, src, kChunkBytes<MODE>, full + q % kStages);
+    };
+    if (tid == 0)
+        for (int q = 0; q < kStages - 1 && q < total; ++q) issue(q);
+
+    // this thread's A rows: their offsets into a plane, in the copy that
+    // aligns them to 8 bytes
+    const int wm = warp / kWN, wn = warp % kWN;
+    int a_off[kMT][2];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int e = (16 * kMT * wm + 16 * mt + 8 * h + g) * hop;
+            const int r = e & (kAl<MODE> - 1);
+            a_off[mt][h] = (r >> shift_log2) * span_pad + e - r + kAl<MODE> * t;
+        }
+    const int col0 = 32 * wn + g;
+
+    float mel_hh[2][4][4], mel_sm[2][4][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) { mel_hh[mt][nt][i] = 0.0f; mel_sm[mt][nt][i] = 0.0f; }
+
+    for (int tile = 0; tile < n_tiles; ++tile) {
+        Acc<MODE> acc;
+        if constexpr (MODE == kX3) {
+#pragma unroll
+            for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+                for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) { acc.hh[mt][nt][i] = 0.0f; acc.sm[mt][nt][i] = 0.0f; }
+        } else {
+#pragma unroll
+            for (int d = 0; d < 3; ++d)
+#pragma unroll
+                for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+                    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+                        for (int i = 0; i < 4; ++i) acc.d[d][mt][nt][i] = 0;
+        }
+        for (int chunk = 0; chunk < n_chunks; ++chunk) {
+            const int q = tile * n_chunks + chunk;
+            __syncthreads();  // every warp is done with chunk q - 1 (and, at chunk 0, the last tile's mel)
+            if (tid == 0) {
+                if (q + kStages - 1 < total) issue(q + kStages - 1);
+                if (chunk == 0) bulk_load(mel_w, mtc + (size_t)tile * kMelBytes / 2, kMelBytes, mel_bar);
+            }
+            mbar_wait(full + q % kStages, (q / kStages) & 1);
+            dft_chunk<MODE>(acc, span, span_plane, a_off,
+                            reinterpret_cast<const E*>(ring + (q % kStages) * kChunkBytes<MODE>),
+                            chunk * kChunkRows, col0, t);
+        }
+
+        // power of each (frame, bin) this thread holds, split into bf16 (hi, lo)
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    float re, im;
+                    if constexpr (MODE == kX3) {
+                        re = acc.hh[mt][nt][2 * h] + acc.sm[mt][nt][2 * h];
+                        im = acc.hh[mt][nt][2 * h + 1] + acc.sm[mt][nt][2 * h + 1];
+                    } else {
+                        re = recombine(acc.d[0][mt][nt][2 * h], acc.d[1][mt][nt][2 * h], acc.d[2][mt][nt][2 * h], inv);
+                        im = recombine(acc.d[0][mt][nt][2 * h + 1], acc.d[1][mt][nt][2 * h + 1],
+                                       acc.d[2][mt][nt][2 * h + 1], inv);
+                    }
+                    const float p = power_of(re, im);
+                    const __nv_bfloat16 hi = __float2bfloat16_rn(p);
+                    const int o = (16 * kMT * wm + 16 * mt + 8 * h + g) * kPitch + 16 * wn + 4 * nt + t;
+                    pw[o] = hi;
+                    pw[kBF * kPitch + o] = __float2bfloat16_rn(p - __bfloat162float(hi));
+                }
+        __syncthreads();  // the power tile is complete
+        mbar_wait(mel_bar, tile & 1);
+        mel_x3_tile<kTileBins / kMelStep>(mel_hh, mel_sm, pw, kPitch, mel_w, lane, warp);
+    }
+    write_mel(mel_hh, mel_sm, mel, bmax, red_s, b, f0, nf, n_mels, lane, warp);
+}
+
+template <int MODE>
+int launch_tc(const void* audio, int audio_i16, const void* wtc, const void* mtc, const float* sc, float* mel,
+              float* bmax, int B, int T, int Kp, int hop, int off, int nf, int bins_pad, int n_mels, void* stream)
+{
+    constexpr int al = kAl<MODE>;
+    if (B < 1 || T < 1 || nf < 1 || Kp < kChunkRows || Kp % kChunkRows || hop < 1 || n_mels < 1 ||
+        n_mels > kMelCols || bins_pad < kTileBins || bins_pad % kTileBins)
+        return (int)cudaErrorInvalidValue;
+    int shift_log2 = 0;  // log2 gcd(hop, al)
+    while (shift_log2 < 3 && (1 << (shift_log2 + 1)) <= al && hop % (1 << (shift_log2 + 1)) == 0) ++shift_log2;
+    const int n_copies = al >> shift_log2;
+    const int span_pad = ((kBF - 1) * hop + Kp + 15) / 16 * 16;
+    using E = typename Mode<MODE>::T;
+    const size_t smem = 128 + (size_t)kStages * kChunkBytes<MODE> + kMelBytes + kPowerBytes +
+                        (size_t)Mode<MODE>::kPlanes * n_copies * span_pad * sizeof(E);
+    const int n_blocks = (nf + kBF - 1) / kBF;
+    cudaError_t err;
+    if (audio_i16) {
+        err = cudaFuncSetAttribute(fused_mel_tc_kernel<MODE, int16_t>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        fused_mel_tc_kernel<MODE, int16_t><<<dim3(n_blocks, B), kThreads, smem, (cudaStream_t)stream>>>(
+            static_cast<const int16_t*>(audio), static_cast<const E*>(wtc), static_cast<const __nv_bfloat16*>(mtc),
+            sc, mel, bmax, T, Kp, hop, off, nf, bins_pad, n_mels, span_pad, n_copies, shift_log2);
+    } else {
+        err = cudaFuncSetAttribute(fused_mel_tc_kernel<MODE, float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        fused_mel_tc_kernel<MODE, float><<<dim3(n_blocks, B), kThreads, smem, (cudaStream_t)stream>>>(
+            static_cast<const float*>(audio), static_cast<const E*>(wtc), static_cast<const __nv_bfloat16*>(mtc),
+            sc, mel, bmax, T, Kp, hop, off, nf, bins_pad, n_mels, span_pad, n_copies, shift_log2);
+    }
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// wtc: the (hi, lo) basis planes, bf16 [2*bins_pad/128][Kp/16][2][128][16]
+// (re and im columns interleaved, rows past K zero); mtc: the mel weights'
+// (hi, lo) planes, bf16 [bins_pad/16][2][128][16] (columns past n_mels
+// zero); mel [B, nf, n_mels] float32, bmax [B, ceil(nf/64)]
+extern "C" int fused_mel_x3(const void* audio, int audio_i16, const void* wtc, const void* mtc, float* mel,
+                            float* bmax, int B, int T, int Kp, int hop, int off, int nf, int bins_pad, int n_mels,
+                            void* stream)
+{
+    return launch_tc<kX3>(audio, audio_i16, wtc, mtc, nullptr, mel, bmax, B, T, Kp, hop, off, nf, bins_pad,
+                          n_mels, stream);
+}
+
+// wtc: the int8 planes w2, w1, w0, [2*bins_pad/128][Kp/32][3][128][32]
+// (columns interleaved as for x3); sc [B, 2] = (s, 1/(s*Sw)); mtc as for x3
+extern "C" int fused_mel_i24(const void* audio, int audio_i16, const void* wtc, const float* sc, const void* mtc,
+                             float* mel, float* bmax, int B, int T, int Kp, int hop, int off, int nf, int bins_pad,
+                             int n_mels, void* stream)
+{
+    return launch_tc<kI24>(audio, audio_i16, wtc, mtc, sc, mel, bmax, B, T, Kp, hop, off, nf, bins_pad, n_mels,
+                           stream);
+}

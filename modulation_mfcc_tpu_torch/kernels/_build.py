@@ -56,9 +56,13 @@ def _run_all(cmds: list[list[str]]) -> list[str]:
 
 def build(verbose: bool = False) -> Path:
     """Compile ``csrc/*.cu`` unless the library for these sources exists.
-    ``verbose`` prints nvcc's ptxas report (registers, shared memory, spills)."""
+    ``verbose`` prints nvcc's ptxas report (registers, shared memory, spills),
+    kept beside the library, so a cached build prints it too."""
     out = library_path()
+    report = out.with_suffix(".ptxas.txt")
     if out.exists():
+        if verbose and report.exists():
+            print(report.read_text(), end="")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
@@ -70,6 +74,7 @@ def build(verbose: bool = False) -> Path:
     _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]])
     for o in objs:
         o.unlink()
+    report.write_text("".join(reports))
     if verbose:
         print("".join(reports), end="")
     os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file

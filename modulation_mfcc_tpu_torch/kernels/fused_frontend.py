@@ -3,9 +3,10 @@
 Hand-written kernels carry the MFCC stage on the GPU, one frontend kernel
 per arithmetic mode of the JAX frontend and one tail kernel:
 
-  * ``fused_mel_f32``, ``fused_mel_bf16``, ``fused_mel_x3``
-    (csrc/fused_frontend.cu) and ``fused_mel_i16``, ``fused_mel_i24``
-    (csrc/fused_frontend_int.cu), all behind :func:`fused_mel_frontend`,
+  * ``fused_mel_f32``, ``fused_mel_bf16`` (csrc/fused_frontend.cu),
+    ``fused_mel_i16`` (csrc/fused_frontend_int.cu), and ``fused_mel_x3``,
+    ``fused_mel_i24`` (csrc/fused_frontend_tc.cu, on the tensor cores), all
+    behind :func:`fused_mel_frontend`,
     replace the Pallas frontend of modulation_mfcc_tpu/pallas/
     fused_frontend.py (``fused_mel_frontend`` → ``_launch`` → ``_kernel``,
     ``_kernel_pipe``, ``_kernel_i16(_pipe)``, ``_kernel_i24(_pipe)``; the
@@ -16,16 +17,22 @@ per arithmetic mode of the JAX frontend and one tail kernel:
     arithmetic, and each block writes the max of its valid frames for the
     top_db clip:
 
-      - 'f32': FP32 FFMA;
+      - 'f32': FP32 FFMA, the DFT summed in 16-row steps;
       - 'bf16': operands rounded to bf16, products accumulated in f32; mel
         stored as bf16 (the corpus throughput mode);
       - 'x3': each operand split into bf16 (hi, lo), three products
-        hi·Whi + hi·Wlo + lo·Whi per term, for the DFT and the mel;
+        hi·Whi + hi·Wlo + lo·Whi per term, for the DFT and the mel, as
+        bf16 tensor-core MMAs;
       - 'i16' / 'i24': a fixed-point DFT. Samples are scaled per utterance
         (:func:`quant_scales`) and split into two (i16) or three (i24) int8
         digits; the windowed-DFT matrix into three int8 planes
         (:func:`int8_weight_planes`). The digit products are exact int32
-        dot products, recombined in f32; the mel projection runs as x3.
+        dot products (i24: int8 tensor-core MMAs), recombined in f32; the
+        mel projection runs as x3 (i24: on the bf16 tensor cores).
+
+    The tensor-core kernels read their weights in a layout of their own
+    (:func:`tc_layouts`: :func:`pack_tc_basis`, :func:`pack_tc_mel`), which
+    :func:`mode_tensors` and the ``MfccChange`` module build once.
 
     Bound: the DFT's operations (~315 GFLOP + ~50 GFLOP of mel per
     128 × 30 s batch at 16 kHz), on the unit each mode's arithmetic is made
@@ -73,6 +80,7 @@ from modulation_mfcc_tpu_torch.utils.helpers import dequantize_samples, round_up
 __all__ = [
     "ALGORITHMS", "FOLD_ALGORITHMS", "LAUNCHES", "frontend_weights", "mode_weights", "int8_weight_planes",
     "quant_scales", "tail_dct", "eff_pad", "hop_rows_geometry", "pack_hop_rows", "fold_ok", "fold_weights",
+    "TC_ALGORITHMS", "tc_layouts", "pack_tc_basis", "unpack_tc_basis", "pack_tc_mel", "unpack_tc_mel",
     "fused_mel_frontend", "fused_mel_frontend_reference", "fused_mel_fold_reference",
     "mfcc_tail", "mfcc_tail_reference", "fused_mfcc",
 ]
@@ -86,7 +94,13 @@ BLOCK_FRAMES = 64  # frames per frontend block: one bmax entry each (kBF in the 
 _BIN_TILE = 128    # bins_pad must be a multiple (kBT)
 _MEL_MAX = 128     # kMelMax
 _MFCC_MAX = 32     # kMfccMax
+_KC = 16           # contraction rows per step of the f32 kernels (kKC in fused_frontend_common.cuh)
 _KC_INT = 16       # contraction rows per step of the integer kernels (kKC in fused_frontend_int.cu)
+TC_ALGORITHMS = ("x3", "i24")       # the modes of the tensor-core kernels (fused_frontend_tc.cu)
+_TC_COLS = 128                      # DFT columns per tile (kCols): re and im of 64 bins
+_TC_STEP = {"x3": 16, "i24": 32}    # contraction rows per MMA (Mode::kStep)
+_TC_CHUNK = 32                      # contraction rows per pipeline stage (kChunkRows)
+_MEL_STEP = 16                      # bins per MMA of the mel projection (kMelStep)
 ROWS_BLKF = 1024   # the JAX frontend's default frame block, which sizes a hop-rows batch
 _TAIL_ROWS = 16    # spare hop rows after the last block (JAX _TAIL_ROWS)
 _I24_FULL = 127.0 * 65536.0 - 33000.0  # 24-bit quantization full scale (exact in f32)
@@ -223,9 +237,66 @@ def mode_weights(
 
 def mode_tensors(algorithm: str, device, sr: float, n_fft: int = 512, win_length: int | None = None,
                  n_mels: int = 128, fmin: float = 100.0, fmax: float | None = None) -> dict[str, torch.Tensor]:
-    """:func:`mode_weights` as tensors on ``device``."""
+    """:func:`mode_weights` as tensors on ``device``, with the tensor-core
+    kernels' layouts of them (:func:`tc_layouts`) for 'x3' and 'i24'."""
     w = mode_weights(algorithm, sr, n_fft, win_length, n_mels, fmin, fmax)
-    return {k: torch.as_tensor(v, device=device) for k, v in w.items()}
+    t = {k: torch.as_tensor(v, device=device) for k, v in w.items()}
+    return t | tc_layouts(algorithm, t)
+
+
+def _interleave(w: torch.Tensor) -> torch.Tensor:
+    """[..., 2·B] columns (re₀..re_B−1 | im₀..im_B−1) → (re₀, im₀, re₁, im₁, ...)."""
+    b = w.shape[-1] // 2
+    return torch.stack([w[..., :b], w[..., b:]], dim=-1).reshape(*w.shape[:-1], 2 * b)
+
+
+def pack_tc_basis(algorithm: str, w: torch.Tensor) -> torch.Tensor:
+    """The tensor-core kernels' basis layout of the mode's planes ``w``
+    [P, K, 2·bins_pad] (x3: ``wri``, the (hi, lo) bf16 splits held as
+    float32; i24: ``planes``, int8 w2, w1, w0): columns interleaved re/im,
+    K zero-padded to Kp, a multiple of 32, then [tiles, Kp/step, P, 128,
+    step] with 128 interleaved columns a tile and step = 16 (x3) or 32
+    (i24) rows an MMA, so one 32-row chunk of a tile is contiguous; bf16 for
+    x3 (exact: the planes are bf16 values), int8 for i24."""
+    cols, step = _TC_COLS, _TC_STEP[algorithm]
+    p, k, c = w.shape
+    kp = round_up_to_multiple(k, _TC_CHUNK)
+    x = tnf.pad(_interleave(w), (0, 0, 0, kp - k)).reshape(p, kp // step, step, c // cols, cols)
+    return x.permute(3, 1, 0, 4, 2).contiguous().to(torch.bfloat16 if algorithm == "x3" else torch.int8)
+
+
+def unpack_tc_basis(algorithm: str, packed: torch.Tensor, k: int) -> torch.Tensor:
+    """Inverse of :func:`pack_tc_basis`: [P, K, 2·bins_pad], float32 for x3."""
+    tiles, ks, p, cols, step = packed.shape
+    x = packed.permute(2, 1, 4, 0, 3).reshape(p, ks * step, tiles * cols)[:, :k]
+    x = torch.cat([x[..., 0::2], x[..., 1::2]], dim=-1)
+    return x.to(torch.float32) if algorithm == "x3" else x
+
+
+def pack_tc_mel(melw: torch.Tensor) -> torch.Tensor:
+    """The tensor-core kernels' mel layout of the x3 stack ``melw`` [2,
+    bins_pad, n_mels]: mel columns zero-padded to 128, then [bins_pad/16, 2,
+    128, 16] bf16 (16 bins a step, each column's 16 bins contiguous)."""
+    _, bins, n = melw.shape
+    x = tnf.pad(melw, (0, _MEL_MAX - n)).reshape(2, bins // _MEL_STEP, _MEL_STEP, _MEL_MAX)
+    return x.permute(1, 0, 3, 2).contiguous().to(torch.bfloat16)
+
+
+def unpack_tc_mel(packed: torch.Tensor, n_mels: int) -> torch.Tensor:
+    """Inverse of :func:`pack_tc_mel`: [2, bins_pad, n_mels] float32."""
+    steps, _, cols, step = packed.shape
+    return packed.permute(1, 0, 3, 2).reshape(2, steps * step, cols)[..., :n_mels].to(torch.float32)
+
+
+def tc_layouts(algorithm: str, weights: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """For 'x3' and 'i24', the tensor-core kernels' layouts of the mode's
+    weights on their device: ``wri_tc`` (x3) or ``planes_tc`` (i24) from
+    :func:`pack_tc_basis`, and ``melw_tc`` from :func:`pack_tc_mel`; empty
+    for the other modes."""
+    if algorithm not in TC_ALGORITHMS:
+        return {}
+    basis = "wri" if algorithm == "x3" else "planes"
+    return {f"{basis}_tc": pack_tc_basis(algorithm, weights[basis]), "melw_tc": pack_tc_mel(weights["melw"])}
 
 
 def fold_ok(n_fft: int, hop: int, win_length: int | None) -> bool:
@@ -421,10 +492,10 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, f"fused_mel_{alg}")
         fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, i, p]
         fn.restype = i
-    for alg in ("i16", "i24"):
-        fn = getattr(lib, f"fused_mel_{alg}")
-        fn.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
-        fn.restype = i
+    lib.fused_mel_i16.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.fused_mel_i16.restype = i
+    lib.fused_mel_i24.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.fused_mel_i24.restype = i
     for alg in FOLD_ALGORITHMS:
         fn = getattr(lib, f"fused_mel_fold_{alg}")
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
@@ -441,6 +512,19 @@ def _lib() -> ctypes.CDLL:
 
 def _bf16r(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _stepped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w [K, C] in the f32 kernels' order: the contraction in steps of
+    16 rows, each step's product summed on its own and then added to the
+    running sum, step by step. Against one K-term sum this cuts the f32
+    rounding of the DFT's long sums (the MFCC's distance from float64 on
+    16 × 30 s of noise at 16 kHz: 2.5e-4 as one sum, 8.5e-5 in steps;
+    tests/test_torch_frontend_accuracy.py)."""
+    out = x[..., :_KC] @ w[:_KC]
+    for k0 in range(_KC, w.shape[-2], _KC):
+        out.add_(x[..., k0 : k0 + _KC] @ w[k0 : k0 + _KC])
+    return out
 
 
 def _x3_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -489,7 +573,8 @@ def fused_mel_frontend_reference(
     corr: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the frontend kernels: frame matrix, then
-    matmuls in the mode's arithmetic. ``wri``/``melw``/``sw``/``corr`` are
+    matmuls in the mode's arithmetic ('f32' sums the DFT in the kernel's
+    16-row steps, :func:`_stepped_matmul`). ``wri``/``melw``/``sw``/``corr`` are
     the mode's :func:`mode_weights` (``wri`` = ``planes`` for i16/i24).
     Audio as for :func:`fused_mel_frontend`."""
     bsz = audio.shape[0]
@@ -503,7 +588,7 @@ def fused_mel_frontend_reference(
     right = max(0, (nf - 1) * hop + k - left - flat.shape[1])
     frames = frame_by_slices(tnf.pad(flat, (left, right)), 0, nf, k, hop)
     if algorithm == "f32":
-        reim = frames @ wri
+        reim = _stepped_matmul(frames, wri)
     elif algorithm == "bf16":
         reim = _bf16r(frames) @ wri
     elif algorithm == "x3":
@@ -538,7 +623,7 @@ def fused_mel_fold_reference(
     of sup + 1 samples of the audio padded by ``eff_pad`` on the left,
     s[u] = z[a+u] + z[a+sup−u] and d[u] = z[a+u] − z[a+sup−u] for
     u ∈ [0, sup/2], then re = s·wc and im = d·ws in the mode's arithmetic
-    ('bf16' rounds the audio to bf16 before the fold and s, d again at the
+    ('f32' in the kernel's 16-row steps; 'bf16' rounds the audio to bf16 before the fold and s, d again at the
     products), power and mel as the unfolded frontend. ``wc``/``ws``/``melw``
     are the mode's :func:`fold_weights`; audio float32 [B, T]."""
     bsz, t = audio.shape
@@ -552,7 +637,7 @@ def fused_mel_fold_reference(
     rev = torch.flip(frames[..., sup // 2 :], dims=(-1,))  # rev[u] = frame[sup − u]
     s, d = fwd + rev, fwd - rev
     if algorithm == "f32":
-        re, im = s @ wc, d @ ws
+        re, im = _stepped_matmul(s, wc), _stepped_matmul(d, ws)
     elif algorithm == "bf16":
         re, im = _bf16r(s) @ wc, _bf16r(d) @ ws
     else:
@@ -635,11 +720,13 @@ def fused_mel_frontend(
     mel = torch.empty((bsz, nf, n_mels), dtype=mel_dtype, device=audio.device)
     bmax = torch.empty((bsz, -(-nf // BLOCK_FRAMES)), dtype=torch.float32, device=audio.device)
     is_i16 = int(audio.dtype == torch.int16)
-    if fixed:
+    if algorithm in TC_ALGORITHMS:
+        rc = _launch_tc(name, audio, is_i16, weights, mel, bmax, buf_len, k, hop, off, nf, bins_pad, n_mels)
+    elif algorithm == "i16":
         if wri.dtype != torch.int8 or wri.shape[0] != 3:
             raise ValueError(f"{name}: planes must be int8 [3, K, 2·bins_pad], got {wri.dtype} {tuple(wri.shape)}")
         sc = quant_scales(audio, algorithm, weights["sw"])
-        corr = weights["corr"] if algorithm == "i16" else torch.zeros(two_bins, device=audio.device)
+        corr = weights["corr"]
         check_cuda(name, sc, corr)
         quads = _pack_quads(wri)
         rc = getattr(_lib(), name)(
@@ -657,6 +744,44 @@ def fused_mel_frontend(
     raise_on(rc, name)
     LAUNCHES[name] += 1
     return mel, bmax
+
+
+def _launch_tc(name: str, audio: torch.Tensor, is_i16: int, weights: dict[str, torch.Tensor], mel: torch.Tensor,
+               bmax: torch.Tensor, buf_len: int, k: int, hop: int, off: int, nf: int, bins_pad: int,
+               n_mels: int) -> int:
+    """Launch ``fused_mel_x3`` or ``fused_mel_i24`` on the weights' tensor-core
+    layouts (:func:`tc_layouts`, which :func:`mode_tensors` includes); the
+    launcher's code."""
+    algorithm = name.removeprefix("fused_mel_")
+    basis_key = "wri_tc" if algorithm == "x3" else "planes_tc"
+    if basis_key not in weights or "melw_tc" not in weights:
+        raise ValueError(f"{name}: weights lack the tensor-core layouts {basis_key!r}/'melw_tc'; "
+                         "pass mode_tensors(...) or add tc_layouts(...)")
+    basis, mtc = weights[basis_key], weights["melw_tc"]
+    kp = basis.shape[1] * _TC_STEP[algorithm]
+    want = (2 * bins_pad // _TC_COLS, kp // _TC_STEP[algorithm], 2 if algorithm == "x3" else 3, _TC_COLS,
+            _TC_STEP[algorithm])
+    for t, dtype in ((basis, torch.bfloat16 if algorithm == "x3" else torch.int8), (mtc, torch.bfloat16)):
+        if t.device != audio.device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: tensor-core weights must be contiguous {dtype} on {audio.device}, "
+                             f"got {t.dtype} on {t.device}")
+    if (tuple(basis.shape) != want or kp < k or kp % _TC_CHUNK
+            or tuple(mtc.shape) != (bins_pad // _MEL_STEP, 2, _MEL_MAX, _MEL_STEP)):
+        raise ValueError(f"{name}: tensor-core weights {tuple(basis.shape)} / {tuple(mtc.shape)} do not match "
+                         f"K={k}, bins_pad={bins_pad} (pack_tc_basis, pack_tc_mel)")
+    bsz = audio.shape[0]
+    lib = _lib()
+    if algorithm == "x3":
+        return lib.fused_mel_x3(
+            audio.data_ptr(), is_i16, basis.data_ptr(), mtc.data_ptr(), mel.data_ptr(), bmax.data_ptr(),
+            bsz, buf_len, kp, hop, off, nf, bins_pad, n_mels, stream_of(audio),
+        )
+    sc = quant_scales(audio, algorithm, weights["sw"])
+    check_cuda(name, sc)
+    return lib.fused_mel_i24(
+        audio.data_ptr(), is_i16, basis.data_ptr(), sc.data_ptr(), mtc.data_ptr(), mel.data_ptr(),
+        bmax.data_ptr(), bsz, buf_len, kp, hop, off, nf, bins_pad, n_mels, stream_of(audio),
+    )
 
 
 def _fused_mel_fold(audio: torch.Tensor, *, sr, n_fft, hop, win_length, n_mels, fmin, fmax, algorithm,

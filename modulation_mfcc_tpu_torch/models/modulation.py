@@ -35,7 +35,7 @@ import numpy as np
 import scipy.signal as sps
 import torch
 
-from modulation_mfcc_tpu_torch.kernels.fused_frontend import fused_mfcc, mode_weights, tail_dct
+from modulation_mfcc_tpu_torch.kernels.fused_frontend import fused_mfcc, mode_weights, tail_dct, tc_layouts
 from modulation_mfcc_tpu_torch.models.config import MfccConfig
 from modulation_mfcc_tpu_torch.ops import filters as F
 from modulation_mfcc_tpu_torch.ops.derivatives import np_gradient
@@ -90,8 +90,9 @@ class MfccChange(torch.nn.Module):
 
     * ``wri`` [K, 2·bins_pad], ``melw`` [bins_pad, n_mels]: packed windowed
       real-DFT bases and mel matrix of the fused frontend (f32 mode); the
-      other modes' constants (kernels/fused_frontend.mode_weights) ride
-      along as non-persistent buffers ``<mode>_<name>``;
+      other modes' constants (kernels/fused_frontend.mode_weights, and for
+      x3 and i24 their tensor-core layouts, tc_layouts) ride along as
+      non-persistent buffers ``<mode>_<name>``;
     * ``dct`` [n_mels, n_mfcc]: DCT-II ortho of the MFCC tail;
     * ``traj_filter`` / ``out_filter``: the two zero-phase Butterworth
       filters, each with its probed FIR operator (``kernel``, ``left``,
@@ -109,6 +110,8 @@ class MfccChange(torch.nn.Module):
                     self.register_buffer(name, torch.tensor(arr))
                 else:
                     self.register_buffer(f"{alg}_{name}", torch.tensor(arr), persistent=False)
+            for name, t in tc_layouts(alg, self.frontend_weights(alg)).items():
+                self.register_buffer(f"{alg}_{name}", t, persistent=False)
         self.register_buffer("dct", torch.tensor(tail_dct(cfg.n_mfcc, cfg.n_mels)))
         self.traj_filter = F.FiltFilt(*_traj_design(cfg))
         self.out_kind, out = _out_design(cfg)

@@ -44,7 +44,9 @@ from modulation_mfcc_tpu_torch.utils.helpers import next_pow2
 __all__ = ["PyinGeometry", "pyin_geometry", "pyin_constants", "pyin_observations", "pyin_f0", "yin_cmndf"]
 
 VITERBI_ENGINES = ("auto", "plain")
-PAD_MODES = ("constant", "edge", "reflect", "symmetric", "wrap")
+_COPY_MODES = ("edge", "reflect", "symmetric", "wrap")  # np.pad modes that copy samples
+_VALUE_MODES = ("linear_ramp", "maximum", "mean", "median", "minimum")  # modes that compute pad values
+PAD_MODES = ("constant", *_COPY_MODES, *_VALUE_MODES)
 
 
 # ---------------------------------------------------------------------------
@@ -360,15 +362,42 @@ def pyin_observations(
 # ---------------------------------------------------------------------------
 
 
+def _median(x: torch.Tensor) -> torch.Tensor:
+    """np.median over the last axis (keepdims): the mean of the two middle
+    values of an even-length row (torch.median takes the lower one)."""
+    s = torch.sort(x, dim=-1).values
+    n = x.shape[-1]
+    return (s[..., (n - 1) // 2 : (n - 1) // 2 + 1] + s[..., n // 2 : n // 2 + 1]) / 2
+
+
 def _pad_signal(x: torch.Tensor, pad: int, mode: str) -> torch.Tensor:
-    """np.pad(x, pad, mode) along the last axis: zeros for 'constant', and
-    for the modes that copy samples, a gather at np.pad's own indices."""
+    """np.pad(x, pad, mode) along the last axis, on x's device: zeros for
+    'constant'; for the modes that copy samples, a gather at np.pad's own
+    indices; for the value modes, np.pad's values over the whole row
+    (stat_length=None): its max, min, mean or median on both sides, or for
+    'linear_ramp' (end value 0) the ramp i·(edge/pad), i = 0..pad−1, from the
+    outer end towards each edge sample, as np.linspace(0, edge, pad,
+    endpoint=False) computes it."""
     if mode not in PAD_MODES:
         raise ValueError(f"pad_mode {mode!r} not in {PAD_MODES}")
     if mode == "constant":
         return tnf.pad(x, (pad, pad))
-    idx = np.pad(np.arange(x.shape[-1]), pad, mode=mode)
-    return x[..., torch.as_tensor(idx, device=x.device)]
+    if mode in _COPY_MODES:
+        idx = np.pad(np.arange(x.shape[-1]), pad, mode=mode)
+        return x[..., torch.as_tensor(idx, device=x.device)]
+    if mode == "linear_ramp":
+        ramp = torch.arange(pad, dtype=x.dtype, device=x.device)
+        left = ramp * (x[..., :1] / pad)
+        right = torch.flip(ramp * (x[..., -1:] / pad), dims=(-1,))
+        return torch.cat([left, x, right], dim=-1)
+    stat = {
+        "maximum": lambda v: torch.amax(v, dim=-1, keepdim=True),
+        "minimum": lambda v: torch.amin(v, dim=-1, keepdim=True),
+        "mean": lambda v: torch.mean(v, dim=-1, keepdim=True),
+        "median": _median,
+    }[mode](x)
+    side = stat.expand(*x.shape[:-1], pad)
+    return torch.cat([side, x, side], dim=-1)
 
 
 def pyin_f0(
@@ -399,8 +428,10 @@ def pyin_f0(
     convention).
 
     ``center``/``pad_mode`` follow librosa.pyin: centred framing pads
-    frame_length//2 on each side with np.pad's mode ('constant', 'edge',
-    'reflect', 'symmetric' or 'wrap'). ``viterbi_engine``: 'auto' (the CUDA
+    frame_length//2 on each side with any np.pad mode of
+    :data:`PAD_MODES` ('constant', the copying modes 'edge', 'reflect',
+    'symmetric', 'wrap', and the value modes 'linear_ramp', 'maximum',
+    'mean', 'median', 'minimum'). ``viterbi_engine``: 'auto' (the CUDA
     kernels on a CUDA tensor, their plain versions on a CPU tensor) or
     'plain'. ``consts`` are :func:`pyin_constants` on x's device (module
     buffers), used when their shapes and type fit.

@@ -74,7 +74,11 @@ def test_fused_mel_frontend_matches_jax(audio, name):
     convention, test_pallas_frontend.py::test_folded_matches_unfolded) and
     within 1e-4 relative on every entry above the top_db floor, where f32
     cancellation in bins 80 dB down reaches 2.5e-5; the per-utterance peak
-    (max over valid frames) matches."""
+    (max over valid frames) to 1e-6 of the float64 peak of the same design,
+    and no further from it than JAX's. The port's f32 DFT sums in 16-row
+    steps and JAX's in one dot, so their peaks may differ by the sum of
+    both roundings (measured 1.0e-6 at 16 kHz: port 3.0e-7 from float64,
+    JAX 7.0e-7)."""
     cfg = MfccConfig(**CONFIGS[name])
     kw = frontend_kwargs(cfg)
     with pltpu.force_tpu_interpret_mode():
@@ -87,7 +91,14 @@ def test_fused_mel_frontend_matches_jax(audio, name):
     np.testing.assert_allclose(mel, jmel, rtol=0, atol=1e-5 * jpeak.max())
     live = jmel > 1e-8 * jpeak[:, None, None]
     np.testing.assert_allclose(mel[live], jmel[live], rtol=1e-4, atol=0)
-    np.testing.assert_allclose(bmax.amax(dim=1).numpy(), jpeak, rtol=1e-6, atol=0)
+    wri, melw = (torch.tensor(a, dtype=torch.float64) for a in ff.frontend_weights(
+        cfg.signal_sample_rate, cfg.n_fft, cfg.win_length, cfg.n_mels, cfg.minFreq, cfg.maxFreq))
+    _, bmax64 = ff.fused_mel_frontend_reference(torch.tensor(audio, dtype=torch.float64), wri, melw,
+                                                hop=cfg.hop_length, eff_pad=ff.eff_pad(cfg.n_fft, cfg.win_length))
+    peak64 = bmax64.amax(dim=1).numpy()
+    peak = bmax.amax(dim=1).numpy()
+    np.testing.assert_allclose(peak, peak64, rtol=1e-6, atol=0)
+    assert (np.abs(peak - peak64) <= np.abs(jpeak - peak64)).all()
     assert bmax.shape == (2, -(-nf // ff.BLOCK_FRAMES))
 
 

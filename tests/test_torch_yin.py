@@ -156,16 +156,23 @@ F64_CASES = {
     "uncentered": ("speech", {"center": False}),
     "reflect": ("speech", {"pad_mode": "reflect"}),
     "edge": ("speech", {"pad_mode": "edge"}),
+    "linear_ramp": ("live_edges", {"pad_mode": "linear_ramp"}),
+    "maximum": ("speech", {"pad_mode": "maximum"}),
+    "mean": ("speech", {"pad_mode": "mean"}),
+    "median": ("speech", {"pad_mode": "median"}),
+    "minimum": ("speech", {"pad_mode": "minimum"}),
     "collision_44k_2048": ("collision", dict(fmin=65.0, fmax=2093.0, frame_length=2048)),
     "collision_44k_2047": ("collision", dict(fmin=65.0, fmax=2093.0, frame_length=2047)),
 }
 
 
 def case_signal(kind: str) -> tuple[np.ndarray, int, int]:
-    """(signal, sr, hop in samples): 10 ms hops, 512 at 44.1 kHz."""
-    if kind == "speech":
+    """(signal, sr, hop in samples): 10 ms hops, 512 at 44.1 kHz. 'live_edges'
+    is the speech rolled by half a second, so that it starts and ends on
+    voiced samples (which 'linear_ramp' ramps towards)."""
+    if kind in ("speech", "live_edges"):
         sig, sr = speechlike_sig()
-        return sig, sr, 100
+        return (np.roll(sig, sr // 2) if kind == "live_edges" else sig), sr, 100
     sig, sr = collision_sig()
     return sig, sr, 512
 
@@ -250,6 +257,27 @@ def test_pyin_float32_matches_oracle(name):
         assert_ties_certified(states, ostates, ov, model)
 
 
+@pytest.mark.parametrize("n", [1, 6, 7])
+@pytest.mark.parametrize("mode", Y.PAD_MODES)
+def test_pad_signal_matches_np_pad(mode, n):
+    """_pad_signal is np.pad over the last axis for every mode, on rows
+    shorter and longer than the pad, odd and even (the median of an even row
+    is the mean of its middle pair), in float64 (to a few ulps of the row's
+    scale: np.mean's pairwise sum and torch's differ in order) and in
+    float32; jnp.pad agrees to the same bar."""
+    x = np.random.default_rng(n).standard_normal((3, n)) + 0.5
+    want = np.pad(x, ((0, 0), (4, 4)), mode=mode)
+    got = Y._pad_signal(torch.tensor(x), 4, mode).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=4e-16)
+    np.testing.assert_allclose(np.asarray(jnp.pad(jnp.asarray(x), ((0, 0), (4, 4)), mode=mode)), want,
+                               rtol=0, atol=4e-16)
+    x32 = x.astype(np.float32)
+    got32 = Y._pad_signal(torch.tensor(x32), 4, mode)
+    assert got32.dtype == torch.float32
+    np.testing.assert_allclose(got32.numpy(), np.pad(x32, ((0, 0), (4, 4)), mode=mode), rtol=0, atol=4e-7)
+
+
 def test_pyin_batch_rows_and_options():
     """A [2, n] batch equals its rows; unknown engines and pad modes raise;
     'plain' is the CPU's 'auto'."""
@@ -263,7 +291,7 @@ def test_pyin_batch_rows_and_options():
     with pytest.raises(ValueError, match="viterbi_engine"):
         pyin_f0(x, sr=float(sr), viterbi_engine="pallas_full")
     with pytest.raises(ValueError, match="pad_mode"):
-        pyin_f0(x, sr=float(sr), pad_mode="linear_ramp")
+        pyin_f0(x, sr=float(sr), pad_mode="empty")
     with pytest.raises(ValueError, match="empty lag band"):
         pyin_f0(x, sr=float(sr), frame_length=32)
     with pytest.raises(ValueError, match="float32 or float64"):
