@@ -12,7 +12,9 @@ card and against the CPU, and times kernels and paths with CUDA events.
 Phases:
 
   0  card, power limit, versions, TF32 flags (exits 2 without CUDA)
-  1  kernel build, with ptxas's report (registers, spills) of every kernel
+  1  kernel build, with ptxas's report (registers, spills) of every kernel,
+     and a line each for the banded forward's and the tensor-core
+     frontend's instantiations
   2  MFCC kernels vs plain versions on the card, both configurations
   3  MFCC path at full size (mfcc_change, 128 × 30 s at 16 kHz), launch counts
   4  single utterances (masked-FIR route, host-tail route)
@@ -30,12 +32,17 @@ Phases:
  10  tracker times: kernels beside plain versions, both paths end to end, the
      Viterbi loop's and the root finder's shares, peak memory
  11  pyin Viterbi kernels vs plain versions on the card, bit for bit: random
-     dense trellises (batched and single), pyin's own trellis of 4 × 30 s at
-     16 kHz and at 10 kHz, a batch of one
+     dense trellises (batched and single; h = n − 1, log_tri read from L2),
+     crafted banded ones (a random band over a floor that also lies inside
+     it, integer ties with fl(gmax + C), h = 0: the band in registers; a
+     band of 81 sources: in shared memory), pyin's own trellis of 4 × 30 s
+     at 16 kHz and at 10 kHz (h = 21, registers), a batch of one
  12  pyin path at full size: batched_f0 pyin on the phase-7 batch, one launch
      of each Viterbi kernel, states and f0 identical to the plain engine on
-     the card, against the CPU; extract_f0 pyin on one 30 s utterance
- 13  pyin times: both kernels beside their plain versions, the path end to
+     the card, against the CPU; the decode of that call makes no device→host
+     sync; extract_f0 pyin on one 30 s utterance
+ 13  pyin times: both kernels beside their plain versions, the forward's
+     bounds for its banded work and for the dense function, the path end to
      end with its stage split (CMNDF, candidates and observations, forward,
      backtrace), peak memory, and the device time by kernel of one call
      (torch.profiler)
@@ -82,9 +89,12 @@ Phases:
 checkout at DIR instead of this one's, builds its kernels, times its
 frontend kernels at 128 × 30 s at 16 kHz as the frontend rows below are
 timed (fused_mel_f32 on float32 audio of phase 5's and phase 22's batches,
-seeds 0 and 19, in both orders; the f32 fold on both; x3, i24 and f32 on
-phase 15's int16 hop rows), and prints x3's and i24's MFCC distances from
-the float64 MFCC on phase 23's two batches, kernel and plain version.
+seeds 0 and 19, in both orders; the f32 fold on both; x3, i16, i24 and f32
+on phase 15's int16 hop rows) and 'fused_i16' mfcc_change on those rows,
+times viterbi_fwd_f32 on pyin's trellis of phase 7's batch (band derived
+from the tensor where the package bands it) and batched_f0 pyin on that
+batch end to end, and prints x3's and i24's MFCC distances from the
+float64 MFCC on phase 23's two batches, kernel and plain version.
 Every line carries DIR's name, the card's name and power limit, and the
 SM clock read after it. To compare two commits on one card, unpack the
 other (``git archive``) into a git-ignored directory and run parent,
@@ -156,7 +166,7 @@ SOURCES = {
     "viterbi_bwd_f32": f"{CSRC}/viterbi.cu",
     "fused_mel_bf16": f"{CSRC}/fused_frontend.cu",
     "fused_mel_x3": f"{CSRC}/fused_frontend_tc.cu",
-    "fused_mel_i16": f"{CSRC}/fused_frontend_int.cu",
+    "fused_mel_i16": f"{CSRC}/fused_frontend_tc.cu",
     "fused_mel_i24": f"{CSRC}/fused_frontend_tc.cu",
     "fused_mel_fold_f32": f"{CSRC}/fused_frontend_fold.cu",
     "fused_mel_fold_bf16": f"{CSRC}/fused_frontend_fold.cu",
@@ -729,27 +739,69 @@ def tracker_paths(dev, card: str) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 
-def viterbi_compare(args: tuple) -> tuple[float, float, tuple]:
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (±0 told apart)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def viterbi_compare(args: tuple, band: tuple | None = None) -> tuple[float, float, tuple]:
     """Both kernels against their plain versions on one trellis (log_obs,
-    delta0, log_tri, c_stay, c_sw): (max |Δ| over δ_f and the history, max
-    |Δ| of the state paths, the plain forward's (δ_f, history)). The
+    delta0, log_tri, c_stay, c_sw), the forward given ``band`` (derived from
+    log_tri when None): (0 when δ_f and the history are the plain forward's
+    bit for bit, else their max |Δ| (inf where they differ only in bits),
+    max |Δ| of the state paths, the plain forward's (δ_f, history)). The
     backtrace runs on the plain forward's output; the fused decode is
     compared too."""
-    f_k, h_k = VK.viterbi_forward(*args)
+    f_k, h_k = VK.viterbi_forward(*args, band)
     f_p, h_p = VK.viterbi_forward_reference(*args)
     path_k = VK.viterbi_backtrace(h_p, f_p, *args[2:])
     path_p = VK.viterbi_backtrace_reference(h_p, f_p, *args[2:])
-    dec_k = VK.viterbi_decode(*args)
+    dec_k = VK.viterbi_decode(*args, band)
     torch.cuda.synchronize()
-    delta_err = max(float((f_k - f_p).abs().max()), float((h_k - h_p).abs().max()))
+    delta_err = 0.0
+    if not (same_bits(f_k, f_p) and same_bits(h_k, h_p)):
+        delta_err = max(float((f_k - f_p).abs().max()), float((h_k - h_p).abs().max())) or float("inf")
     path_err = float(torch.maximum((path_k - path_p).abs(), (dec_k - path_p).abs()).max())
     return delta_err, path_err, (f_p, h_p)
 
 
+def banded_trellis(kind: str, rng: np.random.Generator, dev) -> tuple[tuple, int]:
+    """Crafted banded trellises on the card, (args, h), batch 3, 200 frames:
+    'floor' a random band of half-width 21 over a floor C = −87.3, with C at
+    a fifth of the entries inside the band too, n = 361 (pyin's shape);
+    'wide' the same with h = 40 (81 sources: too wide for registers);
+    'ties' small integers everywhere (band entries −8..−1 over C = −8,
+    observations −3..0, c_stay = −1, c_sw = −2), so band terms tie with each
+    other and with fl(gmax + C), n = 361, h = 5; 'diagonal' h = 0, n = 100."""
+    n, h, floor = {"floor": (361, 21, -87.3), "wide": (361, 40, -87.3), "ties": (361, 5, -8.0),
+                   "diagonal": (100, 0, -20.0)}[kind]
+    dist = np.abs(np.arange(n)[:, None] - np.arange(n)[None, :])
+    lt = np.full((n, n), floor, np.float32)
+    nf, inside = 200, dist <= h
+    if kind == "ties":
+        lt[inside] = rng.integers(-8, 0, int(inside.sum()))
+        lt[dist == h] = -1.0  # the band reaches h
+        log_obs = rng.integers(-3, 1, (3, nf, 2 * n)).astype(np.float32)
+        delta0 = rng.integers(-3, 1, (3, 2 * n)).astype(np.float32)
+        c_stay, c_sw = -1.0, -2.0
+    else:
+        lt[inside] = rng.uniform(-10.0, 0.0, int(inside.sum()))
+        if kind in ("floor", "wide"):
+            lt[inside & (dist > 0) & (rng.random((n, n)) < 0.2)] = floor
+            lt[dist == h] = -5.0
+        log_obs = np.log(rng.random((3, nf, 2 * n)) + 1e-12).astype(np.float32)
+        delta0 = np.log(rng.random((3, 2 * n)) + 1e-12).astype(np.float32)
+        c_stay, c_sw = float(np.log(np.float32(0.99))), float(np.log(np.float32(0.01)))
+    args = (torch.tensor(log_obs, device=dev), torch.tensor(delta0, device=dev), torch.tensor(lt, device=dev),
+            c_stay, c_sw)
+    return args, h
+
+
 def viterbi_kernel_checks(dev) -> None:
     """Phase 11: both Viterbi kernels bit for bit against their plain
-    versions, on the random dense trellises of the CPU test, on pyin's own
-    trellises and on a batch of one."""
+    versions, on the random dense trellises of the CPU test (h = n − 1,
+    log_tri from L2), on crafted banded trellises (each layout of the band)
+    and pyin's own (the band in registers) and on a batch of one."""
     rng = np.random.default_rng(11)
     c_stay, c_sw = float(np.log(np.float32(0.99))), float(np.log(np.float32(0.01)))
     for n_bins, nf, nb in ((360, 40, 3), (130, 7, 3), (37, 25, 3), (40, 600, 3), (360, 40, None), (40, 1, 2)):
@@ -758,31 +810,45 @@ def viterbi_kernel_checks(dev) -> None:
         args = (torch.tensor(np.log(rng.random((*lead, nf, 2 * n_bins)) + 1e-12), dtype=torch.float32, device=dev),
                 torch.tensor(np.log(rng.random((*lead, 2 * n_bins)) + 1e-12), dtype=torch.float32, device=dev),
                 torch.tensor(np.log(tri / tri.sum(0) + 1e-30), dtype=torch.float32, device=dev), c_stay, c_sw)
+        h = VK.viterbi_band(args[2])[0]
+        check(h == n_bins - 1 and VK.band_layout(n_bins, h) == "L2", f"the dense trellis n={n_bins} is read from L2")
         if nf == 1:
             f_k, h_k = VK.viterbi_forward(*args)
             f_p, h_p = VK.viterbi_forward_reference(*args)
             torch.cuda.synchronize()
-            ok = torch.equal(f_k, f_p) and h_k.shape == h_p.shape == (nb, 0, 2 * n_bins)
+            ok = same_bits(f_k, f_p) and h_k.shape == h_p.shape == (nb, 0, 2 * n_bins)
             print(f"[11] viterbi_fwd_f32 on one frame, batch {nb}: δ_f identical {ok}")
             check(ok, "viterbi_fwd_f32 on one frame")
             continue
         err, path_err, _ = viterbi_compare(args)
-        print(f"[11] random trellis n={n_bins} NF={nf} batch {nb or 'none'}: δ max |Δ| {err:.3e}, "
-              f"state paths max |Δ| {path_err:.0f} (bars 0, 0)")
+        print(f"[11] random trellis n={n_bins} NF={nf} batch {nb or 'none'}, h={h}, band in "
+              f"{VK.band_layout(n_bins, h)}: δ max |Δ| {err:.3e}, state paths max |Δ| {path_err:.0f} (bars 0, 0)")
         check(err == 0.0 and path_err == 0.0, f"Viterbi kernels on the random trellis n={n_bins} NF={nf}")
+    for kind, where in (("floor", "registers"), ("wide", "shared"), ("ties", "registers"), ("diagonal", "registers")):
+        args, h = banded_trellis(kind, rng, dev)
+        n = args[2].shape[0]
+        band = VK.viterbi_band(args[2])
+        check(band == (h, float(args[2].min())) and VK.band_layout(n, h) == where, f"the band of the {kind} trellis")
+        err, path_err, _ = viterbi_compare(args)
+        print(f"[11] banded trellis '{kind}' n={n} h={h} C={band[1]}, band in {where}: δ max |Δ| {err:.3e}, "
+              f"state paths max |Δ| {path_err:.0f} (bars 0, 0)")
+        check(err == 0.0 and path_err == 0.0, f"Viterbi kernels on the banded trellis {kind}")
     for sr in (16_000, 10_000):
         x = torch.tensor(speechlike(4, SECONDS * sr, sr, seed=3), device=dev)
         with spy(Y, "viterbi_decode") as calls:
             Y.pyin_f0(x, sr=float(sr))
-        args = calls[0][0]
-        err, path_err, _ = viterbi_compare(args)
-        print(f"[11] pyin's trellis at {sr} Hz, log_obs {tuple(args[0].shape)}: δ max |Δ| {err:.3e}, "
-              f"state paths max |Δ| {path_err:.0f} (bars 0, 0)")
+        *args, band = calls[0][0]
+        n = args[2].shape[0]
+        check(band[0] == 21 and band == VK.viterbi_band(args[2]) and VK.band_layout(n, band[0]) == "registers",
+              f"pyin's band at {sr} Hz")
+        err, path_err, _ = viterbi_compare(args, band)
+        print(f"[11] pyin's trellis at {sr} Hz, log_obs {tuple(args[0].shape)}, band h={band[0]} C={band[1]} in "
+              f"{VK.band_layout(n, band[0])}: δ max |Δ| {err:.3e}, state paths max |Δ| {path_err:.0f} (bars 0, 0)")
         check(err == 0.0 and path_err == 0.0, f"Viterbi kernels on pyin's trellis at {sr} Hz")
         one = (args[0][:1].contiguous(), args[1][:1].contiguous(), *args[2:])
         single = (args[0][0].contiguous(), args[1][0].contiguous(), *args[2:])
-        ok = viterbi_compare(one)[:2] == (0.0, 0.0) and viterbi_compare(single)[:2] == (0.0, 0.0)
-        ok = ok and torch.equal(VK.viterbi_decode(*one)[0], VK.viterbi_decode(*single))
+        ok = viterbi_compare(one, band)[:2] == (0.0, 0.0) and viterbi_compare(single, band)[:2] == (0.0, 0.0)
+        ok = ok and torch.equal(VK.viterbi_decode(*one, band)[0], VK.viterbi_decode(*single, band))
         print(f"[11] a batch of one and a single trellis at {sr} Hz: identical to the plain versions {ok}")
         check(ok, f"Viterbi kernels on a batch of one at {sr} Hz")
 
@@ -821,6 +887,17 @@ def pyin_path(dev, y_np: np.ndarray, batch: mt.AudioBatch) -> tuple[dict, tuple]
     print(f"[12] utterances 0-1 vs the CPU path: states differ on {diff} of {total} frames ({vflips} in voicing; "
           f"bar ≤ 0.1 %), max |Δf0| {dmax:.3e} Hz over {nboth} frames voiced in both")
     check(diff <= 1e-3 * total, "pyin path vs the CPU")
+    *args, band = calls[0][0]
+    first = VK.viterbi_decode(*args, band)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = VK.viterbi_decode(*args, band)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(torch.equal(again, first), "the decode of pyin's trellis again")
+    print("[12] the decode of that call (band from the host design) under set_sync_debug_mode('error'): "
+          "no device→host sync")
 
     y = y_np[0]
     raw = mt.F0Config(method="pyin", interpUnvoiced=None, outFilter=None)
@@ -837,7 +914,7 @@ def pyin_path(dev, y_np: np.ndarray, batch: mt.AudioBatch) -> tuple[dict, tuple]
     print(f"[12] extract_f0 pyin (linear interp + iir) on 30 s vs CPU: max |Δ| {err:.3e} Hz "
           f"(bar 0.05 Hz when the raw tracks agree on every frame)")
     check(bool(torch.isfinite(got).all()) and (n_diff > 0 or err <= 0.05), "extract_f0 pyin, interpolated and filtered")
-    return launches, calls[0][0]
+    return launches, calls[0][0]  # the trellis and its band
 
 
 def device_breakdown(fn, top: int = 10) -> tuple[float, list[tuple[str, float]]]:
@@ -856,20 +933,30 @@ def device_breakdown(fn, top: int = 10) -> tuple[float, list[tuple[str, float]]]
     return sum(t for _, t in kernels), kernels[:top]
 
 
-def pyin_times(batch: mt.AudioBatch, args: tuple, card: str):
+def pyin_times(batch: mt.AudioBatch, captured: tuple, card: str):
     """Phase 13: (kernel ms pairs, kernel errors at full size, bounds)."""
     hours = TRACK_BATCH * SECONDS / 3600.0
-    fwd_err, bwd_err, (delta_f, hist) = viterbi_compare(args)
+    *args, band = captured
+    fwd_err, bwd_err, (delta_f, hist) = viterbi_compare(args, band)
     rest = args[2:]
     check(fwd_err == 0.0 and bwd_err == 0.0, "Viterbi kernels at full size")
     ms = {
-        "viterbi_fwd_f32": (cuda_ms(lambda: VK.viterbi_forward(*args)),
+        "viterbi_fwd_f32": (cuda_ms(lambda: VK.viterbi_forward(*args, band)),
                             cuda_ms(lambda: VK.viterbi_forward_reference(*args))),
         "viterbi_bwd_f32": (cuda_ms(lambda: VK.viterbi_backtrace(hist, delta_f, *rest)),
                             cuda_ms(lambda: VK.viterbi_backtrace_reference(hist, delta_f, *rest))),
     }
     for k, (t_k, t_p) in ms.items():
         print(f"[13] {k}: {t_k:.3f} ms, plain {t_p:.3f} ms ({card})")
+    g = torch.Generator(device=args[0].device).manual_seed(13)
+    tri = torch.rand(args[2].shape, generator=g, device=args[0].device)
+    dense_tri = torch.log(tri / tri.sum(0) + 1e-30)
+    h_dense = VK.viterbi_band(dense_tri)[0]
+    check(VK.band_layout(dense_tri.shape[0], h_dense) == "L2", "a random transition is read from L2")
+    dense_ms = cuda_ms(lambda: VK.viterbi_forward(args[0], args[1], dense_tri, *args[3:]))
+    print(f"[13] viterbi_fwd_f32 on pyin's observations with a random dense transition (h={h_dense}, log_tri from "
+          f"L2), the dense recursion: {dense_ms:.3f} ms ({card})")
+    del tri, dense_tri
     cfg = mt.F0Config(method="pyin")
     torch.cuda.reset_peak_memory_stats()
     stages = [(Y, "_sliding_cmndf"), (Y, "pyin_observations"), (VK, "viterbi_forward"), (VK, "viterbi_backtrace")]
@@ -887,9 +974,21 @@ def pyin_times(batch: mt.AudioBatch, args: tuple, card: str):
     nb, nf, two_n = log_obs.shape
     n = two_n // 2
     state_bytes = nb * two_n * 4
+    h = band[0]
+    v = np.arange(n)
+    pairs = int((np.minimum(n - 1, v + h) - np.maximum(0, v - h) + 1).sum())  # (u, v) within the band
+    io_bytes = log_obs.numel() * 4 + 2 * state_bytes + hist.numel() * 4
+    # per step: an add and a max per band pair and half; per target and half the fl(gmax + C) term, the
+    # observation and m (6 ops), and the max that forms gmax
+    fwd_banded = bound(io_bytes + pairs * 4, nb * (nf - 1) * (4 * pairs + 18 * n))
+    fwd_dense = bound(io_bytes + log_tri.numel() * 4, nb * (nf - 1) * (4 * n * n + 8 * n))
+    print(f"[13] viterbi_fwd_f32 bounds: the banded work (h={h}, {pairs} band pairs, the band in "
+          f"{VK.band_layout(n, h)}) {fwd_banded[0]:.3f} ms "
+          f"({fwd_banded[1]}); the dense function {fwd_dense[0]:.3f} ms ({fwd_dense[1]}); the kernel "
+          f"{ms['viterbi_fwd_f32'][0]:.3f} ms = {fwd_banded[0] / ms['viterbi_fwd_f32'][0]:.1%} of the banded bound "
+          f"({card})")
     bounds = {
-        "viterbi_fwd_f32": bound(log_obs.numel() * 4 + 2 * state_bytes + log_tri.numel() * 4 + hist.numel() * 4,
-                                 nb * (nf - 1) * (4 * n * n + 8 * n)),
+        "viterbi_fwd_f32": fwd_banded,
         "viterbi_bwd_f32": bound(hist.numel() * 4 + state_bytes + log_tri.numel() * 4 + nb * nf * 4,
                                  nb * (nf - 1) * 5 * n),
     }
@@ -1624,8 +1723,9 @@ def fold_longform_modspec(dev, card: str) -> list[dict]:
 
 
 def frontend_report(root: Path) -> int:
-    """``--frontend DIR``: the frontend kernel times and x3's and i24's MFCC
-    distances of the package at ``root`` (see the module docstring)."""
+    """``--frontend DIR``: the frontend kernel times, the pyin forward's and
+    two paths' times, and x3's and i24's MFCC distances of the package at
+    ``root`` (see the module docstring)."""
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
         return 2
@@ -1652,12 +1752,25 @@ def frontend_report(root: Path) -> int:
     del ys
     pcm = np.round(speechlike(BATCH, SECONDS * sr, sr, seed=0) * 0.5 * 32767.0).astype(np.int16)
     rows, n = rows_of(pcm, cfg, dev), pcm.shape[1]
-    ws = {alg: mode_weights(cfg, alg, dev) for alg in ("x3", "i24", "f32")}
+    ws = {alg: mode_weights(cfg, alg, dev) for alg in ("x3", "i16", "i24", "f32")}
     for alg, w in ws.items():
         line(f"fused_mel_{alg}, int16 hop rows", lambda: mode_kernel(rows, cfg, alg, w, n))
+    model = mt.MfccChange(cfg).to(dev)
+    ms = cuda_ms(lambda: model(rows, spectrum="fused_i16", n_samples=n))
+    print(f"[{label}] mfcc_change spectrum='fused_i16' on the rows end to end: {ms:.3f} ms ({card}; {sm_clock()})")
     del rows
     torch.cuda.empty_cache()
-    model = mt.MfccChange(cfg).to(dev)
+    batch = mt.pad_batch(list(speechlike(TRACK_BATCH, SECONDS * TRACK_SR, TRACK_SR, seed=5)), bucket_multiple=1,
+                         device=dev)
+    pyin = mt.F0Config(method="pyin")
+    with spy(Y, "viterbi_decode") as calls:
+        mt.batched_f0(batch, TRACK_SR, pyin)
+    trellis = calls[0][0][:5]
+    line(f"viterbi_fwd_f32, pyin's trellis {tuple(trellis[0].shape)}", lambda: VK.viterbi_forward(*trellis))
+    ms = cuda_ms(lambda: mt.batched_f0(batch, TRACK_SR, pyin))
+    print(f"[{label}] batched_f0 pyin on {tuple(batch.samples.shape)} end to end: {ms:.3f} ms ({card}; {sm_clock()})")
+    del batch, trellis, calls
+    torch.cuda.empty_cache()
     for what, x in c2_batches(y):
         f64 = model.trajectories(x.double(), spectrum="fft", coef_major=True)
 
@@ -1670,6 +1783,23 @@ def frontend_report(root: Path) -> int:
         del f64
         torch.cuda.empty_cache()
     return 0
+
+
+def ptxas_lines(report: str, bases: tuple[str, ...]) -> list[str]:
+    """'kernel<template args>: registers, spill bytes' for each entry
+    function of ptxas's report whose name holds one of ``bases``."""
+    out, name, spills = [], None, ""
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            base = next((b for b in bases if b in mangled), None)
+            name = base and base + "<" + mangled.split(base, 1)[1].split("EEv")[0] + ">"
+        elif name and "spill stores" in line:
+            spills = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            out.append(f"{name}: {line.split('Used', 1)[1].split(',')[0].strip()}; {spills}")
+            name = None
+    return out
 
 
 def main() -> int:
@@ -1692,6 +1822,9 @@ def main() -> int:
     _build.load_library()
     print(f"[1] built {lib_path.name} from {CSRC}/*.cu (nvcc {' '.join(_build.NVCC_FLAGS)}, one process "
           f"per source) in {time.perf_counter() - t0:.3f} s")
+    for line in ptxas_lines(lib_path.with_suffix(".ptxas.txt").read_text(),
+                            ("viterbi_fwd_f32_kernel", "fused_mel_tc_kernel")):
+        print(f"[1] ptxas {line}")
 
     mfcc_kernel_checks(dev)
     rows = mfcc_path(dev, card)

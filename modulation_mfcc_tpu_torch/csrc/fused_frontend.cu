@@ -6,8 +6,7 @@
 // fused_mel_f32 and mfcc_tail_f32 compute in true FP32; fused_mel_bf16
 // rounds its operands to bf16 as its TPU mode does (a product of two bf16
 // values is exact in FP32, so each such product is accumulated in FP32). The
-// x3 mode runs on the tensor cores (fused_frontend_tc.cu), the fixed-point
-// modes in fused_frontend_int.cu and fused_frontend_tc.cu.
+// x3 and fixed-point modes run on the tensor cores (fused_frontend_tc.cu).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>

@@ -1,5 +1,5 @@
-// Fused MFCC frontend for Hopper (sm_90a) on the tensor cores: the x3 and
-// i24 modes, audio -> mel power. Plain C launchers, loaded with ctypes
+// Fused MFCC frontend for Hopper (sm_90a) on the tensor cores: the x3, i16
+// and i24 modes, audio -> mel power. Plain C launchers, loaded with ctypes
 // (modulation_mfcc_tpu_torch/kernels/_build.py); each returns the
 // cudaError_t of its launch. No fast-math intrinsics.
 #include <cuda_bf16.h>
@@ -13,11 +13,12 @@ namespace {
 using namespace tc;
 
 // ---------------------------------------------------------------------------
-// fused_mel_x3, fused_mel_i24
+// fused_mel_x3, fused_mel_i16, fused_mel_i24
 //
 // Replace the Pallas frontend kernels of modulation_mfcc_tpu/pallas/
 // fused_frontend.py (fused_mel_frontend -> _launch) with algorithm 'x3'
-// (_kernel and _kernel_pipe, _mxu's x3 branch) and 'i24' (_kernel_i24 and
+// (_kernel and _kernel_pipe, _mxu's x3 branch), 'i16' (_kernel_i16 and
+// _kernel_i16_pipe, _i16_digits and _i16_reim) and 'i24' (_kernel_i24 and
 // _kernel_i24_pipe, _i24_reim). The pipelined kernels compute their plain
 // kernels' numbers bit for bit, so one kernel serves each pair.
 //
@@ -49,18 +50,27 @@ using namespace tc;
 //          3 * 416 * 128^2 < 2^31), then ((d1 2^32 + d2 2^24) + d3 2^16) * inv
 //          in FP32 in the JAX order. The sums are exact whatever order the
 //          MMAs add in, so the power equals the plain version's bit for bit.
+//   'i16': X = rint(frame * s) clipped to [-32768, 32767] (s a power of
+//          two) in two int8 digits x1 = floor(X / 256), x0 = X - 256 x1 - 128;
+//          the same basis planes; d1 = x1.w2, d2 = x1.w1 + x0.w2,
+//          d3 = x1.w0 + x0.w1 (five MMAs a fragment into i24's three sums),
+//          then (((d1 2^24 + d2 2^16) + d3 2^8) + corr) * inv, where corr (per
+//          DFT column, from the wrapper) puts back the low digit's +128
+//          offset. Exact sums again: the power is the plain version's bit
+//          for bit.
 //
 // Bound: the tensor cores' operations. A 128 x 30 s batch at 16 kHz is 315
 // GFLOP per K-row pass of the DFT and 50 GFLOP per pass of the mel
 // projection; x3 runs three bf16 passes of each (989 TFLOP/s dense: 1.1
 // ms), i24 six int8 passes of the DFT (1,979 TOPS) and three bf16 of the
-// mel (1.1 ms). The audio read and the mel write are ~0.2 ms at 3.35 TB/s.
+// mel (1.1 ms), i16 five int8 passes and the same mel (0.95 ms). The audio
+// read and the mel write are ~0.2 ms at 3.35 TB/s.
 //
 // Design: a block owns 64 consecutive frames of one utterance (8 warps).
 //  * The A operand (frames) never exists in device memory, nor as a frame
 //    tile in shared memory: the block stages its audio span once, already
-//    in the MMA's element type (x3: the bf16 hi and lo planes; i24: the
-//    three int8 digit planes), and each thread loads its A fragments
+//    in the MMA's element type (x3: the bf16 hi and lo planes; i16, i24: the
+//    two or three int8 digit planes), and each thread loads its A fragments
 //    straight from it: frame f, column k is span[f*hop + k], so the 8 bytes
 //    a thread needs for a row are consecutive in the span. Where f*hop is
 //    not a multiple of those 8 bytes (the 10 kHz default's hop of 50), the
@@ -74,14 +84,14 @@ using namespace tc;
 //    mbarrier; one __syncthreads a chunk returns a stage to the ring.
 //  * A bin tile is kCols = 128 DFT columns (re and im of 64 bins). Warps
 //    tile it 2 (32 frames) x 4 (32 columns): a thread holds 2 x 4
-//    accumulator fragments per sum (x3: 2 sums, 64 registers; i24: 3 int32
-//    sums, 96), so re and im of a bin are neighbours in one thread, which
+//    accumulator fragments per sum (x3: 2 sums, 64 registers; i16, i24: 3
+//    int32 sums, 96), so re and im of a bin are neighbours in one thread, which
 //    forms the power and its bf16 split, into a [64 x 64 bins] tile in
 //    shared memory. The tile's mel weights come in by bulk copy while its
 //    DFT runs, and the tile is projected onto them (tensor_core.cuh
 //    mel_x3_tile) into the block's mel, held in registers (64 a thread)
-//    over all tiles. ptxas: 196 (x3) and 220 (i24) registers, no spills:
-//    one block of 8 warps per SM.
+//    over all tiles. One block of 8 warps per SM (registers and spills of
+//    each mode: chip_smoke.py phase 1).
 // Times on the H100: PERF.md §6 (chip_smoke.py phase 17). A narrower i24
 // warp tile (16 x 32, 48 accumulators) and per-warp release of the weight
 // stages through mbarriers, in place of the block barrier per chunk, were
@@ -89,7 +99,7 @@ using namespace tc;
 // shared memory) is the next step.
 // ---------------------------------------------------------------------------
 
-constexpr int kX3 = 0, kI24 = 1;
+constexpr int kX3 = 0, kI16 = 1, kI24 = 2;
 constexpr int kChunkRows = 32;  // contraction rows a pipeline stage holds
 constexpr int kStages = 4;
 constexpr int kMT = 2;          // 16-frame MMA tiles a warp: warps 2 (frames) x 4 (columns)
@@ -99,19 +109,27 @@ constexpr int kTileBins = kCols / 2;
 
 template <int MODE> struct Mode;
 template <> struct Mode<kX3> {
-    using T = __nv_bfloat16;          // element of the span planes and the basis
-    static constexpr int kPlanes = 2; // span planes (hi, lo) and basis planes (hi, lo)
-    static constexpr int kStep = 16;  // contraction rows per MMA
+    using T = __nv_bfloat16;               // element of the span planes and the basis
+    static constexpr int kSpanPlanes = 2;  // the samples' (hi, lo)
+    static constexpr int kBasisPlanes = 2; // the basis' (hi, lo)
+    static constexpr int kStep = 16;       // contraction rows per MMA
+};
+template <> struct Mode<kI16> {
+    using T = int8_t;
+    static constexpr int kSpanPlanes = 2;  // digits x1, x0
+    static constexpr int kBasisPlanes = 3; // planes w2, w1, w0
+    static constexpr int kStep = 32;
 };
 template <> struct Mode<kI24> {
     using T = int8_t;
-    static constexpr int kPlanes = 3;  // digits x2, x1, x0 and planes w2, w1, w0
+    static constexpr int kSpanPlanes = 3;  // digits x2, x1, x0
+    static constexpr int kBasisPlanes = 3; // planes w2, w1, w0
     static constexpr int kStep = 32;
 };
 
 template <int MODE> constexpr int kAl = 8 / (int)sizeof(typename Mode<MODE>::T);  // elements per 8-byte load
 template <int MODE> constexpr int kChunkBytes =
-    kChunkRows * kCols * Mode<MODE>::kPlanes * (int)sizeof(typename Mode<MODE>::T);
+    kChunkRows * kCols * Mode<MODE>::kBasisPlanes * (int)sizeof(typename Mode<MODE>::T);
 constexpr int kMelBytes = kTileBins * 2 * kMelCols * 2;  // a tile's mel weights, (hi, lo) bf16
 constexpr int kPitch = kTileBins + 16;                   // power row: 8 mod 32 words, conflict-free
 constexpr int kPowerBytes = 2 * kBF * kPitch * 2;
@@ -132,6 +150,16 @@ __device__ __forceinline__ void planes_of(float v, float, __nv_bfloat16 (&p)[2])
     p[1] = __float2bfloat16_rn(v - __bfloat162float(hi));
 }
 
+// the two digits of rint(v * s) clipped to 16 bits, the low one offset by
+// -128, as _i16_digits
+__device__ __forceinline__ void planes_of(float v, float s, int8_t (&p)[2])
+{
+    const float x = fminf(fmaxf(rintf(__fmul_rn(v, s)), -32768.0f), 32767.0f);
+    const float x1 = floorf(x * (1.0f / 256.0f));
+    p[0] = static_cast<int8_t>(x1);
+    p[1] = static_cast<int8_t>(x - 256.0f * x1 - 128.0f);
+}
+
 // balanced base-256 digits of rint(v * s), highest first, as _i24_reim
 __device__ __forceinline__ void planes_of(float v, float s, int8_t (&p)[3])
 {
@@ -143,12 +171,20 @@ __device__ __forceinline__ void planes_of(float v, float s, int8_t (&p)[3])
     p[2] = static_cast<int8_t>(x - 256.0f * q1);
 }
 
-// the exact int32 sums -> the DFT value, FP32 in the JAX order
+// the exact int32 sums -> the DFT value, FP32 in the JAX order (i24)
 __device__ __forceinline__ float recombine(int d1, int d2, int d3, float inv)
 {
     const float a = __int2float_rn(d1), b = __int2float_rn(d2), c = __int2float_rn(d3);
     return __fmul_rn(__fadd_rn(__fadd_rn(__fmul_rn(a, 4294967296.0f), __fmul_rn(b, 16777216.0f)),
                                __fmul_rn(c, 65536.0f)), inv);
+}
+
+// the same for i16, with the column's offset correction
+__device__ __forceinline__ float recombine(int d1, int d2, int d3, float corr, float inv)
+{
+    const float a = __int2float_rn(d1), b = __int2float_rn(d2), c = __int2float_rn(d3);
+    return __fmul_rn(__fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(a, 16777216.0f), __fmul_rn(b, 65536.0f)),
+                                         __fmul_rn(c, 256.0f)), corr), inv);
 }
 
 __device__ __forceinline__ float power_of(float re, float im)
@@ -159,6 +195,7 @@ __device__ __forceinline__ float power_of(float re, float im)
 template <int MODE>
 struct Acc;  // the DFT sums of a thread
 template <> struct Acc<kX3> { float hh[kMT][4][4], sm[kMT][4][4]; };
+template <> struct Acc<kI16> { int d[3][kMT][4][4]; };
 template <> struct Acc<kI24> { int d[3][kMT][4][4]; };
 
 // one chunk (kChunkRows contraction rows from k0) of the tile's DFT
@@ -170,9 +207,9 @@ __device__ __forceinline__ void dft_chunk(Acc<MODE>& acc, const typename Mode<MO
     using M = Mode<MODE>;
 #pragma unroll
     for (int j = 0; j < kChunkRows / M::kStep; ++j) {
-        uint32_t a[M::kPlanes][kMT][4];
+        uint32_t a[M::kSpanPlanes][kMT][4];
 #pragma unroll
-        for (int p = 0; p < M::kPlanes; ++p)
+        for (int p = 0; p < M::kSpanPlanes; ++p)
 #pragma unroll
             for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
@@ -185,17 +222,23 @@ __device__ __forceinline__ void dft_chunk(Acc<MODE>& acc, const typename Mode<MO
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
             // column col0 + 8 nt of step j, plane p: [j][p][kCols][kStep]
-            uint2 w[M::kPlanes];
+            uint2 w[M::kBasisPlanes];
 #pragma unroll
-            for (int p = 0; p < M::kPlanes; ++p)
+            for (int p = 0; p < M::kBasisPlanes; ++p)
                 w[p] = *reinterpret_cast<const uint2*>(
-                    stage + ((j * M::kPlanes + p) * kCols + col0 + 8 * nt) * M::kStep + kAl<MODE> * t);
+                    stage + ((j * M::kBasisPlanes + p) * kCols + col0 + 8 * nt) * M::kStep + kAl<MODE> * t);
 #pragma unroll
             for (int mt = 0; mt < kMT; ++mt) {
                 if constexpr (MODE == kX3) {
                     mma_bf16_add(acc.hh[mt][nt], a[0][mt], w[0].x, w[0].y);
                     mma_bf16(acc.sm[mt][nt], a[0][mt], w[1].x, w[1].y);
                     mma_bf16(acc.sm[mt][nt], a[1][mt], w[0].x, w[0].y);
+                } else if constexpr (MODE == kI16) {
+                    mma_s8(acc.d[0][mt][nt], a[0][mt], w[0].x, w[0].y);  // x1.w2
+                    mma_s8(acc.d[1][mt][nt], a[0][mt], w[1].x, w[1].y);  // x1.w1
+                    mma_s8(acc.d[1][mt][nt], a[1][mt], w[0].x, w[0].y);  // x0.w2
+                    mma_s8(acc.d[2][mt][nt], a[0][mt], w[2].x, w[2].y);  // x1.w0
+                    mma_s8(acc.d[2][mt][nt], a[1][mt], w[1].x, w[1].y);  // x0.w1
                 } else {
                     mma_s8(acc.d[0][mt][nt], a[0][mt], w[0].x, w[0].y);  // x2.w2
                     mma_s8(acc.d[1][mt][nt], a[0][mt], w[1].x, w[1].y);  // x2.w1
@@ -213,7 +256,7 @@ template <int MODE, typename In>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* __restrict__ wtc,
                     const __nv_bfloat16* __restrict__ mtc, const float* __restrict__ sc,
-                    float* __restrict__ mel, float* __restrict__ bmax, int T, int Kp, int hop, int off,
+                    const float* __restrict__ corr, float* __restrict__ mel, float* __restrict__ bmax, int T, int Kp, int hop, int off,
                     int nf, int bins_pad, int n_mels, int span_pad, int n_copies, int shift_log2)
 {
     using M = Mode<MODE>;
@@ -234,8 +277,8 @@ fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* 
     const int b = blockIdx.y;
     const int f0 = blockIdx.x * kBF;
     const In* x = audio + (size_t)b * T;
-    const float s = MODE == kI24 ? sc[2 * b] : 0.0f;
-    const float inv = MODE == kI24 ? sc[2 * b + 1] : 0.0f;
+    const float s = MODE == kX3 ? 0.0f : sc[2 * b];
+    const float inv = MODE == kX3 ? 0.0f : sc[2 * b + 1];
     const int n_chunks = Kp / kChunkRows;
     const int n_tiles = 2 * bins_pad / kCols;
     const int total = n_tiles * n_chunks;
@@ -251,16 +294,16 @@ fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* 
         const int c = i / span_pad;
         const long long smp = start + (i - c * span_pad) + ((long long)c << shift_log2);
         const float v = (smp >= 0 && smp < T) ? load_sample(x, smp) : 0.0f;
-        E p[M::kPlanes];
+        E p[M::kSpanPlanes];
         planes_of(v, s, p);
 #pragma unroll
-        for (int q = 0; q < M::kPlanes; ++q) span[q * span_plane + i] = p[q];
+        for (int q = 0; q < M::kSpanPlanes; ++q) span[q * span_plane + i] = p[q];
     }
     __syncthreads();
 
     auto issue = [&](int q) {  // chunk q of the (tile, chunk) sequence -> its stage
         const int tile = q / n_chunks, chunk = q % n_chunks;
-        const E* src = wtc + ((size_t)tile * Kp + (size_t)chunk * kChunkRows) * kCols * M::kPlanes;
+        const E* src = wtc + ((size_t)tile * Kp + (size_t)chunk * kChunkRows) * kCols * M::kBasisPlanes;
         bulk_load(ring + (q % kStages) * kChunkBytes<MODE>, src, kChunkBytes<MODE>, full + q % kStages);
     };
     if (tid == 0)
@@ -320,7 +363,18 @@ fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* 
                             chunk * kChunkRows, col0, t);
         }
 
-        // power of each (frame, bin) this thread holds, split into bf16 (hi, lo)
+        // power of each (frame, bin) this thread holds, split into bf16 (hi, lo).
+        // The fragment's columns 2t and 2t + 1 of n-tile nt are the re and im
+        // of the tile's bin 16 wn + 4 nt + t.
+        float c_re[4], c_im[4];  // i16: those bins' offset corrections
+        if constexpr (MODE == kI16) {
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+                const int bin = tile * kTileBins + 16 * wn + 4 * nt + t;
+                c_re[nt] = __ldg(corr + bin);
+                c_im[nt] = __ldg(corr + bins_pad + bin);
+            }
+        }
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
@@ -331,6 +385,11 @@ fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* 
                     if constexpr (MODE == kX3) {
                         re = acc.hh[mt][nt][2 * h] + acc.sm[mt][nt][2 * h];
                         im = acc.hh[mt][nt][2 * h + 1] + acc.sm[mt][nt][2 * h + 1];
+                    } else if constexpr (MODE == kI16) {
+                        re = recombine(acc.d[0][mt][nt][2 * h], acc.d[1][mt][nt][2 * h], acc.d[2][mt][nt][2 * h],
+                                       c_re[nt], inv);
+                        im = recombine(acc.d[0][mt][nt][2 * h + 1], acc.d[1][mt][nt][2 * h + 1],
+                                       acc.d[2][mt][nt][2 * h + 1], c_im[nt], inv);
                     } else {
                         re = recombine(acc.d[0][mt][nt][2 * h], acc.d[1][mt][nt][2 * h], acc.d[2][mt][nt][2 * h], inv);
                         im = recombine(acc.d[0][mt][nt][2 * h + 1], acc.d[1][mt][nt][2 * h + 1],
@@ -350,12 +409,14 @@ fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* 
 }
 
 template <int MODE>
-int launch_tc(const void* audio, int audio_i16, const void* wtc, const void* mtc, const float* sc, float* mel,
-              float* bmax, int B, int T, int Kp, int hop, int off, int nf, int bins_pad, int n_mels, void* stream)
+int launch_tc(const void* audio, int audio_i16, const void* wtc, const void* mtc, const float* sc,
+              const float* corr, float* mel, float* bmax, int B, int T, int Kp, int hop, int off, int nf,
+              int bins_pad, int n_mels, void* stream)
 {
     constexpr int al = kAl<MODE>;
     if (B < 1 || T < 1 || nf < 1 || Kp < kChunkRows || Kp % kChunkRows || hop < 1 || n_mels < 1 ||
-        n_mels > kMelCols || bins_pad < kTileBins || bins_pad % kTileBins)
+        n_mels > kMelCols || bins_pad < kTileBins || bins_pad % kTileBins || (MODE != kX3 && !sc) ||
+        (MODE == kI16 && !corr))
         return (int)cudaErrorInvalidValue;
     int shift_log2 = 0;  // log2 gcd(hop, al)
     while (shift_log2 < 3 && (1 << (shift_log2 + 1)) <= al && hop % (1 << (shift_log2 + 1)) == 0) ++shift_log2;
@@ -363,7 +424,7 @@ int launch_tc(const void* audio, int audio_i16, const void* wtc, const void* mtc
     const int span_pad = ((kBF - 1) * hop + Kp + 15) / 16 * 16;
     using E = typename Mode<MODE>::T;
     const size_t smem = 128 + (size_t)kStages * kChunkBytes<MODE> + kMelBytes + kPowerBytes +
-                        (size_t)Mode<MODE>::kPlanes * n_copies * span_pad * sizeof(E);
+                        (size_t)Mode<MODE>::kSpanPlanes * n_copies * span_pad * sizeof(E);
     const int n_blocks = (nf + kBF - 1) / kBF;
     cudaError_t err;
     if (audio_i16) {
@@ -372,14 +433,14 @@ int launch_tc(const void* audio, int audio_i16, const void* wtc, const void* mtc
         if (err != cudaSuccess) return (int)err;
         fused_mel_tc_kernel<MODE, int16_t><<<dim3(n_blocks, B), kThreads, smem, (cudaStream_t)stream>>>(
             static_cast<const int16_t*>(audio), static_cast<const E*>(wtc), static_cast<const __nv_bfloat16*>(mtc),
-            sc, mel, bmax, T, Kp, hop, off, nf, bins_pad, n_mels, span_pad, n_copies, shift_log2);
+            sc, corr, mel, bmax, T, Kp, hop, off, nf, bins_pad, n_mels, span_pad, n_copies, shift_log2);
     } else {
         err = cudaFuncSetAttribute(fused_mel_tc_kernel<MODE, float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)smem);
         if (err != cudaSuccess) return (int)err;
         fused_mel_tc_kernel<MODE, float><<<dim3(n_blocks, B), kThreads, smem, (cudaStream_t)stream>>>(
             static_cast<const float*>(audio), static_cast<const E*>(wtc), static_cast<const __nv_bfloat16*>(mtc),
-            sc, mel, bmax, T, Kp, hop, off, nf, bins_pad, n_mels, span_pad, n_copies, shift_log2);
+            sc, corr, mel, bmax, T, Kp, hop, off, nf, bins_pad, n_mels, span_pad, n_copies, shift_log2);
     }
     return (int)cudaGetLastError();
 }
@@ -394,8 +455,8 @@ extern "C" int fused_mel_x3(const void* audio, int audio_i16, const void* wtc, c
                             float* bmax, int B, int T, int Kp, int hop, int off, int nf, int bins_pad, int n_mels,
                             void* stream)
 {
-    return launch_tc<kX3>(audio, audio_i16, wtc, mtc, nullptr, mel, bmax, B, T, Kp, hop, off, nf, bins_pad,
-                          n_mels, stream);
+    return launch_tc<kX3>(audio, audio_i16, wtc, mtc, nullptr, nullptr, mel, bmax, B, T, Kp, hop, off, nf,
+                          bins_pad, n_mels, stream);
 }
 
 // wtc: the int8 planes w2, w1, w0, [2*bins_pad/128][Kp/32][3][128][32]
@@ -404,6 +465,16 @@ extern "C" int fused_mel_i24(const void* audio, int audio_i16, const void* wtc, 
                              float* mel, float* bmax, int B, int T, int Kp, int hop, int off, int nf, int bins_pad,
                              int n_mels, void* stream)
 {
-    return launch_tc<kI24>(audio, audio_i16, wtc, mtc, sc, mel, bmax, B, T, Kp, hop, off, nf, bins_pad, n_mels,
-                           stream);
+    return launch_tc<kI24>(audio, audio_i16, wtc, mtc, sc, nullptr, mel, bmax, B, T, Kp, hop, off, nf, bins_pad,
+                           n_mels, stream);
+}
+
+// wtc, sc, mtc as for i24 (s a power of two); corr [2*bins_pad] (re | im,
+// not interleaved) = 128 * the column sums of round(W * Sw)
+extern "C" int fused_mel_i16(const void* audio, int audio_i16, const void* wtc, const float* sc, const float* corr,
+                             const void* mtc, float* mel, float* bmax, int B, int T, int Kp, int hop, int off, int nf,
+                             int bins_pad, int n_mels, void* stream)
+{
+    return launch_tc<kI16>(audio, audio_i16, wtc, mtc, sc, corr, mel, bmax, B, T, Kp, hop, off, nf, bins_pad,
+                           n_mels, stream);
 }

@@ -1,7 +1,7 @@
 // What the tensor-core frontend kernels (fused_frontend_tc.cu: fused_mel_x3,
-// fused_mel_i24) share: the warp-level MMAs, the bulk copies with their
-// mbarriers, and the end of the frontend, the mel projection in x3
-// arithmetic on the bf16 tensor cores and the write of a block's mel and
+// fused_mel_i16, fused_mel_i24) share: the warp-level MMAs, the bulk copies
+// with their mbarriers, and the end of the frontend, the mel projection in
+// x3 arithmetic on the bf16 tensor cores and the write of a block's mel and
 // maximum. Included by that source only.
 //
 // Fragments follow the PTX ISA's m16n8k16 (bf16) and m16n8k32 (int8)

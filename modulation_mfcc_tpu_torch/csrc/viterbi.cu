@@ -11,8 +11,12 @@
 namespace {
 
 constexpr int kMaxBins = 1024;     // n; the backtrace keeps n / 32 sources per lane
-constexpr int kMaxThreads = 1024;
-constexpr int kMaxParts = 8;       // source partitions per target column (forward)
+constexpr int kMaxThreads = 1024;  // a forward block: one thread a target
+constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kSmemLimit = 232448; // bytes of shared memory a block may opt in to on sm_90
+constexpr int kMaxRegBand = 64;    // the widest band (2h + 1 sources) a thread holds in registers,
+constexpr int kMaxRegThreads = 512; // in a block of at most this many threads (128 registers each)
+constexpr int kAhead = 4;          // rows of log_obs in flight ahead of the step that adds them
 constexpr unsigned kFull = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
@@ -30,90 +34,228 @@ constexpr unsigned kFull = 0xffffffffu;
 //   delta_{t+1}[n+v]= max_u (m_u[u] + log_tri[u, v]) + log_obs[b, t+1, n+v]
 // and delta_f[b] = delta_{NF-1}.
 //
-// Bound: FP32 adds and maxes, 4 n^2 per step (50 GFLOP at 32 x 30 s of 16 kHz
-// audio: n = 361, NF = 3,001), 0.75 ms at the card's 67 TFLOP/s, against
-// about 0.55 GB of observations and history. The frame loop is sequential, so
-// only B of the 132 SMs work, and log_tri (521 KB at n = 361, more than a
-// block's shared memory) is read from L2 at every step.
+// The band. The wrapper passes (h, C): C = min(log_tri), and every entry
+// with |u - v| > h equals C (kernels/viterbi.py viterbi_band checks both).
+// Then, bit for bit,
+//   max_u fl(m[u] + log_tri[u, v])
+//     = max(max_{|u-v| <= h} fl(m[u] + log_tri[u, v]), fl(gmax + C))
+// with gmax = max_u m[u]: FP32 addition is monotone in each operand and max
+// is exact in any order, so every out-of-band term fl(m[u] + C) is at most
+// fl(gmax + C), which is itself either such a term or at most the in-band
+// term of gmax's own source (log_tri >= C). pyin's transition (librosa's
+// local triangle plus tiny) has h = 21 at n = 361; a matrix without a floor
+// has h = n - 1: the dense recursion, in the same kernel.
 //
-// Design: the TPU's sequential grid over frame chunks becomes a loop inside
-// one block per utterance. m lives in shared memory; a thread owns one target
-// column v and one of P partitions of the sources, so P x n threads keep
-// P x n coalesced L2 reads in flight per step (each read of log_tri[u, v]
-// serves both m_v and m_u); the P partial maxima meet in shared memory, where
-// the thread that owns column v also forms the next step's m_v[v], m_u[v].
-// The TPU's 128-lane padding and -1e30 pads are not needed.
+// Bound: the bytes, 0.555 GB of observations and history at 32 x 30 s of
+// 16 kHz audio (n = 361, NF = 3,001): 0.17 ms at 3.35 TB/s, against 6.2
+// GFLOP of banded max-adds (0.09 ms at 67 TFLOP/s; the dense function's 50
+// GFLOP take 0.75 ms). But the frame loop is sequential: one block per
+// utterance, so 32 of the 132 SMs work, and each step waits for the last.
+//
+// Design: one block per utterance, as before; a thread owns target v and
+// both of its halves, so each band entry it reads serves m_v and m_u. m sits
+// in shared memory as (m_v, m_u) pairs (one 8-byte load a source),
+// double-buffered, so a step needs one __syncthreads. The warps that form
+// the next m also reduce it (redux.sync on order-preserving integer keys) to
+// one maximum a warp and half; after the barrier one more redux a warp folds
+// those into gmax. The band lives where it fits (BandAt): in the thread's
+// registers, the source loop unrolled over a compile-time width with -inf
+// past the band and guard slots of -inf around m (pyin: 43 sources, 95
+// registers, blocks of at most 512 threads); else staged in shared memory
+// as [2h+1][n], the target fastest so that a warp's reads are
+// conflict-free; else (a dense matrix) read from log_tri in L2 with __ldg.
+// The observation rows arrive by cp.async in a ring kAhead rows ahead of
+// the step that adds them, so no step waits on device memory. Times on the
+// H100 beside the dense kernel this one replaces: PERF.md §6 (chip_smoke.py
+// phase 13).
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kMaxThreads)
+// float <-> int keys in the same order (-0 below +0), for the integer redux
+__device__ __forceinline__ int ordered_key(float x)
+{
+    const int i = __float_as_int(x);
+    return i >= 0 ? i : i ^ 0x7fffffff;
+}
+
+__device__ __forceinline__ float key_value(int k) { return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff); }
+
+__device__ __forceinline__ float warp_max(float x) { return key_value(__reduce_max_sync(kFull, ordered_key(x))); }
+
+// Where a forward block reads the band: kRegs (each thread holds its target's
+// band in registers, KW > 0 sources wide), kShared ([2h+1][n] staged in
+// shared memory, the target fastest: conflict-free), kL2 (log_tri itself)
+enum BandAt { kRegs, kShared, kL2 };
+
+// float2 slots of one m buffer: n sources, and for kRegs the KW - 1 guard
+// slots (-inf) that let every thread read KW sources from v - h on
+__host__ __device__ constexpr int m_stride(int n, int kw) { return n + (kw > 0 ? kw - 1 : 0); }
+
+// threads of a forward block: one a target
+constexpr int fwd_threads(int n) { return (n + 31) / 32 * 32; }
+
+// bytes of dynamic shared memory: two m buffers of (m_v, m_u) pairs, the
+// per-warp maxima (two buffers, two halves), the ring of observation rows
+// (kAhead rows, two entries a thread), and the staged band
+constexpr size_t fwd_smem_bytes(int n, int h, int kw, BandAt at)
+{
+    return sizeof(float) * ((size_t)4 * m_stride(n, kw) + 4 * kMaxWarps + (size_t)kAhead * 2 * fwd_threads(n) +
+                            (at == kShared ? (size_t)(2 * h + 1) * n : 0));
+}
+
+// this thread's (v, n + v) entries of log_obs row r -> its two slots of the
+// ring (nt threads), asynchronously, as one commit group (empty past the
+// last row)
+__device__ __forceinline__ void fetch_row(float* ring, const float* obs, int r, int nf, int n, int nt, int v,
+                                          bool own)
+{
+    if (own && r < nf) {
+        float* slot = ring + (r % kAhead) * 2 * nt;
+        const unsigned d0 = static_cast<unsigned>(__cvta_generic_to_shared(slot + v));
+        const unsigned d1 = static_cast<unsigned>(__cvta_generic_to_shared(slot + nt + v));
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d0), "l"(obs + (size_t)r * 2 * n + v)
+                     : "memory");
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d1), "l"(obs + (size_t)r * 2 * n + n + v)
+                     : "memory");
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int KW, BandAt AT>
+__global__ void __launch_bounds__(AT == kRegs ? kMaxRegThreads : kMaxThreads)
 viterbi_fwd_f32_kernel(const float* __restrict__ log_obs, const float* __restrict__ delta0,
                        const float* __restrict__ log_tri, float* __restrict__ hist,
-                       float* __restrict__ delta_f, int nf, int n, int parts,
+                       float* __restrict__ delta_f, int nf, int n, int h, float floor_c,
                        float c_stay, float c_sw)
 {
     extern __shared__ float smem[];
-    const int two_n = 2 * n;
-    float* m = smem;               // [2n]: m_v | m_u
-    float* part = smem + two_n;    // [parts][2n]: partial maxima
+    const int two_n = 2 * n, width = 2 * h + 1, stride = m_stride(n, KW);
+    const int lead = KW > 0 ? h : 0;  // guard slots before source 0
+    float2* m = reinterpret_cast<float2*>(smem);  // [2][stride]: (m_v[u], m_u[u]) at slot lead + u
+    float* wmax = smem + 4 * stride;              // [2][2][kMaxWarps]: per-warp maxima of m_v, m_u
+    const int nt = blockDim.x;
+    float* ring = wmax + 4 * kMaxWarps;           // [kAhead][2][nt]: log_obs rows, by thread
+    float* band = ring + kAhead * 2 * nt;         // kShared: [width][n], band[k][v] = log_tri[v - h + k, v]
 
-    const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+    const int b = blockIdx.x, v = threadIdx.x, lane = v & 31, warp = v >> 5;
+    const bool own = v < n;
     const float* obs = log_obs + (size_t)b * nf * two_n;
     float* hb = hist + (size_t)b * (nf - 1) * two_n;
     float* df = delta_f + (size_t)b * two_n;
-    const int chunk = (n + parts - 1) / parts;
+    const int u0 = max(0, v - h), u1 = min(n - 1, v + h);  // the sources within v's band
 
-    for (int v = tid; v < n; v += nt) {
-        const float dv = delta0[(size_t)b * two_n + v], du = delta0[(size_t)b * two_n + n + v];
-        if (nf == 1) {
-            df[v] = dv;
-            df[n + v] = du;
-        } else {
-            hb[v] = dv;
-            hb[n + v] = du;
+    float w_reg[KW > 0 ? KW : 1];  // kRegs: log_tri[v - h + k, v], -inf outside the band and the matrix
+    if constexpr (AT == kRegs) {
+#pragma unroll
+        for (int k = 0; k < KW; ++k) {
+            const int u = v - h + k;
+            w_reg[k] = (own && k < width && u >= 0 && u < n) ? log_tri[(size_t)u * n + v] : -INFINITY;
         }
-        m[v] = fmaxf(dv + c_stay, du + c_sw);
-        m[n + v] = fmaxf(dv + c_sw, du + c_stay);
+        for (int i = v; i < 2 * stride; i += nt)
+            if (i % stride < lead || i % stride >= lead + n) m[i] = make_float2(-INFINITY, -INFINITY);
     }
+    if constexpr (AT == kShared)
+        for (int i = v; i < width * n; i += nt) {
+            const int k = i / n, w = i - k * n, u = w - h + k;
+            band[i] = (u >= 0 && u < n) ? log_tri[(size_t)u * n + w] : floor_c;
+        }
+    for (int i = v; i < 4 * kMaxWarps; i += nt) wmax[i] = -INFINITY;  // and so stay past the last warp
+    __syncthreads();
+
+    // delta_0 -> m and its warp maxima, in buffer 0
+    float mv = -INFINITY, mu = -INFINITY;
+    if (own) {
+        const float dv = delta0[(size_t)b * two_n + v], du = delta0[(size_t)b * two_n + n + v];
+        float* row = nf == 1 ? df : hb;
+        row[v] = dv;
+        row[n + v] = du;
+        mv = fmaxf(dv + c_stay, du + c_sw);
+        mu = fmaxf(dv + c_sw, du + c_stay);
+        m[lead + v] = make_float2(mv, mu);
+    }
+    mv = warp_max(mv);
+    mu = warp_max(mu);
+    if (lane == 0) {
+        wmax[warp] = mv;
+        wmax[kMaxWarps + warp] = mu;
+    }
+    for (int r = 1; r <= kAhead; ++r) fetch_row(ring, obs, r, nf, n, nt, v, own);
     __syncthreads();
 
     for (int t = 0; t + 1 < nf; ++t) {
-        for (int i = tid; i < parts * n; i += nt) {
-            const int p = i / n, v = i - p * n;
-            const int u1 = min(n, (p + 1) * chunk);
-            float av = -INFINITY, au = -INFINITY;
-#pragma unroll 4
-            for (int u = p * chunk; u < u1; ++u) {
-                const float w = __ldg(log_tri + (size_t)u * n + v);
-                av = fmaxf(av, m[u] + w);
-                au = fmaxf(au, m[n + u] + w);
+        const int cur = t & 1, nxt = cur ^ 1;
+        const float2* mc = m + cur * stride + lead;  // mc[u] = (m_v[u], m_u[u])
+        // four chains a half (max is exact in any order)
+        float av[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+        float au[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+        if (AT == kRegs && own) {
+#pragma unroll
+            for (int k = 0; k < KW; ++k) {
+                const float2 p = mc[v - h + k];
+                av[k & 3] = fmaxf(av[k & 3], p.x + w_reg[k]);
+                au[k & 3] = fmaxf(au[k & 3], p.y + w_reg[k]);
             }
-            part[p * two_n + v] = av;
-            part[p * two_n + n + v] = au;
+        } else if (AT != kRegs && own) {
+            const float* col = AT == kShared ? band + (size_t)(u0 - v + h) * n + v : log_tri + (size_t)u0 * n + v;
+            int u = u0;
+#pragma unroll 2
+            for (; u < u1; u += 2, col += 2 * n) {
+                const float w0 = AT == kShared ? col[0] : __ldg(col);
+                const float w1 = AT == kShared ? col[n] : __ldg(col + n);
+                const float2 p0 = mc[u], p1 = mc[u + 1];
+                av[0] = fmaxf(av[0], p0.x + w0);
+                au[0] = fmaxf(au[0], p0.y + w0);
+                av[1] = fmaxf(av[1], p1.x + w1);
+                au[1] = fmaxf(au[1], p1.y + w1);
+            }
+            if (u == u1) {
+                const float w0 = AT == kShared ? col[0] : __ldg(col);
+                const float2 p0 = mc[u];
+                av[0] = fmaxf(av[0], p0.x + w0);
+                au[0] = fmaxf(au[0], p0.y + w0);
+            }
         }
-        __syncthreads();
-
-        const float* lo = obs + (size_t)(t + 1) * two_n;
-        const bool last = t + 2 == nf;
-        for (int v = tid; v < n; v += nt) {
-            float av = part[v], au = part[n + v];
-            for (int p = 1; p < parts; ++p) {
-                av = fmaxf(av, part[p * two_n + v]);
-                au = fmaxf(au, part[p * two_n + n + v]);
-            }
-            const float dv = av + lo[v], du = au + lo[n + v];
-            if (last) {
-                df[v] = dv;
-                df[n + v] = du;
-            } else {
-                float* row = hb + (size_t)(t + 1) * two_n;
-                row[v] = dv;
-                row[n + v] = du;
-                m[v] = fmaxf(dv + c_stay, du + c_sw);
-                m[n + v] = fmaxf(dv + c_sw, du + c_stay);
-            }
+        // gmax: lane w folds warp w's maxima (-inf past the last warp)
+        const float* wm = wmax + cur * 2 * kMaxWarps;
+        const float gv = warp_max(wm[lane]), gu = warp_max(wm[kMaxWarps + lane]);
+        mv = -INFINITY;
+        mu = -INFINITY;
+        if (own) {
+            // row t + 1 has landed once no more than kAhead - 1 later rows are in flight
+            asm volatile("cp.async.wait_group %0;\n" ::"n"(kAhead - 1) : "memory");
+            const float* slot = ring + ((t + 1) % kAhead) * 2 * nt;
+            const float lo_v = slot[v], lo_u = slot[nt + v];
+            const float dv = fmaxf(fmaxf(fmaxf(av[0], av[1]), fmaxf(av[2], av[3])), gv + floor_c) + lo_v;
+            const float du = fmaxf(fmaxf(fmaxf(au[0], au[1]), fmaxf(au[2], au[3])), gu + floor_c) + lo_u;
+            float* row = t + 2 == nf ? df : hb + (size_t)(t + 1) * two_n;
+            row[v] = dv;
+            row[n + v] = du;
+            mv = fmaxf(dv + c_stay, du + c_sw);
+            mu = fmaxf(dv + c_sw, du + c_stay);
+            m[nxt * stride + lead + v] = make_float2(mv, mu);
+        }
+        fetch_row(ring, obs, t + 1 + kAhead, nf, n, nt, v, own);  // into the slot row t + 1 leaves
+        mv = warp_max(mv);
+        mu = warp_max(mu);
+        if (lane == 0) {
+            wmax[nxt * 2 * kMaxWarps + warp] = mv;
+            wmax[nxt * 2 * kMaxWarps + kMaxWarps + warp] = mu;
         }
         __syncthreads();
     }
+}
+
+template <int KW, BandAt AT>
+cudaError_t launch_fwd(const float* log_obs, const float* delta0, const float* log_tri, float* hist,
+                       float* delta_f, int nb, int nf, int n, int h, float floor_c, float c_stay, float c_sw,
+                       cudaStream_t stream)
+{
+    const size_t smem = fwd_smem_bytes(n, h, KW, AT);
+    cudaError_t err = cudaFuncSetAttribute(viterbi_fwd_f32_kernel<KW, AT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    viterbi_fwd_f32_kernel<KW, AT><<<nb, fwd_threads(n), smem, stream>>>(
+        log_obs, delta0, log_tri, hist, delta_f, nf, n, h, floor_c, c_stay, c_sw);
+    return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -244,20 +386,34 @@ cudaError_t launch_bwd(const float* hist, const float* delta_f, const float* log
 
 }  // namespace
 
+// (h, floor_c): the band of log_tri (see viterbi_fwd_f32 above). The layout:
+// the band in registers up to kMaxRegBand sources a target in blocks of at
+// most kMaxRegThreads; else staged in shared memory when it is narrower
+// than the matrix and fits; else log_tri from L2. kernels/viterbi.py
+// band_layout mirrors the rule.
 extern "C" int viterbi_fwd_f32(const float* log_obs, const float* delta0, const float* log_tri,
-                               float* hist, float* delta_f, int nb, int nf, int n,
+                               float* hist, float* delta_f, int nb, int nf, int n, int h, float floor_c,
                                float c_stay, float c_sw, void* stream)
 {
-    if (nb < 1 || nf < 1 || n < 1 || n > kMaxBins) return (int)cudaErrorInvalidValue;
-    const int parts = max(1, min(kMaxParts, kMaxThreads / n));
-    const int threads = min(kMaxThreads, (parts * n + 31) / 32 * 32);
-    const size_t smem = sizeof(float) * (size_t)2 * n * (1 + parts);
-    cudaError_t err = cudaFuncSetAttribute(
-        viterbi_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    viterbi_fwd_f32_kernel<<<nb, threads, smem, (cudaStream_t)stream>>>(
-        log_obs, delta0, log_tri, hist, delta_f, nf, n, parts, c_stay, c_sw);
-    return (int)cudaGetLastError();
+    if (nb < 1 || nf < 1 || n < 1 || n > kMaxBins || h < 0 || h >= n) return (int)cudaErrorInvalidValue;
+    const int width = 2 * h + 1;
+    cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err;
+    if (width <= kMaxRegBand && n <= kMaxRegThreads) {
+        if (width <= 16)
+            err = launch_fwd<16, kRegs>(log_obs, delta0, log_tri, hist, delta_f, nb, nf, n, h, floor_c, c_stay, c_sw, s);
+        else if (width <= 32)
+            err = launch_fwd<32, kRegs>(log_obs, delta0, log_tri, hist, delta_f, nb, nf, n, h, floor_c, c_stay, c_sw, s);
+        else if (width <= 48)
+            err = launch_fwd<48, kRegs>(log_obs, delta0, log_tri, hist, delta_f, nb, nf, n, h, floor_c, c_stay, c_sw, s);
+        else
+            err = launch_fwd<64, kRegs>(log_obs, delta0, log_tri, hist, delta_f, nb, nf, n, h, floor_c, c_stay, c_sw, s);
+    } else if (width <= n && fwd_smem_bytes(n, h, 0, kShared) <= (size_t)kSmemLimit) {
+        err = launch_fwd<0, kShared>(log_obs, delta0, log_tri, hist, delta_f, nb, nf, n, h, floor_c, c_stay, c_sw, s);
+    } else {
+        err = launch_fwd<0, kL2>(log_obs, delta0, log_tri, hist, delta_f, nb, nf, n, h, floor_c, c_stay, c_sw, s);
+    }
+    return (int)err;
 }
 
 extern "C" int viterbi_bwd_f32(const float* hist, const float* delta_f, const float* log_tri_t,

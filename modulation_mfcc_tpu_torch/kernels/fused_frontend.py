@@ -3,10 +3,10 @@
 Hand-written kernels carry the MFCC stage on the GPU, one frontend kernel
 per arithmetic mode of the JAX frontend and one tail kernel:
 
-  * ``fused_mel_f32``, ``fused_mel_bf16`` (csrc/fused_frontend.cu),
-    ``fused_mel_i16`` (csrc/fused_frontend_int.cu), and ``fused_mel_x3``,
-    ``fused_mel_i24`` (csrc/fused_frontend_tc.cu, on the tensor cores), all
-    behind :func:`fused_mel_frontend`,
+  * ``fused_mel_f32``, ``fused_mel_bf16`` (csrc/fused_frontend.cu), and
+    ``fused_mel_x3``, ``fused_mel_i16``, ``fused_mel_i24``
+    (csrc/fused_frontend_tc.cu, on the tensor cores), all behind
+    :func:`fused_mel_frontend`,
     replace the Pallas frontend of modulation_mfcc_tpu/pallas/
     fused_frontend.py (``fused_mel_frontend`` → ``_launch`` → ``_kernel``,
     ``_kernel_pipe``, ``_kernel_i16(_pipe)``, ``_kernel_i24(_pipe)``; the
@@ -27,8 +27,8 @@ per arithmetic mode of the JAX frontend and one tail kernel:
         (:func:`quant_scales`) and split into two (i16) or three (i24) int8
         digits; the windowed-DFT matrix into three int8 planes
         (:func:`int8_weight_planes`). The digit products are exact int32
-        dot products (i24: int8 tensor-core MMAs), recombined in f32; the
-        mel projection runs as x3 (i24: on the bf16 tensor cores).
+        sums of int8 tensor-core MMAs, recombined in f32; the mel
+        projection runs as x3 on the bf16 tensor cores.
 
     The tensor-core kernels read their weights in a layout of their own
     (:func:`tc_layouts`: :func:`pack_tc_basis`, :func:`pack_tc_mel`), which
@@ -95,10 +95,9 @@ _BIN_TILE = 128    # bins_pad must be a multiple (kBT)
 _MEL_MAX = 128     # kMelMax
 _MFCC_MAX = 32     # kMfccMax
 _KC = 16           # contraction rows per step of the f32 kernels (kKC in fused_frontend_common.cuh)
-_KC_INT = 16       # contraction rows per step of the integer kernels (kKC in fused_frontend_int.cu)
-TC_ALGORITHMS = ("x3", "i24")       # the modes of the tensor-core kernels (fused_frontend_tc.cu)
-_TC_COLS = 128                      # DFT columns per tile (kCols): re and im of 64 bins
-_TC_STEP = {"x3": 16, "i24": 32}    # contraction rows per MMA (Mode::kStep)
+TC_ALGORITHMS = ("x3", "i16", "i24")          # the modes of the tensor-core kernels (fused_frontend_tc.cu)
+_TC_COLS = 128                                # DFT columns per tile (kCols): re and im of 64 bins
+_TC_STEP = {"x3": 16, "i16": 32, "i24": 32}   # contraction rows per MMA (Mode::kStep)
 _TC_CHUNK = 32                      # contraction rows per pipeline stage (kChunkRows)
 _MEL_STEP = 16                      # bins per MMA of the mel projection (kMelStep)
 ROWS_BLKF = 1024   # the JAX frontend's default frame block, which sizes a hop-rows batch
@@ -238,7 +237,7 @@ def mode_weights(
 def mode_tensors(algorithm: str, device, sr: float, n_fft: int = 512, win_length: int | None = None,
                  n_mels: int = 128, fmin: float = 100.0, fmax: float | None = None) -> dict[str, torch.Tensor]:
     """:func:`mode_weights` as tensors on ``device``, with the tensor-core
-    kernels' layouts of them (:func:`tc_layouts`) for 'x3' and 'i24'."""
+    kernels' layouts of them (:func:`tc_layouts`) for 'x3', 'i16' and 'i24'."""
     w = mode_weights(algorithm, sr, n_fft, win_length, n_mels, fmin, fmax)
     t = {k: torch.as_tensor(v, device=device) for k, v in w.items()}
     return t | tc_layouts(algorithm, t)
@@ -253,11 +252,11 @@ def _interleave(w: torch.Tensor) -> torch.Tensor:
 def pack_tc_basis(algorithm: str, w: torch.Tensor) -> torch.Tensor:
     """The tensor-core kernels' basis layout of the mode's planes ``w``
     [P, K, 2·bins_pad] (x3: ``wri``, the (hi, lo) bf16 splits held as
-    float32; i24: ``planes``, int8 w2, w1, w0): columns interleaved re/im,
-    K zero-padded to Kp, a multiple of 32, then [tiles, Kp/step, P, 128,
-    step] with 128 interleaved columns a tile and step = 16 (x3) or 32
-    (i24) rows an MMA, so one 32-row chunk of a tile is contiguous; bf16 for
-    x3 (exact: the planes are bf16 values), int8 for i24."""
+    float32; i16, i24: ``planes``, int8 w2, w1, w0): columns interleaved
+    re/im, K zero-padded to Kp, a multiple of 32, then [tiles, Kp/step, P,
+    128, step] with 128 interleaved columns a tile and step = 16 (x3) or 32
+    (i16, i24) rows an MMA, so one 32-row chunk of a tile is contiguous;
+    bf16 for x3 (exact: the planes are bf16 values), int8 for i16 and i24."""
     cols, step = _TC_COLS, _TC_STEP[algorithm]
     p, k, c = w.shape
     kp = round_up_to_multiple(k, _TC_CHUNK)
@@ -289,10 +288,10 @@ def unpack_tc_mel(packed: torch.Tensor, n_mels: int) -> torch.Tensor:
 
 
 def tc_layouts(algorithm: str, weights: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """For 'x3' and 'i24', the tensor-core kernels' layouts of the mode's
-    weights on their device: ``wri_tc`` (x3) or ``planes_tc`` (i24) from
-    :func:`pack_tc_basis`, and ``melw_tc`` from :func:`pack_tc_mel`; empty
-    for the other modes."""
+    """For :data:`TC_ALGORITHMS`, the tensor-core kernels' layouts of the
+    mode's weights on their device: ``wri_tc`` (x3) or ``planes_tc`` (i16,
+    i24) from :func:`pack_tc_basis`, and ``melw_tc`` from
+    :func:`pack_tc_mel`; empty for the other modes."""
     if algorithm not in TC_ALGORITHMS:
         return {}
     basis = "wri" if algorithm == "x3" else "planes"
@@ -492,7 +491,7 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, f"fused_mel_{alg}")
         fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, i, p]
         fn.restype = i
-    lib.fused_mel_i16.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.fused_mel_i16.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.fused_mel_i16.restype = i
     lib.fused_mel_i24.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.fused_mel_i24.restype = i
@@ -646,15 +645,6 @@ def fused_mel_fold_reference(
     return _mel_of_power(re * re + im * im, melw, algorithm)
 
 
-def _pack_quads(planes: torch.Tensor) -> torch.Tensor:
-    """int8 [3, K, C] → int32 [3, Kpad/4, C]: four consecutive rows per word
-    (row 4q + i in byte i), K zero-padded to a multiple of 16."""
-    n, k, c = planes.shape
-    kpad = round_up_to_multiple(k, _KC_INT)
-    p = tnf.pad(planes, (0, 0, 0, kpad - k)).reshape(n, kpad // 4, 4, c)
-    return p.permute(0, 1, 3, 2).contiguous().view(torch.int32).reshape(n, kpad // 4, c)
-
-
 def fused_mel_frontend(
     audio: torch.Tensor,
     *,
@@ -722,19 +712,6 @@ def fused_mel_frontend(
     is_i16 = int(audio.dtype == torch.int16)
     if algorithm in TC_ALGORITHMS:
         rc = _launch_tc(name, audio, is_i16, weights, mel, bmax, buf_len, k, hop, off, nf, bins_pad, n_mels)
-    elif algorithm == "i16":
-        if wri.dtype != torch.int8 or wri.shape[0] != 3:
-            raise ValueError(f"{name}: planes must be int8 [3, K, 2·bins_pad], got {wri.dtype} {tuple(wri.shape)}")
-        sc = quant_scales(audio, algorithm, weights["sw"])
-        corr = weights["corr"]
-        check_cuda(name, sc, corr)
-        quads = _pack_quads(wri)
-        rc = getattr(_lib(), name)(
-            audio.data_ptr(), is_i16, quads.data_ptr(), sc.data_ptr(), corr.data_ptr(), melw.data_ptr(),
-            mel.data_ptr(), bmax.data_ptr(),
-            bsz, buf_len, k, quads.shape[1], hop, off, nf, bins_pad, n_mels,
-            stream_of(audio),
-        )
     else:
         rc = getattr(_lib(), name)(
             audio.data_ptr(), is_i16, wri.data_ptr(), melw.data_ptr(), mel.data_ptr(), bmax.data_ptr(),
@@ -749,9 +726,9 @@ def fused_mel_frontend(
 def _launch_tc(name: str, audio: torch.Tensor, is_i16: int, weights: dict[str, torch.Tensor], mel: torch.Tensor,
                bmax: torch.Tensor, buf_len: int, k: int, hop: int, off: int, nf: int, bins_pad: int,
                n_mels: int) -> int:
-    """Launch ``fused_mel_x3`` or ``fused_mel_i24`` on the weights' tensor-core
-    layouts (:func:`tc_layouts`, which :func:`mode_tensors` includes); the
-    launcher's code."""
+    """Launch ``fused_mel_x3``, ``fused_mel_i16`` or ``fused_mel_i24`` on the
+    weights' tensor-core layouts (:func:`tc_layouts`, which
+    :func:`mode_tensors` includes); the launcher's code."""
     algorithm = name.removeprefix("fused_mel_")
     basis_key = "wri_tc" if algorithm == "x3" else "planes_tc"
     if basis_key not in weights or "melw_tc" not in weights:
@@ -778,6 +755,15 @@ def _launch_tc(name: str, audio: torch.Tensor, is_i16: int, weights: dict[str, t
         )
     sc = quant_scales(audio, algorithm, weights["sw"])
     check_cuda(name, sc)
+    if algorithm == "i16":
+        corr = weights["corr"]
+        check_cuda(name, corr)
+        if corr.shape != (2 * bins_pad,):
+            raise ValueError(f"{name}: corr {tuple(corr.shape)} != ({2 * bins_pad},)")
+        return lib.fused_mel_i16(
+            audio.data_ptr(), is_i16, basis.data_ptr(), sc.data_ptr(), corr.data_ptr(), mtc.data_ptr(),
+            mel.data_ptr(), bmax.data_ptr(), bsz, buf_len, kp, hop, off, nf, bins_pad, n_mels, stream_of(audio),
+        )
     return lib.fused_mel_i24(
         audio.data_ptr(), is_i16, basis.data_ptr(), sc.data_ptr(), mtc.data_ptr(), mel.data_ptr(),
         bmax.data_ptr(), bsz, buf_len, kp, hop, off, nf, bins_pad, n_mels, stream_of(audio),

@@ -37,7 +37,7 @@ import scipy.stats
 import torch
 import torch.nn.functional as tnf
 
-from modulation_mfcc_tpu_torch.kernels.viterbi import viterbi_decode, viterbi_decode_reference
+from modulation_mfcc_tpu_torch.kernels.viterbi import viterbi_band, viterbi_decode, viterbi_decode_reference
 from modulation_mfcc_tpu_torch.ops.framing import frame_by_slices
 from modulation_mfcc_tpu_torch.utils.helpers import next_pow2
 
@@ -155,11 +155,25 @@ def pyin_constants(g: PyinGeometry, n_thresholds: int, beta_parameters: tuple, d
     p_init[g.n_bins :] = 1.0 / g.n_bins
     beta = _beta_threshold_probs(n_thresholds, float(beta_parameters[0]), float(beta_parameters[1]))
     return {
-        "log_tri": np.log(_transition_local(g.n_bins, g.twidth) + tiny).astype(np_dtype),
+        "log_tri": _log_tri(g, dtype),
         "beta_probs": beta.astype(np_dtype),
         "thresholds": np.linspace(0, 1, n_thresholds + 1)[1:].astype(np_dtype),
         "log_p_init": np.log(p_init + tiny).astype(np_dtype),
     }
+
+
+def _log_tri(g: PyinGeometry, dtype: torch.dtype) -> np.ndarray:
+    """log(transition_local + tiny) [n, n] in ``dtype``'s numpy type."""
+    np_dtype = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
+    return np.log(_transition_local(g.n_bins, g.twidth) + float(torch.finfo(dtype).tiny)).astype(np_dtype)
+
+
+@lru_cache(maxsize=16)
+def pyin_band(g: PyinGeometry, dtype: torch.dtype) -> tuple[int, float]:
+    """(h, C) of the designed ``log_tri`` (kernels/viterbi.viterbi_band),
+    on the host: the band the Viterbi forward kernel works on, known before
+    any tensor reaches the card (pyin's triangle: h = 21 of n = 361)."""
+    return viterbi_band(_log_tri(g, dtype))
 
 
 def _constants_on(want: dict, consts: dict | None, dtype: torch.dtype, device) -> dict[str, torch.Tensor]:
@@ -434,7 +448,8 @@ def pyin_f0(
     'mean', 'median', 'minimum'). ``viterbi_engine``: 'auto' (the CUDA
     kernels on a CUDA tensor, their plain versions on a CPU tensor) or
     'plain'. ``consts`` are :func:`pyin_constants` on x's device (module
-    buffers), used when their shapes and type fit.
+    buffers), used when their shapes and type fit; the decode takes the band
+    of their ``log_tri`` from the design (:func:`pyin_band`), with no sync.
     """
     if viterbi_engine not in VITERBI_ENGINES:
         raise ValueError(f"viterbi_engine {viterbi_engine!r} not in {VITERBI_ENGINES}")
@@ -465,8 +480,10 @@ def pyin_f0(
     # log(1−s) and log s rounded to the working type, as the scans add them
     c_stay = float(torch.tensor(np.log(1.0 - switch_prob), dtype=dtype))
     c_sw = float(torch.tensor(np.log(switch_prob), dtype=dtype))
-    decode = viterbi_decode if viterbi_engine == "auto" else viterbi_decode_reference
-    path = decode(log_obs, delta0, c["log_tri"], c_stay, c_sw)
+    if viterbi_engine == "auto":
+        path = viterbi_decode(log_obs, delta0, c["log_tri"], c_stay, c_sw, pyin_band(g, dtype))
+    else:
+        path = viterbi_decode_reference(log_obs, delta0, c["log_tri"], c_stay, c_sw)
 
     voiced = path < g.n_bins
     bin_of = torch.where(voiced, path, path - g.n_bins)

@@ -306,18 +306,6 @@ def test_tail_reads_bf16_mel_as_float32():
     assert torch.equal(ff.mfcc_tail(mel, peak, 13, dct=dct), ff.mfcc_tail(mel.float(), peak, 13, dct=dct))
 
 
-def test_pack_quads_layout():
-    """The integer kernels' weight layout: word [p, q, c] holds rows 4q..4q+3
-    of plane p, row 4q + i in byte i, K zero-padded to a multiple of 16."""
-    planes = torch.tensor(np.random.default_rng(3).integers(-128, 128, (3, 250, 8)), dtype=torch.int8)
-    quads = ff._pack_quads(planes)
-    assert quads.dtype == torch.int32 and quads.shape == (3, 64, 8)
-    b = quads.numpy().view(np.int8).reshape(3, 64, 8, 4)
-    want = np.zeros((3, 256, 8), np.int8)
-    want[:, :250] = planes.numpy()
-    assert np.array_equal(b.transpose(0, 1, 3, 2).reshape(3, 256, 8), want)
-
-
 @pytest.mark.parametrize("name", CONFIGS)
 def test_frontend_modes_from_jax(name):
     """convert.frontend_modes_from_jax maps the JAX package's constants onto

@@ -1,10 +1,11 @@
 """PyTorch port: the host side of the tensor-core frontend kernels
-fused_mel_x3 and fused_mel_i24 (csrc/fused_frontend_tc.cu). Their weights
+fused_mel_x3, fused_mel_i16 and fused_mel_i24 (csrc/fused_frontend_tc.cu). Their weights
 travel in layouts of their own (kernels/fused_frontend.tc_layouts), built
 once per set of weights; here each layout unpacks to the mode's weights
 exactly, the kernel's address arithmetic (mirrored in Python) reads the
 frames from its staged span copies and the weights from those layouts, and
-the wrapper's constants are the source's. The kernels themselves run only
+the wrapper's constants are the source's; i16's digits and epilogue,
+mirrored, give the plain version's DFT bit for bit. The kernels themselves run only
 on the card: chip_smoke.py holds them against their plain versions (phases
 14, 15, 17)."""
 import math
@@ -18,10 +19,12 @@ import torch
 from modulation_mfcc_tpu_torch.kernels import fused_frontend as ff
 from modulation_mfcc_tpu_torch.models.config import MfccConfig
 from modulation_mfcc_tpu_torch.models.modulation import MfccChange
+from modulation_mfcc_tpu_torch.ops.framing import frame_by_slices
 from tests.test_torch_frontend import CONFIGS
 
 CSRC = Path(ff.__file__).resolve().parent.parent / "csrc"
-BASIS = {"x3": "wri", "i24": "planes"}
+BASIS = {"x3": "wri", "i16": "planes", "i24": "planes"}
+PLANES = {"x3": (2, 2), "i16": (2, 3), "i24": (3, 3)}  # (span planes, basis planes) of Mode<...>
 
 
 def tensors(algorithm: str, name: str) -> tuple[MfccConfig, dict[str, torch.Tensor]]:
@@ -57,7 +60,7 @@ def test_tc_layouts_round_trip(algorithm, name):
 def kernel_constants() -> dict[str, int]:
     src = (CSRC / "tensor_core.cuh").read_text() + (CSRC / "fused_frontend_tc.cu").read_text()
     consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
-    for mode, body in re.findall(r"struct Mode<(kX3|kI24)> \{(.*?)\};", src, re.S):
+    for mode, body in re.findall(r"struct Mode<(kX3|kI16|kI24)> \{(.*?)\};", src, re.S):
         for k, v in re.findall(r"static constexpr int (k\w+) = (\d+);", body):
             consts[f"{mode}.{k}"] = int(v)
     consts["kCols"] = 32 * consts["kWN"]  # constexpr int kCols = 32 * kWN
@@ -71,9 +74,9 @@ def test_tc_wrapper_constants_match_cuda_source():
     assert c["kBF"] == ff.BLOCK_FRAMES and c["kMelCols"] == ff._MEL_MAX and c["kMelStep"] == ff._MEL_STEP
     assert c["kChunkRows"] == ff._TC_CHUNK and c["kCols"] == ff._TC_COLS
     assert c["kMT"] * 16 * (c["kThreads"] // 32 // c["kWN"]) == ff.BLOCK_FRAMES
-    for alg, mode in (("x3", "kX3"), ("i24", "kI24")):
+    for alg, mode in (("x3", "kX3"), ("i16", "kI16"), ("i24", "kI24")):
         assert c[f"{mode}.kStep"] == ff._TC_STEP[alg]
-        assert c[f"{mode}.kPlanes"] == (2 if alg == "x3" else 3)
+        assert (c[f"{mode}.kSpanPlanes"], c[f"{mode}.kBasisPlanes"]) == PLANES[alg]
 
 
 @pytest.mark.parametrize("name", CONFIGS)
@@ -133,8 +136,8 @@ def test_tc_kernel_addressing_reads_frames_and_weights(algorithm, name):
 
 
 def test_tc_modes_raise_off_the_card():
-    """A CUDA-only layout never reaches a CPU path: on the CPU the x3 and
-    i24 wrappers take their plain versions (equal to the plain versions
+    """A CUDA-only layout never reaches a CPU path: on the CPU the x3, i16
+    and i24 wrappers take their plain versions (equal to the plain versions
     with or without the layouts in ``weights``), and on another device they
     raise."""
     kw = dict(sr=16_000, hop=80, win_length=400, fmax=8000.0)
@@ -162,3 +165,55 @@ def test_tc_launch_needs_the_layouts(algorithm, monkeypatch):
     with pytest.raises(ValueError, match="tensor-core layouts.*mode_tensors"):
         ff.fused_mel_frontend(x, sr=16_000, hop=80, win_length=400, fmax=8000.0, algorithm=algorithm, weights=bare)
     assert dict(ff.LAUNCHES) == before
+
+
+def test_tc_i16_digits_and_epilogue_match_plain_bit_for_bit():
+    """fused_mel_i16's arithmetic, mirrored in numpy from the source: the two
+    int8 digits of each sample as planes_of computes them, the five digit ×
+    plane products as exact integer sums over the interleaved basis of
+    planes_tc (Kp rows, the padded ones zero), and the epilogue, which picks
+    corr for the fragment's bin 16·wn + 4·nt + t of tile ``tile`` (re at
+    column 2t, im at 2t + 1 of n-tile nt) and recombines in FP32 in the JAX
+    order. The DFT equals the plain version's (_fixed_point_reim) bit for
+    bit, on int16 audio at both configurations, a quiet utterance included."""
+    rng = np.random.default_rng(16)
+    for name in CONFIGS:
+        cfg, w = tensors("i16", name)
+        hop, k = cfg.hop_length, w["planes"].shape[1]
+        bins_pad = w["melw"].shape[1]
+        pcm = rng.integers(-9000, 9000, (3, 3000)).astype(np.int16)
+        pcm[2] //= 300  # about -60 dBFS: the i16 mode's worst case
+        audio = torch.tensor(pcm)
+        sc = ff.quant_scales(audio, "i16", w["sw"])
+        nf = 1 + pcm.shape[1] // hop
+        flat = torch.nn.functional.pad(audio.float() / 32768.0, (ff.eff_pad(cfg.n_fft, cfg.win_length), 64 + k))
+        frames = frame_by_slices(flat, 0, nf, k, hop)
+        want = ff._fixed_point_reim(frames, w["planes"], sc, "i16", w["corr"]).numpy()
+
+        packed = w["planes_tc"]
+        tiles, ks, n_planes, cols, step = packed.shape
+        kp = ks * step
+        basis = packed.permute(2, 1, 4, 0, 3).reshape(n_planes, kp, tiles * cols).numpy().astype(np.int64)
+        s_np, inv = sc[:, 0].numpy(), sc[:, 1].numpy()
+        # planes_of: rint(v * s) (half to even), clipped, then x1 = floor(X / 256), x0 = X - 256 x1 - 128
+        x = frame_by_slices(flat, 0, nf, kp, hop).numpy()
+        big = np.clip(np.rint((x * s_np[:, None, None]).astype(np.float32)), -32768.0, 32767.0)
+        x1 = np.floor(big * np.float32(1.0 / 256.0))
+        x0 = big - np.float32(256.0) * x1 - np.float32(128.0)
+        assert x1.min() >= -128 and x1.max() <= 127 and x0.min() >= -128 and x0.max() <= 127
+        x1, x0 = x1.astype(np.int64), x0.astype(np.int64)
+        w2, w1, w0 = basis
+        d1, d2, d3 = x1 @ w2, x1 @ w1 + x0 @ w2, x1 @ w0 + x0 @ w1
+        assert max(abs(d).max() for d in (d1, d2, d3)) < 2**31
+        tile, wn, nt, t = np.meshgrid(np.arange(tiles), np.arange(4), np.arange(4), np.arange(4), indexing="ij")
+        col = (tile * cols + 32 * wn + 8 * nt + 2 * t).ravel()
+        bin_ = (tile * (cols // 2) + 16 * wn + 4 * nt + t).ravel()
+        assert np.array_equal(np.sort(bin_), np.arange(bins_pad))
+        corr = w["corr"].numpy()
+        got = np.empty_like(want)
+        f32 = np.float32
+        for c, part in ((col, bin_), (col + 1, bin_ + bins_pad)):
+            a, b, e = (d[..., c].astype(f32) for d in (d1, d2, d3))
+            acc = ((a * f32(2.0**24) + b * f32(2.0**16)) + e * f32(2.0**8)) + corr[part]
+            got[..., part] = acc * inv[:, None, None]
+        assert np.array_equal(got.view(np.int32), want.view(np.int32)), name

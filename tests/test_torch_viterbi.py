@@ -2,7 +2,10 @@
 the JAX Pallas kernels of pallas/viterbi.py in interpret mode, as
 tests/test_yin.py runs them. Adds and maxes are exact, so the bar is bit
 identity. On the CPU the wrappers take their plain versions; the CUDA kernels
-themselves are checked against those on the card by chip_smoke.py."""
+themselves are checked against those on the card by chip_smoke.py. The
+forward kernel works on the band of log_tri (viterbi_band); its banded step,
+written plainly (viterbi_forward_banded_reference), is held here to the
+dense recursion and to JAX bit for bit."""
 import re
 from pathlib import Path
 
@@ -18,6 +21,8 @@ from modulation_mfcc_tpu.pallas.viterbi import (
     viterbi_forward_pallas,
 )
 from modulation_mfcc_tpu_torch.kernels import viterbi as V
+from modulation_mfcc_tpu_torch.ops import yin as Y
+from tests.test_torch_modulation import speechlike
 
 torch.set_num_threads(1)
 
@@ -120,5 +125,156 @@ def test_wrappers_raise_on_devices_without_a_kernel():
 def test_wrapper_limits_match_cuda_source():
     src = (CSRC / "viterbi.cu").read_text()
     assert int(re.search(r"constexpr int kMaxBins = (\d+);", src).group(1)) == V.MAX_BINS
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert re.search(r"constexpr int kMaxWarps = kMaxThreads / 32;", src) and const["kMaxThreads"] // 32 == V._MAX_WARPS
+    assert (const["kSmemLimit"], const["kMaxRegBand"], const["kMaxRegThreads"], const["kAhead"]) == (
+        V._SMEM_LIMIT, V._MAX_REG_BAND, V._MAX_REG_THREADS, V._AHEAD)
+    # the launcher's layout rule and the shared memory it counts, which band_layout mirrors
+    assert "if (width <= kMaxRegBand && n <= kMaxRegThreads) {" in src
+    assert "} else if (width <= n && fwd_smem_bytes(n, h, 0, kShared) <= (size_t)kSmemLimit) {" in src
+    assert ("sizeof(float) * ((size_t)4 * m_stride(n, kw) + 4 * kMaxWarps + (size_t)kAhead * 2 * fwd_threads(n) +\n"
+            "                            (at == kShared ? (size_t)(2 * h + 1) * n : 0))") in src
     for name in V.LAUNCHES:
         assert f'extern "C" int {name}(' in src
+
+
+# ---------------------------------------------------------------------------
+# The band
+# ---------------------------------------------------------------------------
+
+TINY_LOG = float(np.log(np.float32(np.finfo(np.float32).tiny)).astype(np.float32))  # fl32(log(tiny))
+
+
+def pyin_log_tri(sr: float) -> np.ndarray:
+    return Y.pyin_constants(Y.pyin_geometry(sr), 100, (2, 18), torch.float32)["log_tri"]
+
+
+@pytest.mark.parametrize("sr", [16_000.0, 10_000.0])
+def test_band_of_pyin_transition(sr):
+    """pyin's log_tri at 16 and 10 kHz: n = 361, every entry farther than 21
+    from the diagonal is fl32(log(tiny)) and none within it is; the host
+    design (pyin_band) and the tensor give the same band, which the kernel
+    holds in registers."""
+    lt = pyin_log_tri(sr)
+    n = lt.shape[0]
+    dist = np.abs(np.arange(n)[:, None] - np.arange(n)[None, :])
+    assert n == 361 and (lt[dist > 21] == np.float32(TINY_LOG)).all() and (lt[dist <= 21] > TINY_LOG).all()
+    assert Y.pyin_band(Y.pyin_geometry(sr), torch.float32) == (21, TINY_LOG)
+    assert V.viterbi_band(torch.tensor(lt)) == (21, TINY_LOG)
+    assert V.band_layout(n, 21) == "registers"
+
+
+def test_band_of_random_matrix_is_dense():
+    """A transition with no floor (the random trellises) has h = n − 1: the
+    dense recursion, read from L2; a NaN makes the band dense with C = −inf."""
+    for n_bins, _ in SHAPES:
+        lt = trellis(n_bins, 2, seed=5)[2]
+        h, floor = V.viterbi_band(lt)
+        assert (h, floor) == (n_bins - 1, float(lt.min())) and V.band_layout(n_bins, h) == "L2"
+    lt[3, 4] = np.nan
+    assert V.viterbi_band(lt) == (lt.shape[0] - 1, float("-inf"))
+
+
+def test_band_widens_to_an_offband_entry():
+    """One entry above C at distance 30 widens h to 30; one below C moves C
+    itself and makes the whole matrix the band."""
+    lt = pyin_log_tri(16_000.0).copy()
+    lt[100, 130] = -50.0
+    assert V.viterbi_band(lt) == (30, TINY_LOG)
+    lt[200, 100] = -100.0
+    h, floor = V.viterbi_band(lt)
+    assert floor == -100.0 and h == 360
+
+
+def banded_trellis(kind: str, seed: int):
+    """Crafted banded trellises, float32 numpy (log_obs [3, NF, 2n], delta0
+    [3, 2n], log_tri [n, n], c_stay, c_sw, h):
+
+    * 'floor': a random band of half-width 4 over a floor C = −30, with C
+      also at a fifth of the entries inside the band;
+    * 'ties': small integers everywhere (band entries −8..−1 over C = −8,
+      observations −3..0, c_stay = −1, c_sw = −2), so band terms tie with
+      each other and with fl(gmax + C);
+    * 'diagonal': h = 0, only the diagonal above the floor.
+    """
+    rng = np.random.default_rng(seed)
+    n, h, floor, nf = {"floor": (50, 4, -30.0, 60), "ties": (24, 3, -8.0, 40), "diagonal": (30, 0, -20.0, 30)}[kind]
+    dist = np.abs(np.arange(n)[:, None] - np.arange(n)[None, :])
+    lt = np.full((n, n), floor, np.float32)
+    if kind == "ties":
+        lt[dist <= h] = rng.integers(-8, 0, int((dist <= h).sum()))
+        lt[dist == h] = -1.0  # keep h the band's reach
+        log_obs = rng.integers(-3, 1, (3, nf, 2 * n)).astype(np.float32)
+        delta0 = rng.integers(-3, 1, (3, 2 * n)).astype(np.float32)
+        return log_obs, delta0, lt, -1.0, -2.0, h
+    lt[dist <= h] = rng.uniform(-10.0, 0.0, int((dist <= h).sum()))
+    if kind == "floor":
+        lt[(dist <= h) & (dist > 0) & (rng.random((n, n)) < 0.2)] = floor
+        lt[dist == h] = -5.0
+    log_obs = np.log(rng.random((3, nf, 2 * n)) + 1e-12).astype(np.float32)
+    delta0 = np.log(rng.random((3, 2 * n)) + 1e-12).astype(np.float32)
+    return log_obs, delta0, lt, C_STAY, C_SW, h
+
+
+def pyin_trellis():
+    """pyin's own trellis (log_obs, delta0, log_tri, c_stay, c_sw, h) of 2 × 3
+    s of speech-like audio at 16 kHz, captured where pyin_f0 decodes it."""
+    x = torch.tensor(np.stack([speechlike(3.0, 16_000, seed=s) for s in (1, 2)]))
+    calls = []
+    real = Y.viterbi_decode
+
+    def capture(*args):
+        calls.append(args)
+        return real(*args)
+
+    Y.viterbi_decode = capture
+    try:
+        Y.pyin_f0(x, sr=16_000.0)
+    finally:
+        Y.viterbi_decode = real
+    log_obs, delta0, log_tri, c_stay, c_sw, band = calls[0]
+    return log_obs.numpy(), delta0.numpy(), log_tri.numpy(), c_stay, c_sw, band[0]
+
+
+def same_bits(a: torch.Tensor, b) -> bool:
+    """Equal bit for bit (±0 and NaN payloads included)."""
+    return np.array_equal(np.asarray(a).view(np.int32), np.asarray(b).view(np.int32))
+
+
+@pytest.mark.parametrize("kind", ["pyin", "floor", "ties", "diagonal"])
+def test_banded_step_matches_dense_and_pallas(kind):
+    """The kernel's banded step, written plainly, gives the dense plain
+    version's δ history and δ_f, and JAX viterbi_forward_pallas's (interpret
+    mode, per utterance), bit for bit, on pyin's trellis and the crafted
+    ones; viterbi_band finds each trellis's band (pyin_f0 passes its
+    designed band, h = 21, to the decode)."""
+    log_obs, delta0, lt, c_stay, c_sw, h = pyin_trellis() if kind == "pyin" else banded_trellis(kind, seed=23)
+    band = V.viterbi_band(lt)
+    assert band == (h, float(lt.min())) and (kind != "pyin" or (h == 21 and log_obs.shape == (2, 301, 722)))
+    args = (torch.tensor(log_obs), torch.tensor(delta0), torch.tensor(lt), c_stay, c_sw)
+    got_f, got_hist = V.viterbi_forward_banded_reference(*args, band)
+    want_f, want_hist = V.viterbi_forward_reference(*args)
+    assert same_bits(got_f, want_f) and same_bits(got_hist, want_hist)
+    for b in range(log_obs.shape[0]):
+        jf, jhist = viterbi_forward_pallas(jnp.asarray(log_obs[b]), jnp.asarray(delta0[b]), jnp.asarray(lt),
+                                           c_stay, c_sw, interpret=True)
+        assert same_bits(got_f[b], jf) and same_bits(got_hist[b], jhist)
+
+
+@pytest.mark.parametrize("n,h,layout", [(361, 21, "registers"), (361, 31, "registers"), (361, 32, "shared"),
+                                        (361, 73, "shared"), (361, 74, "L2"), (600, 2, "shared"),
+                                        (1024, 20, "shared"), (1024, 22, "L2"), (40, 39, "L2")])
+def test_band_layout(n, h, layout):
+    """The launcher's layout by size: registers up to 64 sources in blocks
+    of at most 512 threads, shared memory for a band narrower than the
+    matrix that fits beside m, the maxima and the row ring, else L2."""
+    assert V.band_layout(n, h) == layout
+
+
+def test_band_cache_follows_the_tensor():
+    """viterbi_forward derives the band of a log_tri tensor once, and again
+    after an in-place edit of that tensor."""
+    t = torch.tensor(pyin_log_tri(10_000.0))
+    assert V._band_of(t) == (21, TINY_LOG) and V._band_of(t) == (21, TINY_LOG)
+    t[100, 130] = -50.0
+    assert V._band_of(t) == (30, TINY_LOG)
