@@ -13,8 +13,8 @@ Phases:
 
   0  card, power limit, versions, TF32 flags (exits 2 without CUDA)
   1  kernel build, with ptxas's report (registers, spills) of every kernel,
-     and a line each for the banded forward's and the tensor-core
-     frontend's instantiations
+     and a line each for the Viterbi kernels' and the tensor-core
+     frontend's instantiations (fused_mel_bf16 is mode 3)
   2  MFCC kernels vs plain versions on the card, both configurations
   3  MFCC path at full size (mfcc_change, 128 × 30 s at 16 kHz), launch counts
   4  single utterances (masked-FIR route, host-tail route)
@@ -31,12 +31,18 @@ Phases:
      utterance, the card against the CPU
  10  tracker times: kernels beside plain versions, both paths end to end, the
      Viterbi loop's and the root finder's shares, peak memory
- 11  pyin Viterbi kernels vs plain versions on the card, bit for bit: random
-     dense trellises (batched and single; h = n − 1, log_tri read from L2),
-     crafted banded ones (a random band over a floor that also lies inside
-     it, integer ties with fl(gmax + C), h = 0: the band in registers; a
-     band of 81 sources: in shared memory), pyin's own trellis of 4 × 30 s
-     at 16 kHz and at 10 kHz (h = 21, registers), a batch of one
+ 11  pyin Viterbi kernels vs plain versions on the card, bit for bit, both
+     given the band: random dense trellises (batched and single; h = n − 1,
+     the forward reads log_tri from L2, the backtrace too at n = 360 and
+     stages the whole band in shared memory at n ≤ 130), crafted banded ones (a
+     random band over a floor that also lies inside it, integer ties with
+     fl(gmax + C), h = 0: the forward's band in registers; a band of 81
+     sources: in shared memory), pyin's own trellis of 4 × 30 s at 16 kHz
+     and at 10 kHz (h = 21, registers; the backtrace's band in shared
+     memory), a batch of one; and the backtrace alone on crafted rows that
+     set its traps (an out-of-band source tying an in-band one at a lower
+     index, −0 against +0, two out-of-band sums that round together), each
+     line naming the backtrace's layout
  12  pyin path at full size: batched_f0 pyin on the phase-7 batch, one launch
      of each Viterbi kernel, states and f0 identical to the plain engine on
      the card, against the CPU; the decode of that call makes no device→host
@@ -46,8 +52,8 @@ Phases:
      end with its stage split (CMNDF, candidates and observations, forward,
      backtrace), peak memory, and the device time by kernel of one call
      (torch.profiler)
- 14  frontend-mode kernels (fused_mel_bf16, _x3, _i16, _i24, and
-     fused_mel_f32 on int16 input) vs plain versions on the card, both
+ 14  frontend-mode kernels (fused_mel_bf16, _x3, _i16, _i24 on the tensor
+     cores, and fused_mel_f32 on int16 input) vs plain versions on the card, both
      configurations, float32, int16 and int16 hop-rows input, a quiet
      (-60 dBFS) int16 utterance for i16; rows equal flat bit for bit; the
      i16 scales exact powers of two; x3 (tensor cores) also against the
@@ -89,12 +95,13 @@ Phases:
 checkout at DIR instead of this one's, builds its kernels, times its
 frontend kernels at 128 × 30 s at 16 kHz as the frontend rows below are
 timed (fused_mel_f32 on float32 audio of phase 5's and phase 22's batches,
-seeds 0 and 19, in both orders; the f32 fold on both; x3, i16, i24 and f32
-on phase 15's int16 hop rows) and 'fused_i16' mfcc_change on those rows,
-times viterbi_fwd_f32 on pyin's trellis of phase 7's batch (band derived
-from the tensor where the package bands it) and batched_f0 pyin on that
-batch end to end, and prints x3's and i24's MFCC distances from the
-float64 MFCC on phase 23's two batches, kernel and plain version.
+seeds 0 and 19, in both orders; the f32 fold on both; bf16, x3, i16, i24
+and f32 on phase 15's int16 hop rows) and 'fused_i16' and 'fused_bf16'
+mfcc_change on those rows, times viterbi_fwd_f32 and viterbi_bwd_f32 on
+pyin's trellis of phase 7's batch (band derived from the tensor where the
+package bands it) and batched_f0 pyin on that batch end to end, and
+prints x3's and i24's MFCC distances from the float64 MFCC on phase 23's
+two batches, kernel and plain version.
 Every line carries DIR's name, the card's name and power limit, and the
 SM clock read after it. To compare two commits on one card, unpack the
 other (``git archive``) into a git-ignored directory and run parent,
@@ -164,7 +171,7 @@ SOURCES = {
     "burg_lpc_f32": f"{CSRC}/burg.cu",
     "viterbi_fwd_f32": f"{CSRC}/viterbi.cu",
     "viterbi_bwd_f32": f"{CSRC}/viterbi.cu",
-    "fused_mel_bf16": f"{CSRC}/fused_frontend.cu",
+    "fused_mel_bf16": f"{CSRC}/fused_frontend_tc.cu",
     "fused_mel_x3": f"{CSRC}/fused_frontend_tc.cu",
     "fused_mel_i16": f"{CSRC}/fused_frontend_tc.cu",
     "fused_mel_i24": f"{CSRC}/fused_frontend_tc.cu",
@@ -744,17 +751,16 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-def viterbi_compare(args: tuple, band: tuple | None = None) -> tuple[float, float, tuple]:
+def viterbi_compare(args: tuple, band: tuple) -> tuple[float, float, tuple]:
     """Both kernels against their plain versions on one trellis (log_obs,
-    delta0, log_tri, c_stay, c_sw), the forward given ``band`` (derived from
-    log_tri when None): (0 when δ_f and the history are the plain forward's
-    bit for bit, else their max |Δ| (inf where they differ only in bits),
-    max |Δ| of the state paths, the plain forward's (δ_f, history)). The
-    backtrace runs on the plain forward's output; the fused decode is
-    compared too."""
+    delta0, log_tri, c_stay, c_sw), both given ``band``: (0 when δ_f and the
+    history are the plain forward's bit for bit, else their max |Δ| (inf
+    where they differ only in bits), max |Δ| of the state paths, the plain
+    forward's (δ_f, history)). The backtrace runs on the plain forward's
+    output; the fused decode is compared too."""
     f_k, h_k = VK.viterbi_forward(*args, band)
     f_p, h_p = VK.viterbi_forward_reference(*args)
-    path_k = VK.viterbi_backtrace(h_p, f_p, *args[2:])
+    path_k = VK.viterbi_backtrace(h_p, f_p, *args[2:], band)
     path_p = VK.viterbi_backtrace_reference(h_p, f_p, *args[2:])
     dec_k = VK.viterbi_decode(*args, band)
     torch.cuda.synchronize()
@@ -810,7 +816,8 @@ def viterbi_kernel_checks(dev) -> None:
         args = (torch.tensor(np.log(rng.random((*lead, nf, 2 * n_bins)) + 1e-12), dtype=torch.float32, device=dev),
                 torch.tensor(np.log(rng.random((*lead, 2 * n_bins)) + 1e-12), dtype=torch.float32, device=dev),
                 torch.tensor(np.log(tri / tri.sum(0) + 1e-30), dtype=torch.float32, device=dev), c_stay, c_sw)
-        h = VK.viterbi_band(args[2])[0]
+        band = VK.viterbi_band(args[2])
+        h = band[0]
         check(h == n_bins - 1 and VK.band_layout(n_bins, h) == "L2", f"the dense trellis n={n_bins} is read from L2")
         if nf == 1:
             f_k, h_k = VK.viterbi_forward(*args)
@@ -820,18 +827,19 @@ def viterbi_kernel_checks(dev) -> None:
             print(f"[11] viterbi_fwd_f32 on one frame, batch {nb}: δ_f identical {ok}")
             check(ok, "viterbi_fwd_f32 on one frame")
             continue
-        err, path_err, _ = viterbi_compare(args)
+        err, path_err, _ = viterbi_compare(args, band)
         print(f"[11] random trellis n={n_bins} NF={nf} batch {nb or 'none'}, h={h}, band in "
-              f"{VK.band_layout(n_bins, h)}: δ max |Δ| {err:.3e}, state paths max |Δ| {path_err:.0f} (bars 0, 0)")
+              f"{VK.band_layout(n_bins, h)}, backtrace's in {VK.backtrace_layout(n_bins, h)}: δ max |Δ| {err:.3e}, "
+              f"state paths max |Δ| {path_err:.0f} (bars 0, 0)")
         check(err == 0.0 and path_err == 0.0, f"Viterbi kernels on the random trellis n={n_bins} NF={nf}")
     for kind, where in (("floor", "registers"), ("wide", "shared"), ("ties", "registers"), ("diagonal", "registers")):
         args, h = banded_trellis(kind, rng, dev)
         n = args[2].shape[0]
         band = VK.viterbi_band(args[2])
         check(band == (h, float(args[2].min())) and VK.band_layout(n, h) == where, f"the band of the {kind} trellis")
-        err, path_err, _ = viterbi_compare(args)
-        print(f"[11] banded trellis '{kind}' n={n} h={h} C={band[1]}, band in {where}: δ max |Δ| {err:.3e}, "
-              f"state paths max |Δ| {path_err:.0f} (bars 0, 0)")
+        err, path_err, _ = viterbi_compare(args, band)
+        print(f"[11] banded trellis '{kind}' n={n} h={h} C={band[1]}, band in {where}, backtrace's in "
+              f"{VK.backtrace_layout(n, h)}: δ max |Δ| {err:.3e}, state paths max |Δ| {path_err:.0f} (bars 0, 0)")
         check(err == 0.0 and path_err == 0.0, f"Viterbi kernels on the banded trellis {kind}")
     for sr in (16_000, 10_000):
         x = torch.tensor(speechlike(4, SECONDS * sr, sr, seed=3), device=dev)
@@ -842,8 +850,10 @@ def viterbi_kernel_checks(dev) -> None:
         check(band[0] == 21 and band == VK.viterbi_band(args[2]) and VK.band_layout(n, band[0]) == "registers",
               f"pyin's band at {sr} Hz")
         err, path_err, _ = viterbi_compare(args, band)
+        check(VK.backtrace_layout(n, band[0]) == "shared", f"pyin's backtrace band at {sr} Hz in shared memory")
         print(f"[11] pyin's trellis at {sr} Hz, log_obs {tuple(args[0].shape)}, band h={band[0]} C={band[1]} in "
-              f"{VK.band_layout(n, band[0])}: δ max |Δ| {err:.3e}, state paths max |Δ| {path_err:.0f} (bars 0, 0)")
+              f"{VK.band_layout(n, band[0])}, backtrace's in {VK.backtrace_layout(n, band[0])}: δ max |Δ| {err:.3e}, "
+              f"state paths max |Δ| {path_err:.0f} (bars 0, 0)")
         check(err == 0.0 and path_err == 0.0, f"Viterbi kernels on pyin's trellis at {sr} Hz")
         one = (args[0][:1].contiguous(), args[1][:1].contiguous(), *args[2:])
         single = (args[0][0].contiguous(), args[1][0].contiguous(), *args[2:])
@@ -851,6 +861,73 @@ def viterbi_kernel_checks(dev) -> None:
         ok = ok and torch.equal(VK.viterbi_decode(*one, band)[0], VK.viterbi_decode(*single, band))
         print(f"[11] a batch of one and a single trellis at {sr} Hz: identical to the plain versions {ok}")
         check(ok, f"Viterbi kernels on a batch of one at {sr} Hz")
+    for kind in ("ties", "rounding"):
+        hist, delta_f, lt, c_stay, c_sw, want = backtrace_traps(kind, rng, dev)
+        n = lt.shape[0]
+        band = VK.viterbi_band(lt)
+        check(band == (21, float(lt.min())) and VK.backtrace_layout(n, 21) == "shared", f"the band of the {kind} traps")
+        got = VK.viterbi_backtrace(hist, delta_f, lt, c_stay, c_sw, band)
+        plain = VK.viterbi_backtrace_reference(hist, delta_f, lt, c_stay, c_sw)
+        torch.cuda.synchronize()
+        err = int((got - plain).abs().max())
+        designed = torch.equal(plain.cpu().long(), want)
+        print(f"[11] backtrace traps '{kind}' {tuple(hist.shape)}, n={n} h=21, backtrace's band in "
+              f"{VK.backtrace_layout(n, 21)}: state paths max |Δ| {err} (bar 0); the plain path is the designed "
+              f"one {designed}")
+        check(err == 0 and designed, f"viterbi_bwd_f32 on the {kind} traps")
+
+
+def backtrace_traps(kind: str, rng: np.random.Generator, dev, n: int = 361, h: int = 21, steps: int = 300,
+                    batch: int = 3) -> tuple:
+    """Crafted backtrace inputs on the card (tests/test_torch_viterbi.py's
+    backtrace_traps at pyin's shape): (hist [B, steps, 2n], delta_f [B, 2n],
+    log_tri [n, n], c_stay, c_sw, the designed path [B, steps + 1] on the
+    host). Each row, from the last back, is made for the state the step
+    after it takes, so that its first maximum is a trap: 'ties' (c_stay =
+    −0, in-band entries −0, C = −10) an out-of-band source at a lower index
+    tying the best in-band score, or −0 against +0 in band; 'rounding'
+    (in-band −1, C = −1000) two out-of-band m of 0.5 − 2⁻¹⁷ and 0.5 whose
+    sums with C round together, above the band."""
+    dist = np.abs(np.arange(n)[:, None] - np.arange(n)[None, :])
+    if kind == "ties":
+        c_stay, c_sw, floor, inner, low = -0.0, -2.0, -10.0, -0.0, -40.0
+    else:
+        c_stay, c_sw, floor, inner, low = -1.0, -2.0, -1000.0, -1.0, -3000.0
+    lt = np.where(dist <= h, np.float32(inner), np.float32(floor)).astype(np.float32)
+    hist = np.full((batch, steps, 2 * n), low, np.float32)
+    delta_f = np.full((batch, 2 * n), -100.0, np.float32)
+    want = np.empty((batch, steps + 1), np.int64)
+    for b in range(batch):
+        state = int(rng.integers(2 * n))
+        delta_f[b, state] = 0.0
+        want[b, steps] = state
+        for t in range(steps - 1, -1, -1):
+            row, pos = hist[b, t], state % n
+            adds = (c_stay, c_sw) if state < n else (c_sw, c_stay)
+
+            def put(u: int, m: float, block: int) -> None:
+                row[block * n + u] = np.float32(m - adds[block])
+
+            block = int(rng.integers(2))
+            if kind == "rounding":
+                put(pos, -998.75, int(rng.integers(2)))
+                u1, u2 = sorted(rng.choice(np.flatnonzero(dist[pos] > h), 2, replace=False))
+                put(int(u1), 0.5 - 2.0**-17, block)
+                put(int(u2), 0.5, int(rng.integers(2)))
+                win = int(u1)
+            elif pos > h and rng.random() < 0.5:
+                put(pos, -1.0, int(rng.integers(2)))
+                win = int(rng.integers(pos - h))
+                put(win, 9.0, block)
+            else:
+                block = 0 if state < n else 1
+                win, u2 = sorted(rng.choice(np.flatnonzero(dist[pos] <= h), 2, replace=False))
+                row[block * n + win], row[block * n + u2] = np.float32(-0.0), np.float32(0.0)
+                win = int(win)
+            state = win + n * block
+            want[b, t] = state
+    return (torch.tensor(hist, device=dev), torch.tensor(delta_f, device=dev), torch.tensor(lt, device=dev),
+            c_stay, c_sw, torch.tensor(want))
 
 
 def state_agreement(got: torch.Tensor, want: torch.Tensor) -> tuple[int, int, int]:
@@ -943,7 +1020,7 @@ def pyin_times(batch: mt.AudioBatch, captured: tuple, card: str):
     ms = {
         "viterbi_fwd_f32": (cuda_ms(lambda: VK.viterbi_forward(*args, band)),
                             cuda_ms(lambda: VK.viterbi_forward_reference(*args))),
-        "viterbi_bwd_f32": (cuda_ms(lambda: VK.viterbi_backtrace(hist, delta_f, *rest)),
+        "viterbi_bwd_f32": (cuda_ms(lambda: VK.viterbi_backtrace(hist, delta_f, *rest, band)),
                             cuda_ms(lambda: VK.viterbi_backtrace_reference(hist, delta_f, *rest))),
     }
     for k, (t_k, t_p) in ms.items():
@@ -1752,12 +1829,13 @@ def frontend_report(root: Path) -> int:
     del ys
     pcm = np.round(speechlike(BATCH, SECONDS * sr, sr, seed=0) * 0.5 * 32767.0).astype(np.int16)
     rows, n = rows_of(pcm, cfg, dev), pcm.shape[1]
-    ws = {alg: mode_weights(cfg, alg, dev) for alg in ("x3", "i16", "i24", "f32")}
+    ws = {alg: mode_weights(cfg, alg, dev) for alg in ("bf16", "x3", "i16", "i24", "f32")}
     for alg, w in ws.items():
         line(f"fused_mel_{alg}, int16 hop rows", lambda: mode_kernel(rows, cfg, alg, w, n))
     model = mt.MfccChange(cfg).to(dev)
-    ms = cuda_ms(lambda: model(rows, spectrum="fused_i16", n_samples=n))
-    print(f"[{label}] mfcc_change spectrum='fused_i16' on the rows end to end: {ms:.3f} ms ({card}; {sm_clock()})")
+    for spec in ("fused_i16", "fused_bf16"):
+        ms = cuda_ms(lambda: model(rows, spectrum=spec, n_samples=n))
+        print(f"[{label}] mfcc_change spectrum={spec!r} on the rows end to end: {ms:.3f} ms ({card}; {sm_clock()})")
     del rows
     torch.cuda.empty_cache()
     batch = mt.pad_batch(list(speechlike(TRACK_BATCH, SECONDS * TRACK_SR, TRACK_SR, seed=5)), bucket_multiple=1,
@@ -1767,6 +1845,11 @@ def frontend_report(root: Path) -> int:
         mt.batched_f0(batch, TRACK_SR, pyin)
     trellis = calls[0][0][:5]
     line(f"viterbi_fwd_f32, pyin's trellis {tuple(trellis[0].shape)}", lambda: VK.viterbi_forward(*trellis))
+    delta_f, hist = VK.viterbi_forward(*trellis)
+    banded = hasattr(VK, "backtrace_layout")  # a package from before the banded backtrace reads log_tri whole
+    line(f"viterbi_bwd_f32, pyin's trellis {tuple(trellis[0].shape)} ({'banded' if banded else 'dense'})",
+         lambda: VK.viterbi_backtrace(hist, delta_f, *trellis[2:]))
+    del delta_f, hist
     ms = cuda_ms(lambda: mt.batched_f0(batch, TRACK_SR, pyin))
     print(f"[{label}] batched_f0 pyin on {tuple(batch.samples.shape)} end to end: {ms:.3f} ms ({card}; {sm_clock()})")
     del batch, trellis, calls
@@ -1823,7 +1906,7 @@ def main() -> int:
     print(f"[1] built {lib_path.name} from {CSRC}/*.cu (nvcc {' '.join(_build.NVCC_FLAGS)}, one process "
           f"per source) in {time.perf_counter() - t0:.3f} s")
     for line in ptxas_lines(lib_path.with_suffix(".ptxas.txt").read_text(),
-                            ("viterbi_fwd_f32_kernel", "fused_mel_tc_kernel")):
+                            ("viterbi_fwd_f32_kernel", "viterbi_bwd_f32_kernel", "fused_mel_tc_kernel")):
         print(f"[1] ptxas {line}")
 
     mfcc_kernel_checks(dev)

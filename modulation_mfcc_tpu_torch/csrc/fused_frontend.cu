@@ -1,12 +1,10 @@
-// Fused MFCC frontend for Hopper (sm_90a), float modes f32 and bf16: audio
-// -> mel power, then mel -> dB with the top_db clip -> DCT-II. Plain C
-// launchers, loaded with ctypes (modulation_mfcc_tpu_torch/kernels/_build.py);
-// each returns the cudaError_t of its launch. All arithmetic here runs on
-// the CUDA cores (FFMA, no tensor cores, no fast-math intrinsics).
-// fused_mel_f32 and mfcc_tail_f32 compute in true FP32; fused_mel_bf16
-// rounds its operands to bf16 as its TPU mode does (a product of two bf16
-// values is exact in FP32, so each such product is accumulated in FP32). The
-// x3 and fixed-point modes run on the tensor cores (fused_frontend_tc.cu).
+// Fused MFCC frontend for Hopper (sm_90a), the f32 mode: audio -> mel
+// power, then mel -> dB with the top_db clip -> DCT-II. Plain C launchers,
+// loaded with ctypes (modulation_mfcc_tpu_torch/kernels/_build.py); each
+// returns the cudaError_t of its launch. All arithmetic here runs on the
+// CUDA cores in true FP32 (FFMA, no tensor cores, no fast-math intrinsics).
+// The bf16, x3 and fixed-point modes run on the tensor cores
+// (fused_frontend_tc.cu).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -18,13 +16,13 @@ namespace {
 using namespace frontend;
 
 // ---------------------------------------------------------------------------
-// fused_mel_f32, fused_mel_bf16
+// fused_mel_f32
 //
-// Replace the Pallas frontend kernel of modulation_mfcc_tpu/pallas/
+// Replaces the Pallas frontend kernel of modulation_mfcc_tpu/pallas/
 // fused_frontend.py (fused_mel_frontend -> _launch -> _kernel and
-// _kernel_pipe, concat frame mode), with algorithm 'f32' and 'bf16'
-// (_mxu). The pipelined _kernel_pipe computes _kernel's numbers bit for
-// bit, so one kernel serves both.
+// _kernel_pipe, concat frame mode), with algorithm 'f32' (_mxu). The
+// pipelined _kernel_pipe computes _kernel's numbers bit for bit, so one
+// kernel serves both.
 //
 // Computes, for every utterance b and frame f < nf,
 //   frame[k] = x[b, f*hop + off + k]          (zero outside [0, T): T is the
@@ -35,24 +33,17 @@ using namespace frontend;
 //   power    = re^2 + im^2                    ([bins_pad])
 //   mel      = power @ melw                   ([bins_pad] x [bins_pad, n_mels])
 // and one float per block: the max of mel over the block's frames (< nf),
-// which the wrapper reduces to the per-utterance top_db peak.
+// which the wrapper reduces to the per-utterance top_db peak. The DFT sums
+// in steps of kKC = 16 rows: each step's 16 products go to a fresh partial
+// sum, which is then added to the running re/im sum. One 400-term FFMA
+// chain per value rounds enough to put the MFCC 2e-4 from the float64 one
+// on 16 x 30 s of noise; the steps halve that. The plain version
+// (kernels/fused_frontend._stepped_matmul) sums in the same steps.
 //
-//   'f32':  as above, FP32. The DFT sums in steps of kKC = 16 rows: each
-//           step's 16 products go to a fresh partial sum, which is then
-//           added to the running re/im sum. One 400-term FFMA chain per
-//           value rounds enough to put the MFCC 2e-4 from the float64 one
-//           on 16 x 30 s of noise; the steps halve that. The plain version
-//           (kernels/fused_frontend._stepped_matmul) sums in the same steps.
-//   'bf16': frame samples, wri, power and melw rounded to bf16 (nearest
-//           even; wri and melw arrive rounded); mel stored as bf16, the
-//           block max taken over the FP32 mel before that rounding.
-//
-// Bound: FFMA throughput on the CUDA cores for f32, the unit its arithmetic
-// is made for. A 128 x 30 s batch at 16 kHz is ~315 GFLOP of DFT and ~50
-// GFLOP of mel projection; the audio read (123-246 MB) and the mel write
-// (200-400 MB) are small beside it at 3.35 TB/s. The unit the bf16 mode is
-// made for is the bf16 tensor core (989 TFLOP/s, about 0.4 ms a batch);
-// this kernel does not use it.
+// Bound: FFMA throughput on the CUDA cores, the unit its arithmetic is made
+// for. A 128 x 30 s batch at 16 kHz is ~315 GFLOP of DFT and ~50 GFLOP of
+// mel projection; the audio read (123-246 MB) and the mel write (400 MB)
+// are small beside it at 3.35 TB/s.
 //
 // Design: a block owns 64 consecutive frames of one utterance. It copies the
 // contiguous audio span those frames cover into shared memory once (about
@@ -61,23 +52,22 @@ using namespace frontend;
 // a time. The basis slice is double-buffered in shared memory and fetched
 // with cp.async one step ahead, so its L2 latency hides behind the current
 // step's FFMAs; the frame slice is staged transposed ([k][frame]) from the
-// audio span. For bf16 each thread keeps an 8-frame by 4-bin tile of re and
-// im (64 accumulators) of a 128-bin tile in registers; a warp's 8 frame
-// samples are two float4 broadcasts and a lane's 4 re and 4 im basis values
-// are 8 conflict-free words: 10 shared-memory wavefronts per 64 FFMA. f32
-// adds the step's partial sums, so it keeps 8 frames by 2 bins of a 64-bin
-// tile (32 running sums, 32 partials) at 6 wavefronts per 32 FFMA, within
-// the 128 registers of two blocks an SM. Power goes to shared memory
+// audio span. A thread adds the step's partial sums, so it keeps 8 frames by
+// 2 bins of a 64-bin tile (32 running sums, 32 partials) at 6 shared-memory
+// wavefronts per 32 FFMA (a warp's 8 frame samples are two float4
+// broadcasts, a lane's 2 re and 2 im basis values conflict-free words),
+// within the 128 registers of two blocks an SM. Power goes to shared memory
 // (transposed, [bin][frame], in the same space as the slices) and is
 // projected onto the mel bank into a [64, 128] shared accumulator, a tile
 // of bins at a time, so the mel sum over bins runs in bin order. Blocks run
 // in no order, so the block max is written per block, not carried.
 // ---------------------------------------------------------------------------
 
+constexpr int kTB = kTile<kF32>;  // bins of a tile
 // floats of the space the basis slices, the frame slice and the power tile share:
 // two steps of slices + the frame slice, or the power tile
-template <int MODE> constexpr int kShared = 2 * kTileSlice<MODE> + kKC * kPitch > kTile<MODE> * kPitch
-                                                ? 2 * kTileSlice<MODE> + kKC * kPitch : kTile<MODE> * kPitch;
+constexpr int kShared = 2 * kTileSlice<kF32> + kKC * kPitch > kTB * kPitch ? 2 * kTileSlice<kF32> + kKC * kPitch
+                                                                           : kTB * kPitch;
 
 __device__ __forceinline__ float load_sample(const float* x, long long s) { return x[s]; }
 __device__ __forceinline__ float load_sample(const int16_t* x, long long s)
@@ -130,20 +120,20 @@ __device__ __forceinline__ void dft_step(float (&re)[8][NJ], float (&im)[8][NJ],
     }
 }
 
-template <int MODE, typename In>
+template <typename In>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_mel_kernel(const In* __restrict__ audio, const float* __restrict__ wri,
-                 const float* __restrict__ melw, void* __restrict__ mel_out,
+                 const float* __restrict__ melw, float* __restrict__ mel_out,
                  float* __restrict__ bmax, int T, int K, int hop, int off,
                  int nf, int bins_pad, int n_mels, int span_pad)
 {
-    constexpr int TB = kTile<MODE>, NJ = TB / 32;
+    constexpr int NJ = kTB / 32;
     extern __shared__ __align__(16) float smem[];
     float* span_s = smem;                      // [span_pad] audio samples
-    float* w_s = span_s + span_pad;            // 2 steps x [kKC][2*TB] basis slices
-    float* a_s = w_s + 2 * kTileSlice<MODE>;   // [kKC][kPitch] frame slice, transposed
-    float* p_s = w_s;                          // [TB][kPitch] power tile, transposed
-    float* mel_s = w_s + kShared<MODE>;        // [kBF][kMelMax] mel accumulator
+    float* w_s = span_s + span_pad;            // 2 steps x [kKC][2*kTB] basis slices
+    float* a_s = w_s + 2 * kTileSlice<kF32>;   // [kKC][kPitch] frame slice, transposed
+    float* p_s = w_s;                          // [kTB][kPitch] power tile, transposed
+    float* mel_s = w_s + kShared;              // [kBF][kMelMax] mel accumulator
     __shared__ float red_s[kThreads / 32];
 
     const int tid = threadIdx.x;
@@ -158,20 +148,20 @@ fused_mel_kernel(const In* __restrict__ audio, const float* __restrict__ wri,
     for (int i = tid; i < span_pad; i += kThreads) {
         const long long s = start + i;
         const float v = (s >= 0 && s < T) ? load_sample(x, s) : 0.0f;
-        span_s[i] = MODE == kBF16 ? bf16r(v) : v;
+        span_s[i] = v;
     }
     for (int i = tid; i < kBF * kMelMax; i += kThreads) mel_s[i] = 0.0f;
 
-    for (int bt = 0; bt < bins_pad; bt += TB) {
+    for (int bt = 0; bt < bins_pad; bt += kTB) {
         float re[8][NJ] = {}, im[8][NJ] = {};  // the running sums
 
         __syncthreads();  // the previous tile's power (same space) fully read
-        stage_basis<TB>(w_s, wri, 0, K, bt, bins_pad, tid);
+        stage_basis<kTB>(w_s, wri, 0, K, bt, bins_pad, tid);
         for (int step = 0; step < n_steps; ++step) {
             const int k0 = step * kKC;
             __syncthreads();  // the previous step's slices fully read
             if (step + 1 < n_steps)
-                stage_basis<TB>(w_s + ((step + 1) & 1) * kTileSlice<MODE>, wri, k0 + kKC, K, bt, bins_pad, tid);
+                stage_basis<kTB>(w_s + ((step + 1) & 1) * kTileSlice<kF32>, wri, k0 + kKC, K, bt, bins_pad, tid);
             for (int i = tid; i < kKC * kBF; i += kThreads) {
                 const int kk = i % kKC;
                 const int f = i / kKC;
@@ -180,30 +170,25 @@ fused_mel_kernel(const In* __restrict__ audio, const float* __restrict__ wri,
             if (step + 1 < n_steps) asm volatile("cp.async.wait_group 1;\n" ::);
             else asm volatile("cp.async.wait_group 0;\n" ::);
             __syncthreads();
-            const float* w_cur = w_s + (step & 1) * kTileSlice<MODE>;
-            if constexpr (MODE == kF32) {
-                // the step's own partial sums, added to re/im after the step
-                float pre[8][NJ] = {}, pim[8][NJ] = {};
-                dft_step<NJ>(pre, pim, a_s, w_cur, lane, warp);
+            // the step's own partial sums, added to re/im after the step
+            float pre[8][NJ] = {}, pim[8][NJ] = {};
+            dft_step<NJ>(pre, pim, a_s, w_s + (step & 1) * kTileSlice<kF32>, lane, warp);
 #pragma unroll
-                for (int i = 0; i < 8; ++i)
+            for (int i = 0; i < 8; ++i)
 #pragma unroll
-                    for (int j = 0; j < NJ; ++j) {
-                        re[i][j] += pre[i][j];
-                        im[i][j] += pim[i][j];
-                    }
-            } else {
-                dft_step<NJ>(re, im, a_s, w_cur, lane, warp);
-            }
+                for (int j = 0; j < NJ; ++j) {
+                    re[i][j] += pre[i][j];
+                    im[i][j] += pim[i][j];
+                }
         }
 
-        project_tile<MODE, NJ>(re, im, re, im, p_s, mel_s, nullptr, melw, bt, bins_pad, n_mels, lane, warp);
+        project_tile<kF32, NJ>(re, im, re, im, p_s, mel_s, nullptr, melw, bt, bins_pad, n_mels, lane, warp);
     }
-    write_block<MODE>(mel_s, nullptr, mel_out, bmax, red_s, b, f0, nf, n_mels, tid, lane, warp);
+    write_block<kF32>(mel_s, nullptr, mel_out, bmax, red_s, b, f0, nf, n_mels, tid, lane, warp);
 }
 
-template <int MODE, typename In>
-int launch_mel(const void* audio, const float* wri, const float* melw, void* mel, float* bmax,
+template <typename In>
+int launch_mel(const void* audio, const float* wri, const float* melw, float* mel, float* bmax,
                int B, int T, int K, int hop, int off, int nf, int bins_pad, int n_mels, void* stream)
 {
     if (B < 1 || T < 1 || nf < 1 || K < 1 || hop < 1 || n_mels < 1 || n_mels > kMelMax ||
@@ -212,23 +197,13 @@ int launch_mel(const void* audio, const float* wri, const float* melw, void* mel
     const int n_blocks = (nf + kBF - 1) / kBF;
     const int span = (kBF - 1) * hop + (K + kKC - 1) / kKC * kKC;
     const int span_pad = (span + 3) / 4 * 4;
-    const size_t smem = sizeof(float) * ((size_t)span_pad + kShared<MODE> + kBF * kMelMax);
+    const size_t smem = sizeof(float) * ((size_t)span_pad + kShared + kBF * kMelMax);
     cudaError_t err = cudaFuncSetAttribute(
-        fused_mel_kernel<MODE, In>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        fused_mel_kernel<In>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    fused_mel_kernel<MODE, In><<<dim3(n_blocks, B), kThreads, smem, (cudaStream_t)stream>>>(
+    fused_mel_kernel<In><<<dim3(n_blocks, B), kThreads, smem, (cudaStream_t)stream>>>(
         static_cast<const In*>(audio), wri, melw, mel, bmax, T, K, hop, off, nf, bins_pad, n_mels, span_pad);
     return (int)cudaGetLastError();
-}
-
-template <int MODE>
-int launch_mel_any(const void* audio, int audio_i16, const float* wri, const float* melw, void* mel,
-                   float* bmax, int B, int T, int K, int hop, int off, int nf, int bins_pad, int n_mels,
-                   void* stream)
-{
-    return audio_i16
-        ? launch_mel<MODE, int16_t>(audio, wri, melw, mel, bmax, B, T, K, hop, off, nf, bins_pad, n_mels, stream)
-        : launch_mel<MODE, float>(audio, wri, melw, mel, bmax, B, T, K, hop, off, nf, bins_pad, n_mels, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -324,17 +299,9 @@ extern "C" int fused_mel_f32(const void* audio, int audio_i16, const float* wri,
                              float* mel, float* bmax, int B, int T, int K, int hop, int off,
                              int nf, int bins_pad, int n_mels, void* stream)
 {
-    return launch_mel_any<kF32>(audio, audio_i16, wri, melw, mel, bmax, B, T, K, hop, off, nf, bins_pad,
-                                n_mels, stream);
-}
-
-// wri and melw hold bf16-rounded values as float32; mel is bf16
-extern "C" int fused_mel_bf16(const void* audio, int audio_i16, const float* wri, const float* melw,
-                              void* mel, float* bmax, int B, int T, int K, int hop, int off,
-                              int nf, int bins_pad, int n_mels, void* stream)
-{
-    return launch_mel_any<kBF16>(audio, audio_i16, wri, melw, mel, bmax, B, T, K, hop, off, nf, bins_pad,
-                                 n_mels, stream);
+    return audio_i16
+        ? launch_mel<int16_t>(audio, wri, melw, mel, bmax, B, T, K, hop, off, nf, bins_pad, n_mels, stream)
+        : launch_mel<float>(audio, wri, melw, mel, bmax, B, T, K, hop, off, nf, bins_pad, n_mels, stream);
 }
 
 extern "C" int mfcc_tail_f32(const void* mel, int mel_bf16, const float* peak, const float* dct,

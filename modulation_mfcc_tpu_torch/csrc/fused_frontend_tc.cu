@@ -1,5 +1,5 @@
-// Fused MFCC frontend for Hopper (sm_90a) on the tensor cores: the x3, i16
-// and i24 modes, audio -> mel power. Plain C launchers, loaded with ctypes
+// Fused MFCC frontend for Hopper (sm_90a) on the tensor cores: the bf16, x3,
+// i16 and i24 modes, audio -> mel power. Plain C launchers, loaded with ctypes
 // (modulation_mfcc_tpu_torch/kernels/_build.py); each returns the
 // cudaError_t of its launch. No fast-math intrinsics.
 #include <cuda_bf16.h>
@@ -13,11 +13,11 @@ namespace {
 using namespace tc;
 
 // ---------------------------------------------------------------------------
-// fused_mel_x3, fused_mel_i16, fused_mel_i24
+// fused_mel_bf16, fused_mel_x3, fused_mel_i16, fused_mel_i24
 //
 // Replace the Pallas frontend kernels of modulation_mfcc_tpu/pallas/
-// fused_frontend.py (fused_mel_frontend -> _launch) with algorithm 'x3'
-// (_kernel and _kernel_pipe, _mxu's x3 branch), 'i16' (_kernel_i16 and
+// fused_frontend.py (fused_mel_frontend -> _launch) with algorithm 'bf16'
+// and 'x3' (_kernel and _kernel_pipe, _mxu's bf16 and x3 branches), 'i16' (_kernel_i16 and
 // _kernel_i16_pipe, _i16_digits and _i16_reim) and 'i24' (_kernel_i24 and
 // _kernel_i24_pipe, _i24_reim). The pipelined kernels compute their plain
 // kernels' numbers bit for bit, so one kernel serves each pair.
@@ -27,9 +27,16 @@ using namespace tc;
 // v * 2^-15, exact), the windowed DFT's re and im, power = re^2 + im^2
 // (FP32 products, then their sum), and mel = power @ melw in x3
 // arithmetic (power and melw split into bf16 hi and lo; hi.hi products in
-// one FP32 sum, hi.lo + lo.hi in another, added at the end); and per block
-// of 64 frames the maximum of mel over its valid frames.
+// one FP32 sum, hi.lo + lo.hi in another, added at the end; bf16: one
+// pass); and per block of 64 frames the maximum of mel over its valid
+// frames.
 //
+//   'bf16': frame samples rounded to bf16 here (__float2bfloat16_rn), the
+//          basis arrives rounded; one bf16 MMA a fragment, the MMAs of the
+//          400 rows chained into one FP32 sum; the power rounded to bf16,
+//          projected onto the bf16 mel weights in one pass (each 16-bin MMA
+//          added with FP32 adds), the mel stored as bf16 and the maxima
+//          taken over its FP32 values before that rounding (the TPU _emit).
 //   'x3':  the DFT in x3 arithmetic: frame samples split into bf16 (hi, lo)
 //          here (__float2bfloat16_rn), the basis arrives as (hi, lo) planes;
 //          hi.Whi in one FP32 sum, hi.Wlo + lo.Whi in another, re and im
@@ -61,16 +68,16 @@ using namespace tc;
 //
 // Bound: the tensor cores' operations. A 128 x 30 s batch at 16 kHz is 315
 // GFLOP per K-row pass of the DFT and 50 GFLOP per pass of the mel
-// projection; x3 runs three bf16 passes of each (989 TFLOP/s dense: 1.1
-// ms), i24 six int8 passes of the DFT (1,979 TOPS) and three bf16 of the
+// projection; bf16 runs one bf16 pass of each (989 TFLOP/s dense: 0.37 ms),
+// x3 three (1.1 ms), i24 six int8 passes of the DFT (1,979 TOPS) and three bf16 of the
 // mel (1.1 ms), i16 five int8 passes and the same mel (0.95 ms). The audio
 // read and the mel write are ~0.2 ms at 3.35 TB/s.
 //
 // Design: a block owns 64 consecutive frames of one utterance (8 warps).
 //  * The A operand (frames) never exists in device memory, nor as a frame
 //    tile in shared memory: the block stages its audio span once, already
-//    in the MMA's element type (x3: the bf16 hi and lo planes; i16, i24: the
-//    two or three int8 digit planes), and each thread loads its A fragments
+//    in the MMA's element type (bf16: one plane; x3: the bf16 hi and lo
+//    planes; i16, i24: the two or three int8 digit planes), and each thread loads its A fragments
 //    straight from it: frame f, column k is span[f*hop + k], so the 8 bytes
 //    a thread needs for a row are consecutive in the span. Where f*hop is
 //    not a multiple of those 8 bytes (the 10 kHz default's hop of 50), the
@@ -84,14 +91,17 @@ using namespace tc;
 //    mbarrier; one __syncthreads a chunk returns a stage to the ring.
 //  * A bin tile is kCols = 128 DFT columns (re and im of 64 bins). Warps
 //    tile it 2 (32 frames) x 4 (32 columns): a thread holds 2 x 4
-//    accumulator fragments per sum (x3: 2 sums, 64 registers; i16, i24: 3
-//    int32 sums, 96), so re and im of a bin are neighbours in one thread, which
-//    forms the power and its bf16 split, into a [64 x 64 bins] tile in
-//    shared memory. The tile's mel weights come in by bulk copy while its
-//    DFT runs, and the tile is projected onto them (tensor_core.cuh
-//    mel_x3_tile) into the block's mel, held in registers (64 a thread)
-//    over all tiles. One block of 8 warps per SM (registers and spills of
-//    each mode: chip_smoke.py phase 1).
+//    accumulator fragments per sum (bf16: 1 sum, 32 registers; x3: 2, 64;
+//    i16, i24: 3 int32 sums, 96), so re and im of a bin are neighbours in
+//    one thread, which forms the power (and its bf16 split) into a [64 x
+//    64 bins] tile in shared memory. The tile's mel weights come in by bulk
+//    copy while its DFT runs, and the tile is projected onto them
+//    (tensor_core.cuh mel_tile) into the block's mel, held in registers
+//    over all tiles (registers and spills of each mode: chip_smoke.py
+//    phase 1). x3, i16 and i24 take one block of 8 warps an SM; bf16, with
+//    one sum and a one-plane mel, fits in 128 registers and takes two,
+//    which beat 128-frame blocks of 64-frame warp tiles on the H100 (one
+//    block an SM, half the weight stream a frame).
 // Times on the H100: PERF.md §6 (chip_smoke.py phase 17). A narrower i24
 // warp tile (16 x 32, 48 accumulators) and per-warp release of the weight
 // stages through mbarriers, in place of the block barrier per chunk, were
@@ -99,7 +109,7 @@ using namespace tc;
 // shared memory) is the next step.
 // ---------------------------------------------------------------------------
 
-constexpr int kX3 = 0, kI16 = 1, kI24 = 2;
+constexpr int kX3 = 0, kI16 = 1, kI24 = 2, kBF16 = 3;
 constexpr int kChunkRows = 32;  // contraction rows a pipeline stage holds
 constexpr int kStages = 4;
 constexpr int kMT = 2;          // 16-frame MMA tiles a warp: warps 2 (frames) x 4 (columns)
@@ -110,29 +120,43 @@ constexpr int kTileBins = kCols / 2;
 template <int MODE> struct Mode;
 template <> struct Mode<kX3> {
     using T = __nv_bfloat16;               // element of the span planes and the basis
+    using Out = float;                     // element of the mel
     static constexpr int kSpanPlanes = 2;  // the samples' (hi, lo)
     static constexpr int kBasisPlanes = 2; // the basis' (hi, lo)
     static constexpr int kStep = 16;       // contraction rows per MMA
+    static constexpr int kMelPlanes = 2;   // the power's and the mel weights' (hi, lo)
 };
 template <> struct Mode<kI16> {
     using T = int8_t;
+    using Out = float;
     static constexpr int kSpanPlanes = 2;  // digits x1, x0
     static constexpr int kBasisPlanes = 3; // planes w2, w1, w0
     static constexpr int kStep = 32;
+    static constexpr int kMelPlanes = 2;
 };
 template <> struct Mode<kI24> {
     using T = int8_t;
+    using Out = float;
     static constexpr int kSpanPlanes = 3;  // digits x2, x1, x0
     static constexpr int kBasisPlanes = 3; // planes w2, w1, w0
     static constexpr int kStep = 32;
+    static constexpr int kMelPlanes = 2;
+};
+template <> struct Mode<kBF16> {
+    using T = __nv_bfloat16;
+    using Out = __nv_bfloat16;
+    static constexpr int kSpanPlanes = 1;  // the samples rounded to bf16
+    static constexpr int kBasisPlanes = 1;
+    static constexpr int kStep = 16;
+    static constexpr int kMelPlanes = 1;   // the power and the mel weights rounded to bf16
 };
 
 template <int MODE> constexpr int kAl = 8 / (int)sizeof(typename Mode<MODE>::T);  // elements per 8-byte load
 template <int MODE> constexpr int kChunkBytes =
     kChunkRows * kCols * Mode<MODE>::kBasisPlanes * (int)sizeof(typename Mode<MODE>::T);
-constexpr int kMelBytes = kTileBins * 2 * kMelCols * 2;  // a tile's mel weights, (hi, lo) bf16
+template <int MODE> constexpr int kMelBytes = kTileBins * Mode<MODE>::kMelPlanes * kMelCols * 2;  // a tile's mel weights
 constexpr int kPitch = kTileBins + 16;                   // power row: 8 mod 32 words, conflict-free
-constexpr int kPowerBytes = 2 * kBF * kPitch * 2;
+template <int MODE> constexpr int kPowerBytes = Mode<MODE>::kMelPlanes * kBF * kPitch * 2;
 
 static_assert(kMT * 16 * (kThreads / 32 / kWN) == kBF, "the warps cover the block's frames");
 
@@ -142,7 +166,10 @@ __device__ __forceinline__ float load_sample(const int16_t* x, long long s)
     return static_cast<float>(x[s]) * (1.0f / 32768.0f);  // exact
 }
 
-// the span planes' values of one sample
+// the span planes' values of one sample: bf16, its nearest bf16
+__device__ __forceinline__ void planes_of(float v, float, __nv_bfloat16 (&p)[1]) { p[0] = __float2bfloat16_rn(v); }
+
+// x3, its bf16 (hi, lo) split
 __device__ __forceinline__ void planes_of(float v, float, __nv_bfloat16 (&p)[2])
 {
     const __nv_bfloat16 hi = __float2bfloat16_rn(v);
@@ -197,6 +224,7 @@ struct Acc;  // the DFT sums of a thread
 template <> struct Acc<kX3> { float hh[kMT][4][4], sm[kMT][4][4]; };
 template <> struct Acc<kI16> { int d[3][kMT][4][4]; };
 template <> struct Acc<kI24> { int d[3][kMT][4][4]; };
+template <> struct Acc<kBF16> { float s[kMT][4][4]; };
 
 // one chunk (kChunkRows contraction rows from k0) of the tile's DFT
 template <int MODE>
@@ -229,7 +257,9 @@ __device__ __forceinline__ void dft_chunk(Acc<MODE>& acc, const typename Mode<MO
                     stage + ((j * M::kBasisPlanes + p) * kCols + col0 + 8 * nt) * M::kStep + kAl<MODE> * t);
 #pragma unroll
             for (int mt = 0; mt < kMT; ++mt) {
-                if constexpr (MODE == kX3) {
+                if constexpr (MODE == kBF16) {
+                    mma_bf16(acc.s[mt][nt], a[0][mt], w[0].x, w[0].y);
+                } else if constexpr (MODE == kX3) {
                     mma_bf16_add(acc.hh[mt][nt], a[0][mt], w[0].x, w[0].y);
                     mma_bf16(acc.sm[mt][nt], a[0][mt], w[1].x, w[1].y);
                     mma_bf16(acc.sm[mt][nt], a[1][mt], w[0].x, w[0].y);
@@ -256,18 +286,19 @@ template <int MODE, typename In>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* __restrict__ wtc,
                     const __nv_bfloat16* __restrict__ mtc, const float* __restrict__ sc,
-                    const float* __restrict__ corr, float* __restrict__ mel, float* __restrict__ bmax, int T, int Kp, int hop, int off,
+                    const float* __restrict__ corr, void* __restrict__ mel, float* __restrict__ bmax, int T, int Kp, int hop, int off,
                     int nf, int bins_pad, int n_mels, int span_pad, int n_copies, int shift_log2)
 {
     using M = Mode<MODE>;
     using E = typename M::T;
+    constexpr bool kFixed = MODE == kI16 || MODE == kI24;
     extern __shared__ __align__(128) unsigned char smem[];
     uint64_t* full = reinterpret_cast<uint64_t*>(smem);                 // [kStages] chunk barriers
     uint64_t* mel_bar = full + kStages;                                  // the tile's mel weights
     unsigned char* ring = smem + 128;                                    // kStages x kChunkBytes
-    auto* mel_w = reinterpret_cast<__nv_bfloat16*>(ring + kStages * kChunkBytes<MODE>);  // [steps][2][128][16]
-    auto* pw = reinterpret_cast<__nv_bfloat16*>(reinterpret_cast<unsigned char*>(mel_w) + kMelBytes);
-    E* span = reinterpret_cast<E*>(reinterpret_cast<unsigned char*>(pw) + kPowerBytes);
+    auto* mel_w = reinterpret_cast<__nv_bfloat16*>(ring + kStages * kChunkBytes<MODE>);  // [steps][planes][128][16]
+    auto* pw = reinterpret_cast<__nv_bfloat16*>(reinterpret_cast<unsigned char*>(mel_w) + kMelBytes<MODE>);
+    E* span = reinterpret_cast<E*>(reinterpret_cast<unsigned char*>(pw) + kPowerBytes<MODE>);
     __shared__ float red_s[kThreads / 32];
 
     const int tid = threadIdx.x;
@@ -277,16 +308,16 @@ fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* 
     const int b = blockIdx.y;
     const int f0 = blockIdx.x * kBF;
     const In* x = audio + (size_t)b * T;
-    const float s = MODE == kX3 ? 0.0f : sc[2 * b];
-    const float inv = MODE == kX3 ? 0.0f : sc[2 * b + 1];
+    const float s = kFixed ? sc[2 * b] : 0.0f;
+    const float inv = kFixed ? sc[2 * b + 1] : 0.0f;
     const int n_chunks = Kp / kChunkRows;
     const int n_tiles = 2 * bins_pad / kCols;
     const int total = n_tiles * n_chunks;
     const int span_plane = n_copies * span_pad;  // elements of one plane's copies
 
     if (tid == 0) {
-        for (int i = 0; i < kStages + 1; ++i) mbar_init(full + i, 1);
-        mbar_fence_init();
+        for (int i = 0; i < kStages + 1; ++i) mbar::init(full + i, 1);
+        mbar::fence_init();
     }
     // the span in the planes' element type: copy c holds span[i + c * 2^shift_log2]
     const long long start = (long long)f0 * hop + off;
@@ -333,7 +364,14 @@ fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* 
 
     for (int tile = 0; tile < n_tiles; ++tile) {
         Acc<MODE> acc;
-        if constexpr (MODE == kX3) {
+        if constexpr (MODE == kBF16) {
+#pragma unroll
+            for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+                for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) acc.s[mt][nt][i] = 0.0f;
+        } else if constexpr (MODE == kX3) {
 #pragma unroll
             for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
@@ -355,15 +393,16 @@ fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* 
             __syncthreads();  // every warp is done with chunk q - 1 (and, at chunk 0, the last tile's mel)
             if (tid == 0) {
                 if (q + kStages - 1 < total) issue(q + kStages - 1);
-                if (chunk == 0) bulk_load(mel_w, mtc + (size_t)tile * kMelBytes / 2, kMelBytes, mel_bar);
+                if (chunk == 0) bulk_load(mel_w, mtc + (size_t)tile * kMelBytes<MODE> / 2, kMelBytes<MODE>, mel_bar);
             }
-            mbar_wait(full + q % kStages, (q / kStages) & 1);
+            mbar::wait(full + q % kStages, (q / kStages) & 1);
             dft_chunk<MODE>(acc, span, span_plane, a_off,
                             reinterpret_cast<const E*>(ring + (q % kStages) * kChunkBytes<MODE>),
                             chunk * kChunkRows, col0, t);
         }
 
-        // power of each (frame, bin) this thread holds, split into bf16 (hi, lo).
+        // power of each (frame, bin) this thread holds, rounded to bf16 (x3, i16,
+        // i24: split into bf16 hi and lo).
         // The fragment's columns 2t and 2t + 1 of n-tile nt are the re and im
         // of the tile's bin 16 wn + 4 nt + t.
         float c_re[4], c_im[4];  // i16: those bins' offset corrections
@@ -382,7 +421,10 @@ fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* 
 #pragma unroll
                 for (int h = 0; h < 2; ++h) {
                     float re, im;
-                    if constexpr (MODE == kX3) {
+                    if constexpr (MODE == kBF16) {
+                        re = acc.s[mt][nt][2 * h];
+                        im = acc.s[mt][nt][2 * h + 1];
+                    } else if constexpr (MODE == kX3) {
                         re = acc.hh[mt][nt][2 * h] + acc.sm[mt][nt][2 * h];
                         im = acc.hh[mt][nt][2 * h + 1] + acc.sm[mt][nt][2 * h + 1];
                     } else if constexpr (MODE == kI16) {
@@ -399,23 +441,23 @@ fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* 
                     const __nv_bfloat16 hi = __float2bfloat16_rn(p);
                     const int o = (16 * kMT * wm + 16 * mt + 8 * h + g) * kPitch + 16 * wn + 4 * nt + t;
                     pw[o] = hi;
-                    pw[kBF * kPitch + o] = __float2bfloat16_rn(p - __bfloat162float(hi));
+                    if constexpr (M::kMelPlanes == 2) pw[kBF * kPitch + o] = __float2bfloat16_rn(p - __bfloat162float(hi));
                 }
         __syncthreads();  // the power tile is complete
-        mbar_wait(mel_bar, tile & 1);
-        mel_x3_tile<kTileBins / kMelStep>(mel_hh, mel_sm, pw, kPitch, mel_w, lane, warp);
+        mbar::wait(mel_bar, tile & 1);
+        mel_tile<kTileBins / kMelStep, M::kMelPlanes>(mel_hh, mel_sm, pw, kPitch, mel_w, lane, warp);
     }
-    write_mel(mel_hh, mel_sm, mel, bmax, red_s, b, f0, nf, n_mels, lane, warp);
+    write_mel(mel_hh, mel_sm, static_cast<typename M::Out*>(mel), bmax, red_s, b, f0, nf, n_mels, lane, warp);
 }
 
 template <int MODE>
 int launch_tc(const void* audio, int audio_i16, const void* wtc, const void* mtc, const float* sc,
-              const float* corr, float* mel, float* bmax, int B, int T, int Kp, int hop, int off, int nf,
+              const float* corr, void* mel, float* bmax, int B, int T, int Kp, int hop, int off, int nf,
               int bins_pad, int n_mels, void* stream)
 {
     constexpr int al = kAl<MODE>;
     if (B < 1 || T < 1 || nf < 1 || Kp < kChunkRows || Kp % kChunkRows || hop < 1 || n_mels < 1 ||
-        n_mels > kMelCols || bins_pad < kTileBins || bins_pad % kTileBins || (MODE != kX3 && !sc) ||
+        n_mels > kMelCols || bins_pad < kTileBins || bins_pad % kTileBins || ((MODE == kI16 || MODE == kI24) && !sc) ||
         (MODE == kI16 && !corr))
         return (int)cudaErrorInvalidValue;
     int shift_log2 = 0;  // log2 gcd(hop, al)
@@ -423,7 +465,7 @@ int launch_tc(const void* audio, int audio_i16, const void* wtc, const void* mtc
     const int n_copies = al >> shift_log2;
     const int span_pad = ((kBF - 1) * hop + Kp + 15) / 16 * 16;
     using E = typename Mode<MODE>::T;
-    const size_t smem = 128 + (size_t)kStages * kChunkBytes<MODE> + kMelBytes + kPowerBytes +
+    const size_t smem = 128 + (size_t)kStages * kChunkBytes<MODE> + kMelBytes<MODE> + kPowerBytes<MODE> +
                         (size_t)Mode<MODE>::kSpanPlanes * n_copies * span_pad * sizeof(E);
     const int n_blocks = (nf + kBF - 1) / kBF;
     cudaError_t err;
@@ -446,6 +488,18 @@ int launch_tc(const void* audio, int audio_i16, const void* wtc, const void* mtc
 }
 
 }  // namespace
+
+// wtc: the bf16-rounded basis, [2*bins_pad/128][Kp/16][1][128][16] (re and
+// im columns interleaved, rows past K zero); mtc: the bf16-rounded mel
+// weights, [bins_pad/16][1][128][16] (columns past n_mels zero); mel [B, nf,
+// n_mels] bf16, bmax [B, ceil(nf/64)]
+extern "C" int fused_mel_bf16(const void* audio, int audio_i16, const void* wtc, const void* mtc, void* mel,
+                              float* bmax, int B, int T, int Kp, int hop, int off, int nf, int bins_pad, int n_mels,
+                              void* stream)
+{
+    return launch_tc<kBF16>(audio, audio_i16, wtc, mtc, nullptr, nullptr, mel, bmax, B, T, Kp, hop, off, nf,
+                            bins_pad, n_mels, stream);
+}
 
 // wtc: the (hi, lo) basis planes, bf16 [2*bins_pad/128][Kp/16][2][128][16]
 // (re and im columns interleaved, rows past K zero); mtc: the mel weights'

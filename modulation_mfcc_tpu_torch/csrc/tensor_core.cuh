@@ -1,8 +1,9 @@
-// What the tensor-core frontend kernels (fused_frontend_tc.cu: fused_mel_x3,
-// fused_mel_i16, fused_mel_i24) share: the warp-level MMAs, the bulk copies
-// with their mbarriers, and the end of the frontend, the mel projection in
-// x3 arithmetic on the bf16 tensor cores and the write of a block's mel and
-// maximum. Included by that source only.
+// What the tensor-core frontend kernels (fused_frontend_tc.cu: fused_mel_bf16,
+// fused_mel_x3, fused_mel_i16, fused_mel_i24) share: the warp-level MMAs, the
+// bulk copies with their mbarriers, and the end of the frontend, the mel
+// projection on the bf16 tensor cores (one pass for bf16, x3 arithmetic for
+// the others) and the write of a block's mel and maxima. Included by that
+// source only.
 //
 // Fragments follow the PTX ISA's m16n8k16 (bf16) and m16n8k32 (int8)
 // layouts: lane = 4g + t, a thread holds rows g and g + 8 of A and column g
@@ -17,17 +18,16 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "mbarrier.cuh"
+
 namespace tc {
+
+using mbar::smem_u32;
 
 constexpr int kBF = 64;         // frames per block: one block maximum each
 constexpr int kThreads = 256;   // 8 warps
 constexpr int kMelCols = 128;   // mel columns a block computes (zero weights past n_mels)
 constexpr int kMelStep = 16;    // bins per k-step of the mel projection
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p)
-{
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // D += A·B, bf16 operands, FP32 accumulate (m16n8k16)
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1)
@@ -61,18 +61,6 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// a barrier whose phase completes after `count` arrivals (and the bytes they expect)
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count)
-{
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-
-__device__ __forceinline__ void mbar_fence_init()
-{
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
 // one thread: arrive on bar expecting `bytes`, and copy them global -> shared
 // with the bulk-copy engine (TMA without a tensor map: 16-byte aligned,
 // contiguous, a multiple of 16 bytes); the barrier's phase completes when
@@ -85,37 +73,18 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
                  ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
 }
 
-// wait until the phase of bar with this parity has completed; a wait of
-// more than 2^32 cycles (about 2 s) traps, so that a fault in the pipeline
-// fails the launch instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity)
-{
-    const long long start = clock64();
-    uint32_t done = 0;
-    while (true) {
-        asm volatile(
-            "{\n"
-            ".reg .pred p;\n"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            "selp.u32 %0, 1, 0, p;\n"
-            "}\n" : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-        if (done) return;
-        if (clock64() - start > (1ll << 32)) __trap();
-    }
-}
-
-// The mel projection of one bin tile in x3 arithmetic, accumulated into the
-// block's mel: p_s holds the tile's power split into bf16 (hi, lo), [2][kBF]
-// rows of `pitch` elements ([frame][bin], STEPS * 16 bins); m_s the mel
-// weights' (hi, lo) planes of those bins, [STEPS][2][kMelCols][16]. Warp w
-// owns frames 32 (w >> 2) .. + 31 and mel columns 32 (w & 3) .. + 31: 2 x 4
-// tiles of 16 x 8, the hi.hi products in hh (each 16-bin MMA added with
-// FP32 adds, mma_bf16_add), the hi.lo and lo.hi products in sm (two FP32
-// sums, added at the end, as the TPU mode sums its passes).
-template <int STEPS>
-__device__ __forceinline__ void mel_x3_tile(float (&hh)[2][4][4], float (&sm)[2][4][4],
-                                            const __nv_bfloat16* p_s, int pitch,
-                                            const __nv_bfloat16* m_s, int lane, int warp)
+// The mel projection of one bin tile, accumulated into the block's mel. p_s
+// holds the tile's power as PLANES bf16 planes (bf16: the rounded power;
+// x3: its (hi, lo) split) of kBF rows of `pitch` elements ([frame][bin],
+// STEPS * 16 bins); m_s the mel weights' planes of those bins,
+// [STEPS][PLANES][kMelCols][16]. Warp w owns frames 32 (w >> 2) .. + 31 and
+// mel columns 32 (w & 3) .. + 31: 2 x 4 tiles of 16 x 8. The hi.hi products
+// go to hh, each 16-bin MMA added with FP32 adds (mma_bf16_add); for x3 the
+// hi.lo and lo.hi products go to sm (two FP32 sums, added at the end, as the
+// TPU mode sums its passes).
+template <int STEPS, int PLANES>
+__device__ __forceinline__ void mel_tile(float (&hh)[2][4][4], float (&sm)[2][4][4], const __nv_bfloat16* p_s,
+                                         int pitch, const __nv_bfloat16* m_s, int lane, int warp)
 {
     const int g = lane >> 2, t = lane & 3;
     const int row0 = 32 * (warp >> 2) + g;
@@ -130,33 +99,62 @@ __device__ __forceinline__ void mel_x3_tile(float (&hh)[2][4][4], float (&sm)[2]
             for (int h = 0; h < 2; ++h) {
                 const int o = (row0 + 16 * mt + 8 * h) * pitch + kMelStep * j + 4 * t;
                 const uint2 vh = *reinterpret_cast<const uint2*>(p_s + o);
-                const uint2 vl = *reinterpret_cast<const uint2*>(p_lo + o);
                 ah[mt][h] = vh.x; ah[mt][2 + h] = vh.y;
-                al[mt][h] = vl.x; al[mt][2 + h] = vl.y;
+                if constexpr (PLANES == 2) {
+                    const uint2 vl = *reinterpret_cast<const uint2*>(p_lo + o);
+                    al[mt][h] = vl.x; al[mt][2 + h] = vl.y;
+                }
             }
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
-            const __nv_bfloat16* mb = m_s + ((2 * j) * kMelCols + col0 + 8 * nt) * kMelStep + 4 * t;
+            const __nv_bfloat16* mb = m_s + ((PLANES * j) * kMelCols + col0 + 8 * nt) * kMelStep + 4 * t;
             const uint2 bh = *reinterpret_cast<const uint2*>(mb);
-            const uint2 bl = *reinterpret_cast<const uint2*>(mb + kMelCols * kMelStep);
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-                mma_bf16_add(hh[mt][nt], ah[mt], bh.x, bh.y);
-                mma_bf16(sm[mt][nt], ah[mt], bl.x, bl.y);
-                mma_bf16(sm[mt][nt], al[mt], bh.x, bh.y);
+            for (int mt = 0; mt < 2; ++mt) mma_bf16_add(hh[mt][nt], ah[mt], bh.x, bh.y);
+            if constexpr (PLANES == 2) {
+                const uint2 bl = *reinterpret_cast<const uint2*>(mb + kMelCols * kMelStep);
+#pragma unroll
+                for (int mt = 0; mt < 2; ++mt) {
+                    mma_bf16(sm[mt][nt], ah[mt], bl.x, bl.y);
+                    mma_bf16(sm[mt][nt], al[mt], bh.x, bh.y);
+                }
             }
         }
     }
 }
 
+__device__ __forceinline__ void store_pair(float* p, float v0, float v1, bool)
+{
+    p[0] = v0;
+    p[1] = v1;
+}
+
+// two neighbouring mel entries rounded to bf16 (nearest even), as one 4-byte
+// store where p is aligned to it
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float v0, float v1, bool aligned)
+{
+    if (aligned) {
+        *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+    } else {
+        p[0] = __float2bfloat16_rn(v0);
+        p[1] = __float2bfloat16_rn(v1);
+    }
+}
+
+__device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_one(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
 // The end of a block: mel = hh + sm of its valid frames (< nf) and columns
-// (< n_mels) to mel [B, nf, n_mels], and their maximum to bmax[b,
-// blockIdx.x] (mel >= 0, so 0 is neutral). red_s: kThreads / 32 floats.
+// (< n_mels) to mel [B, nf, n_mels] (float32, or bf16 rounded to nearest
+// even), and their maximum, over the FP32 values, to bmax[b, blockIdx.x]
+// (mel >= 0, so 0 is neutral). red_s: kThreads / 32 floats.
+template <typename OutT>
 __device__ __forceinline__ void write_mel(const float (&hh)[2][4][4], const float (&sm)[2][4][4],
-                                          float* __restrict__ mel, float* __restrict__ bmax, float* red_s,
+                                          OutT* __restrict__ mel, float* __restrict__ bmax, float* red_s,
                                           int b, int f0, int nf, int n_mels, int lane, int warp)
 {
     const int g = lane >> 2, t = lane & 3;
+    const bool aligned = (n_mels & 1) == 0;
     float vmax = 0.0f;
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
@@ -164,18 +162,20 @@ __device__ __forceinline__ void write_mel(const float (&hh)[2][4][4], const floa
         for (int h = 0; h < 2; ++h) {
             const int f = f0 + 32 * (warp >> 2) + 16 * mt + 8 * h + g;
             if (f >= nf) continue;
-            float* row = mel + ((size_t)b * nf + f) * n_mels;
+            OutT* row = mel + ((size_t)b * nf + f) * n_mels;
 #pragma unroll
-            for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-                for (int i = 0; i < 2; ++i) {
-                    const int m = 32 * (warp & 3) + 8 * nt + 2 * t + i;
-                    if (m < n_mels) {
-                        const float v = hh[mt][nt][2 * h + i] + sm[mt][nt][2 * h + i];
-                        row[m] = v;
-                        vmax = fmaxf(vmax, v);
-                    }
+            for (int nt = 0; nt < 4; ++nt) {
+                const int m = 32 * (warp & 3) + 8 * nt + 2 * t;
+                const float v0 = hh[mt][nt][2 * h] + sm[mt][nt][2 * h];
+                const float v1 = hh[mt][nt][2 * h + 1] + sm[mt][nt][2 * h + 1];
+                if (m + 1 < n_mels) {
+                    store_pair(row + m, v0, v1, aligned);
+                    vmax = fmaxf(vmax, fmaxf(v0, v1));
+                } else if (m < n_mels) {
+                    store_one(row + m, v0);
+                    vmax = fmaxf(vmax, v0);
                 }
+            }
         }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) vmax = fmaxf(vmax, __shfl_xor_sync(0xffffffffu, vmax, o));

@@ -6,7 +6,10 @@
 // in kernels/viterbi.py.
 #include <cuda_runtime.h>
 #include <climits>
+#include <cstdint>
 #include <math.h>
+
+#include "mbarrier.cuh"
 
 namespace {
 
@@ -17,6 +20,7 @@ constexpr int kSmemLimit = 232448; // bytes of shared memory a block may opt in 
 constexpr int kMaxRegBand = 64;    // the widest band (2h + 1 sources) a thread holds in registers,
 constexpr int kMaxRegThreads = 512; // in a block of at most this many threads (128 registers each)
 constexpr int kAhead = 4;          // rows of log_obs in flight ahead of the step that adds them
+constexpr int kSlots = 8;          // history rows a backtrace block holds ready ahead of its chain
 constexpr unsigned kFull = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
@@ -265,122 +269,263 @@ cudaError_t launch_fwd(const float* log_obs, const float* delta0, const float* l
 // viterbi_decode_pallas -> _bwd_kernel and viterbi_decode_batched ->
 // _bwd_kernel_b.
 //
-// For utterance b (one warp): path[NF-1] = first argmax of delta_f[b]; then
-// for t = NF-2 .. 0, with nxt = path[t+1], d = hist[b, t], pos = nxt mod n:
+// For utterance b (one block): path[NF-1] = first argmax of delta_f[b];
+// then for t = NF-2 .. 0, with nxt = path[t+1], d = hist[b, t], pos = nxt
+// mod n:
 //   (a, c) = nxt < n ? (c_stay, c_sw) : (c_sw, c_stay)
 //   score[u] = max(d[u] + a, d[n+u] + c) + log_tri[u, pos]
 //   base     = first argmax of score (the lower index wins equal values)
 //   path[t]  = base + n * (d[n+base] + c > d[base] + a)   (voiced wins ties)
 //
+// The band. The wrapper passes the forward's (h, C): every entry of log_tri
+// farther than h from the diagonal equals C, and none lies below it. So a
+// score is fl(m[u] + log_tri[u, pos]) with the entry read from the band
+// where |u - pos| <= h, and fl(m[u] + C) elsewhere, the same float as the
+// matrix entry: the same bits. The first argmax is taken over the union of
+// two sets of candidates: fl(m[u] + C) for every source u, and the in-band
+// scores. A source's C candidate is at most its true score (log_tri >= C,
+// and FP32 addition is monotone), so the union's maximum is the scores'
+// maximum, reached by the same sources, and the lower index wins in both.
+// The C candidates cannot be cut to the argmax of m: distinct m round to
+// equal sums fl(m + C), and then the first of them wins.
+//
 // Bound: the one read of the history (277 MB at 32 x 30 s of 16 kHz audio),
 // 0.08 ms at 3.35 TB/s. The steps depend on each other through pos, so the
-// kernel is bound by latency instead: each step waits for one row of log_tri
-// from L2 and a five-step shuffle reduction.
+// kernel is bound by the latency of a step instead.
 //
-// Design: lane l holds sources l, l+32, ... in registers (KP of them), and
-// the history row of the next step is loaded while this step reduces, so only
-// the read of log_tri[:, pos] (given transposed: one contiguous row) waits on
-// the previous step. The (value, index, source block) triple is reduced by
-// xor shuffles under the order (value descending, index ascending), which is
-// jnp.argmax's first-maximum rule.
+// Design: a block of four warps per utterance, each on its own scheduler.
+// Everything but the in-band scores is independent of the path, so three
+// producer warps do it ahead of the chain, each on every third history row
+// (loaded two of its rows ahead): m and sel of every source for both cases
+// (next state voiced or not) into a ring of kSlots rows in shared memory as
+// (m, sel) pairs, and the first maximum of the C candidates of each case.
+// The chain warp then takes a step in the 2h + 1 band entries at pos (pyin:
+// 43, at most two a lane, read without branches): one 8-byte load of (m,
+// sel) and one of the band per slot, the warp's first maximum (two
+// redux.sync: the largest order-preserving key, -0 keyed as +0 because the
+// rule compares with ==, then the least 2u + sel holding it), and the
+// comparison with the producers' C candidate. The band is staged once from
+// log_tri as [pos][2h + 1] (entry (pos - h + j, pos) at j, C past the
+// matrix's edges). Each ring slot has two mbarriers: full (the producer's 32
+// lanes arrive) and empty (the chain warp's). Where the band does not fit
+// in shared memory beside the ring (a dense transition, h = n - 1), the
+// chain reads row pos of the transposed log_tri from L2 and scores every
+// source as in-band: no C candidates. Times on the H100: PERF.md §6
+// (chip_smoke.py phase 13).
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void first_max(float& val, int& idx, int& sel)
+constexpr int kProducers = 3;                   // warps that prepare the history rows
+constexpr int kBwdThreads = 32 * (1 + kProducers);
+enum BwdLayout { kBandPairs, kBandLoop, kDense };  // band of <= 64 entries, a wider band, log_tri^T from L2
+
+// bytes of dynamic shared memory: two mbarriers and 8 words of C candidates
+// a slot, the ring of (m, sel) pairs (both cases), and the band where it is
+// staged
+constexpr size_t bwd_smem_bytes(int n, int h, bool banded)
 {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(kFull, val, off);
-        const int oi = __shfl_xor_sync(kFull, idx, off);
-        const int os = __shfl_xor_sync(kFull, sel, off);
-        if (ov > val || (ov == val && oi < idx)) {
-            val = ov;
-            idx = oi;
-            sel = os;
-        }
+    return (size_t)kSlots * (16 + 32 + 16 * (size_t)n) + (banded ? sizeof(float) * n * (2 * h + 1) : 0);
+}
+
+// the first maximum of a warp's candidates (val, idx): the largest value,
+// and the lowest index among those holding it (-0 equal to +0), with its
+// sel. A lane without a candidate holds idx INT_MAX.
+struct Best {
+    float val;
+    int idx, sel;
+};
+
+__device__ __forceinline__ Best warp_first_max(float val, int idx, int sel)
+{
+    const int key = idx == INT_MAX ? INT_MIN : ordered_key(__fadd_rn(val, 0.0f));  // -0 + 0 = +0
+    const int top = __reduce_max_sync(kFull, key);
+    const int first = __reduce_min_sync(kFull, key == top ? 2 * idx + sel : INT_MAX);
+    return {key_value(top), first >> 1, first & 1};
+}
+
+// a lane's candidate (s, u, sel) against its best so far
+__device__ __forceinline__ void keep_first_max(float& val, int& idx, int& sel, float s, int u, int sl)
+{
+    if (s > val || (s == val && u < idx)) {
+        val = s;
+        idx = u;
+        sel = sl;
     }
 }
 
 template <int KP>
-__global__ void __launch_bounds__(32)
-viterbi_bwd_f32_kernel(const float* __restrict__ hist, const float* __restrict__ delta_f,
-                       const float* __restrict__ log_tri_t, int* __restrict__ path,
-                       int nf, int n, float c_stay, float c_sw)
+__device__ __forceinline__ void load_row(float (&dv)[KP], float (&du)[KP], const float* row, bool valid, int n,
+                                         int lane)
 {
-    const int b = blockIdx.x, lane = threadIdx.x;
-    const int two_n = 2 * n;
-    const float* hb = hist + (size_t)b * (nf - 1) * two_n;
+#pragma unroll
+    for (int k = 0; k < KP; ++k) {
+        const int u = lane + 32 * k;
+        dv[k] = valid && u < n ? __ldg(row + u) : 0.0f;
+        du[k] = valid && u < n ? __ldg(row + n + u) : 0.0f;
+    }
+}
+
+template <int KP, int LAYOUT>
+__global__ void __launch_bounds__(kBwdThreads)
+viterbi_bwd_f32_kernel(const float* __restrict__ hist, const float* __restrict__ delta_f,
+                       const float* __restrict__ log_tri, const float* __restrict__ log_tri_t,
+                       int* __restrict__ path, int nf, int n, int h, float floor_c, float c_stay, float c_sw)
+{
+    constexpr bool kBanded = LAYOUT != kDense;
+    extern __shared__ __align__(16) unsigned char smem_b[];
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem_b);                 // [kSlots]
+    uint64_t* empty = full + kSlots;                                      // [kSlots]
+    int4* cands = reinterpret_cast<int4*>(empty + kSlots);                // [kSlots][2]: (val, idx, sel) of each case
+    float2* ring = reinterpret_cast<float2*>(cands + 2 * kSlots);         // [kSlots][2][n]: (m, sel) of each case
+    float* band = reinterpret_cast<float*>(ring + (size_t)kSlots * 2 * n);  // [n][width]
+    const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int width = 2 * h + 1, steps = nf - 1;
+    const float* hb = hist + (size_t)b * steps * 2 * n;
     int* pb = path + (size_t)b * nf;
 
-    // last state: first argmax of delta_f over all 2n states
-    const float* df = delta_f + (size_t)b * two_n;
+    if (tid == 0) {
+        for (int i = 0; i < kSlots; ++i) {
+            mbar::init(full + i, 32);
+            mbar::init(empty + i, 32);
+        }
+        mbar::fence_init();
+    }
+    if constexpr (kBanded) {
+        for (int i = tid; i < n * width; i += kBwdThreads) band[i] = floor_c;
+        __syncthreads();
+        // entry (u, pos = u - h + k): consecutive threads read consecutive pos of row u
+#pragma unroll 4
+        for (int i = tid; i < n * width; i += kBwdThreads) {
+            const int u = i / width, k = i - u * width, pos = u - h + k;
+            if (pos >= 0 && pos < n) band[pos * width + 2 * h - k] = log_tri[(size_t)u * n + pos];
+        }
+    }
+    __syncthreads();
+
+    if (warp > 0) {
+        // a producer: steps s = warp - 1, + kProducers, ...; step s reads history row nf - 2 - s
+        float av[KP], au[KP], bv[KP], bu[KP], cv[KP], cu[KP];
+        const int s0 = warp - 1;
+        load_row(av, au, hb + (size_t)(steps - 1 - s0) * 2 * n, s0 < steps, n, lane);
+        load_row(bv, bu, hb + (size_t)(steps - 1 - s0 - kProducers) * 2 * n, s0 + kProducers < steps, n, lane);
+        for (int s = s0; s < steps; s += kProducers) {
+            const int ahead = s + 2 * kProducers;
+            load_row(cv, cu, hb + (size_t)(steps - 1 - ahead) * 2 * n, ahead < steps, n, lane);
+            const int slot = s % kSlots, use = s / kSlots;
+            if (use > 0) mbar::wait(empty + slot, (use - 1) & 1);
+            float2* mrow = ring + (size_t)slot * 2 * n;
+            float v0 = -INFINITY, v1 = -INFINITY;
+            int i0 = INT_MAX, i1 = INT_MAX, e0 = 0, e1 = 0;
+#pragma unroll
+            for (int k = 0; k < KP; ++k) {
+                const int u = lane + 32 * k;
+                if (u < n) {
+                    const float fv = av[k] + c_stay, fu = au[k] + c_sw;  // next state voiced: (a, c) = (c_stay, c_sw)
+                    const float gv = av[k] + c_sw, gu = au[k] + c_stay;  // unvoiced: (c_sw, c_stay)
+                    const float m0 = fmaxf(fv, fu), m1 = fmaxf(gv, gu);
+                    const int s0_ = fu > fv, s1_ = gu > gv;
+                    mrow[u] = make_float2(m0, __int_as_float(s0_));
+                    mrow[n + u] = make_float2(m1, __int_as_float(s1_));
+                    if constexpr (kBanded) {
+                        keep_first_max(v0, i0, e0, m0 + floor_c, u, s0_);
+                        keep_first_max(v1, i1, e1, m1 + floor_c, u, s1_);
+                    }
+                }
+            }
+            if constexpr (kBanded) {
+                const Best c0 = warp_first_max(v0, i0, e0), c1 = warp_first_max(v1, i1, e1);
+                if (lane == 0) {
+                    cands[2 * slot] = make_int4(__float_as_int(c0.val), c0.idx, c0.sel, 0);
+                    cands[2 * slot + 1] = make_int4(__float_as_int(c1.val), c1.idx, c1.sel, 0);
+                }
+            }
+            mbar::arrive(full + slot);
+#pragma unroll
+            for (int k = 0; k < KP; ++k) {
+                av[k] = bv[k]; au[k] = bu[k];
+                bv[k] = cv[k]; bu[k] = cu[k];
+            }
+        }
+        return;
+    }
+
+    // the chain warp. Last state: first argmax of delta_f over all 2n states
+    const float* df = delta_f + (size_t)b * 2 * n;
     float best = -INFINITY;
     int bi = INT_MAX, unused = 0;
-    for (int i = lane; i < two_n; i += 32) {
-        const float x = df[i];
-        if (x > best || bi == INT_MAX) {
-            best = x;
-            bi = i;
-        }
-    }
-    first_max(best, bi, unused);
-    int nxt = bi;
+    for (int i = lane; i < 2 * n; i += 32) keep_first_max(best, bi, unused, df[i], i, 0);
+    int nxt = warp_first_max(best, bi, 0).idx;
     if (lane == 0) pb[nf - 1] = nxt;
-
-    float cur_v[KP], cur_u[KP];
-    if (nf >= 2) {
-        const float* row = hb + (size_t)(nf - 2) * two_n;
-#pragma unroll
-        for (int k = 0; k < KP; ++k) {
-            const int u = lane + 32 * k;
-            cur_v[k] = u < n ? row[u] : 0.0f;
-            cur_u[k] = u < n ? row[n + u] : 0.0f;
-        }
-    }
-    for (int t = nf - 2; t >= 0; --t) {
-        float nxt_v[KP], nxt_u[KP];
-        const float* prow = hb + (size_t)(t > 0 ? t - 1 : 0) * two_n;
-#pragma unroll
-        for (int k = 0; k < KP; ++k) {
-            const int u = lane + 32 * k;
-            nxt_v[k] = (t > 0 && u < n) ? prow[u] : 0.0f;
-            nxt_u[k] = (t > 0 && u < n) ? prow[n + u] : 0.0f;
-        }
-
+    int mine = 0;  // lane l keeps the state of step 32 q + l until the warp stores the 32 together
+    for (int s = 0; s < steps; ++s) {
+        const int slot = s % kSlots, use = s / kSlots;
+        mbar::wait(full + slot, use & 1);
         const bool voiced = nxt < n;
         const int pos = voiced ? nxt : nxt - n;
-        const float a = voiced ? c_stay : c_sw, c = voiced ? c_sw : c_stay;
-        const float* col = log_tri_t + (size_t)pos * n;
+        const float2* mc = ring + (size_t)slot * 2 * n + (voiced ? 0 : n);
+        const int4 cand = cands[2 * slot + (voiced ? 0 : 1)];
         float val = -INFINITY;
         int idx = INT_MAX, sel = 0;
+        if constexpr (LAYOUT == kBandPairs) {
+            const float* col = band + pos * width;
 #pragma unroll
-        for (int k = 0; k < KP; ++k) {
-            const int u = lane + 32 * k;
-            if (u < n) {
-                const float from_v = cur_v[k] + a, from_u = cur_u[k] + c;
-                const float score = fmaxf(from_v, from_u) + col[u];
-                if (score > val || idx == INT_MAX) {
-                    val = score;
-                    idx = u;
-                    sel = from_u > from_v;
+            for (int q = 0; q < 2; ++q) {
+                const int j = lane + 32 * q, u = pos - h + j;
+                const bool ok = j < width && u >= 0 && u < n;
+                const float2 ms = mc[ok ? u : pos];
+                const float w = col[ok ? j : h];
+                if (ok) keep_first_max(val, idx, sel, ms.x + w, u, __float_as_int(ms.y));
+            }
+        } else if constexpr (LAYOUT == kBandLoop) {
+            const float* col = band + pos * width;
+            for (int j = lane; j < width; j += 32) {
+                const int u = pos - h + j;
+                if (u >= 0 && u < n) {
+                    const float2 ms = mc[u];
+                    keep_first_max(val, idx, sel, ms.x + col[j], u, __float_as_int(ms.y));
+                }
+            }
+        } else {
+            const float* col = log_tri_t + (size_t)pos * n;
+#pragma unroll
+            for (int k = 0; k < KP; ++k) {
+                const int u = lane + 32 * k;
+                if (u < n) {
+                    const float2 ms = mc[u];
+                    keep_first_max(val, idx, sel, ms.x + __ldg(col + u), u, __float_as_int(ms.y));
                 }
             }
         }
-        first_max(val, idx, sel);
-        nxt = idx + n * sel;
-        if (lane == 0) pb[t] = nxt;
-#pragma unroll
-        for (int k = 0; k < KP; ++k) {
-            cur_v[k] = nxt_v[k];
-            cur_u[k] = nxt_u[k];
+        Best in = warp_first_max(val, idx, sel);
+        if constexpr (kBanded) {
+            const float cv = __int_as_float(cand.x);
+            if (cv > in.val || (cv == in.val && cand.y < in.idx)) {
+                in.idx = cand.y;
+                in.sel = cand.z;
+            }
+        }
+        mbar::arrive(empty + slot);
+        nxt = in.idx + n * in.sel;
+        mine = lane == (s & 31) ? nxt : mine;
+        if ((s & 31) == 31 || s == steps - 1) {
+            const int s_lane = (s & ~31) + lane;  // the step whose state this lane holds
+            if (s_lane <= s) pb[nf - 2 - s_lane] = mine;
         }
     }
 }
 
 template <int KP>
-cudaError_t launch_bwd(const float* hist, const float* delta_f, const float* log_tri_t, int* path,
-                       int nb, int nf, int n, float c_stay, float c_sw, cudaStream_t stream)
+cudaError_t launch_bwd(const float* hist, const float* delta_f, const float* log_tri, const float* log_tri_t,
+                       int* path, int nb, int nf, int n, int h, float floor_c, float c_stay, float c_sw,
+                       bool banded, cudaStream_t stream)
 {
-    viterbi_bwd_f32_kernel<KP><<<nb, 32, 0, stream>>>(hist, delta_f, log_tri_t, path, nf, n, c_stay, c_sw);
+    const size_t smem = bwd_smem_bytes(n, h, banded);
+    auto kernel = !banded ? viterbi_bwd_f32_kernel<KP, kDense>
+                          : 2 * h + 1 <= 64 ? viterbi_bwd_f32_kernel<KP, kBandPairs>
+                                            : viterbi_bwd_f32_kernel<KP, kBandLoop>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<nb, kBwdThreads, smem, stream>>>(hist, delta_f, log_tri, log_tri_t, path, nf, n, h, floor_c, c_stay,
+                                              c_sw);
     return cudaGetLastError();
 }
 
@@ -416,21 +561,30 @@ extern "C" int viterbi_fwd_f32(const float* log_obs, const float* delta0, const 
     return (int)err;
 }
 
-extern "C" int viterbi_bwd_f32(const float* hist, const float* delta_f, const float* log_tri_t,
-                               int* path, int nb, int nf, int n, float c_stay, float c_sw,
-                               void* stream)
+// (h, floor_c): the band of log_tri, as for viterbi_fwd_f32. The layout: the
+// band staged in shared memory when it fits beside the ring of (m, sel) rows;
+// else log_tri_t (log_tri transposed, row v = log_tri[:, v]) read from L2,
+// and log_tri_t may be null otherwise. kernels/viterbi.py backtrace_layout
+// mirrors the rule.
+extern "C" int viterbi_bwd_f32(const float* hist, const float* delta_f, const float* log_tri,
+                               const float* log_tri_t, int* path, int nb, int nf, int n, int h, float floor_c,
+                               float c_stay, float c_sw, void* stream)
 {
-    if (nb < 1 || nf < 1 || n < 1 || n > kMaxBins) return (int)cudaErrorInvalidValue;
+    if (nb < 1 || nf < 1 || n < 1 || n > kMaxBins || h < 0 || h >= n) return (int)cudaErrorInvalidValue;
+    const bool banded = bwd_smem_bytes(n, h, true) <= (size_t)kSmemLimit;
+    if (!banded && !log_tri_t) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     const int kp = (n + 31) / 32;
     cudaError_t err;
-    if (kp <= 1) err = launch_bwd<1>(hist, delta_f, log_tri_t, path, nb, nf, n, c_stay, c_sw, s);
-    else if (kp <= 2) err = launch_bwd<2>(hist, delta_f, log_tri_t, path, nb, nf, n, c_stay, c_sw, s);
-    else if (kp <= 4) err = launch_bwd<4>(hist, delta_f, log_tri_t, path, nb, nf, n, c_stay, c_sw, s);
-    else if (kp <= 8) err = launch_bwd<8>(hist, delta_f, log_tri_t, path, nb, nf, n, c_stay, c_sw, s);
-    else if (kp <= 12) err = launch_bwd<12>(hist, delta_f, log_tri_t, path, nb, nf, n, c_stay, c_sw, s);
-    else if (kp <= 16) err = launch_bwd<16>(hist, delta_f, log_tri_t, path, nb, nf, n, c_stay, c_sw, s);
-    else if (kp <= 24) err = launch_bwd<24>(hist, delta_f, log_tri_t, path, nb, nf, n, c_stay, c_sw, s);
-    else err = launch_bwd<32>(hist, delta_f, log_tri_t, path, nb, nf, n, c_stay, c_sw, s);
+#define VITERBI_BWD(KP) launch_bwd<KP>(hist, delta_f, log_tri, log_tri_t, path, nb, nf, n, h, floor_c, c_stay, c_sw, banded, s)
+    if (kp <= 1) err = VITERBI_BWD(1);
+    else if (kp <= 2) err = VITERBI_BWD(2);
+    else if (kp <= 4) err = VITERBI_BWD(4);
+    else if (kp <= 8) err = VITERBI_BWD(8);
+    else if (kp <= 12) err = VITERBI_BWD(12);
+    else if (kp <= 16) err = VITERBI_BWD(16);
+    else if (kp <= 24) err = VITERBI_BWD(24);
+    else err = VITERBI_BWD(32);
+#undef VITERBI_BWD
     return (int)err;
 }

@@ -3,7 +3,7 @@
 Hand-written kernels carry the MFCC stage on the GPU, one frontend kernel
 per arithmetic mode of the JAX frontend and one tail kernel:
 
-  * ``fused_mel_f32``, ``fused_mel_bf16`` (csrc/fused_frontend.cu), and
+  * ``fused_mel_f32`` (csrc/fused_frontend.cu), and ``fused_mel_bf16``,
     ``fused_mel_x3``, ``fused_mel_i16``, ``fused_mel_i24``
     (csrc/fused_frontend_tc.cu, on the tensor cores), all behind
     :func:`fused_mel_frontend`,
@@ -18,8 +18,9 @@ per arithmetic mode of the JAX frontend and one tail kernel:
     top_db clip:
 
       - 'f32': FP32 FFMA, the DFT summed in 16-row steps;
-      - 'bf16': operands rounded to bf16, products accumulated in f32; mel
-        stored as bf16 (the corpus throughput mode);
+      - 'bf16': operands rounded to bf16, products accumulated in f32 as
+        bf16 tensor-core MMAs; mel stored as bf16 (the corpus throughput
+        mode);
       - 'x3': each operand split into bf16 (hi, lo), three products
         hi·Whi + hi·Wlo + lo·Whi per term, for the DFT and the mel, as
         bf16 tensor-core MMAs;
@@ -95,9 +96,10 @@ _BIN_TILE = 128    # bins_pad must be a multiple (kBT)
 _MEL_MAX = 128     # kMelMax
 _MFCC_MAX = 32     # kMfccMax
 _KC = 16           # contraction rows per step of the f32 kernels (kKC in fused_frontend_common.cuh)
-TC_ALGORITHMS = ("x3", "i16", "i24")          # the modes of the tensor-core kernels (fused_frontend_tc.cu)
+TC_ALGORITHMS = ("bf16", "x3", "i16", "i24")  # the modes of the tensor-core kernels (fused_frontend_tc.cu)
 _TC_COLS = 128                                # DFT columns per tile (kCols): re and im of 64 bins
-_TC_STEP = {"x3": 16, "i16": 32, "i24": 32}   # contraction rows per MMA (Mode::kStep)
+_TC_STEP = {"bf16": 16, "x3": 16, "i16": 32, "i24": 32}  # contraction rows per MMA (Mode::kStep)
+_TC_BF16 = ("bf16", "x3")                     # the modes whose basis is bf16 (int8 for the others)
 _TC_CHUNK = 32                      # contraction rows per pipeline stage (kChunkRows)
 _MEL_STEP = 16                      # bins per MMA of the mel projection (kMelStep)
 ROWS_BLKF = 1024   # the JAX frontend's default frame block, which sizes a hop-rows batch
@@ -237,7 +239,7 @@ def mode_weights(
 def mode_tensors(algorithm: str, device, sr: float, n_fft: int = 512, win_length: int | None = None,
                  n_mels: int = 128, fmin: float = 100.0, fmax: float | None = None) -> dict[str, torch.Tensor]:
     """:func:`mode_weights` as tensors on ``device``, with the tensor-core
-    kernels' layouts of them (:func:`tc_layouts`) for 'x3', 'i16' and 'i24'."""
+    kernels' layouts of them (:func:`tc_layouts`) for :data:`TC_ALGORITHMS`."""
     w = mode_weights(algorithm, sr, n_fft, win_length, n_mels, fmin, fmax)
     t = {k: torch.as_tensor(v, device=device) for k, v in w.items()}
     return t | tc_layouts(algorithm, t)
@@ -251,51 +253,60 @@ def _interleave(w: torch.Tensor) -> torch.Tensor:
 
 def pack_tc_basis(algorithm: str, w: torch.Tensor) -> torch.Tensor:
     """The tensor-core kernels' basis layout of the mode's planes ``w``
-    [P, K, 2·bins_pad] (x3: ``wri``, the (hi, lo) bf16 splits held as
-    float32; i16, i24: ``planes``, int8 w2, w1, w0): columns interleaved
-    re/im, K zero-padded to Kp, a multiple of 32, then [tiles, Kp/step, P,
-    128, step] with 128 interleaved columns a tile and step = 16 (x3) or 32
-    (i16, i24) rows an MMA, so one 32-row chunk of a tile is contiguous;
-    bf16 for x3 (exact: the planes are bf16 values), int8 for i16 and i24."""
+    [P, K, 2·bins_pad] (bf16: ``wri[None]``, the bf16-rounded basis held as
+    float32; x3: ``wri``, its (hi, lo) bf16 splits; i16, i24: ``planes``,
+    int8 w2, w1, w0): columns interleaved re/im, K zero-padded to Kp, a
+    multiple of 32, then [tiles, Kp/step, P, 128, step] with 128 interleaved
+    columns a tile and step = 16 (bf16, x3) or 32 (i16, i24) rows an MMA, so
+    one 32-row chunk of a tile is contiguous; bf16 for bf16 and x3 (exact:
+    the planes are bf16 values), int8 for i16 and i24."""
     cols, step = _TC_COLS, _TC_STEP[algorithm]
     p, k, c = w.shape
     kp = round_up_to_multiple(k, _TC_CHUNK)
     x = tnf.pad(_interleave(w), (0, 0, 0, kp - k)).reshape(p, kp // step, step, c // cols, cols)
-    return x.permute(3, 1, 0, 4, 2).contiguous().to(torch.bfloat16 if algorithm == "x3" else torch.int8)
+    return x.permute(3, 1, 0, 4, 2).contiguous().to(torch.bfloat16 if algorithm in _TC_BF16 else torch.int8)
 
 
 def unpack_tc_basis(algorithm: str, packed: torch.Tensor, k: int) -> torch.Tensor:
-    """Inverse of :func:`pack_tc_basis`: [P, K, 2·bins_pad], float32 for x3."""
+    """Inverse of :func:`pack_tc_basis`: [P, K, 2·bins_pad], float32 for bf16 and x3."""
     tiles, ks, p, cols, step = packed.shape
     x = packed.permute(2, 1, 4, 0, 3).reshape(p, ks * step, tiles * cols)[:, :k]
     x = torch.cat([x[..., 0::2], x[..., 1::2]], dim=-1)
-    return x.to(torch.float32) if algorithm == "x3" else x
+    return x.to(torch.float32) if algorithm in _TC_BF16 else x
 
 
 def pack_tc_mel(melw: torch.Tensor) -> torch.Tensor:
-    """The tensor-core kernels' mel layout of the x3 stack ``melw`` [2,
-    bins_pad, n_mels]: mel columns zero-padded to 128, then [bins_pad/16, 2,
-    128, 16] bf16 (16 bins a step, each column's 16 bins contiguous)."""
-    _, bins, n = melw.shape
-    x = tnf.pad(melw, (0, _MEL_MAX - n)).reshape(2, bins // _MEL_STEP, _MEL_STEP, _MEL_MAX)
+    """The tensor-core kernels' mel layout of the mel weights' P bf16 planes
+    ``melw`` [P, bins_pad, n_mels] (bf16: one, the rounded weights; the
+    others: the x3 stack's (hi, lo)): mel columns zero-padded to 128, then
+    [bins_pad/16, P, 128, 16] bf16 (16 bins a step, each column's 16 bins
+    contiguous)."""
+    p, bins, n = melw.shape
+    x = tnf.pad(melw, (0, _MEL_MAX - n)).reshape(p, bins // _MEL_STEP, _MEL_STEP, _MEL_MAX)
     return x.permute(1, 0, 3, 2).contiguous().to(torch.bfloat16)
 
 
 def unpack_tc_mel(packed: torch.Tensor, n_mels: int) -> torch.Tensor:
-    """Inverse of :func:`pack_tc_mel`: [2, bins_pad, n_mels] float32."""
-    steps, _, cols, step = packed.shape
-    return packed.permute(1, 0, 3, 2).reshape(2, steps * step, cols)[..., :n_mels].to(torch.float32)
+    """Inverse of :func:`pack_tc_mel`: [P, bins_pad, n_mels] float32."""
+    steps, p, cols, step = packed.shape
+    return packed.permute(1, 0, 3, 2).reshape(p, steps * step, cols)[..., :n_mels].to(torch.float32)
+
+
+def _planes(w: torch.Tensor) -> torch.Tensor:
+    """A mode's weights as a stack of planes: bf16's single matrix gains a plane axis."""
+    return w if w.ndim == 3 else w[None]
 
 
 def tc_layouts(algorithm: str, weights: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     """For :data:`TC_ALGORITHMS`, the tensor-core kernels' layouts of the
-    mode's weights on their device: ``wri_tc`` (x3) or ``planes_tc`` (i16,
-    i24) from :func:`pack_tc_basis`, and ``melw_tc`` from
+    mode's weights on their device: ``wri_tc`` (bf16, x3) or ``planes_tc``
+    (i16, i24) from :func:`pack_tc_basis`, and ``melw_tc`` from
     :func:`pack_tc_mel`; empty for the other modes."""
     if algorithm not in TC_ALGORITHMS:
         return {}
-    basis = "wri" if algorithm == "x3" else "planes"
-    return {f"{basis}_tc": pack_tc_basis(algorithm, weights[basis]), "melw_tc": pack_tc_mel(weights["melw"])}
+    basis = "wri" if algorithm in _TC_BF16 else "planes"
+    return {f"{basis}_tc": pack_tc_basis(algorithm, _planes(weights[basis])),
+            "melw_tc": pack_tc_mel(_planes(weights["melw"]))}
 
 
 def fold_ok(n_fft: int, hop: int, win_length: int | None) -> bool:
@@ -726,30 +737,31 @@ def fused_mel_frontend(
 def _launch_tc(name: str, audio: torch.Tensor, is_i16: int, weights: dict[str, torch.Tensor], mel: torch.Tensor,
                bmax: torch.Tensor, buf_len: int, k: int, hop: int, off: int, nf: int, bins_pad: int,
                n_mels: int) -> int:
-    """Launch ``fused_mel_x3``, ``fused_mel_i16`` or ``fused_mel_i24`` on the
-    weights' tensor-core layouts (:func:`tc_layouts`, which
-    :func:`mode_tensors` includes); the launcher's code."""
+    """Launch ``fused_mel_bf16``, ``fused_mel_x3``, ``fused_mel_i16`` or
+    ``fused_mel_i24`` on the weights' tensor-core layouts (:func:`tc_layouts`,
+    which :func:`mode_tensors` includes); the launcher's code."""
     algorithm = name.removeprefix("fused_mel_")
-    basis_key = "wri_tc" if algorithm == "x3" else "planes_tc"
+    basis_key = "wri_tc" if algorithm in _TC_BF16 else "planes_tc"
     if basis_key not in weights or "melw_tc" not in weights:
         raise ValueError(f"{name}: weights lack the tensor-core layouts {basis_key!r}/'melw_tc'; "
                          "pass mode_tensors(...) or add tc_layouts(...)")
     basis, mtc = weights[basis_key], weights["melw_tc"]
-    kp = basis.shape[1] * _TC_STEP[algorithm]
-    want = (2 * bins_pad // _TC_COLS, kp // _TC_STEP[algorithm], 2 if algorithm == "x3" else 3, _TC_COLS,
-            _TC_STEP[algorithm])
-    for t, dtype in ((basis, torch.bfloat16 if algorithm == "x3" else torch.int8), (mtc, torch.bfloat16)):
+    step = _TC_STEP[algorithm]
+    kp = basis.shape[1] * step
+    basis_planes, mel_planes = {"bf16": (1, 1), "x3": (2, 2)}.get(algorithm, (3, 2))
+    want = (2 * bins_pad // _TC_COLS, kp // step, basis_planes, _TC_COLS, step)
+    for t, dtype in ((basis, torch.bfloat16 if algorithm in _TC_BF16 else torch.int8), (mtc, torch.bfloat16)):
         if t.device != audio.device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"{name}: tensor-core weights must be contiguous {dtype} on {audio.device}, "
                              f"got {t.dtype} on {t.device}")
     if (tuple(basis.shape) != want or kp < k or kp % _TC_CHUNK
-            or tuple(mtc.shape) != (bins_pad // _MEL_STEP, 2, _MEL_MAX, _MEL_STEP)):
+            or tuple(mtc.shape) != (bins_pad // _MEL_STEP, mel_planes, _MEL_MAX, _MEL_STEP)):
         raise ValueError(f"{name}: tensor-core weights {tuple(basis.shape)} / {tuple(mtc.shape)} do not match "
                          f"K={k}, bins_pad={bins_pad} (pack_tc_basis, pack_tc_mel)")
     bsz = audio.shape[0]
     lib = _lib()
-    if algorithm == "x3":
-        return lib.fused_mel_x3(
+    if algorithm in _TC_BF16:
+        return getattr(lib, name)(
             audio.data_ptr(), is_i16, basis.data_ptr(), mtc.data_ptr(), mel.data_ptr(), bmax.data_ptr(),
             bsz, buf_len, kp, hop, off, nf, bins_pad, n_mels, stream_of(audio),
         )

@@ -22,7 +22,11 @@ modulation_mfcc_tpu/pallas/viterbi.py:
 * ``viterbi_bwd_f32`` (wrapper :func:`viterbi_backtrace`) replaces
   ``viterbi_decode_pallas`` → ``_bwd_kernel`` and ``viterbi_decode_batched``
   → ``_bwd_kernel_b``: the reverse backtrace over that history, first
-  maximum on ties, the voiced block preferred on block ties.
+  maximum on ties, the voiced block preferred on block ties. It works on the
+  same band: a step's first maximum is that of the union of fl(m[u] + C)
+  over every source (reduced off the chain of dependent steps) and the 2h + 1
+  in-band scores at the next state's bin, read from the band staged in
+  shared memory (:func:`backtrace_layout`).
 
 The TPU had a per-signal and a batched kernel of each pass only because of
 ``vmap``; here the grid carries the batch, so a single signal is a batch of
@@ -34,8 +38,10 @@ plain PyTorch versions beside them (:func:`viterbi_forward_reference`,
 Every function takes ``log_obs`` [NF, 2n] or [B, NF, 2n]. A wrapper takes
 its plain version only for a CPU tensor; on a CUDA tensor it launches its
 kernel (float32 only) or raises. ``LAUNCHES`` counts kernel launches.
-:func:`viterbi_forward_banded_reference` is the banded step written plainly,
-for the tests: it shows the identity the kernel stands on.
+:func:`viterbi_forward_banded_reference` and
+:func:`viterbi_backtrace_banded_reference` are the kernels' banded steps
+written plainly, for the tests: they show the identities the kernels stand
+on.
 """
 from __future__ import annotations
 
@@ -48,9 +54,10 @@ from torch.utils.weak import WeakIdKeyDictionary
 from modulation_mfcc_tpu_torch.kernels._launch import check_cuda, raise_on, route, stream_of
 
 __all__ = [
-    "LAUNCHES", "MAX_BINS", "viterbi_band", "band_layout", "viterbi_forward", "viterbi_backtrace",
-    "viterbi_decode", "viterbi_forward_reference", "viterbi_forward_banded_reference",
-    "viterbi_backtrace_reference", "viterbi_decode_reference",
+    "LAUNCHES", "MAX_BINS", "viterbi_band", "band_layout", "backtrace_layout", "backtrace_band",
+    "viterbi_forward", "viterbi_backtrace", "viterbi_decode", "viterbi_forward_reference",
+    "viterbi_forward_banded_reference", "viterbi_backtrace_reference", "viterbi_backtrace_banded_reference",
+    "viterbi_decode_reference",
 ]
 
 LAUNCHES = {"viterbi_fwd_f32": 0, "viterbi_bwd_f32": 0}
@@ -62,6 +69,7 @@ _SMEM_LIMIT = 232448    # kSmemLimit: shared-memory bytes a block may opt in to 
 _MAX_REG_BAND = 64      # kMaxRegBand: the widest band a thread holds in registers,
 _MAX_REG_THREADS = 512  # kMaxRegThreads: in blocks of at most this many threads
 _AHEAD = 4              # kAhead: observation rows in flight
+_SLOTS = 8              # kSlots: history rows a backtrace block holds ready, as (m, sel) pairs
 
 Band = tuple[int, float]  # (h, C) of viterbi_band
 
@@ -124,16 +132,49 @@ def band_layout(n: int, h: int) -> str:
     return "L2"
 
 
-_BANDS: WeakIdKeyDictionary = WeakIdKeyDictionary()  # log_tri tensor → (its version, band)
+def backtrace_layout(n: int, h: int) -> str:
+    """Where ``viterbi_bwd_f32`` reads the transition of an n-bin band of
+    half-width h (the launcher's rule): 'shared' (the band staged as [n,
+    2h + 1] beside the ring of 8 rows of (m, sel) pairs and their barriers
+    and C candidates, when both fit in a block's shared memory), else 'L2'
+    (log_tri transposed, every source scored)."""
+    return "shared" if _SLOTS * (48 + 16 * n) + 4 * n * (2 * h + 1) <= _SMEM_LIMIT else "L2"
+
+
+def backtrace_band(log_tri: torch.Tensor, band: Band) -> torch.Tensor:
+    """The backtrace kernel's band of ``log_tri`` [n, n] as it stages it in
+    shared memory: [n, 2h + 1], entry [pos, j] = log_tri[pos − h + j, pos], C
+    past the matrix's edges."""
+    h, floor = band
+    n = log_tri.shape[0]
+    pos = torch.arange(n, device=log_tri.device)[:, None]
+    u = pos - h + torch.arange(2 * h + 1, device=log_tri.device)[None, :]
+    inside = (u >= 0) & (u < n)
+    return torch.where(inside, log_tri[u.clamp(0, n - 1), pos.expand_as(u)], floor)
+
+
+# per log_tri tensor, (its version, what was derived from it), so an in-place edit derives it again
+_BANDS: WeakIdKeyDictionary = WeakIdKeyDictionary()
+_TRANSPOSED: WeakIdKeyDictionary = WeakIdKeyDictionary()
+
+
+def _cached(table: WeakIdKeyDictionary, log_tri: torch.Tensor, derive):
+    hit = table.get(log_tri)
+    if hit is None or hit[0] != log_tri._version:
+        hit = (log_tri._version, derive(log_tri))
+        table[log_tri] = hit
+    return hit[1]
 
 
 def _band_of(log_tri: torch.Tensor) -> Band:
     """viterbi_band of a tensor, once per tensor (and per in-place edit)."""
-    hit = _BANDS.get(log_tri)
-    if hit is None or hit[0] != log_tri._version:
-        hit = (log_tri._version, viterbi_band(log_tri))
-        _BANDS[log_tri] = hit
-    return hit[1]
+    return _cached(_BANDS, log_tri, viterbi_band)
+
+
+def _transposed(log_tri: torch.Tensor) -> torch.Tensor:
+    """log_tri transposed (row v = log_tri[:, v]) for the backtrace's L2
+    layout, once per tensor (and per in-place edit)."""
+    return _cached(_TRANSPOSED, log_tri, lambda t: t.t().contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -220,6 +261,54 @@ def viterbi_backtrace_reference(
     return path if batched else path[0]
 
 
+def viterbi_backtrace_banded_reference(
+    hist: torch.Tensor, delta_f: torch.Tensor, log_tri: torch.Tensor, c_stay: float, c_sw: float,
+    band: Band | None = None,
+) -> torch.Tensor:
+    """The backtrace kernel's banded step, written plainly: the first maximum
+    of fl(m[u] + C) over every source, the first maximum of the in-band scores
+    m[u] + band[pos, u − pos + h] (:func:`backtrace_band`), and of the two the
+    larger, the lower index on equal values; each first maximum is the
+    largest value, then the least index holding it (±0 equal), as the kernel
+    reduces. Equal to :func:`viterbi_backtrace_reference` bit for bit
+    whenever ``band`` is :func:`viterbi_band`'s (derived here when None).
+    Used by the tests."""
+    h, floor = viterbi_band(log_tri) if band is None else band
+    batched, (hb, df) = _batched(hist, delta_f, ndim=2)
+    n = _check_shapes("viterbi_backtrace", hb, df, log_tri)
+    nb, steps = hb.shape[:2]
+    tri_band = backtrace_band(log_tri, (h, floor))
+    src = torch.arange(n, device=hb.device)
+    offs = torch.arange(2 * h + 1, device=hb.device)
+    stay = torch.tensor(c_stay, dtype=hb.dtype, device=hb.device)
+    switch = torch.tensor(c_sw, dtype=hb.dtype, device=hb.device)
+
+    def first_max(vals: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        top = torch.where(ok, vals, -torch.inf).amax(-1)
+        return top, torch.where(ok & (vals == top[:, None]), idx, torch.iinfo(idx.dtype).max).amin(-1)
+
+    path = torch.empty((nb, steps + 1), dtype=torch.int32, device=hb.device)
+    nxt = first_max(df, torch.arange(2 * n, device=hb.device).expand_as(df), torch.ones_like(df, dtype=torch.bool))[1]
+    path[:, -1] = nxt
+    for t in range(steps - 1, -1, -1):
+        d = hb[:, t]
+        voiced = nxt < n
+        pos = torch.where(voiced, nxt, nxt - n)
+        from_v = d[:, :n] + torch.where(voiced, stay, switch)[:, None]
+        from_u = d[:, n:] + torch.where(voiced, switch, stay)[:, None]
+        m = torch.maximum(from_v, from_u)
+        all_src = torch.ones_like(m, dtype=torch.bool)
+        v_off, i_off = first_max(m + floor, src.expand_as(m), all_src)
+        u = pos[:, None] - h + offs[None, :]
+        ok = (u >= 0) & (u < n)
+        uc = u.clamp(0, n - 1)
+        v_in, i_in = first_max(torch.gather(m, 1, uc) + tri_band[pos], uc, ok)
+        base = torch.where((v_off > v_in) | ((v_off == v_in) & (i_off < i_in)), i_off, i_in)
+        nxt = base + n * torch.gather(from_u > from_v, 1, base[:, None])[:, 0]
+        path[:, t] = nxt
+    return path if batched else path[0]
+
+
 def viterbi_decode_reference(
     log_obs: torch.Tensor, delta0: torch.Tensor, log_tri: torch.Tensor, c_stay: float, c_sw: float
 ) -> torch.Tensor:
@@ -244,7 +333,7 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.viterbi_fwd_f32.argtypes = [p, p, p, p, p, i, i, i, i, f, f, f, p]
     lib.viterbi_fwd_f32.restype = i
-    lib.viterbi_bwd_f32.argtypes = [p, p, p, p, i, i, i, f, f, p]
+    lib.viterbi_bwd_f32.argtypes = [p, p, p, p, p, i, i, i, i, f, f, f, p]
     lib.viterbi_bwd_f32.restype = i
     return lib
 
@@ -270,8 +359,7 @@ def viterbi_forward(
     n = _check_shapes("viterbi_forward", obs, d0, log_tri)
     _check_bins("viterbi_forward", n)
     h, floor = _band_of(log_tri) if band is None else band
-    if not 0 <= h < n:
-        raise ValueError(f"viterbi_forward: band half-width {h} is not in [0, {n})")
+    _check_band("viterbi_forward", (h, floor), n)
     nb, nf = obs.shape[:2]
     hist = obs.new_empty((nb, nf - 1, 2 * n))
     delta_f = obs.new_empty((nb, 2 * n))
@@ -284,24 +372,34 @@ def viterbi_forward(
     return (delta_f, hist) if batched else (delta_f[0], hist[0])
 
 
+def _check_band(name: str, band: Band, n: int) -> None:
+    if not 0 <= band[0] < n:
+        raise ValueError(f"{name}: band half-width {band[0]} is not in [0, {n})")
+
+
 def viterbi_backtrace(
-    hist: torch.Tensor, delta_f: torch.Tensor, log_tri: torch.Tensor, c_stay: float, c_sw: float
+    hist: torch.Tensor, delta_f: torch.Tensor, log_tri: torch.Tensor, c_stay: float, c_sw: float,
+    band: Band | None = None,
 ) -> torch.Tensor:
     """The state path [..., NF] (int32) from the forward's history
     [..., NF−1, 2n] and final δ [..., 2n] (JAX ``viterbi_decode_pallas``'s
-    backtrace)."""
+    backtrace). ``band`` as for :func:`viterbi_forward`; the kernel reads
+    the band where :func:`backtrace_layout` says, and for 'L2' the transposed
+    ``log_tri``, made once per tensor."""
     if not route(hist, "viterbi_backtrace"):
         return viterbi_backtrace_reference(hist, delta_f, log_tri, c_stay, c_sw)
     check_cuda("viterbi_backtrace", hist, delta_f, log_tri)
-    batched, (h, df) = _batched(hist, delta_f, ndim=2)
-    n = _check_shapes("viterbi_backtrace", h, df, log_tri)
+    batched, (hb, df) = _batched(hist, delta_f, ndim=2)
+    n = _check_shapes("viterbi_backtrace", hb, df, log_tri)
     _check_bins("viterbi_backtrace", n)
-    nb, nf = h.shape[0], h.shape[1] + 1
-    log_tri_t = log_tri.t().contiguous()  # row v = log_tri[:, v]: coalesced reads of one target's sources
-    path = torch.empty((nb, nf), dtype=torch.int32, device=h.device)
+    h, floor = _band_of(log_tri) if band is None else band
+    _check_band("viterbi_backtrace", (h, floor), n)
+    log_tri_t = _transposed(log_tri).data_ptr() if backtrace_layout(n, h) == "L2" else None
+    nb, nf = hb.shape[0], hb.shape[1] + 1
+    path = torch.empty((nb, nf), dtype=torch.int32, device=hb.device)
     rc = _lib().viterbi_bwd_f32(
-        h.data_ptr(), df.data_ptr(), log_tri_t.data_ptr(), path.data_ptr(), nb, nf, n, c_stay, c_sw,
-        stream_of(h),
+        hb.data_ptr(), df.data_ptr(), log_tri.data_ptr(), log_tri_t, path.data_ptr(), nb, nf, n, h, floor,
+        c_stay, c_sw, stream_of(hb),
     )
     raise_on(rc, "viterbi_bwd_f32")
     LAUNCHES["viterbi_bwd_f32"] += 1
@@ -315,10 +413,13 @@ def viterbi_decode(
     """The decoded state path [..., NF] (int32): one forward and one
     backtrace launch on a CUDA tensor; with one frame, the first argmax of
     δ_0 and no launch (JAX ``viterbi_decode_pallas`` /
-    ``viterbi_decode_batched``). ``band`` as for :func:`viterbi_forward`."""
+    ``viterbi_decode_batched``). ``band`` as for :func:`viterbi_forward`,
+    and both kernels take it."""
     if not route(log_obs, "viterbi_decode"):
         return viterbi_decode_reference(log_obs, delta0, log_tri, c_stay, c_sw)
     if log_obs.shape[-2] == 1:
         return torch.argmax(delta0, -1, keepdim=True).to(torch.int32)
+    if band is None:
+        band = _band_of(log_tri)
     delta_f, hist = viterbi_forward(log_obs, delta0, log_tri, c_stay, c_sw, band)
-    return viterbi_backtrace(hist, delta_f, log_tri, c_stay, c_sw)
+    return viterbi_backtrace(hist, delta_f, log_tri, c_stay, c_sw, band)

@@ -91,7 +91,7 @@ class MfccChange(torch.nn.Module):
     * ``wri`` [K, 2·bins_pad], ``melw`` [bins_pad, n_mels]: packed windowed
       real-DFT bases and mel matrix of the fused frontend (f32 mode); the
       other modes' constants (kernels/fused_frontend.mode_weights, and for
-      x3, i16 and i24 their tensor-core layouts, tc_layouts) ride along as
+      bf16, x3, i16 and i24 their tensor-core layouts, tc_layouts) ride along as
       non-persistent buffers ``<mode>_<name>``;
     * ``dct`` [n_mels, n_mfcc]: DCT-II ortho of the MFCC tail;
     * ``traj_filter`` / ``out_filter``: the two zero-phase Butterworth

@@ -26,6 +26,7 @@ from modulation_mfcc_tpu_torch.kernels import fused_frontend as ff
 from modulation_mfcc_tpu_torch.models import modulation as mod
 from modulation_mfcc_tpu_torch.models.config import MfccConfig
 from tests.test_torch_frontend import CONFIGS, frontend_kwargs
+from tests.test_torch_frontend_tc import bf16_mirror_audio, bf16_tc_mirror
 
 torch.set_num_threads(1)
 
@@ -296,6 +297,27 @@ def test_bf16_plain_matches_jax_and_contract():
         jgot = np.asarray(jax_mod.mfcc_change(jnp.asarray(y.numpy()), JaxMfccConfig(**FLAGSHIP),
                                               spectrum="pallas_bf16"))
     np.testing.assert_allclose(got, jgot, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_bf16_tensor_core_mirror_matches_jax(name):
+    """fused_mel_bf16's tensor-core arithmetic, mirrored
+    (tests/test_torch_frontend_tc.bf16_tc_mirror: bf16 samples, the DFT
+    from the packed basis, the bf16 power, the one-pass mel from the packed
+    mel weights, the bf16 store, the maxima over the FP32 mel), within one
+    bf16 ulp of the JAX frontend's bf16 mode (interpret mode) at both
+    configurations, on noise and on speech-like audio; the block maxima to
+    1e-6."""
+    cfg = MfccConfig(**CONFIGS[name])
+    w = ff.mode_tensors("bf16", "cpu", *design(cfg))
+    audio = bf16_mirror_audio(cfg)
+    mel, bmax = bf16_tc_mirror(audio, cfg, w)
+    with pltpu.force_tpu_interpret_mode():
+        jmel, jbmax = jax_ff.fused_mel_frontend(jnp.asarray(audio.numpy()), algorithm="bf16",
+                                                out_dtype=jnp.bfloat16, **frontend_kwargs(cfg))
+    jmel = np.asarray(jmel)[:, : mel.shape[1]].astype(np.float32)
+    assert bf16_ulps(mel.float().numpy(), jmel).max() <= 1.0
+    np.testing.assert_allclose(bmax.numpy().max(axis=1), np.asarray(jbmax).max(axis=(1, 2, 3)), rtol=1e-6)
 
 
 def test_tail_reads_bf16_mel_as_float32():

@@ -1,13 +1,14 @@
 """PyTorch port: the host side of the tensor-core frontend kernels
-fused_mel_x3, fused_mel_i16 and fused_mel_i24 (csrc/fused_frontend_tc.cu). Their weights
-travel in layouts of their own (kernels/fused_frontend.tc_layouts), built
-once per set of weights; here each layout unpacks to the mode's weights
-exactly, the kernel's address arithmetic (mirrored in Python) reads the
-frames from its staged span copies and the weights from those layouts, and
-the wrapper's constants are the source's; i16's digits and epilogue,
-mirrored, give the plain version's DFT bit for bit. The kernels themselves run only
-on the card: chip_smoke.py holds them against their plain versions (phases
-14, 15, 17)."""
+fused_mel_bf16, fused_mel_x3, fused_mel_i16 and fused_mel_i24
+(csrc/fused_frontend_tc.cu). Their weights travel in layouts of their own
+(kernels/fused_frontend.tc_layouts), built once per set of weights; here
+each layout unpacks to the mode's weights exactly, the kernel's address
+arithmetic (mirrored in Python) reads the frames from its staged span copies
+and the weights from those layouts, and the wrapper's constants are the
+source's; i16's digits and epilogue, mirrored, give the plain version's DFT
+bit for bit, and bf16's epilogue, mirrored, meets phase 14's bar against its
+plain version. The kernels themselves run only on the card: chip_smoke.py
+holds them against their plain versions (phases 14, 15, 17)."""
 import math
 import re
 from pathlib import Path
@@ -21,10 +22,13 @@ from modulation_mfcc_tpu_torch.models.config import MfccConfig
 from modulation_mfcc_tpu_torch.models.modulation import MfccChange
 from modulation_mfcc_tpu_torch.ops.framing import frame_by_slices
 from tests.test_torch_frontend import CONFIGS
+from tests.test_torch_modulation import speechlike
 
 CSRC = Path(ff.__file__).resolve().parent.parent / "csrc"
-BASIS = {"x3": "wri", "i16": "planes", "i24": "planes"}
-PLANES = {"x3": (2, 2), "i16": (2, 3), "i24": (3, 3)}  # (span planes, basis planes) of Mode<...>
+BASIS = {"bf16": "wri", "x3": "wri", "i16": "planes", "i24": "planes"}
+# (span planes, basis planes, mel planes) of Mode<...>
+PLANES = {"bf16": (1, 1, 1), "x3": (2, 2, 2), "i16": (2, 3, 2), "i24": (3, 3, 2)}
+MODE_OF = {"bf16": "kBF16", "x3": "kX3", "i16": "kI16", "i24": "kI24"}
 
 
 def tensors(algorithm: str, name: str) -> tuple[MfccConfig, dict[str, torch.Tensor]]:
@@ -37,19 +41,22 @@ def tensors(algorithm: str, name: str) -> tuple[MfccConfig, dict[str, torch.Tens
 @pytest.mark.parametrize("algorithm", ff.TC_ALGORITHMS)
 def test_tc_layouts_round_trip(algorithm, name):
     """pack_tc_basis and pack_tc_mel, then their inverses, give the mode's
-    weights (mode_weights) bit for bit: bf16 holds the x3 planes exactly;
-    the padded rows and mel columns are zero; mode_tensors and the
-    MfccChange module carry the same layouts."""
+    weights (mode_weights) bit for bit: bf16 holds the bf16 and x3 planes
+    exactly; bf16 packs one plane of each; the padded rows and mel columns
+    are zero; mode_tensors and the MfccChange module carry the same
+    layouts."""
     cfg, w = tensors(algorithm, name)
     mw = ff.mode_weights(algorithm, cfg.signal_sample_rate, cfg.n_fft, cfg.win_length, cfg.n_mels, cfg.minFreq,
                          cfg.maxFreq)
     basis = BASIS[algorithm]
     packed, mel = w[f"{basis}_tc"], w["melw_tc"]
-    k = mw[basis].shape[1]
-    assert packed.dtype == (torch.bfloat16 if algorithm == "x3" else torch.int8) and mel.dtype == torch.bfloat16
+    want = ff._planes(torch.from_numpy(mw[basis]))
+    k = want.shape[1]
+    assert packed.dtype == (torch.int8 if basis == "planes" else torch.bfloat16) and mel.dtype == torch.bfloat16
+    assert (packed.shape[2], mel.shape[1]) == PLANES[algorithm][1:]
     back = ff.unpack_tc_basis(algorithm, packed, k)
-    assert back.dtype == torch.from_numpy(mw[basis]).dtype and torch.equal(back, torch.from_numpy(mw[basis]))
-    assert torch.equal(ff.unpack_tc_mel(mel, cfg.n_mels), torch.from_numpy(mw["melw"]))
+    assert back.dtype == want.dtype and torch.equal(back, want)
+    assert torch.equal(ff.unpack_tc_mel(mel, cfg.n_mels), ff._planes(torch.from_numpy(mw["melw"])))
     kp = packed.shape[1] * packed.shape[-1]
     assert kp % 32 == 0 and kp - k < 32
     assert not ff.unpack_tc_basis(algorithm, packed, kp)[:, k:].float().any()
@@ -60,7 +67,7 @@ def test_tc_layouts_round_trip(algorithm, name):
 def kernel_constants() -> dict[str, int]:
     src = (CSRC / "tensor_core.cuh").read_text() + (CSRC / "fused_frontend_tc.cu").read_text()
     consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
-    for mode, body in re.findall(r"struct Mode<(kX3|kI16|kI24)> \{(.*?)\};", src, re.S):
+    for mode, body in re.findall(r"struct Mode<(kX3|kI16|kI24|kBF16)> \{(.*?)\};", src, re.S):
         for k, v in re.findall(r"static constexpr int (k\w+) = (\d+);", body):
             consts[f"{mode}.{k}"] = int(v)
     consts["kCols"] = 32 * consts["kWN"]  # constexpr int kCols = 32 * kWN
@@ -68,15 +75,16 @@ def kernel_constants() -> dict[str, int]:
 
 
 def test_tc_wrapper_constants_match_cuda_source():
-    """The layouts' tile widths, MMA depths, chunk and mel step are the
-    kernel's own constants."""
+    """The layouts' tile widths, MMA depths, plane counts (bf16: one of each),
+    chunk and mel step are the kernel's own constants."""
     c = kernel_constants()
     assert c["kBF"] == ff.BLOCK_FRAMES and c["kMelCols"] == ff._MEL_MAX and c["kMelStep"] == ff._MEL_STEP
     assert c["kChunkRows"] == ff._TC_CHUNK and c["kCols"] == ff._TC_COLS
     assert c["kMT"] * 16 * (c["kThreads"] // 32 // c["kWN"]) == ff.BLOCK_FRAMES
-    for alg, mode in (("x3", "kX3"), ("i16", "kI16"), ("i24", "kI24")):
+    assert set(MODE_OF) == set(ff.TC_ALGORITHMS)
+    for alg, mode in MODE_OF.items():
         assert c[f"{mode}.kStep"] == ff._TC_STEP[alg]
-        assert (c[f"{mode}.kSpanPlanes"], c[f"{mode}.kBasisPlanes"]) == PLANES[alg]
+        assert (c[f"{mode}.kSpanPlanes"], c[f"{mode}.kBasisPlanes"], c[f"{mode}.kMelPlanes"]) == PLANES[alg]
 
 
 @pytest.mark.parametrize("name", CONFIGS)
@@ -92,7 +100,7 @@ def test_tc_kernel_addressing_reads_frames_and_weights(algorithm, name):
     read, and read right."""
     cfg, w = tensors(algorithm, name)
     hop = cfg.hop_length
-    al = 4 if algorithm == "x3" else 8  # elements per 8-byte load (kAl)
+    al = 8 if BASIS[algorithm] == "planes" else 4  # elements per 8-byte load (kAl)
     step, cols = ff._TC_STEP[algorithm], ff._TC_COLS
     packed = w[f"{BASIS[algorithm]}_tc"]
     tiles, ks, n_planes = packed.shape[:3]
@@ -113,7 +121,7 @@ def test_tc_kernel_addressing_reads_frames_and_weights(algorithm, name):
         np.testing.assert_array_equal(got, signal[e + k0 + al * t + i])
     # B: the basis as the kernel reads each chunk's stage
     flat = packed.reshape(-1)
-    inter = ff._interleave(torch.as_tensor(w[BASIS[algorithm]]))
+    inter = ff._interleave(ff._planes(w[BASIS[algorithm]]))
     want = torch.nn.functional.pad(inter, (0, 0, 0, kp - inter.shape[1]))
     got = torch.empty_like(want)
     kk = np.arange(kp)
@@ -127,12 +135,15 @@ def test_tc_kernel_addressing_reads_frames_and_weights(algorithm, name):
     assert torch.equal(got, want)
     # the mel weights, a tile's steps at a time
     mel = w["melw_tc"].reshape(-1)
-    bins = np.arange(w["melw"].shape[1])
+    melw = ff._planes(w["melw"])
+    n_mel_planes = melw.shape[0]
+    bins = np.arange(melw.shape[1])
     jm, rm = bins // ff._MEL_STEP, bins % ff._MEL_STEP
-    for p in range(2):
-        off = ((2 * jm[:, None] + p) * ff._MEL_MAX + np.arange(ff._MEL_MAX)[None, :]) * ff._MEL_STEP + rm[:, None]
+    for p in range(n_mel_planes):
+        off = ((n_mel_planes * jm[:, None] + p) * ff._MEL_MAX + np.arange(ff._MEL_MAX)[None, :]) * ff._MEL_STEP \
+            + rm[:, None]
         got_m = mel[torch.as_tensor(off)].float()
-        assert torch.equal(got_m[:, : cfg.n_mels], w["melw"][p]) and not got_m[:, cfg.n_mels :].any()
+        assert torch.equal(got_m[:, : cfg.n_mels], melw[p]) and not got_m[:, cfg.n_mels :].any()
 
 
 def test_tc_modes_raise_off_the_card():
@@ -217,3 +228,96 @@ def test_tc_i16_digits_and_epilogue_match_plain_bit_for_bit():
             acc = ((a * f32(2.0**24) + b * f32(2.0**16)) + e * f32(2.0**8)) + corr[part]
             got[..., part] = acc * inv[:, None, None]
         assert np.array_equal(got.view(np.int32), want.view(np.int32)), name
+
+
+@pytest.mark.parametrize("planes", [1, 2])
+def test_tc_mel_pack_round_trip_by_planes(planes):
+    """pack_tc_mel takes one plane (bf16's rounded weights) or two (the x3
+    stack): [bins/16, P, 128, 16] bf16, the columns past n_mels zero, and
+    unpack_tc_mel gives the planes back bit for bit; one plane is half the
+    bytes the mel bulk copy moves."""
+    rng = np.random.default_rng(planes)
+    melw = ff._bf16r(torch.tensor(rng.random((planes, 256, 40)), dtype=torch.float32))
+    packed = ff.pack_tc_mel(melw)
+    assert packed.shape == (256 // ff._MEL_STEP, planes, ff._MEL_MAX, ff._MEL_STEP)
+    assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    assert torch.equal(ff.unpack_tc_mel(packed, 40), melw)
+    assert not ff.unpack_tc_mel(packed, ff._MEL_MAX)[..., 40:].float().any()
+
+
+def bf16_ulps(mel: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+    """(max |mel − ref| of two bf16 mels in units of ref's bf16 ulp, 2^(e−8)
+    for ref = m·2^e with m in [0.5, 1); share of entries more than one ulp
+    apart): chip_smoke.py phase 14's measure."""
+    k, p = mel.double(), ref.double()
+    ulp = torch.ldexp(torch.ones_like(p), torch.frexp(p)[1] - 8)
+    d = (k - p).abs()
+    u = torch.where(p > 0, d / ulp, torch.where(d > 0, torch.inf, 0.0))
+    return float(u.max()), float((u > 1.0).double().mean())
+
+
+def bf16_tc_mirror(audio: torch.Tensor, cfg: MfccConfig, w: dict[str, torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+    """fused_mel_bf16's arithmetic on flat float32 audio [B, T], mirrored
+    from the source: the samples rounded to bf16 as the span is staged; each
+    frame's DFT against the interleaved bf16 basis of ``wri_tc`` (Kp rows,
+    the padded ones zero) as the FP32 value of the exact sum of its bf16
+    products; the power of the bin that a fragment's columns 2t (re) and
+    2t + 1 (im) of n-tile nt hold, bin 16·wn + 4·nt + t of its tile,
+    fl(fl(re²) + fl(im²)), rounded to bf16; the mel from ``melw_tc``, each
+    16-bin step's products summed exactly, rounded to FP32 and added to the
+    running FP32 sum (mma_bf16_add); then the mel stored as bf16 and each 64
+    frames' maximum taken over the FP32 mel of the valid frames."""
+    hop, n_mels = cfg.hop_length, cfg.n_mels
+    packed, mtc = w["wri_tc"], w["melw_tc"]
+    tiles, ks, _, cols, step = packed.shape
+    kp, bins_pad = ks * step, tiles * cols // 2
+    basis = packed.permute(2, 1, 4, 0, 3).reshape(kp, tiles * cols).double()
+    bsz, t_len = audio.shape
+    nf = 1 + t_len // hop
+    pad = ff.eff_pad(cfg.n_fft, cfg.win_length)
+    flat = torch.nn.functional.pad(ff._bf16r(audio), (pad, (nf - 1) * hop + kp))
+    dft = (frame_by_slices(flat, 0, nf, kp, hop).double() @ basis).float()
+    tile, wn, nt, t = np.meshgrid(np.arange(tiles), np.arange(4), np.arange(4), np.arange(4), indexing="ij")
+    col = torch.as_tensor((tile * cols + 32 * wn + 8 * nt + 2 * t).ravel())
+    bin_ = torch.as_tensor((tile * (cols // 2) + 16 * wn + 4 * nt + t).ravel())
+    assert torch.equal(torch.sort(bin_).values, torch.arange(bins_pad))
+    re, im = dft[..., col], dft[..., col + 1]
+    power = torch.empty((bsz, nf, bins_pad), dtype=torch.float32)
+    power[..., bin_] = re * re + im * im
+    p16 = ff._bf16r(power).double()
+    mel = torch.zeros((bsz, nf, ff._MEL_MAX), dtype=torch.float32)
+    for j in range(mtc.shape[0]):
+        mel = mel + (p16[..., ff._MEL_STEP * j : ff._MEL_STEP * (j + 1)] @ mtc[j, 0].double().T).float()
+    mel = mel[..., :n_mels]
+    n_blocks = -(-nf // ff.BLOCK_FRAMES)
+    fmax = torch.nn.functional.pad(mel.amax(-1), (0, n_blocks * ff.BLOCK_FRAMES - nf))
+    return mel.to(torch.bfloat16), fmax.reshape(bsz, n_blocks, ff.BLOCK_FRAMES).amax(-1)
+
+
+def bf16_mirror_audio(cfg: MfccConfig) -> torch.Tensor:
+    """2 × 1.5 s: noise, and speech-like audio with silent lead-in and -out
+    (phase 14's kind of input)."""
+    sr = int(cfg.signal_sample_rate)
+    noise = np.random.default_rng(sr).standard_normal(3 * sr // 2) * 0.3
+    return torch.tensor(np.stack([noise, speechlike(1.5, sr, seed=sr)]), dtype=torch.float32)
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_tc_bf16_epilogue_meets_the_plain_bar(name):
+    """The bf16 mode's tensor-core arithmetic, mirrored (bf16_tc_mirror),
+    against its plain version (fused_mel_frontend_reference, FP32 GEMMs of
+    the same bf16 operands in another order) within chip_smoke.py phase 14's
+    bf16 bar: at most 2 bf16 ulps, at most 0.1 % of the entries beyond one,
+    the block maxima within 2^-8. The two sum the same exact products in
+    different orders, so they part only where a power or a mel sits at a
+    bf16 rounding boundary (measured here: at most 1 ulp)."""
+    cfg, w = tensors("bf16", name)
+    audio = bf16_mirror_audio(cfg)
+    mel, bmax = bf16_tc_mirror(audio, cfg, w)
+    want, want_bmax = ff.fused_mel_frontend_reference(
+        audio, w["wri"], w["melw"], hop=cfg.hop_length, eff_pad=ff.eff_pad(cfg.n_fft, cfg.win_length),
+        algorithm="bf16")
+    assert mel.shape == want.shape and mel.dtype == want.dtype == torch.bfloat16
+    ulps, share = bf16_ulps(mel, want)
+    assert ulps <= 2.0 and share <= 1e-3, (ulps, share)
+    assert bool(((bmax - want_bmax).abs() <= 2.0**-8 * want_bmax).all())

@@ -2,10 +2,13 @@
 the JAX Pallas kernels of pallas/viterbi.py in interpret mode, as
 tests/test_yin.py runs them. Adds and maxes are exact, so the bar is bit
 identity. On the CPU the wrappers take their plain versions; the CUDA kernels
-themselves are checked against those on the card by chip_smoke.py. The
-forward kernel works on the band of log_tri (viterbi_band); its banded step,
-written plainly (viterbi_forward_banded_reference), is held here to the
-dense recursion and to JAX bit for bit."""
+themselves are checked against those on the card by chip_smoke.py. Both
+kernels work on the band of log_tri (viterbi_band); their banded steps,
+written plainly (viterbi_forward_banded_reference,
+viterbi_backtrace_banded_reference), are held here to the dense plain
+versions and to JAX bit for bit, the backtrace's also on crafted rows that
+set its traps (ties between an out-of-band and an in-band source, sums that
+round together, −0 against +0)."""
 import re
 from pathlib import Path
 
@@ -278,3 +281,162 @@ def test_band_cache_follows_the_tensor():
     assert V._band_of(t) == (21, TINY_LOG) and V._band_of(t) == (21, TINY_LOG)
     t[100, 130] = -50.0
     assert V._band_of(t) == (30, TINY_LOG)
+
+
+
+@pytest.mark.parametrize("kind", ["pyin", "floor", "ties", "diagonal"])
+def test_banded_backtrace_matches_dense_and_pallas(kind):
+    """The backtrace kernel's banded step, written plainly, gives the dense
+    plain version's state paths bit for bit on the forward's history of
+    pyin's trellis and the crafted banded ones, and JAX
+    viterbi_decode_pallas's paths (interpret mode, per utterance); the CPU
+    wrappers given the band take the dense plain versions."""
+    log_obs, delta0, lt, c_stay, c_sw, h = pyin_trellis() if kind == "pyin" else banded_trellis(kind, seed=29)
+    band = V.viterbi_band(lt)
+    assert band[0] == h
+    args = (torch.tensor(log_obs), torch.tensor(delta0), torch.tensor(lt), c_stay, c_sw)
+    delta_f, hist = V.viterbi_forward_reference(*args)
+    got = V.viterbi_backtrace_banded_reference(hist, delta_f, *args[2:], band)
+    want = V.viterbi_backtrace_reference(hist, delta_f, *args[2:])
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert torch.equal(V.viterbi_decode(*args, band), want)
+    assert torch.equal(V.viterbi_backtrace(hist, delta_f, *args[2:], band), want)
+    for b in range(log_obs.shape[0]):
+        jpath = viterbi_decode_pallas(jnp.asarray(log_obs[b]), jnp.asarray(delta0[b]), jnp.asarray(lt), c_stay, c_sw,
+                                      interpret=True)
+        assert np.array_equal(got[b].numpy(), np.asarray(jpath))
+
+
+def backtrace_traps(kind: str, seed: int, n: int = 48, h: int = 3, steps: int = 40, batch: int = 2):
+    """Crafted backtrace inputs, float32 numpy: (hist [B, steps, 2n], delta_f
+    [B, 2n], log_tri [n, n], c_stay, c_sw, want [B, steps + 1]). The last
+    state is chosen at random; each row, from the last back, is made for the
+    bin pos and the voicing of the state the step after it takes, so that
+    its first maximum is a trap of the banded step, and ``want`` is the path
+    the traps lead to:
+
+    * 'ties' (c_stay = −0, in-band entries −0, C = −10): an out-of-band
+      source at a lower index ties the best in-band score, fl(9 + C) = −1 =
+      −1 + (−0); or, where no source lies below the band, two in-band
+      sources tie at −0 (the lower index) and +0, which order-preserving
+      keys would tell apart;
+    * 'rounding' (in-band entries −1, C = −1000): two out-of-band sources
+      u1 < u2 with m = 0.5 − 2⁻¹⁷ and 0.5, whose sums with C both round to
+      −999.5, above every in-band score: argmax(m) would take u2.
+
+    The winner's block (voiced or unvoiced) is drawn per row, and the other
+    entries sit far below."""
+    rng = np.random.default_rng(seed)
+    dist = np.abs(np.arange(n)[:, None] - np.arange(n)[None, :])
+    if kind == "ties":
+        c_stay, c_sw, floor, inner, low = -0.0, -2.0, -10.0, -0.0, -40.0
+    else:
+        c_stay, c_sw, floor, inner, low = -1.0, -2.0, -1000.0, -1.0, -3000.0
+    lt = np.where(dist <= h, np.float32(inner), np.float32(floor)).astype(np.float32)
+    hist = np.full((batch, steps, 2 * n), low, np.float32)
+    delta_f = np.full((batch, 2 * n), -100.0, np.float32)
+    want = np.empty((batch, steps + 1), np.int64)
+    for b in range(batch):
+        state = int(rng.integers(2 * n))
+        delta_f[b, state] = 0.0
+        want[b, steps] = state
+        for t in range(steps - 1, -1, -1):
+            row, pos = hist[b, t], state % n
+            adds = (c_stay, c_sw) if state < n else (c_sw, c_stay)  # (a, c): what each block adds
+
+            def put(u: int, m: float, block: int) -> None:
+                row[block * n + u] = np.float32(m - adds[block])  # then m[u] = m, exactly
+
+            block = int(rng.integers(2))
+            if kind == "rounding":
+                put(pos, -998.75, int(rng.integers(2)))  # in band: -999.75
+                u1, u2 = sorted(rng.choice(np.flatnonzero(dist[pos] > h), 2, replace=False))
+                put(int(u1), 0.5 - 2.0**-17, block)
+                put(int(u2), 0.5, int(rng.integers(2)))
+                win = int(u1)
+            elif pos > h and rng.random() < 0.5:
+                put(pos, -1.0, int(rng.integers(2)))  # in band: -1 + (-0) = -1
+                win = int(rng.integers(pos - h))
+                put(win, 9.0, block)  # out of band: fl(9 - 10) = -1, the lower index
+            else:
+                block = 0 if state < n else 1  # the block that adds c_stay = -0
+                inside = np.flatnonzero(dist[pos] <= h)
+                win, u2 = sorted(rng.choice(inside, 2, replace=False))
+                row[block * n + win], row[block * n + u2] = np.float32(-0.0), np.float32(0.0)
+                win = int(win)
+            state = win + n * block
+            want[b, t] = state
+    return hist, delta_f, lt, c_stay, c_sw, want
+
+
+@pytest.mark.parametrize("kind", ["ties", "rounding"])
+def test_banded_backtrace_traps(kind):
+    """On the crafted rows of backtrace_traps the banded step, written
+    plainly, and the dense plain version both decode the path the traps were
+    made for, bit for bit; and JAX agrees: each row, as δ_0 of a two-frame
+    trellis whose last frame's observations force the state after it,
+    decodes in viterbi_decode_batched (interpret mode) to the designed
+    state, as it does in the port's plain decode."""
+    hist, delta_f, lt, c_stay, c_sw, want = backtrace_traps(kind, seed=31)
+    band = V.viterbi_band(lt)
+    assert band == (3, float(lt.min()))
+    args = (torch.tensor(hist), torch.tensor(delta_f), torch.tensor(lt), c_stay, c_sw)
+    got = V.viterbi_backtrace_banded_reference(*args, band)
+    assert np.array_equal(got.numpy(), want)
+    assert torch.equal(V.viterbi_backtrace_reference(*args), got)
+    nb, steps, two_n = hist.shape
+    delta0 = hist.reshape(nb * steps, two_n)
+    obs = np.zeros((nb * steps, 2, two_n), np.float32)
+    obs[:, 1] = -1e4
+    obs[np.arange(nb * steps), 1, want[:, 1:].reshape(-1)] = 0.0
+    jpath = np.asarray(viterbi_decode_batched(jnp.asarray(obs), jnp.asarray(delta0), jnp.asarray(lt), c_stay, c_sw,
+                                              interpret=True))
+    assert np.array_equal(jpath[:, 1], want[:, 1:].reshape(-1)) and np.array_equal(jpath[:, 0], want[:, :-1].reshape(-1))
+    port = V.viterbi_decode_reference(torch.tensor(obs), torch.tensor(delta0), torch.tensor(lt), c_stay, c_sw)
+    assert np.array_equal(port.numpy(), jpath)
+
+
+@pytest.mark.parametrize("n,h,layout", [(361, 21, "shared"), (361, 63, "shared"), (361, 64, "L2"),
+                                        (361, 360, "L2"), (130, 129, "shared"), (40, 39, "shared"),
+                                        (600, 20, "shared"), (1024, 0, "shared"), (1024, 20, "L2")])
+def test_backtrace_layout(n, h, layout):
+    """The backtrace launcher's layout by size: the band in shared memory
+    when it fits beside the ring of 8 rows of (m, sel) pairs (pyin's 62 KB
+    band does), else the transposed log_tri from L2."""
+    assert V.backtrace_layout(n, h) == layout
+
+
+def test_backtrace_layout_matches_cuda_source():
+    """backtrace_layout mirrors the launcher: the ring's depth, the shared
+    memory it counts and its rule are the source's."""
+    src = (CSRC / "viterbi.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert (const["kSlots"], const["kSmemLimit"]) == (V._SLOTS, V._SMEM_LIMIT)
+    assert ("return (size_t)kSlots * (16 + 32 + 16 * (size_t)n) + (banded ? sizeof(float) * n * (2 * h + 1) : 0);"
+            in src)
+    assert "const bool banded = bwd_smem_bytes(n, h, true) <= (size_t)kSmemLimit;" in src
+    assert "if (!banded && !log_tri_t) return (int)cudaErrorInvalidValue;" in src
+
+
+def test_backtrace_band_layout():
+    """The band the backtrace stages: [n, 2h + 1], entry [pos, j] =
+    log_tri[pos − h + j, pos], C past the matrix's edges."""
+    lt = pyin_log_tri(16_000.0)
+    n = lt.shape[0]
+    band = V.backtrace_band(torch.tensor(lt), (21, TINY_LOG)).numpy()
+    assert band.shape == (n, 43) and band.dtype == np.float32
+    for pos in (0, 5, 180, 355, 360):
+        for j in range(43):
+            u = pos - 21 + j
+            assert band[pos, j] == (lt[u, pos] if 0 <= u < n else np.float32(TINY_LOG))
+
+
+def test_transposed_cache_follows_the_tensor():
+    """The backtrace's L2 layout transposes a log_tri tensor once, and again
+    after an in-place edit of that tensor."""
+    t = torch.tensor(trellis(40, 2, seed=3)[2])
+    first = V._transposed(t)
+    assert torch.equal(first, t.t()) and first.is_contiguous() and V._transposed(t) is first
+    t[1, 2] = 5.0
+    again = V._transposed(t)
+    assert again is not first and torch.equal(again, t.t())
