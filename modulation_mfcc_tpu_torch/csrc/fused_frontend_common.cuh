@@ -1,6 +1,5 @@
-// What the CUDA-core float frontend kernels share (fused_frontend.cu:
-// fused_mel_f32; fused_frontend_fold.cu: fused_mel_fold_f32, _bf16, _x3):
-// the block geometry, the cp.async and bf16 helpers, and the end of
+// What the CUDA-core fold kernels share (fused_frontend_fold.cu:
+// fused_mel_fold_f32, _bf16, _x3): the block geometry, the cp.async and bf16 helpers, and the end of
 // each bin tile and of each block. A block owns kBF consecutive frames of
 // one utterance; warp w owns frames 4w..4w+3 and 32+4w..32+4w+3, lane l the
 // bins (and mel columns) l + 32j of a tile. Included by those sources only.

@@ -35,7 +35,7 @@ using namespace frontend;
 //
 //   'f32':  FP32 throughout; the DFT sums in steps of kKC = 16 rows, each
 //           step's products into a fresh partial sum that is then added to
-//           the running one, as fused_mel_f32 and the plain version do.
+//           the running one, as the plain version does (_stepped_matmul).
 //   'bf16': samples rounded to bf16 as they are staged (the TPU path rounds
 //           the audio before the fold), s and d summed in FP32 and rounded to
 //           bf16 again for the products; power rounded to bf16; wc, ws and
@@ -51,7 +51,8 @@ using namespace frontend;
 // (half the unfolded 315) and 50 GFLOP of mel: about 3.1 ms at 67 TFLOP/s;
 // this kernel runs 'bf16' and 'x3' on the CUDA cores too.
 //
-// Design: fused_mel_f32's (csrc/fused_frontend.cu). A block owns 64
+// Design: the FFMA design fused_mel_f32 had before it moved to the tensor
+// cores (fused_frontend_tc.cu). A block owns 64
 // consecutive frames of one utterance and copies the contiguous span they
 // cover, (64 - 1)*hop + sup + 1 samples, into shared memory once: both ends
 // of every frame's fold are read from there, so the design needs no second
@@ -64,8 +65,8 @@ using namespace frontend;
 // its bin tile (cp.async, double-buffered); a thread keeps an 8-frame by
 // 4-bin tile of re and im of a 128-bin tile in registers, or for f32, which
 // adds the step's partial sums, 8 frames by 2 bins of a 64-bin tile (two
-// blocks an SM, as fused_mel_f32). Power, mel and the block max are
-// fused_mel_f32's.
+// blocks an SM). Power, mel and the block max are projected and reduced
+// as fused_frontend_common.cuh's project_tile and write_block do.
 // ---------------------------------------------------------------------------
 
 // floats of the space the basis slices, the s and d slices and the power tile share

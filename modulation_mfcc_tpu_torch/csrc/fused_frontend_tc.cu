@@ -1,10 +1,11 @@
-// Fused MFCC frontend for Hopper (sm_90a) on the tensor cores: the bf16, x3,
-// i16 and i24 modes, audio -> mel power. Plain C launchers, loaded with ctypes
-// (modulation_mfcc_tpu_torch/kernels/_build.py); each returns the
+// Fused MFCC frontend for Hopper (sm_90a) on the tensor cores: the f32, bf16,
+// x3, i16 and i24 modes, audio -> mel power. Plain C launchers, loaded with
+// ctypes (modulation_mfcc_tpu_torch/kernels/_build.py); each returns the
 // cudaError_t of its launch. No fast-math intrinsics.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <type_traits>
 
 #include "tensor_core.cuh"
 
@@ -13,11 +14,12 @@ namespace {
 using namespace tc;
 
 // ---------------------------------------------------------------------------
-// fused_mel_bf16, fused_mel_x3, fused_mel_i16, fused_mel_i24
+// fused_mel_f32, fused_mel_bf16, fused_mel_x3, fused_mel_i16, fused_mel_i24
 //
 // Replace the Pallas frontend kernels of modulation_mfcc_tpu/pallas/
-// fused_frontend.py (fused_mel_frontend -> _launch) with algorithm 'bf16'
-// and 'x3' (_kernel and _kernel_pipe, _mxu's bf16 and x3 branches), 'i16' (_kernel_i16 and
+// fused_frontend.py (fused_mel_frontend -> _launch) with algorithm 'f32',
+// 'bf16' and 'x3' (_kernel and _kernel_pipe, _mxu's f32, bf16 and x3
+// branches), 'i16' (_kernel_i16 and
 // _kernel_i16_pipe, _i16_digits and _i16_reim) and 'i24' (_kernel_i24 and
 // _kernel_i24_pipe, _i24_reim). The pipelined kernels compute their plain
 // kernels' numbers bit for bit, so one kernel serves each pair.
@@ -28,9 +30,29 @@ using namespace tc;
 // (FP32 products, then their sum), and mel = power @ melw in x3
 // arithmetic (power and melw split into bf16 hi and lo; hi.hi products in
 // one FP32 sum, hi.lo + lo.hi in another, added at the end; bf16: one
-// pass); and per block of 64 frames the maximum of mel over its valid
-// frames.
+// pass; f32: the three-plane split below); and per block of 64 frames the
+// maximum of mel over its valid frames.
 //
+//   'f32': an exact three-plane bf16 split of every operand, the TPU's own
+//          f32 arithmetic (_mxu runs 'f32' as a Precision.HIGHEST dot, six
+//          bf16 passes over three-way splits). Frame samples split here,
+//          hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), with
+//          hi + mid + lo == x for every normal float32 (each residue is
+//          exact in FP32 and has at most 16, then 8 significant bits); the
+//          basis arrives as its (hi, mid, lo) planes. A bf16 product is
+//          exact in FP32. Of the nine products the six hh, hm, mh, hl, mm, lh
+//          are kept: the three dropped are about 2^-25 of the term, the order
+//          of one FFMA rounding. Each 16-row hi.hi MMA starts from zero and
+//          is added to the running sum with FP32 adds (mma_bf16_add, as x3);
+//          the five smaller products chain into a second sum; re and im are
+//          the two sums added. On int16 input (v * 2^-15, at most 16
+//          significant bits) the samples' lo plane is zero, and the lo.hi
+//          product is skipped: it adds exact zeros. The power is split into
+//          three planes the same way and projected onto the mel weights'
+//          three planes with the same six products (mel_tile), so every
+//          operand of the mel is exact too. The plain version
+//          (kernels/fused_frontend._stepped_matmul) is a true FP32 GEMM in
+//          16-row steps; _split3_matmul mirrors this arithmetic on the CPU.
 //   'bf16': frame samples rounded to bf16 here (__float2bfloat16_rn), the
 //          basis arrives rounded; one bf16 MMA a fragment, the MMAs of the
 //          400 rows chained into one FP32 sum; the power rounded to bf16,
@@ -69,7 +91,8 @@ using namespace tc;
 // Bound: the tensor cores' operations. A 128 x 30 s batch at 16 kHz is 315
 // GFLOP per K-row pass of the DFT and 50 GFLOP per pass of the mel
 // projection; bf16 runs one bf16 pass of each (989 TFLOP/s dense: 0.37 ms),
-// x3 three (1.1 ms), i24 six int8 passes of the DFT (1,979 TOPS) and three bf16 of the
+// x3 three (1.1 ms), f32 six (2.2 ms; five of the DFT on int16 input), i24
+// six int8 passes of the DFT (1,979 TOPS) and three bf16 of the
 // mel (1.1 ms), i16 five int8 passes and the same mel (0.95 ms). The audio
 // read and the mel write are ~0.2 ms at 3.35 TB/s.
 //
@@ -77,7 +100,8 @@ using namespace tc;
 //  * The A operand (frames) never exists in device memory, nor as a frame
 //    tile in shared memory: the block stages its audio span once, already
 //    in the MMA's element type (bf16: one plane; x3: the bf16 hi and lo
-//    planes; i16, i24: the two or three int8 digit planes), and each thread loads its A fragments
+//    planes; f32: hi, mid and lo; i16, i24: the two or three int8 digit
+//    planes), and each thread loads its A fragments
 //    straight from it: frame f, column k is span[f*hop + k], so the 8 bytes
 //    a thread needs for a row are consecutive in the span. Where f*hop is
 //    not a multiple of those 8 bytes (the 10 kHz default's hop of 50), the
@@ -91,17 +115,19 @@ using namespace tc;
 //    mbarrier; one __syncthreads a chunk returns a stage to the ring.
 //  * A bin tile is kCols = 128 DFT columns (re and im of 64 bins). Warps
 //    tile it 2 (32 frames) x 4 (32 columns): a thread holds 2 x 4
-//    accumulator fragments per sum (bf16: 1 sum, 32 registers; x3: 2, 64;
-//    i16, i24: 3 int32 sums, 96), so re and im of a bin are neighbours in
+//    accumulator fragments per sum (bf16: 1 sum, 32 registers; x3, f32: 2,
+//    64; i16, i24: 3 int32 sums, 96), so re and im of a bin are neighbours in
 //    one thread, which forms the power (and its bf16 split) into a [64 x
 //    64 bins] tile in shared memory. The tile's mel weights come in by bulk
 //    copy while its DFT runs, and the tile is projected onto them
 //    (tensor_core.cuh mel_tile) into the block's mel, held in registers
 //    over all tiles (registers and spills of each mode: chip_smoke.py
-//    phase 1). x3, i16 and i24 take one block of 8 warps an SM; bf16, with
-//    one sum and a one-plane mel, fits in 128 registers and takes two,
-//    which beat 128-frame blocks of 64-frame warp tiles on the H100 (one
-//    block an SM, half the weight stream a frame).
+//    phase 1). x3, f32, i16 and i24 take one block of 8 warps an SM (f32:
+//    its three-plane stages, mel weights, power tile and span come to
+//    211-219 KB of shared memory, kernels/fused_frontend.tc_shared_bytes);
+//    bf16, with one sum and a one-plane mel, fits in 128 registers and
+//    takes two, which beat 128-frame blocks of 64-frame warp tiles on the
+//    H100 (one block an SM, half the weight stream a frame).
 // Times on the H100: PERF.md §6 (chip_smoke.py phase 17). A narrower i24
 // warp tile (16 x 32, 48 accumulators) and per-warp release of the weight
 // stages through mbarriers, in place of the block barrier per chunk, were
@@ -109,7 +135,7 @@ using namespace tc;
 // shared memory) is the next step.
 // ---------------------------------------------------------------------------
 
-constexpr int kX3 = 0, kI16 = 1, kI24 = 2, kBF16 = 3;
+constexpr int kX3 = 0, kI16 = 1, kI24 = 2, kBF16 = 3, kF32 = 4;
 constexpr int kChunkRows = 32;  // contraction rows a pipeline stage holds
 constexpr int kStages = 4;
 constexpr int kMT = 2;          // 16-frame MMA tiles a warp: warps 2 (frames) x 4 (columns)
@@ -150,6 +176,14 @@ template <> struct Mode<kBF16> {
     static constexpr int kStep = 16;
     static constexpr int kMelPlanes = 1;   // the power and the mel weights rounded to bf16
 };
+template <> struct Mode<kF32> {
+    using T = __nv_bfloat16;
+    using Out = float;
+    static constexpr int kSpanPlanes = 3;  // the samples' (hi, mid, lo)
+    static constexpr int kBasisPlanes = 3; // the basis' (hi, mid, lo)
+    static constexpr int kStep = 16;
+    static constexpr int kMelPlanes = 3;   // the power's and the mel weights' (hi, mid, lo)
+};
 
 template <int MODE> constexpr int kAl = 8 / (int)sizeof(typename Mode<MODE>::T);  // elements per 8-byte load
 template <int MODE> constexpr int kChunkBytes =
@@ -175,6 +209,15 @@ __device__ __forceinline__ void planes_of(float v, float, __nv_bfloat16 (&p)[2])
     const __nv_bfloat16 hi = __float2bfloat16_rn(v);
     p[0] = hi;
     p[1] = __float2bfloat16_rn(v - __bfloat162float(hi));
+}
+
+// f32, its exact three-plane bf16 split: hi + mid + lo == v
+__device__ __forceinline__ void planes_of(float v, float, __nv_bfloat16 (&p)[3])
+{
+    p[0] = __float2bfloat16_rn(v);
+    const float r = __fsub_rn(v, __bfloat162float(p[0]));
+    p[1] = __float2bfloat16_rn(r);
+    p[2] = __float2bfloat16_rn(__fsub_rn(r, __bfloat162float(p[1])));
 }
 
 // the two digits of rint(v * s) clipped to 16 bits, the low one offset by
@@ -225,9 +268,11 @@ template <> struct Acc<kX3> { float hh[kMT][4][4], sm[kMT][4][4]; };
 template <> struct Acc<kI16> { int d[3][kMT][4][4]; };
 template <> struct Acc<kI24> { int d[3][kMT][4][4]; };
 template <> struct Acc<kBF16> { float s[kMT][4][4]; };
+template <> struct Acc<kF32> : Acc<kX3> {};
 
-// one chunk (kChunkRows contraction rows from k0) of the tile's DFT
-template <int MODE>
+// one chunk (kChunkRows contraction rows from k0) of the tile's DFT; LO_ZERO:
+// the samples' f32 lo plane is zero (int16 input), so lo.hi is skipped
+template <int MODE, bool LO_ZERO>
 __device__ __forceinline__ void dft_chunk(Acc<MODE>& acc, const typename Mode<MODE>::T* span,
                                           int span_plane, const int (&a_off)[kMT][2],
                                           const typename Mode<MODE>::T* stage, int k0, int col0, int t)
@@ -237,7 +282,7 @@ __device__ __forceinline__ void dft_chunk(Acc<MODE>& acc, const typename Mode<MO
     for (int j = 0; j < kChunkRows / M::kStep; ++j) {
         uint32_t a[M::kSpanPlanes][kMT][4];
 #pragma unroll
-        for (int p = 0; p < M::kSpanPlanes; ++p)
+        for (int p = 0; p < M::kSpanPlanes - (LO_ZERO ? 1 : 0); ++p)
 #pragma unroll
             for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
@@ -263,6 +308,13 @@ __device__ __forceinline__ void dft_chunk(Acc<MODE>& acc, const typename Mode<MO
                     mma_bf16_add(acc.hh[mt][nt], a[0][mt], w[0].x, w[0].y);
                     mma_bf16(acc.sm[mt][nt], a[0][mt], w[1].x, w[1].y);
                     mma_bf16(acc.sm[mt][nt], a[1][mt], w[0].x, w[0].y);
+                } else if constexpr (MODE == kF32) {
+                    mma_bf16_add(acc.hh[mt][nt], a[0][mt], w[0].x, w[0].y);        // hi.hi
+                    mma_bf16(acc.sm[mt][nt], a[0][mt], w[1].x, w[1].y);            // hi.mid
+                    mma_bf16(acc.sm[mt][nt], a[1][mt], w[0].x, w[0].y);            // mid.hi
+                    mma_bf16(acc.sm[mt][nt], a[0][mt], w[2].x, w[2].y);            // hi.lo
+                    mma_bf16(acc.sm[mt][nt], a[1][mt], w[1].x, w[1].y);            // mid.mid
+                    if constexpr (!LO_ZERO) mma_bf16(acc.sm[mt][nt], a[2][mt], w[0].x, w[0].y);  // lo.hi
                 } else if constexpr (MODE == kI16) {
                     mma_s8(acc.d[0][mt][nt], a[0][mt], w[0].x, w[0].y);  // x1.w2
                     mma_s8(acc.d[1][mt][nt], a[0][mt], w[1].x, w[1].y);  // x1.w1
@@ -292,6 +344,7 @@ fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* 
     using M = Mode<MODE>;
     using E = typename M::T;
     constexpr bool kFixed = MODE == kI16 || MODE == kI24;
+    constexpr bool kLoZero = MODE == kF32 && std::is_same<In, int16_t>::value;
     extern __shared__ __align__(128) unsigned char smem[];
     uint64_t* full = reinterpret_cast<uint64_t*>(smem);                 // [kStages] chunk barriers
     uint64_t* mel_bar = full + kStages;                                  // the tile's mel weights
@@ -371,7 +424,7 @@ fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* 
                 for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
                     for (int i = 0; i < 4; ++i) acc.s[mt][nt][i] = 0.0f;
-        } else if constexpr (MODE == kX3) {
+        } else if constexpr (MODE == kX3 || MODE == kF32) {
 #pragma unroll
             for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
@@ -396,13 +449,13 @@ fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* 
                 if (chunk == 0) bulk_load(mel_w, mtc + (size_t)tile * kMelBytes<MODE> / 2, kMelBytes<MODE>, mel_bar);
             }
             mbar::wait(full + q % kStages, (q / kStages) & 1);
-            dft_chunk<MODE>(acc, span, span_plane, a_off,
+            dft_chunk<MODE, kLoZero>(acc, span, span_plane, a_off,
                             reinterpret_cast<const E*>(ring + (q % kStages) * kChunkBytes<MODE>),
                             chunk * kChunkRows, col0, t);
         }
 
         // power of each (frame, bin) this thread holds, rounded to bf16 (x3, i16,
-        // i24: split into bf16 hi and lo).
+        // i24: split into bf16 hi and lo; f32: into hi, mid and lo).
         // The fragment's columns 2t and 2t + 1 of n-tile nt are the re and im
         // of the tile's bin 16 wn + 4 nt + t.
         float c_re[4], c_im[4];  // i16: those bins' offset corrections
@@ -424,7 +477,7 @@ fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* 
                     if constexpr (MODE == kBF16) {
                         re = acc.s[mt][nt][2 * h];
                         im = acc.s[mt][nt][2 * h + 1];
-                    } else if constexpr (MODE == kX3) {
+                    } else if constexpr (MODE == kX3 || MODE == kF32) {
                         re = acc.hh[mt][nt][2 * h] + acc.sm[mt][nt][2 * h];
                         im = acc.hh[mt][nt][2 * h + 1] + acc.sm[mt][nt][2 * h + 1];
                     } else if constexpr (MODE == kI16) {
@@ -441,7 +494,13 @@ fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* 
                     const __nv_bfloat16 hi = __float2bfloat16_rn(p);
                     const int o = (16 * kMT * wm + 16 * mt + 8 * h + g) * kPitch + 16 * wn + 4 * nt + t;
                     pw[o] = hi;
-                    if constexpr (M::kMelPlanes == 2) pw[kBF * kPitch + o] = __float2bfloat16_rn(p - __bfloat162float(hi));
+                    if constexpr (M::kMelPlanes >= 2) {
+                        const float r = __fsub_rn(p, __bfloat162float(hi));
+                        const __nv_bfloat16 mid = __float2bfloat16_rn(r);
+                        pw[kBF * kPitch + o] = mid;
+                        if constexpr (M::kMelPlanes == 3)
+                            pw[2 * kBF * kPitch + o] = __float2bfloat16_rn(__fsub_rn(r, __bfloat162float(mid)));
+                    }
                 }
         __syncthreads();  // the power tile is complete
         mbar::wait(mel_bar, tile & 1);
@@ -488,6 +547,18 @@ int launch_tc(const void* audio, int audio_i16, const void* wtc, const void* mtc
 }
 
 }  // namespace
+
+// wtc: the (hi, mid, lo) basis planes, bf16 [2*bins_pad/128][Kp/16][3][128][16]
+// (re and im columns interleaved, rows past K zero); mtc: the mel weights'
+// (hi, mid, lo) planes, bf16 [bins_pad/16][3][128][16] (columns past n_mels
+// zero); mel [B, nf, n_mels] float32, bmax [B, ceil(nf/64)]
+extern "C" int fused_mel_f32(const void* audio, int audio_i16, const void* wtc, const void* mtc, float* mel,
+                             float* bmax, int B, int T, int Kp, int hop, int off, int nf, int bins_pad, int n_mels,
+                             void* stream)
+{
+    return launch_tc<kF32>(audio, audio_i16, wtc, mtc, nullptr, nullptr, mel, bmax, B, T, Kp, hop, off, nf,
+                           bins_pad, n_mels, stream);
+}
 
 // wtc: the bf16-rounded basis, [2*bins_pad/128][Kp/16][1][128][16] (re and
 // im columns interleaved, rows past K zero); mtc: the bf16-rounded mel

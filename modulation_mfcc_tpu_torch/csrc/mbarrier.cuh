@@ -1,7 +1,8 @@
 // Shared-memory mbarriers, as the kernels that pipeline through shared
-// memory use them (fused_frontend_tc.cu through tensor_core.cuh, and
-// viterbi.cu's backtrace): initialise, arrive, and wait for a phase with a
-// trap on a wait that never ends. Included by those sources only.
+// memory use them (fused_frontend_tc.cu through tensor_core.cuh,
+// fused_frontend.cu's tail and viterbi.cu's backtrace): initialise, arrive,
+// wait for a phase with a trap on a wait that never ends, and the bulk copy
+// that completes one. Included by those sources only.
 #pragma once
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -49,6 +50,18 @@ __device__ __forceinline__ void wait(uint64_t* bar, uint32_t parity)
     const long long start = clock64();
     while (!done(bar, parity))
         if (clock64() - start > (1ll << 32)) __trap();
+}
+
+// one thread: arrive on bar expecting `bytes`, and copy them global -> shared
+// with the bulk-copy engine (TMA without a tensor map: 16-byte aligned,
+// contiguous, a multiple of 16 bytes); the barrier's phase completes when
+// they have landed
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar)
+{
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+                 ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
 }
 
 }  // namespace mbar

@@ -1,9 +1,9 @@
-// What the tensor-core frontend kernels (fused_frontend_tc.cu: fused_mel_bf16,
-// fused_mel_x3, fused_mel_i16, fused_mel_i24) share: the warp-level MMAs, the
-// bulk copies with their mbarriers, and the end of the frontend, the mel
-// projection on the bf16 tensor cores (one pass for bf16, x3 arithmetic for
-// the others) and the write of a block's mel and maxima. Included by that
-// source only.
+// What the tensor-core frontend kernels (fused_frontend_tc.cu: fused_mel_f32,
+// fused_mel_bf16, fused_mel_x3, fused_mel_i16, fused_mel_i24) share: the
+// warp-level MMAs, and the end of the frontend, the mel projection on the
+// bf16 tensor cores (one pass for bf16, the three-plane split for f32, x3
+// arithmetic for the others) and the write of a block's mel and maxima.
+// Included by that source only.
 //
 // Fragments follow the PTX ISA's m16n8k16 (bf16) and m16n8k32 (int8)
 // layouts: lane = 4g + t, a thread holds rows g and g + 8 of A and column g
@@ -22,6 +22,7 @@
 
 namespace tc {
 
+using mbar::bulk_load;
 using mbar::smem_u32;
 
 constexpr int kBF = 64;         // frames per block: one block maximum each
@@ -61,27 +62,16 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// one thread: arrive on bar expecting `bytes`, and copy them global -> shared
-// with the bulk-copy engine (TMA without a tensor map: 16-byte aligned,
-// contiguous, a multiple of 16 bytes); the barrier's phase completes when
-// they have landed
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar)
-{
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
-    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-                 ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
-}
-
 // The mel projection of one bin tile, accumulated into the block's mel. p_s
 // holds the tile's power as PLANES bf16 planes (bf16: the rounded power;
-// x3: its (hi, lo) split) of kBF rows of `pitch` elements ([frame][bin],
-// STEPS * 16 bins); m_s the mel weights' planes of those bins,
-// [STEPS][PLANES][kMelCols][16]. Warp w owns frames 32 (w >> 2) .. + 31 and
-// mel columns 32 (w & 3) .. + 31: 2 x 4 tiles of 16 x 8. The hi.hi products
-// go to hh, each 16-bin MMA added with FP32 adds (mma_bf16_add); for x3 the
-// hi.lo and lo.hi products go to sm (two FP32 sums, added at the end, as the
-// TPU mode sums its passes).
+// x3: its (hi, lo) split; f32: (hi, mid, lo)) of kBF rows of `pitch`
+// elements ([frame][bin], STEPS * 16 bins); m_s the mel weights' planes of
+// those bins, [STEPS][PLANES][kMelCols][16]. Warp w owns frames
+// 32 (w >> 2) .. + 31 and mel columns 32 (w & 3) .. + 31: 2 x 4 tiles of
+// 16 x 8. The hi.hi products go to hh, each 16-bin MMA added with FP32 adds
+// (mma_bf16_add); for x3 the hi.lo and lo.hi products go to sm (two FP32
+// sums, added at the end, as the TPU mode sums its passes), for f32 the
+// hi.mid, mid.hi, hi.lo, mid.mid and lo.hi products.
 template <int STEPS, int PLANES>
 __device__ __forceinline__ void mel_tile(float (&hh)[2][4][4], float (&sm)[2][4][4], const __nv_bfloat16* p_s,
                                          int pitch, const __nv_bfloat16* m_s, int lane, int warp)
@@ -89,34 +79,37 @@ __device__ __forceinline__ void mel_tile(float (&hh)[2][4][4], float (&sm)[2][4]
     const int g = lane >> 2, t = lane & 3;
     const int row0 = 32 * (warp >> 2) + g;
     const int col0 = 32 * (warp & 3) + g;
-    const __nv_bfloat16* p_lo = p_s + kBF * pitch;
 #pragma unroll
     for (int j = 0; j < STEPS; ++j) {
-        uint32_t ah[2][4], al[2][4];
+        uint32_t a[PLANES][2][4];
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
+        for (int p = 0; p < PLANES; ++p)
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int o = (row0 + 16 * mt + 8 * h) * pitch + kMelStep * j + 4 * t;
-                const uint2 vh = *reinterpret_cast<const uint2*>(p_s + o);
-                ah[mt][h] = vh.x; ah[mt][2 + h] = vh.y;
-                if constexpr (PLANES == 2) {
-                    const uint2 vl = *reinterpret_cast<const uint2*>(p_lo + o);
-                    al[mt][h] = vl.x; al[mt][2 + h] = vl.y;
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int o = p * kBF * pitch + (row0 + 16 * mt + 8 * h) * pitch + kMelStep * j + 4 * t;
+                    const uint2 v = *reinterpret_cast<const uint2*>(p_s + o);
+                    a[p][mt][h] = v.x; a[p][mt][2 + h] = v.y;
                 }
-            }
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
             const __nv_bfloat16* mb = m_s + ((PLANES * j) * kMelCols + col0 + 8 * nt) * kMelStep + 4 * t;
-            const uint2 bh = *reinterpret_cast<const uint2*>(mb);
+            uint2 b[PLANES];
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt) mma_bf16_add(hh[mt][nt], ah[mt], bh.x, bh.y);
-            if constexpr (PLANES == 2) {
-                const uint2 bl = *reinterpret_cast<const uint2*>(mb + kMelCols * kMelStep);
+            for (int p = 0; p < PLANES; ++p) b[p] = *reinterpret_cast<const uint2*>(mb + p * kMelCols * kMelStep);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) mma_bf16_add(hh[mt][nt], a[0][mt], b[0].x, b[0].y);
+            if constexpr (PLANES >= 2) {
 #pragma unroll
                 for (int mt = 0; mt < 2; ++mt) {
-                    mma_bf16(sm[mt][nt], ah[mt], bl.x, bl.y);
-                    mma_bf16(sm[mt][nt], al[mt], bh.x, bh.y);
+                    mma_bf16(sm[mt][nt], a[0][mt], b[1].x, b[1].y);
+                    mma_bf16(sm[mt][nt], a[1][mt], b[0].x, b[0].y);
+                    if constexpr (PLANES == 3) {
+                        mma_bf16(sm[mt][nt], a[0][mt], b[2].x, b[2].y);
+                        mma_bf16(sm[mt][nt], a[1][mt], b[1].x, b[1].y);
+                        mma_bf16(sm[mt][nt], a[2][mt], b[0].x, b[0].y);
+                    }
                 }
             }
         }

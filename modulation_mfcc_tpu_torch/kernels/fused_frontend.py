@@ -3,9 +3,9 @@
 Hand-written kernels carry the MFCC stage on the GPU, one frontend kernel
 per arithmetic mode of the JAX frontend and one tail kernel:
 
-  * ``fused_mel_f32`` (csrc/fused_frontend.cu), and ``fused_mel_bf16``,
-    ``fused_mel_x3``, ``fused_mel_i16``, ``fused_mel_i24``
-    (csrc/fused_frontend_tc.cu, on the tensor cores), all behind
+  * ``fused_mel_f32``, ``fused_mel_bf16``, ``fused_mel_x3``,
+    ``fused_mel_i16``, ``fused_mel_i24`` (csrc/fused_frontend_tc.cu, the
+    modes of one kernel on the tensor cores), all behind
     :func:`fused_mel_frontend`,
     replace the Pallas frontend of modulation_mfcc_tpu/pallas/
     fused_frontend.py (``fused_mel_frontend`` → ``_launch`` → ``_kernel``,
@@ -17,7 +17,13 @@ per arithmetic mode of the JAX frontend and one tail kernel:
     arithmetic, and each block writes the max of its valid frames for the
     top_db clip:
 
-      - 'f32': FP32 FFMA, the DFT summed in 16-row steps;
+      - 'f32': each operand split exactly into three bf16 planes (hi, mid,
+        lo; :func:`_split3`), six of the nine plane products per term as
+        bf16 tensor-core MMAs, the hi·hi products added per 16-row step in
+        FP32 and the smaller ones summed apart (the TPU's own f32: six bf16
+        passes); its plain version is a true FP32 GEMM in 16-row steps
+        (:func:`_stepped_matmul`), and :func:`_split3_matmul` mirrors the
+        kernel's arithmetic on the CPU;
       - 'bf16': operands rounded to bf16, products accumulated in f32 as
         bf16 tensor-core MMAs; mel stored as bf16 (the corpus throughput
         mode);
@@ -36,14 +42,16 @@ per arithmetic mode of the JAX frontend and one tail kernel:
     :func:`mode_tensors` and the ``MfccChange`` module build once.
 
     Bound: the DFT's operations (~315 GFLOP + ~50 GFLOP of mel per
-    128 × 30 s batch at 16 kHz), on the unit each mode's arithmetic is made
-    for (FP32 CUDA cores for f32, bf16 tensor cores for bf16 and x3, int8
-    for i16 and i24).
+    128 × 30 s batch at 16 kHz and pass), on the unit each mode's arithmetic
+    runs on (bf16 tensor cores for f32's six passes, bf16 and x3, int8 for
+    i16 and i24).
   * ``mfcc_tail_f32`` (wrapper :func:`mfcc_tail`) replaces the Pallas tail
     kernels (``mfcc_tail`` → ``_tail_kernel_t`` / ``_tail_kernel``):
     10·log10(max(mel, 1e-10)), the clip at peak − 80 dB, and the DCT-II,
     written coef-major [B, n_mfcc, NF] or frame-major [B, NF, n_mfcc]; it
-    reads a float32 or a bf16 mel. Bound: the one read of the mel tensor.
+    reads a float32 or a bf16 mel. Bound: the one read of the mel tensor;
+    a ring of bulk copies keeps it in flight while the lanes of a warp
+    share a frame's log10f and DCT.
 
 Every frontend takes float32 or int16 audio (int16 is dequantized as
 v·2⁻¹⁵, exact), flat [B, T] or as hop rows [B, rows, hop]
@@ -81,8 +89,9 @@ from modulation_mfcc_tpu_torch.utils.helpers import dequantize_samples, round_up
 __all__ = [
     "ALGORITHMS", "FOLD_ALGORITHMS", "LAUNCHES", "frontend_weights", "mode_weights", "int8_weight_planes",
     "quant_scales", "tail_dct", "eff_pad", "hop_rows_geometry", "pack_hop_rows", "fold_ok", "fold_weights",
-    "TC_ALGORITHMS", "tc_layouts", "pack_tc_basis", "unpack_tc_basis", "pack_tc_mel", "unpack_tc_mel",
-    "fused_mel_frontend", "fused_mel_frontend_reference", "fused_mel_fold_reference",
+    "tc_layouts", "tc_planes", "tc_shared_bytes", "pack_tc_basis", "unpack_tc_basis",
+    "pack_tc_mel", "unpack_tc_mel", "fused_mel_frontend", "fused_mel_frontend_reference",
+    "split3_frontend_mirror", "fused_mel_fold_reference",
     "mfcc_tail", "mfcc_tail_reference", "fused_mfcc",
 ]
 
@@ -95,13 +104,17 @@ BLOCK_FRAMES = 64  # frames per frontend block: one bmax entry each (kBF in the 
 _BIN_TILE = 128    # bins_pad must be a multiple (kBT)
 _MEL_MAX = 128     # kMelMax
 _MFCC_MAX = 32     # kMfccMax
-_KC = 16           # contraction rows per step of the f32 kernels (kKC in fused_frontend_common.cuh)
-TC_ALGORITHMS = ("bf16", "x3", "i16", "i24")  # the modes of the tensor-core kernels (fused_frontend_tc.cu)
+_KC = 16           # contraction rows per step of the f32 sums (kKC in fused_frontend_common.cuh; one bf16 MMA)
 _TC_COLS = 128                                # DFT columns per tile (kCols): re and im of 64 bins
-_TC_STEP = {"bf16": 16, "x3": 16, "i16": 32, "i24": 32}  # contraction rows per MMA (Mode::kStep)
-_TC_BF16 = ("bf16", "x3")                     # the modes whose basis is bf16 (int8 for the others)
+_TC_STEP = {"f32": 16, "bf16": 16, "x3": 16, "i16": 32, "i24": 32}  # contraction rows per MMA (Mode::kStep)
+_TC_BF16 = ("f32", "bf16", "x3")              # the modes whose basis is bf16 (int8 for the others)
+# (span, basis, mel) planes of each mode (Mode::kSpanPlanes, kBasisPlanes, kMelPlanes)
+_TC_PLANES = {"f32": (3, 3, 3), "bf16": (1, 1, 1), "x3": (2, 2, 2), "i16": (2, 3, 2), "i24": (3, 3, 2)}
 _TC_CHUNK = 32                      # contraction rows per pipeline stage (kChunkRows)
+_TC_STAGES = 4                      # pipeline stages of the basis ring (kStages)
+_TC_PITCH = 80                      # bf16 elements per row of the power tile (kPitch)
 _MEL_STEP = 16                      # bins per MMA of the mel projection (kMelStep)
+SHARED_MAX = 232_448                # bytes of shared memory a block may use on the H100
 ROWS_BLKF = 1024   # the JAX frontend's default frame block, which sizes a hop-rows batch
 _TAIL_ROWS = 16    # spare hop rows after the last block (JAX _TAIL_ROWS)
 _I24_FULL = 127.0 * 65536.0 - 33000.0  # 24-bit quantization full scale (exact in f32)
@@ -191,6 +204,19 @@ def _bf16_round(a) -> np.ndarray:
     return t.to(torch.bfloat16).to(torch.float32).numpy()
 
 
+def _split3(x: torch.Tensor) -> torch.Tensor:
+    """[3, ...] float32: the exact three-plane bf16 split of float32 ``x``,
+    hi = bf16(x), mid = bf16(x − hi), lo = bf16(x − hi − mid), as
+    fused_mel_f32 splits its samples, power and weights (planes_of). Each
+    residue is exact in float32 and has at most 16, then 8 significant bits,
+    so hi + mid + lo == x for every normal float32; v·2⁻¹⁵ of an int16 has
+    at most 16, so its lo is zero."""
+    hi = _bf16r(x)
+    r = x - hi
+    mid = _bf16r(r)
+    return torch.stack([hi, mid, _bf16r(r - mid)])
+
+
 def _x3_stack(w: np.ndarray) -> np.ndarray:
     """[2, ...] float32: the bf16 (hi, lo) split of ``w`` (JAX _stack_weights x3)."""
     hi = _bf16_round(w)
@@ -239,7 +265,7 @@ def mode_weights(
 def mode_tensors(algorithm: str, device, sr: float, n_fft: int = 512, win_length: int | None = None,
                  n_mels: int = 128, fmin: float = 100.0, fmax: float | None = None) -> dict[str, torch.Tensor]:
     """:func:`mode_weights` as tensors on ``device``, with the tensor-core
-    kernels' layouts of them (:func:`tc_layouts`) for :data:`TC_ALGORITHMS`."""
+    kernel's layouts of them (:func:`tc_layouts`)."""
     w = mode_weights(algorithm, sr, n_fft, win_length, n_mels, fmin, fmax)
     t = {k: torch.as_tensor(v, device=device) for k, v in w.items()}
     return t | tc_layouts(algorithm, t)
@@ -253,12 +279,13 @@ def _interleave(w: torch.Tensor) -> torch.Tensor:
 
 def pack_tc_basis(algorithm: str, w: torch.Tensor) -> torch.Tensor:
     """The tensor-core kernels' basis layout of the mode's planes ``w``
-    [P, K, 2·bins_pad] (bf16: ``wri[None]``, the bf16-rounded basis held as
-    float32; x3: ``wri``, its (hi, lo) bf16 splits; i16, i24: ``planes``,
-    int8 w2, w1, w0): columns interleaved re/im, K zero-padded to Kp, a
-    multiple of 32, then [tiles, Kp/step, P, 128, step] with 128 interleaved
-    columns a tile and step = 16 (bf16, x3) or 32 (i16, i24) rows an MMA, so
-    one 32-row chunk of a tile is contiguous; bf16 for bf16 and x3 (exact:
+    [P, K, 2·bins_pad] (f32: ``_split3(wri)``, its (hi, mid, lo) planes;
+    bf16: ``wri[None]``, the bf16-rounded basis held as float32; x3:
+    ``wri``, its (hi, lo) bf16 splits; i16, i24: ``planes``, int8 w2, w1,
+    w0): columns interleaved re/im, K zero-padded to Kp, a multiple of 32,
+    then [tiles, Kp/step, P, 128, step] with 128 interleaved columns a tile
+    and step = 16 (f32, bf16, x3) or 32 (i16, i24) rows an MMA, so one
+    32-row chunk of a tile is contiguous; bf16 for f32, bf16 and x3 (exact:
     the planes are bf16 values), int8 for i16 and i24."""
     cols, step = _TC_COLS, _TC_STEP[algorithm]
     p, k, c = w.shape
@@ -268,7 +295,7 @@ def pack_tc_basis(algorithm: str, w: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_tc_basis(algorithm: str, packed: torch.Tensor, k: int) -> torch.Tensor:
-    """Inverse of :func:`pack_tc_basis`: [P, K, 2·bins_pad], float32 for bf16 and x3."""
+    """Inverse of :func:`pack_tc_basis`: [P, K, 2·bins_pad], float32 for f32, bf16 and x3."""
     tiles, ks, p, cols, step = packed.shape
     x = packed.permute(2, 1, 4, 0, 3).reshape(p, ks * step, tiles * cols)[:, :k]
     x = torch.cat([x[..., 0::2], x[..., 1::2]], dim=-1)
@@ -277,8 +304,9 @@ def unpack_tc_basis(algorithm: str, packed: torch.Tensor, k: int) -> torch.Tenso
 
 def pack_tc_mel(melw: torch.Tensor) -> torch.Tensor:
     """The tensor-core kernels' mel layout of the mel weights' P bf16 planes
-    ``melw`` [P, bins_pad, n_mels] (bf16: one, the rounded weights; the
-    others: the x3 stack's (hi, lo)): mel columns zero-padded to 128, then
+    ``melw`` [P, bins_pad, n_mels] (bf16: one, the rounded weights; f32:
+    the three of :func:`_split3`; the others: the x3 stack's (hi, lo)): mel
+    columns zero-padded to 128, then
     [bins_pad/16, P, 128, 16] bf16 (16 bins a step, each column's 16 bins
     contiguous)."""
     p, bins, n = melw.shape
@@ -292,21 +320,38 @@ def unpack_tc_mel(packed: torch.Tensor, n_mels: int) -> torch.Tensor:
     return packed.permute(1, 0, 3, 2).reshape(p, steps * step, cols)[..., :n_mels].to(torch.float32)
 
 
-def _planes(w: torch.Tensor) -> torch.Tensor:
-    """A mode's weights as a stack of planes: bf16's single matrix gains a plane axis."""
+def tc_planes(algorithm: str, w: torch.Tensor) -> torch.Tensor:
+    """The planes the tensor-core kernel reads of one of the mode's weights
+    [P, ...]: f32 splits its float32 matrix into three (:func:`_split3`),
+    bf16's single matrix gains a plane axis, the others are stacks already."""
+    if algorithm == "f32":
+        return _split3(w)
     return w if w.ndim == 3 else w[None]
 
 
 def tc_layouts(algorithm: str, weights: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """For :data:`TC_ALGORITHMS`, the tensor-core kernels' layouts of the
-    mode's weights on their device: ``wri_tc`` (bf16, x3) or ``planes_tc``
-    (i16, i24) from :func:`pack_tc_basis`, and ``melw_tc`` from
-    :func:`pack_tc_mel`; empty for the other modes."""
-    if algorithm not in TC_ALGORITHMS:
-        return {}
+    """The tensor-core kernel's layouts of the mode's weights on their
+    device: ``wri_tc`` (f32, bf16, x3) or ``planes_tc`` (i16, i24) from
+    :func:`pack_tc_basis`, and ``melw_tc`` from :func:`pack_tc_mel`."""
     basis = "wri" if algorithm in _TC_BF16 else "planes"
-    return {f"{basis}_tc": pack_tc_basis(algorithm, _planes(weights[basis])),
-            "melw_tc": pack_tc_mel(_planes(weights["melw"]))}
+    return {f"{basis}_tc": pack_tc_basis(algorithm, tc_planes(algorithm, weights[basis])),
+            "melw_tc": pack_tc_mel(tc_planes(algorithm, weights["melw"]))}
+
+
+def tc_shared_bytes(algorithm: str, hop: int, kp: int) -> int:
+    """Dynamic shared memory of one block of the tensor-core kernel in
+    ``algorithm`` at this hop and padded support Kp, the launcher's sum
+    (launch_tc): 128 bytes of barriers, the ring of basis chunks, a tile's
+    mel weights, the power tile and the span planes in their copies."""
+    span_planes, basis_planes, mel_planes = _TC_PLANES[algorithm]
+    esize = 2 if algorithm in _TC_BF16 else 1
+    al = 8 // esize
+    n_copies = al // np.gcd(hop, al)
+    span_pad = -(-((BLOCK_FRAMES - 1) * hop + kp) // 16) * 16
+    chunk = _TC_CHUNK * _TC_COLS * basis_planes * esize
+    mel = _TC_COLS // 2 * mel_planes * _MEL_MAX * 2
+    power = mel_planes * BLOCK_FRAMES * _TC_PITCH * 2
+    return 128 + _TC_STAGES * chunk + mel + power + span_planes * n_copies * span_pad * esize
 
 
 def fold_ok(n_fft: int, hop: int, win_length: int | None) -> bool:
@@ -530,11 +575,25 @@ def _stepped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     running sum, step by step. Against one K-term sum this cuts the f32
     rounding of the DFT's long sums (the MFCC's distance from float64 on
     16 × 30 s of noise at 16 kHz: 2.5e-4 as one sum, 8.5e-5 in steps;
-    tests/test_torch_frontend_accuracy.py)."""
+    tests/test_torch_frontend_accuracy.py). The f32 plain versions' DFT."""
     out = x[..., :_KC] @ w[:_KC]
     for k0 in range(_KC, w.shape[-2], _KC):
         out.add_(x[..., k0 : k0 + _KC] @ w[k0 : k0 + _KC])
     return out
+
+
+def _split3_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in fused_mel_f32's tensor-core arithmetic, mirrored in float32
+    matmuls: x split into three bf16 planes as the kernel splits its
+    operands (:func:`_split3`), ``w`` [3, K, C] the planes of the other
+    operand; the hi·hi products summed per 16-row step and the step sums
+    added to the running sum one by one (:func:`_stepped_matmul`), the five
+    smaller products (hi·mid, mid·hi, hi·lo, mid·mid, lo·hi) summed apart
+    and added at the end. Each product of two bf16 values is exact in
+    float32. A CPU proof of the split's accuracy: no path calls it."""
+    xh, xm, xl = _split3(x)
+    wh, wm, wl = w
+    return _stepped_matmul(xh, wh) + ((((xh @ wm + xm @ wh) + xh @ wl) + xm @ wm) + xl @ wh)
 
 
 def _x3_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -583,20 +642,13 @@ def fused_mel_frontend_reference(
     corr: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the frontend kernels: frame matrix, then
-    matmuls in the mode's arithmetic ('f32' sums the DFT in the kernel's
-    16-row steps, :func:`_stepped_matmul`). ``wri``/``melw``/``sw``/``corr`` are
+    matmuls in the mode's arithmetic ('f32': true FP32 GEMMs, the DFT summed
+    in 16-row steps, :func:`_stepped_matmul`, the steps the kernel adds its
+    hi·hi products in). ``wri``/``melw``/``sw``/``corr`` are
     the mode's :func:`mode_weights` (``wri`` = ``planes`` for i16/i24).
     Audio as for :func:`fused_mel_frontend`."""
-    bsz = audio.shape[0]
-    k = wri.shape[-2]
     bins_pad = melw.shape[-2]
-    if audio.ndim == 3:
-        t, flat, left = int(n_samples), dequantize_samples(audio).reshape(bsz, -1), 0
-    else:
-        t, flat, left = audio.shape[1], dequantize_samples(audio), eff_pad
-    nf = 1 + t // hop
-    right = max(0, (nf - 1) * hop + k - left - flat.shape[1])
-    frames = frame_by_slices(tnf.pad(flat, (left, right)), 0, nf, k, hop)
+    frames = _frames(audio, wri.shape[-2], hop, eff_pad, n_samples)
     if algorithm == "f32":
         reim = _stepped_matmul(frames, wri)
     elif algorithm == "bf16":
@@ -609,6 +661,45 @@ def fused_mel_frontend_reference(
     return _mel_of_power(re * re + im * im, melw, algorithm)
 
 
+def _frames(audio: torch.Tensor, k: int, hop: int, eff_pad: int, n_samples: int | None) -> torch.Tensor:
+    """[B, nf, k] frames of the frontends' input (flat [B, T] with the left
+    pad ``eff_pad``, or hop rows with ``n_samples``), dequantized, zero
+    past the buffer."""
+    bsz = audio.shape[0]
+    if audio.ndim == 3:
+        t, flat, left = int(n_samples), dequantize_samples(audio).reshape(bsz, -1), 0
+    else:
+        t, flat, left = audio.shape[1], dequantize_samples(audio), eff_pad
+    nf = 1 + t // hop
+    right = max(0, (nf - 1) * hop + k - left - flat.shape[1])
+    return frame_by_slices(tnf.pad(flat, (left, right)), 0, nf, k, hop)
+
+
+def split3_frontend_mirror(
+    audio: torch.Tensor, wri: torch.Tensor, melw: torch.Tensor, *, hop: int, eff_pad: int,
+    n_samples: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mel, block maxima) of ``fused_mel_f32``'s arithmetic mirrored in
+    float32 matmuls (:func:`_split3_matmul`): the DFT of the split frames
+    against the split basis, power = re² + im² in float32, and the split
+    power against the split mel weights (16-bin steps). ``wri``/``melw``
+    are the f32 :func:`mode_weights`; audio as for
+    :func:`fused_mel_frontend`. It shows on the CPU, and beside the kernel
+    on the card, how far the split lands from float64; no path calls it."""
+    bins_pad = melw.shape[-2]
+    reim = _split3_matmul(_frames(audio, wri.shape[-2], hop, eff_pad, n_samples), _split3(wri))
+    re, im = reim[..., :bins_pad], reim[..., bins_pad:]
+    return _with_block_max(_split3_matmul(re * re + im * im, _split3(melw)))
+
+
+def _with_block_max(mel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mel, the max of each 64-frame block of it [B, ceil(nf/64)])."""
+    bsz, nf = mel.shape[:2]
+    n_blocks = -(-nf // BLOCK_FRAMES)
+    fmax = tnf.pad(torch.amax(mel, dim=-1), (0, n_blocks * BLOCK_FRAMES - nf))
+    return mel, torch.amax(fmax.reshape(bsz, n_blocks, BLOCK_FRAMES), dim=-1)
+
+
 def _mel_of_power(p: torch.Tensor, melw: torch.Tensor, algorithm: str) -> tuple[torch.Tensor, torch.Tensor]:
     """(mel, block maxima) of the power [B, nf, bins_pad] in the mode's
     arithmetic, as every frontend kernel ends."""
@@ -618,10 +709,7 @@ def _mel_of_power(p: torch.Tensor, melw: torch.Tensor, algorithm: str) -> tuple[
         mel = _bf16r(p) @ melw
     else:
         mel = _x3_matmul(p, melw)
-    bsz, nf = mel.shape[:2]
-    n_blocks = -(-nf // BLOCK_FRAMES)
-    fmax = tnf.pad(torch.amax(mel, dim=-1), (0, n_blocks * BLOCK_FRAMES - nf))
-    bmax = torch.amax(fmax.reshape(bsz, n_blocks, BLOCK_FRAMES), dim=-1)
+    mel, bmax = _with_block_max(mel)
     return (mel.to(torch.bfloat16) if algorithm == "bf16" else mel), bmax
 
 
@@ -720,15 +808,8 @@ def fused_mel_frontend(
     mel_dtype = torch.bfloat16 if algorithm == "bf16" else torch.float32
     mel = torch.empty((bsz, nf, n_mels), dtype=mel_dtype, device=audio.device)
     bmax = torch.empty((bsz, -(-nf // BLOCK_FRAMES)), dtype=torch.float32, device=audio.device)
-    is_i16 = int(audio.dtype == torch.int16)
-    if algorithm in TC_ALGORITHMS:
-        rc = _launch_tc(name, audio, is_i16, weights, mel, bmax, buf_len, k, hop, off, nf, bins_pad, n_mels)
-    else:
-        rc = getattr(_lib(), name)(
-            audio.data_ptr(), is_i16, wri.data_ptr(), melw.data_ptr(), mel.data_ptr(), bmax.data_ptr(),
-            bsz, buf_len, k, hop, off, nf, bins_pad, n_mels,
-            stream_of(audio),
-        )
+    rc = _launch_tc(name, audio, int(audio.dtype == torch.int16), weights, mel, bmax, buf_len, k, hop, off, nf,
+                    bins_pad, n_mels)
     raise_on(rc, name)
     LAUNCHES[name] += 1
     return mel, bmax
@@ -737,9 +818,10 @@ def fused_mel_frontend(
 def _launch_tc(name: str, audio: torch.Tensor, is_i16: int, weights: dict[str, torch.Tensor], mel: torch.Tensor,
                bmax: torch.Tensor, buf_len: int, k: int, hop: int, off: int, nf: int, bins_pad: int,
                n_mels: int) -> int:
-    """Launch ``fused_mel_bf16``, ``fused_mel_x3``, ``fused_mel_i16`` or
-    ``fused_mel_i24`` on the weights' tensor-core layouts (:func:`tc_layouts`,
-    which :func:`mode_tensors` includes); the launcher's code."""
+    """Launch ``fused_mel_f32``, ``fused_mel_bf16``, ``fused_mel_x3``,
+    ``fused_mel_i16`` or ``fused_mel_i24`` on the weights' tensor-core
+    layouts (:func:`tc_layouts`, which :func:`mode_tensors` includes); the
+    launcher's code."""
     algorithm = name.removeprefix("fused_mel_")
     basis_key = "wri_tc" if algorithm in _TC_BF16 else "planes_tc"
     if basis_key not in weights or "melw_tc" not in weights:
@@ -748,7 +830,7 @@ def _launch_tc(name: str, audio: torch.Tensor, is_i16: int, weights: dict[str, t
     basis, mtc = weights[basis_key], weights["melw_tc"]
     step = _TC_STEP[algorithm]
     kp = basis.shape[1] * step
-    basis_planes, mel_planes = {"bf16": (1, 1), "x3": (2, 2)}.get(algorithm, (3, 2))
+    _, basis_planes, mel_planes = _TC_PLANES[algorithm]
     want = (2 * bins_pad // _TC_COLS, kp // step, basis_planes, _TC_COLS, step)
     for t, dtype in ((basis, torch.bfloat16 if algorithm in _TC_BF16 else torch.int8), (mtc, torch.bfloat16)):
         if t.device != audio.device or t.dtype != dtype or not t.is_contiguous():
@@ -865,8 +947,9 @@ def mfcc_tail(
     if mel.dtype not in (torch.float32, torch.bfloat16) or not mel.is_contiguous():
         raise ValueError(f"mfcc_tail: mel must be a contiguous float32 or bf16 tensor, got {mel.dtype}")
     check_cuda("mfcc_tail", peak, dct)
-    if peak.shape != (bsz,) or n_mfcc > _MFCC_MAX:
-        raise ValueError(f"mfcc_tail: peak {tuple(peak.shape)} != ({bsz},) or n_mfcc > {_MFCC_MAX}")
+    if peak.shape != (bsz,) or n_mfcc > _MFCC_MAX or n_mels > _MEL_MAX:
+        raise ValueError(f"mfcc_tail: peak {tuple(peak.shape)} != ({bsz},), n_mfcc > {_MFCC_MAX} "
+                         f"or n_mels > {_MEL_MAX}")
     shape = (bsz, n_mfcc, nf) if transposed else (bsz, nf, n_mfcc)
     out = torch.empty(shape, dtype=torch.float32, device=mel.device)
     rc = _lib().mfcc_tail_f32(

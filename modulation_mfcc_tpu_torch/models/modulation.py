@@ -90,9 +90,10 @@ class MfccChange(torch.nn.Module):
 
     * ``wri`` [K, 2·bins_pad], ``melw`` [bins_pad, n_mels]: packed windowed
       real-DFT bases and mel matrix of the fused frontend (f32 mode); the
-      other modes' constants (kernels/fused_frontend.mode_weights, and for
-      bf16, x3, i16 and i24 their tensor-core layouts, tc_layouts) ride along as
-      non-persistent buffers ``<mode>_<name>``;
+      other modes' constants (kernels/fused_frontend.mode_weights), and every
+      mode's tensor-core layouts (tc_layouts, f32's from the design as
+      ``wri`` and ``melw`` are), ride along as non-persistent buffers
+      ``<mode>_<name>``;
     * ``dct`` [n_mels, n_mfcc]: DCT-II ortho of the MFCC tail;
     * ``traj_filter`` / ``out_filter``: the two zero-phase Butterworth
       filters, each with its probed FIR operator (``kernel``, ``left``,
@@ -120,10 +121,9 @@ class MfccChange(torch.nn.Module):
 
     def frontend_weights(self, algorithm: str) -> dict[str, torch.Tensor]:
         """The buffers of one frontend mode, keyed as mode_weights keys them."""
-        if algorithm == "f32":
-            return {"wri": self.wri, "melw": self.melw}
         prefix = f"{algorithm}_"
-        return {k[len(prefix):]: v for k, v in self.named_buffers() if k.startswith(prefix)}
+        own = {k[len(prefix):]: v for k, v in self.named_buffers() if k.startswith(prefix)}
+        return {"wri": self.wri, "melw": self.melw} | own if algorithm == "f32" else own
 
     def trajectories(
         self,

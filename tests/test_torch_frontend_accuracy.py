@@ -6,8 +6,13 @@ contraction rows, each step's product summed on its own and then added to
 the running sum; the bar is BASELINE.md's max-abs ≤ 1e-4 at the MFCC
 against the float64 'fft' path, and no further from it than the JAX
 package's own f32 Pallas frontend (run as its tests run it, in interpret
-mode). The kernels themselves are held to their plain versions on the card
-by chip_smoke.py, which also prints these distances at 128 × 30 s."""
+mode). fused_mel_f32 itself runs an exact three-plane bf16 split on the
+tensor cores; its arithmetic, mirrored in float32 matmuls
+(split3_frontend_mirror), is held to the same bars here, which is the proof
+that the split keeps the f32 mode's accuracy. The kernels themselves are
+held to their plain versions on the card by chip_smoke.py, which also
+prints these distances at 128 × 30 s and holds fused_mel_f32 there to its
+plain version's distance."""
 import numpy as np
 import pytest
 import torch
@@ -34,10 +39,16 @@ def noise(n_utt: int) -> torch.Tensor:
 
 def port_mfcc(x: torch.Tensor, route: str, dct: torch.Tensor) -> torch.Tensor:
     """Coef-major f32 MFCC [B, 13, nf] through the plain version of the
-    unfolded ('fused') or the folded frontend, the peak from its block maxima."""
+    unfolded ('fused') or the folded frontend, or through fused_mel_f32's
+    split mirrored ('split'), the peak from its block maxima."""
     if route == "fused":
         return ff.fused_mfcc(x, transposed=True, **KW)
-    mel, bmax = ff.fused_mel_frontend(x, fold=True, **KW)
+    if route == "split":
+        wri, melw = (torch.tensor(a) for a in ff.frontend_weights(
+            16_000.0, 512, KW["win_length"], 128, 100.0, KW["fmax"]))
+        mel, bmax = ff.split3_frontend_mirror(x, wri, melw, hop=KW["hop"], eff_pad=ff.eff_pad(512, KW["win_length"]))
+    else:
+        mel, bmax = ff.fused_mel_frontend(x, fold=True, **KW)
     peak = 10.0 * torch.log10(torch.clamp(bmax.amax(dim=1), min=1e-10))
     return ff.mfcc_tail(mel, peak, 13, transposed=True, dct=dct)
 
@@ -58,25 +69,40 @@ def batch16(model):
     return x, model.trajectories(x.double(), spectrum="fft", coef_major=True)
 
 
-@pytest.mark.parametrize("route", ["fused", "fold"])
-def test_f32_mfcc_within_bar_at_16x30s(batch16, model, route):
+@pytest.fixture(scope="module")
+def routes16(batch16, model):
+    """The batch's coef-major MFCC by route, each computed once."""
+    cache = {}
+
+    def mfcc(route: str) -> torch.Tensor:
+        if route not in cache:
+            cache[route] = port_mfcc(batch16[0], route, model.dct)
+        return cache[route]
+
+    return mfcc
+
+
+@pytest.mark.parametrize("route", ["fused", "fold", "split"])
+def test_f32_mfcc_within_bar_at_16x30s(batch16, routes16, route):
     """≤ 1e-4 against the float64 'fft' MFCC over 16 × 30 s (96,016 frames)
     of noise. Summed as one K-term product, the unfolded frontend's plain
-    version misses (2.5e-4 on this input); in 16-row steps both routes meet
-    it (measured 8.5e-5 unfolded, 7.0e-5 folded). The bar is a max over
-    the frames, so it binds harder as they grow: PERF.md §6 has the
-    distances at 128 × 30 s on the card, where no float32 route meets it."""
-    x, want = batch16
-    got = port_mfcc(x, route, model.dct)
+    version misses (2.5e-4 on this input); in 16-row steps both FP32 routes
+    meet it (measured 8.5e-5 unfolded, 7.0e-5 folded), and so does the
+    tensor-core kernel's split. The bar is a max over the frames, so it
+    binds harder as they grow: PERF.md §6 has the distances at 128 × 30 s on
+    the card, where of the float32 routes only the split meets it on noise."""
+    want = batch16[1]
+    got = routes16(route)
     assert got.shape == want.shape and bool(torch.isfinite(got).all())
     assert max_abs(got, want) <= 1e-4
 
 
-@pytest.mark.parametrize("route", ["fused", "fold"])
+@pytest.mark.parametrize("route", ["fused", "fold", "split"])
 def test_f32_mfcc_no_further_than_jax_pallas(model, route):
-    """On 2 × 30 s of noise, each f32 route's plain version is no further
-    from the float64 'fft' MFCC than the JAX package's f32 Pallas frontend
-    (measured 6.0e-5 unfolded and 5.3e-5 folded, against JAX's 1.04e-4)."""
+    """On 2 × 30 s of noise, each f32 route's plain version, and the
+    kernel's split mirrored, is no further from the float64 'fft' MFCC than
+    the JAX package's f32 Pallas frontend (measured 6.0e-5 unfolded and
+    5.3e-5 folded, against JAX's 1.04e-4)."""
     x = noise(2)
     want = model.trajectories(x.double(), spectrum="fft", coef_major=True)
     with pltpu.force_tpu_interpret_mode():
@@ -99,3 +125,13 @@ def test_stepped_matmul_sums_in_16_row_steps(k):
         want = want + x[..., k0 : k0 + 16] @ w[k0 : k0 + 16]
     assert torch.equal(ff._stepped_matmul(x, w), want)
     assert torch.allclose(ff._stepped_matmul(x, w).double(), x.double() @ w.double(), rtol=0, atol=1e-4)
+
+
+def test_split_no_further_than_the_fp32_route(batch16, routes16):
+    """On the 16 × 30 s noise batch the split's MFCC is no further from the
+    float64 'fft' MFCC than the unfolded plain version's FP32 GEMM in 16-row
+    steps: the split's products are exact and its hi·hi step sums round
+    less, so on the card fused_mel_f32 can be held to its plain version's
+    distance (chip_smoke.py phase 23)."""
+    split, plain = (max_abs(routes16(route), batch16[1]) for route in ("split", "fused"))
+    assert split <= plain

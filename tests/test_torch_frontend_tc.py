@@ -1,14 +1,18 @@
 """PyTorch port: the host side of the tensor-core frontend kernels
-fused_mel_bf16, fused_mel_x3, fused_mel_i16 and fused_mel_i24
+fused_mel_f32, fused_mel_bf16, fused_mel_x3, fused_mel_i16 and fused_mel_i24
 (csrc/fused_frontend_tc.cu). Their weights travel in layouts of their own
 (kernels/fused_frontend.tc_layouts), built once per set of weights; here
 each layout unpacks to the mode's weights exactly, the kernel's address
 arithmetic (mirrored in Python) reads the frames from its staged span copies
-and the weights from those layouts, and the wrapper's constants are the
-source's; i16's digits and epilogue, mirrored, give the plain version's DFT
-bit for bit, and bf16's epilogue, mirrored, meets phase 14's bar against its
-plain version. The kernels themselves run only on the card: chip_smoke.py
-holds them against their plain versions (phases 14, 15, 17)."""
+and the weights from those layouts, its shared memory fits a block, and the
+wrapper's constants are the source's; i16's digits and epilogue, mirrored,
+give the plain version's DFT bit for bit, and bf16's epilogue, mirrored,
+meets phase 14's bar against its plain version. f32's three-plane split is
+exact for every operand it splits, and its arithmetic, mirrored in float32
+matmuls (_split3_matmul), meets phase 2's bar against the plain version and
+the JAX frontend's tolerances. The kernels themselves run only on the card:
+chip_smoke.py holds them against their plain versions (phases 2, 14, 15,
+17, 23)."""
 import math
 import re
 from pathlib import Path
@@ -25,10 +29,11 @@ from tests.test_torch_frontend import CONFIGS
 from tests.test_torch_modulation import speechlike
 
 CSRC = Path(ff.__file__).resolve().parent.parent / "csrc"
-BASIS = {"bf16": "wri", "x3": "wri", "i16": "planes", "i24": "planes"}
+BASIS = {"f32": "wri", "bf16": "wri", "x3": "wri", "i16": "planes", "i24": "planes"}
 # (span planes, basis planes, mel planes) of Mode<...>
-PLANES = {"bf16": (1, 1, 1), "x3": (2, 2, 2), "i16": (2, 3, 2), "i24": (3, 3, 2)}
-MODE_OF = {"bf16": "kBF16", "x3": "kX3", "i16": "kI16", "i24": "kI24"}
+PLANES = {"f32": (3, 3, 3), "bf16": (1, 1, 1), "x3": (2, 2, 2), "i16": (2, 3, 2), "i24": (3, 3, 2)}
+MODE_OF = {"f32": "kF32", "bf16": "kBF16", "x3": "kX3", "i16": "kI16", "i24": "kI24"}
+SHARED_MAX = 232_448  # bytes of shared memory a block may use on the H100
 
 
 def tensors(algorithm: str, name: str) -> tuple[MfccConfig, dict[str, torch.Tensor]]:
@@ -38,25 +43,28 @@ def tensors(algorithm: str, name: str) -> tuple[MfccConfig, dict[str, torch.Tens
 
 
 @pytest.mark.parametrize("name", CONFIGS)
-@pytest.mark.parametrize("algorithm", ff.TC_ALGORITHMS)
+@pytest.mark.parametrize("algorithm", ff.ALGORITHMS)
 def test_tc_layouts_round_trip(algorithm, name):
     """pack_tc_basis and pack_tc_mel, then their inverses, give the mode's
-    weights (mode_weights) bit for bit: bf16 holds the bf16 and x3 planes
-    exactly; bf16 packs one plane of each; the padded rows and mel columns
-    are zero; mode_tensors and the MfccChange module carry the same
-    layouts."""
+    weights (mode_weights) bit for bit, as the planes the kernel reads
+    (tc_planes: f32 packs the three planes of its float32 weights, whose
+    sum is those weights): bf16 holds the bf16, x3 and f32 planes exactly;
+    bf16 packs one plane of each; the padded rows and mel columns are zero;
+    mode_tensors and the MfccChange module carry the same layouts."""
     cfg, w = tensors(algorithm, name)
     mw = ff.mode_weights(algorithm, cfg.signal_sample_rate, cfg.n_fft, cfg.win_length, cfg.n_mels, cfg.minFreq,
                          cfg.maxFreq)
     basis = BASIS[algorithm]
     packed, mel = w[f"{basis}_tc"], w["melw_tc"]
-    want = ff._planes(torch.from_numpy(mw[basis]))
+    want = ff.tc_planes(algorithm, torch.from_numpy(mw[basis]))
     k = want.shape[1]
     assert packed.dtype == (torch.int8 if basis == "planes" else torch.bfloat16) and mel.dtype == torch.bfloat16
     assert (packed.shape[2], mel.shape[1]) == PLANES[algorithm][1:]
     back = ff.unpack_tc_basis(algorithm, packed, k)
     assert back.dtype == want.dtype and torch.equal(back, want)
-    assert torch.equal(ff.unpack_tc_mel(mel, cfg.n_mels), ff._planes(torch.from_numpy(mw["melw"])))
+    assert torch.equal(ff.unpack_tc_mel(mel, cfg.n_mels), ff.tc_planes(algorithm, torch.from_numpy(mw["melw"])))
+    if algorithm == "f32":
+        assert torch.equal(back[0] + back[1] + back[2], torch.from_numpy(mw["wri"]))
     kp = packed.shape[1] * packed.shape[-1]
     assert kp % 32 == 0 and kp - k < 32
     assert not ff.unpack_tc_basis(algorithm, packed, kp)[:, k:].float().any()
@@ -67,7 +75,7 @@ def test_tc_layouts_round_trip(algorithm, name):
 def kernel_constants() -> dict[str, int]:
     src = (CSRC / "tensor_core.cuh").read_text() + (CSRC / "fused_frontend_tc.cu").read_text()
     consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
-    for mode, body in re.findall(r"struct Mode<(kX3|kI16|kI24|kBF16)> \{(.*?)\};", src, re.S):
+    for mode, body in re.findall(r"struct Mode<(kX3|kI16|kI24|kBF16|kF32)> \{(.*?)\};", src, re.S):
         for k, v in re.findall(r"static constexpr int (k\w+) = (\d+);", body):
             consts[f"{mode}.{k}"] = int(v)
     consts["kCols"] = 32 * consts["kWN"]  # constexpr int kCols = 32 * kWN
@@ -75,20 +83,23 @@ def kernel_constants() -> dict[str, int]:
 
 
 def test_tc_wrapper_constants_match_cuda_source():
-    """The layouts' tile widths, MMA depths, plane counts (bf16: one of each),
-    chunk and mel step are the kernel's own constants."""
+    """The layouts' tile widths, MMA depths, plane counts (bf16: one of each,
+    f32: three), chunk, stages, power pitch and mel step are the kernel's
+    own constants."""
     c = kernel_constants()
     assert c["kBF"] == ff.BLOCK_FRAMES and c["kMelCols"] == ff._MEL_MAX and c["kMelStep"] == ff._MEL_STEP
-    assert c["kChunkRows"] == ff._TC_CHUNK and c["kCols"] == ff._TC_COLS
+    assert c["kChunkRows"] == ff._TC_CHUNK and c["kCols"] == ff._TC_COLS and c["kStages"] == ff._TC_STAGES
+    assert c["kCols"] // 2 + 16 == ff._TC_PITCH  # kPitch = kTileBins + 16
     assert c["kMT"] * 16 * (c["kThreads"] // 32 // c["kWN"]) == ff.BLOCK_FRAMES
-    assert set(MODE_OF) == set(ff.TC_ALGORITHMS)
+    assert set(MODE_OF) == set(ff.ALGORITHMS)
     for alg, mode in MODE_OF.items():
         assert c[f"{mode}.kStep"] == ff._TC_STEP[alg]
         assert (c[f"{mode}.kSpanPlanes"], c[f"{mode}.kBasisPlanes"], c[f"{mode}.kMelPlanes"]) == PLANES[alg]
+        assert ff._TC_PLANES[alg] == PLANES[alg]
 
 
 @pytest.mark.parametrize("name", CONFIGS)
-@pytest.mark.parametrize("algorithm", ff.TC_ALGORITHMS)
+@pytest.mark.parametrize("algorithm", ff.ALGORITHMS)
 def test_tc_kernel_addressing_reads_frames_and_weights(algorithm, name):
     """The kernel's address arithmetic, mirrored: a thread's 8-byte A
     fragment of frame row f at contraction k is element f·hop + k of the
@@ -121,7 +132,7 @@ def test_tc_kernel_addressing_reads_frames_and_weights(algorithm, name):
         np.testing.assert_array_equal(got, signal[e + k0 + al * t + i])
     # B: the basis as the kernel reads each chunk's stage
     flat = packed.reshape(-1)
-    inter = ff._interleave(ff._planes(w[BASIS[algorithm]]))
+    inter = ff._interleave(ff.tc_planes(algorithm, w[BASIS[algorithm]]))
     want = torch.nn.functional.pad(inter, (0, 0, 0, kp - inter.shape[1]))
     got = torch.empty_like(want)
     kk = np.arange(kp)
@@ -135,7 +146,7 @@ def test_tc_kernel_addressing_reads_frames_and_weights(algorithm, name):
     assert torch.equal(got, want)
     # the mel weights, a tile's steps at a time
     mel = w["melw_tc"].reshape(-1)
-    melw = ff._planes(w["melw"])
+    melw = ff.tc_planes(algorithm, w["melw"])
     n_mel_planes = melw.shape[0]
     bins = np.arange(melw.shape[1])
     jm, rm = bins // ff._MEL_STEP, bins % ff._MEL_STEP
@@ -147,13 +158,13 @@ def test_tc_kernel_addressing_reads_frames_and_weights(algorithm, name):
 
 
 def test_tc_modes_raise_off_the_card():
-    """A CUDA-only layout never reaches a CPU path: on the CPU the x3, i16
-    and i24 wrappers take their plain versions (equal to the plain versions
-    with or without the layouts in ``weights``), and on another device they
-    raise."""
+    """A CUDA-only layout never reaches a CPU path: on the CPU every
+    tensor-core mode's wrapper takes its plain version (equal with or
+    without the layouts in ``weights``; f32's is the FP32 GEMM in 16-row
+    steps, never the split), and on another device it raises."""
     kw = dict(sr=16_000, hop=80, win_length=400, fmax=8000.0)
     x = torch.tensor(np.random.default_rng(1).standard_normal((1, 4000)), dtype=torch.float32)
-    for alg in ff.TC_ALGORITHMS:
+    for alg in ff.ALGORITHMS:
         _, w = tensors(alg, "16k")
         bare = {k: v for k, v in w.items() if not k.endswith("_tc")}
         a = ff.fused_mel_frontend(x, algorithm=alg, weights=w, **kw)
@@ -163,7 +174,7 @@ def test_tc_modes_raise_off_the_card():
             ff.fused_mel_frontend(x.to("meta"), algorithm=alg, **kw)
 
 
-@pytest.mark.parametrize("algorithm", ff.TC_ALGORITHMS)
+@pytest.mark.parametrize("algorithm", ff.ALGORITHMS)
 def test_tc_launch_needs_the_layouts(algorithm, monkeypatch):
     """The launcher never repacks the weights: on the kernel's route, weights
     without their tensor-core layouts raise before anything is launched,
@@ -230,12 +241,12 @@ def test_tc_i16_digits_and_epilogue_match_plain_bit_for_bit():
         assert np.array_equal(got.view(np.int32), want.view(np.int32)), name
 
 
-@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("planes", [1, 2, 3])
 def test_tc_mel_pack_round_trip_by_planes(planes):
-    """pack_tc_mel takes one plane (bf16's rounded weights) or two (the x3
-    stack): [bins/16, P, 128, 16] bf16, the columns past n_mels zero, and
-    unpack_tc_mel gives the planes back bit for bit; one plane is half the
-    bytes the mel bulk copy moves."""
+    """pack_tc_mel takes one plane (bf16's rounded weights), two (the x3
+    stack) or three (f32's split): [bins/16, P, 128, 16] bf16, the columns
+    past n_mels zero, and unpack_tc_mel gives the planes back bit for bit;
+    one plane is half the bytes the mel bulk copy moves."""
     rng = np.random.default_rng(planes)
     melw = ff._bf16r(torch.tensor(rng.random((planes, 256, 40)), dtype=torch.float32))
     packed = ff.pack_tc_mel(melw)
@@ -321,3 +332,167 @@ def test_tc_bf16_epilogue_meets_the_plain_bar(name):
     ulps, share = bf16_ulps(mel, want)
     assert ulps <= 2.0 and share <= 1e-3, (ulps, share)
     assert bool(((bmax - want_bmax).abs() <= 2.0**-8 * want_bmax).all())
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+@pytest.mark.parametrize("algorithm", ff.ALGORITHMS)
+def test_tc_shared_memory_fits_a_block(algorithm, name):
+    """tc_shared_bytes is the launcher's sum from the source's constants:
+    128 bytes of barriers, kStages chunks of kChunkRows x kCols elements of
+    every basis plane, a tile's mel weights (kTileBins x kMelCols bf16 a
+    plane), the power tile (kBF x kPitch bf16 a plane) and the span planes
+    in their shifted copies (the hop of 50 needs two for bf16 elements, four
+    for int8); it fits the 227 KB a block may use at both configurations.
+    f32's stage carries three bf16 planes, 1.5 times x3's."""
+    cfg, w = tensors(algorithm, name)
+    c = kernel_constants()
+    packed = w[f"{BASIS[algorithm]}_tc"]
+    kp = packed.shape[1] * packed.shape[-1]
+    span_planes, basis_planes, mel_planes = PLANES[algorithm]
+    esize = packed.element_size()
+    al = 8 // esize
+    span_pad = -(-((c["kBF"] - 1) * cfg.hop_length + kp) // 16) * 16
+    want = (128 + c["kStages"] * c["kChunkRows"] * c["kCols"] * basis_planes * esize
+            + c["kCols"] // 2 * mel_planes * c["kMelCols"] * 2 + mel_planes * c["kBF"] * (c["kCols"] // 2 + 16) * 2
+            + span_planes * (al // math.gcd(cfg.hop_length, al)) * span_pad * esize)
+    assert ff.tc_shared_bytes(algorithm, cfg.hop_length, kp) == want <= SHARED_MAX == ff.SHARED_MAX
+    if algorithm == "f32":
+        x3 = c["kChunkRows"] * c["kCols"] * PLANES["x3"][1] * 2
+        assert c["kChunkRows"] * c["kCols"] * basis_planes * esize == 3 * x3 // 2
+
+
+@pytest.fixture(scope="module")
+def split_operands() -> dict[str, torch.Tensor]:
+    """float32 operands fused_mel_f32 splits: seeded noise, speech-like
+    audio, v·2⁻¹⁵ of every int16 value, and both configurations' basis and
+    mel weights."""
+    out = {
+        "noise": torch.tensor(np.random.default_rng(9).standard_normal(48_000) * 0.3, dtype=torch.float32),
+        "speech-like": torch.tensor(speechlike(3.0, 16_000, seed=9)),
+        "int16": torch.arange(-32768, 32768, dtype=torch.float32) / 32768.0,
+    }
+    for name in CONFIGS:
+        _, w = tensors("f32", name)
+        out |= {f"wri {name}": w["wri"], f"melw {name}": w["melw"]}
+    return out
+
+
+@pytest.mark.parametrize("name", ["noise", "speech-like", "int16", "wri 10k", "wri 16k", "melw 10k", "melw 16k"])
+def test_split3_is_exact(split_operands, name):
+    """hi + mid + lo == x bit for bit for every (denormal-free) operand the
+    kernel splits, each plane a bf16 value; v·2⁻¹⁵ of an int16 has at most
+    16 significant bits, so its lo plane is zero (the kernel skips lo·hi on
+    int16 input)."""
+    x = split_operands[name]
+    assert bool(((x == 0) | (x.abs() >= 2.0**-126)).all())
+    hi, mid, lo = ff._split3(x)
+    for plane in (hi, mid, lo):
+        assert torch.equal(ff._bf16r(plane), plane)
+    assert torch.equal((hi + mid) + lo, x)
+    assert bool((mid.abs() <= 2.0**-8 * hi.abs()).all()) and bool((lo.abs() <= 2.0**-8 * mid.abs()).all())
+    if name == "int16":
+        assert not lo.any()
+
+
+@pytest.mark.parametrize("k", [16, 250, 400])
+def test_split3_matmul_sums_as_the_kernel(k):
+    """_split3_matmul is the kernel's order: the hi·hi products summed per
+    16-row step and the steps added one by one, the five smaller products
+    (hi·mid, mid·hi, hi·lo, mid·mid, lo·hi) summed apart in that order and
+    added at the end, bit for bit; and it lands no further from the float64
+    product than the FP32 GEMM in 16-row steps (the plain version)."""
+    rng = np.random.default_rng(k)
+    x = torch.tensor(rng.standard_normal((3, 5, k)), dtype=torch.float32)
+    w = torch.tensor(rng.standard_normal((k, 24)), dtype=torch.float32)
+    (xh, xm, xl), planes = ff._split3(x), ff._split3(w)
+    wh, wm, wl = planes
+    hh = torch.zeros(3, 5, 24)
+    for k0 in range(0, k, 16):
+        hh = hh + xh[..., k0 : k0 + 16] @ wh[k0 : k0 + 16]
+    want = hh + ((((xh @ wm + xm @ wh) + xh @ wl) + xm @ wm) + xl @ wh)
+    got = ff._split3_matmul(x, planes)
+    assert torch.equal(got, want)
+    exact = x.double() @ w.double()
+    assert (got.double() - exact).abs().max() <= (ff._stepped_matmul(x, w).double() - exact).abs().max()
+
+
+def split_bar(mel, bmax, want, want_bmax, exact) -> tuple[float, float, float, float]:
+    """(mel relative error above the top_db floor and peak relative error
+    against the plain version; the same mel error of the mirror and of the
+    plain version against the plain version in float64)."""
+    def rel(m, ref):
+        live = ref > 1e-8 * ref.amax(dim=(1, 2), keepdim=True)
+        r = (m.double() - ref.double()).abs() / torch.where(live, ref.double(), torch.ones_like(ref.double()))
+        return float(torch.where(live, r, torch.zeros_like(r)).max())
+
+    peak = float(((bmax.amax(1) - want_bmax.amax(1)).abs() / want_bmax.amax(1)).max())
+    return rel(mel, want), peak, rel(mel, exact), rel(want, exact)
+
+
+@pytest.mark.parametrize("kind", ["noise", "speech-like"])
+@pytest.mark.parametrize("name", CONFIGS)
+def test_split3_mirror_meets_phase2_bar(name, kind):
+    """fused_mel_f32's arithmetic mirrored (split3_frontend_mirror) against
+    its plain version (fused_mel_frontend_reference, the FP32 GEMM in 16-row
+    steps) at chip_smoke.py phase 2's bars. On noise: mel within 1e-4
+    relative above the top_db floor, peak within 1e-5. On the speech-like
+    utterance, whose quiet bands in loud frames sit 80 dB under the peak,
+    FP32 leaves the plain version itself 3.3e-4 from float64 at 16 kHz and
+    the split 8.5e-5, so there the mel bar is phase 2's: no further from the
+    plain version evaluated in float64 than the plain version; the peak bar
+    stays 1e-5."""
+    cfg, w = tensors("f32", name)
+    audio = bf16_mirror_audio(cfg)[[0 if kind == "noise" else 1]]
+    kw = dict(hop=cfg.hop_length, eff_pad=ff.eff_pad(cfg.n_fft, cfg.win_length))
+    mel, bmax = ff.split3_frontend_mirror(audio, w["wri"], w["melw"], **kw)
+    want, want_bmax = ff.fused_mel_frontend_reference(audio, w["wri"], w["melw"], **kw)
+    exact, _ = ff.fused_mel_frontend_reference(audio.double(), w["wri"].double(), w["melw"].double(), **kw)
+    rel_plain, peak, rel_exact, plain_exact = split_bar(mel, bmax, want, want_bmax, exact)
+    assert mel.shape == want.shape and mel.dtype == torch.float32 and peak <= 1e-5
+    if kind == "noise":
+        assert rel_plain <= 1e-4
+    else:
+        assert rel_exact <= plain_exact
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_split3_mirror_matches_jax_pallas(name):
+    """The split's mirror against the JAX package's f32 Pallas frontend (its
+    'f32' mode, run as its tests run it, in interpret mode) at
+    tests/test_torch_frontend.py's tolerances: mel within 1e-5 of the largest
+    mel value and 1e-4 relative above the top_db floor; the peak within 1e-6
+    of the float64 peak of the same design."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    import modulation_mfcc_tpu.pallas.fused_frontend as jax_ff
+    from tests.test_torch_frontend import frontend_kwargs
+
+    cfg, w = tensors("f32", name)
+    audio = np.random.default_rng(20260816).standard_normal((2, 24_000)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        jmel, _ = jax_ff.fused_mel_frontend(jnp.asarray(audio), **frontend_kwargs(cfg))
+    kw = dict(hop=cfg.hop_length, eff_pad=ff.eff_pad(cfg.n_fft, cfg.win_length))
+    mel, bmax = ff.split3_frontend_mirror(torch.tensor(audio), w["wri"], w["melw"], **kw)
+    mel = mel.numpy()
+    jmel = np.asarray(jmel)[:, : mel.shape[1]]
+    jpeak = jmel.max(axis=(1, 2))
+    np.testing.assert_allclose(mel, jmel, rtol=0, atol=1e-5 * jpeak.max())
+    live = jmel > 1e-8 * jpeak[:, None, None]
+    np.testing.assert_allclose(mel[live], jmel[live], rtol=1e-4, atol=0)
+    _, bmax64 = ff.fused_mel_frontend_reference(torch.tensor(audio, dtype=torch.float64), w["wri"].double(),
+                                                w["melw"].double(), **kw)
+    np.testing.assert_allclose(bmax.amax(1).numpy(), bmax64.amax(1).numpy(), rtol=1e-6, atol=0)
+
+
+def test_tail_launch_rejects_what_the_kernel_does_not_take(monkeypatch):
+    """On the kernel's route, mfcc_tail raises before any launch for more
+    than 128 mel bands (four a lane of a warp) or more than 32 coefficients."""
+    monkeypatch.setattr(ff, "route", lambda t, name: True)
+    before = dict(ff.LAUNCHES)
+    peak = torch.zeros(2)
+    for n_mels, n_mfcc in ((129, 13), (128, 33)):
+        mel = torch.ones((2, 10, n_mels))
+        with pytest.raises(ValueError, match="n_mels|n_mfcc"):
+            ff.mfcc_tail(mel, peak, n_mfcc, dct=torch.zeros((n_mels, n_mfcc)))
+    assert dict(ff.LAUNCHES) == before
