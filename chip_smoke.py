@@ -14,9 +14,12 @@ Phases:
   0  card, power limit, versions, TF32 flags (exits 2 without CUDA)
   1  kernel build, with ptxas's report (registers, spills) of every kernel,
      and a line each for the Viterbi kernels', the tensor-core frontend's
-     (fused_mel_bf16 is mode 3, fused_mel_f32 mode 4) and the tail's
+     (fused_mel_bf16 is mode 3, fused_mel_f32 mode 4), the tail's,
+     sinc_refine_f32's and burg_lpc_f32's (C, elements a lane)
      instantiations; each frontend mode's shared memory a block at both
-     configurations and the blocks an SM holds
+     configurations and the blocks an SM holds; the sinc tiling at the
+     tracker's bands and the Burg plan (C, warps a frame, blocks an SM)
+     over nw 2..3,632
   2  MFCC kernels vs plain versions on the card, both configurations; the
      tail in both layouts on float32 and bf16 mel, with 32 coefficients, and
      on 126 mel bands (the tile copied by the threads)
@@ -27,16 +30,23 @@ Phases:
      the same function); the SM clock
   6  tracker kernels vs plain versions on the card: sinc_refine_f32 on the
      pitch tracker's own autocorrelation (4 × 30 s at 16 kHz, also at
-     veryAccurate depth 70 and at the 10 kHz band), burg_lpc_f32 in both
-     modes on lpc_formants' own frames and on the JAX kernel test's input
+     veryAccurate depth 70 and at the 10 kHz band), also against the float64
+     evaluation of its plain version, on 1 and 1,001 rows (no whole row
+     group) and at depths 80 and 200 (the weights streamed in two and four
+     chunks of taps); burg_lpc_f32 in both modes on
+     lpc_formants' own frames and on the JAX kernel test's input, its plan
+     equal to burg_plan over nw 2..3,632, and on 1,001 noise frames at the
+     ends of its range (nw 2, 33, 550, 1,500, 3,632; order 1 to 32; one, two
+     and four warps a frame) against float64
   7  F0 path at full size: batched_f0 on 32 × 30 s at 16 kHz, praatac and
      praatcc, launch counts, against the plain sinc engine and the CPU
   8  formant path at full size: batched_formants on the same audio resampled
      on the host to 11 kHz, launch counts, against the plain Burg and the CPU
   9  single files: extract_f0 and formants_with_gating on one 30 s
      utterance, the card against the CPU
- 10  tracker times: kernels beside plain versions, both paths end to end, the
-     Viterbi loop's and the root finder's shares, peak memory
+ 10  tracker times: kernels beside plain versions and bounds, both paths
+     end to end, the kernels', the Viterbi loop's and
+     the root finder's shares, peak memory
  11  pyin Viterbi kernels vs plain versions on the card, bit for bit, both
      given the band: random dense trellises (batched and single; h = n − 1,
      the forward reads log_tri from L2, the backtrace too at n = 360 and
@@ -111,7 +121,9 @@ seeds 0 and 19, in both orders; the f32 fold on both; bf16, x3, i16, i24
 and f32 on phase 15's int16 hop rows), mfcc_tail_f32 in both layouts on the
 float32 mel of seed 0 and the bf16 mel of the rows, 'fused' mfcc_change on
 the float32 audio of seed 0 and 'fused_i16' and 'fused_bf16' mfcc_change
-on the rows, times viterbi_fwd_f32 and viterbi_bwd_f32 on
+on the rows, times sinc_refine_f32 and burg_lpc_f32 on the inputs of
+phases 7 and 8 and batched_f0 praatac and batched_formants end to end,
+viterbi_fwd_f32 and viterbi_bwd_f32 on
 pyin's trellis of phase 7's batch (band derived from the tensor where the
 package bands it) and batched_f0 pyin on that batch end to end, and
 prints x3's and i24's MFCC distances from the float64 MFCC on phase 23's
@@ -609,21 +621,88 @@ def agreement_text(a: tuple[float, int, float]) -> str:
             f"max |Δ| {a[2]:.3e} Hz over the rest (bar 0.05)")
 
 
-def tracker_kernel_checks(dev) -> None:
-    """Phase 6: both tracker kernels against their plain versions on the
-    inputs their paths hand them."""
+def sinc_float64_check(label: str, args: tuple, kw: dict, got: tuple, plain: tuple) -> None:
+    """The kernel's values no further from the float64 evaluation of the
+    plain version than the FP32 plain version's, plus 1e-6."""
+    r_ext, *rest = args
+    exact = SK.refine_sinc_band_reference(r_ext.double(), *rest, **kw)  # the weights cast to float64
+    err_k = float((got[1].double() - exact[1]).abs().max())
+    err_p = float((plain[1].double() - exact[1]).abs().max())
+    print(f"[6] sinc_refine_f32 {label} against its plain version in float64: value err kernel {err_k:.3e}, "
+          f"plain {err_p:.3e} (bar: kernel ≤ plain + 1e-6)")
+    check(err_k <= err_p + 1e-6, f"sinc_refine_f32 {label} against float64")
+
+
+def sinc_kernel_checks(dev) -> None:
+    """Phase 6, sinc: on the pitch tracker's own autocorrelation at three
+    bands, against the plain version and its float64 evaluation; on the
+    16 kHz band, rows that fill no whole row group and depths whose taps
+    (S = 163, 403) stream the weights in two and four chunks."""
     for label, sr, va in (("16 kHz", 16_000, False), ("16 kHz veryAccurate", 16_000, True), ("10 kHz", 10_000, False)):
         x = torch.tensor(speechlike(4, SECONDS * sr, sr, seed=3), device=dev)
         with spy(P, "refine_sinc_band") as calls:
             P.pitch_ac(x, sr=float(sr), very_accurate=va)
         args, kw = calls[0][:2]
         r_ext, ext_left, lag_lo, lag_max, depth = args
-        errs = sinc_errors(SK.refine_sinc_band(*args, **kw), SK.refine_sinc_band_reference(*args, **kw))
+        got, plain = SK.refine_sinc_band(*args, **kw), SK.refine_sinc_band_reference(*args, **kw)
+        errs = sinc_errors(got, plain)
         torch.cuda.synchronize()
-        print(f"[6] sinc_refine_f32 {label}: r_ext {tuple(r_ext.shape)}, band {lag_lo}..{lag_max}, depth {depth}: "
-              f"value err {errs[0]:.3e} (bar 1e-5), positions off > 1e-4 {errs[1]:.4%} (bar 5 %), "
+        plan = SK.sinc_plan(lag_max - lag_lo + 1, 2 * depth + 3)
+        print(f"[6] sinc_refine_f32 {label}: r_ext {tuple(r_ext.shape)}, band {lag_lo}..{lag_max}, depth {depth} "
+              f"({plan}): value err {errs[0]:.3e} (bar 1e-5), positions off > 1e-4 {errs[1]:.4%} (bar 5 %), "
               f"max position err {errs[2]:.4f} (bar 0.26)")
         check(sinc_ok(errs), f"sinc_refine_f32 {label}")
+        sinc_float64_check(label, args, kw, got, plain)
+        if label == "16 kHz":
+            d_kw = {k: v for k, v in kw.items() if k != "w"}  # the weights designed at each depth
+            for deep in (80, 200):  # the same rows zero-padded to fit the wider support
+                pad = deep - depth
+                d_args = (torch.nn.functional.pad(r_ext, (pad, pad)), ext_left + pad, lag_lo, lag_max, deep)
+                d_got, d_plain = SK.refine_sinc_band(*d_args, **d_kw), SK.refine_sinc_band_reference(*d_args, **d_kw)
+                errs = sinc_errors(d_got, d_plain)
+                print(f"[6] sinc_refine_f32 16 kHz at depth {deep} ({SK.sinc_plan(lag_max - lag_lo + 1, 2 * deep + 3)}"
+                      f"): value err {errs[0]:.3e}, positions off > 1e-4 {errs[1]:.4%}, max position err "
+                      f"{errs[2]:.4f} (bars 1e-5, 5 %, 0.26)")
+                check(sinc_ok(errs), f"sinc_refine_f32 at depth {deep}")
+                sinc_float64_check(f"16 kHz at depth {deep}", d_args, d_kw, d_got, d_plain)
+                del d_args, d_got, d_plain
+            flat = r_ext.reshape(-1, r_ext.shape[-1])
+            for m in (1, 1001):  # no whole row group of 32; 1001 leaves 9 rows in the last
+                part = (flat[:m], *args[1:])
+                errs = sinc_errors(SK.refine_sinc_band(*part, **kw), SK.refine_sinc_band_reference(*part, **kw))
+                print(f"[6] sinc_refine_f32 16 kHz, the first {m} rows: value err {errs[0]:.3e}, positions off "
+                      f"> 1e-4 {errs[1]:.4%}, max position err {errs[2]:.4f} (bars 1e-5, 5 %, 0.26)")
+                check(sinc_ok(errs), f"sinc_refine_f32 on {m} rows")
+
+
+def burg_range_checks(dev) -> None:
+    """Phase 6, Burg at the ends of the kernel's range (nw 2 .. 3,632, order
+    1 .. 32; one, two and four warps a frame) on 1,001 seeded noise frames
+    (no whole block of frames), against float64; and the library's plan
+    equal to burg_plan over the whole range of nw."""
+    off = [nw for nw in range(2, BK._MAX_NW + 1) if BK.library_plan(nw, 1) != BK.burg_plan(nw, 1)]
+    print(f"[6] burg_lpc_f32 plans for nw 2..{BK._MAX_NW}: {len(off)} differ from burg_plan")
+    check(not off, "burg_lpc_f32: the launcher's plan is burg_plan's")
+    rng = np.random.default_rng(11)
+    for nw, order in ((2, 1), (33, 32), (550, 10), (550, 32), (1500, 16), (3632, 32)):
+        frames = torch.tensor(rng.standard_normal((1001, nw)).astype(np.float32) * 0.3, device=dev)
+        for levinson in (True, False):
+            got = (BK.burg_lpc if levinson else BK.burg_reflections)(frames, order)
+            plain = BK.burg_lpc_reference(frames, order, levinson=levinson)
+            exact = BK.burg_lpc_reference(frames.double(), order, levinson=levinson)
+            err_k = float((got.double() - exact).abs().max())
+            err_p = float((plain.double() - exact).abs().max())
+            torch.cuda.synchronize()
+            print(f"[6] burg_lpc_f32 nw {nw}, order {order}, levinson={levinson} ({BK.burg_plan(nw, order)}): "
+                  f"max-abs vs plain {float((got - plain).abs().max()):.3e}; against float64 kernel {err_k:.3e}, "
+                  f"plain {err_p:.3e} (bar: kernel ≤ 2 × plain + 2e-6)")
+            check(err_k <= 2 * err_p + 2e-6, f"burg_lpc_f32 nw {nw} order {order}")
+
+
+def tracker_kernel_checks(dev) -> None:
+    """Phase 6: both tracker kernels against their plain versions on the
+    inputs their paths hand them, and at the ends of their ranges."""
+    sinc_kernel_checks(dev)
 
     test_frames = torch.tensor(np.random.default_rng(0).standard_normal((3, 41, 213)).astype(np.float32) * 0.3,
                                device=dev)
@@ -644,6 +723,7 @@ def tracker_kernel_checks(dev) -> None:
               f"max-abs vs plain {diff:.3e}; against float64 kernel {err_k:.3e}, plain {err_p:.3e} "
               f"(bar: kernel ≤ 2 × plain + 2e-6)")
         check(err_k <= 2 * err_p + 2e-6, "burg_lpc_f32 as accurate as its plain version")
+    burg_range_checks(dev)
 
 
 def f0_path(dev, y_np: np.ndarray, batch: mt.AudioBatch, card: str) -> tuple[dict, dict]:
@@ -737,6 +817,15 @@ def tracker_times(batch: mt.AudioBatch, xr: torch.Tensor, f0_inputs: dict, lpc_i
     b_frames = lpc_inputs[0][0]
     burg_err = float((BK.burg_lpc(b_frames, 10) - BK.burg_lpc_reference(b_frames, 10)).abs().max())
     del sinc_k, sinc_p
+    r_ext, _, lag_lo, lag_max, depth = s_args
+    m_rows, length = r_ext.shape[0] * r_ext.shape[1], r_ext.shape[-1]
+    nl, s = lag_max - lag_lo + 1, 2 * depth + 3
+    m_fr, nw = b_frames.shape[0] * b_frames.shape[1], b_frames.shape[-1]
+    bounds = {
+        "sinc_refine_f32": bound(m_rows * length * 4 + s * SK.GRID * 4 + 2 * m_rows * nl * 4,
+                                 2 * m_rows * nl * s * SK.GRID),
+        "burg_lpc_f32": bound(m_fr * nw * 4 + m_fr * 10 * 4, m_fr * sum(10 * (nw - 1 - m) for m in range(10))),
+    }
     ms = {
         "sinc_refine_f32": (cuda_ms(lambda: SK.refine_sinc_band(*s_args, **s_kw)),
                             cuda_ms(lambda: SK.refine_sinc_band_reference(*s_args, **s_kw))),
@@ -744,7 +833,9 @@ def tracker_times(batch: mt.AudioBatch, xr: torch.Tensor, f0_inputs: dict, lpc_i
                          cuda_ms(lambda: BK.burg_lpc_reference(b_frames, 10))),
     }
     for k, (t_k, t_p) in ms.items():
-        print(f"[10] {k}: {t_k:.3f} ms, plain {t_p:.3f} ms ({card})")
+        b_ms, by = bounds[k]
+        print(f"[10] {k}: {t_k:.3f} ms, plain {t_p:.3f} ms, bound {b_ms:.3f} ms ({by}), {b_ms / t_k:.1%} of it "
+              f"({card}; {sm_clock()})")
     for method in ("praatac", "praatcc"):
         cfg = mt.F0Config(method=method)
         torch.cuda.reset_peak_memory_stats()
@@ -763,16 +854,6 @@ def tracker_times(batch: mt.AudioBatch, xr: torch.Tensor, f0_inputs: dict, lpc_i
     print(f"[10] batched_formants end to end: {e2e:.3f} ms = {hours / (e2e / 1e3):.3f} audio-h/s; within it "
           f"burg_lpc_f32 {burg_ms:.3f} ms ({burg_ms / e2e:.1%}), poly_roots_dk {roots:.3f} ms ({roots / e2e:.1%}), "
           f"the rest {e2e - burg_ms - roots:.3f} ms; peak memory {peak:.2f} GiB ({card})")
-
-    r_ext, _, lag_lo, lag_max, depth = s_args
-    m_rows, length = r_ext.shape[0] * r_ext.shape[1], r_ext.shape[-1]
-    nl, s = lag_max - lag_lo + 1, 2 * depth + 3
-    m_fr, nw = b_frames.shape[0] * b_frames.shape[1], b_frames.shape[-1]
-    bounds = {
-        "sinc_refine_f32": bound(m_rows * length * 4 + s * SK.GRID * 4 + 2 * m_rows * nl * 4,
-                                 2 * m_rows * nl * s * SK.GRID),
-        "burg_lpc_f32": bound(m_fr * nw * 4 + m_fr * 10 * 4, m_fr * sum(10 * (nw - 1 - m) for m in range(10))),
-    }
     return ms, {"sinc_refine_f32": sinc_err[0], "burg_lpc_f32": burg_err}, bounds
 
 
@@ -1933,6 +2014,31 @@ def fold_longform_modspec(dev, card: str) -> list[dict]:
     return rows
 
 
+def tracker_report(label: str, batch: mt.AudioBatch, y_np: np.ndarray, card: str) -> None:
+    """``--frontend``: sinc_refine_f32 and burg_lpc_f32 on the inputs of
+    phases 7 and 8, and batched_f0 praatac and batched_formants end to end."""
+    praatac = mt.F0Config(method="praatac")
+    with spy(P, "refine_sinc_band") as calls:
+        mt.batched_f0(batch, TRACK_SR, praatac)
+    s_args, s_kw = calls[0][:2]
+    ms = cuda_ms(lambda: SK.refine_sinc_band(*s_args, **s_kw))
+    print(f"[{label}] sinc_refine_f32 on r_ext {tuple(s_args[0].shape)}: {ms:.3f} ms ({card}; {sm_clock()})")
+    ms = cuda_ms(lambda: mt.batched_f0(batch, TRACK_SR, praatac))
+    print(f"[{label}] batched_f0 praatac on {tuple(batch.samples.shape)} end to end: {ms:.3f} ms "
+          f"({card}; {sm_clock()})")
+    del s_args, s_kw, calls
+    xr = torch.tensor(resample(y_np.astype(np.float64), TRACK_SR, LPC_SR).astype(np.float32), device=batch.samples.device)
+    with spy(BK, "burg_lpc") as calls:
+        mt.batched_formants(xr, LPC_SR, mt.FormantConfig())
+    frames, order = calls[0][0]
+    ms = cuda_ms(lambda: BK.burg_lpc(frames, order))
+    print(f"[{label}] burg_lpc_f32 on frames {tuple(frames.shape)}: {ms:.3f} ms ({card}; {sm_clock()})")
+    ms = cuda_ms(lambda: mt.batched_formants(xr, LPC_SR, mt.FormantConfig()))
+    print(f"[{label}] batched_formants on {tuple(xr.shape)} end to end: {ms:.3f} ms ({card}; {sm_clock()})")
+    del frames, calls, xr
+    torch.cuda.empty_cache()
+
+
 def frontend_report(root: Path) -> int:
     """``--frontend DIR``: the frontend kernel times, the pyin forward's and
     two paths' times, and x3's and i24's MFCC distances of the package at
@@ -1986,8 +2092,9 @@ def frontend_report(root: Path) -> int:
         print(f"[{label}] mfcc_change spectrum={spec!r} on the rows end to end: {ms:.3f} ms ({card}; {sm_clock()})")
     del rows
     torch.cuda.empty_cache()
-    batch = mt.pad_batch(list(speechlike(TRACK_BATCH, SECONDS * TRACK_SR, TRACK_SR, seed=5)), bucket_multiple=1,
-                         device=dev)
+    y_np = speechlike(TRACK_BATCH, SECONDS * TRACK_SR, TRACK_SR, seed=5)
+    batch = mt.pad_batch(list(y_np), bucket_multiple=1, device=dev)
+    tracker_report(label, batch, y_np, card)
     pyin = mt.F0Config(method="pyin")
     with spy(Y, "viterbi_decode") as calls:
         mt.batched_f0(batch, TRACK_SR, pyin)
@@ -2033,6 +2140,21 @@ def ptxas_lines(report: str, bases: tuple[str, ...]) -> list[str]:
     return out
 
 
+def tracker_plans() -> None:
+    """Phase 1: the tracker kernels' plans. sinc_refine_f32's tiling for
+    the tracker's bands; burg_lpc_f32's C and warps a frame over nw."""
+    for nl, s in ((189, 73), (189, 143), (119, 73)):
+        p = SK.sinc_plan(nl, s)
+        print(f"[1] sinc_refine_f32 tiling at nl {nl}, S {s}: J {SK.LAGS_PER_THREAD}, {p.lag_blocks} × "
+              f"{p.lag_block} lags, {p.shared_bytes} bytes")
+    spans: dict = {}
+    for nw in range(2, BK._MAX_NW + 1):
+        spans.setdefault(BK.burg_plan(nw, 1), []).append(nw)
+    print("[1] burg_lpc_f32 plans: " + "; ".join(
+        f"C {p.chunk}, {p.warps_per_frame} warp(s) a frame, ≥ {p.blocks_per_sm} blocks an SM, {p.shared_bytes} bytes: "
+        f"nw {v[0]}..{v[-1]}" for p, v in spans.items()))
+
+
 def shared_report() -> None:
     """Phase 1: each tensor-core frontend mode's shared memory a block
     (tc_shared_bytes, the launcher's sum) at both configurations, and how
@@ -2070,9 +2192,10 @@ def main() -> int:
           f"per source) in {time.perf_counter() - t0:.3f} s")
     for line in ptxas_lines(lib_path.with_suffix(".ptxas.txt").read_text(),
                             ("viterbi_fwd_f32_kernel", "viterbi_bwd_f32_kernel", "fused_mel_tc_kernel",
-                             "mfcc_tail_kernel")):
+                             "mfcc_tail_kernel", "sinc_refine_f32_kernel", "burg_lpc_f32_kernel")):
         print(f"[1] ptxas {line}")
     shared_report()
+    tracker_plans()
 
     mfcc_kernel_checks(dev)
     rows = mfcc_path(dev, card)

@@ -5,10 +5,12 @@ The hand-written kernel ``burg_lpc_f32`` (csrc/burg.cu, wrappers
 of modulation_mfcc_tpu/pallas/burg.py (``_burg_call`` → ``_burg_kernel``,
 via ``burg_lpc_pallas`` and ``burg_reflections``): the whole order-p Burg
 recursion of each frame with the forward and backward prediction errors
-kept on chip, and, as with the TPU kernel's ``levinson`` flag, optionally
-the fused Levinson update to the LPC coefficients. Bound: the one read of
-the frames (422 MB at the tracker's 32 × 30 s batch) and about as long in
-FP32 FFMA.
+kept in registers (lane i of a warp holds elements [i·C, (i+1)·C)), and,
+as with the TPU kernel's ``levinson`` flag, optionally the fused Levinson
+update to the LPC coefficients. Bound: FP32 FFMA (10.4 GFLOP at the
+tracker's 32 × 30 s batch) and about as long in the one read of the frames
+(422 MB). :func:`burg_plan` is the launcher's choice of C, warps a frame
+and blocks an SM; the wrappers check it against the library's own.
 
 Beside it is its plain PyTorch version, :func:`burg_lpc_reference` (the
 JAX package's ``ops/lpc.burg_lpc``). The wrappers take the plain version
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -26,15 +29,43 @@ import torch
 from modulation_mfcc_tpu_torch.kernels._launch import check_cuda, raise_on, route, stream_of
 
 __all__ = [
-    "LAUNCHES", "burg_lpc", "burg_reflections", "burg_lpc_reference",
+    "LAUNCHES", "BurgPlan", "burg_plan", "burg_lpc", "burg_reflections", "burg_lpc_reference",
     "levinson_from_reflections",
 ]
 
 LAUNCHES = {"burg_lpc_f32": 0}
 
 _MAX_ORDER = 32  # kMaxOrder: lane i of a warp holds coefficient i
-_WARPS = 8       # kWarps: frames per block, 2·nw floats of shared memory each
-_SMEM_MAX = 232_448
+_MAX_NW = 3632   # kMaxNw: the frame widths the first design's shared memory held
+_WARPS = 8       # kWarps: warps a block
+_CHUNKS = (1, 2, 4, 6, 8, 12, 16, 18, 20, 24, 28, 32)  # kChunks: the C instantiations
+_XCH = 5         # kXch: floats of a warp's exchange slot
+
+
+class BurgPlan(NamedTuple):
+    """The launcher's plan for frames of ``nw`` (csrc/burg.cu make_plan)."""
+
+    chunk: int            # C: elements a lane holds
+    warps_per_frame: int  # 1, 2 or 4
+    blocks_per_sm: int    # the kernel's launch bound (minimum blocks an SM)
+    shared_bytes: int     # staging rows and exchange slots of a block
+
+
+def burg_plan(nw: int, order: int) -> BurgPlan:
+    """C, warps a frame and blocks an SM for frames of ``nw`` at ``order``:
+    the fewest warps (1, 2, 4) whose lanes hold the frame at C ≤ 32, then
+    the smallest instantiated C that covers it. Raises outside the kernel's
+    range (2 ≤ nw ≤ 3632, 1 ≤ order ≤ 32, order < nw)."""
+    if not (2 <= nw <= _MAX_NW and 1 <= order <= _MAX_ORDER and order < nw):
+        raise ValueError(
+            f"burg_lpc_f32 takes 1 ≤ order ≤ {_MAX_ORDER}, order < nw and 2 ≤ nw ≤ {_MAX_NW}; "
+            f"got order {order}, nw {nw}"
+        )
+    wf = 1 if nw <= 32 * 32 else 2 if nw <= 2 * 32 * 32 else 4
+    need = -(-nw // (32 * wf))
+    chunk = next(c for c in _CHUNKS if c >= need)
+    blocks = 4 if chunk <= 12 else 3 if chunk <= 20 else 2
+    return BurgPlan(chunk, wf, blocks, 4 * (_WARPS * 32 * chunk + 2 * _WARPS * _XCH))
 
 
 def burg_lpc_reference(frames: torch.Tensor, order: int, *, levinson: bool = True) -> torch.Tensor:
@@ -79,7 +110,17 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.burg_lpc_f32.argtypes = [p, p, i, i, i, i, p]
     lib.burg_lpc_f32.restype = i
+    lib.burg_lpc_f32_plan.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.burg_lpc_f32_plan.restype = i
     return lib
+
+
+@lru_cache(maxsize=None)
+def library_plan(nw: int, order: int) -> BurgPlan:
+    """The plan the built library's launcher uses (``burg_lpc_f32_plan``)."""
+    out = (ctypes.c_int * 4)()
+    raise_on(_lib().burg_lpc_f32_plan(nw, order, out), "burg_lpc_f32_plan")
+    return BurgPlan(*out)
 
 
 def _burg(frames: torch.Tensor, order: int, levinson: bool) -> torch.Tensor:
@@ -88,11 +129,9 @@ def _burg(frames: torch.Tensor, order: int, levinson: bool) -> torch.Tensor:
         return burg_lpc_reference(frames, order, levinson=levinson)
     check_cuda(name, frames)
     *lead, nw = frames.shape
-    if not 1 <= order <= _MAX_ORDER or order >= nw or _WARPS * 2 * nw * 4 > _SMEM_MAX:
-        raise ValueError(
-            f"{name}: the kernel takes 1 ≤ order ≤ {_MAX_ORDER}, order < nw and "
-            f"nw ≤ {_SMEM_MAX // (_WARPS * 8)}; got order {order}, nw {nw}"
-        )
+    plan = burg_plan(nw, order)
+    if library_plan(nw, order) != plan:
+        raise RuntimeError(f"{name}: the launcher's plan {library_plan(nw, order)} is not {plan}")
     m = int(np.prod(lead)) if lead else 1
     out = torch.empty((*lead, order), dtype=torch.float32, device=frames.device)
     rc = _lib().burg_lpc_f32(frames.data_ptr(), out.data_ptr(), m, nw, order, int(levinson), stream_of(frames))

@@ -9,7 +9,9 @@ every integer lag of the band [lag_lo, lag_max] it evaluates the windowed
 interior offsets and polishes it with a parabola, giving the position and
 value of the interpolant's maximum around that lag (Praat's
 NUMimproveMaximum with the sinc scheme). Bound: FP32 FFMA (45 GFLOP at the
-tracker's 32 × 30 s batch at 16 kHz).
+tracker's 32 × 30 s batch at 16 kHz). A thread keeps a register tile of
+:data:`LAGS_PER_THREAD` neighbouring lags of one row; :func:`sinc_plan` is
+the kernel's tiling, which the wrapper computes and passes to the launcher.
 
 Beside it is its plain PyTorch version, :func:`refine_sinc_band_reference`
 (the JAX package's ``ops/pitch._refine_sinc_dense``: one banded matmul
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -31,13 +34,49 @@ import torch
 from modulation_mfcc_tpu_torch.kernels._launch import check_cuda, raise_on, route, stream_of
 
 __all__ = [
-    "LAUNCHES", "GRID", "sinc_weights", "sinc_band_matrix",
-    "refine_sinc_band", "refine_sinc_band_reference",
+    "LAUNCHES", "GRID", "LAGS_PER_THREAD", "SincPlan", "sinc_plan", "sinc_weights",
+    "sinc_band_matrix", "refine_sinc_band", "refine_sinc_band_reference",
 ]
 
 LAUNCHES = {"sinc_refine_f32": 0}
 
 GRID = 17  # offsets per lag (kG in the .cu): spacing 1/8 over [-1, 1]
+LAGS_PER_THREAD = 8            # kJ: J, the lags of a thread's register tile
+ROWS = 32                      # kRows: rows of a group, one a lane
+WARPS = 8                      # kWarps: lag groups of a lag block, one a warp
+WEIGHT_ROW = 20                # kGP: a weight row padded to five float4
+TAPS_RESIDENT = 160            # S up to this keeps the weights staged once a block
+TAP_CHUNK = 128                # taps a chunk when the weights are streamed
+
+
+class SincPlan(NamedTuple):
+    """The kernel's tiling for a band of ``nl`` lags and ``S`` taps (the
+    launcher's ``Plan``, passed by value in this field order)."""
+
+    lag_block: int     # lags of an item: J a warp, 8 warps
+    lag_blocks: int    # items a row group
+    taps_chunk: int    # taps staged at once (all S when the weights stay resident)
+    chunks: int
+    x_stride: int      # floats a staged row (4 mod 8: lanes are rows, float4 loads on distinct banks)
+    out_stride: int    # floats a row of the (pos, val) tile (odd)
+    shared_bytes: int
+
+
+def sinc_plan(nl: int, s: int) -> SincPlan:
+    """The tiling of ``sinc_refine_f32``: items of 32 rows × 8·J lags; the
+    x band of an item (one float in, so each lane's x of four taps is one
+    aligned float4), and with S > 160 the weights, staged in chunks of taps
+    into one of two buffers; shared bytes of a block."""
+    if nl < 1 or s < 1:
+        raise ValueError(f"sinc_refine_f32 takes nl ≥ 1 and S ≥ 1; got {nl}, {s}")
+    lag_block = WARPS * LAGS_PER_THREAD
+    taps = s if s <= TAPS_RESIDENT else TAP_CHUNK
+    chunks = -(-s // taps)
+    x_stride, out_stride = (lag_block + taps + 3) // 8 * 8 + 4, lag_block | 1
+    resident = s * WEIGHT_ROW if chunks == 1 else 0
+    slot = (0 if chunks == 1 else taps * WEIGHT_ROW) + ROWS * x_stride
+    return SincPlan(lag_block, -(-nl // lag_block), taps, chunks, x_stride, out_stride,
+                    4 * (resident + 2 * slot + 2 * ROWS * out_stride))
 
 
 # ---------------------------------------------------------------------------
@@ -131,13 +170,17 @@ def refine_sinc_band_reference(
     return pos, val
 
 
+class _Plan(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_int) for name in SincPlan._fields]
+
+
 @lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     from modulation_mfcc_tpu_torch.kernels._build import load_library
 
     lib = load_library()
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.sinc_refine_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
+    lib.sinc_refine_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, _Plan, p]
     lib.sinc_refine_f32.restype = i
     return lib
 
@@ -161,6 +204,7 @@ def refine_sinc_band(
     nl, s, start = _band_args(r_ext, ext_left, lag_lo, lag_max, depth)
     if grid != GRID:
         raise ValueError(f"refine_sinc_band: the kernel takes grid {GRID}, got {grid}")
+    plan = _Plan(*sinc_plan(nl, s))
     w = _weights_on(w, depth, grid, r_ext)
     check_cuda("refine_sinc_band", r_ext, w)
     *lead, length = r_ext.shape
@@ -169,7 +213,7 @@ def refine_sinc_band(
     val = torch.empty_like(pos)
     rc = _lib().sinc_refine_f32(
         r_ext.data_ptr(), w.data_ptr(), pos.data_ptr(), val.data_ptr(),
-        m, length, start, nl, s, grid, lag_lo, 2.0 / (grid - 1), stream_of(r_ext),
+        m, length, start, nl, s, grid, lag_lo, 2.0 / (grid - 1), plan, stream_of(r_ext),
     )
     raise_on(rc, "sinc_refine_f32")
     LAUNCHES["sinc_refine_f32"] += 1

@@ -134,3 +134,14 @@ def test_wrapper_limits_match_cuda_sources():
     assert const(sinc_src, "kG") == sinc_refine.GRID
     assert const(burg_src, "kMaxOrder") == burg._MAX_ORDER
     assert const(burg_src, "kWarps") == burg._WARPS
+    # the kernel's layout, which sinc_plan's tiling (passed to the launcher) is computed from
+    assert const(sinc_src, "kGP") == sinc_refine.WEIGHT_ROW
+    assert const(sinc_src, "kRows") == sinc_refine.ROWS
+    assert const(sinc_src, "kWarps") == sinc_refine.WARPS
+    assert const(sinc_src, "kJ") == sinc_refine.LAGS_PER_THREAD
+    # burg_plan mirrors the launcher's make_plan
+    assert const(burg_src, "kMaxNw") == burg._MAX_NW
+    assert const(burg_src, "kXch") == burg._XCH
+    chunks = re.search(r"constexpr int kChunks\[\] = \{([^}]*)\};", burg_src).group(1)
+    assert tuple(int(c) for c in chunks.split(",")) == burg._CHUNKS
+    assert burg._CHUNKS == tuple(int(c) for c in re.findall(r"case (\d+): return launch<", burg_src))
