@@ -16,8 +16,9 @@ Phases:
      and a line each for the Viterbi kernels', the tensor-core frontend's
      (fused_mel_bf16 is mode 3, fused_mel_f32 mode 4), the tail's,
      sinc_refine_f32's and burg_lpc_f32's (C, elements a lane)
-     instantiations; each frontend mode's shared memory a block at both
-     configurations and the blocks an SM holds; the sinc tiling at the
+     instantiations; each frontend mode's staging plan (tc_plan) and shared
+     memory a block at both configurations and at phase 24's, and the
+     blocks an SM holds; the sinc tiling at the
      tracker's bands and the Burg plan (C, warps a frame, blocks an SM)
      over nw 2..3,632
   2  MFCC kernels vs plain versions on the card, both configurations; the
@@ -85,7 +86,8 @@ Phases:
      128 × 30 s on int16 rows (and fused_mel_f32's time there), mfcc_change
      end to end per spectrum, peak memory
  18  fold kernels (fused_mel_fold_f32, _bf16, _x3) vs plain versions on the
-     card, 4 × 30 s at both configurations; the f32 fold vs fused_mel_f32
+     card, 4 × 30 s at both configurations and at 256 mel bands; the f32
+     fold vs fused_mel_f32
  19  the fold path at full size: fused_mel_frontend(fold=True) → peak →
      mfcc_tail on 128 × 30 s at 16 kHz, one launch of each fold kernel,
      against the unfolded MFCC and, through the trajectory tail, the
@@ -112,6 +114,22 @@ Phases:
      other routes ('fft' in float32; 'fused_x3' and 'fused_i24' beside the
      plain versions of their kernels), and the f32 kernel's and its plain
      version's mel through the tail's function in float64
+ 24  every rate and width the reference configures: each frontend mode
+     against its plain version (phase 2's and 14's bars) at 11.025 (n_fft
+     512), 22.05, 32, 44.1 and 48 kHz (n_fft 1024, 1024, 2048, 2048; hop
+     int(0.005 sr), window int(0.025 sr); f32 and f32 on int16 rows take
+     the compact plan there) and at 16 kHz with 256 mel bands and 40 MFCCs,
+     f32 also at 512 bands, with the plan printed; mfcc_tail_f32 in both
+     layouts on float32 and bf16 mel at 256 and 512 bands, 40 coefficients;
+     the fold kernels at 256 bands are in phase 18
+ 25  'fused' mfcc_change at 128 x 30 s at 44.1 kHz (n_fft 2048) and 11.025
+     kHz: one launch of each kernel, times as phase 5, the distance from the
+     float64 'fft' MFCC, fused_mel_f32 no further than 1.05 x its plain
+     version's (phase 23's rule)
+ 26  the verify harness (modmfcc-torch verify) on the card at 10 and 16
+     kHz: all eleven surfaces pass against the float64 oracles
+ 27  envelope times on 32 x 30 s at 16 kHz: batched_envelope RMS and Hilb,
+     and RMSpraat per file (extract_envelope)
 
 ``--frontend DIR`` runs none of these phases. It drives the package of the
 checkout at DIR instead of this one's, builds its kernels, times its
@@ -151,6 +169,7 @@ import sys
 import tempfile
 import time
 from contextlib import ExitStack, contextmanager
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -1621,8 +1640,9 @@ def fold_kernel_checks(dev) -> None:
     """Phase 18: the fold kernels against their plain versions (the
     unfolded modes' bars, mode_error_ok), and the f32 fold against
     fused_mel_f32 on the same audio (the JAX fold test's bar: 1e-5 of the
-    largest mel)."""
-    for name, cfg in (("10k default (packed Nyquist)", DEFAULT_10K), ("16k fmax 8k", FLAGSHIP)):
+    largest mel), also at 256 mel bands (two groups of 128)."""
+    for name, cfg in (("10k default (packed Nyquist)", DEFAULT_10K), ("16k fmax 8k", FLAGSHIP),
+                      ("16k, 256 mel bands", WIDE)):
         sr = cfg.signal_sample_rate
         audio = torch.tensor(speechlike(4, SECONDS * sr, sr, seed=18), device=dev)
         for alg in FOLD_MODES:
@@ -2123,6 +2143,236 @@ def frontend_report(root: Path) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Every rate and width the reference configures (phases 24-25)
+# ---------------------------------------------------------------------------
+
+# (label, sample rate, n_fft): the reference's defaults at common rates, hop
+# int(0.005 sr), window int(0.025 sr), n_fft the smallest power of two ≥ the
+# window (512 at 11.025 kHz, whose window is 275)
+GEOMETRIES = (("11.025 kHz", 11_025, 512), ("22.05 kHz", 22_050, 1024), ("32 kHz", 32_000, 1024),
+              ("44.1 kHz", 44_100, 2048), ("48 kHz", 48_000, 2048))
+WIDE = mt.MfccConfig(signal_sample_rate=16_000, maxFreq=8000.0, n_mels=256, n_mfcc=40)  # C4: past 128 and 32
+
+
+def geometry_configs() -> list[tuple[str, mt.MfccConfig]]:
+    """Phase 24's configurations: GEOMETRIES, then WIDE."""
+    return [(label, mt.MfccConfig(signal_sample_rate=sr, n_fft=n_fft)) for label, sr, n_fft in GEOMETRIES] + [
+        ("16 kHz, 256 mel bands, 40 MFCCs", WIDE)]
+
+
+def geometry_checks(dev) -> None:
+    """Phase 24: every frontend mode against its plain version at each of
+    geometry_configs (4 × 30 s: f32 on float32 audio, every mode on int16
+    hop rows) by phase 2's and phase 14's bars, under the plan tc_plan
+    gives (printed with its bytes), and mfcc_tail_f32 in both layouts on
+    float32 and bf16 mel at WIDE's 256 bands and 40 coefficients, and on 512
+    bands (f32 frontend and tail)."""
+    for name, cfg in geometry_configs() + [("16 kHz, 512 mel bands, 40 MFCCs", replace(WIDE, n_mels=512))]:
+        sr = cfg.signal_sample_rate
+        y = speechlike(4, SECONDS * sr, sr, seed=24) * 0.5
+        pcm = np.round(y * 32767.0).astype(np.int16)
+        inputs = {"float32": (torch.tensor(y, device=dev), None), "int16 rows": (rows_of(pcm, cfg, dev), pcm.shape[1])}
+        algs = ("f32",) if cfg.n_mels == 512 else ff.ALGORITHMS
+        for alg in algs:
+            w = mode_weights(cfg, alg, dev)
+            kp = w["wri_tc" if alg in ("f32", "bf16", "x3") else "planes_tc"].shape[1] * ff._TC_STEP[alg]
+            plan = ff.tc_plan(alg, cfg.hop_length, kp, cfg.n_mels)
+            for label, (x, ns) in inputs.items():
+                if label == "float32" and alg != "f32":
+                    continue
+                reset(ff.LAUNCHES)
+                mel_k, bmax_k = mode_kernel(x, cfg, alg, w, ns)
+                torch.cuda.synchronize()
+                check(ff.LAUNCHES[f"fused_mel_{alg}"] == 1, f"fused_mel_{alg} {name} launched")
+                mel_p, bmax_p = mode_plain(x, cfg, alg, w, ns)
+                ex = plain64(x, cfg, w, ns) if alg == "f32" else x3_exact_mel(x, cfg, w, ns) if alg == "x3" else None
+                ok, text = mode_error_ok(alg, mel_k, bmax_k, mel_p, bmax_p, ex)
+                print(f"[24] {name}: fused_mel_{alg} on {label} {tuple(x.shape)}, hop {cfg.hop_length}, Kp {kp}, "
+                      f"{cfg.n_mels} mel bands, plan {tuple(plan)}: {text}")
+                check(ok, f"fused_mel_{alg} {name} {label}")
+                del mel_k, bmax_k, mel_p, bmax_p, ex
+            torch.cuda.empty_cache()
+        if cfg.n_mels <= 128:
+            continue
+        w = mode_weights(cfg, "f32", dev)
+        mel, bmax = mode_plain(inputs["float32"][0], cfg, "f32", w)
+        pk = peak_db(bmax)
+        dct = torch.tensor(ff.tail_dct(cfg.n_mfcc, cfg.n_mels), device=dev)
+        for kind, m in (("float32", mel), ("bf16", mel.to(torch.bfloat16))):
+            for transposed in (True, False):
+                out_k = ff.mfcc_tail(m, pk, cfg.n_mfcc, transposed=transposed, dct=dct)
+                out_p = ff.mfcc_tail_reference(m, pk, dct, transposed=transposed)
+                torch.cuda.synchronize()
+                err = float((out_k - out_p).abs().max())
+                print(f"[24] {name}: mfcc_tail_f32 on {kind} mel {tuple(m.shape)}, {cfg.n_mfcc} coefficients, "
+                      f"{'coef' if transposed else 'frame'}-major, vs plain: max-abs {err:.3e} (bar 1e-4)")
+                check(out_k.shape == out_p.shape and err <= 1e-4, f"mfcc_tail_f32 {name} {kind} {transposed}")
+
+
+def f64_distance(model, x: torch.Tensor, routes: dict, chunk: int = 16) -> dict[str, float]:
+    """Each route's coef-major MFCC's max-abs distance from the float64
+    'fft' MFCC of the same audio (phase 23's measure), the float64 path run
+    ``chunk`` utterances at a time to bound its memory."""
+    got = {name: fn(x) for name, fn in routes.items()}
+    dist = dict.fromkeys(routes, 0.0)
+    for i in range(0, x.shape[0], chunk):
+        f64 = model.trajectories(x[i : i + chunk].double(), spectrum="fft", coef_major=True)
+        for name, m in got.items():
+            part = m[i : i + chunk]
+            check(part.shape == f64.shape and bool(torch.isfinite(part).all()), f"{name} MFCC shape")
+            dist[name] = max(dist[name], float((part.double() - f64).abs().max()))
+        del f64
+        torch.cuda.empty_cache()
+    return dist
+
+
+def rate_paths(dev, card: str) -> None:
+    """Phase 25: 'fused' mfcc_change at full width (128 × 30 s) at 44.1 kHz
+    (n_fft 2048) and 11.025 kHz, where fused_mel_f32 takes the compact
+    plan, and at 16 kHz with 256 mel bands and 40 MFCCs (two mel groups,
+    two coefficient groups): one launch of each kernel, times as phase 5
+    prints them, and the MFCC's distance from the float64 'fft' path,
+    fused_mel_f32 no further than 1.05 × its plain version's (phase 23's
+    rule); at 16 kHz also mfcc_tail_f32 with 40 coefficients of 128 mel
+    bands, both layouts."""
+    configs = [(label, mt.MfccConfig(signal_sample_rate=sr, n_fft=n_fft)) for label, sr, n_fft in
+               (GEOMETRIES[3], GEOMETRIES[0])] + [("16 kHz, 256 mel bands, 40 MFCCs", WIDE)]
+    for label, cfg in configs:
+        sr, n_fft = cfg.signal_sample_rate, cfg.n_fft
+        y = torch.tensor(speechlike(BATCH, SECONDS * sr, sr, seed=25), device=dev)
+        reset(ff.LAUNCHES)
+        tot = mt.mfcc_change(y, cfg)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ff.LAUNCHES.items() if v}
+        nf = 1 + y.shape[1] // cfg.hop_length
+        check(launches == {"fused_mel_f32": 1, "mfcc_tail_f32": 1}, f"{label}: one launch of each MFCC kernel")
+        check(tot.shape == (BATCH, nf) and bool(torch.isfinite(tot).all()), f"{label}: finite [B, nf] output")
+        model = mt.MfccChange(cfg).to(dev)
+        a = frontend_args(cfg, dev)
+        kp = a["w"]["wri_tc"].shape[1] * ff._TC_STEP["f32"]
+        plan = ff.tc_plan("f32", cfg.hop_length, kp, cfg.n_mels)
+        mel_k, bmax_k = frontend_kernel(y, cfg, a)
+        pk = peak_db(bmax_k)
+        ms = {
+            "fused_mel_f32": (kernel_ms(lambda: frontend_kernel(y, cfg, a)),
+                              kernel_ms(lambda: frontend_plain(y, cfg, a))),
+            "mfcc_tail_f32": (cuda_ms(lambda: ff.mfcc_tail(mel_k, pk, cfg.n_mfcc, transposed=True, dct=a["dct"])),
+                              cuda_ms(lambda: ff.mfcc_tail_reference(mel_k, pk, a["dct"], transposed=True))),
+        }
+        if cfg is WIDE:
+            m128 = frontend_kernel(y, FLAGSHIP, frontend_args(FLAGSHIP, dev))[0]
+            dct40 = torch.tensor(ff.tail_dct(WIDE.n_mfcc, 128), device=dev)
+            for name, m, d in ((f"{WIDE.n_mels} mel bands", mel_k, a["dct"]), ("128 mel bands", m128, dct40)):
+                for transposed in (True, False):
+                    out_k = ff.mfcc_tail(m, pk, WIDE.n_mfcc, transposed=transposed, dct=d)
+                    err = float((out_k - ff.mfcc_tail_reference(m, pk, d, transposed=transposed)).abs().max())
+                    t_k = cuda_ms(lambda: ff.mfcc_tail(m, pk, WIDE.n_mfcc, transposed=transposed, dct=d))
+                    t_p = cuda_ms(lambda: ff.mfcc_tail_reference(m, pk, d, transposed=transposed))
+                    b = bound(m.numel() * 4 + m.shape[0] * 4 + d.numel() * 4 + out_k.numel() * 4,
+                              m.numel() * (2 * WIDE.n_mfcc + 3))
+                    print(f"[25] {label}: mfcc_tail_f32 with {WIDE.n_mfcc} coefficients of {name} "
+                          f"{tuple(m.shape)}, {'coef' if transposed else 'frame'}-major: {t_k:.3f} ms, plain "
+                          f"{t_p:.3f} ms, bound {b[0]:.3f} ms ({b[1]}; {b[0] / t_k:.1%}), vs plain max-abs {err:.3e} "
+                          f"(bar 1e-4) ({card})")
+                    check(err <= 1e-4, f"mfcc_tail_f32 {name} 40 coefficients")
+                    del out_k
+            del m128
+        e2e, e2e_plain = cuda_ms(lambda: model(y)), cuda_ms(lambda: model(y, spectrum="matmul"))
+        hours = BATCH * SECONDS / 3600.0
+        bsz, nfr, n_mels = mel_k.shape
+        k_sup, two_bins = a["wri"].shape
+        f32_bytes = (y.numel() * 4 + (a["wri"].numel() + a["melw"].numel()) * 4 + mel_k.numel() * 4
+                     + bmax_k.numel() * 4)
+        b_f32 = split3_bound(f32_bytes, bsz * nfr, k_sup, two_bins // 2, n_mels, dft_passes=6)
+        print(f"[25] {label} (hop {cfg.hop_length}, window {cfg.win_length}, n_fft {n_fft}, Kp {kp}, bins_pad "
+              f"{two_bins // 2}): mfcc_change 'fused' on [{BATCH}, {y.shape[1]}] float32, launches {launches}; "
+              f"fused_mel_f32 plan {tuple(plan)}")
+        for k, (t_k, t_p) in ms.items():
+            print(f"[25] {label}: {k}: {t_k:.3f} ms, plain {t_p:.3f} ms ({card}; SM clock, power, throttle "
+                  f"reasons: {sm_clock()})")
+        print(f"[25] {label}: fused_mel_f32 bound {b_f32[0]:.3f} ms ({b_f32[1]}; the kernel's share "
+              f"{b_f32[0] / ms['fused_mel_f32'][0]:.1%}); mfcc_change end to end: {e2e:.3f} ms = "
+              f"{hours / (e2e / 1e3):.3f} audio-h/s; plain spectrum {e2e_plain:.3f} ms = "
+              f"{hours / (e2e_plain / 1e3):.3f} audio-h/s ({card})")
+        del mel_k, bmax_k, tot
+        torch.cuda.empty_cache()
+        kernel, plain = "fused_mel_f32 (kernel)", "fused_mel_f32's plain version"
+        dist = f64_distance(model, y, {kernel: lambda x: model.trajectories(x, coef_major=True),
+                                       plain: lambda x: via_tail(frontend_plain(x, cfg, a), cfg, model)})
+        ratio = dist[kernel] / dist[plain]
+        print(f"[25] {label}: the MFCC against the float64 'fft' MFCC, max-abs: fused_mel_f32 {dist[kernel]:.3e} = "
+              f"{ratio:.4f} × its plain version's {dist[plain]:.3e} (bar 1.05)")
+        check(ratio <= 1.05, f"phase 25 {label}: fused_mel_f32 no further from float64 than 1.05 × its plain version")
+        del y, model, a
+        torch.cuda.empty_cache()
+
+
+def verify_on_card() -> None:
+    """Phase 26: the verify harness (modmfcc-torch verify) on the card at
+    10 and 16 kHz: every one of its eleven surfaces passes."""
+    import argparse
+    import io
+    from contextlib import redirect_stdout
+
+    from modulation_mfcc_tpu_torch.runner import run_verify
+
+    for sr in (10_000, 16_000):
+        reset(ff.LAUNCHES, SK.LAUNCHES, BK.LAUNCHES, VK.LAUNCHES)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with redirect_stdout(out):
+            rc = run_verify(argparse.Namespace(sr=sr, seconds=2.0, wav=None, device="cuda"))
+        lines = [json.loads(line) for line in out.getvalue().splitlines() if line.startswith("{")]
+        for line in lines:
+            print(f"[26] verify --sr {sr}: {json.dumps(line)}")
+        launched = sorted(k for c in (ff.LAUNCHES, SK.LAUNCHES, BK.LAUNCHES, VK.LAUNCHES) for k, v in c.items() if v)
+        print(f"[26] verify --sr {sr}: {time.perf_counter() - t0:.3f} s, kernels launched {launched}")
+        surfaces = {line["surface"] for line in lines if "surface" in line and line["pass"]}
+        check(rc == 0 and len(surfaces) == 11 and lines[-1] == {"overall_pass": True}, f"verify --sr {sr}")
+
+
+def envelope_times(dev, card: str) -> None:
+    """Phase 27: the amplitude envelopes on 32 × 30 s at 16 kHz beside the
+    trackers of phase 10: batched_envelope 'RMS' and 'Hilb' (one warm-up,
+    median of 5), and 'RMSpraat', which is per file (extract_envelope over
+    the 32 utterances, one pass after a warm-up file); the RMS batch against
+    the CPU on utterance 0 (1e-4), Hilb's interior against the CPU (2e-2,
+    the padded width's edge ripple)."""
+    from modulation_mfcc_tpu_torch.models.envelope import rms_envelope
+    from modulation_mfcc_tpu_torch.ops.hilbert import hilbert_envelope
+
+    sr = TRACK_SR
+    y_np = speechlike(TRACK_BATCH, SECONDS * sr, sr, seed=27)
+    batch = mt.pad_batch(list(y_np), device=dev)
+    hours = TRACK_BATCH * SECONDS / 3600.0
+    for method in ("RMS", "Hilb"):
+        cfg = mt.AmplitudeConfig(method=method)
+        amp, valid = mt.batched_envelope(batch, sr, cfg)
+        torch.cuda.synchronize()
+        n = int(valid[0].sum())
+        x0 = torch.tensor(y_np[0])
+        want = (rms_envelope(x0, int(cfg.winLen * sr), int(cfg.hopLen * sr)) if method == "RMS"
+                else hilbert_envelope(x0))
+        m = 0 if method == "RMS" else n // 10
+        err = float((amp[0, m : n - m].cpu() - want[m : n - m]).abs().max())
+        bar = 1e-4 if method == "RMS" else 2e-2
+        t = cuda_ms(lambda: mt.batched_envelope(batch, sr, cfg))
+        print(f"[27] batched_envelope {method} on {tuple(batch.samples.shape)}: {t:.3f} ms = "
+              f"{hours / (t / 1e3):.3f} audio-h/s; utterance 0 vs the CPU max-abs {err:.3e} (bar {bar:g}) ({card})")
+        check(bool(torch.isfinite(amp).all()) and err <= bar, f"batched_envelope {method}")
+    cfg = mt.AmplitudeConfig(method="RMSpraat")
+    mt.extract_envelope(y_np[0], sr, cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    amps = [mt.extract_envelope(u, sr, cfg, device=dev)[0] for u in y_np]
+    torch.cuda.synchronize()
+    t = (time.perf_counter() - t0) * 1e3
+    check(all(bool(torch.isfinite(a).all()) for a in amps), "RMSpraat envelopes")
+    print(f"[27] extract_envelope RMSpraat over the {TRACK_BATCH} utterances one by one: {t:.3f} ms = "
+          f"{hours / (t / 1e3):.3f} audio-h/s (host clock, one pass; {amps[0].shape[-1]} frames each) ({card})")
+
+
 def ptxas_lines(report: str, bases: tuple[str, ...]) -> list[str]:
     """'kernel<template args>: registers, spill bytes' for each entry
     function of ptxas's report whose name holds one of ``bases``."""
@@ -2156,17 +2406,22 @@ def tracker_plans() -> None:
 
 
 def shared_report() -> None:
-    """Phase 1: each tensor-core frontend mode's shared memory a block
-    (tc_shared_bytes, the launcher's sum) at both configurations, and how
-    many blocks an SM's 228 KB hold (1 KB of each reserved)."""
-    for cfg in (DEFAULT_10K, FLAGSHIP):
+    """Phase 1: each tensor-core frontend mode's staging plan (tc_plan:
+    frames a block, shifted, stages, copies, span, mel groups) and shared
+    memory a block (the launcher's sum) at both configurations and at each
+    of phase 24's, and how many blocks an SM's 228 KB hold (1 KB of each
+    reserved)."""
+    for label, cfg in [("10k default", DEFAULT_10K), ("16k flagship", FLAGSHIP)] + geometry_configs():
         kp = -(-(cfg.win_length or cfg.n_fft) // 32) * 32
         parts = []
         for alg in ff.ALGORITHMS:
-            n = ff.tc_shared_bytes(alg, cfg.hop_length, kp)
-            check(n <= ff.SHARED_MAX, f"fused_mel_{alg} shared memory {n} at hop {cfg.hop_length}")
-            parts.append(f"fused_mel_{alg} {n} bytes ({233_472 // (n + 1024)} an SM by shared memory)")
-        print(f"[1] shared memory a block at hop {cfg.hop_length}, Kp {kp} (at most {ff.SHARED_MAX}): "
+            plan = ff.tc_plan(alg, cfg.hop_length, kp, cfg.n_mels)
+            check(plan.shared_bytes <= ff.SHARED_MAX, f"fused_mel_{alg} shared memory at hop {cfg.hop_length}")
+            parts.append(f"fused_mel_{alg} {'full' if plan.frames == ff.BLOCK_FRAMES else 'compact'} "
+                         f"{tuple(plan)}, {plan.shared_bytes} bytes "
+                         f"({233_472 // (plan.shared_bytes + 1024)} an SM by shared memory)")
+        print(f"[1] {label}: plan (frames, shifted, stages, copies, span, mel groups, bytes) and shared memory a "
+              f"block at hop {cfg.hop_length}, Kp {kp}, {cfg.n_mels} mel bands (at most {ff.SHARED_MAX}): "
               + "; ".join(parts))
 
 
@@ -2205,6 +2460,13 @@ def main() -> int:
     rows += frontend_modes(dev, card)
     torch.cuda.empty_cache()
     rows += fold_longform_modspec(dev, card)
+    torch.cuda.empty_cache()
+    geometry_checks(dev)
+    torch.cuda.empty_cache()
+    rate_paths(dev, card)
+    torch.cuda.empty_cache()
+    verify_on_card()
+    envelope_times(dev, card)
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -15,12 +15,17 @@ Entry points compute on CUDA unless given ``device="cpu"`` (or a CPU tensor).
     f0, t = mt.extract_f0(y, 16000, mt.F0Config(method="pyin"))  # pyin, unvoiced NaN-filled
     f0 = mt.pyin_f0(batch_on_cuda, sr=16000.0)                 # raw pyin tracks, 0 = unvoiced
     spec = mt.modulation_spectrum(batch_on_cuda, cfg)          # [B, n_coef, n_modframes, 65]
+    amp, t = mt.extract_envelope(y, 16000, mt.AmplitudeConfig())  # RMS, Hilb or RMSpraat
+    amp, valid = mt.batched_envelope(mt.pad_batch(signals), 16000, mt.AmplitudeConfig())
     y16 = mt.resample_device(y48k_on_cuda, 48000, 16000)        # polyphase, on the device
     tot = mt.chunked_mfcc_change(y16, cfg)                      # an hour-long recording in chunks
 
 The CUDA kernels build with nvcc at first use (kernels/_build.py).
+``modmfcc-torch verify`` (cli.py) holds every tracker to its float64 oracle
+(oracle.py).
 """
-from modulation_mfcc_tpu_torch.models.config import F0Config, FormantConfig, MfccConfig
+from modulation_mfcc_tpu_torch.models.config import AmplitudeConfig, F0Config, FormantConfig, MfccConfig
+from modulation_mfcc_tpu_torch.models.envelope import extract_envelope
 from modulation_mfcc_tpu_torch.models.formants import FormantTracker, extract_formants, formants_with_gating
 from modulation_mfcc_tpu_torch.models.modulation import (
     MfccChange,
@@ -34,7 +39,7 @@ from modulation_mfcc_tpu_torch.models.pitch import PitchTracker, PyinTracker, ex
 from modulation_mfcc_tpu_torch.ops.resample import resample_device
 from modulation_mfcc_tpu_torch.ops.yin import pyin_f0
 from modulation_mfcc_tpu_torch.parallel.batch import AudioBatch, pad_batch
-from modulation_mfcc_tpu_torch.parallel.features_batch import batched_f0, batched_formants
+from modulation_mfcc_tpu_torch.parallel.features_batch import batched_envelope, batched_f0, batched_formants
 from modulation_mfcc_tpu_torch.parallel.streaming import chunked_mfcc_change
 
 __all__ = [
@@ -42,5 +47,5 @@ __all__ = [
     "F0Config", "PitchTracker", "PyinTracker", "pyin_f0", "extract_f0", "FormantConfig", "FormantTracker",
     "extract_formants", "formants_with_gating", "AudioBatch", "pad_batch", "batched_f0",
     "batched_formants", "modulation_spectrum", "modulation_spectrum_axes", "resample_device",
-    "chunked_mfcc_change",
+    "chunked_mfcc_change", "AmplitudeConfig", "extract_envelope", "batched_envelope",
 ]

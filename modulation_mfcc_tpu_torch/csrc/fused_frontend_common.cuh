@@ -12,7 +12,8 @@ namespace frontend {
 constexpr int kBF = 64;        // frames per block
 constexpr int kBT = 128;       // DFT bins per tile (re and im columns each)
 constexpr int kKC = 16;        // contraction rows staged per step
-constexpr int kMelMax = 128;   // mel columns a block holds
+constexpr int kMelMax = 128;   // mel columns a block holds: a group (the grid's z)
+constexpr int kMelLimit = 512; // mel columns a launch takes: up to four groups
 constexpr int kThreads = 256;
 constexpr int kPitch = kBF + 4;  // row pitch of the [k][frame] and [bin][frame] tiles: 16-byte rows, few bank conflicts
 
@@ -40,14 +41,14 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool va
 // rounded as MODE says ('bf16': to bf16; 'x3': split into bf16 hi and lo),
 // written transposed ([bin][frame]) to p_s, which may share space with the
 // staged slices; then the power tile projected onto melw's rows
-// bt..bt+TB-1 into the [kBF][kMelMax] accumulator mel_s (x3: the small
-// products into mel2_s, melw's lo plane following its hi plane), in bin
-// order.
+// bt..bt+TB-1, columns c0..c0+127 (the block's mel group), into the
+// [kBF][kMelMax] accumulator mel_s (x3: the small products into mel2_s,
+// melw's lo plane following its hi plane), in bin order.
 template <int MODE, int NJ = 4>
 __device__ __forceinline__ void project_tile(const float (&re)[8][NJ], const float (&im)[8][NJ],
                                              const float (&res)[8][NJ], const float (&ims)[8][NJ], float* p_s,
                                              float* mel_s, float* mel2_s, const float* __restrict__ melw, int bt,
-                                             int bins_pad, int n_mels, int lane, int warp)
+                                             int bins_pad, int n_mels, int c0, int lane, int warp)
 {
     constexpr int TB = 32 * NJ;
     const float* mel_lo = melw + (size_t)bins_pad * n_mels;  // x3 only
@@ -90,7 +91,7 @@ __device__ __forceinline__ void project_tile(const float (&re)[8][NJ], const flo
         float mw[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-            const int m = lane + 32 * j;
+            const int m = c0 + lane + 32 * j;
             mw[j] = m < n_mels ? __ldg(melw + (size_t)(bt + c) * n_mels + m) : 0.0f;
         }
         if constexpr (MODE == kX3) {
@@ -101,7 +102,7 @@ __device__ __forceinline__ void project_tile(const float (&re)[8][NJ], const flo
             float mwl[4];
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
-                const int m = lane + 32 * j;
+                const int m = c0 + lane + 32 * j;
                 mwl[j] = m < n_mels ? __ldg(mel_lo + (size_t)(bt + c) * n_mels + m) : 0.0f;
             }
 #pragma unroll
@@ -129,21 +130,24 @@ __device__ __forceinline__ void project_tile(const float (&re)[8][NJ], const flo
 }
 
 // The end of a block: its valid frames (< nf) of the mel accumulator to
-// mel_out [B, nf, n_mels] (bf16 for 'bf16'), and the max over them to
-// bmax[b, blockIdx.x] (mel >= 0, so 0 is neutral). red_s: kThreads/32 floats.
+// mel_out [B, nf, n_mels] columns c0.. (bf16 for 'bf16'), and the max over
+// them to bmax[b, blockIdx.x] (mel >= 0, so 0 is neutral): stored with one
+// mel group, else merged by atomicMax on the bits (which order as the values
+// for non-negative floats) into a zeroed bmax. red_s: kThreads/32 floats.
 template <int MODE>
 __device__ __forceinline__ void write_block(const float* mel_s, const float* mel2_s, void* __restrict__ mel_out,
                                             float* __restrict__ bmax, float* red_s, int b, int f0, int nf,
-                                            int n_mels, int tid, int lane, int warp)
+                                            int n_mels, int c0, int tid, int lane, int warp)
 {
     __syncthreads();
+    const int nm = min(kMelMax, n_mels - c0);  // the group's columns
     float vmax = 0.0f;
-    for (int i = tid; i < kBF * n_mels; i += kThreads) {
-        const int f = i / n_mels;
-        const int m = i % n_mels;
+    for (int i = tid; i < kBF * nm; i += kThreads) {
+        const int f = i / nm;
+        const int m = i % nm;
         if (f0 + f < nf) {
             const float v = MODE == kX3 ? mel_s[f * kMelMax + m] + mel2_s[f * kMelMax + m] : mel_s[f * kMelMax + m];
-            const size_t o = ((size_t)b * nf + f0 + f) * n_mels + m;
+            const size_t o = ((size_t)b * nf + f0 + f) * n_mels + c0 + m;
             if constexpr (MODE == kBF16) static_cast<__nv_bfloat16*>(mel_out)[o] = __float2bfloat16_rn(v);
             else static_cast<float*>(mel_out)[o] = v;
             vmax = fmaxf(vmax, v);
@@ -156,7 +160,9 @@ __device__ __forceinline__ void write_block(const float* mel_s, const float* mel
     if (tid == 0) {
         float m = red_s[0];
         for (int w = 1; w < kThreads / 32; ++w) m = fmaxf(m, red_s[w]);
-        bmax[(size_t)b * gridDim.x + blockIdx.x] = m;
+        float* dst = bmax + (size_t)b * gridDim.x + blockIdx.x;
+        if (gridDim.z > 1) atomicMax(reinterpret_cast<int*>(dst), __float_as_int(m));
+        else *dst = m;
     }
 }
 

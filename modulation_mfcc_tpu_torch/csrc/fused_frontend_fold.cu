@@ -269,9 +269,10 @@ fused_mel_fold_kernel(const float* __restrict__ audio, const float* __restrict__
             }
         }
 
-        project_tile<MODE, NJ>(re, im, res, ims, p_s, mel_s, mel2_s, melw, bt, bins_pad, n_mels, lane, warp);
+        project_tile<MODE, NJ>(re, im, res, ims, p_s, mel_s, mel2_s, melw, bt, bins_pad, n_mels, kMelMax * (int)blockIdx.z,
+                               lane, warp);
     }
-    write_block<MODE>(mel_s, mel2_s, mel_out, bmax, red_s, b, f0, nf, n_mels, tid, lane, warp);
+    write_block<MODE>(mel_s, mel2_s, mel_out, bmax, red_s, b, f0, nf, n_mels, kMelMax * (int)blockIdx.z, tid, lane, warp);
 }
 
 template <int MODE>
@@ -280,7 +281,7 @@ int launch_fold(const float* audio, const float* wc, const float* ws, const floa
                 void* stream)
 {
     if (B < 1 || T < 1 || nf < 1 || hop < 1 || sup < 2 || sup % 2 || K != sup / 2 + 1 || n_mels < 1 ||
-        n_mels > kMelMax || bins_pad < kBT || bins_pad % kBT || im_cols < kBT || im_cols % kBT ||
+        n_mels > kMelLimit || bins_pad < kBT || bins_pad % kBT || im_cols < kBT || im_cols % kBT ||
         im_cols > bins_pad)
         return (int)cudaErrorInvalidValue;
     const int n_blocks = (nf + kBF - 1) / kBF;
@@ -290,14 +291,17 @@ int launch_fold(const float* audio, const float* wc, const float* ws, const floa
     cudaError_t err = cudaFuncSetAttribute(
         fused_mel_fold_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    fused_mel_fold_kernel<MODE><<<dim3(n_blocks, B), kThreads, smem, (cudaStream_t)stream>>>(
+    fused_mel_fold_kernel<MODE><<<dim3(n_blocks, B, (n_mels + kMelMax - 1) / kMelMax), kThreads, smem,
+                                  (cudaStream_t)stream>>>(
         audio, wc, ws, melw, mel, bmax, T, K, sup, hop, off, nf, bins_pad, im_cols, n_mels, span_pad);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// wc [K, bins_pad], ws [K, im_cols], melw [bins_pad, n_mels]; mel float32
+// wc [K, bins_pad], ws [K, im_cols], melw [bins_pad, n_mels], n_mels <= 512
+// (groups of 128 columns, the grid's z; bmax zeroed where there are more
+// than one); mel float32
 extern "C" int fused_mel_fold_f32(const float* audio, const float* wc, const float* ws, const float* melw,
                                   float* mel, float* bmax, int B, int T, int K, int sup, int hop, int off,
                                   int nf, int bins_pad, int im_cols, int n_mels, void* stream)

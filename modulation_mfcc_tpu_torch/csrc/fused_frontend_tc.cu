@@ -9,6 +9,12 @@
 
 #include "tensor_core.cuh"
 
+// The staging plan of a launch (kernels/fused_frontend.tc_plan, passed by
+// value in this field order); the launcher checks it against its own sum.
+struct TcPlan {
+    int frames, shifted, stages, n_copies, span_pad, mel_groups, shared_bytes;
+};
+
 namespace {
 
 using namespace tc;
@@ -96,7 +102,8 @@ using namespace tc;
 // mel (1.1 ms), i16 five int8 passes and the same mel (0.95 ms). The audio
 // read and the mel write are ~0.2 ms at 3.35 TB/s.
 //
-// Design: a block owns 64 consecutive frames of one utterance (8 warps).
+// Design: a block owns 64 consecutive frames of one utterance (8 warps) and
+// one group of 128 mel columns.
 //  * The A operand (frames) never exists in device memory, nor as a frame
 //    tile in shared memory: the block stages its audio span once, already
 //    in the MMA's element type (bf16: one plane; x3: the bf16 hi and lo
@@ -124,10 +131,22 @@ using namespace tc;
 //    over all tiles (registers and spills of each mode: chip_smoke.py
 //    phase 1). x3, f32, i16 and i24 take one block of 8 warps an SM (f32:
 //    its three-plane stages, mel weights, power tile and span come to
-//    211-219 KB of shared memory, kernels/fused_frontend.tc_shared_bytes);
+//    211-219 KB of shared memory in the full plan, kernels/fused_frontend.tc_plan);
 //    bf16, with one sum and a one-plane mel, fits in 128 registers and
 //    takes two, which beat 128-frame blocks of 64-frame warp tiles on the
 //    H100 (one block an SM, half the weight stream a frame).
+//  * The staging plan (TcPlan; its one owner is kernels/fused_frontend.
+//    tc_plan) fits the block in the 227 KB of shared memory at every rate,
+//    hop and window the reference configures. The full plan is the above:
+//    64 frames (MT = 2 MMA tiles of 16 a warp), the span in its shifted
+//    copies, four stages. Where that does not fit (large hops: the span is
+//    63 hop + Kp; odd hops: four copies), the compact plan takes 32 frames
+//    (MT = 1), one span copy whose rows each thread aligns in registers
+//    (two aligned 8-byte loads and a funnel shift, SHIFT), and two to four
+//    stages. Two blocks then share a block maximum, merged by atomicMax.
+//  * More than 128 mel bands (up to kMelLimit): the grid's z is the mel
+//    group, each group a block of its own that recomputes the DFT and
+//    projects onto the group's 128 columns of the weights.
 // Times on the H100: PERF.md §6 (chip_smoke.py phase 17). A narrower i24
 // warp tile (16 x 32, 48 accumulators) and per-warp release of the weight
 // stages through mbarriers, in place of the block barrier per chunk, were
@@ -137,11 +156,12 @@ using namespace tc;
 
 constexpr int kX3 = 0, kI16 = 1, kI24 = 2, kBF16 = 3, kF32 = 4;
 constexpr int kChunkRows = 32;  // contraction rows a pipeline stage holds
-constexpr int kStages = 4;
-constexpr int kMT = 2;          // 16-frame MMA tiles a warp: warps 2 (frames) x 4 (columns)
+constexpr int kStages = 4;      // pipeline stages of the full plan (the compact plan: 2 to 4)
+constexpr int kMT = 2;          // 16-frame MMA tiles a warp in the full plan: warps 2 (frames) x 4 (columns)
 constexpr int kWN = 4;          // warps across a tile's columns, 32 each
 constexpr int kCols = 32 * kWN; // DFT columns per tile: re and im of 64 bins
 constexpr int kTileBins = kCols / 2;
+constexpr int kSharedMax = 232448;  // bytes of shared memory a block may use on the H100
 
 template <int MODE> struct Mode;
 template <> struct Mode<kX3> {
@@ -190,7 +210,7 @@ template <int MODE> constexpr int kChunkBytes =
     kChunkRows * kCols * Mode<MODE>::kBasisPlanes * (int)sizeof(typename Mode<MODE>::T);
 template <int MODE> constexpr int kMelBytes = kTileBins * Mode<MODE>::kMelPlanes * kMelCols * 2;  // a tile's mel weights
 constexpr int kPitch = kTileBins + 16;                   // power row: 8 mod 32 words, conflict-free
-template <int MODE> constexpr int kPowerBytes = Mode<MODE>::kMelPlanes * kBF * kPitch * 2;
+template <int MODE, int MT> constexpr int kPowerBytes = Mode<MODE>::kMelPlanes * 32 * MT * kPitch * 2;
 
 static_assert(kMT * 16 * (kThreads / 32 / kWN) == kBF, "the warps cover the block's frames");
 
@@ -262,35 +282,47 @@ __device__ __forceinline__ float power_of(float re, float im)
     return __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));
 }
 
-template <int MODE>
+template <int MODE, int MT>
 struct Acc;  // the DFT sums of a thread
-template <> struct Acc<kX3> { float hh[kMT][4][4], sm[kMT][4][4]; };
-template <> struct Acc<kI16> { int d[3][kMT][4][4]; };
-template <> struct Acc<kI24> { int d[3][kMT][4][4]; };
-template <> struct Acc<kBF16> { float s[kMT][4][4]; };
-template <> struct Acc<kF32> : Acc<kX3> {};
+template <int MT> struct Acc<kX3, MT> { float hh[MT][4][4], sm[MT][4][4]; };
+template <int MT> struct Acc<kI16, MT> { int d[3][MT][4][4]; };
+template <int MT> struct Acc<kI24, MT> { int d[3][MT][4][4]; };
+template <int MT> struct Acc<kBF16, MT> { float s[MT][4][4]; };
+template <int MT> struct Acc<kF32, MT> : Acc<kX3, MT> {};
 
 // one chunk (kChunkRows contraction rows from k0) of the tile's DFT; LO_ZERO:
-// the samples' f32 lo plane is zero (int16 input), so lo.hi is skipped
-template <int MODE, bool LO_ZERO>
-__device__ __forceinline__ void dft_chunk(Acc<MODE>& acc, const typename Mode<MODE>::T* span,
-                                          int span_plane, const int (&a_off)[kMT][2],
+// the samples' f32 lo plane is zero (int16 input), so lo.hi is skipped.
+// a_off: the 8-byte aligned offset of each of the thread's A rows; SHIFT:
+// the row starts a_sh[mt][h] bytes (0 .. 7) past it, and its 8 bytes are cut
+// from the 16 of two aligned loads
+template <int MODE, int MT, bool SHIFT, bool LO_ZERO>
+__device__ __forceinline__ void dft_chunk(Acc<MODE, MT>& acc, const typename Mode<MODE>::T* span,
+                                          int span_plane, const int (&a_off)[MT][2], const int (&a_sh)[MT][2],
                                           const typename Mode<MODE>::T* stage, int k0, int col0, int t)
 {
     using M = Mode<MODE>;
 #pragma unroll
     for (int j = 0; j < kChunkRows / M::kStep; ++j) {
-        uint32_t a[M::kSpanPlanes][kMT][4];
+        uint32_t a[M::kSpanPlanes][MT][4];
 #pragma unroll
         for (int p = 0; p < M::kSpanPlanes - (LO_ZERO ? 1 : 0); ++p)
 #pragma unroll
-            for (int mt = 0; mt < kMT; ++mt)
+            for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
                 for (int h = 0; h < 2; ++h) {
-                    const uint2 v = *reinterpret_cast<const uint2*>(
-                        span + p * span_plane + a_off[mt][h] + k0 + M::kStep * j);
-                    a[p][mt][h] = v.x;
-                    a[p][mt][2 + h] = v.y;
+                    const auto* row = span + p * span_plane + a_off[mt][h] + k0 + M::kStep * j;
+                    const uint2 v = *reinterpret_cast<const uint2*>(row);
+                    if constexpr (SHIFT) {
+                        const uint2 u = *reinterpret_cast<const uint2*>(row + kAl<MODE>);
+                        const bool up = a_sh[mt][h] >= 4;
+                        const int bits = 8 * (a_sh[mt][h] & 3);
+                        const uint32_t w0 = up ? v.y : v.x, w1 = up ? u.x : v.y, w2 = up ? u.y : u.x;
+                        a[p][mt][h] = __funnelshift_r(w0, w1, bits);
+                        a[p][mt][2 + h] = __funnelshift_r(w1, w2, bits);
+                    } else {
+                        a[p][mt][h] = v.x;
+                        a[p][mt][2 + h] = v.y;
+                    }
                 }
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
@@ -301,7 +333,7 @@ __device__ __forceinline__ void dft_chunk(Acc<MODE>& acc, const typename Mode<MO
                 w[p] = *reinterpret_cast<const uint2*>(
                     stage + ((j * M::kBasisPlanes + p) * kCols + col0 + 8 * nt) * M::kStep + kAl<MODE> * t);
 #pragma unroll
-            for (int mt = 0; mt < kMT; ++mt) {
+            for (int mt = 0; mt < MT; ++mt) {
                 if constexpr (MODE == kBF16) {
                     mma_bf16(acc.s[mt][nt], a[0][mt], w[0].x, w[0].y);
                 } else if constexpr (MODE == kX3) {
@@ -334,24 +366,27 @@ __device__ __forceinline__ void dft_chunk(Acc<MODE>& acc, const typename Mode<MO
     }
 }
 
-template <int MODE, typename In>
+template <int MODE, typename In, int MT, bool SHIFT>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* __restrict__ wtc,
                     const __nv_bfloat16* __restrict__ mtc, const float* __restrict__ sc,
                     const float* __restrict__ corr, void* __restrict__ mel, float* __restrict__ bmax, int T, int Kp, int hop, int off,
-                    int nf, int bins_pad, int n_mels, int span_pad, int n_copies, int shift_log2)
+                    int nf, int bins_pad, int n_mels, int span_pad, int n_copies, int shift_log2, int plan_stages)
 {
     using M = Mode<MODE>;
     using E = typename M::T;
+    constexpr int BF = 32 * MT;  // frames a block
     constexpr bool kFixed = MODE == kI16 || MODE == kI24;
     constexpr bool kLoZero = MODE == kF32 && std::is_same<In, int16_t>::value;
+    // the full plan's ring is a constant; the compact plan's comes with it
+    const int stages = MT == kMT ? kStages : plan_stages;
     extern __shared__ __align__(128) unsigned char smem[];
-    uint64_t* full = reinterpret_cast<uint64_t*>(smem);                 // [kStages] chunk barriers
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem);                 // [stages] chunk barriers
     uint64_t* mel_bar = full + kStages;                                  // the tile's mel weights
-    unsigned char* ring = smem + 128;                                    // kStages x kChunkBytes
-    auto* mel_w = reinterpret_cast<__nv_bfloat16*>(ring + kStages * kChunkBytes<MODE>);  // [steps][planes][128][16]
+    unsigned char* ring = smem + 128;                                    // stages x kChunkBytes
+    auto* mel_w = reinterpret_cast<__nv_bfloat16*>(ring + stages * kChunkBytes<MODE>);  // [steps][planes][128][16]
     auto* pw = reinterpret_cast<__nv_bfloat16*>(reinterpret_cast<unsigned char*>(mel_w) + kMelBytes<MODE>);
-    E* span = reinterpret_cast<E*>(reinterpret_cast<unsigned char*>(pw) + kPowerBytes<MODE>);
+    E* span = reinterpret_cast<E*>(reinterpret_cast<unsigned char*>(pw) + kPowerBytes<MODE, MT>);
     __shared__ float red_s[kThreads / 32];
 
     const int tid = threadIdx.x;
@@ -359,7 +394,8 @@ fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* 
     const int warp = tid >> 5;
     const int g = lane >> 2, t = lane & 3;
     const int b = blockIdx.y;
-    const int f0 = blockIdx.x * kBF;
+    const int f0 = blockIdx.x * BF;
+    const int group = blockIdx.z;  // of 128 mel columns
     const In* x = audio + (size_t)b * T;
     const float s = kFixed ? sc[2 * b] : 0.0f;
     const float inv = kFixed ? sc[2 * b + 1] : 0.0f;
@@ -367,6 +403,7 @@ fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* 
     const int n_tiles = 2 * bins_pad / kCols;
     const int total = n_tiles * n_chunks;
     const int span_plane = n_copies * span_pad;  // elements of one plane's copies
+    const __nv_bfloat16* mtc_g = mtc + (size_t)group * (bins_pad / kTileBins) * (kMelBytes<MODE> / 2);
 
     if (tid == 0) {
         for (int i = 0; i < kStages + 1; ++i) mbar::init(full + i, 1);
@@ -388,45 +425,47 @@ fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* 
     auto issue = [&](int q) {  // chunk q of the (tile, chunk) sequence -> its stage
         const int tile = q / n_chunks, chunk = q % n_chunks;
         const E* src = wtc + ((size_t)tile * Kp + (size_t)chunk * kChunkRows) * kCols * M::kBasisPlanes;
-        bulk_load(ring + (q % kStages) * kChunkBytes<MODE>, src, kChunkBytes<MODE>, full + q % kStages);
+        bulk_load(ring + (q % stages) * kChunkBytes<MODE>, src, kChunkBytes<MODE>, full + q % stages);
     };
     if (tid == 0)
-        for (int q = 0; q < kStages - 1 && q < total; ++q) issue(q);
+        for (int q = 0; q < stages - 1 && q < total; ++q) issue(q);
 
     // this thread's A rows: their offsets into a plane, in the copy that
-    // aligns them to 8 bytes
+    // aligns them to 8 bytes (SHIFT: one copy, the offset rounded down to 8
+    // bytes and the remainder a_sh in bytes)
     const int wm = warp / kWN, wn = warp % kWN;
-    int a_off[kMT][2];
+    int a_off[MT][2], a_sh[MT][2];
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-            const int e = (16 * kMT * wm + 16 * mt + 8 * h + g) * hop;
+            const int e = (16 * MT * wm + 16 * mt + 8 * h + g) * hop;
             const int r = e & (kAl<MODE> - 1);
-            a_off[mt][h] = (r >> shift_log2) * span_pad + e - r + kAl<MODE> * t;
+            a_off[mt][h] = (SHIFT ? 0 : (r >> shift_log2) * span_pad) + e - r + kAl<MODE> * t;
+            a_sh[mt][h] = SHIFT ? r * (int)sizeof(E) : 0;
         }
     const int col0 = 32 * wn + g;
 
-    float mel_hh[2][4][4], mel_sm[2][4][4];
+    float mel_hh[MT][4][4], mel_sm[MT][4][4];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
             for (int i = 0; i < 4; ++i) { mel_hh[mt][nt][i] = 0.0f; mel_sm[mt][nt][i] = 0.0f; }
 
     for (int tile = 0; tile < n_tiles; ++tile) {
-        Acc<MODE> acc;
+        Acc<MODE, MT> acc;
         if constexpr (MODE == kBF16) {
 #pragma unroll
-            for (int mt = 0; mt < kMT; ++mt)
+            for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
                 for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
                     for (int i = 0; i < 4; ++i) acc.s[mt][nt][i] = 0.0f;
         } else if constexpr (MODE == kX3 || MODE == kF32) {
 #pragma unroll
-            for (int mt = 0; mt < kMT; ++mt)
+            for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
                 for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
@@ -435,7 +474,7 @@ fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* 
 #pragma unroll
             for (int d = 0; d < 3; ++d)
 #pragma unroll
-                for (int mt = 0; mt < kMT; ++mt)
+                for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
                     for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
@@ -445,13 +484,13 @@ fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* 
             const int q = tile * n_chunks + chunk;
             __syncthreads();  // every warp is done with chunk q - 1 (and, at chunk 0, the last tile's mel)
             if (tid == 0) {
-                if (q + kStages - 1 < total) issue(q + kStages - 1);
-                if (chunk == 0) bulk_load(mel_w, mtc + (size_t)tile * kMelBytes<MODE> / 2, kMelBytes<MODE>, mel_bar);
+                if (q + stages - 1 < total) issue(q + stages - 1);
+                if (chunk == 0) bulk_load(mel_w, mtc_g + (size_t)tile * kMelBytes<MODE> / 2, kMelBytes<MODE>, mel_bar);
             }
-            mbar::wait(full + q % kStages, (q / kStages) & 1);
-            dft_chunk<MODE, kLoZero>(acc, span, span_plane, a_off,
-                            reinterpret_cast<const E*>(ring + (q % kStages) * kChunkBytes<MODE>),
-                            chunk * kChunkRows, col0, t);
+            mbar::wait(full + q % stages, (q / stages) & 1);
+            dft_chunk<MODE, MT, SHIFT, kLoZero>(acc, span, span_plane, a_off, a_sh,
+                                               reinterpret_cast<const E*>(ring + (q % stages) * kChunkBytes<MODE>),
+                                               chunk * kChunkRows, col0, t);
         }
 
         // power of each (frame, bin) this thread holds, rounded to bf16 (x3, i16,
@@ -468,7 +507,7 @@ fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* 
             }
         }
 #pragma unroll
-        for (int mt = 0; mt < kMT; ++mt)
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
             for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
@@ -492,114 +531,152 @@ fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* 
                     }
                     const float p = power_of(re, im);
                     const __nv_bfloat16 hi = __float2bfloat16_rn(p);
-                    const int o = (16 * kMT * wm + 16 * mt + 8 * h + g) * kPitch + 16 * wn + 4 * nt + t;
+                    const int o = (16 * MT * wm + 16 * mt + 8 * h + g) * kPitch + 16 * wn + 4 * nt + t;
                     pw[o] = hi;
                     if constexpr (M::kMelPlanes >= 2) {
                         const float r = __fsub_rn(p, __bfloat162float(hi));
                         const __nv_bfloat16 mid = __float2bfloat16_rn(r);
-                        pw[kBF * kPitch + o] = mid;
+                        pw[BF * kPitch + o] = mid;
                         if constexpr (M::kMelPlanes == 3)
-                            pw[2 * kBF * kPitch + o] = __float2bfloat16_rn(__fsub_rn(r, __bfloat162float(mid)));
+                            pw[2 * BF * kPitch + o] = __float2bfloat16_rn(__fsub_rn(r, __bfloat162float(mid)));
                     }
                 }
         __syncthreads();  // the power tile is complete
         mbar::wait(mel_bar, tile & 1);
-        mel_tile<kTileBins / kMelStep, M::kMelPlanes>(mel_hh, mel_sm, pw, kPitch, mel_w, lane, warp);
+        mel_tile<kTileBins / kMelStep, M::kMelPlanes, MT>(mel_hh, mel_sm, pw, kPitch, mel_w, lane, warp);
     }
-    write_mel(mel_hh, mel_sm, static_cast<typename M::Out*>(mel), bmax, red_s, b, f0, nf, n_mels, lane, warp);
+    write_mel<MT>(mel_hh, mel_sm, static_cast<typename M::Out*>(mel), bmax, red_s, b, f0, nf, n_mels,
+                  kMelCols * group, MT != kMT || gridDim.z > 1, lane, warp);
+}
+
+// the launch's shared memory, and the plan's fields it rests on, recomputed
+// from the plan's choices (frames, shifted, stages) as tc_plan computes them;
+// false where the plan disagrees or does not fit
+template <int MODE>
+int gcd_log2(int hop)  // log2 gcd(hop, kAl): the shift between span copies
+{
+    int s = 0;
+    while ((2 << s) <= kAl<MODE> && hop % (2 << s) == 0) ++s;
+    return s;
 }
 
 template <int MODE>
-int launch_tc(const void* audio, int audio_i16, const void* wtc, const void* mtc, const float* sc,
-              const float* corr, void* mel, float* bmax, int B, int T, int Kp, int hop, int off, int nf,
-              int bins_pad, int n_mels, void* stream)
+bool plan_holds(const TcPlan& p, int Kp, int hop, int n_mels)
 {
     constexpr int al = kAl<MODE>;
-    if (B < 1 || T < 1 || nf < 1 || Kp < kChunkRows || Kp % kChunkRows || hop < 1 || n_mels < 1 ||
-        n_mels > kMelCols || bins_pad < kTileBins || bins_pad % kTileBins || ((MODE == kI16 || MODE == kI24) && !sc) ||
-        (MODE == kI16 && !corr))
-        return (int)cudaErrorInvalidValue;
-    int shift_log2 = 0;  // log2 gcd(hop, al)
-    while (shift_log2 < 3 && (1 << (shift_log2 + 1)) <= al && hop % (1 << (shift_log2 + 1)) == 0) ++shift_log2;
-    const int n_copies = al >> shift_log2;
-    const int span_pad = ((kBF - 1) * hop + Kp + 15) / 16 * 16;
     using E = typename Mode<MODE>::T;
-    const size_t smem = 128 + (size_t)kStages * kChunkBytes<MODE> + kMelBytes<MODE> + kPowerBytes<MODE> +
-                        (size_t)Mode<MODE>::kSpanPlanes * n_copies * span_pad * sizeof(E);
-    const int n_blocks = (nf + kBF - 1) / kBF;
-    cudaError_t err;
-    if (audio_i16) {
-        err = cudaFuncSetAttribute(fused_mel_tc_kernel<MODE, int16_t>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-        if (err != cudaSuccess) return (int)err;
-        fused_mel_tc_kernel<MODE, int16_t><<<dim3(n_blocks, B), kThreads, smem, (cudaStream_t)stream>>>(
-            static_cast<const int16_t*>(audio), static_cast<const E*>(wtc), static_cast<const __nv_bfloat16*>(mtc),
-            sc, corr, mel, bmax, T, Kp, hop, off, nf, bins_pad, n_mels, span_pad, n_copies, shift_log2);
-    } else {
-        err = cudaFuncSetAttribute(fused_mel_tc_kernel<MODE, float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-        if (err != cudaSuccess) return (int)err;
-        fused_mel_tc_kernel<MODE, float><<<dim3(n_blocks, B), kThreads, smem, (cudaStream_t)stream>>>(
-            static_cast<const float*>(audio), static_cast<const E*>(wtc), static_cast<const __nv_bfloat16*>(mtc),
-            sc, corr, mel, bmax, T, Kp, hop, off, nf, bins_pad, n_mels, span_pad, n_copies, shift_log2);
-    }
-    return (int)cudaGetLastError();
+    const bool full = p.frames == kBF && !p.shifted && p.stages == kStages;
+    const bool compact = p.frames == kBF / 2 && p.shifted && p.stages >= 2 && p.stages <= kStages;
+    if (!full && !compact) return false;
+    const int n_copies = p.shifted ? 1 : al >> gcd_log2<MODE>(hop);
+    const int span_pad = ((p.frames - 1) * hop + Kp + (p.shifted ? al : 0) + 15) / 16 * 16;
+    const long long smem = 128 + (long long)p.stages * kChunkBytes<MODE> + kMelBytes<MODE> +
+                           (long long)Mode<MODE>::kMelPlanes * p.frames * kPitch * 2 +
+                           (long long)Mode<MODE>::kSpanPlanes * n_copies * span_pad * (long long)sizeof(E);
+    return p.n_copies == n_copies && p.span_pad == span_pad && p.shared_bytes == smem &&
+           smem <= kSharedMax && p.mel_groups == (n_mels + kMelCols - 1) / kMelCols;
+}
+
+template <int MODE, typename In, int MT, bool SHIFT>
+cudaError_t launch_plan(const In* audio, const void* wtc, const void* mtc, const float* sc, const float* corr,
+                        void* mel, float* bmax, int B, int T, int Kp, int hop, int off, int nf, int bins_pad,
+                        int n_mels, const TcPlan& p, void* stream)
+{
+    using E = typename Mode<MODE>::T;
+    cudaError_t err = cudaFuncSetAttribute(fused_mel_tc_kernel<MODE, In, MT, SHIFT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, p.shared_bytes);
+    if (err != cudaSuccess) return err;
+    fused_mel_tc_kernel<MODE, In, MT, SHIFT>
+        <<<dim3((nf + p.frames - 1) / p.frames, B, p.mel_groups), kThreads, p.shared_bytes, (cudaStream_t)stream>>>(
+            audio, static_cast<const E*>(wtc), static_cast<const __nv_bfloat16*>(mtc), sc, corr, mel, bmax, T, Kp,
+            hop, off, nf, bins_pad, n_mels, p.span_pad, p.n_copies, gcd_log2<MODE>(hop), p.stages);
+    return cudaGetLastError();
+}
+
+template <int MODE, typename In>
+cudaError_t launch_in(const In* audio, const void* wtc, const void* mtc, const float* sc, const float* corr,
+                      void* mel, float* bmax, int B, int T, int Kp, int hop, int off, int nf, int bins_pad,
+                      int n_mels, const TcPlan& p, void* stream)
+{
+    return p.shifted ? launch_plan<MODE, In, 1, true>(audio, wtc, mtc, sc, corr, mel, bmax, B, T, Kp, hop, off, nf,
+                                                      bins_pad, n_mels, p, stream)
+                     : launch_plan<MODE, In, kMT, false>(audio, wtc, mtc, sc, corr, mel, bmax, B, T, Kp, hop, off,
+                                                         nf, bins_pad, n_mels, p, stream);
+}
+
+// bmax: zeroed where the plan merges block maxima (compact, or more than one
+// mel group)
+template <int MODE>
+int launch_tc(const void* audio, int audio_i16, const void* wtc, const void* mtc, const float* sc,
+              const float* corr, void* mel, float* bmax, int B, int T, int Kp, int hop, int off, int nf,
+              int bins_pad, int n_mels, TcPlan p, void* stream)
+{
+    if (B < 1 || T < 1 || nf < 1 || Kp < kChunkRows || Kp % kChunkRows || hop < 1 || n_mels < 1 ||
+        n_mels > kMelLimit || bins_pad < kTileBins || bins_pad % kTileBins ||
+        ((MODE == kI16 || MODE == kI24) && !sc) || (MODE == kI16 && !corr) || !plan_holds<MODE>(p, Kp, hop, n_mels))
+        return (int)cudaErrorInvalidValue;
+    if (audio_i16)
+        return (int)launch_in<MODE>(static_cast<const int16_t*>(audio), wtc, mtc, sc, corr, mel, bmax, B, T, Kp,
+                                    hop, off, nf, bins_pad, n_mels, p, stream);
+    return (int)launch_in<MODE>(static_cast<const float*>(audio), wtc, mtc, sc, corr, mel, bmax, B, T, Kp, hop,
+                                off, nf, bins_pad, n_mels, p, stream);
 }
 
 }  // namespace
 
 // wtc: the (hi, mid, lo) basis planes, bf16 [2*bins_pad/128][Kp/16][3][128][16]
 // (re and im columns interleaved, rows past K zero); mtc: the mel weights'
-// (hi, mid, lo) planes, bf16 [bins_pad/16][3][128][16] (columns past n_mels
-// zero); mel [B, nf, n_mels] float32, bmax [B, ceil(nf/64)]
+// (hi, mid, lo) planes, bf16 [groups * bins_pad/16][3][128][16] (groups of
+// 128 mel columns, columns past n_mels zero); mel [B, nf, n_mels] float32,
+// bmax [B, ceil(nf/64)]; plan from tc_plan
 extern "C" int fused_mel_f32(const void* audio, int audio_i16, const void* wtc, const void* mtc, float* mel,
                              float* bmax, int B, int T, int Kp, int hop, int off, int nf, int bins_pad, int n_mels,
-                             void* stream)
+                             TcPlan plan, void* stream)
 {
     return launch_tc<kF32>(audio, audio_i16, wtc, mtc, nullptr, nullptr, mel, bmax, B, T, Kp, hop, off, nf,
-                           bins_pad, n_mels, stream);
+                           bins_pad, n_mels, plan, stream);
 }
 
 // wtc: the bf16-rounded basis, [2*bins_pad/128][Kp/16][1][128][16] (re and
 // im columns interleaved, rows past K zero); mtc: the bf16-rounded mel
-// weights, [bins_pad/16][1][128][16] (columns past n_mels zero); mel [B, nf,
+// weights, [groups * bins_pad/16][1][128][16] (columns past n_mels zero); mel [B, nf,
 // n_mels] bf16, bmax [B, ceil(nf/64)]
 extern "C" int fused_mel_bf16(const void* audio, int audio_i16, const void* wtc, const void* mtc, void* mel,
                               float* bmax, int B, int T, int Kp, int hop, int off, int nf, int bins_pad, int n_mels,
-                              void* stream)
+                              TcPlan plan, void* stream)
 {
     return launch_tc<kBF16>(audio, audio_i16, wtc, mtc, nullptr, nullptr, mel, bmax, B, T, Kp, hop, off, nf,
-                            bins_pad, n_mels, stream);
+                            bins_pad, n_mels, plan, stream);
 }
 
 // wtc: the (hi, lo) basis planes, bf16 [2*bins_pad/128][Kp/16][2][128][16]
 // (re and im columns interleaved, rows past K zero); mtc: the mel weights'
-// (hi, lo) planes, bf16 [bins_pad/16][2][128][16] (columns past n_mels
+// (hi, lo) planes, bf16 [groups * bins_pad/16][2][128][16] (columns past n_mels
 // zero); mel [B, nf, n_mels] float32, bmax [B, ceil(nf/64)]
 extern "C" int fused_mel_x3(const void* audio, int audio_i16, const void* wtc, const void* mtc, float* mel,
                             float* bmax, int B, int T, int Kp, int hop, int off, int nf, int bins_pad, int n_mels,
-                            void* stream)
+                            TcPlan plan, void* stream)
 {
     return launch_tc<kX3>(audio, audio_i16, wtc, mtc, nullptr, nullptr, mel, bmax, B, T, Kp, hop, off, nf,
-                          bins_pad, n_mels, stream);
+                          bins_pad, n_mels, plan, stream);
 }
 
 // wtc: the int8 planes w2, w1, w0, [2*bins_pad/128][Kp/32][3][128][32]
 // (columns interleaved as for x3); sc [B, 2] = (s, 1/(s*Sw)); mtc as for x3
 extern "C" int fused_mel_i24(const void* audio, int audio_i16, const void* wtc, const float* sc, const void* mtc,
                              float* mel, float* bmax, int B, int T, int Kp, int hop, int off, int nf, int bins_pad,
-                             int n_mels, void* stream)
+                             int n_mels, TcPlan plan, void* stream)
 {
     return launch_tc<kI24>(audio, audio_i16, wtc, mtc, sc, nullptr, mel, bmax, B, T, Kp, hop, off, nf, bins_pad,
-                           n_mels, stream);
+                           n_mels, plan, stream);
 }
 
 // wtc, sc, mtc as for i24 (s a power of two); corr [2*bins_pad] (re | im,
 // not interleaved) = 128 * the column sums of round(W * Sw)
 extern "C" int fused_mel_i16(const void* audio, int audio_i16, const void* wtc, const float* sc, const float* corr,
                              const void* mtc, float* mel, float* bmax, int B, int T, int Kp, int hop, int off, int nf,
-                             int bins_pad, int n_mels, void* stream)
+                             int bins_pad, int n_mels, TcPlan plan, void* stream)
 {
     return launch_tc<kI16>(audio, audio_i16, wtc, mtc, sc, corr, mel, bmax, B, T, Kp, hop, off, nf, bins_pad,
-                           n_mels, stream);
+                           n_mels, plan, stream);
 }

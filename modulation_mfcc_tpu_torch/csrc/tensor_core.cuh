@@ -25,9 +25,10 @@ namespace tc {
 using mbar::bulk_load;
 using mbar::smem_u32;
 
-constexpr int kBF = 64;         // frames per block: one block maximum each
+constexpr int kBF = 64;         // frames per block of the full plan, and of one block maximum
 constexpr int kThreads = 256;   // 8 warps
-constexpr int kMelCols = 128;   // mel columns a block computes (zero weights past n_mels)
+constexpr int kMelCols = 128;   // mel columns a block computes (a group; zero weights past n_mels)
+constexpr int kMelLimit = 512;  // mel columns a launch takes: up to four groups
 constexpr int kMelStep = 16;    // bins per k-step of the mel projection
 
 // D += A·B, bf16 operands, FP32 accumulate (m16n8k16)
@@ -64,31 +65,31 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
 
 // The mel projection of one bin tile, accumulated into the block's mel. p_s
 // holds the tile's power as PLANES bf16 planes (bf16: the rounded power;
-// x3: its (hi, lo) split; f32: (hi, mid, lo)) of kBF rows of `pitch`
+// x3: its (hi, lo) split; f32: (hi, mid, lo)) of 32 MT rows of `pitch`
 // elements ([frame][bin], STEPS * 16 bins); m_s the mel weights' planes of
 // those bins, [STEPS][PLANES][kMelCols][16]. Warp w owns frames
-// 32 (w >> 2) .. + 31 and mel columns 32 (w & 3) .. + 31: 2 x 4 tiles of
-// 16 x 8. The hi.hi products go to hh, each 16-bin MMA added with FP32 adds
+// 16 MT (w >> 2) .. + 16 MT - 1 and mel columns 32 (w & 3) .. + 31: MT x 4
+// tiles of 16 x 8. The hi.hi products go to hh, each 16-bin MMA added with FP32 adds
 // (mma_bf16_add); for x3 the hi.lo and lo.hi products go to sm (two FP32
 // sums, added at the end, as the TPU mode sums its passes), for f32 the
 // hi.mid, mid.hi, hi.lo, mid.mid and lo.hi products.
-template <int STEPS, int PLANES>
-__device__ __forceinline__ void mel_tile(float (&hh)[2][4][4], float (&sm)[2][4][4], const __nv_bfloat16* p_s,
+template <int STEPS, int PLANES, int MT>
+__device__ __forceinline__ void mel_tile(float (&hh)[MT][4][4], float (&sm)[MT][4][4], const __nv_bfloat16* p_s,
                                          int pitch, const __nv_bfloat16* m_s, int lane, int warp)
 {
     const int g = lane >> 2, t = lane & 3;
-    const int row0 = 32 * (warp >> 2) + g;
+    const int row0 = 16 * MT * (warp >> 2) + g;
     const int col0 = 32 * (warp & 3) + g;
 #pragma unroll
     for (int j = 0; j < STEPS; ++j) {
-        uint32_t a[PLANES][2][4];
+        uint32_t a[PLANES][MT][4];
 #pragma unroll
         for (int p = 0; p < PLANES; ++p)
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt)
+            for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
                 for (int h = 0; h < 2; ++h) {
-                    const int o = p * kBF * pitch + (row0 + 16 * mt + 8 * h) * pitch + kMelStep * j + 4 * t;
+                    const int o = p * 32 * MT * pitch + (row0 + 16 * mt + 8 * h) * pitch + kMelStep * j + 4 * t;
                     const uint2 v = *reinterpret_cast<const uint2*>(p_s + o);
                     a[p][mt][h] = v.x; a[p][mt][2 + h] = v.y;
                 }
@@ -99,10 +100,10 @@ __device__ __forceinline__ void mel_tile(float (&hh)[2][4][4], float (&sm)[2][4]
 #pragma unroll
             for (int p = 0; p < PLANES; ++p) b[p] = *reinterpret_cast<const uint2*>(mb + p * kMelCols * kMelStep);
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt) mma_bf16_add(hh[mt][nt], a[0][mt], b[0].x, b[0].y);
+            for (int mt = 0; mt < MT; ++mt) mma_bf16_add(hh[mt][nt], a[0][mt], b[0].x, b[0].y);
             if constexpr (PLANES >= 2) {
 #pragma unroll
-                for (int mt = 0; mt < 2; ++mt) {
+                for (int mt = 0; mt < MT; ++mt) {
                     mma_bf16(sm[mt][nt], a[0][mt], b[1].x, b[1].y);
                     mma_bf16(sm[mt][nt], a[1][mt], b[0].x, b[0].y);
                     if constexpr (PLANES == 3) {
@@ -137,28 +138,33 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float v0, float v1,
 __device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_one(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-// The end of a block: mel = hh + sm of its valid frames (< nf) and columns
-// (< n_mels) to mel [B, nf, n_mels] (float32, or bf16 rounded to nearest
-// even), and their maximum, over the FP32 values, to bmax[b, blockIdx.x]
-// (mel >= 0, so 0 is neutral). red_s: kThreads / 32 floats.
-template <typename OutT>
-__device__ __forceinline__ void write_mel(const float (&hh)[2][4][4], const float (&sm)[2][4][4],
+// The end of a block of 32 MT frames from f0 and mel group c0 / 128: mel =
+// hh + sm of its valid frames (< nf) and columns c0 .. c0 + 127 (< n_mels) to
+// mel [B, nf, n_mels] (float32, or bf16 rounded to nearest even), and their
+// maximum, over the FP32 values, into bmax[b, f0 / 64] (mel >= 0, so 0 is
+// neutral): stored where the block is the only one of its 64 frames (the
+// full plan, one mel group), else by atomicMax on the bits, which order as
+// the values for non-negative floats, into a zeroed bmax. red_s: kThreads /
+// 32 floats.
+template <int MT, typename OutT>
+__device__ __forceinline__ void write_mel(const float (&hh)[MT][4][4], const float (&sm)[MT][4][4],
                                           OutT* __restrict__ mel, float* __restrict__ bmax, float* red_s,
-                                          int b, int f0, int nf, int n_mels, int lane, int warp)
+                                          int b, int f0, int nf, int n_mels, int c0, bool atomic, int lane,
+                                          int warp)
 {
     const int g = lane >> 2, t = lane & 3;
     const bool aligned = (n_mels & 1) == 0;
     float vmax = 0.0f;
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-            const int f = f0 + 32 * (warp >> 2) + 16 * mt + 8 * h + g;
+            const int f = f0 + 16 * MT * (warp >> 2) + 16 * mt + 8 * h + g;
             if (f >= nf) continue;
             OutT* row = mel + ((size_t)b * nf + f) * n_mels;
 #pragma unroll
             for (int nt = 0; nt < 4; ++nt) {
-                const int m = 32 * (warp & 3) + 8 * nt + 2 * t;
+                const int m = c0 + 32 * (warp & 3) + 8 * nt + 2 * t;
                 const float v0 = hh[mt][nt][2 * h] + sm[mt][nt][2 * h];
                 const float v1 = hh[mt][nt][2 * h + 1] + sm[mt][nt][2 * h + 1];
                 if (m + 1 < n_mels) {
@@ -177,7 +183,9 @@ __device__ __forceinline__ void write_mel(const float (&hh)[2][4][4], const floa
     if (threadIdx.x == 0) {
         float m = red_s[0];
         for (int w = 1; w < kThreads / 32; ++w) m = fmaxf(m, red_s[w]);
-        bmax[(size_t)b * gridDim.x + blockIdx.x] = m;
+        float* dst = bmax + (size_t)b * ((nf + kBF - 1) / kBF) + f0 / kBF;
+        if (atomic) atomicMax(reinterpret_cast<int*>(dst), __float_as_int(m));
+        else *dst = m;
     }
 }
 

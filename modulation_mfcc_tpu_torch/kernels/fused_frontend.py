@@ -49,7 +49,8 @@ per arithmetic mode of the JAX frontend and one tail kernel:
     kernels (``mfcc_tail`` → ``_tail_kernel_t`` / ``_tail_kernel``):
     10·log10(max(mel, 1e-10)), the clip at peak − 80 dB, and the DCT-II,
     written coef-major [B, n_mfcc, NF] or frame-major [B, NF, n_mfcc]; it
-    reads a float32 or a bf16 mel. Bound: the one read of the mel tensor;
+    reads a float32 or a bf16 mel of up to 512 bands, n_mfcc ≤ n_mels.
+    Bound: the one read of the mel tensor;
     a ring of bulk copies keeps it in flight while the lanes of a warp
     share a frame's log10f and DCT.
 
@@ -75,6 +76,7 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -89,7 +91,7 @@ from modulation_mfcc_tpu_torch.utils.helpers import dequantize_samples, round_up
 __all__ = [
     "ALGORITHMS", "FOLD_ALGORITHMS", "LAUNCHES", "frontend_weights", "mode_weights", "int8_weight_planes",
     "quant_scales", "tail_dct", "eff_pad", "hop_rows_geometry", "pack_hop_rows", "fold_ok", "fold_weights",
-    "tc_layouts", "tc_planes", "tc_shared_bytes", "pack_tc_basis", "unpack_tc_basis",
+    "tc_layouts", "tc_planes", "TcPlan", "tc_plan", "pack_tc_basis", "unpack_tc_basis",
     "pack_tc_mel", "unpack_tc_mel", "fused_mel_frontend", "fused_mel_frontend_reference",
     "split3_frontend_mirror", "fused_mel_fold_reference",
     "mfcc_tail", "mfcc_tail_reference", "fused_mfcc",
@@ -102,8 +104,8 @@ LAUNCHES = ({f"fused_mel_{a}": 0 for a in ALGORITHMS} | {"mfcc_tail_f32": 0}
 
 BLOCK_FRAMES = 64  # frames per frontend block: one bmax entry each (kBF in the .cu)
 _BIN_TILE = 128    # bins_pad must be a multiple (kBT)
-_MEL_MAX = 128     # kMelMax
-_MFCC_MAX = 32     # kMfccMax
+_MEL_MAX = 128     # mel columns of a group (kMelCols; the fold's kMelMax)
+MEL_LIMIT = 512    # mel bands the tensor-core frontend and the tail take (kMelLimit, kTailMelLimit)
 _KC = 16           # contraction rows per step of the f32 sums (kKC in fused_frontend_common.cuh; one bf16 MMA)
 _TC_COLS = 128                                # DFT columns per tile (kCols): re and im of 64 bins
 _TC_STEP = {"f32": 16, "bf16": 16, "x3": 16, "i16": 32, "i24": 32}  # contraction rows per MMA (Mode::kStep)
@@ -111,10 +113,10 @@ _TC_BF16 = ("f32", "bf16", "x3")              # the modes whose basis is bf16 (i
 # (span, basis, mel) planes of each mode (Mode::kSpanPlanes, kBasisPlanes, kMelPlanes)
 _TC_PLANES = {"f32": (3, 3, 3), "bf16": (1, 1, 1), "x3": (2, 2, 2), "i16": (2, 3, 2), "i24": (3, 3, 2)}
 _TC_CHUNK = 32                      # contraction rows per pipeline stage (kChunkRows)
-_TC_STAGES = 4                      # pipeline stages of the basis ring (kStages)
+_TC_STAGES = 4                      # pipeline stages of the basis ring in the full plan (kStages)
 _TC_PITCH = 80                      # bf16 elements per row of the power tile (kPitch)
 _MEL_STEP = 16                      # bins per MMA of the mel projection (kMelStep)
-SHARED_MAX = 232_448                # bytes of shared memory a block may use on the H100
+SHARED_MAX = 232_448                # bytes of shared memory a block may use on the H100 (kSharedMax)
 ROWS_BLKF = 1024   # the JAX frontend's default frame block, which sizes a hop-rows batch
 _TAIL_ROWS = 16    # spare hop rows after the last block (JAX _TAIL_ROWS)
 _I24_FULL = 127.0 * 65536.0 - 33000.0  # 24-bit quantization full scale (exact in f32)
@@ -306,18 +308,22 @@ def pack_tc_mel(melw: torch.Tensor) -> torch.Tensor:
     """The tensor-core kernels' mel layout of the mel weights' P bf16 planes
     ``melw`` [P, bins_pad, n_mels] (bf16: one, the rounded weights; f32:
     the three of :func:`_split3`; the others: the x3 stack's (hi, lo)): mel
-    columns zero-padded to 128, then
-    [bins_pad/16, P, 128, 16] bf16 (16 bins a step, each column's 16 bins
-    contiguous)."""
+    columns zero-padded to G groups of 128 (one up to 128 bands), then
+    [G·bins_pad/16, P, 128, 16] bf16, group-major (16 bins a step, each
+    column's 16 bins contiguous)."""
     p, bins, n = melw.shape
-    x = tnf.pad(melw, (0, _MEL_MAX - n)).reshape(p, bins // _MEL_STEP, _MEL_STEP, _MEL_MAX)
-    return x.permute(1, 0, 3, 2).contiguous().to(torch.bfloat16)
+    groups = -(-n // _MEL_MAX)
+    x = tnf.pad(melw, (0, groups * _MEL_MAX - n)).reshape(p, bins // _MEL_STEP, _MEL_STEP, groups, _MEL_MAX)
+    return x.permute(3, 1, 0, 4, 2).reshape(groups * bins // _MEL_STEP, p, _MEL_MAX, _MEL_STEP).contiguous() \
+        .to(torch.bfloat16)
 
 
 def unpack_tc_mel(packed: torch.Tensor, n_mels: int) -> torch.Tensor:
     """Inverse of :func:`pack_tc_mel`: [P, bins_pad, n_mels] float32."""
-    steps, p, cols, step = packed.shape
-    return packed.permute(1, 0, 3, 2).reshape(p, steps * step, cols)[..., :n_mels].to(torch.float32)
+    rows, p, cols, step = packed.shape
+    groups = -(-n_mels // _MEL_MAX)
+    x = packed.reshape(groups, rows // groups, p, cols, step).permute(2, 1, 4, 0, 3)
+    return x.reshape(p, rows // groups * step, -1)[..., :n_mels].to(torch.float32)
 
 
 def tc_planes(algorithm: str, w: torch.Tensor) -> torch.Tensor:
@@ -338,20 +344,53 @@ def tc_layouts(algorithm: str, weights: dict[str, torch.Tensor]) -> dict[str, to
             "melw_tc": pack_tc_mel(tc_planes(algorithm, weights["melw"]))}
 
 
-def tc_shared_bytes(algorithm: str, hop: int, kp: int) -> int:
-    """Dynamic shared memory of one block of the tensor-core kernel in
-    ``algorithm`` at this hop and padded support Kp, the launcher's sum
-    (launch_tc): 128 bytes of barriers, the ring of basis chunks, a tile's
-    mel weights, the power tile and the span planes in their copies."""
+class TcPlan(NamedTuple):
+    """The staging plan of a tensor-core frontend launch (the launcher's
+    ``TcPlan``, passed by value in this field order, which it checks)."""
+
+    frames: int        # frames a block: 64 (full plan) or 32 (compact)
+    shifted: int       # 1: one span copy, rows aligned in registers (compact)
+    stages: int        # stages of the basis ring: 4 (full), 2 to 4 (compact)
+    n_copies: int      # span copies, copy c shifted by c·gcd(hop, 8 bytes)
+    span_pad: int      # elements of a span copy
+    mel_groups: int    # groups of 128 mel columns: the grid's z
+    shared_bytes: int
+
+
+def _plan_for(algorithm: str, hop: int, kp: int, n_mels: int, frames: int, shifted: bool, stages: int) -> TcPlan:
+    """The plan with these choices and the launcher's sum of its shared
+    memory: 128 bytes of barriers, the ring of basis chunks, a tile's mel
+    weights, the power tile and the span planes in their copies."""
     span_planes, basis_planes, mel_planes = _TC_PLANES[algorithm]
     esize = 2 if algorithm in _TC_BF16 else 1
     al = 8 // esize
-    n_copies = al // np.gcd(hop, al)
-    span_pad = -(-((BLOCK_FRAMES - 1) * hop + kp) // 16) * 16
+    n_copies = 1 if shifted else al // int(np.gcd(hop, al))
+    span_pad = -(-((frames - 1) * hop + kp + (al if shifted else 0)) // 16) * 16
     chunk = _TC_CHUNK * _TC_COLS * basis_planes * esize
     mel = _TC_COLS // 2 * mel_planes * _MEL_MAX * 2
-    power = mel_planes * BLOCK_FRAMES * _TC_PITCH * 2
-    return 128 + _TC_STAGES * chunk + mel + power + span_planes * n_copies * span_pad * esize
+    power = mel_planes * frames * _TC_PITCH * 2
+    smem = 128 + stages * chunk + mel + power + span_planes * n_copies * span_pad * esize
+    return TcPlan(frames, int(shifted), stages, n_copies, span_pad, -(-n_mels // _MEL_MAX), smem)
+
+
+def tc_plan(algorithm: str, hop: int, kp: int, n_mels: int = 128) -> TcPlan:
+    """The staging plan of the tensor-core kernel in ``algorithm`` at this
+    hop, padded support Kp and mel width: the full plan (64 frames a block,
+    the span in its shifted copies, four stages) where it fits a block's
+    shared memory, else the compact plan (32 frames, one span copy whose
+    rows the threads align in registers) with the most stages, four to two,
+    that fit; raises where none fits or n_mels is outside 1..512."""
+    if algorithm not in ALGORITHMS:
+        raise ValueError(f"Unknown algorithm {algorithm!r}; one of {', '.join(ALGORITHMS)}")
+    if not 1 <= n_mels <= MEL_LIMIT:
+        raise ValueError(f"fused_mel_{algorithm}: n_mels must be in 1..{MEL_LIMIT}, got {n_mels}")
+    plans = [_plan_for(algorithm, hop, kp, n_mels, BLOCK_FRAMES, False, _TC_STAGES)]
+    plans += [_plan_for(algorithm, hop, kp, n_mels, BLOCK_FRAMES // 2, True, s) for s in range(_TC_STAGES, 1, -1)]
+    for plan in plans:
+        if plan.shared_bytes <= SHARED_MAX:
+            return plan
+    raise ValueError(f"fused_mel_{algorithm}: no staging plan fits {SHARED_MAX} bytes of shared memory at "
+                     f"hop {hop}, Kp {kp} (the compact plan needs {plans[-1].shared_bytes})")
 
 
 def fold_ok(n_fft: int, hop: int, win_length: int | None) -> bool:
@@ -537,19 +576,23 @@ def quant_scales(audio: torch.Tensor, algorithm: str, sw: torch.Tensor) -> torch
 # ---------------------------------------------------------------------------
 
 
+class _TcPlan(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_int) for name in TcPlan._fields]
+
+
 @lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     from modulation_mfcc_tpu_torch.kernels._build import load_library
 
     lib = load_library()
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, plan = ctypes.c_void_p, ctypes.c_int, _TcPlan
     for alg in ("f32", "bf16", "x3"):
         fn = getattr(lib, f"fused_mel_{alg}")
-        fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, i, plan, p]
         fn.restype = i
-    lib.fused_mel_i16.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.fused_mel_i16.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, plan, p]
     lib.fused_mel_i16.restype = i
-    lib.fused_mel_i24.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.fused_mel_i24.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, plan, p]
     lib.fused_mel_i24.restype = i
     for alg in FOLD_ALGORITHMS:
         fn = getattr(lib, f"fused_mel_fold_{alg}")
@@ -798,30 +841,31 @@ def fused_mel_frontend(
     check_cuda(name, melw, *([] if fixed else [wri]))
     k, two_bins = wri.shape[-2:]
     bins_pad, n_mels = melw.shape[-2:]
-    if two_bins != 2 * bins_pad or bins_pad % _BIN_TILE or n_mels > _MEL_MAX:
+    if two_bins != 2 * bins_pad or bins_pad % _BIN_TILE or not 1 <= n_mels <= MEL_LIMIT:
         raise ValueError(
             f"{name}: weights {tuple(wri.shape)} / melw {tuple(melw.shape)} need "
-            f"2·bins_pad columns, bins_pad a multiple of {_BIN_TILE}, n_mels ≤ {_MEL_MAX}"
+            f"2·bins_pad columns, bins_pad a multiple of {_BIN_TILE}, n_mels in 1..{MEL_LIMIT}"
         )
     bsz = audio.shape[0]
     nf = 1 + t // hop
     mel_dtype = torch.bfloat16 if algorithm == "bf16" else torch.float32
     mel = torch.empty((bsz, nf, n_mels), dtype=mel_dtype, device=audio.device)
-    bmax = torch.empty((bsz, -(-nf // BLOCK_FRAMES)), dtype=torch.float32, device=audio.device)
-    rc = _launch_tc(name, audio, int(audio.dtype == torch.int16), weights, mel, bmax, buf_len, k, hop, off, nf,
-                    bins_pad, n_mels)
+    rc, bmax = _launch_tc(name, audio, int(audio.dtype == torch.int16), weights, mel, buf_len, k, hop, off, nf,
+                          bins_pad, n_mels)
     raise_on(rc, name)
     LAUNCHES[name] += 1
     return mel, bmax
 
 
 def _launch_tc(name: str, audio: torch.Tensor, is_i16: int, weights: dict[str, torch.Tensor], mel: torch.Tensor,
-               bmax: torch.Tensor, buf_len: int, k: int, hop: int, off: int, nf: int, bins_pad: int,
-               n_mels: int) -> int:
+               buf_len: int, k: int, hop: int, off: int, nf: int, bins_pad: int,
+               n_mels: int) -> tuple[int, torch.Tensor]:
     """Launch ``fused_mel_f32``, ``fused_mel_bf16``, ``fused_mel_x3``,
     ``fused_mel_i16`` or ``fused_mel_i24`` on the weights' tensor-core
-    layouts (:func:`tc_layouts`, which :func:`mode_tensors` includes); the
-    launcher's code."""
+    layouts (:func:`tc_layouts`, which :func:`mode_tensors` includes) under
+    its :func:`tc_plan`; the launcher's code and the block maxima [B,
+    ceil(nf/64)], zeroed first where the plan merges them (the compact
+    plan, or more than one mel group)."""
     algorithm = name.removeprefix("fused_mel_")
     basis_key = "wri_tc" if algorithm in _TC_BF16 else "planes_tc"
     if basis_key not in weights or "melw_tc" not in weights:
@@ -836,17 +880,21 @@ def _launch_tc(name: str, audio: torch.Tensor, is_i16: int, weights: dict[str, t
         if t.device != audio.device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"{name}: tensor-core weights must be contiguous {dtype} on {audio.device}, "
                              f"got {t.dtype} on {t.device}")
-    if (tuple(basis.shape) != want or kp < k or kp % _TC_CHUNK
-            or tuple(mtc.shape) != (bins_pad // _MEL_STEP, mel_planes, _MEL_MAX, _MEL_STEP)):
+    plan = tc_plan(algorithm, hop, kp, n_mels)
+    want_mel = (plan.mel_groups * bins_pad // _MEL_STEP, mel_planes, _MEL_MAX, _MEL_STEP)
+    if tuple(basis.shape) != want or kp < k or kp % _TC_CHUNK or tuple(mtc.shape) != want_mel:
         raise ValueError(f"{name}: tensor-core weights {tuple(basis.shape)} / {tuple(mtc.shape)} do not match "
-                         f"K={k}, bins_pad={bins_pad} (pack_tc_basis, pack_tc_mel)")
+                         f"K={k}, bins_pad={bins_pad}, n_mels={n_mels} (pack_tc_basis, pack_tc_mel)")
     bsz = audio.shape[0]
-    lib = _lib()
+    merged = plan.frames != BLOCK_FRAMES or plan.mel_groups > 1
+    bmax = (torch.zeros if merged else torch.empty)((bsz, -(-nf // BLOCK_FRAMES)), dtype=torch.float32,
+                                                    device=audio.device)
+    lib, cplan = _lib(), _TcPlan(*plan)
     if algorithm in _TC_BF16:
         return getattr(lib, name)(
             audio.data_ptr(), is_i16, basis.data_ptr(), mtc.data_ptr(), mel.data_ptr(), bmax.data_ptr(),
-            bsz, buf_len, kp, hop, off, nf, bins_pad, n_mels, stream_of(audio),
-        )
+            bsz, buf_len, kp, hop, off, nf, bins_pad, n_mels, cplan, stream_of(audio),
+        ), bmax
     sc = quant_scales(audio, algorithm, weights["sw"])
     check_cuda(name, sc)
     if algorithm == "i16":
@@ -856,12 +904,13 @@ def _launch_tc(name: str, audio: torch.Tensor, is_i16: int, weights: dict[str, t
             raise ValueError(f"{name}: corr {tuple(corr.shape)} != ({2 * bins_pad},)")
         return lib.fused_mel_i16(
             audio.data_ptr(), is_i16, basis.data_ptr(), sc.data_ptr(), corr.data_ptr(), mtc.data_ptr(),
-            mel.data_ptr(), bmax.data_ptr(), bsz, buf_len, kp, hop, off, nf, bins_pad, n_mels, stream_of(audio),
-        )
+            mel.data_ptr(), bmax.data_ptr(), bsz, buf_len, kp, hop, off, nf, bins_pad, n_mels, cplan,
+            stream_of(audio),
+        ), bmax
     return lib.fused_mel_i24(
         audio.data_ptr(), is_i16, basis.data_ptr(), sc.data_ptr(), mtc.data_ptr(), mel.data_ptr(),
-        bmax.data_ptr(), bsz, buf_len, kp, hop, off, nf, bins_pad, n_mels, stream_of(audio),
-    )
+        bmax.data_ptr(), bsz, buf_len, kp, hop, off, nf, bins_pad, n_mels, cplan, stream_of(audio),
+    ), bmax
 
 
 def _fused_mel_fold(audio: torch.Tensor, *, sr, n_fft, hop, win_length, n_mels, fmin, fmax, algorithm,
@@ -889,16 +938,18 @@ def _fused_mel_fold(audio: torch.Tensor, *, sr, n_fft, hop, win_length, n_mels, 
     im_cols = ws.shape[-1]
     n_mels = melw.shape[-1]
     if (k != sup // 2 + 1 or ws.shape[-2] != k or melw.shape[-2] != bins_pad or bins_pad % _BIN_TILE
-            or im_cols % _BIN_TILE or im_cols > bins_pad or n_mels > _MEL_MAX):
+            or im_cols % _BIN_TILE or im_cols > bins_pad or not 1 <= n_mels <= MEL_LIMIT):
         raise ValueError(
             f"{name}: wc {tuple(wc.shape)} / ws {tuple(ws.shape)} / melw {tuple(melw.shape)} need "
-            f"sup/2 + 1 = {sup // 2 + 1} rows, column counts multiples of {_BIN_TILE}, n_mels ≤ {_MEL_MAX}"
+            f"sup/2 + 1 = {sup // 2 + 1} rows, column counts multiples of {_BIN_TILE}, n_mels in 1..{MEL_LIMIT}"
         )
     bsz, t = audio.shape
     nf = 1 + t // hop
     mel_dtype = torch.bfloat16 if algorithm == "bf16" else torch.float32
     mel = torch.empty((bsz, nf, n_mels), dtype=mel_dtype, device=audio.device)
-    bmax = torch.empty((bsz, -(-nf // BLOCK_FRAMES)), dtype=torch.float32, device=audio.device)
+    # more than one group of 128 mel columns merges its block maxima by atomicMax
+    bmax = (torch.zeros if n_mels > _MEL_MAX else torch.empty)((bsz, -(-nf // BLOCK_FRAMES)), dtype=torch.float32,
+                                                                device=audio.device)
     rc = getattr(_lib(), name)(
         audio.data_ptr(), wc.data_ptr(), ws.data_ptr(), melw.data_ptr(), mel.data_ptr(), bmax.data_ptr(),
         bsz, t, k, sup, hop, -pad, nf, bins_pad, im_cols, n_mels,
@@ -936,7 +987,7 @@ def mfcc_tail(
     per-utterance dB peaks [B] (librosa power_to_db top_db=80 + DCT-II
     ortho): [B, nf, n_mfcc], or coef-major [B, n_mfcc, nf] with
     ``transposed=True``. ``dct`` is the [n_mels, n_mfcc] matrix on mel's
-    device (designed when None)."""
+    device (designed when None). The kernel takes n_mfcc ≤ n_mels ≤ 512."""
     bsz, nf, n_mels = mel.shape
     if dct is None:
         dct = torch.as_tensor(tail_dct(n_mfcc, n_mels), dtype=torch.float32, device=mel.device)
@@ -947,9 +998,9 @@ def mfcc_tail(
     if mel.dtype not in (torch.float32, torch.bfloat16) or not mel.is_contiguous():
         raise ValueError(f"mfcc_tail: mel must be a contiguous float32 or bf16 tensor, got {mel.dtype}")
     check_cuda("mfcc_tail", peak, dct)
-    if peak.shape != (bsz,) or n_mfcc > _MFCC_MAX or n_mels > _MEL_MAX:
-        raise ValueError(f"mfcc_tail: peak {tuple(peak.shape)} != ({bsz},), n_mfcc > {_MFCC_MAX} "
-                         f"or n_mels > {_MEL_MAX}")
+    if peak.shape != (bsz,) or not 1 <= n_mfcc <= n_mels <= MEL_LIMIT:
+        raise ValueError(f"mfcc_tail: peak {tuple(peak.shape)} != ({bsz},), or not 1 ≤ n_mfcc ({n_mfcc}) ≤ "
+                         f"n_mels ({n_mels}) ≤ {MEL_LIMIT}")
     shape = (bsz, n_mfcc, nf) if transposed else (bsz, nf, n_mfcc)
     out = torch.empty(shape, dtype=torch.float32, device=mel.device)
     rc = _lib().mfcc_tail_f32(

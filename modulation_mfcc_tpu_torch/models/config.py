@@ -8,7 +8,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-__all__ = ["MfccConfig", "FormantConfig", "F0Config"]
+__all__ = ["MfccConfig", "FormantConfig", "F0Config", "AmplitudeConfig"]
 
 
 @dataclass(frozen=True)
@@ -94,3 +94,19 @@ class F0Config:
     pyinfill_na: float | None = None
     pyincenter: bool = True
     pyinpad_mode: str = "constant"
+
+
+@dataclass(frozen=True)
+class AmplitudeConfig:
+    """Parameters of get_amplitude / calculate_amplitude_envelope
+    (reference script/mfcc.py:137-150)."""
+
+    method: str = "RMS"  # RMS | RMSpraat | Hilb
+    winLen: float = 0.1
+    hopLen: float = 0.01
+    center: bool = True
+    outFilter: str | None = None
+    outFiltType: str = "low"
+    outFiltCutOff: tuple = (12.0,)
+    outFiltLen: int = 6
+    outFiltPolyOrd: int = 3

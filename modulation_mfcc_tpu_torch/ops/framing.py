@@ -43,3 +43,33 @@ def frame_times_mfcc(n_frames: int, t_step: float, win_len: float) -> np.ndarray
     """Time anchors of the reference's MFCC-change output (script/mfcc.py:390):
     ``T = round((arange(1, n_frames+1) * tStep) + winLen/2, 4)``, float64."""
     return np.round(np.arange(1, n_frames + 1) * t_step + win_len / 2.0, 4)
+
+
+def hop_window_sums(series: torch.Tensor, nf: int, window: int, hop: int) -> torch.Tensor:
+    """``out[..., f] = Σ series[..., f·hop : f·hop + window]``, f ∈ [0, nf).
+
+    Frame starts are hop-aligned, so each window sum decomposes into
+    ``window//hop`` whole hop-row sums plus one ``window%hop`` partial row:
+    O(len) reads, no frame matrix, and no long-range cumsum (every output is
+    a fresh ~window/hop-term sum of row sums, so no cancellation grows with
+    position). The RMS envelope's energy (models/envelope.py). A series
+    shorter than the row grid is zero-extended; callers guarantee that valid
+    windows read only real data. The JAX package's ops/framing.hop_window_sums.
+    """
+    q, rem = divmod(int(window), int(hop))
+    n_rows = nf + q if rem else nf - 1 + q
+    need = n_rows * hop
+    length = series.shape[-1]
+    if length < need:
+        series = tnf.pad(series, (0, need - length))
+    elif length > need:
+        series = series[..., :need]
+    rows = series.reshape(*series.shape[:-1], n_rows, hop)
+    rs = torch.sum(rows, dim=-1)
+    out = None
+    for r in range(q):
+        out = rs[..., r : r + nf] if out is None else out + rs[..., r : r + nf]
+    if rem:
+        partial = torch.sum(rows[..., :rem], dim=-1)[..., q : q + nf]
+        out = partial if out is None else out + partial
+    return out

@@ -9,18 +9,22 @@ tensor's device.
     per utterance (``valid_len``); pyin's centred constant padding equals
     the batch's zero padding, so its frames are exact on the valid range.
   * Formants: per-frame LPC is local, so valid frames are exact.
+  * Envelopes: 'RMS' frames are local, so valid frames are exact; 'Hilb' is
+    one FFT over the padded width (edge ripple near the padding).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from modulation_mfcc_tpu_torch.models.config import F0Config, FormantConfig
+from modulation_mfcc_tpu_torch.models.config import AmplitudeConfig, F0Config, FormantConfig
+from modulation_mfcc_tpu_torch.models.envelope import rms_envelope
 from modulation_mfcc_tpu_torch.models.formants import FormantTracker
 from modulation_mfcc_tpu_torch.models.pitch import PitchTracker, PyinTracker
+from modulation_mfcc_tpu_torch.ops.hilbert import hilbert_envelope
 from modulation_mfcc_tpu_torch.parallel.batch import AudioBatch
 
-__all__ = ["batched_f0", "batched_formants"]
+__all__ = ["batched_f0", "batched_envelope", "batched_formants"]
 
 
 def batched_f0(batch: AudioBatch, sr: float, cfg: F0Config = F0Config(), *, sinc_engine: str = "auto",
@@ -47,6 +51,32 @@ def batched_f0(batch: AudioBatch, sr: float, cfg: F0Config = F0Config(), *, sinc
     nf_real = torch.clamp(1 + (batch.lengths - span) // hop_s, min=0)
     valid = torch.arange(nf, device=f0.device)[None, :] < nf_real[:, None]
     return torch.where(valid, f0, 0.0), valid
+
+
+def batched_envelope(batch: AudioBatch, sr: float, cfg: AmplitudeConfig = AmplitudeConfig()):
+    """(amp [B, NF], valid [B, NF]) on the batch's device, zero past each
+    utterance's frames.
+
+    * 'RMS': exact per-file parity (frames are local); valid = the first
+      1 + length // hop frames.
+    * 'Hilb': the analytic signal over the zero-padded batch width. The FFT
+      is global, so values differ from the per-file transform by edge
+      ripple that decays away from the valid/pad boundary; dense per sample.
+    * 'RMSpraat' picks its own output rate per file (pitch-adaptive): use
+      the per-file :func:`extract_envelope`.
+    """
+    x, lengths = batch.samples, batch.lengths
+    if cfg.method == "RMS":
+        fr_len = int(cfg.hopLen * sr)
+        amp = rms_envelope(x, int(cfg.winLen * sr), fr_len, center=cfg.center)
+        nf_real = 1 + lengths // fr_len
+    elif cfg.method == "Hilb":
+        amp, nf_real = hilbert_envelope(x), lengths
+    else:
+        raise ValueError("batched_envelope supports method='RMS' or 'Hilb' "
+                         "(RMSpraat is per-file adaptive; use extract_envelope)")
+    valid = torch.arange(amp.shape[-1], device=amp.device)[None, :] < nf_real[:, None]
+    return torch.where(valid, amp, 0.0), valid
 
 
 def batched_formants(batch_resampled: torch.Tensor, sr: float, cfg: FormantConfig = FormantConfig(), *,

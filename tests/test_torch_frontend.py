@@ -165,4 +165,4 @@ def test_wrapper_geometry_matches_cuda_source():
     assert int(consts["kBF"]) == ff.BLOCK_FRAMES
     assert int(consts["kBT"]) == ff._BIN_TILE
     assert int(consts["kMelMax"]) == ff._MEL_MAX
-    assert int(consts["kMfccMax"]) == ff._MFCC_MAX
+    assert int(consts["kTailMelLimit"]) == ff.MEL_LIMIT

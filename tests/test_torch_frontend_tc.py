@@ -3,9 +3,11 @@ fused_mel_f32, fused_mel_bf16, fused_mel_x3, fused_mel_i16 and fused_mel_i24
 (csrc/fused_frontend_tc.cu). Their weights travel in layouts of their own
 (kernels/fused_frontend.tc_layouts), built once per set of weights; here
 each layout unpacks to the mode's weights exactly, the kernel's address
-arithmetic (mirrored in Python) reads the frames from its staged span copies
-and the weights from those layouts, its shared memory fits a block, and the
-wrapper's constants are the source's; i16's digits and epilogue, mirrored,
+arithmetic (mirrored in Python) reads the frames from its staged span (in
+shifted copies, or one copy whose rows the threads align in registers) and
+the weights from those layouts, its staging plan (tc_plan) fits a block's
+shared memory at every rate, hop, window and mel width the reference
+configures, and the wrapper's constants are the source's; i16's digits and epilogue, mirrored,
 give the plain version's DFT bit for bit, and bf16's epilogue, mirrored,
 meets phase 14's bar against its plain version. f32's three-plane split is
 exact for every operand it splits, and its arithmetic, mirrored in float32
@@ -34,10 +36,34 @@ BASIS = {"f32": "wri", "bf16": "wri", "x3": "wri", "i16": "planes", "i24": "plan
 PLANES = {"f32": (3, 3, 3), "bf16": (1, 1, 1), "x3": (2, 2, 2), "i16": (2, 3, 2), "i24": (3, 3, 2)}
 MODE_OF = {"f32": "kF32", "bf16": "kBF16", "x3": "kX3", "i16": "kI16", "i24": "kI24"}
 SHARED_MAX = 232_448  # bytes of shared memory a block may use on the H100
+# the address mirror's configurations: both CONFIGS, an odd hop (55 at the
+# 11.025 kHz default), a large one (220 at 44.1 kHz, n_fft 2048) and 256 mel
+# bands (two groups of 128)
+GEOMETRY_CONFIGS = CONFIGS | {
+    "11.025k hop 55": dict(signal_sample_rate=11_025),
+    "44.1k hop 220": dict(signal_sample_rate=44_100, n_fft=2048),
+    "16k 256 mels": dict(signal_sample_rate=16_000, maxFreq=8000.0, n_mels=256),
+}
+# the grid every mode's plan must fit: rates 8-48 kHz, the reference's tStep
+# and winLen range, n_fft = max(512, the smallest power of two ≥ the window)
+RATES = (8_000, 10_000, 11_025, 12_000, 16_000, 22_050, 24_000, 32_000, 44_100, 48_000)
+T_STEPS, WIN_LENS, MEL_WIDTHS = (0.0025, 0.005, 0.01), (0.015, 0.025, 0.04), (40, 80, 128, 256)
+
+
+def grid(sr: int) -> list[tuple[int, int, int]]:
+    """(hop, Kp, n_mels) of every geometry of the grid at this rate: Kp the
+    window support padded to 32 rows (the layouts' rule)."""
+    out = []
+    for t_step in T_STEPS:
+        for win_len in WIN_LENS:
+            cfg = MfccConfig(signal_sample_rate=sr, tStep=t_step, winLen=win_len)
+            assert max(512, 1 << (cfg.win_length - 1).bit_length()) >= cfg.win_length
+            out += [(cfg.hop_length, -(-cfg.win_length // 32) * 32, n) for n in MEL_WIDTHS]
+    return out
 
 
 def tensors(algorithm: str, name: str) -> tuple[MfccConfig, dict[str, torch.Tensor]]:
-    cfg = MfccConfig(**CONFIGS[name])
+    cfg = MfccConfig(**GEOMETRY_CONFIGS[name])
     return cfg, ff.mode_tensors(algorithm, "cpu", cfg.signal_sample_rate, cfg.n_fft, cfg.win_length, cfg.n_mels,
                                 cfg.minFreq, cfg.maxFreq)
 
@@ -98,17 +124,43 @@ def test_tc_wrapper_constants_match_cuda_source():
         assert ff._TC_PLANES[alg] == PLANES[alg]
 
 
-@pytest.mark.parametrize("name", CONFIGS)
+def a_fragment(span: np.ndarray, plane_base: int, e: int, al: int, shifted: bool, span_pad: int, gcd: int) -> np.ndarray:
+    """The 8 bytes of a thread's A fragment of the row starting at element
+    ``e`` (f·hop + k + al·t) of a span plane, as the kernel loads them:
+    from the copy that aligns it (full plan), or (compact plan, shifted)
+    cut from the 16 bytes of two aligned 8-byte loads of the one copy by
+    the kernel's select and funnel shifts. ``span`` holds the planes'
+    elements (uint16 for bf16, uint8 for int8)."""
+    r = e % al
+    if not shifted:
+        assert r % gcd == 0
+        start = plane_base + (r // gcd) * span_pad + e - r
+        return span[start : start + al].view(np.uint8)
+    start = plane_base + e - r
+    assert e - r + 2 * al <= span_pad  # the second load stays inside the copy
+    q = span[start : start + 2 * al].view(np.uint32).astype(np.uint64)  # v.x, v.y, u.x, u.y
+    sh = r * span.itemsize  # bytes
+    up, bits = sh >= 4, 8 * (sh & 3)
+    w0, w1, w2 = (q[1], q[2], q[3]) if up else (q[0], q[1], q[2])
+    lo = ((w1 << np.uint64(32) | w0) >> np.uint64(bits)) & np.uint64(0xFFFFFFFF)
+    hi = ((w2 << np.uint64(32) | w1) >> np.uint64(bits)) & np.uint64(0xFFFFFFFF)
+    return np.array([lo, hi], np.uint64).astype(np.uint32).view(np.uint8)
+
+
+@pytest.mark.parametrize("name", GEOMETRY_CONFIGS)
 @pytest.mark.parametrize("algorithm", ff.ALGORITHMS)
 def test_tc_kernel_addressing_reads_frames_and_weights(algorithm, name):
-    """The kernel's address arithmetic, mirrored: a thread's 8-byte A
-    fragment of frame row f at contraction k is element f·hop + k of the
-    staged span, read from the copy shifted so that the load is aligned (the
-    10 kHz default's hop of 50 needs 2 copies for bf16, 4 for int8); its B
-    fragment of column n is the interleaved basis column n at rows k..k+7 of
-    the pre-arranged chunk; a mel step's B fragment is the mel weight of bin
-    16j + 4t + i. Every element of every frame, basis row and mel bin is
-    read, and read right."""
+    """The kernel's address arithmetic, mirrored, under the plan tc_plan
+    gives: a thread's 8-byte A fragment of frame row f at contraction k is
+    element f·hop + k of the staged span, read from the copy shifted so that
+    the load is aligned (full plan; the 10 kHz default's hop of 50 needs 2
+    copies for bf16, 4 for int8), or cut from two aligned loads of the one
+    copy (compact plan: 32 frames a block; f32 at the odd hop of 55 and at
+    hop 220); its B fragment of column n is the interleaved basis column n
+    at rows k..k+7 of the pre-arranged chunk; a mel step's B fragment is the
+    mel weight of bin 16j + 4t + i of the block's group of 128 mel columns
+    (256 bands: two groups). Every element of every frame, basis row and mel
+    bin is read, and read right."""
     cfg, w = tensors(algorithm, name)
     hop = cfg.hop_length
     al = 8 if BASIS[algorithm] == "planes" else 4  # elements per 8-byte load (kAl)
@@ -116,20 +168,21 @@ def test_tc_kernel_addressing_reads_frames_and_weights(algorithm, name):
     packed = w[f"{BASIS[algorithm]}_tc"]
     tiles, ks, n_planes = packed.shape[:3]
     kp = ks * step
-    # A: the span of a block, staged in n_copies copies, copy c shifted by c·gcd
+    plan = ff.tc_plan(algorithm, hop, kp, cfg.n_mels)
+    assert plan.shared_bytes <= SHARED_MAX and plan.mel_groups == -(-cfg.n_mels // 128)
+    # A: the span of a block, in n_copies copies (copy c shifted by c·gcd) or one
     gcd = math.gcd(hop, al)
-    n_copies = al // gcd
-    span_pad = -(-(63 * hop + kp) // 16) * 16
-    signal = np.random.default_rng(hop).standard_normal(span_pad + al)
-    copies = np.stack([signal[c * gcd : c * gcd + span_pad] for c in range(n_copies)]).reshape(-1)
-    f = np.arange(64)[:, None, None]
-    t, i = np.arange(4)[None, :, None], np.arange(al)[None, None, :]
+    assert plan.n_copies == (1 if plan.shifted else al // gcd)
+    assert plan.span_pad == -(-((plan.frames - 1) * hop + kp + (al if plan.shifted else 0)) // 16) * 16
+    dtype = np.uint8 if al == 8 else np.uint16
+    signal = np.random.default_rng(hop).integers(0, np.iinfo(dtype).max, plan.span_pad + al, dtype=dtype)
+    copies = np.stack([signal[c * gcd : c * gcd + plan.span_pad] for c in range(plan.n_copies)]).reshape(-1)
     for k0 in range(0, kp, step):
-        e = f * hop
-        r = e % al
-        assert (r % gcd == 0).all()
-        got = copies[(r // gcd) * span_pad + e - r + al * t + k0 + i]
-        np.testing.assert_array_equal(got, signal[e + k0 + al * t + i])
+        for f in range(plan.frames):
+            for t in range(4):
+                e = f * hop + al * t + k0
+                got = a_fragment(copies, 0, e, al, bool(plan.shifted), plan.span_pad, gcd)
+                np.testing.assert_array_equal(got, signal[e : e + al].view(np.uint8))
     # B: the basis as the kernel reads each chunk's stage
     flat = packed.reshape(-1)
     inter = ff._interleave(ff.tc_planes(algorithm, w[BASIS[algorithm]]))
@@ -144,17 +197,20 @@ def test_tc_kernel_addressing_reads_frames_and_weights(algorithm, name):
             off = base[:, None] + ((j[:, None] * n_planes + p) * cols + np.arange(cols)[None, :]) * step + rest[:, None]
             got[p, :, tt * cols : (tt + 1) * cols] = flat[torch.as_tensor(off)]
     assert torch.equal(got, want)
-    # the mel weights, a tile's steps at a time
+    # the mel weights, a tile's steps at a time, group by group (mtc + group · bins_pad/64 tiles)
     mel = w["melw_tc"].reshape(-1)
     melw = ff.tc_planes(algorithm, w["melw"])
-    n_mel_planes = melw.shape[0]
-    bins = np.arange(melw.shape[1])
+    n_mel_planes, bins_pad = melw.shape[:2]
+    bins = np.arange(bins_pad)
     jm, rm = bins // ff._MEL_STEP, bins % ff._MEL_STEP
-    for p in range(n_mel_planes):
-        off = ((n_mel_planes * jm[:, None] + p) * ff._MEL_MAX + np.arange(ff._MEL_MAX)[None, :]) * ff._MEL_STEP \
-            + rm[:, None]
-        got_m = mel[torch.as_tensor(off)].float()
-        assert torch.equal(got_m[:, : cfg.n_mels], melw[p]) and not got_m[:, cfg.n_mels :].any()
+    for g in range(plan.mel_groups):
+        for p in range(n_mel_planes):
+            off = (((g * bins_pad // ff._MEL_STEP + jm[:, None]) * n_mel_planes + p) * ff._MEL_MAX
+                   + np.arange(ff._MEL_MAX)[None, :]) * ff._MEL_STEP + rm[:, None]
+            got_m = mel[torch.as_tensor(off)].float()
+            live = min(ff._MEL_MAX, cfg.n_mels - 128 * g)
+            assert torch.equal(got_m[:, :live], melw[p][:, 128 * g : 128 * g + live])
+            assert not got_m[:, live:].any()
 
 
 def test_tc_modes_raise_off_the_card():
@@ -241,19 +297,22 @@ def test_tc_i16_digits_and_epilogue_match_plain_bit_for_bit():
         assert np.array_equal(got.view(np.int32), want.view(np.int32)), name
 
 
+@pytest.mark.parametrize("n_mels", [40, 300])
 @pytest.mark.parametrize("planes", [1, 2, 3])
-def test_tc_mel_pack_round_trip_by_planes(planes):
+def test_tc_mel_pack_round_trip_by_planes(planes, n_mels):
     """pack_tc_mel takes one plane (bf16's rounded weights), two (the x3
-    stack) or three (f32's split): [bins/16, P, 128, 16] bf16, the columns
-    past n_mels zero, and unpack_tc_mel gives the planes back bit for bit;
-    one plane is half the bytes the mel bulk copy moves."""
+    stack) or three (f32's split): [G·bins/16, P, 128, 16] bf16 in G groups
+    of 128 mel columns (300 bands: three), the columns past n_mels zero, and
+    unpack_tc_mel gives the planes back bit for bit; one plane is half the
+    bytes the mel bulk copy moves."""
     rng = np.random.default_rng(planes)
-    melw = ff._bf16r(torch.tensor(rng.random((planes, 256, 40)), dtype=torch.float32))
+    melw = ff._bf16r(torch.tensor(rng.random((planes, 256, n_mels)), dtype=torch.float32))
     packed = ff.pack_tc_mel(melw)
-    assert packed.shape == (256 // ff._MEL_STEP, planes, ff._MEL_MAX, ff._MEL_STEP)
+    groups = -(-n_mels // ff._MEL_MAX)
+    assert packed.shape == (groups * 256 // ff._MEL_STEP, planes, ff._MEL_MAX, ff._MEL_STEP)
     assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
-    assert torch.equal(ff.unpack_tc_mel(packed, 40), melw)
-    assert not ff.unpack_tc_mel(packed, ff._MEL_MAX)[..., 40:].float().any()
+    assert torch.equal(ff.unpack_tc_mel(packed, n_mels), melw)
+    assert not ff.unpack_tc_mel(packed, groups * ff._MEL_MAX)[..., n_mels:].float().any()
 
 
 def bf16_ulps(mel: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
@@ -337,7 +396,7 @@ def test_tc_bf16_epilogue_meets_the_plain_bar(name):
 @pytest.mark.parametrize("name", CONFIGS)
 @pytest.mark.parametrize("algorithm", ff.ALGORITHMS)
 def test_tc_shared_memory_fits_a_block(algorithm, name):
-    """tc_shared_bytes is the launcher's sum from the source's constants:
+    """tc_plan's shared bytes are the launcher's sum from the source's constants:
     128 bytes of barriers, kStages chunks of kChunkRows x kCols elements of
     every basis plane, a tile's mel weights (kTileBins x kMelCols bf16 a
     plane), the power tile (kBF x kPitch bf16 a plane) and the span planes
@@ -355,10 +414,68 @@ def test_tc_shared_memory_fits_a_block(algorithm, name):
     want = (128 + c["kStages"] * c["kChunkRows"] * c["kCols"] * basis_planes * esize
             + c["kCols"] // 2 * mel_planes * c["kMelCols"] * 2 + mel_planes * c["kBF"] * (c["kCols"] // 2 + 16) * 2
             + span_planes * (al // math.gcd(cfg.hop_length, al)) * span_pad * esize)
-    assert ff.tc_shared_bytes(algorithm, cfg.hop_length, kp) == want <= SHARED_MAX == ff.SHARED_MAX
+    assert ff.tc_plan(algorithm, cfg.hop_length, kp).shared_bytes == want <= SHARED_MAX == ff.SHARED_MAX
     if algorithm == "f32":
         x3 = c["kChunkRows"] * c["kCols"] * PLANES["x3"][1] * 2
         assert c["kChunkRows"] * c["kCols"] * basis_planes * esize == 3 * x3 // 2
+
+
+def launcher_bytes(c: dict[str, int], algorithm: str, hop: int, kp: int, frames: int, shifted: bool,
+                   stages: int) -> int:
+    """The launcher's sum (plan_holds in the source), from the source's
+    constants: barriers, ``stages`` basis chunks, a tile's mel weights, the
+    power tile of ``frames`` rows and the span planes, in their shifted
+    copies, or one copy with kAl elements of slack when ``shifted``."""
+    span_planes, basis_planes, mel_planes = PLANES[algorithm]
+    esize = 1 if BASIS[algorithm] == "planes" else 2
+    al = 8 // esize
+    n_copies = 1 if shifted else al // math.gcd(hop, al)
+    span_pad = -(-((frames - 1) * hop + kp + (al if shifted else 0)) // 16) * 16
+    return (128 + stages * c["kChunkRows"] * c["kCols"] * basis_planes * esize
+            + c["kCols"] // 2 * mel_planes * c["kMelCols"] * 2 + mel_planes * frames * (c["kCols"] // 2 + 16) * 2
+            + span_planes * n_copies * span_pad * esize)
+
+
+@pytest.mark.parametrize("sr", RATES)
+@pytest.mark.parametrize("algorithm", ff.ALGORITHMS)
+def test_tc_plan_fits_every_geometry(algorithm, sr):
+    """At every hop, window and mel width of the grid at this rate, tc_plan
+    gives a plan within the 227 KB of shared memory a block may use: the
+    full plan (64 frames, the span's copies, four stages) where it fits,
+    else the compact plan (32 frames, one copy aligned in registers) with
+    the most stages, four to two, that fit; one mel group per 128 bands. The
+    16 kHz flagship (hop 80, Kp 416, 128 bands) keeps the full plan."""
+    for hop, kp, n_mels in grid(sr):
+        plan = ff.tc_plan(algorithm, hop, kp, n_mels)
+        assert plan.shared_bytes <= SHARED_MAX, (hop, kp, n_mels, plan)
+        assert plan.mel_groups == -(-n_mels // 128)
+        full = ff._plan_for(algorithm, hop, kp, n_mels, 64, False, 4)
+        if full.shared_bytes <= SHARED_MAX:
+            assert plan == full
+        else:
+            assert (plan.frames, plan.shifted, plan.n_copies) == (32, 1, 1) and 2 <= plan.stages <= 4
+            assert plan.stages == 4 or ff._plan_for(algorithm, hop, kp, n_mels, 32, True,
+                                                    plan.stages + 1).shared_bytes > SHARED_MAX
+    flagship = ff.tc_plan(algorithm, 80, 416, 128)
+    assert (flagship.frames, flagship.shifted, flagship.stages, flagship.mel_groups) == (64, 0, 4, 1)
+
+
+@pytest.mark.parametrize("algorithm", ff.ALGORITHMS)
+def test_tc_plan_bytes_are_the_launchers(algorithm):
+    """The wrapper's byte sum (tc_plan) equals the launcher's, computed here
+    from the source's constants, at every geometry of the grid, and the plan's
+    fields are the ones the launcher recomputes (its check); a width past
+    512 bands raises, naming the limit."""
+    c = kernel_constants()
+    assert c["kMelLimit"] == ff.MEL_LIMIT and c["kSharedMax"] == ff.SHARED_MAX
+    for sr in RATES:
+        for hop, kp, n_mels in grid(sr):
+            plan = ff.tc_plan(algorithm, hop, kp, n_mels)
+            assert plan.shared_bytes == launcher_bytes(c, algorithm, hop, kp, plan.frames, bool(plan.shifted),
+                                                       plan.stages)
+            assert (plan.frames, plan.stages) in ((c["kBF"], c["kStages"]), (c["kBF"] // 2, plan.stages))
+    with pytest.raises(ValueError, match="512"):
+        ff.tc_plan(algorithm, 80, 416, 513)
 
 
 @pytest.fixture(scope="module")
@@ -487,12 +604,19 @@ def test_split3_mirror_matches_jax_pallas(name):
 
 def test_tail_launch_rejects_what_the_kernel_does_not_take(monkeypatch):
     """On the kernel's route, mfcc_tail raises before any launch for more
-    than 128 mel bands (four a lane of a warp) or more than 32 coefficients."""
+    than 512 mel bands (sixteen a lane of a warp), or more coefficients than
+    mel bands; the frontend raises past 512 bands, naming the limit."""
     monkeypatch.setattr(ff, "route", lambda t, name: True)
     before = dict(ff.LAUNCHES)
     peak = torch.zeros(2)
-    for n_mels, n_mfcc in ((129, 13), (128, 33)):
+    for n_mels, n_mfcc in ((513, 13), (40, 41)):
         mel = torch.ones((2, 10, n_mels))
         with pytest.raises(ValueError, match="n_mels|n_mfcc"):
             ff.mfcc_tail(mel, peak, n_mfcc, dct=torch.zeros((n_mels, n_mfcc)))
+    assert dict(ff.LAUNCHES) == before
+    cfg = MfccConfig(signal_sample_rate=16_000, maxFreq=8000.0, n_mels=513)
+    w = ff.mode_tensors("bf16", "cpu", 16_000, win_length=400, n_mels=513, fmax=8000.0)
+    with pytest.raises(ValueError, match="n_mels in 1..512"):
+        ff.fused_mel_frontend(torch.zeros((1, 4000)), sr=16_000, hop=80, win_length=400, fmax=8000.0,
+                              n_mels=cfg.n_mels, algorithm="bf16", weights=w)
     assert dict(ff.LAUNCHES) == before

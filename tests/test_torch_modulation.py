@@ -176,3 +176,23 @@ def test_host_tail_route_runs_every_out_filter():
     got, _ = extract_mfcc_change(y, cfg, device="cpu")
     want = get_mfccs_change_np(y.astype(np.float64), cfg.signal_sample_rate, out_filter="fir", out_filt_len=31)[0]
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("name, kw, seconds, jax_spectrum", [
+    ("16k, 256 mel bands, 40 MFCCs", dict(signal_sample_rate=16_000, maxFreq=8000.0, n_mels=256, n_mfcc=40), 2.5,
+     "pallas"),
+    ("44.1k, n_fft 2048", dict(signal_sample_rate=44_100, n_fft=2048), 1.0, "fft"),
+])
+def test_mfcc_change_matches_jax_at_other_widths_and_rates(name, kw, seconds, jax_spectrum):
+    """The widths and rates the fused kernels now take (past 128 mel bands
+    and 32 MFCCs; hop 220 and a 1102-sample window at 44.1 kHz) against
+    JAX at the 1e-5 of test_mfcc_change_matches_jax_and_oracle: its 'pallas'
+    path, and at 44.1 kHz its default 'fft' path (its Pallas frontend takes
+    no hop above 128 that is not a multiple of 128)."""
+    cfg = MfccConfig(**kw)
+    y = np.random.default_rng(20260816).standard_normal((2, int(seconds * cfg.signal_sample_rate))).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax_mod.mfcc_change(jnp.asarray(y), JaxMfccConfig(**kw), spectrum=jax_spectrum))
+    got = mfcc_change(torch.tensor(y), cfg).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape == (2, 1 + y.shape[1] // cfg.hop_length)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)

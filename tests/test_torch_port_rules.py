@@ -79,6 +79,38 @@ def test_port_runs_without_jax():
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
+def test_envelopes_oracle_and_verify_run_without_jax():
+    """With jax and the JAX package made unimportable, the envelopes
+    (extract_envelope in all three methods, batched_envelope) run, the
+    float64 oracle imports, and the verify harness passes on the CPU: the
+    card's machine, which has no jax, runs them as they are."""
+    proc = _run(
+        "import sys, importlib.abc\n"
+        "class NoJax(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        "        if name in ('jax', 'jaxlib', 'modulation_mfcc_tpu') or name.startswith(('jax.', 'jaxlib.',\n"
+        "                                                                             'modulation_mfcc_tpu.')):\n"
+        "            raise ImportError(f'no module named {name}')\n"
+        "sys.meta_path.insert(0, NoJax())\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        "import modulation_mfcc_tpu_torch as mt\n"
+        "from modulation_mfcc_tpu_torch import oracle\n"
+        "from modulation_mfcc_tpu_torch.cli import main\n"
+        "y = np.random.default_rng(0).standard_normal(12000).astype(np.float32) * 0.3\n"
+        "for method in ('RMS', 'Hilb', 'RMSpraat'):\n"
+        "    amp, t = mt.extract_envelope(y, 10000, mt.AmplitudeConfig(method=method), device='cpu')\n"
+        "    assert amp.shape[-1] == len(t) and bool(torch.isfinite(amp).all())\n"
+        "amp, valid = mt.batched_envelope(mt.pad_batch([y, y[:9000]], device='cpu'), 10000)\n"
+        "assert amp.shape == valid.shape == (2, 123) and int(valid[1].sum()) == 91\n"
+        "assert main(['verify', '--seconds', '1.2', '--device', 'cpu']) == 0\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib', 'modulation_mfcc_tpu.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    assert proc.returncode == 0 and proc.stdout.strip().splitlines()[-1] == "ok", proc.stderr
+
+
 def test_kernel_module_imports_without_nvcc_or_triton():
     """Importing the kernel module builds nothing and needs no toolchain."""
     proc = _run(
@@ -99,6 +131,7 @@ def test_cuda_request_without_cuda_raises(tmp_path):
     missing; only device="cpu" (or a CPU tensor) computes on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA; the rule concerns machines without it")
+    from modulation_mfcc_tpu_torch.models.pitch_adaptive import praat_style_intensity
     from modulation_mfcc_tpu_torch.parallel.corpus import CorpusSweep, sweep_mfcc_change
     from modulation_mfcc_tpu_torch.parallel.prefetch import prefetch_to_device
 
@@ -117,6 +150,11 @@ def test_cuda_request_without_cuda_raises(tmp_path):
         "prefetch_to_device": lambda **kw: list(prefetch_to_device(iter([{"a": y}]), **kw)),
         "resample_device": lambda **kw: mt.resample_device(y, 16_000, 10_000, **kw),
         "modulation_spectrum": lambda **kw: mt.modulation_spectrum(y, mt.MfccConfig(), **kw),
+        "extract_envelope": lambda **kw: mt.extract_envelope(y, 16_000, **kw),
+        "extract_envelope RMSpraat": lambda **kw: mt.extract_envelope(y, 16_000, mt.AmplitudeConfig(method="RMSpraat"),
+                                                                      **kw),
+        "praat_style_intensity": lambda **kw: praat_style_intensity(y, 16_000, **kw),
+        "batched_envelope": lambda **kw: mt.batched_envelope(mt.pad_batch([y], **kw), 16_000),
     }
     for call in calls.values():
         for kw in ({"device": "cuda"}, {}):
