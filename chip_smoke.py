@@ -130,6 +130,18 @@ Phases:
      kHz: all eleven surfaces pass against the float64 oracles
  27  envelope times on 32 x 30 s at 16 kHz: batched_envelope RMS and Hilb,
      and RMSpraat per file (extract_envelope)
+ 28  the analysis workflow: (a) BASELINE #2, 64 speech-like utterances of
+     1.5-30 s at 16 kHz padded → frame_validity_mask → 'fused'
+     mfcc_trajectories → mfcc_with_deltas(normalize=True), [64, NF, 39]:
+     one launch of each MFCC kernel, padded frames 0, each utterance's mean
+     0 and std 1, deltas and CMVN against float64, ms, audio-h/s and peak
+     memory; (b) peak_mask on the batch's mfcc_change tracks against scipy
+     find_peaks row by row; (c) AnalysisSession on a 30 s WAV, a TextGrid and
+     a 16-channel .pos file: all eight features and two EMA channels at
+     derivations 0-2 by each method against their float64 derivation, peaks,
+     the CSV against the curves, the interactive HTML, the sinc and Burg
+     kernels launched, pyin's f0 through both Viterbi kernels, and each
+     feature's extract_feature latency
 
 ``--frontend DIR`` runs none of these phases. It drives the package of the
 checkout at DIR instead of this one's, builds its kernels, times its
@@ -2373,6 +2385,305 @@ def envelope_times(dev, card: str) -> None:
           f"{hours / (t / 1e3):.3f} audio-h/s (host clock, one pass; {amps[0].shape[-1]} frames each) ({card})")
 
 
+# Phase 28: BASELINE #2 (64 utterances of 1.5-30 s at 16 kHz, mfcc39) and the workbench's files
+WF_BATCH, WF_MIN_S, WF_MAX_S, WF_SECONDS, WF_REPS = 64, 1.5, 30.0, 30, 5
+WF_FEATURES = ("mod_cepstr", "mfcc", "envelope", "f0", "formant1", "formant2", "formant3", "soundwave")
+WF_METHODS = ("gradient", "sg", "finDiff")
+
+
+def derivative_f64(x: np.ndarray, d: int, dcfg) -> np.ndarray:
+    """Velocity (d = 1) or acceleration (d = 2) along the last axis of a
+    float64 host array, as the reference computes it at sr = 1:
+    np.gradient applied d times, scipy's savgol_filter, or the Fornberg
+    stencils of findiff (central inside, one-sided at the ends)."""
+    import scipy.signal as sps
+
+    from modulation_mfcc_tpu_torch.ops.derivatives import findiff_stencils
+
+    if dcfg.derivative_method == "gradient":
+        for _ in range(d):
+            x = np.gradient(x, axis=-1)
+        return x
+    if dcfg.derivative_method == "sg":
+        # scipy's correlation coefficients inside, its edge fits (savgol_filter on each end's window) at
+        # the ends; a window holding a NaN (a formant track's missing frame) gives NaN, as a matmul does
+        w, p = dcfg.sg_width, dcfg.sg_poly_order
+        inside = np.lib.stride_tricks.sliding_window_view(x, w, axis=-1) @ sps.savgol_coeffs(w, p, d, use="dot")
+
+        def edge(seg: np.ndarray, part: slice) -> np.ndarray:
+            if not np.isfinite(seg).all():
+                return np.full(seg.shape[:-1] + (w // 2,), np.nan)
+            return sps.savgol_filter(seg, w, p, deriv=d, axis=-1, mode="interp")[..., part]
+
+        return np.concatenate([edge(x[..., :w], slice(None, w // 2)), inside,
+                               edge(x[..., -w:], slice(w - w // 2, None))], axis=-1)
+    central, fwd, bwd, half = findiff_stencils(d, dcfg.fin_diff_acc_order, 1.0)
+    t, n = x.shape[-1], len(fwd)
+    interior = np.lib.stride_tricks.sliding_window_view(x, len(central), axis=-1) @ central
+    lefts = [x[..., i : i + n] @ fwd for i in range(half)]
+    rights = [x[..., t - (half - i) - n + 1 : t - (half - i) + 1] @ bwd for i in range(half)]
+    return np.concatenate([np.stack(lefts, -1), interior, np.stack(rights, -1)], axis=-1)
+
+
+def cmvn_f64(x: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """models/features.cmvn over valid frames, in float64 on the host."""
+    w = mask[..., :, None]
+    n = np.maximum(w.sum(-2, keepdims=True), 1.0)
+    mu = (x * w).sum(-2, keepdims=True) / n
+    var = ((x - mu) ** 2 * w).sum(-2, keepdims=True) / n
+    return (x - mu) * w / (np.sqrt(var) + 1e-8) * w
+
+
+def mfcc39_f64(m: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    """mfcc_with_deltas(normalize=True) of an MFCC [B, NF, n_mfcc] over the
+    valid frames [B, NF], in float64 on the host: scipy's savgol deltas
+    (width 9), then CMVN."""
+    import scipy.signal as sps
+
+    m = m.astype(np.float64)
+    d1 = sps.savgol_filter(m, 9, 1, deriv=1, axis=1, mode="interp")
+    d2 = sps.savgol_filter(m, 9, 2, deriv=2, axis=1, mode="interp")
+    return cmvn_f64(np.concatenate([m, d1, d2], -1), valid.astype(np.float64))
+
+
+def mfcc39_batch(dev, card: str) -> tuple[mt.AudioBatch, np.ndarray]:
+    """Phase 28 (a): BASELINE #2, the padded mfcc39 batch: 64 speech-like
+    utterances, lengths uniform over 1.5-30 s at 16 kHz, through pad_batch →
+    frame_validity_mask → mfcc_trajectories('fused') → mfcc_with_deltas
+    (normalize=True): one launch of each MFCC kernel, padded frames exactly
+    0, each utterance's valid frames of mean 0 (1e-5) and std 1 (1e-4), and
+    the deltas and CMVN within 1e-4 of their float64 evaluation on the
+    kernel's own MFCC (the new code alone).
+
+    The kernels' MFCC is held, over the valid frames, to two routes that
+    share none of its launches: the float64 'fft' MFCC of the same padded
+    batch and mask (its own framing, STFT and masked top_db peak), and
+    fused_mel_f32's and mfcc_tail_f32's plain versions with the peak masked
+    as fused_mfcc masks it. Phase 23's bar: the kernels no further from
+    float64 than 1.05 × the plain versions are (C2: on speech-like audio
+    every float32 route is ~1.2e-3 from float64, the tail's FP32 DCT chains).
+    The whole output is then held to mfcc39_f64 of the float64 MFCC at the
+    same bar against the plain versions' MFCC through mfcc_with_deltas."""
+    cfg, sr = FLAGSHIP, FLAGSHIP.signal_sample_rate
+    rng = np.random.default_rng(28)
+    lengths = rng.integers(int(WF_MIN_S * sr), int(WF_MAX_S * sr) + 1, size=WF_BATCH)
+    signals = [speechlike(1, int(n), sr, seed=2800 + i)[0] for i, n in enumerate(lengths)]
+    hours = float(lengths.sum()) / sr / 3600.0
+    batch = mt.pad_batch(signals, device=dev)
+    mask = mt.frame_validity_mask(batch.lengths, batch.samples.shape[-1], cfg)
+
+    def mfcc39():
+        m = mt.mfcc_trajectories(batch.samples, cfg, spectrum="fused", frame_mask=mask)
+        return m, mt.mfcc_with_deltas(m, frame_mask=mask, normalize=True)
+
+    reset(ff.LAUNCHES)
+    m, out = mfcc39()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ff.LAUNCHES.items() if v}
+    print(f"[28] mfcc39 on {tuple(batch.samples.shape)} ({WF_BATCH} utterances, {hours:.4f} audio-h unpadded): "
+          f"output {tuple(out.shape)}, launches {launches}")
+    check(launches == {"fused_mel_f32": 1, "mfcc_tail_f32": 1}, "mfcc39: one launch of each MFCC kernel")
+    nf = mask.shape[-1]
+    check(out.shape == (WF_BATCH, nf, 3 * cfg.n_mfcc) and bool(torch.isfinite(out).all()), "mfcc39 shape")
+    valid = mask.cpu().numpy().astype(bool)
+    got = out.cpu().numpy()
+    check(not got[~valid].any(), "mfcc39: every padded frame exactly 0")
+    mean_err = max(float(np.abs(got[b, valid[b]].astype(np.float64).mean(0)).max()) for b in range(WF_BATCH))
+    std_err = max(float(np.abs(got[b, valid[b]].astype(np.float64).std(0) - 1.0).max()) for b in range(WF_BATCH))
+    f64_err = float(np.abs(got - mfcc39_f64(m.cpu().numpy(), valid)).max())
+    print(f"[28] mfcc39 over valid frames: per-utterance |mean| ≤ {mean_err:.3e} (bar 1e-5), |std − 1| ≤ "
+          f"{std_err:.3e} (bar 1e-4); deltas + CMVN vs float64 on the kernel's MFCC max-abs {f64_err:.3e} (bar 1e-4)")
+    check(mean_err <= 1e-5 and std_err <= 1e-4, "mfcc39: zero mean and unit std over each utterance's valid frames")
+    check(f64_err <= 1e-4, "mfcc39: deltas and CMVN within 1e-4 of float64")
+
+    ref = mt.mfcc_trajectories(batch.samples.double(), cfg, spectrum="fft", frame_mask=mask)
+    a = frontend_args(cfg, dev)
+    mel_p, _ = frontend_plain(batch.samples, cfg, a)
+    live = mask[:, : mel_p.shape[1], None] > 0
+    peak_p = 10.0 * torch.log10(torch.clamp(torch.amax(torch.where(live, mel_p, 0.0), dim=(1, 2)), min=1e-10))
+    plain = ff.mfcc_tail_reference(mel_p, peak_p, a["dct"], transposed=False)
+    out_p = mt.mfcc_with_deltas(plain, frame_mask=mask, normalize=True)
+    torch.cuda.synchronize()
+    check(plain.shape == m.shape == ref.shape and bool(torch.isfinite(ref).all()), "mfcc39: the MFCC routes' shapes")
+    vt = mask.bool()
+    e_k = float((m.double() - ref).abs()[vt].max())
+    e_p = float((plain.double() - ref).abs()[vt].max())
+    e_kp = float((m - plain).abs()[vt].max())
+    ref39 = mfcc39_f64(ref.cpu().numpy(), valid)
+    o_k = float(np.abs(got - ref39).max())
+    o_p = float(np.abs(out_p.cpu().numpy() - ref39).max())
+    print(f"[28] mfcc39's MFCC over valid frames against the float64 'fft' MFCC of the same padded batch and mask, "
+          f"max-abs: the kernels {e_k:.3e}, their plain versions {e_p:.3e} (bar: kernels ≤ 1.05 × plain); kernels vs "
+          f"plain {e_kp:.3e}. The [64, NF, 39] output against float64 deltas + CMVN of the float64 MFCC: the kernels' "
+          f"{o_k:.3e}, the plain versions' {o_p:.3e} (bar: ≤ 1.05 × plain)")
+    check(e_k <= 1.05 * e_p, "mfcc39: the kernels' MFCC no further from float64 than 1.05 × the plain versions'")
+    check(o_k <= 1.05 * o_p, "mfcc39: the output no further from float64 than 1.05 × the plain versions'")
+    del m, out, got, ref, ref39, mel_p, plain, out_p
+    torch.cuda.empty_cache()
+    t = cuda_ms(lambda: mfcc39())
+    _, gib = peak_gib(lambda: mfcc39())
+    m = mt.mfcc_trajectories(batch.samples, cfg, spectrum="fused", frame_mask=mask)
+    t_mfcc = cuda_ms(lambda: mt.mfcc_trajectories(batch.samples, cfg, spectrum="fused", frame_mask=mask))
+    t_deltas = cuda_ms(lambda: mt.mfcc_with_deltas(m, frame_mask=mask, normalize=True))
+    print(f"[28] mfcc39 (BASELINE #2) at {WF_BATCH} × 1.5-30 s: {t:.3f} ms = {hours / (t / 1e3):.3f} audio-h/s over "
+          f"the unpadded lengths (mfcc_trajectories {t_mfcc:.3f} ms, mfcc_with_deltas {t_deltas:.3f} ms alone); "
+          f"peak device memory {gib:.3f} GiB above the batch ({card})")
+    return batch, lengths
+
+
+def peaks_at_batch_width(batch: mt.AudioBatch) -> None:
+    """Phase 28 (b): peak_mask on the batch's [64, NF] mfcc_change tracks,
+    padded frames set to +inf (never a peak, and the last valid frame never
+    one either), equals scipy.signal.find_peaks on each row's valid frames."""
+    import scipy.signal as sps
+
+    tot, tmask = batched_mfcc_change(batch, FLAGSHIP)
+    valid = tmask.bool()
+    pm = mt.peak_mask(torch.where(valid, tot, torch.inf))
+    torch.cuda.synchronize()
+    tot_np, pm_np, n_valid = tot.cpu().numpy(), pm.cpu().numpy(), valid.sum(-1).cpu().numpy()
+    n_peaks = 0
+    for b in range(batch.batch_size):
+        want = sps.find_peaks(tot_np[b, : n_valid[b]])[0]
+        check(np.array_equal(np.flatnonzero(pm_np[b]), want), f"peak_mask row {b} equals scipy find_peaks")
+        n_peaks += len(want)
+    t = cuda_ms(lambda: mt.peak_mask(torch.where(valid, tot, torch.inf)))
+    print(f"[28] peak_mask on {tuple(tot.shape)} mfcc_change tracks: {n_peaks} peaks, every row equal to "
+          f"scipy.signal.find_peaks over its valid frames; {t:.3f} ms")
+
+
+def workbench_files(root: str) -> tuple[str, str, str]:
+    """A 30 s speech-like WAV at 16 kHz, a TextGrid of 30 one-second word
+    intervals and an AG50x .pos file of 16 channels at 250 Hz over 30 s."""
+    from modulation_mfcc_tpu_torch.io.ag50x import write_ag50x
+    from modulation_mfcc_tpu_torch.io.textgrid import IntervalTier, TextGrid, write_textgrid
+    from modulation_mfcc_tpu_torch.io.wav import write_wav
+
+    sr = FLAGSHIP.signal_sample_rate
+    wav, tg_path, pos_path = (os.path.join(root, name) for name in ("utt.wav", "utt.TextGrid", "utt.pos"))
+    write_wav(wav, speechlike(1, WF_SECONDS * sr, sr, seed=2828)[0], sr)
+    tg = TextGrid(xmin=0.0, xmax=float(WF_SECONDS))
+    tier = IntervalTier(name="words", xmin=0.0, xmax=float(WF_SECONDS))
+    for i in range(WF_SECONDS):
+        tier.add(float(i), float(i + 1), f"w{i:02d}")
+    tg.tiers = [tier]
+    write_textgrid(tg, tg_path)
+    walk = np.random.default_rng(2829).standard_normal((WF_SECONDS * 250, 16, 7)).cumsum(0).astype(np.float32)
+    write_ag50x(pos_path, walk, 250)
+    return wav, tg_path, pos_path
+
+
+def workbench_session(dev, card: str) -> None:
+    """Phase 28 (c): the workbench (AnalysisSession) on its files: every
+    feature at derivations 0, 1 and 2 with each derivative method, two EMA
+    channels likewise, region, max and min peaks, CSV with the word tier's
+    aggregates, the interactive HTML; each derived curve within 1e-5 of its
+    largest magnitude from the float64 derivation of its own trajectory,
+    the CSV's columns equal to the session's curves, sinc_refine_f32 and
+    burg_lpc_f32 launched, pyin's f0 through both Viterbi kernels, and each
+    feature's extract_feature latency on the host clock (median, min and
+    max of WF_REPS warm calls)."""
+    import csv
+    from dataclasses import replace as dc_replace
+
+    from modulation_mfcc_tpu_torch.models.config import DerivationConfig, PipelineConfig
+
+    cfg = PipelineConfig(mfcc=FLAGSHIP)
+    with tempfile.TemporaryDirectory() as root:
+        wav, tg_path, pos_path = workbench_files(root)
+        reset(ff.LAUNCHES, SK.LAUNCHES, BK.LAUNCHES, VK.LAUNCHES)
+        t0 = time.perf_counter()
+        s = mt.AnalysisSession(wav, cfg, device=dev)
+        s.load_textgrid(tg_path)
+        s.load_pos(pos_path)
+        traj, derived = {}, []
+        for i, feature in enumerate(WF_FEATURES + ("ema3", "ema11")):
+            for d in (0, 1, 2):
+                for method in WF_METHODS if d else WF_METHODS[:1]:
+                    dcfg = DerivationConfig(derivative_method=method)
+                    name = f"{feature}_d{d}_{method}"
+                    if feature.startswith("ema"):
+                        c = s.add_ema_curve(int(feature[3:]), "z", panel=i % 4, derivation=d, name=name, dcfg=dcfg)
+                    else:
+                        c = s.add_curve(feature, panel=i % 4, derivation=d, dcfg=dcfg, name=name)
+                    if d:
+                        derived.append((c, feature, d, dcfg))
+                    else:
+                        traj[feature] = c
+        torch.cuda.synchronize()
+        session_s = time.perf_counter() - t0
+        launches = {k: v for c in (ff.LAUNCHES, SK.LAUNCHES, BK.LAUNCHES, VK.LAUNCHES) for k, v in c.items() if v}
+        print(f"[28] workbench: {len(s.curves)} curves of {len(WF_FEATURES)} features and 2 EMA channels at "
+              f"derivations 0-2 ({', '.join(WF_METHODS)}) in {session_s:.3f} s (host clock); launches {launches}")
+        check(all(launches.get(k, 0) >= 1 for k in ("fused_mel_f32", "mfcc_tail_f32", "sinc_refine_f32",
+                                                     "burg_lpc_f32")), "workbench: the MFCC, sinc and Burg kernels")
+        worst = 0.0
+        for c, feature, d, dcfg in derived:
+            base = traj[feature]
+            want = derivative_f64(base.values.astype(np.float64), d, dcfg)
+            check(c.values.shape == want.shape and np.array_equal(np.isnan(c.values), np.isnan(want)),
+                  f"{c.name}: shape and NaN pattern")
+            rel = float(np.nanmax(np.abs(c.values - want)) / max(np.nanmax(np.abs(want)), 1e-30))
+            worst = max(worst, rel)
+            check(rel <= 1e-5, f"{c.name} within 1e-5 relative of its float64 derivation ({rel:.3e})")
+        print(f"[28] workbench: {len(derived)} velocity and acceleration curves against their float64 derivation "
+              f"(np.gradient, scipy savgol_filter, Fornberg stencils): worst {worst:.3e} of the curve's largest "
+              f"magnitude (bar 1e-5)")
+        for name in [n for n, c in s.curves.items() if c.feature in ("mfcc", "soundwave")]:
+            s.remove_curve(name)  # the matrix and the 480,000-sample wave stay out of the table and the HTML
+        s.set_region(2.0, 28.0)
+        maxima, minima = s.analyze_max_peaks(), s.analyze_min_peaks()
+        n_max, n_min = sum(len(v[0]) for v in maxima.values()), sum(len(v[0]) for v in minima.values())
+        check(n_max > 0 and n_min > 0, "workbench: peaks in the region")
+        out_csv = s.export_csv(os.path.join(root, "session.csv"), aggregate_tier="words")
+        with open(out_csv, newline="") as f:
+            rows = list(csv.reader(f))
+        header, body = rows[0], rows[1:]
+        for c in s.curves.values():
+            for col, want in ((f"{c.name}_x", c.times), (f"{c.name}_y", c.values)):
+                j = header.index(col)
+                cells = [r[j] for r in body[: len(want)]]
+                check(np.array_equal(np.array(cells, dtype=want.dtype), want, equal_nan=True)
+                      and all(r[j] == "" for r in body[len(want):]), f"CSV column {col} equals the session's curve")
+        check("interval_label" in header and [r[header.index("interval_label")] for r in body[:WF_SECONDS]]
+              == [f"w{i:02d}" for i in range(WF_SECONDS)], "CSV word aggregates")
+        html = s.render_interactive(os.path.join(root, "session.html"), show_spectrogram=False)
+        html_bytes = os.path.getsize(html)
+        check(html_bytes > 10_000, "interactive HTML written")
+        print(f"[28] workbench: region 2-28 s, {n_max} maxima and {n_min} minima; CSV {len(header)} columns × "
+              f"{len(body)} rows, every curve column equal to the session's curve; HTML {html_bytes} bytes")
+        for feature in WF_FEATURES:
+            ms = []
+            for _ in range(1 + WF_REPS):  # one warm-up call, then WF_REPS timed
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                mt.extract_feature(wav, feature, cfg, derivation=0, device=dev)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t1) * 1e3)
+            ms = ms[1:]
+            print(f"[28] extract_feature {feature!r} on the {WF_SECONDS} s file: median {statistics.median(ms):.3f} ms "
+                  f"of {WF_REPS} warm calls (min {min(ms):.3f}, max {max(ms):.3f}; host clock) ({card})")
+        reset(VK.LAUNCHES)
+        pyin_cfg = dc_replace(cfg, f0=dc_replace(cfg.f0, method="pyin"))
+        t, f0 = mt.extract_feature(wav, "f0", pyin_cfg, derivation=1, device=dev)
+        torch.cuda.synchronize()
+        f0 = f0.cpu().numpy()
+        print(f"[28] extract_feature 'f0' velocity with f0.method='pyin': {len(t)} frames, "
+              f"{int(np.isfinite(f0).sum())} finite; launches {dict(VK.LAUNCHES)}")
+        check(VK.LAUNCHES["viterbi_fwd_f32"] >= 1 and VK.LAUNCHES["viterbi_bwd_f32"] >= 1,
+              "pyin f0 through both Viterbi kernels")
+        check(f0.shape == t.shape and np.isfinite(f0).sum() > len(t) // 2, "pyin f0 velocity")
+
+
+def analysis_workflow(dev, card: str) -> None:
+    """Phase 28: the reference's analysis workflow on the card."""
+    batch, _ = mfcc39_batch(dev, card)
+    peaks_at_batch_width(batch)
+    del batch
+    torch.cuda.empty_cache()
+    workbench_session(dev, card)
+
+
 def ptxas_lines(report: str, bases: tuple[str, ...]) -> list[str]:
     """'kernel<template args>: registers, spill bytes' for each entry
     function of ptxas's report whose name holds one of ``bases``."""
@@ -2467,6 +2778,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     verify_on_card()
     envelope_times(dev, card)
+    torch.cuda.empty_cache()
+    analysis_workflow(dev, card)
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

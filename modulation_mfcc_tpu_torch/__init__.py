@@ -1,6 +1,8 @@
 """modulation_mfcc_tpu_torch: the MFCC modulation-cepstrum pipeline, the
-Praat and pyin F0 trackers and the formant tracker in PyTorch, with
-hand-written CUDA kernels for NVIDIA Hopper (H100).
+Praat and pyin F0 trackers, the formant tracker, the envelopes and the
+reference's analysis workflow (named features with their derivations,
+peaks, EMA, TextGrid, CSV) in PyTorch, with hand-written CUDA kernels for
+NVIDIA Hopper (H100).
 
 A port of ``modulation_mfcc_tpu`` (JAX), which stays the reference it is
 tested against. This package imports torch, numpy and scipy, never jax.
@@ -19,13 +21,33 @@ Entry points compute on CUDA unless given ``device="cpu"`` (or a CPU tensor).
     amp, valid = mt.batched_envelope(mt.pad_batch(signals), 16000, mt.AmplitudeConfig())
     y16 = mt.resample_device(y48k_on_cuda, 48000, 16000)        # polyphase, on the device
     tot = mt.chunked_mfcc_change(y16, cfg)                      # an hour-long recording in chunks
+    cfg = mt.config_from_reference_json(saved_dialog_json)     # the reference's config schema
+    t, vel = mt.extract_feature("a.wav", "f0", cfg, derivation=1)  # a named feature, derived
+    mask = mt.frame_validity_mask(batch.lengths, batch.samples.shape[-1], cfg16k)
+    m = mt.mfcc_trajectories(batch.samples, cfg16k, frame_mask=mask)
+    m39 = mt.mfcc_with_deltas(m, frame_mask=mask, normalize=True)  # [B, NF, 39], padded frames 0
+    s = mt.AnalysisSession("a.wav", cfg)                        # the workbench: curves, peaks, EMA, CSV
+    s.add_curve("mod_cepstr"); s.set_region(0.5, 1.5); s.analyze_max_peaks(); s.export_csv("a.csv")
 
 The CUDA kernels build with nvcc at first use (kernels/_build.py).
 ``modmfcc-torch verify`` (cli.py) holds every tracker to its float64 oracle
 (oracle.py).
 """
-from modulation_mfcc_tpu_torch.models.config import AmplitudeConfig, F0Config, FormantConfig, MfccConfig
+from modulation_mfcc_tpu_torch.models.config import (
+    AmplitudeConfig,
+    DerivationConfig,
+    EmaConfig,
+    F0Config,
+    FormantConfig,
+    MfccConfig,
+    PipelineConfig,
+    config_from_reference_json,
+    config_to_reference_json,
+    load_config,
+    save_config,
+)
 from modulation_mfcc_tpu_torch.models.envelope import extract_envelope
+from modulation_mfcc_tpu_torch.models.features import cmvn, delta, mfcc_with_deltas
 from modulation_mfcc_tpu_torch.models.formants import FormantTracker, extract_formants, formants_with_gating
 from modulation_mfcc_tpu_torch.models.modulation import (
     MfccChange,
@@ -35,10 +57,14 @@ from modulation_mfcc_tpu_torch.models.modulation import (
     modulation_spectrum,
     modulation_spectrum_axes,
 )
+from modulation_mfcc_tpu_torch.models.pipeline import extract_feature
 from modulation_mfcc_tpu_torch.models.pitch import PitchTracker, PyinTracker, extract_f0
+from modulation_mfcc_tpu_torch.models.workbench import AnalysisSession
+from modulation_mfcc_tpu_torch.ops.derivatives import velocity
+from modulation_mfcc_tpu_torch.ops.peaks import peak_mask, peaks_in_interval
 from modulation_mfcc_tpu_torch.ops.resample import resample_device
 from modulation_mfcc_tpu_torch.ops.yin import pyin_f0
-from modulation_mfcc_tpu_torch.parallel.batch import AudioBatch, pad_batch
+from modulation_mfcc_tpu_torch.parallel.batch import AudioBatch, frame_validity_mask, pad_batch
 from modulation_mfcc_tpu_torch.parallel.features_batch import batched_envelope, batched_f0, batched_formants
 from modulation_mfcc_tpu_torch.parallel.streaming import chunked_mfcc_change
 
@@ -48,4 +74,7 @@ __all__ = [
     "extract_formants", "formants_with_gating", "AudioBatch", "pad_batch", "batched_f0",
     "batched_formants", "modulation_spectrum", "modulation_spectrum_axes", "resample_device",
     "chunked_mfcc_change", "AmplitudeConfig", "extract_envelope", "batched_envelope",
+    "PipelineConfig", "EmaConfig", "DerivationConfig", "config_from_reference_json", "config_to_reference_json",
+    "save_config", "load_config", "extract_feature", "delta", "cmvn", "mfcc_with_deltas", "frame_validity_mask",
+    "AnalysisSession", "velocity", "peak_mask", "peaks_in_interval",
 ]

@@ -2,8 +2,9 @@
 scipy float64).
 
 :func:`read_wav` decodes PCM and float WAV files with plain numpy over the
-RIFF layout; :func:`load_channel` decodes, resamples and selects a channel,
-as the reference's ``librosa.load`` call does (script/mfcc.py:262-289).
+RIFF layout and :func:`write_wav` writes 16-bit PCM; :func:`load_channel`
+decodes, resamples and selects a channel, as the reference's
+``librosa.load`` call does (script/mfcc.py:262-289).
 The formant tracker resamples to twice its ceiling before the LPC stage,
 as Praat does. The polyphase filter is kaiser_best grade
 (:func:`design_hq_taps`), the JAX package's own design, so both packages
@@ -12,13 +13,14 @@ resample identically.
 from __future__ import annotations
 
 import struct
+import wave
 from fractions import Fraction
 from functools import lru_cache
 
 import numpy as np
 from scipy.signal import firwin, resample_poly
 
-__all__ = ["read_wav", "load_channel", "design_hq_taps", "resample", "resample_ratio"]
+__all__ = ["read_wav", "write_wav", "load_channel", "design_hq_taps", "resample", "resample_ratio"]
 
 
 def read_wav(path: str) -> tuple[np.ndarray, int]:
@@ -72,6 +74,22 @@ def read_wav(path: str) -> tuple[np.ndarray, int]:
     if n_ch > 1:
         x = x.reshape(-1, n_ch).T
     return x, sr
+
+
+def write_wav(path: str, x: np.ndarray, sr: int) -> None:
+    """Write float [-1, 1] (or int16) samples, [n] or [channels, n], as
+    16-bit PCM WAV."""
+    x = np.asarray(x)
+    if x.ndim > 1:
+        x = x.T  # [n, channels]
+    if x.dtype != np.int16:
+        x = np.clip(x, -1.0, 1.0)
+        x = (x * 32767.0).astype(np.int16)
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1 if x.ndim == 1 else x.shape[1])
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(x.tobytes())
 
 
 def load_channel(path: str, signal_sample_rate: float = 10_000, channel_nb: int = 0) -> np.ndarray:

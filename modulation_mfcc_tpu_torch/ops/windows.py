@@ -3,7 +3,8 @@
 The MFCC path uses librosa's default periodic Hann window
 (``scipy.signal.get_window('hann', win_length, fftbins=True)``); the window
 is folded into the DFT bases at design time and never applied on device.
-The trackers use Praat's tapers: AC_HANNING and the Gaussian of
+The display spectrogram uses a Gaussian (:func:`gaussian`); the trackers
+use Praat's tapers: AC_HANNING and the Gaussian of
 :func:`praat_gauss` (pitch), the same Gaussian (formants) and a Kaiser-20
 window (intensity, ops/intensity.py).
 """
@@ -19,6 +20,13 @@ def hann(m: int, periodic: bool = True) -> np.ndarray:
     denom = m if periodic else m - 1
     n = np.arange(m)
     return 0.5 - 0.5 * np.cos(2.0 * np.pi * n / denom)
+
+
+def gaussian(m: int, std: float) -> np.ndarray:
+    """Gaussian window, matches scipy.signal.windows.gaussian (symmetric); the
+    display spectrogram's taper (models/sound.py)."""
+    n = np.arange(m) - (m - 1) / 2.0
+    return np.exp(-0.5 * (n / std) ** 2)
 
 
 def praat_hanning(nw: int) -> np.ndarray:

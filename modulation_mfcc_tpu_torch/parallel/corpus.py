@@ -41,7 +41,7 @@ from modulation_mfcc_tpu_torch.utils.obs import ThroughputMeter, log_event
 __all__ = ["CorpusSweep", "sweep_mfcc_change"]
 
 # extra feature tracks of the JAX sweep and the ROADMAP item each waits for
-_UNPORTED_FEATURES = {"mfcc39": "A.15", "f0": "A.16", "envelope": "A.11", "formants": "A.16"}
+_UNPORTED_FEATURES = {"mfcc39": "A.16", "f0": "A.16", "envelope": "A.16", "formants": "A.16"}
 
 
 @dataclass

@@ -1,4 +1,8 @@
-"""CLI command implementations (verify, info).
+"""CLI command implementations (extract, plot, verify, info).
+
+``run_extract`` and ``run_plot`` are the JAX package's, over this package's
+pipeline (models/pipeline.py) and workbench (models/workbench.py), on the
+device ``--device`` names (CUDA by default).
 
 ``run_verify`` is the parity harness of the JAX package's
 ``modulation_mfcc_tpu/runner.py``: every tracker of this package against
@@ -7,10 +11,87 @@ the device ``--device`` names (CUDA by default, where the kernels run).
 """
 from __future__ import annotations
 
+import csv
 import json
+import struct
+import sys
 
 import numpy as np
 import torch
+
+# what a bad input file or feature raises (missing or unreadable file,
+# truncated WAV header, unknown feature, too short a signal); a device or
+# kernel fault is none of these and propagates
+INPUT_ERRORS = (OSError, ValueError, struct.error)
+
+
+def _load_pipeline_config(path: str | None):
+    from modulation_mfcc_tpu_torch.models.config import PipelineConfig, load_config
+
+    return PipelineConfig() if path is None else load_config(path)
+
+
+def run_extract(args) -> int:
+    """Extract the requested feature tracks from each WAV → long-format CSV
+    (file, feature, time, value), the reference's CSV-export capability
+    (script/main.py:1409-1544) in batch form. A file or feature the input
+    cannot give (missing or malformed file, unknown feature, too short) is
+    reported on stderr and skipped; a device or kernel fault propagates."""
+    from modulation_mfcc_tpu_torch.models import pipeline as pl
+    from modulation_mfcc_tpu_torch.utils.helpers import resolve_device
+
+    device = resolve_device(args.device)  # no CUDA where it is asked for: raise, not a warning per file
+    cfg = _load_pipeline_config(args.config)
+    feats = [f.strip() for f in args.features.split(",") if f.strip()]
+    rows: list[tuple] = []
+    for path in args.inputs:
+        for feat in feats:
+            try:
+                t, v = pl.extract_feature(path, feat, cfg, derivation=args.derivation, device=device)
+            except INPUT_ERRORS as e:  # per-file isolation: a bad file skips
+                print(f"warning: {path}: {feat}: {e}", file=sys.stderr)
+                continue
+            t = np.asarray(t).ravel()
+            v = v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+            if v.ndim == 2:  # matrix features (mfcc): one row per coefficient
+                for k in range(v.shape[1]):
+                    for ti, vi in zip(t, v[:, k]):
+                        rows.append((path, f"{feat}{k}", float(ti), float(vi)))
+            else:
+                for ti, vi in zip(t, v.ravel()):
+                    rows.append((path, feat, float(ti), float(vi)))
+    out = sys.stdout if args.out == "-" else open(args.out, "w", newline="")
+    try:
+        w = csv.writer(out)
+        w.writerow(["file", "feature", "time", "value"])
+        w.writerows(rows)
+    finally:
+        if out is not sys.stdout:
+            out.close()
+    return 0
+
+
+def run_plot(args) -> int:
+    """Render the analysis figure (the reference's display) as a PNG."""
+    from modulation_mfcc_tpu_torch.models.workbench import AnalysisSession
+
+    cfg = _load_pipeline_config(args.config)
+    s = AnalysisSession(args.wav, cfg, device=args.device)
+    feats = [f.strip() for f in args.features.split(",") if f.strip()]
+    for i, feat in enumerate(feats):
+        try:
+            s.add_curve(feat, panel=i // 2)
+        except INPUT_ERRORS as e:
+            print(f"warning: {feat}: {e}", file=sys.stderr)
+    if args.textgrid:
+        s.load_textgrid(args.textgrid)
+    if args.region:
+        s.set_region(args.region[0], args.region[1])
+        s.analyze_max_peaks()
+        s.analyze_min_peaks()
+    s.render(out=args.out)
+    print(args.out)
+    return 0
 
 
 class _SurfaceEmit(dict):

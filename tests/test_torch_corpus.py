@@ -356,8 +356,8 @@ def test_sweep_records_equal_per_file(tiny_corpus, tmp_path, spectrum):
 def test_sweep_unported_options_raise(tmp_path):
     paths = ["/nonexistent.wav"]
     for kw, item in ((dict(use_native_loader=True), "A.16"), (dict(mesh=object()), "A.16"),
-                     (dict(features=("mod_cepstr", "mfcc39")), "A.15"), (dict(features=("f0",)), "A.16"),
-                     (dict(features=("envelope",)), "A.11"), (dict(features=("formants",)), "A.16")):
+                     (dict(features=("mod_cepstr", "mfcc39")), "A.16"), (dict(features=("f0",)), "A.16"),
+                     (dict(features=("envelope",)), "A.16"), (dict(features=("formants",)), "A.16")):
         with pytest.raises(NotImplementedError, match=item):
             corpus.sweep_mfcc_change(paths, corpus.CorpusSweep(str(tmp_path), device="cpu", **kw))
     with pytest.raises(ValueError, match="feature"):

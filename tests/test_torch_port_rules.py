@@ -111,6 +111,58 @@ def test_envelopes_oracle_and_verify_run_without_jax():
     assert proc.returncode == 0 and proc.stdout.strip().splitlines()[-1] == "ok", proc.stderr
 
 
+def test_analysis_workflow_runs_without_jax(tmp_path):
+    """With jax and the JAX package made unimportable, the analysis
+    workflow imports (models.pipeline, models.workbench, models.features,
+    ops.peaks, io.ag50x) and runs: extract_feature on the CPU, mfcc39 on a
+    masked batch, peaks, an EMA file, a session's CSV and the CLI's extract."""
+    proc = _run(
+        "import sys, importlib.abc\n"
+        "class NoJax(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        "        if name in ('jax', 'jaxlib', 'modulation_mfcc_tpu') or name.startswith(('jax.', 'jaxlib.',\n"
+        "                                                                             'modulation_mfcc_tpu.')):\n"
+        "            raise ImportError(f'no module named {name}')\n"
+        "sys.meta_path.insert(0, NoJax())\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        "import modulation_mfcc_tpu_torch as mt\n"
+        "from modulation_mfcc_tpu_torch.models import pipeline, workbench, features\n"
+        "from modulation_mfcc_tpu_torch.ops import peaks\n"
+        "from modulation_mfcc_tpu_torch.io import ag50x\n"
+        "from modulation_mfcc_tpu_torch.io.wav import write_wav\n"
+        "from modulation_mfcc_tpu_torch.cli import main\n"
+        f"d = {str(tmp_path)!r}\n"
+        "rng = np.random.default_rng(0)\n"
+        "t = np.arange(12000) / 10000\n"
+        "write_wav(d + '/a.wav', 0.6 * np.sin(2 * np.pi * 140 * t) * (0.5 + 0.5 * np.sin(2 * np.pi * 3 * t)), 10000)\n"
+        "for feat in ('mod_cepstr', 'f0', 'formant2', 'envelope', 'mfcc'):\n"
+        "    tt, v = mt.extract_feature(d + '/a.wav', feat, derivation=1, device='cpu')\n"
+        "    assert v.shape[0] == len(tt) and bool(torch.isfinite(v).all()), feat\n"
+        "cfg = mt.MfccConfig()\n"
+        "batch = mt.pad_batch([rng.standard_normal(9000), rng.standard_normal(6000)], device='cpu')\n"
+        "mask = mt.frame_validity_mask(batch.lengths, batch.samples.shape[-1], cfg)\n"
+        "m39 = mt.mfcc_with_deltas(mt.mfcc_trajectories(batch.samples, cfg, frame_mask=mask), frame_mask=mask,\n"
+        "                          normalize=True)\n"
+        "assert m39.shape == (2, 205, 39) and not bool(m39[1, 121:].any())\n"
+        "pm = peaks.peak_mask(torch.tensor([[0.0, 1, 0, 2, 2, 0]]))\n"
+        "assert pm.tolist() == [[False, True, False, True, False, False]]\n"
+        "ag50x.write_ag50x(d + '/r.pos', rng.standard_normal((250, 8, 7)).astype(np.float32), 250)\n"
+        "s = mt.AnalysisSession(d + '/a.wav', device='cpu')\n"
+        "s.load_pos(d + '/r.pos')\n"
+        "s.add_curve('mod_cepstr'); s.add_ema_curve(1, derivation=2)\n"
+        "s.set_region(0.1, 1.1); s.analyze_max_peaks()\n"
+        "s.export_csv(d + '/s.csv')\n"
+        "assert main(['extract', d + '/a.wav', '--features', 'mod_cepstr,f0', '--out', d + '/e.csv',\n"
+        "             '--device', 'cpu']) == 0\n"
+        "assert len(open(d + '/e.csv').read().splitlines()) > 300\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib', 'modulation_mfcc_tpu.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
 def test_kernel_module_imports_without_nvcc_or_triton():
     """Importing the kernel module builds nothing and needs no toolchain."""
     proc = _run(
@@ -163,6 +215,46 @@ def test_cuda_request_without_cuda_raises(tmp_path):
         call(device="cpu")  # the CPU on request
     tot, _ = mt.extract_mfcc_change(torch.tensor(y))  # a CPU tensor keeps its device
     assert tot.device.type == "cpu"
+
+
+def test_analysis_workflow_cuda_request_without_cuda_raises(tmp_path):
+    """extract_feature, AnalysisSession, the CLI's extract and plot, the EMA
+    reader, the spectrogram and the peak finders on host arrays default to
+    CUDA and raise without it; mfcc_with_deltas, peak_mask and
+    apply_derivation compute on their tensor's own device."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the rule concerns machines without it")
+    from modulation_mfcc_tpu_torch.cli import main
+    from modulation_mfcc_tpu_torch.io.ag50x import read_ag50x, write_ag50x
+    from modulation_mfcc_tpu_torch.io.wav import write_wav
+    from modulation_mfcc_tpu_torch.models.pipeline import apply_derivation
+    from modulation_mfcc_tpu_torch.models.sound import praat_spectrogram
+    from modulation_mfcc_tpu_torch.ops.peaks import find_peaks_host, peaks_in_interval
+
+    wav, pos = str(tmp_path / "a.wav"), str(tmp_path / "a.pos")
+    y = np.sin(np.arange(12_000) / 10.0) * 0.5
+    write_wav(wav, y, 10_000)
+    write_ag50x(pos, np.zeros((100, 8, 7), np.float32), 250)
+    calls = {
+        "extract_feature": lambda **kw: mt.extract_feature(wav, "mod_cepstr", **kw),
+        "extract_feature soundwave": lambda **kw: mt.extract_feature(wav, "soundwave", **kw),
+        "AnalysisSession": lambda **kw: mt.AnalysisSession(wav, **kw),
+        "read_ag50x": lambda **kw: read_ag50x(pos, **kw),
+        "praat_spectrogram": lambda **kw: praat_spectrogram(y, 10_000, **kw),
+        "find_peaks_host": lambda **kw: find_peaks_host(y[:50], **kw),
+        "peaks_in_interval": lambda **kw: peaks_in_interval(np.arange(50.0), y[:50], (0.0, 49.0), **kw),
+    }
+    for call in calls.values():
+        for kw in ({"device": "cuda"}, {}):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                call(**kw)
+        call(device="cpu")
+    for cmd in (["extract", wav, "--out", str(tmp_path / "e.csv")], ["plot", wav, "--out", str(tmp_path / "p.png")]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(cmd)
+    m = torch.zeros((1, 20, 13))
+    assert mt.mfcc_with_deltas(m).device.type == "cpu" and mt.peak_mask(m).device.type == "cpu"
+    assert apply_derivation(np.arange(9.0), torch.arange(9.0), 1)[1].device.type == "cpu"
 
 
 def test_wrappers_raise_on_devices_without_a_kernel():
