@@ -12,7 +12,8 @@ card and against the CPU, and times kernels and paths with CUDA events.
 Phases:
 
   0  card, power limit, versions, TF32 flags (exits 2 without CUDA)
-  1  kernel build, with ptxas's report (registers, spills) of every kernel,
+  1  kernel build (the native decode loader's g++ build beside it, timed
+     apart), with ptxas's report (registers, spills) of every kernel,
      and a line each for the Viterbi kernels', the tensor-core frontend's
      (fused_mel_bf16 is mode 3, fused_mel_f32 mode 4), the tail's,
      sinc_refine_f32's and burg_lpc_f32's (C, elements a lane)
@@ -81,7 +82,8 @@ Phases:
  16  the corpus sweep over 256 synthetic int16 WAVs (1.5-35 s, about 0.9 h)
      with 'fused_i16', 'fused_bf16' and 'fused': audio-h/s, stage busy
      times, link rate; resume skips everything; records against per-file
-     extract_mfcc_change
+     extract_mfcc_change; the decode time with the native loader (the
+     default) and with the Python reader
  17  frontend-mode times: the four kernels beside their plain versions at
      128 × 30 s on int16 rows (and fused_mel_f32's time there), mfcc_change
      end to end per spectrum, peak memory
@@ -142,6 +144,24 @@ Phases:
      the CSV against the curves, the interactive HTML, the sinc and Burg
      kernels launched, pyin's f0 through both Viterbi kernels, and each
      feature's extract_feature latency
+ 29  the sweep's tracker extras, the loaders, the distributed paths and the
+     CLI's sweep: (a) phase 16's corpus with mod_cepstr, mfcc39, f0, envelope
+     and formants ('fused', native loader): audio-h/s, stages, launches of
+     fused_mel_f32, mfcc_tail_f32, sinc_refine_f32 and burg_lpc_f32, the
+     native loader given every file, resume, 12 records against each file
+     alone on the card (formants and bandwidths on the file's row of its
+     batch, resampled as the sweep resamples it, to 95 % within 0.05 Hz;
+     that row within 1e-6 of the file resampled alone); f0 by pyin over 32 files (both Viterbi kernels) and
+     RMSpraat over 8; (b) the native and Python loaders decode all 256 files
+     alike, with their seconds; (c) dryrun.py's certifications over NCCL at
+     world = the cards here (2 and 4 too where the cards exist), and on a
+     world of one sharded_mfcc_change at 128 x 15-30 s and
+     sharded_longform_mfcc_change on phase 20's hour against their unsharded
+     results, then the per-shard step for four shards of the hour in turn
+     against whole-file; (d) the CLI's sweep as two manifest shards, whose
+     union equals (a)'s mod_cepstr records. The kernels line carries each
+     kernel's launches in (a) (the Viterbi kernels': the pyin sweep's) as
+     ``extras_sweep_launches``
 
 ``--frontend DIR`` runs none of these phases. It drives the package of the
 checkout at DIR instead of this one's, builds its kernels, times its
@@ -180,8 +200,10 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import ExitStack, contextmanager
 from dataclasses import replace
+from fractions import Fraction
 from pathlib import Path
 
 import numpy as np
@@ -203,6 +225,7 @@ FRONTEND_ROOT = package_root(sys.argv[1:])
 sys.path.insert(0, str(FRONTEND_ROOT or Path(__file__).resolve().parent))
 
 import modulation_mfcc_tpu_torch as mt  # noqa: E402
+from modulation_mfcc_tpu_torch.io import native  # noqa: E402
 from modulation_mfcc_tpu_torch.io.wav import resample  # noqa: E402
 from modulation_mfcc_tpu_torch.kernels import _build  # noqa: E402
 from modulation_mfcc_tpu_torch.kernels import burg as BK  # noqa: E402
@@ -212,6 +235,7 @@ from modulation_mfcc_tpu_torch.kernels import viterbi as VK  # noqa: E402
 from modulation_mfcc_tpu_torch.ops import lpc as L  # noqa: E402
 from modulation_mfcc_tpu_torch.ops import pitch as P  # noqa: E402
 from modulation_mfcc_tpu_torch.ops import yin as Y  # noqa: E402
+from modulation_mfcc_tpu_torch.ops.resample import resample_poly_device  # noqa: E402
 from modulation_mfcc_tpu_torch.parallel.batch import batched_mfcc_change  # noqa: E402
 from modulation_mfcc_tpu_torch.parallel import streaming  # noqa: E402
 from modulation_mfcc_tpu_torch.parallel.corpus import CorpusSweep, sweep_mfcc_change  # noqa: E402
@@ -1555,6 +1579,11 @@ def sweep_phase(dev, card: str) -> None:
             print(f"[16] resume: second run processed {again['items']} files; {len(picks)} records vs per-file "
                   f"extract_mfcc_change: max-abs {err:.3e} (bar 1e-5)")
             check(err <= 1e-5, f"sweep {spec} records vs per-file")
+        py = sweep_mfcc_change(paths, CorpusSweep(os.path.join(tmp, "python_loader"), cfg=cfg, spectrum="fused",
+                                                  device=dev, use_native_loader=False))
+        print(f"[16] decode_busy_s of the 'fused' sweep: native loader (the default) {rep['stages']['decode_busy_s']} "
+              f"s, Python reader {py['stages']['decode_busy_s']} s; the Python reader's sweep "
+              f"{py['audio_hours_per_sec']} audio-h/s, stages {py['stages']} ({card})")
 
 
 def modes_times(dev, rows: torch.Tensor, n: int, launches: dict, card: str) -> list[dict]:
@@ -1765,7 +1794,6 @@ def peak_gib(fn) -> tuple[float, float]:
 def longform(dev, card: str) -> None:
     """Phase 20: one hour at 48 kHz, resampled on the card, through the
     chunked route; its times and peak memory beside the whole-file route."""
-    from modulation_mfcc_tpu_torch.ops.resample import resample_poly_device
 
     cfg = FLAGSHIP
     n48 = LONG_SR * LONG_SECONDS
@@ -2684,6 +2712,348 @@ def analysis_workflow(dev, card: str) -> None:
     workbench_session(dev, card)
 
 
+# ---------------------------------------------------------------------------
+# Phase 29: the sweep's tracker extras, the loaders, the distributed paths, the CLI's sweep
+# ---------------------------------------------------------------------------
+
+EXTRAS = ("mod_cepstr", "mfcc39", "f0", "envelope", "formants")
+COUNTERS = (ff.LAUNCHES, SK.LAUNCHES, BK.LAUNCHES, VK.LAUNCHES)
+EXTRA_KERNELS = ("fused_mel_f32", "mfcc_tail_f32", "sinc_refine_f32", "burg_lpc_f32")
+
+
+def launch_counts() -> dict[str, int]:
+    return {k: v for c in COUNTERS for k, v in c.items()}
+
+
+@contextmanager
+def native_spy():
+    """The paths the native loader was given while the block runs."""
+    orig, submitted = native.NativeBatchLoader, []
+
+    class Spy(orig):
+        def submit(self, index: int, path: str) -> None:
+            submitted.append(path)
+            super().submit(index, path)
+
+    native.NativeBatchLoader = Spy
+    try:
+        yield submitted
+    finally:
+        native.NativeBatchLoader = orig
+
+
+def voiced_agreement(rec: np.ndarray, single: np.ndarray) -> tuple[float, float]:
+    """(share of frames with the same voicing, max |Hz| where both are voiced)."""
+    both = (rec > 0) & (single > 0)
+    return float(((rec > 0) == (single > 0)).mean()), float(np.abs(rec[both] - single[both]).max(initial=0.0))
+
+
+def formants_close(got: np.ndarray, want: np.ndarray) -> tuple[bool, float]:
+    """(same NaN pattern, share of frames whose values all lie within 0.05 Hz)."""
+    same = np.array_equal(np.isfinite(got), np.isfinite(want))
+    close = np.all(np.where(np.isfinite(want), np.abs(got - want), 0.0) <= 0.05, axis=-1)
+    return same, float(close.mean())
+
+
+def record_vs_per_file(rec, y: np.ndarray, dev, t_pad: int, xr_row: torch.Tensor) -> dict[str, float]:
+    """One extras-sweep record against its file computed alone on the card.
+    The sweep frames f0 and formants on the grid of the bucket's padded
+    width (Praat's centred grid, as in the JAX sweep), so those, and mfcc39
+    (whose deltas and CMVN see the padded frames), are held against the file
+    alone zero-padded to that width, a batch of one: batched_f0,
+    resample_poly_device → batched_formants, mfcc_trajectories →
+    mfcc_with_deltas. The RMS envelope is frame-exact: extract_envelope.
+    Formants and bandwidths are held on ``xr_row``, the file's row of its
+    batch resampled as corpus._extras resamples it, through batched_formants
+    alone; that row against the file resampled alone, and the formants of
+    the file resampled alone, are held too (bandwidths there reported).
+    extract_f0's raw first pass (post-processing off), on the file's own
+    grid, is reported beside them."""
+    cfg, sr = FLAGSHIP, FLAGSHIP.signal_sample_rate
+    out = {}
+    n = len(y)
+    pcm = torch.zeros((1, t_pad), dtype=torch.int16, device=dev)
+    pcm[0, :n] = torch.tensor(np.round(y * 32768.0).astype(np.int16), device=dev)
+    one = mt.AudioBatch(pcm.float() * 2.0**-15, torch.tensor([n], device=dev))
+    f0, valid = mt.batched_f0(one, sr, mt.F0Config())
+    single = f0[0, : int(valid[0].sum())].cpu().numpy()
+    check(single.shape == rec["f0"].shape, "f0 record length")
+    out["f0_voicing"], out["f0_hz"] = voiced_agreement(rec["f0"], single)
+    raw, _ = mt.extract_f0(y, sr, mt.F0Config(interpUnvoiced=None, outFilter=None), device=dev)
+    raw = np.nan_to_num(raw.cpu().numpy(), nan=0.0)[: len(single)]
+    both = (raw > 0) & (single > 0)
+    out["own_grid_voicing"] = float(((raw > 0) == (single > 0)).mean())
+    out["own_grid_median_hz"] = float(np.median(np.abs(raw[both] - single[both]))) if both.any() else 0.0
+    amp, _ = mt.extract_envelope(y, sr, device=dev)
+    nvf = len(rec["envelope"])
+    out["envelope"] = float(np.abs(rec["envelope"] - amp[:nvf].cpu().numpy()).max())
+    mask = mt.frame_validity_mask(one.lengths, t_pad, cfg)
+    m39 = mt.mfcc_with_deltas(mt.mfcc_trajectories(pcm, cfg, frame_mask=mask), frame_mask=mask, normalize=True)
+    nvf = len(rec["mfcc39"])
+    out["mfcc39"] = float(np.abs(rec["mfcc39"] - m39[0, :nvf].cpu().numpy()).max())
+    fm = mt.FormantConfig()
+    up, dn = formant_ratio(sr, fm)
+    alone = resample_poly_device(one.samples, up, dn)
+    out["resample"] = float((alone[0] - xr_row).abs().max())
+    nvf = len(rec["formants"])
+    for prefix, xr in (("", xr_row[None]), ("alone_", alone)):
+        fr, bw = mt.batched_formants(xr, sr * up / dn, fm)
+        for key, got in (("formants", fr), ("formant_bw", bw)):
+            same, close = formants_close(rec[key], got[0, :nvf].cpu().numpy())
+            out[f"{prefix}{key}_nan_same"], out[f"{prefix}{key}_close"] = same, close
+    return out
+
+
+def formant_ratio(sr: float, fm: mt.FormantConfig) -> tuple[int, int]:
+    """corpus._extras's resampling ratio for formants: 2 × max_formant
+    over the rate, as a Fraction of denominator at most 1000."""
+    frac = Fraction(int(round(2.0 * fm.max_formant)), int(round(sr))).limit_denominator(1000)
+    return frac.numerator, frac.denominator
+
+
+def resampled_rows(paths: list[str], picks: set[str], sweep: CorpusSweep, dev) -> dict[str, torch.Tensor]:
+    """Each picked file's row of its sweep batch, resampled for formants as
+    corpus._extras resamples the whole batch: the sweep's own decode and
+    bucketing (corpus._decode_stream, corpus._bucketed_batches), then
+    resample_poly_device on the dequantized [B, T] batch."""
+    from modulation_mfcc_tpu_torch.parallel.corpus import _bucketed_batches, _decode_stream
+    from modulation_mfcc_tpu_torch.utils.helpers import dequantize_samples
+
+    up, dn = formant_ratio(sweep.cfg.signal_sample_rate, sweep.formant_cfg or mt.FormantConfig())
+    rows = {}
+    for group, arrays, _ in _bucketed_batches(_decode_stream(paths, sweep), sweep, {"assemble_busy_s": 0.0}, False):
+        if picks.intersection(group):
+            xr = resample_poly_device(dequantize_samples(torch.as_tensor(arrays["samples"], device=dev)), up, dn)
+            rows.update({p: xr[k] for k, p in enumerate(group) if p in picks})
+    return rows
+
+
+def extras_sweep(dev, card: str, paths: list[str], hours: float, tmp: str) -> tuple[dict, str]:
+    """Phase 29 (a): the sweep with every extra over the 256-file corpus,
+    'fused', native loader; its launches and output directory."""
+    from modulation_mfcc_tpu_torch.io.wav import load_channel
+    from modulation_mfcc_tpu_torch.parallel.corpus import _output_names
+    from modulation_mfcc_tpu_torch.utils.helpers import round_up_to_multiple
+
+    cfg = FLAGSHIP
+    out = os.path.join(tmp, "extras")
+    sweep = CorpusSweep(out, cfg=cfg, spectrum="fused", features=EXTRAS, device=dev)
+    reset(*COUNTERS)
+    with native_spy() as submitted:
+        rep = sweep_mfcc_change(paths, sweep)
+    launches = launch_counts()
+    print(f"[29] extras sweep {list(EXTRAS)} 'fused' over {len(paths)} files ({hours:.4f} h): {rep['items']} files, "
+          f"{rep['audio_hours']} h in {rep['elapsed_sec']} s = {rep['audio_hours_per_sec']} audio-h/s; stages "
+          f"{rep['stages']}; launches {({k: launches[k] for k in EXTRA_KERNELS})} ({card})")
+    print(f"[29] the native loader ran: NativeBatchLoader was given {len(submitted)} of {len(paths)} files, in "
+          f"manifest order: {submitted == paths}")
+    check(rep["items"] == len(paths) and all(launches[k] > 0 for k in EXTRA_KERNELS), "extras sweep launches")
+    check(submitted == paths, "the extras sweep decoded every file with the native loader")
+    again = sweep_mfcc_change(paths, sweep)
+    print(f"[29] resume: a second run processed {again['items']} files")
+    check(again["items"] == 0, "resumed extras sweep skips every finished file")
+
+    names = _output_names(paths)
+    picks = [paths[i] for i in np.random.default_rng(291).choice(len(paths), 12, replace=False)]
+    rows = resampled_rows(paths, set(picks), sweep, dev)
+    worst: dict[str, float] = {}
+    for p in picks:
+        rec = np.load(os.path.join(out, names[p]))
+        y = load_channel(p, cfg.signal_sample_rate).astype(np.float32)
+        got = record_vs_per_file(rec, y, dev, round_up_to_multiple(len(y), sweep.bucket_multiple), rows[p])
+        for k, v in got.items():
+            worst[k] = min(worst.get(k, v), v) if k.endswith(("voicing", "close", "same")) else max(worst.get(k, v), v)
+    print(f"[29] 12 records vs each file alone on the card (worst of 12): f0 voicing agreement "
+          f"{worst['f0_voicing']:.4f} (bar 1), voiced Hz {worst['f0_hz']:.3e} (bar 0.05); envelope "
+          f"{worst['envelope']:.3e} (bar 1e-6); mfcc39 {worst['mfcc39']:.3e} (bar 1e-5); the file's row of its batch "
+          f"resampled as the sweep resamples it, through batched_formants alone: formants NaN pattern same "
+          f"{bool(worst['formants_nan_same'])}, frames within 0.05 Hz {worst['formants_close']:.4f}; bandwidths NaN "
+          f"pattern same {bool(worst['formant_bw_nan_same'])}, frames within 0.05 Hz {worst['formant_bw_close']:.4f} "
+          f"(bars 0.95); that row against the file resampled alone: max-abs {worst['resample']:.3e} (bar 1e-6; "
+          f"the resampling GEMM at another row count); the file resampled alone: formants NaN pattern same "
+          f"{bool(worst['alone_formants_nan_same'])}, within 0.05 Hz {worst['alone_formants_close']:.4f} (bar 0.95), "
+          f"bandwidths NaN pattern same {bool(worst['alone_formant_bw_nan_same'])}, within 0.05 Hz "
+          f"{worst['alone_formant_bw_close']:.4f} (reported: Burg in float32 turns the resampling's last bits into "
+          f"bandwidths); extract_f0's raw pass on the file's own grid: voicing agreement "
+          f"{worst['own_grid_voicing']:.4f}, median |Hz| {worst['own_grid_median_hz']:.3f} (reported, no bar: another "
+          f"frame grid)")
+    check(worst["f0_voicing"] == 1.0 and worst["f0_hz"] <= 0.05 and worst["envelope"] <= 1e-6
+          and worst["mfcc39"] <= 1e-5 and worst["formants_nan_same"] and worst["formants_close"] >= 0.95
+          and worst["formant_bw_nan_same"] and worst["formant_bw_close"] >= 0.95 and worst["resample"] <= 1e-6
+          and worst["alone_formants_nan_same"] and worst["alone_formants_close"] >= 0.95
+          and worst["alone_formant_bw_nan_same"], "extras records vs per file")
+
+    for label, subset, kw in (("f0 pyin", paths[:32], dict(features=("mod_cepstr", "f0"),
+                                                            f0_cfg=mt.F0Config(method="pyin"))),
+                              ("envelope RMSpraat", paths[:8], dict(features=("mod_cepstr", "envelope"),
+                                                                     amp_cfg=mt.AmplitudeConfig(method="RMSpraat")))):
+        d = os.path.join(tmp, label.replace(" ", "_"))
+        reset(*COUNTERS)
+        rep = sweep_mfcc_change(subset, CorpusSweep(d, cfg=cfg, spectrum="fused", device=dev, **kw))
+        got = {k: v for k, v in launch_counts().items() if v}
+        key = kw["features"][1]
+        recs = [np.load(os.path.join(d, names[p])) for p in subset]
+        ok = all(np.isfinite(r[key]).all() and len(r[key]) == len(r[key + "_times"]) > 0 for r in recs)
+        print(f"[29] sweep {label} over {len(subset)} files: {rep['audio_hours']} h in {rep['elapsed_sec']} s = "
+              f"{rep['audio_hours_per_sec']} audio-h/s; launches {got}; records finite with their times: {ok} ({card})")
+        check(rep["items"] == len(subset) and ok, f"sweep {label}")
+        if key == "f0":
+            check(got.get("viterbi_fwd_f32", 0) > 0 and got.get("viterbi_bwd_f32", 0) > 0, "pyin sweep Viterbi kernels")
+            launches["viterbi_fwd_f32"], launches["viterbi_bwd_f32"] = got.get("viterbi_fwd_f32", 0), got.get("viterbi_bwd_f32", 0)
+        else:
+            y = load_channel(subset[0], cfg.signal_sample_rate).astype(np.float32)
+            amp, _ = mt.extract_envelope(y, cfg.signal_sample_rate, mt.AmplitudeConfig(method="RMSpraat"), device=dev)
+            err = float(np.abs(recs[0]["envelope"] - amp.cpu().numpy()).max())
+            print(f"[29] RMSpraat record vs extract_envelope of its file: max-abs {err:.3e} dB (bar 1e-5)")
+            check(recs[0]["envelope"].shape == tuple(amp.shape) and err <= 1e-5, "RMSpraat record vs per file")
+    return launches, out
+
+
+def loaders(paths: list[str]) -> None:
+    """Phase 29 (b): the native and Python loaders decode every file alike."""
+    from modulation_mfcc_tpu_torch.parallel.corpus import _decode_stream
+
+    decoded, secs = {}, {}
+    for use in (True, False):
+        t0 = time.perf_counter()
+        decoded[use] = list(_decode_stream(paths, CorpusSweep("unused", cfg=FLAGSHIP, use_native_loader=use)))
+        secs[use] = time.perf_counter() - t0
+    same = [p for p, _ in decoded[True]] == [p for p, _ in decoded[False]] == paths and all(
+        np.array_equal(a.astype(np.float32) / (32768.0 if a.dtype == np.int16 else 1.0), b)
+        for (_, a), (_, b) in zip(decoded[True], decoded[False]))
+    dtypes = sorted({str(a.dtype) for _, a in decoded[True]})
+    print(f"[29] loaders over {len(paths)} files: native {secs[True]:.3f} s ({dtypes}), Python {secs[False]:.3f} s "
+          f"(host clock); every file decoded identically: {same}")
+    check(same, "native and Python loaders decode alike")
+
+
+def distributed(dev, card: str, tmp: str) -> None:
+    """Phase 29 (c): the dry run's certifications over NCCL at world =
+    the cards here; sharded_mfcc_change and sharded_longform_mfcc_change at
+    full size on a world of one; the per-shard step for four shards of the
+    hour on this card."""
+    from modulation_mfcc_tpu_torch import dryrun
+    from modulation_mfcc_tpu_torch.parallel.batch import sharded_mfcc_change
+    from modulation_mfcc_tpu_torch.parallel.mesh import make_mesh
+    from modulation_mfcc_tpu_torch.parallel.multislice import init_distributed
+
+    n_gpu = torch.cuda.device_count()
+    worlds = [w for w in (n_gpu, 2, 4) if w <= n_gpu]
+    for w in sorted(set(worlds)):
+        t0 = time.perf_counter()
+        errs = dryrun.dryrun_multichip(w, "cuda")
+        print(f"[29] dryrun certify over NCCL, world {w}: every check passed in {time.perf_counter() - t0:.3f} s "
+              f"(host clock, spawn included); max-abs {errs}")
+    if n_gpu < 2:
+        print(f"[29] worlds of 2 and 4 ranks not run: {n_gpu} card here, NCCL needs a card a rank")
+
+    cfg, sr = FLAGSHIP, FLAGSHIP.signal_sample_rate
+    check(init_distributed(f"file://{tmp}/store", 1, 0, backend="nccl"), "world of one")
+    try:
+        mesh = make_mesh(1, 1, device_type="cuda")
+        lengths = np.random.default_rng(29).integers(15 * sr, SECONDS * sr + 1, size=BATCH)
+        y = speechlike_on_card(BATCH * SECONDS * sr, sr, seed=29).reshape(BATCH, SECONDS * sr)
+        y = y * (torch.arange(SECONDS * sr, device=dev)[None, :] < torch.tensor(lengths, device=dev)[:, None])
+        batch = mt.AudioBatch(y, torch.tensor(lengths, device=dev))
+        tot, mask, mean = sharded_mfcc_change(batch, cfg, mesh, masked_fir=True)
+        ref, ref_mask = batched_mfcc_change(batch, cfg, masked_fir=True)
+        ref_mean = float((ref.double() * ref_mask).sum() / ref_mask.sum())
+        err = float(((tot - ref) * mask).abs().max())
+        ms_s = cuda_ms(lambda: sharded_mfcc_change(batch, cfg, mesh, masked_fir=True))
+        ms_b = cuda_ms(lambda: batched_mfcc_change(batch, cfg, masked_fir=True))
+        print(f"[29] sharded_mfcc_change on [{BATCH}, {SECONDS * sr}] (15-30 s) at world 1 vs batched_mfcc_change: "
+              f"max-abs {err:.3e} (bar 0), masks equal {bool(torch.equal(mask, ref_mask))}, corpus mean "
+              f"{float(mean):.6f} vs {ref_mean:.6f}; {ms_s:.3f} ms vs {ms_b:.3f} ms ({card})")
+        check(err == 0.0 and torch.equal(mask, ref_mask) and abs(float(mean) - ref_mean) <= 1e-5 * abs(ref_mean),
+              "sharded_mfcc_change at world 1")
+        del y, batch, tot, mask, ref, ref_mask
+        torch.cuda.empty_cache()
+
+        y16 = mt.resample_device(speechlike_on_card(LONG_SR * LONG_SECONDS, LONG_SR, seed=20), LONG_SR, sr)
+        whole = mt.mfcc_change(y16, cfg)
+        got = streaming.sharded_longform_mfcc_change(y16, cfg, mesh)
+        err = float((got - whole).abs().max())
+        ms_l = cuda_ms(lambda: streaming.sharded_longform_mfcc_change(y16, cfg, mesh), reps=3)
+        ms_w = cuda_ms(lambda: mt.mfcc_change(y16, cfg), reps=3)
+        print(f"[29] sharded_longform_mfcc_change on the hour at world 1 [{got.shape[0]}] vs whole-file 'fused': "
+              f"max-abs {err:.3e} (bar 1e-5); {ms_l:.3f} ms vs {ms_w:.3f} ms whole-file (medians of 3) ({card})")
+        check(got.shape == whole.shape and err <= 1e-5, "time-sharded hour vs whole-file")
+    finally:
+        torch.distributed.destroy_process_group()
+
+    n_t = 4
+    g = streaming.longform_shards(y16.shape[0], cfg, n_t)
+    reset(ff.LAUNCHES)
+    t0 = time.perf_counter()
+    mels = [streaming.shard_mel(streaming.extended_shard(y16, i, g), i, n_t, g.t_true, cfg) for i in range(n_t)]
+    peak = torch.stack([p for _, p in mels]).max()
+    m = torch.cat([streaming.shard_mfcc(mel, peak, i, n_t, g.t_true, cfg) for i, (mel, _) in enumerate(mels)])
+    got = streaming._trajectory_postprocess(m[: g.nf_total], cfg)
+    torch.cuda.synchronize()
+    err = float((got - whole).abs().max())
+    print(f"[29] per-shard step, {n_t} shards of the hour in turn on this card (halos {g.pad} + {g.halo_r} samples "
+          f"sliced from the whole signal, the max of the 4 peaks): max-abs {err:.3e} from whole-file (bar 1e-5); "
+          f"launches {dict(ff.LAUNCHES)}; {time.perf_counter() - t0:.3f} s (host clock)")
+    check(err <= 1e-5 and ff.LAUNCHES["fused_mel_f32"] == n_t and ff.LAUNCHES["mfcc_tail_f32"] == n_t,
+          "four-shard step vs whole-file")
+
+
+def cli_shards(card: str, root: str, paths: list[str], extras_out: str, tmp: str) -> None:
+    """Phase 29 (d): the CLI's sweep in two manifest shards at the flagship
+    configuration (a reference-schema JSON), run together; their union
+    against the extras sweep's mod_cepstr records."""
+    from modulation_mfcc_tpu_torch.parallel.corpus import _output_names
+
+    outs = [os.path.join(tmp, f"cli{k}") for k in (0, 1)]
+    config = mt.save_config(mt.PipelineConfig(mfcc=FLAGSHIP), os.path.join(tmp, "flagship.json"))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "modulation_mfcc_tpu_torch.cli", "sweep", root, "--out", outs[k],
+                               "--config", config, "--num-shards", "2", "--shard-id", str(k)],
+                              cwd=Path(__file__).resolve().parent,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for k in (0, 1)]
+    results = [p.communicate(timeout=600) for p in procs]
+    wall = time.perf_counter() - t0
+    for k, (p, (stdout, stderr)) in enumerate(zip(procs, results)):
+        check(p.returncode == 0, f"cli sweep shard {k} exited {p.returncode}: {stderr[-2000:]}")
+        print(f"[29] cli sweep --num-shards 2 --shard-id {k}: {stdout.strip().splitlines()[-1]}")
+    names = set(_output_names(paths).values())
+    union = [set(n for n in os.listdir(o) if n.endswith(".npz")) for o in outs]
+    covered = (union[0] | union[1]) == names and not (union[0] & union[1])
+    err = 0.0
+    for o, shard in zip(outs, union):
+        for n in shard:
+            got, want = np.load(os.path.join(o, n)), np.load(os.path.join(extras_out, n))
+            check(np.array_equal(got["times"], want["times"]), f"cli record {n} times")
+            err = max(err, float(np.abs(got["mod_cepstr"] - want["mod_cepstr"]).max()))
+    print(f"[29] cli shards: {len(union[0])} + {len(union[1])} records in {wall:.3f} s (host clock, both processes "
+          f"together); union equals the extras sweep's {len(names)} records: {covered}; mod_cepstr max-abs "
+          f"{err:.3e} (bar 1e-5) ({card})")
+    check(covered and err <= 1e-5, "cli shards vs the sweep")
+
+
+def sweep_extras_and_distributed(dev, card: str) -> dict:
+    """Phase 29; the launches of its extras sweep (the pyin sweep's for the
+    Viterbi kernels)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "wav")
+        paths, hours = write_corpus(root, 256, FLAGSHIP.signal_sample_rate, seed=16)
+        launches, extras_out = extras_sweep(dev, card, paths, hours, tmp)
+        loaders(paths)
+        torch.cuda.empty_cache()
+        distributed(dev, card, tmp)
+        torch.cuda.empty_cache()
+        cli_shards(card, root, paths, extras_out, tmp)
+    return launches
+
+
+def build_native_loader() -> tuple[Path, float]:
+    """The native decode loader's library, built and loaded; (path, seconds)."""
+    t0 = time.perf_counter()
+    so = native.build()
+    native.load_library()
+    return so, time.perf_counter() - t0
+
+
 def ptxas_lines(report: str, bases: tuple[str, ...]) -> list[str]:
     """'kernel<template args>: registers, spill bytes' for each entry
     function of ptxas's report whose name holds one of ``bases``."""
@@ -2752,10 +3122,16 @@ def main() -> int:
           f"float32_matmul_precision={torch.get_float32_matmul_precision()}")
 
     t0 = time.perf_counter()
-    lib_path = _build.build(verbose=True)
-    _build.load_library()
-    print(f"[1] built {lib_path.name} from {CSRC}/*.cu (nvcc {' '.join(_build.NVCC_FLAGS)}, one process "
-          f"per source) in {time.perf_counter() - t0:.3f} s")
+    with ThreadPoolExecutor(1) as pool:
+        # the native decode loader's g++ build runs beside nvcc, so no phase times it inside a sweep
+        loader_build = pool.submit(build_native_loader)
+        lib_path = _build.build(verbose=True)
+        _build.load_library()
+        print(f"[1] built {lib_path.name} from {CSRC}/*.cu (nvcc {' '.join(_build.NVCC_FLAGS)}, one process "
+              f"per source) in {time.perf_counter() - t0:.3f} s")
+        so, native_s = loader_build.result()
+    print(f"[1] built {so.name} from {native.SOURCE.relative_to(native.SOURCE.parents[1])} (g++ "
+          f"{' '.join(native.GXX_FLAGS)}, beside nvcc) and loaded it in {native_s:.3f} s")
     for line in ptxas_lines(lib_path.with_suffix(".ptxas.txt").read_text(),
                             ("viterbi_fwd_f32_kernel", "viterbi_bwd_f32_kernel", "fused_mel_tc_kernel",
                              "mfcc_tail_kernel", "sinc_refine_f32_kernel", "burg_lpc_f32_kernel")):
@@ -2780,6 +3156,9 @@ def main() -> int:
     envelope_times(dev, card)
     torch.cuda.empty_cache()
     analysis_workflow(dev, card)
+    torch.cuda.empty_cache()
+    p29 = sweep_extras_and_distributed(dev, card)
+    rows = [r | {"extras_sweep_launches": p29.get(r["name"], 0)} for r in rows]
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

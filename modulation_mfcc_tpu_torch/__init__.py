@@ -29,6 +29,13 @@ Entry points compute on CUDA unless given ``device="cpu"`` (or a CPU tensor).
     s = mt.AnalysisSession("a.wav", cfg)                        # the workbench: curves, peaks, EMA, CSV
     s.add_curve("mod_cepstr"); s.set_region(0.5, 1.5); s.analyze_max_peaks(); s.export_csv("a.csv")
 
+The corpus sweep (``parallel/corpus.py``: ``sweep_mfcc_change`` with
+tracker extras, the native decode loader ``io/native.py``, and ``mesh=``)
+and the sharded paths on torch.distributed (``parallel/{mesh,multislice}.py``,
+``parallel/batch.sharded_mfcc_change``,
+``parallel/streaming.sharded_longform_mfcc_change``; ``dryrun.py`` spawns a
+world to check them) are imported from their modules.
+
 The CUDA kernels build with nvcc at first use (kernels/_build.py).
 ``modmfcc-torch verify`` (cli.py) holds every tracker to its float64 oracle
 (oracle.py).

@@ -1,8 +1,10 @@
-"""Command-line interface of the PyTorch/CUDA port: extract / plot / verify / info.
+"""Command-line interface of the PyTorch/CUDA port: extract / plot / sweep / verify / info.
 
     modmfcc-torch extract a.wav b.wav --features mod_cepstr,f0 [--derivation 1] [--config cfg.json] [--out feats.csv]
     modmfcc-torch plot a.wav --out fig.png [--features mod_cepstr,envelope,f0] [--textgrid a.TextGrid]
                        [--region 0.5 1.5]
+    modmfcc-torch sweep corpus/ --out feats/ [--features mod_cepstr,mfcc39,f0,envelope,formants]
+                        [--spectrum fused_i16] [--batch-size 32] [--no-resume] [--num-shards 4 --shard-id 0]
     modmfcc-torch verify [--sr 16000] [--seconds 2] [--wav FILE] [--device cuda|cpu]
     modmfcc-torch info
 
@@ -37,6 +39,20 @@ def main(argv: list[str] | None = None) -> int:
 
     sub.add_parser("info", help="print the torch/CUDA versions, the cards and the kernel build")
 
+    sw = sub.add_parser("sweep", help="corpus sweep: many WAVs → npz feature store")
+    sw.add_argument("inputs", nargs="+", help="WAV files or directories")
+    sw.add_argument("--out", required=True, help="output directory")
+    sw.add_argument("--config", help="reference-schema JSON config file")
+    sw.add_argument("--batch-size", type=int, default=32)
+    sw.add_argument("--spectrum", default="auto",
+                    choices=("auto", "fft", "matmul", "fused", "fused_bf16", "fused_x3", "fused_i16", "fused_i24"),
+                    help="'auto' = fused")
+    sw.add_argument("--features", default="mod_cepstr", help="comma list: mod_cepstr, mfcc39, f0, envelope, formants")
+    sw.add_argument("--no-resume", action="store_true")
+    sw.add_argument("--num-shards", type=int, default=1, help="multi-process scale-out: total manifest shards")
+    sw.add_argument("--shard-id", type=int, default=0, help="this process's shard index (0-based)")
+    sw.add_argument("--device", default="cuda", help=device_help)
+
     pv = sub.add_parser("plot", help="render an analysis figure for a WAV")
     pv.add_argument("wav")
     pv.add_argument("--out", required=True, help="output PNG path")
@@ -50,7 +66,8 @@ def main(argv: list[str] | None = None) -> int:
 
     from modulation_mfcc_tpu_torch import runner
 
-    commands = {"extract": runner.run_extract, "plot": runner.run_plot, "verify": runner.run_verify}
+    commands = {"extract": runner.run_extract, "plot": runner.run_plot, "sweep": runner.run_sweep,
+                "verify": runner.run_verify}
     return commands[args.cmd](args) if args.cmd in commands else runner.run_info()
 
 

@@ -1,20 +1,24 @@
 """Padded batches of variable-length audio and the batched modulation
 cepstrum: one padded [B, T] batch (or hop rows [B, rows, hop], the corpus
 sweep's upload format) in, each utterance's result on its valid frames out,
-equal to its single-file result there."""
+equal to its single-file result there; :func:`sharded_mfcc_change` splits
+the batch's rows over the ranks of a mesh (torch.distributed)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from modulation_mfcc_tpu_torch.models.config import MfccConfig
 from modulation_mfcc_tpu_torch.models.modulation import mfcc_change
 from modulation_mfcc_tpu_torch.ops.framing import n_frames_centered
+from modulation_mfcc_tpu_torch.parallel.mesh import DeviceMesh, all_reduce, axis_index, axis_size, gather_rows, shard_rows
 from modulation_mfcc_tpu_torch.utils.helpers import dequantize_samples, resolve_device, round_up_to_multiple
 
-__all__ = ["AudioBatch", "pad_batch", "dequantize_samples", "frame_validity_mask", "batched_mfcc_change"]
+__all__ = ["AudioBatch", "pad_batch", "dequantize_samples", "frame_validity_mask", "batched_mfcc_change",
+           "sharded_mfcc_change"]
 
 
 @dataclass
@@ -95,3 +99,36 @@ def batched_mfcc_change(
         samples, cfg, frame_lengths=nf_real, spectrum=spectrum, masked_fir=masked_fir, n_samples=n_samples,
     )
     return tot, mask
+
+
+def sharded_mfcc_change(
+    batch: AudioBatch, cfg: MfccConfig, mesh: DeviceMesh, *, spectrum: str = "fused", masked_fir: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Data-parallel :func:`batched_mfcc_change` over the mesh's "data" axis:
+    (tot [B, NF], mask [B, NF], corpus mean change over valid frames).
+
+    Every rank passes the whole batch, on its own device (``cuda:LOCAL_RANK``
+    under NCCL, the CPU under gloo), and computes its block of rows; ``tot``
+    and ``mask`` are all-gathered, so every rank returns the whole batch,
+    and the mean's two sums (Σ tot·mask, Σ mask, float64) are one all-reduce.
+    A batch whose size the axis does not divide is padded with copies of its
+    last row to ceil(B / n_data) rows a rank; their results are cut off and
+    enter no sum."""
+    return _sharded_mfcc_change(batch, cfg, mesh, ("data",), spectrum=spectrum, masked_fir=masked_fir)
+
+
+def _sharded_mfcc_change(batch: AudioBatch, cfg: MfccConfig, mesh: DeviceMesh, dims: tuple[str, ...], *,
+                         spectrum: str, masked_fir: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    if batch.samples.ndim != 2:
+        raise ValueError("sharded_mfcc_change takes flat [B, T] samples")
+    n_blocks, block = axis_size(mesh, dims), axis_index(mesh, dims)
+    b = batch.batch_size
+    per = -(-b // n_blocks)
+    lengths = torch.as_tensor(batch.lengths, device=batch.samples.device)
+    local = AudioBatch(shard_rows(batch.samples, n_blocks, block), shard_rows(lengths, n_blocks, block))
+    tot, mask = batched_mfcc_change(local, cfg, spectrum=spectrum, masked_fir=masked_fir)
+    real = (block * per + torch.arange(per, device=tot.device) < b).to(tot.dtype)[:, None]
+    sums = torch.stack([(tot.double() * mask * real).sum(), (mask.double() * real).sum()])
+    all_reduce(sums, mesh, dims, dist.ReduceOp.SUM)
+    mean = (sums[0] / torch.clamp(sums[1], min=1.0)).to(tot.dtype)
+    return gather_rows(tot, mesh, dims)[:b], gather_rows(mask, mesh, dims)[:b], mean

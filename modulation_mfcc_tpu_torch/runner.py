@@ -1,8 +1,9 @@
-"""CLI command implementations (extract, plot, verify, info).
+"""CLI command implementations (extract, plot, sweep, verify, info).
 
-``run_extract`` and ``run_plot`` are the JAX package's, over this package's
-pipeline (models/pipeline.py) and workbench (models/workbench.py), on the
-device ``--device`` names (CUDA by default).
+``run_extract``, ``run_plot`` and ``run_sweep`` are the JAX package's, over
+this package's pipeline (models/pipeline.py), workbench
+(models/workbench.py) and corpus sweep (parallel/corpus.py), on the device
+``--device`` names (CUDA by default).
 
 ``run_verify`` is the parity harness of the JAX package's
 ``modulation_mfcc_tpu/runner.py``: every tracker of this package against
@@ -102,6 +103,38 @@ class _SurfaceEmit(dict):
     def __setitem__(self, key, val):
         super().__setitem__(key, val)
         print(json.dumps({"surface": key, **val}), flush=True)
+
+
+def run_sweep(args) -> int:
+    """Corpus sweep over WAV files and directories (searched recursively for
+    ``*.wav``) into an ``.npz`` feature store; prints the throughput report.
+    ``--num-shards``/``--shard-id``: this process sweeps its round-robin
+    share of the manifest (parallel/multislice.shard_manifest)."""
+    import glob
+    import os
+
+    from modulation_mfcc_tpu_torch.parallel.corpus import CorpusSweep, sweep_mfcc_change
+    from modulation_mfcc_tpu_torch.parallel.multislice import shard_manifest
+
+    paths = []
+    for inp in args.inputs:
+        if os.path.isdir(inp):
+            paths.extend(sorted(glob.glob(os.path.join(inp, "**", "*.wav"), recursive=True)))
+        else:
+            paths.append(inp)
+    if not paths:
+        print("no input WAVs found", file=sys.stderr)
+        return 1
+    if args.num_shards > 1:
+        paths = shard_manifest(paths, args.num_shards, args.shard_id)
+    cfg = _load_pipeline_config(args.config)
+    sweep = CorpusSweep(
+        out_dir=args.out, cfg=cfg.mfcc, batch_size=args.batch_size, spectrum=args.spectrum,
+        resume=not args.no_resume, features=tuple(f.strip() for f in args.features.split(",") if f.strip()),
+        device=args.device,
+    )
+    print(json.dumps(sweep_mfcc_change(paths, sweep)))
+    return 0
 
 
 def _np(t) -> np.ndarray:

@@ -3,6 +3,7 @@ scan-based masked filters, the batched modulation cepstrum (FIR and scan
 filters, uniform lengths, int16 hop rows), the WAV reader, the host
 pipeline and the resumable sweep itself. The JAX side runs as its own tests
 run it (Pallas in interpret mode)."""
+import functools
 import json
 import os
 import wave
@@ -284,10 +285,13 @@ def test_obs(capsys):
 
 @pytest.fixture(scope="module")
 def tiny_corpus(tmp_path_factory):
+    return make_tiny_corpus(tmp_path_factory.mktemp("corpus"))
+
+
+def make_tiny_corpus(d) -> list[str]:
     """int16 WAVs at 10 kHz (one of 2 s, below the 744 frames of the FIR
     filters; two with the same basename in two folders), one at 16 kHz that
-    needs resampling, and one corrupt file."""
-    d = tmp_path_factory.mktemp("corpus")
+    needs resampling, and one corrupt file, in directory ``d``."""
     paths = []
     for name, seconds, sr in (("a", 4.5, 10_000), ("x/c", 4.2, 10_000), ("y/c", 4.8, 10_000),
                               ("short", 2.0, 10_000), ("r16k", 5.0, 16_000)):
@@ -353,12 +357,130 @@ def test_sweep_records_equal_per_file(tiny_corpus, tmp_path, spectrum):
         np.testing.assert_allclose(rec["mod_cepstr"], want.numpy(), rtol=0, atol=1e-5)
 
 
+EXTRA_FEATURES = ("mod_cepstr", "f0", "envelope", "mfcc39", "formants")  # tests/test_corpus.py:46
+
+
+def assert_records_close(got, want, f0_atol: float = 1e-4, env_atol: float = 1e-6) -> None:
+    """Two sweeps' records of one file: the same keys, shapes and times;
+    values to each track's bar (mod_cepstr 1e-5, mfcc39 1e-4, envelope
+    ``env_atol``, f0 ``f0_atol`` Hz with the same voicing; formants and bandwidths
+    the same NaN pattern and ≥ 95 % of frames within 0.05 Hz, the
+    batched-formant tests' rule for float32 Burg at silence boundaries)."""
+    assert sorted(got.files) == sorted(want.files)
+    bars = {"mod_cepstr": 1e-5, "mfcc39": 1e-4, "envelope": env_atol, "formants": 0.05, "formant_bw": 0.05}
+    for k in want.files:
+        a, b = got[k], want[k]
+        assert a.shape == b.shape, k
+        if k.endswith("times"):
+            np.testing.assert_allclose(a, b, rtol=1e-12, atol=0, err_msg=k)
+        elif k == "f0":
+            np.testing.assert_array_equal(a > 0, b > 0)
+            np.testing.assert_allclose(a, b, rtol=0, atol=f0_atol)
+        elif k in ("formants", "formant_bw"):
+            np.testing.assert_array_equal(np.isfinite(a), np.isfinite(b), err_msg=k)
+            close = np.all(np.where(np.isfinite(b), np.abs(a - b), 0.0) <= bars[k], axis=-1)
+            assert close.mean() >= 0.95, (k, close.mean())
+        else:
+            np.testing.assert_allclose(a, b, rtol=0, atol=bars[k], err_msg=k)
+
+
+def assert_dirs_close(got_dir, want_dir, **kw) -> None:
+    names = sorted(os.listdir(want_dir))
+    assert sorted(os.listdir(got_dir)) == names
+    for name in names:
+        if name.endswith(".npz"):
+            assert_records_close(np.load(os.path.join(got_dir, name)), np.load(os.path.join(want_dir, name)), **kw)
+
+
+@pytest.mark.parametrize("variant", ["extras", "pyin_rmspraat"])
+def test_extras_sweep_matches_jax(tiny_corpus, tmp_path, variant):
+    """The sweep with tracker extras against the JAX sweep on the same
+    corpus, spectrum 'fft' on both sides, record by record and key by key
+    (assert_records_close; f0 to the trackers' 0.05 Hz): the features of
+    tests/test_corpus.py:46, and f0 by pyin with RMSpraat envelopes (per
+    file, in dB: test_torch_envelope.py's 0.01 dB) on the first two files."""
+    from modulation_mfcc_tpu.models import config as jax_config
+    from modulation_mfcc_tpu_torch.models.config import AmplitudeConfig, F0Config
+
+    paths, feats, kw, jkw, env_atol = tiny_corpus, EXTRA_FEATURES, {}, {}, 1e-6
+    if variant == "pyin_rmspraat":
+        paths, feats, env_atol = tiny_corpus[:2], ("mod_cepstr", "f0", "envelope"), 0.01
+        kw = dict(f0_cfg=F0Config(method="pyin"), amp_cfg=AmplitudeConfig(method="RMSpraat"))
+        jkw = dict(f0_cfg=jax_config.F0Config(method="pyin"), amp_cfg=jax_config.AmplitudeConfig(method="RMSpraat"))
+    common = dict(batch_size=3, bucket_multiple=32_768, spectrum="fft", features=feats)
+    rep = corpus.sweep_mfcc_change(paths, corpus.CorpusSweep(str(tmp_path / "port"), cfg=MfccConfig(), device="cpu",
+                                                             **common, **kw))
+    jrep = jax_corpus.sweep_mfcc_change(paths, jax_corpus.CorpusSweep(
+        str(tmp_path / "jax"), cfg=JaxMfccConfig(), use_native_loader=False, **common, **jkw))
+    assert rep["items"] == jrep["items"] == len(paths) - (variant == "extras")
+    assert_dirs_close(tmp_path / "port", tmp_path / "jax", f0_atol=0.05, env_atol=env_atol)
+    rec = np.load(tmp_path / "port" / "a.npz")
+    assert {"f0", "f0_times", "envelope", "envelope_times"} <= set(rec.files)
+
+
+def test_native_loader_sweep_equals_python_loader(tiny_corpus, tmp_path, capsys):
+    """The native loader (the default) and the Python reader give the same
+    records (the native int16 passthrough and the Python grid check meet on
+    the same int16 batches; the 16 kHz file resampled with the same taps),
+    and the native loader ran."""
+    from modulation_mfcc_tpu_torch.io import native
+
+    if not native.native_available():
+        pytest.skip("native library unavailable (no toolchain)")
+    common = dict(cfg=MfccConfig(), batch_size=3, bucket_multiple=32_768, device="cpu", features=EXTRA_FEATURES,
+                  spectrum="fft")
+    assert corpus.CorpusSweep("x").use_native_loader
+    calls = []
+
+    class Spy(native.NativeBatchLoader):
+        def submit(self, index, path):
+            calls.append(path)
+            super().submit(index, path)
+
+    orig = native.NativeBatchLoader
+    native.NativeBatchLoader = Spy
+    try:
+        corpus.sweep_mfcc_change(tiny_corpus, corpus.CorpusSweep(str(tmp_path / "native"), **common))
+    finally:
+        native.NativeBatchLoader = orig
+    assert calls == tiny_corpus
+    corpus.sweep_mfcc_change(tiny_corpus, corpus.CorpusSweep(str(tmp_path / "py"), use_native_loader=False, **common))
+    assert "corpus.native_loader_unavailable" not in capsys.readouterr().err
+    assert_dirs_close(tmp_path / "native", tmp_path / "py", f0_atol=1e-6)
+
+
+def test_cli_sweep_shard_matches_jax_cli(tiny_corpus, tmp_path, monkeypatch):
+    """`sweep --features mod_cepstr,f0 --num-shards 2 --shard-id 1` of the
+    port's CLI (on the CPU) writes the JAX CLI's records for that shard.
+    The JAX side reads with the Python reader, so it never runs
+    `make -C native` beside tests/test_native.py in another worker."""
+    from modulation_mfcc_tpu.cli import main as jax_main
+    from modulation_mfcc_tpu_torch.cli import main
+
+    monkeypatch.setattr(jax_corpus, "CorpusSweep", functools.partial(jax_corpus.CorpusSweep, use_native_loader=False))
+    args = ["sweep", *tiny_corpus, "--spectrum", "fft", "--features", "mod_cepstr,f0", "--batch-size", "2",
+            "--num-shards", "2", "--shard-id", "1"]
+    assert main([*args, "--out", str(tmp_path / "port"), "--device", "cpu"]) == 0
+    assert jax_main([*args, "--out", str(tmp_path / "jax")]) in (0, None)
+    assert_dirs_close(tmp_path / "port", tmp_path / "jax", f0_atol=0.05)
+    assert len(os.listdir(tmp_path / "port")) == 1 + len(tiny_corpus[1::2]) - (tiny_corpus[2] in tiny_corpus[1::2])
+
+
+def test_resume_reads_the_done_list_once(tmp_path, monkeypatch):
+    """Resuming a manifest whose files are all finished reads
+    _done.txt once, not once a path, and processes nothing."""
+    paths = [f"/corpus/spk{i % 100:02d}/utt{i:06d}.wav" for i in range(2_000)]
+    (tmp_path / "_done.txt").write_text("\n".join(paths) + "\n")
+    calls = []
+    load_done = corpus._load_done
+    monkeypatch.setattr(corpus, "_load_done", lambda sweep: calls.append(sweep) or load_done(sweep))
+    rep = corpus.sweep_mfcc_change(paths, corpus.CorpusSweep(str(tmp_path), device="cpu", features=EXTRA_FEATURES,
+                                                             use_native_loader=False))
+    assert rep["items"] == 0 and len(calls) == 1
+
+
 def test_sweep_unported_options_raise(tmp_path):
+    """An unknown feature raises before any file is read."""
     paths = ["/nonexistent.wav"]
-    for kw, item in ((dict(use_native_loader=True), "A.16"), (dict(mesh=object()), "A.16"),
-                     (dict(features=("mod_cepstr", "mfcc39")), "A.16"), (dict(features=("f0",)), "A.16"),
-                     (dict(features=("envelope",)), "A.16"), (dict(features=("formants",)), "A.16")):
-        with pytest.raises(NotImplementedError, match=item):
-            corpus.sweep_mfcc_change(paths, corpus.CorpusSweep(str(tmp_path), device="cpu", **kw))
     with pytest.raises(ValueError, match="feature"):
         corpus.sweep_mfcc_change(paths, corpus.CorpusSweep(str(tmp_path), device="cpu", features=("bogus",)))

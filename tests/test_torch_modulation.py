@@ -153,18 +153,19 @@ def test_params_from_jax_whole_slice(noise, name):
 
 
 def test_unported_options_raise(noise, tmp_path):
-    """The sweep's native loader (A.16) still raises; Savitzky-Golay (A.5),
-    the 'fir'/'sg' out-filters (A.6) and the scan-based masked filters (A.7)
+    """Savitzky-Golay (A.5), the 'fir'/'sg' out-filters (A.6), the
+    scan-based masked filters (A.7) and the sweep's native loader (A.16)
     are ported, so they run and give finite results of the right shape
-    (tests/test_torch_savgol_fir.py holds them to JAX and the oracle)."""
+    (tests/test_torch_savgol_fir.py holds the filters to JAX and the
+    oracle; tests/test_torch_native.py and test_torch_corpus.py the
+    loader)."""
     from modulation_mfcc_tpu_torch.parallel.corpus import CorpusSweep, sweep_mfcc_change
 
     y = torch.tensor(noise)
     for kw in (dict(diffMethod="sg"), dict(outFilter="fir", outFiltLen=31), dict(outFilter="sg", outFiltLen=31)):
         tot = mfcc_change(y, MfccConfig(**kw))
         assert tot.shape == (2, 801) and bool(torch.isfinite(tot).all())
-    with pytest.raises(NotImplementedError, match="ROADMAP A.16"):
-        sweep_mfcc_change([], CorpusSweep(str(tmp_path), use_native_loader=True, device="cpu"))
+    assert sweep_mfcc_change([], CorpusSweep(str(tmp_path), use_native_loader=True, device="cpu"))["items"] == 0
     tot = mfcc_change(y, MfccConfig(), frame_lengths=torch.tensor([801, 801]))
     np.testing.assert_allclose(tot.numpy(), mfcc_change(y, MfccConfig()).numpy(), rtol=0, atol=1e-5)
 

@@ -163,13 +163,72 @@ def test_analysis_workflow_runs_without_jax(tmp_path):
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
+def test_sweep_and_distributed_paths_run_without_jax(tmp_path):
+    """With jax and the JAX package made unimportable, the native loader
+    (io.native), the meshes (parallel.mesh, parallel.multislice) and the dry
+    run (dryrun) import, and run: the sweep with every extra through the
+    native loader, the CLI's sweep on one manifest shard, and a gloo world
+    of one (init_distributed with an init_method) through
+    sharded_mfcc_change and sharded_longform_mfcc_change."""
+    proc = _run(
+        "import sys, importlib.abc\n"
+        "class NoJax(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        "        if name in ('jax', 'jaxlib', 'modulation_mfcc_tpu') or name.startswith(('jax.', 'jaxlib.',\n"
+        "                                                                             'modulation_mfcc_tpu.')):\n"
+        "            raise ImportError(f'no module named {name}')\n"
+        "sys.meta_path.insert(0, NoJax())\n"
+        "import os, numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        "import modulation_mfcc_tpu_torch as mt\n"
+        "from modulation_mfcc_tpu_torch import dryrun\n"
+        "from modulation_mfcc_tpu_torch.io import native\n"
+        "from modulation_mfcc_tpu_torch.io.wav import write_wav\n"
+        "from modulation_mfcc_tpu_torch.parallel import batch, corpus, mesh, multislice, streaming\n"
+        "from modulation_mfcc_tpu_torch.cli import main\n"
+        f"d = {str(tmp_path)!r}\n"
+        "t = np.arange(15000) / 10000\n"
+        "paths = []\n"
+        "for i in range(3):\n"
+        "    paths.append(f'{d}/u{i}.wav')\n"
+        "    write_wav(paths[-1], 0.6 * np.sin(2 * np.pi * (130 + 20 * i) * t) * (0.5 + 0.5 * np.sin(6 * t)), 10000)\n"
+        "assert native.native_available()\n"
+        "rep = corpus.sweep_mfcc_change(paths, corpus.CorpusSweep(d + '/feats', device='cpu', spectrum='fft',\n"
+        "    features=('mod_cepstr', 'mfcc39', 'f0', 'envelope', 'formants')))\n"
+        "rec = np.load(d + '/feats/u1.npz')\n"
+        "assert rep['items'] == 3 and rec['mfcc39'].shape[1] == 39 and abs(np.median(rec['f0'][rec['f0'] > 0]) - 150) < 5\n"
+        "assert main(['sweep', d, '--out', d + '/s1', '--num-shards', '2', '--shard-id', '1', '--device', 'cpu',\n"
+        "             '--spectrum', 'fft']) == 0\n"
+        "assert sorted(os.listdir(d + '/s1')) == ['_done.txt', 'u1.npz']\n"
+        "assert multislice.init_distributed() is False\n"
+        "assert multislice.init_distributed(f'file://{d}/store', 1, 0, backend='gloo')\n"
+        "m = mesh.make_mesh(1, 1, device_type='cpu')\n"
+        "b = mt.pad_batch([np.sin(t * 700), np.sin(t[:9000] * 900)], device='cpu')\n"
+        "tot, mask, mean = batch.sharded_mfcc_change(b, mt.MfccConfig(), m)\n"
+        "ref, _ = batch.batched_mfcc_change(b, mt.MfccConfig())\n"
+        "assert torch.equal(tot, ref) and bool(torch.isfinite(mean))\n"
+        "y = torch.tensor(np.sin(np.arange(30000) / 7.0), dtype=torch.float32)\n"
+        "got = streaming.sharded_longform_mfcc_change(y, mt.MfccConfig(), m)\n"
+        "assert float((got - mt.mfcc_change(y, mt.MfccConfig())).abs().max()) < 1e-5\n"
+        "assert callable(dryrun.spawn) and set(dryrun.PROGRAMS) == {'certify', 'mesh_sweep'}\n"
+        "torch.distributed.destroy_process_group()\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib', 'modulation_mfcc_tpu.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    assert proc.returncode == 0 and proc.stdout.strip().splitlines()[-1] == "ok", proc.stderr
+
+
 def test_kernel_module_imports_without_nvcc_or_triton():
-    """Importing the kernel module builds nothing and needs no toolchain."""
+    """Importing the kernel modules, the native loader's binding and the dry
+    run builds nothing and needs no toolchain."""
     proc = _run(
         "import sys; sys.modules['triton'] = None\n"
         "from modulation_mfcc_tpu_torch.kernels import fused_frontend as ff, _build, burg, sinc_refine, viterbi\n"
         "import modulation_mfcc_tpu_torch\n"
-        "assert _build.load_library.cache_info().currsize == 0\n"
+        "from modulation_mfcc_tpu_torch import dryrun\n"
+        "from modulation_mfcc_tpu_torch.io import native\n"
+        "assert _build.load_library.cache_info().currsize == 0 and native.load_library.cache_info().currsize == 0\n"
         "assert all(m._lib.cache_info().currsize == 0 for m in (ff, burg, sinc_refine, viterbi))\n"
         "print('ok')\n",
         PATH="/nonexistent",
@@ -249,7 +308,8 @@ def test_analysis_workflow_cuda_request_without_cuda_raises(tmp_path):
             with pytest.raises(RuntimeError, match="CUDA"):
                 call(**kw)
         call(device="cpu")
-    for cmd in (["extract", wav, "--out", str(tmp_path / "e.csv")], ["plot", wav, "--out", str(tmp_path / "p.png")]):
+    for cmd in (["extract", wav, "--out", str(tmp_path / "e.csv")], ["plot", wav, "--out", str(tmp_path / "p.png")],
+                ["sweep", wav, "--out", str(tmp_path / "feats")]):
         with pytest.raises(RuntimeError, match="CUDA"):
             main(cmd)
     m = torch.zeros((1, 20, 13))
