@@ -17,9 +17,14 @@ Phases:
      and a line each for the Viterbi kernels', the tensor-core frontend's
      (fused_mel_bf16 is mode 3, fused_mel_f32 mode 4), the tail's,
      sinc_refine_f32's and burg_lpc_f32's (C, elements a lane)
-     instantiations; each frontend mode's staging plan (tc_plan) and shared
-     memory a block at both configurations and at phase 24's, and the
-     blocks an SM holds; the sinc tiling at the
+     instantiations, and the fold kernels' (fused_mel_fold_kernel<mode>,
+     the FFMA folds: f32 is 0, bf16 1; fused_mel_fold_tc_kernel<m-tiles>,
+     x3, the compact plan 1 m-tile); each frontend mode's staging plan
+     (tc_plan) and shared memory a block at both configurations and at
+     phase 24's, the x3 fold's plan (fold_plan) at the flagship, at 256
+     bands and at phase 18's compact-plan geometries, and the blocks an SM
+     holds; the
+     sinc tiling at the
      tracker's bands and the Burg plan (C, warps a frame, blocks an SM)
      over nw 2..3,632
   2  MFCC kernels vs plain versions on the card, both configurations; the
@@ -87,9 +92,15 @@ Phases:
  17  frontend-mode times: the four kernels beside their plain versions at
      128 × 30 s on int16 rows (and fused_mel_f32's time there), mfcc_change
      end to end per spectrum, peak memory
- 18  fold kernels (fused_mel_fold_f32, _bf16, _x3) vs plain versions on the
-     card, 4 × 30 s at both configurations and at 256 mel bands; the f32
-     fold vs fused_mel_f32
+ 18  fold kernels (fused_mel_fold_f32 on the CUDA cores, _bf16 and _x3 on the
+     tensor cores) vs plain versions on the card, 4 × 30 s at both
+     configurations and at 256 mel bands, the bf16 and x3 folds also at 32
+     kHz with hop 320 and window 1280, at 48 kHz with hop 384 and window
+     3840 and at 48 kHz with hop 720 and window 1440 (x3 takes the compact
+     plan there; the last is the widest span, which bf16's FFMA block fits
+     by staging its span as bf16); x3 against the float64 sums of its own
+     products (mode_error_ok), each line with its plan; the f32 fold vs
+     fused_mel_f32
  19  the fold path at full size: fused_mel_frontend(fold=True) → peak →
      mfcc_tail on 128 × 30 s at 16 kHz, one launch of each fold kernel,
      against the unfolded MFCC and, through the trajectory tail, the
@@ -102,7 +113,11 @@ Phases:
  21  modulation_spectrum at 128 × 30 s at 16 kHz with 'fused' and
      'fused_bf16' against the float64 'fft' path, one launch of each kernel
  22  times: the fold kernels beside their plain versions and the unfolded
-     kernels, mfcc_tail_f32 at full size in both layouts on float32 and
+     kernels (each then held to phase 18's bars at full size; a miss fails
+     the script after its last phase; for bf16 also, printed, how its plain
+     version's DFT sums compare with a row-order FFMA chain and how far the
+     float64 DFT's mel lies from it), mfcc_tail_f32
+     at full size in both layouts on float32 and
      bf16 mel (checked against its plain version), the fold path and the
      modulation spectrum end to end, bounds
  23  the f32 MFCC's distance from the float64 'fft' MFCC at 128 x 30 s
@@ -167,7 +182,8 @@ Phases:
 checkout at DIR instead of this one's, builds its kernels, times its
 frontend kernels at 128 × 30 s at 16 kHz as the frontend rows below are
 timed (fused_mel_f32 on float32 audio of phase 5's and phase 22's batches,
-seeds 0 and 19, in both orders; the f32 fold on both; bf16, x3, i16, i24
+seeds 0 and 19, in both orders; the f32 fold on both, the bf16 and x3
+folds on seed 19; bf16, x3, i16, i24
 and f32 on phase 15's int16 hop rows), mfcc_tail_f32 in both layouts on the
 float32 mel of seed 0 and the bf16 mel of the rows, 'fused' mfcc_change on
 the float32 audio of seed 0 and 'fused_i16' and 'fused_bf16' mfcc_change
@@ -258,7 +274,7 @@ SOURCES = {
     "fused_mel_i24": f"{CSRC}/fused_frontend_tc.cu",
     "fused_mel_fold_f32": f"{CSRC}/fused_frontend_fold.cu",
     "fused_mel_fold_bf16": f"{CSRC}/fused_frontend_fold.cu",
-    "fused_mel_fold_x3": f"{CSRC}/fused_frontend_fold.cu",
+    "fused_mel_fold_x3": f"{CSRC}/fused_frontend_fold_tc.cu",
 }
 REPLACES = {
     "fused_mel_f32": "modulation_mfcc_tpu/pallas/fused_frontend.py:990",
@@ -282,12 +298,26 @@ MODES = ("bf16", "x3", "i16", "i24")  # the frontend modes of phases 14-17
 SPECTRUM = {"f32": "fused", "bf16": "fused_bf16", "x3": "fused_x3", "i16": "fused_i16", "i24": "fused_i24"}
 SPECTRUM_ALG = {v: k for k, v in SPECTRUM.items()}
 FOLD_MODES = ff.FOLD_ALGORITHMS  # the fold kernels of phases 18-22
+TC_FOLDS = ("x3",)               # the tensor-core fold (fold_plan)
+WIDE_FOLDS = ("bf16", "x3")      # the folds phase 18 also runs at FOLD_COMPACT's wide spans
 LONG_SR, LONG_SECONDS = 48_000, 3600
 
 
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+LATE_FAILURES: list[str] = []  # checks whose failure stops the script at its end (check_late)
+
+
+def check_late(ok: bool, what: str) -> None:
+    """A check of a result that nothing later uses: a failure is printed now
+    and fails the script after its last phase, so the other phases still
+    report."""
+    if not ok:
+        print(f"check failed (the script fails at its end): {what}")
+        LATE_FAILURES.append(what)
 
 
 def card_line() -> str:
@@ -1383,16 +1413,19 @@ def mode_error_ok(alg: str, mel_k, bmax_k, mel_p, bmax_p, exact=None) -> tuple[b
     mel's own rounding) by up to 2^-8: bars 2 ulps, at most 0.1 % of entries
     beyond 1 ulp, and a peak within 2^-8.
 
-    fused_mel_x3 (``exact`` given: x3_exact_mel of the same input) runs on
+    fused_mel_x3 and fused_mel_fold_x3 (``exact`` given: x3_exact_mel, or
+    x3_exact_fold_mel, of the same input) run on
     the tensor cores, which sum each 16-row MMA in an order and rounding of
-    their own; the plain version sums in cuBLAS FP32 GEMMs. At the top_db
+    their own; the plain versions sum in cuBLAS FP32 GEMMs. At the top_db
     floor each of the two is up to ~2e-4 from the float64 sums of the same
     x3 products (measured on the H100 at 16 kHz, phases 14 and 17: plain
     1.7e-4 on 4 × 30 s and 2.3e-4 on 128 × 30 s, the kernel 1.3e-4 and
     1.7e-4), so the two differ by up to the sum of both, beyond 1e-4. Its mel bar is therefore
     restated against those float64 sums: the kernel no further from them
     than twice the plain version; its peak bar stays 2^-16 of the plain
-    version's."""
+    version's. The x3 fold's half-length sums leave its plain version
+    7.9e-5 and the kernel 1.1e-4 from float64 on 4 × 30 s at 16 kHz (the
+    H100), 1.2e-4 apart: the same restated bar holds it."""
     mel_rel, peak_rel, _ = mel_errors(mel_k.float(), bmax_k, mel_p.float(), bmax_p)
     if alg == "f32" and exact is not None:
         rel_k, peak_k, _ = mel_errors(mel_k, bmax_k, *exact)
@@ -1677,23 +1710,88 @@ def fold_plain(audio, cfg, alg, w):
                                        eff_pad=ff.eff_pad(cfg.n_fft, cfg.win_length), algorithm=alg)
 
 
+# Phase 18's geometries beyond the flagship's, where fold_plan takes the
+# compact plan (32 frames a block) for x3, whose FFMA kernel's span
+# overflowed shared memory there: 32 kHz with tStep 0.01 and winLen 0.04,
+# JAX's own fold example of hop 384 with a 3,840-sample window at n_fft 4096
+# (here at 48 kHz), and 48 kHz with tStep 0.015 and winLen 0.03, a span of
+# 46,801 samples, which the bf16 fold's FFMA block fits by staging it as bf16
+FOLD_COMPACT = (("32 kHz, hop 320, window 1280", mt.MfccConfig(signal_sample_rate=32_000, tStep=0.01, winLen=0.04,
+                                                               n_fft=2048)),
+                ("48 kHz, hop 384, window 3840", mt.MfccConfig(signal_sample_rate=48_000, tStep=0.008, winLen=0.08,
+                                                               n_fft=4096)),
+                ("48 kHz, hop 720, window 1440", mt.MfccConfig(signal_sample_rate=48_000, tStep=0.015, winLen=0.03,
+                                                               n_fft=2048)))
+
+
+def fold_plan_text(cfg: mt.MfccConfig, alg: str) -> str:
+    if alg not in TC_FOLDS:
+        return "FFMA"
+    plan = ff.fold_plan(alg, cfg.hop_length, cfg.win_length, cfg.n_mels)
+    return f"{'full' if plan.frames == ff.BLOCK_FRAMES else 'compact'} plan {tuple(plan)}"
+
+
+def x3_exact_fold_mel(audio: torch.Tensor, cfg: mt.MfccConfig, w: dict) -> torch.Tensor:
+    """The fold counterpart of x3_exact_mel: the mel of the folded x3
+    arithmetic with every sum taken in float64. s and d as the plain version
+    forms them (fold_operands, float32), split into bf16 (hi, lo); hi·Whi +
+    hi·Wlo + lo·Whi against wc and ws summed in float64; the power rounded
+    to float32 and split; the mel's three products summed in float64; one
+    utterance at a time."""
+
+    def x3(x: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
+        hi = x.to(torch.bfloat16).float()
+        lo = (x - hi).to(torch.bfloat16).double()
+        hi, planes = hi.double(), planes.double()
+        return (hi @ planes[0] + hi @ planes[1]) + lo @ planes[0]
+
+    out = []
+    for b in range(audio.shape[0]):
+        s, d = ff.fold_operands(audio[b : b + 1], w["wc"].shape[-2], hop=cfg.hop_length,
+                                eff_pad=ff.eff_pad(cfg.n_fft, cfg.win_length), algorithm="x3")
+        re, im = x3(s, w["wc"]), x3(d, w["ws"])
+        im = tnf.pad(im, (0, re.shape[-1] - im.shape[-1]))
+        out.append(x3((re * re + im * im).float(), w["melw"]))
+    return torch.cat(out)
+
+
+def fold_exact(audio: torch.Tensor, cfg: mt.MfccConfig, alg: str, w: dict):
+    """The float64 evaluation a fold is held against (mode_error_ok):
+    x3_exact_fold_mel for x3; None for bf16 and f32, which are held to their
+    plain versions alone."""
+    return x3_exact_fold_mel(audio, cfg, w) if alg == "x3" else None
+
+
 def fold_kernel_checks(dev) -> None:
     """Phase 18: the fold kernels against their plain versions (the
-    unfolded modes' bars, mode_error_ok), and the f32 fold against
-    fused_mel_f32 on the same audio (the JAX fold test's bar: 1e-5 of the
-    largest mel), also at 256 mel bands (two groups of 128)."""
+    unfolded modes' bars, mode_error_ok; x3 as fused_mel_x3, against the
+    float64 sums of its own products), each under the plan it takes, and
+    the f32 fold against fused_mel_f32 on the same audio (the JAX fold
+    test's bar: 1e-5 of the largest mel), also at 256 mel bands (two groups
+    of 128); the bf16 and x3 folds also at FOLD_COMPACT, where x3 takes the
+    compact plan."""
     for name, cfg in (("10k default (packed Nyquist)", DEFAULT_10K), ("16k fmax 8k", FLAGSHIP),
-                      ("16k, 256 mel bands", WIDE)):
+                      ("16k, 256 mel bands", WIDE)) + FOLD_COMPACT:
         sr = cfg.signal_sample_rate
         audio = torch.tensor(speechlike(4, SECONDS * sr, sr, seed=18), device=dev)
-        for alg in FOLD_MODES:
+        compact = any(cfg is c for _, c in FOLD_COMPACT)
+        for alg in WIDE_FOLDS if compact else FOLD_MODES:
             w = fold_weights(cfg, alg, dev)
+            reset(ff.LAUNCHES)
             mel_k, bmax_k = fold_kernel(audio, cfg, alg, w)
-            mel_p, bmax_p = fold_plain(audio, cfg, alg, w)
             torch.cuda.synchronize()
-            ok, text = mode_error_ok(alg, mel_k, bmax_k, mel_p, bmax_p)
-            print(f"[18] {name}: fused_mel_fold_{alg} on {tuple(audio.shape)} vs plain: {text}")
+            check(ff.LAUNCHES[f"fused_mel_fold_{alg}"] == 1, f"fused_mel_fold_{alg} {name} launched")
+            mel_p, bmax_p = fold_plain(audio, cfg, alg, w)
+            ex = fold_exact(audio, cfg, alg, w)
+            ok, text = mode_error_ok(alg, mel_k, bmax_k, mel_p, bmax_p, ex)
+            del ex
+            print(f"[18] {name}: fused_mel_fold_{alg} on {tuple(audio.shape)}, hop {cfg.hop_length}, window "
+                  f"{cfg.win_length}, {fold_plan_text(cfg, alg)} vs plain: {text}")
             check(ok, f"fused_mel_fold_{alg} {name}")
+            del mel_k, bmax_k, mel_p, bmax_p
+            torch.cuda.empty_cache()
+        if compact:
+            continue
         mel_f, _ = fold_kernel(audio, cfg, "f32", fold_weights(cfg, "f32", dev))
         mel_u, _ = mode_kernel(audio, cfg, "f32", mode_weights(cfg, "f32", dev))
         torch.cuda.synchronize()
@@ -1884,6 +1982,35 @@ def modspec(dev, y: torch.Tensor) -> None:
         check(over <= 1.0, "modulation_spectrum fused_bf16 within its MFCC error's bound")
 
 
+def bf16_fold_order_report(y: torch.Tensor, cfg: mt.MfccConfig, w: dict, mel_p: torch.Tensor) -> None:
+    """Why the bf16 fold sums on the CUDA cores (PERF.md §6): the
+    plain version's DFT (an FP32 GEMM) against a row-order FFMA chain,
+    emulated in float64 with a rounding to float32 a row, on utterance 0;
+    and the mel of the float64 DFT (the power rounded as the plain version
+    rounds it, the plain version's mel GEMM) against the plain version's
+    mel, over the batch, in bf16 ulps. Printed, not gated."""
+    k = w["wc"].shape[-2]
+    pad = ff.eff_pad(cfg.n_fft, cfg.win_length)
+    s, d = (ff._bf16r(v)[0] for v in ff.fold_operands(y[:1], k, hop=cfg.hop_length, eff_pad=pad, algorithm="bf16"))
+    equal = []
+    for x, wt in ((s, w["wc"]), (d, w["ws"])):
+        acc = torch.zeros((x.shape[0], wt.shape[1]), dtype=torch.float64, device=x.device)
+        for u in range(k):
+            acc = (acc + x[:, u : u + 1].double() * wt[u].double()).float().double()
+        equal.append(float((acc.float() == x @ wt).float().mean()))
+    rows = []
+    for b in range(y.shape[0]):
+        s, d = (ff._bf16r(v).double() for v in ff.fold_operands(y[b : b + 1], k, hop=cfg.hop_length, eff_pad=pad,
+                                                                 algorithm="bf16"))
+        re, im = s @ w["wc"].double(), d @ w["ws"].double()
+        im = tnf.pad(im, (0, re.shape[-1] - im.shape[-1]))
+        rows.append((ff._bf16r((re * re + im * im).float()) @ w["melw"]).to(torch.bfloat16))
+    ulps, share = bf16_ulps(torch.cat(rows), mel_p)
+    print(f"[22] fused_mel_fold_bf16's plain version: its DFT sums equal a row-order FFMA chain's in {equal[0]:.6f} "
+          f"(re) and {equal[1]:.6f} (im) of utterance 0's entries; the float64 DFT's mel is {ulps:.2f} bf16 ulp from "
+          f"it, {share:.2e} of entries beyond 1 ulp")
+
+
 def fold_times(dev, y: torch.Tensor, launches: dict, card: str) -> list[dict]:
     """Phase 22: the kernel rows of the fold kernels, the frame-major tail's
     time, and the new paths end to end."""
@@ -1895,10 +2022,13 @@ def fold_times(dev, y: torch.Tensor, launches: dict, card: str) -> list[dict]:
         w = fold_weights(cfg, alg, dev)
         mel_k, bmax_k = fold_kernel(y, cfg, alg, w)
         mel_p, bmax_p = fold_plain(y, cfg, alg, w)
-        ok, text = mode_error_ok(alg, mel_k, bmax_k, mel_p, bmax_p)
+        ex = fold_exact(y, cfg, alg, w)
+        ok, text = mode_error_ok(alg, mel_k, bmax_k, mel_p, bmax_p, ex)
+        del ex
         err = float((mel_k.float() - mel_p.float()).abs().max())
         print(f"[22] {kname} at full size vs plain: {text}; max-abs {err:.3e}")
-        check(ok, f"{kname} at full size")
+        if alg == "bf16":
+            bf16_fold_order_report(y, cfg, w, mel_p)
         del mel_p, bmax_p
         wu = mode_weights(cfg, alg, dev)
         t_k = kernel_ms(lambda: fold_kernel(y, cfg, alg, w))
@@ -1917,8 +2047,10 @@ def fold_times(dev, y: torch.Tensor, launches: dict, card: str) -> list[dict]:
                    + mel_k.numel() * mel_k.element_size() + bmax_k.numel() * 4)
         t_bytes = n_bytes / PEAK_BYTES_S * 1e3
         b = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-        print(f"[22] {kname}: {t_k:.3f} ms, plain {t_p:.3f} ms, unfolded fused_mel_{alg} {t_u:.3f} ms, bound "
-              f"{b[0]:.3f} ms ({b[1]}), {b[0] / t_k:.1%} of it ({card}; {sm_clock()})")
+        print(f"[22] {kname} ({fold_plan_text(cfg, alg)}): {t_k:.3f} ms, plain {t_p:.3f} ms, unfolded "
+              f"fused_mel_{alg} {t_u:.3f} ms, bound {b[0]:.3f} ms ({b[1]}), {b[0] / t_k:.1%} of it; the fold "
+              f"{t_u / t_k:.3f} × as fast as the unfolded kernel ({card}; {sm_clock()})")
+        check_late(ok, f"{kname} at full size")
         rows.append(kernel_row(kname, launches[kname], err, (t_k, t_p), b))
         del mel_k, bmax_k
         torch.cuda.empty_cache()
@@ -2125,6 +2257,10 @@ def frontend_report(root: Path) -> int:
         line(f"fused_mel_f32, float32, seed {s}", lambda: mode_kernel(ys[s], cfg, "f32", w32))
     for s in (0, 19):
         line(f"fused_mel_fold_f32, float32, seed {s}", lambda: fold_kernel(ys[s], cfg, "f32", wf))
+    for alg in ("bf16", "x3"):
+        w = fold_weights(cfg, alg, dev)
+        line(f"fused_mel_fold_{alg}, float32, seed 19", lambda: fold_kernel(ys[19], cfg, alg, w))
+        del w
     dct = torch.tensor(ff.tail_dct(cfg.n_mfcc, cfg.n_mels), device=dev)
 
     def tail_lines(what: str, mel_bmax) -> None:
@@ -3062,7 +3198,8 @@ def ptxas_lines(report: str, bases: tuple[str, ...]) -> list[str]:
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             base = next((b for b in bases if b in mangled), None)
-            name = base and base + "<" + mangled.split(base, 1)[1].split("EEv")[0] + ">"
+            rest = base and mangled.split(base, 1)[1]
+            name = base and (base + "<" + rest.split("EEv")[0] + ">" if rest.startswith("I") else base)
         elif name and "spill stores" in line:
             spills = line.strip()
         elif name and "Used" in line and "registers" in line:
@@ -3104,6 +3241,23 @@ def shared_report() -> None:
         print(f"[1] {label}: plan (frames, shifted, stages, copies, span, mel groups, bytes) and shared memory a "
               f"block at hop {cfg.hop_length}, Kp {kp}, {cfg.n_mels} mel bands (at most {ff.SHARED_MAX}): "
               + "; ".join(parts))
+    fold_geoms = [("16k flagship", FLAGSHIP), ("16k, 256 mel bands", WIDE)] + list(FOLD_COMPACT)
+    for label, cfg in fold_geoms:
+        parts = []
+        for alg in TC_FOLDS:
+            plan = ff.fold_plan(alg, cfg.hop_length, cfg.win_length, cfg.n_mels)
+            check(plan.shared_bytes <= ff.SHARED_MAX, f"fused_mel_fold_{alg} shared memory at {label}")
+            parts.append(f"fused_mel_fold_{alg} {'full' if plan.frames == ff.BLOCK_FRAMES else 'compact'} "
+                         f"{tuple(plan)}, {plan.shared_bytes} bytes "
+                         f"({233_472 // (plan.shared_bytes + 1024)} an SM by shared memory)")
+        for alg in ("f32", "bf16"):
+            n = ff.ffma_fold_bytes(alg, cfg.hop_length, cfg.win_length)
+            check(alg != "bf16" or n <= ff.SHARED_MAX, f"fused_mel_fold_{alg} shared memory at {label}")
+            parts.append(f"fused_mel_fold_{alg} (FFMA) {n} bytes ("
+                         + (f"{233_472 // (n + 1024)} an SM by shared memory)" if n <= ff.SHARED_MAX
+                            else f"above {ff.SHARED_MAX}: the launcher refuses it)"))
+        print(f"[1] {label}: fold plan (frames, stages, span, mel groups, bytes) and shared memory a block at hop "
+              f"{cfg.hop_length}, window {cfg.win_length}, {cfg.n_mels} mel bands: " + "; ".join(parts))
 
 
 def main() -> int:
@@ -3134,7 +3288,8 @@ def main() -> int:
           f"{' '.join(native.GXX_FLAGS)}, beside nvcc) and loaded it in {native_s:.3f} s")
     for line in ptxas_lines(lib_path.with_suffix(".ptxas.txt").read_text(),
                             ("viterbi_fwd_f32_kernel", "viterbi_bwd_f32_kernel", "fused_mel_tc_kernel",
-                             "mfcc_tail_kernel", "sinc_refine_f32_kernel", "burg_lpc_f32_kernel")):
+                             "fused_mel_fold_tc_kernel", "fused_mel_fold_kernel", "mfcc_tail_kernel",
+                             "sinc_refine_f32_kernel", "burg_lpc_f32_kernel")):
         print(f"[1] ptxas {line}")
     shared_report()
     tracker_plans()
@@ -3161,6 +3316,7 @@ def main() -> int:
     rows = [r | {"extras_sweep_launches": p29.get(r["name"], 0)} for r in rows]
     print(json.dumps({"kernels": rows}))
     print(card_line())
+    check(not LATE_FAILURES, f"{len(LATE_FAILURES)} check(s) reported above: {'; '.join(LATE_FAILURES)}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -1,24 +1,21 @@
-// Folded fused MFCC frontend for Hopper (sm_90a): audio -> mel power through
-// the folded real DFT. Plain C launchers, loaded with ctypes
-// (modulation_mfcc_tpu_torch/kernels/_build.py); each returns the
+// Folded fused MFCC frontend for Hopper (sm_90a), f32 and bf16 modes: audio
+// -> mel power through the folded real DFT. Plain C launchers, loaded with
+// ctypes (modulation_mfcc_tpu_torch/kernels/_build.py); each returns the
 // cudaError_t of its launch. All arithmetic runs on the CUDA cores (FFMA, no
-// tensor cores, no fast-math intrinsics).
+// tensor cores, no fast-math intrinsics). The x3 fold runs on the tensor
+// cores (fused_frontend_fold_tc.cu).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include "fused_frontend_common.cuh"
+#include <type_traits>
 
 namespace {
 
-using namespace frontend;
-
 // ---------------------------------------------------------------------------
-// fused_mel_fold_f32, fused_mel_fold_bf16, fused_mel_fold_x3
+// fused_mel_fold_f32, fused_mel_fold_bf16
 //
 // Replace the Pallas folded frontend of modulation_mfcc_tpu/pallas/
 // fused_frontend.py (fused_mel_frontend(fold=True) -> _folded_frontend ->
-// pallas_call at :1096, body _fold_kernel), algorithms 'f32', 'bf16' and
-// 'x3'.
+// pallas_call at :1096, body _fold_kernel), algorithms 'f32' and 'bf16'.
 //
 // The periodic Hann window of the trimmed support (sup samples, even) is
 // symmetric about sup/2, so the windowed real DFT of a frame folds: with a
@@ -32,24 +29,26 @@ using namespace frontend;
 // zero; the u = 0 rows are zero, since the periodic Hann is zero there), and
 // when every bin is live the Nyquist cosine column rides wc's dead DC
 // column. Each block writes the max of mel over its valid frames (< nf).
+// The power is re^2 + im^2 with each product and the sum rounded to nearest
+// (no FMA), as the plain version computes it.
 //
 //   'f32':  FP32 throughout; the DFT sums in steps of kKC = 16 rows, each
 //           step's products into a fresh partial sum that is then added to
 //           the running one, as the plain version does (_stepped_matmul).
 //   'bf16': samples rounded to bf16 as they are staged (the TPU path rounds
 //           the audio before the fold), s and d summed in FP32 and rounded to
-//           bf16 again for the products; power rounded to bf16; wc, ws and
-//           melw arrive rounded; mel stored as bf16, the block max taken over
-//           the FP32 mel.
-//   'x3':   s, d and the power split into bf16 (hi, lo); wc, ws and melw
-//           arrive as [2, ...] (hi, lo) stacks; hi*hi products in one FP32
-//           sum, hi*lo + lo*hi in another (as fused_mel_x3).
+//           bf16 for the products; wc, ws and melw arrive rounded. Each DFT
+//           sum and each mel sum is one FFMA chain in row order, the order of
+//           the plain version's FP32 GEMMs (cuBLAS's FFMA kernels on the
+//           H100): the power, rounded to bf16, then matches the plain
+//           version's bit for bit, where the tensor cores' sums, in any
+//           order tried, moved a mel band across a power of two, two bf16
+//           steps (3 of its ulps) from the plain version (PERF.md §6).
+//           The mel is stored as bf16, the block max taken over the FP32 mel.
 //
-// Bound: FFMA throughput on the CUDA cores (FP32), the bf16 tensor core for
-// 'bf16' and 'x3', the units the modes' arithmetic is made for. A 128 x 30 s
-// batch at 16 kHz (sup 400, 256 live bins) is 158 GFLOP of folded DFT
-// (half the unfolded 315) and 50 GFLOP of mel: about 3.1 ms at 67 TFLOP/s;
-// this kernel runs 'bf16' and 'x3' on the CUDA cores too.
+// Bound: FFMA throughput on the CUDA cores. A 128 x 30 s batch at 16 kHz
+// (sup 400, 256 live bins) is 158 GFLOP of folded DFT (half the unfolded
+// 315) and 50 GFLOP of mel: about 3.1 ms at 67 TFLOP/s.
 //
 // Design: the FFMA design fused_mel_f32 had before it moved to the tensor
 // cores (fused_frontend_tc.cu). A block owns 64
@@ -65,67 +64,195 @@ using namespace frontend;
 // its bin tile (cp.async, double-buffered); a thread keeps an 8-frame by
 // 4-bin tile of re and im of a 128-bin tile in registers, or for f32, which
 // adds the step's partial sums, 8 frames by 2 bins of a 64-bin tile (two
-// blocks an SM). Power, mel and the block max are projected and reduced
-// as fused_frontend_common.cuh's project_tile and write_block do.
+// blocks an SM). bf16 stages the span as bf16 (its samples are bf16
+// values), half the bytes, so its block fits the 227 KB of shared memory up
+// to spans of 79,104 samples (hop 1,200 with a 2,400-sample window); f32
+// fits up to 43,648. Power, mel and the block max are projected and reduced
+// by project_tile and write_block below.
 // ---------------------------------------------------------------------------
+
+// The block geometry: a block owns kBF consecutive frames of one utterance;
+// warp w owns frames 4w..4w+3 and 32+4w..32+4w+3, lane l the bins (and mel
+// columns) l + 32j of a tile.
+constexpr int kBF = 64;        // frames per block
+constexpr int kBT = 128;       // DFT bins per tile (re and im columns each)
+constexpr int kKC = 16;        // contraction rows staged per step
+constexpr int kMelMax = 128;   // mel columns a block holds: a group (the grid's z)
+constexpr int kMelLimit = 512; // mel columns a launch takes: up to four groups
+constexpr int kThreads = 256;
+constexpr int kSharedMax = 232448;  // bytes of shared memory a block may use on the H100
+constexpr int kPitch = kBF + 4;  // row pitch of the [k][frame] and [bin][frame] tiles: 16-byte rows, few bank conflicts
+
+constexpr int kF32 = 0, kBF16 = 1;
+
+// DFT bins a tile holds (re and im columns each). f32 halves the tile: a
+// thread's 8 x 2 running sums and the step's partial sums then take 64
+// registers, which leaves room for two blocks an SM
+template <int MODE> constexpr int kTile = MODE == kF32 ? kBT / 2 : kBT;
+template <int MODE> constexpr int kTileSlice = kKC * 2 * kTile<MODE>;  // floats of one staged basis slice
+template <int MODE> using SpanT = std::conditional_t<MODE == kBF16, __nv_bfloat16, float>;  // a staged sample
+
+__device__ __forceinline__ int owned_frame(int warp, int i) { return (i < 4 ? 0 : 28) + 4 * warp + i; }
+
+__device__ __forceinline__ float bf16r(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// 16-byte global -> shared copy that bypasses registers; zero-fills when !valid
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid)
+{
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 16 : 0));
+}
+
+// The end of bin tile bt, of TB = 32 NJ bins: the thread's re and im sums
+// -> power (bf16: rounded to bf16), written transposed ([bin][frame]) to
+// p_s, which may share space with the staged slices; then the power tile
+// projected onto melw's rows bt..bt+TB-1, columns c0..c0+127 (the block's
+// mel group), into the [kBF][kMelMax] accumulator mel_s, in bin order.
+template <int MODE, int NJ>
+__device__ __forceinline__ void project_tile(const float (&re)[8][NJ], const float (&im)[8][NJ], float* p_s,
+                                             float* mel_s, const float* __restrict__ melw, int bt, int n_mels,
+                                             int c0, int lane, int warp)
+{
+    constexpr int TB = 32 * NJ;
+    __syncthreads();  // every warp is done with the slices the power tile overwrites
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+        float pw[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            const float v = __fadd_rn(__fmul_rn(re[i][j], re[i][j]), __fmul_rn(im[i][j], im[i][j]));
+            pw[i] = MODE == kBF16 ? bf16r(v) : v;
+        }
+        float* row = p_s + (lane + 32 * j) * kPitch + 4 * warp;
+        *reinterpret_cast<float4*>(row) = make_float4(pw[0], pw[1], pw[2], pw[3]);
+        *reinterpret_cast<float4*>(row + 32) = make_float4(pw[4], pw[5], pw[6], pw[7]);
+    }
+    __syncthreads();
+
+    // each thread owns mel_s entries (its 8 frames, mel lane + 32j)
+    float acc[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = mel_s[owned_frame(warp, i) * kMelMax + lane + 32 * j];
+    for (int c = 0; c < TB; ++c) {
+        const float4 p_lo = *reinterpret_cast<const float4*>(p_s + c * kPitch + 4 * warp);
+        const float4 p_hi = *reinterpret_cast<const float4*>(p_s + c * kPitch + 32 + 4 * warp);
+        const float pv[8] = {p_lo.x, p_lo.y, p_lo.z, p_lo.w, p_hi.x, p_hi.y, p_hi.z, p_hi.w};
+        float mw[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int m = c0 + lane + 32 * j;
+            mw[j] = m < n_mels ? __ldg(melw + (size_t)(bt + c) * n_mels + m) : 0.0f;
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], mw[j], acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mel_s[owned_frame(warp, i) * kMelMax + lane + 32 * j] = acc[i][j];
+}
+
+// The end of a block: its valid frames (< nf) of the mel accumulator to
+// mel_out [B, nf, n_mels] columns c0.. (bf16 for 'bf16', rounded to nearest
+// even), and the max over them to bmax[b, blockIdx.x] (mel >= 0, so 0 is
+// neutral): stored with one mel group, else merged by atomicMax on the bits
+// (which order as the values for non-negative floats) into a zeroed bmax.
+// red_s: kThreads/32 floats.
+template <int MODE>
+__device__ __forceinline__ void write_block(const float* mel_s, void* __restrict__ mel_out,
+                                            float* __restrict__ bmax, float* red_s, int b, int f0, int nf,
+                                            int n_mels, int c0, int tid, int lane, int warp)
+{
+    __syncthreads();
+    const int nm = min(kMelMax, n_mels - c0);  // the group's columns
+    float vmax = 0.0f;
+    for (int i = tid; i < kBF * nm; i += kThreads) {
+        const int f = i / nm;
+        const int m = i % nm;
+        if (f0 + f < nf) {
+            const float v = mel_s[f * kMelMax + m];
+            const size_t o = ((size_t)b * nf + f0 + f) * n_mels + c0 + m;
+            if constexpr (MODE == kBF16) static_cast<__nv_bfloat16*>(mel_out)[o] = __float2bfloat16_rn(v);
+            else static_cast<float*>(mel_out)[o] = v;
+            vmax = fmaxf(vmax, v);
+        }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) vmax = fmaxf(vmax, __shfl_xor_sync(0xffffffffu, vmax, o));
+    if (lane == 0) red_s[warp] = vmax;
+    __syncthreads();
+    if (tid == 0) {
+        float m = red_s[0];
+        for (int w = 1; w < kThreads / 32; ++w) m = fmaxf(m, red_s[w]);
+        float* dst = bmax + (size_t)b * gridDim.x + blockIdx.x;
+        if (gridDim.z > 1) atomicMax(reinterpret_cast<int*>(dst), __float_as_int(m));
+        else *dst = m;
+    }
+}
 
 // floats of the space the basis slices, the s and d slices and the power tile share
 template <int MODE>
 __host__ __device__ constexpr int shared_floats()
 {
-    const int planes = MODE == kX3 ? 2 : 1;
-    const int stage = 2 * planes * kTileSlice<MODE> + 2 * planes * kKC * kPitch;  // two steps of slices + s and d
-    const int power = planes * kTile<MODE> * kPitch;
+    const int stage = 2 * kTileSlice<MODE> + 2 * kKC * kPitch;  // two steps of slices + s and d
+    const int power = kTile<MODE> * kPitch;
     return stage > power ? stage : power;
 }
 
-// rows [k0, k0 + kKC) of the TB-bin tile's wc and ws columns of each plane
-// -> w_dst (plane p at w_dst + p * kKC * 2 * TB; cosine columns first), one
-// commit group. Rows past K and sine tiles at or past im_cols are zero-filled.
-template <int PLANES, int TB>
-__device__ __forceinline__ void stage_basis(float* w_dst, const float* __restrict__ wc,
-                                            const float* __restrict__ ws, int k0, int K, int bt,
-                                            int bins_pad, int im_cols, int tid)
+// bytes of a launch's shared memory: that space, the mel accumulator and the
+// staged span (span_pad samples)
+template <int MODE>
+__host__ __device__ constexpr long long shared_bytes(int span_pad)
 {
-    constexpr int slice = kKC * 2 * TB;
-    for (int i = tid; i < PLANES * slice / 4; i += kThreads) {
-        const int p = i / (slice / 4);
-        const int r = i % (slice / 4);
-        const int kk = r / (2 * TB / 4);
-        const int c = (r % (2 * TB / 4)) * 4;
+    return 4LL * (shared_floats<MODE>() + kBF * kMelMax) + (long long)sizeof(SpanT<MODE>) * span_pad;
+}
+
+// rows [k0, k0 + kKC) of the TB-bin tile's wc and ws columns -> w_dst
+// (cosine columns first), one commit group. Rows past K and sine tiles at
+// or past im_cols are zero-filled.
+template <int TB>
+__device__ __forceinline__ void stage_basis(float* w_dst, const float* __restrict__ wc, const float* __restrict__ ws,
+                                            int k0, int K, int bt, int bins_pad, int im_cols, int tid)
+{
+    for (int i = tid; i < kKC * 2 * TB / 4; i += kThreads) {
+        const int kk = i / (2 * TB / 4);
+        const int c = (i % (2 * TB / 4)) * 4;
         const int k = k0 + kk;
         const int kr = k < K ? k : 0;
         const float* src;
         bool valid = k < K;
         if (c < TB) {
-            src = wc + ((size_t)p * K + kr) * bins_pad + bt + c;
+            src = wc + (size_t)kr * bins_pad + bt + c;
         } else {
             valid = valid && bt < im_cols;
-            src = ws + ((size_t)p * K + kr) * im_cols + (bt < im_cols ? bt : 0) + (c - TB);
+            src = ws + (size_t)kr * im_cols + (bt < im_cols ? bt : 0) + (c - TB);
         }
-        cp_async16(w_dst + p * slice + kk * 2 * TB + c, src, valid);
+        cp_async16(w_dst + kk * 2 * TB + c, src, valid);
     }
     asm volatile("cp.async.commit_group;\n" ::);
 }
 
 template <int MODE>
-__global__ void __launch_bounds__(kThreads, MODE == kX3 ? 1 : 2)
-fused_mel_fold_kernel(const float* __restrict__ audio, const float* __restrict__ wc,
-                      const float* __restrict__ ws, const float* __restrict__ melw,
-                      void* __restrict__ mel_out, float* __restrict__ bmax, int T, int K, int sup,
-                      int hop, int off, int nf, int bins_pad, int im_cols, int n_mels, int span_pad)
+__global__ void __launch_bounds__(kThreads, 2)
+fused_mel_fold_kernel(const float* __restrict__ audio, const float* __restrict__ wc, const float* __restrict__ ws,
+                      const float* __restrict__ melw, void* __restrict__ mel_out, float* __restrict__ bmax, int T,
+                      int K, int sup, int hop, int off, int nf, int bins_pad, int im_cols, int n_mels, int span_pad)
 {
-    constexpr int P = MODE == kX3 ? 2 : 1;  // planes per operand: (hi, lo) for x3
     constexpr int TB = kTile<MODE>, NJ = TB / 32, kSl = kTileSlice<MODE>;
     constexpr int kShared = shared_floats<MODE>();
     extern __shared__ __align__(16) float smem[];
-    float* span_s = smem;                      // [span_pad] audio samples
-    float* w_s = span_s + span_pad;            // 2 steps x P planes x [kKC][2*TB] basis slices
-    float* s_s = w_s + 2 * P * kSl;            // P x [kKC][kPitch] s slice, transposed
-    float* d_s = s_s + P * kKC * kPitch;       // P x [kKC][kPitch] d slice, transposed
-    float* p_s = w_s;                          // P x [TB][kPitch] power tile, transposed
+    float* w_s = smem;                         // 2 steps x [kKC][2*TB] basis slices
+    float* s_s = w_s + 2 * kSl;                // [kKC][kPitch] s slice, transposed
+    float* d_s = s_s + kKC * kPitch;           // [kKC][kPitch] d slice, transposed
+    float* p_s = w_s;                          // [TB][kPitch] power tile, transposed
     float* mel_s = w_s + kShared;              // [kBF][kMelMax] mel accumulator
-    float* mel2_s = mel_s + kBF * kMelMax;     // x3: [kBF][kMelMax] accumulator of the small products
+    auto* span_s = reinterpret_cast<SpanT<MODE>*>(mel_s + kBF * kMelMax);  // [span_pad] audio samples
     __shared__ float red_s[kThreads / 32];
 
     const int tid = threadIdx.x;
@@ -141,73 +268,64 @@ fused_mel_fold_kernel(const float* __restrict__ audio, const float* __restrict__
     for (int i = tid; i < span_pad; i += kThreads) {
         const long long s = start + i;
         const float v = (s >= 0 && s < T) ? x[s] : 0.0f;
-        span_s[i] = MODE == kBF16 ? bf16r(v) : v;
+        if constexpr (MODE == kBF16) span_s[i] = __float2bfloat16_rn(v);
+        else span_s[i] = v;
     }
-    for (int i = tid; i < P * kBF * kMelMax; i += kThreads) mel_s[i] = 0.0f;
+    for (int i = tid; i < kBF * kMelMax; i += kThreads) mel_s[i] = 0.0f;
 
     for (int bt = 0; bt < bins_pad; bt += TB) {
-        float re[8][NJ] = {}, im[8][NJ] = {};    // the (hi*hi) products
-        float res[8][NJ] = {}, ims[8][NJ] = {};  // x3: the hi*lo and lo*hi products
+        float re[8][NJ] = {}, im[8][NJ] = {};
 
         __syncthreads();  // the previous tile's power (same space) fully read
-        stage_basis<P, TB>(w_s, wc, ws, 0, K, bt, bins_pad, im_cols, tid);
+        stage_basis<TB>(w_s, wc, ws, 0, K, bt, bins_pad, im_cols, tid);
         for (int step = 0; step < n_steps; ++step) {
             const int k0 = step * kKC;
             __syncthreads();  // the previous step's slices fully read
             if (step + 1 < n_steps)
-                stage_basis<P, TB>(w_s + ((step + 1) & 1) * P * kSl, wc, ws, k0 + kKC, K, bt, bins_pad, im_cols, tid);
+                stage_basis<TB>(w_s + ((step + 1) & 1) * kSl, wc, ws, k0 + kKC, K, bt, bins_pad, im_cols, tid);
             for (int i = tid; i < kKC * kBF; i += kThreads) {
                 const int kk = i % kKC;
                 const int f = i / kKC;
                 const int u = k0 + kk;
                 float sv = 0.0f, dv = 0.0f;  // rows past K meet zero weights
                 if (u < K) {
-                    const float lo = span_s[f * hop + u];
-                    const float hi = span_s[f * hop + sup - u];
+                    const float lo = to_float(span_s[f * hop + u]);
+                    const float hi = to_float(span_s[f * hop + sup - u]);
                     sv = __fadd_rn(lo, hi);
                     dv = __fsub_rn(lo, hi);
                 }
-                const int o = kk * kPitch + f;
-                if constexpr (MODE == kX3) {
-                    const float sh = bf16r(sv), dh = bf16r(dv);
-                    s_s[o] = sh;
-                    s_s[kKC * kPitch + o] = bf16r(sv - sh);
-                    d_s[o] = dh;
-                    d_s[kKC * kPitch + o] = bf16r(dv - dh);
-                } else if constexpr (MODE == kBF16) {
-                    s_s[o] = bf16r(sv);
-                    d_s[o] = bf16r(dv);
-                } else {
-                    s_s[o] = sv;
-                    d_s[o] = dv;
-                }
+                s_s[kk * kPitch + f] = MODE == kBF16 ? bf16r(sv) : sv;
+                d_s[kk * kPitch + f] = MODE == kBF16 ? bf16r(dv) : dv;
             }
             if (step + 1 < n_steps) asm volatile("cp.async.wait_group 1;\n" ::);
             else asm volatile("cp.async.wait_group 0;\n" ::);
             __syncthreads();
-            const float* w_cur = w_s + (step & 1) * P * kSl;
-            if constexpr (MODE == kF32) {
-                // the step's own partial sums, added to re/im after the step
-                float pre[8][NJ] = {}, pim[8][NJ] = {};
+            const float* w_cur = w_s + (step & 1) * kSl;
+            // f32: the step's own partial sums, added to re/im after the
+            // step; bf16: re/im themselves, one FFMA chain in row order
+            float pre[8][NJ] = {}, pim[8][NJ] = {};
+            auto& acc_re = MODE == kF32 ? pre : re;
+            auto& acc_im = MODE == kF32 ? pim : im;
 #pragma unroll
-                for (int kk = 0; kk < kKC; ++kk) {
-                    const float4 s_lo = *reinterpret_cast<const float4*>(s_s + kk * kPitch + 4 * warp);
-                    const float4 s_hi = *reinterpret_cast<const float4*>(s_s + kk * kPitch + 32 + 4 * warp);
-                    const float4 d_lo = *reinterpret_cast<const float4*>(d_s + kk * kPitch + 4 * warp);
-                    const float4 d_hi = *reinterpret_cast<const float4*>(d_s + kk * kPitch + 32 + 4 * warp);
-                    const float a[8] = {s_lo.x, s_lo.y, s_lo.z, s_lo.w, s_hi.x, s_hi.y, s_hi.z, s_hi.w};
-                    const float e[8] = {d_lo.x, d_lo.y, d_lo.z, d_lo.w, d_hi.x, d_hi.y, d_hi.z, d_hi.w};
+            for (int kk = 0; kk < kKC; ++kk) {
+                const float4 s_lo = *reinterpret_cast<const float4*>(s_s + kk * kPitch + 4 * warp);
+                const float4 s_hi = *reinterpret_cast<const float4*>(s_s + kk * kPitch + 32 + 4 * warp);
+                const float4 d_lo = *reinterpret_cast<const float4*>(d_s + kk * kPitch + 4 * warp);
+                const float4 d_hi = *reinterpret_cast<const float4*>(d_s + kk * kPitch + 32 + 4 * warp);
+                const float a[8] = {s_lo.x, s_lo.y, s_lo.z, s_lo.w, s_hi.x, s_hi.y, s_hi.z, s_hi.w};
+                const float e[8] = {d_lo.x, d_lo.y, d_lo.z, d_lo.w, d_hi.x, d_hi.y, d_hi.z, d_hi.w};
 #pragma unroll
-                    for (int j = 0; j < NJ; ++j) {
-                        const float wr = w_cur[kk * 2 * TB + lane + 32 * j];
-                        const float wi = w_cur[kk * 2 * TB + TB + lane + 32 * j];
+                for (int j = 0; j < NJ; ++j) {
+                    const float wr = w_cur[kk * 2 * TB + lane + 32 * j];
+                    const float wi = w_cur[kk * 2 * TB + TB + lane + 32 * j];
 #pragma unroll
-                        for (int i = 0; i < 8; ++i) {
-                            pre[i][j] = fmaf(a[i], wr, pre[i][j]);
-                            pim[i][j] = fmaf(e[i], wi, pim[i][j]);
-                        }
+                    for (int i = 0; i < 8; ++i) {
+                        acc_re[i][j] = fmaf(a[i], wr, acc_re[i][j]);
+                        acc_im[i][j] = fmaf(e[i], wi, acc_im[i][j]);
                     }
                 }
+            }
+            if constexpr (MODE == kF32) {
 #pragma unroll
                 for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -215,64 +333,12 @@ fused_mel_fold_kernel(const float* __restrict__ audio, const float* __restrict__
                         re[i][j] += pre[i][j];
                         im[i][j] += pim[i][j];
                     }
-            } else {
-#pragma unroll
-                for (int kk = 0; kk < kKC; ++kk) {
-                    const float4 s_lo = *reinterpret_cast<const float4*>(s_s + kk * kPitch + 4 * warp);
-                    const float4 s_hi = *reinterpret_cast<const float4*>(s_s + kk * kPitch + 32 + 4 * warp);
-                    const float4 d_lo = *reinterpret_cast<const float4*>(d_s + kk * kPitch + 4 * warp);
-                    const float4 d_hi = *reinterpret_cast<const float4*>(d_s + kk * kPitch + 32 + 4 * warp);
-                    const float a[8] = {s_lo.x, s_lo.y, s_lo.z, s_lo.w, s_hi.x, s_hi.y, s_hi.z, s_hi.w};
-                    const float e[8] = {d_lo.x, d_lo.y, d_lo.z, d_lo.w, d_hi.x, d_hi.y, d_hi.z, d_hi.w};
-                    float wr[NJ], wi[NJ];
-#pragma unroll
-                    for (int j = 0; j < NJ; ++j) {
-                        wr[j] = w_cur[kk * 2 * TB + lane + 32 * j];
-                        wi[j] = w_cur[kk * 2 * TB + TB + lane + 32 * j];
-                    }
-                    if constexpr (MODE == kX3) {
-                        const float* s2 = s_s + kKC * kPitch + kk * kPitch;
-                        const float* d2 = d_s + kKC * kPitch + kk * kPitch;
-                        const float4 sl_lo = *reinterpret_cast<const float4*>(s2 + 4 * warp);
-                        const float4 sl_hi = *reinterpret_cast<const float4*>(s2 + 32 + 4 * warp);
-                        const float4 dl_lo = *reinterpret_cast<const float4*>(d2 + 4 * warp);
-                        const float4 dl_hi = *reinterpret_cast<const float4*>(d2 + 32 + 4 * warp);
-                        const float al[8] = {sl_lo.x, sl_lo.y, sl_lo.z, sl_lo.w, sl_hi.x, sl_hi.y, sl_hi.z, sl_hi.w};
-                        const float el[8] = {dl_lo.x, dl_lo.y, dl_lo.z, dl_lo.w, dl_hi.x, dl_hi.y, dl_hi.z, dl_hi.w};
-                        float wrl[NJ], wil[NJ];
-#pragma unroll
-                        for (int j = 0; j < NJ; ++j) {
-                            wrl[j] = w_cur[kSl + kk * 2 * TB + lane + 32 * j];
-                            wil[j] = w_cur[kSl + kk * 2 * TB + TB + lane + 32 * j];
-                        }
-#pragma unroll
-                        for (int i = 0; i < 8; ++i)
-#pragma unroll
-                            for (int j = 0; j < NJ; ++j) {
-                                re[i][j] = fmaf(a[i], wr[j], re[i][j]);
-                                res[i][j] = fmaf(a[i], wrl[j], res[i][j]);
-                                res[i][j] = fmaf(al[i], wr[j], res[i][j]);
-                                im[i][j] = fmaf(e[i], wi[j], im[i][j]);
-                                ims[i][j] = fmaf(e[i], wil[j], ims[i][j]);
-                                ims[i][j] = fmaf(el[i], wi[j], ims[i][j]);
-                            }
-                    } else {
-#pragma unroll
-                        for (int i = 0; i < 8; ++i)
-#pragma unroll
-                            for (int j = 0; j < NJ; ++j) {
-                                re[i][j] = fmaf(a[i], wr[j], re[i][j]);
-                                im[i][j] = fmaf(e[i], wi[j], im[i][j]);
-                            }
-                    }
-                }
             }
         }
 
-        project_tile<MODE, NJ>(re, im, res, ims, p_s, mel_s, mel2_s, melw, bt, bins_pad, n_mels, kMelMax * (int)blockIdx.z,
-                               lane, warp);
+        project_tile<MODE, NJ>(re, im, p_s, mel_s, melw, bt, n_mels, kMelMax * (int)blockIdx.z, lane, warp);
     }
-    write_block<MODE>(mel_s, mel2_s, mel_out, bmax, red_s, b, f0, nf, n_mels, kMelMax * (int)blockIdx.z, tid, lane, warp);
+    write_block<MODE>(mel_s, mel_out, bmax, red_s, b, f0, nf, n_mels, kMelMax * (int)blockIdx.z, tid, lane, warp);
 }
 
 template <int MODE>
@@ -287,13 +353,14 @@ int launch_fold(const float* audio, const float* wc, const float* ws, const floa
     const int n_blocks = (nf + kBF - 1) / kBF;
     const int span = (kBF - 1) * hop + sup + 1;  // + 1: u = 0 reads one sample past the support
     const int span_pad = (span + 3) / 4 * 4;
-    const size_t smem = sizeof(float) * ((size_t)span_pad + shared_floats<MODE>() + (MODE == kX3 ? 2 : 1) * kBF * kMelMax);
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_mel_fold_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const long long smem = shared_bytes<MODE>(span_pad);
+    if (smem > kSharedMax) return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(fused_mel_fold_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
     if (err != cudaSuccess) return (int)err;
     fused_mel_fold_kernel<MODE><<<dim3(n_blocks, B, (n_mels + kMelMax - 1) / kMelMax), kThreads, smem,
-                                  (cudaStream_t)stream>>>(
-        audio, wc, ws, melw, mel, bmax, T, K, sup, hop, off, nf, bins_pad, im_cols, n_mels, span_pad);
+                                  (cudaStream_t)stream>>>(audio, wc, ws, melw, mel, bmax, T, K, sup, hop, off, nf,
+                                                          bins_pad, im_cols, n_mels, span_pad);
     return (int)cudaGetLastError();
 }
 
@@ -310,20 +377,11 @@ extern "C" int fused_mel_fold_f32(const float* audio, const float* wc, const flo
                              n_mels, stream);
 }
 
-// wc, ws and melw hold bf16-rounded values as float32; mel is bf16
+// wc, ws and melw as for f32, holding bf16-rounded values; mel bf16
 extern "C" int fused_mel_fold_bf16(const float* audio, const float* wc, const float* ws, const float* melw,
                                    void* mel, float* bmax, int B, int T, int K, int sup, int hop, int off,
                                    int nf, int bins_pad, int im_cols, int n_mels, void* stream)
 {
     return launch_fold<kBF16>(audio, wc, ws, melw, mel, bmax, B, T, K, sup, hop, off, nf, bins_pad, im_cols,
                               n_mels, stream);
-}
-
-// wc [2, K, bins_pad], ws [2, K, im_cols], melw [2, bins_pad, n_mels]: the (hi, lo) stacks
-extern "C" int fused_mel_fold_x3(const float* audio, const float* wc, const float* ws, const float* melw,
-                                 float* mel, float* bmax, int B, int T, int K, int sup, int hop, int off,
-                                 int nf, int bins_pad, int im_cols, int n_mels, void* stream)
-{
-    return launch_fold<kX3>(audio, wc, ws, melw, mel, bmax, B, T, K, sup, hop, off, nf, bins_pad, im_cols,
-                            n_mels, stream);
 }

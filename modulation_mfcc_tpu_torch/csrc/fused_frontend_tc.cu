@@ -155,13 +155,6 @@ using namespace tc;
 // ---------------------------------------------------------------------------
 
 constexpr int kX3 = 0, kI16 = 1, kI24 = 2, kBF16 = 3, kF32 = 4;
-constexpr int kChunkRows = 32;  // contraction rows a pipeline stage holds
-constexpr int kStages = 4;      // pipeline stages of the full plan (the compact plan: 2 to 4)
-constexpr int kMT = 2;          // 16-frame MMA tiles a warp in the full plan: warps 2 (frames) x 4 (columns)
-constexpr int kWN = 4;          // warps across a tile's columns, 32 each
-constexpr int kCols = 32 * kWN; // DFT columns per tile: re and im of 64 bins
-constexpr int kTileBins = kCols / 2;
-constexpr int kSharedMax = 232448;  // bytes of shared memory a block may use on the H100
 
 template <int MODE> struct Mode;
 template <> struct Mode<kX3> {
@@ -209,10 +202,7 @@ template <int MODE> constexpr int kAl = 8 / (int)sizeof(typename Mode<MODE>::T);
 template <int MODE> constexpr int kChunkBytes =
     kChunkRows * kCols * Mode<MODE>::kBasisPlanes * (int)sizeof(typename Mode<MODE>::T);
 template <int MODE> constexpr int kMelBytes = kTileBins * Mode<MODE>::kMelPlanes * kMelCols * 2;  // a tile's mel weights
-constexpr int kPitch = kTileBins + 16;                   // power row: 8 mod 32 words, conflict-free
 template <int MODE, int MT> constexpr int kPowerBytes = Mode<MODE>::kMelPlanes * 32 * MT * kPitch * 2;
-
-static_assert(kMT * 16 * (kThreads / 32 / kWN) == kBF, "the warps cover the block's frames");
 
 __device__ __forceinline__ float load_sample(const float* x, long long s) { return x[s]; }
 __device__ __forceinline__ float load_sample(const int16_t* x, long long s)
@@ -275,11 +265,6 @@ __device__ __forceinline__ float recombine(int d1, int d2, int d3, float corr, f
     const float a = __int2float_rn(d1), b = __int2float_rn(d2), c = __int2float_rn(d3);
     return __fmul_rn(__fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(a, 16777216.0f), __fmul_rn(b, 65536.0f)),
                                          __fmul_rn(c, 256.0f)), corr), inv);
-}
-
-__device__ __forceinline__ float power_of(float re, float im)
-{
-    return __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));
 }
 
 template <int MODE, int MT>

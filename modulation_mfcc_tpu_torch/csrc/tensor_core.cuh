@@ -1,9 +1,10 @@
 // What the tensor-core frontend kernels (fused_frontend_tc.cu: fused_mel_f32,
-// fused_mel_bf16, fused_mel_x3, fused_mel_i16, fused_mel_i24) share: the
-// warp-level MMAs, and the end of the frontend, the mel projection on the
-// bf16 tensor cores (one pass for bf16, the three-plane split for f32, x3
-// arithmetic for the others) and the write of a block's mel and maxima.
-// Included by that source only.
+// fused_mel_bf16, fused_mel_x3, fused_mel_i16, fused_mel_i24; and
+// fused_frontend_fold_tc.cu: fused_mel_fold_x3) share:
+// the block and tile geometry, the warp-level MMAs, and the end of the
+// frontend, the mel projection on the bf16 tensor cores (one pass for bf16,
+// the three-plane split for f32, x3 arithmetic for the others) and the
+// write of a block's mel and maxima. Included by those sources only.
 //
 // Fragments follow the PTX ISA's m16n8k16 (bf16) and m16n8k32 (int8)
 // layouts: lane = 4g + t, a thread holds rows g and g + 8 of A and column g
@@ -30,6 +31,22 @@ constexpr int kThreads = 256;   // 8 warps
 constexpr int kMelCols = 128;   // mel columns a block computes (a group; zero weights past n_mels)
 constexpr int kMelLimit = 512;  // mel columns a launch takes: up to four groups
 constexpr int kMelStep = 16;    // bins per k-step of the mel projection
+constexpr int kChunkRows = 32;  // contraction rows a pipeline stage of the basis ring holds
+constexpr int kStages = 4;      // pipeline stages of the full plan (the compact plan: 2 to 4)
+constexpr int kMT = 2;          // 16-frame MMA tiles a warp in the full plan: warps 2 (frames) x 4 (columns)
+constexpr int kWN = 4;          // warps across a tile's columns, 32 each
+constexpr int kCols = 32 * kWN; // DFT columns per tile: re and im of 64 bins
+constexpr int kTileBins = kCols / 2;
+constexpr int kPitch = kTileBins + 16;  // bf16 elements of a power-tile row: 8 mod 32 words, conflict-free
+constexpr int kSharedMax = 232448;      // bytes of shared memory a block may use on the H100
+
+static_assert(kMT * 16 * (kThreads / 32 / kWN) == kBF, "the warps cover the block's frames");
+
+// re^2 + im^2, each product and the sum rounded to nearest (no FMA)
+__device__ __forceinline__ float power_of(float re, float im)
+{
+    return __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));
+}
 
 // D += A·B, bf16 operands, FP32 accumulate (m16n8k16)
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1)

@@ -40,6 +40,19 @@ per arithmetic mode of the JAX frontend and one tail kernel:
     The tensor-core kernels read their weights in a layout of their own
     (:func:`tc_layouts`: :func:`pack_tc_basis`, :func:`pack_tc_mel`), which
     :func:`mode_tensors` and the ``MfccChange`` module build once.
+  * ``fused_mel_fold_x3`` (csrc/fused_frontend_fold_tc.cu, on the tensor
+    cores) and ``fused_mel_fold_f32`` and ``fused_mel_fold_bf16``
+    (csrc/fused_frontend_fold.cu, FFMA), behind
+    ``fused_mel_frontend(fold=True)``, replace the Pallas folded frontend
+    (``_folded_frontend`` → ``_fold_kernel``): the windowed real DFT
+    folded about the window's centre, re = s·wc and im = d·ws with
+    s, d = x[a+u] ± x[a+sup−u], half the contraction. The x3 fold builds
+    s and d per 32-row chunk in shared memory and reads the cosine and
+    sine bases in a layout of its own (:func:`fold_layouts`, which
+    :func:`fold_tensors` builds), under a staging plan (:func:`fold_plan`).
+    The bf16 fold sums its DFT and mel as FFMA chains in row order, the
+    order of its plain version's FP32 GEMMs, so its bf16 power rounds as
+    the plain version's does.
 
     Bound: the DFT's operations (~315 GFLOP + ~50 GFLOP of mel per
     128 × 30 s batch at 16 kHz and pass), on the unit each mode's arithmetic
@@ -92,8 +105,10 @@ __all__ = [
     "ALGORITHMS", "FOLD_ALGORITHMS", "LAUNCHES", "frontend_weights", "mode_weights", "int8_weight_planes",
     "quant_scales", "tail_dct", "eff_pad", "hop_rows_geometry", "pack_hop_rows", "fold_ok", "fold_weights",
     "tc_layouts", "tc_planes", "TcPlan", "tc_plan", "pack_tc_basis", "unpack_tc_basis",
+    "fold_tensors", "fold_layouts", "pack_fold_basis", "unpack_fold_basis", "FoldPlan", "fold_plan",
+    "ffma_fold_bytes",
     "pack_tc_mel", "unpack_tc_mel", "fused_mel_frontend", "fused_mel_frontend_reference",
-    "split3_frontend_mirror", "fused_mel_fold_reference",
+    "split3_frontend_mirror", "fold_operands", "fused_mel_fold_reference",
     "mfcc_tail", "mfcc_tail_reference", "fused_mfcc",
 ]
 
@@ -106,7 +121,7 @@ BLOCK_FRAMES = 64  # frames per frontend block: one bmax entry each (kBF in the 
 _BIN_TILE = 128    # bins_pad must be a multiple (kBT)
 _MEL_MAX = 128     # mel columns of a group (kMelCols; the fold's kMelMax)
 MEL_LIMIT = 512    # mel bands the tensor-core frontend and the tail take (kMelLimit, kTailMelLimit)
-_KC = 16           # contraction rows per step of the f32 sums (kKC in fused_frontend_common.cuh; one bf16 MMA)
+_KC = 16           # contraction rows per step of the f32 sums (kKC in fused_frontend_fold.cu; one bf16 MMA)
 _TC_COLS = 128                                # DFT columns per tile (kCols): re and im of 64 bins
 _TC_STEP = {"f32": 16, "bf16": 16, "x3": 16, "i16": 32, "i24": 32}  # contraction rows per MMA (Mode::kStep)
 _TC_BF16 = ("f32", "bf16", "x3")              # the modes whose basis is bf16 (int8 for the others)
@@ -115,6 +130,7 @@ _TC_PLANES = {"f32": (3, 3, 3), "bf16": (1, 1, 1), "x3": (2, 2, 2), "i16": (2, 3
 _TC_CHUNK = 32                      # contraction rows per pipeline stage (kChunkRows)
 _TC_STAGES = 4                      # pipeline stages of the basis ring in the full plan (kStages)
 _TC_PITCH = 80                      # bf16 elements per row of the power tile (kPitch)
+_FOLD_GROUP = 8                     # bins a cosine (then sine) column group of the fold basis (an MMA n-tile)
 _MEL_STEP = 16                      # bins per MMA of the mel projection (kMelStep)
 SHARED_MAX = 232_448                # bytes of shared memory a block may use on the H100 (kSharedMax)
 ROWS_BLKF = 1024   # the JAX frontend's default frame block, which sizes a hop-rows batch
@@ -386,11 +402,17 @@ def tc_plan(algorithm: str, hop: int, kp: int, n_mels: int = 128) -> TcPlan:
         raise ValueError(f"fused_mel_{algorithm}: n_mels must be in 1..{MEL_LIMIT}, got {n_mels}")
     plans = [_plan_for(algorithm, hop, kp, n_mels, BLOCK_FRAMES, False, _TC_STAGES)]
     plans += [_plan_for(algorithm, hop, kp, n_mels, BLOCK_FRAMES // 2, True, s) for s in range(_TC_STAGES, 1, -1)]
+    return _first_fitting(plans, f"fused_mel_{algorithm}", f"hop {hop}, Kp {kp}")
+
+
+def _first_fitting(plans: list, name: str, where: str):
+    """The first of ``plans`` (full, then compact with four to two stages)
+    within a block's shared memory; raises where none fits."""
     for plan in plans:
         if plan.shared_bytes <= SHARED_MAX:
             return plan
-    raise ValueError(f"fused_mel_{algorithm}: no staging plan fits {SHARED_MAX} bytes of shared memory at "
-                     f"hop {hop}, Kp {kp} (the compact plan needs {plans[-1].shared_bytes})")
+    raise ValueError(f"{name}: no staging plan fits {SHARED_MAX} bytes of shared memory at {where} (the compact "
+                     f"plan needs {plans[-1].shared_bytes})")
 
 
 def fold_ok(n_fft: int, hop: int, win_length: int | None) -> bool:
@@ -471,9 +493,107 @@ def fold_weights(
 
 def fold_tensors(algorithm: str, device, sr: float, n_fft: int = 512, win_length: int | None = None,
                  n_mels: int = 128, fmin: float = 100.0, fmax: float | None = None) -> dict[str, torch.Tensor]:
-    """:func:`fold_weights` as tensors on ``device``."""
+    """:func:`fold_weights` as tensors on ``device``, with the tensor-core
+    fold kernel's layouts of them (:func:`fold_layouts`; x3 only)."""
     w = fold_weights(sr, n_fft, win_length, n_mels, fmin, fmax, algorithm)
-    return {k: torch.as_tensor(v, device=device) for k, v in w.items()}
+    t = {k: torch.as_tensor(v, device=device) for k, v in w.items()}
+    return t | fold_layouts(algorithm, t)
+
+
+def pack_fold_basis(wc: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+    """The tensor-core fold kernels' basis layout of the cosine planes ``wc``
+    [P, K, bins_pad] and the sine planes ``ws`` [P, K, im_cols] (bf16: one
+    plane each, the rounded weights held as float32; x3: the (hi, lo)
+    stacks): the sine columns zero-padded to bins_pad, then in groups of 16
+    columns, the 8 cosine columns of 8 bins and the 8 sine columns of the
+    same bins (an MMA n-tile each, so that one thread holds re and im of a
+    bin); K zero-padded to Kp, a multiple of 32; then [bins_pad/64, Kp/16,
+    P, 128, 16] bf16 (exact: the planes are bf16 values), so one 32-row
+    chunk of a 64-bin tile is contiguous."""
+    p, k, bins = wc.shape
+    ws = tnf.pad(ws, (0, bins - ws.shape[-1]))
+    g = _FOLD_GROUP
+    w = torch.stack([wc.reshape(p, k, bins // g, g), ws.reshape(p, k, bins // g, g)], dim=3).reshape(p, k, 2 * bins)
+    kp = round_up_to_multiple(k, _TC_CHUNK)
+    x = tnf.pad(w, (0, 0, 0, kp - k)).reshape(p, kp // _KC, _KC, 2 * bins // _TC_COLS, _TC_COLS)
+    return x.permute(3, 1, 0, 4, 2).contiguous().to(torch.bfloat16)
+
+
+def unpack_fold_basis(packed: torch.Tensor, k: int, im_cols: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of :func:`pack_fold_basis`: (wc [P, K, bins_pad], ws [P, K,
+    im_cols]) float32."""
+    tiles, ks, p, cols, step = packed.shape
+    x = packed.permute(2, 1, 4, 0, 3).reshape(p, ks * step, tiles * cols)[:, :k].to(torch.float32)
+    bins = tiles * cols // 2
+    x = x.reshape(p, k, bins // _FOLD_GROUP, 2, _FOLD_GROUP)
+    return x[:, :, :, 0].reshape(p, k, bins), x[:, :, :, 1].reshape(p, k, bins)[..., :im_cols]
+
+
+def fold_layouts(algorithm: str, weights: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The tensor-core fold kernel's layouts of the mode's :func:`fold_weights`
+    on their device: ``wcs_tc`` (:func:`pack_fold_basis`) and ``melw_tc``
+    (:func:`pack_tc_mel`) for 'x3'; none for 'f32' and 'bf16', whose FFMA
+    kernel reads ``wc``, ``ws`` and ``melw`` as they are."""
+    if algorithm != "x3":
+        return {}
+    return {"wcs_tc": pack_fold_basis(tc_planes(algorithm, weights["wc"]), tc_planes(algorithm, weights["ws"])),
+            "melw_tc": pack_tc_mel(tc_planes(algorithm, weights["melw"]))}
+
+
+class FoldPlan(NamedTuple):
+    """The staging plan of a ``fused_mel_fold_x3`` launch (the launcher's
+    ``FoldPlan``, passed by value in this field order, which it checks)."""
+
+    frames: int        # frames a block: 64 (full plan) or 32 (compact)
+    stages: int        # stages of the basis ring: 4 (full), 2 to 4 (compact)
+    span_pad: int      # FP32 samples of the staged span
+    mel_groups: int    # groups of 128 mel columns: the grid's z
+    shared_bytes: int
+
+
+def _fold_plan_for(hop: int, sup: int, n_mels: int, frames: int, stages: int) -> FoldPlan:
+    """The plan with these choices and the launcher's sum of its shared
+    memory (shared_bytes in the source): 128 bytes of barriers, the ring of
+    basis chunks, a tile's mel weights, the power tile, two buffers of the s
+    and d planes of a chunk (two planes each) and the FP32 span."""
+    planes = _TC_PLANES["x3"][1]
+    span_pad = -(-((frames - 1) * hop + sup + 1) // 4) * 4
+    smem = (128 + stages * _TC_CHUNK * _TC_COLS * planes * 2 + _TC_COLS // 2 * planes * _MEL_MAX * 2
+            + planes * frames * _TC_PITCH * 2 + 2 * 2 * planes * _TC_CHUNK * frames * 2 + 4 * span_pad)
+    return FoldPlan(frames, stages, span_pad, -(-n_mels // _MEL_MAX), smem)
+
+
+def fold_plan(algorithm: str, hop: int, sup: int, n_mels: int = 128) -> FoldPlan:
+    """The staging plan of ``fused_mel_fold_x3`` at this hop, window support
+    and mel width: the full plan (64 frames a block, four stages) where it
+    fits a block's shared memory, else the compact plan (32 frames) with the
+    most stages, four to two, that fit; raises where none fits, or for
+    another algorithm (the FFMA folds have no plan) or n_mels outside
+    1..512."""
+    if algorithm != "x3":
+        raise ValueError(f"fold_plan: the tensor-core fold is 'x3', got {algorithm!r}")
+    if not 1 <= n_mels <= MEL_LIMIT:
+        raise ValueError(f"fused_mel_fold_x3: n_mels must be in 1..{MEL_LIMIT}, got {n_mels}")
+    plans = [_fold_plan_for(hop, sup, n_mels, BLOCK_FRAMES, _TC_STAGES)]
+    plans += [_fold_plan_for(hop, sup, n_mels, BLOCK_FRAMES // 2, s) for s in range(_TC_STAGES, 1, -1)]
+    return _first_fitting(plans, "fused_mel_fold_x3", f"hop {hop}, window {sup}")
+
+
+def ffma_fold_bytes(algorithm: str, hop: int, sup: int) -> int:
+    """Shared memory a block of the FFMA folds (``fused_mel_fold_f32``,
+    ``fused_mel_fold_bf16``) takes at this hop and window support, the
+    launcher's sum (shared_bytes in csrc/fused_frontend_fold.cu): the space
+    the basis slices, the s and d slices and the power tile share, the
+    [64, 128] FP32 mel accumulator, and the span of 63·hop + sup + 1 samples
+    (padded to 4), FP32 for f32 and bf16 for bf16. The launcher refuses a
+    block past :data:`SHARED_MAX`."""
+    if algorithm not in ("f32", "bf16"):
+        raise ValueError(f"ffma_fold_bytes: the FFMA folds are 'f32' and 'bf16', got {algorithm!r}")
+    tile = _BIN_TILE // 2 if algorithm == "f32" else _BIN_TILE
+    pitch = BLOCK_FRAMES + 4
+    shared = max(2 * _KC * 2 * tile + 2 * _KC * pitch, tile * pitch)
+    span_pad = -(-((BLOCK_FRAMES - 1) * hop + sup + 1) // 4) * 4
+    return 4 * (shared + BLOCK_FRAMES * _MEL_MAX) + (2 if algorithm == "bf16" else 4) * span_pad
 
 
 @lru_cache(maxsize=16)
@@ -580,6 +700,10 @@ class _TcPlan(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int) for name in TcPlan._fields]
 
 
+class _FoldPlan(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_int) for name in FoldPlan._fields]
+
+
 @lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     from modulation_mfcc_tpu_torch.kernels._build import load_library
@@ -594,10 +718,12 @@ def _lib() -> ctypes.CDLL:
     lib.fused_mel_i16.restype = i
     lib.fused_mel_i24.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, plan, p]
     lib.fused_mel_i24.restype = i
-    for alg in FOLD_ALGORITHMS:
+    for alg in ("f32", "bf16"):
         fn = getattr(lib, f"fused_mel_fold_{alg}")
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
         fn.restype = i
+    lib.fused_mel_fold_x3.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, _FoldPlan, p]
+    lib.fused_mel_fold_x3.restype = i
     lib.mfcc_tail_f32.argtypes = [p, i, p, p, p, i, i, i, i, i, p]
     lib.mfcc_tail_f32.restype = i
     return lib
@@ -756,6 +882,24 @@ def _mel_of_power(p: torch.Tensor, melw: torch.Tensor, algorithm: str) -> tuple[
     return (mel.to(torch.bfloat16) if algorithm == "bf16" else mel), bmax
 
 
+def fold_operands(audio: torch.Tensor, k: int, *, hop: int, eff_pad: int,
+                  algorithm: str = "f32") -> tuple[torch.Tensor, torch.Tensor]:
+    """The folded operands (s, d) [B, nf, k] float32 of the plain fold, before
+    the mode's rounding of the products' operands: frames of sup + 1 = 2k − 1
+    samples of the audio (rounded to bf16 first for 'bf16') padded by
+    ``eff_pad`` on the left, s[u] = z[a+u] + z[a+sup−u], d[u] = z[a+u] −
+    z[a+sup−u]."""
+    t = audio.shape[1]
+    sup = 2 * (k - 1)
+    nf = 1 + t // hop
+    x = _bf16r(audio) if algorithm == "bf16" else audio
+    right = max(0, (nf - 1) * hop + sup + 1 - eff_pad - t)
+    frames = frame_by_slices(tnf.pad(x, (eff_pad, right)), 0, nf, sup + 1, hop)
+    fwd = frames[..., :k]
+    rev = torch.flip(frames[..., sup // 2 :], dims=(-1,))  # rev[u] = frame[sup − u]
+    return fwd + rev, fwd - rev
+
+
 def fused_mel_fold_reference(
     audio: torch.Tensor, wc: torch.Tensor, ws: torch.Tensor, melw: torch.Tensor, *, hop: int, eff_pad: int,
     algorithm: str = "f32",
@@ -767,16 +911,7 @@ def fused_mel_fold_reference(
     ('f32' in the kernel's 16-row steps; 'bf16' rounds the audio to bf16 before the fold and s, d again at the
     products), power and mel as the unfolded frontend. ``wc``/``ws``/``melw``
     are the mode's :func:`fold_weights`; audio float32 [B, T]."""
-    bsz, t = audio.shape
-    k = wc.shape[-2]
-    sup = 2 * (k - 1)
-    nf = 1 + t // hop
-    x = _bf16r(audio) if algorithm == "bf16" else audio
-    right = max(0, (nf - 1) * hop + sup + 1 - eff_pad - t)
-    frames = frame_by_slices(tnf.pad(x, (eff_pad, right)), 0, nf, sup + 1, hop)
-    fwd = frames[..., :k]
-    rev = torch.flip(frames[..., sup // 2 :], dims=(-1,))  # rev[u] = frame[sup − u]
-    s, d = fwd + rev, fwd - rev
+    s, d = fold_operands(audio, wc.shape[-2], hop=hop, eff_pad=eff_pad, algorithm=algorithm)
     if algorithm == "f32":
         re, im = _stepped_matmul(s, wc), _stepped_matmul(d, ws)
     elif algorithm == "bf16":
@@ -947,17 +1082,55 @@ def _fused_mel_fold(audio: torch.Tensor, *, sr, n_fft, hop, win_length, n_mels, 
     nf = 1 + t // hop
     mel_dtype = torch.bfloat16 if algorithm == "bf16" else torch.float32
     mel = torch.empty((bsz, nf, n_mels), dtype=mel_dtype, device=audio.device)
-    # more than one group of 128 mel columns merges its block maxima by atomicMax
-    bmax = (torch.zeros if n_mels > _MEL_MAX else torch.empty)((bsz, -(-nf // BLOCK_FRAMES)), dtype=torch.float32,
-                                                                device=audio.device)
-    rc = getattr(_lib(), name)(
-        audio.data_ptr(), wc.data_ptr(), ws.data_ptr(), melw.data_ptr(), mel.data_ptr(), bmax.data_ptr(),
-        bsz, t, k, sup, hop, -pad, nf, bins_pad, im_cols, n_mels,
-        stream_of(audio),
-    )
+    if algorithm == "x3":
+        rc, bmax = _launch_fold_x3(audio, weights, mel, k, sup, hop, -pad, nf, bins_pad)
+    else:
+        # more than one group of 128 mel columns merges its block maxima by atomicMax
+        bmax = (torch.zeros if n_mels > _MEL_MAX else torch.empty)((bsz, -(-nf // BLOCK_FRAMES)),
+                                                                    dtype=torch.float32, device=audio.device)
+        rc = getattr(_lib(), name)(
+            audio.data_ptr(), wc.data_ptr(), ws.data_ptr(), melw.data_ptr(), mel.data_ptr(), bmax.data_ptr(),
+            bsz, t, k, sup, hop, -pad, nf, bins_pad, im_cols, n_mels,
+            stream_of(audio),
+        )
     raise_on(rc, name)
     LAUNCHES[name] += 1
     return mel, bmax
+
+
+def _launch_fold_x3(audio: torch.Tensor, weights: dict[str, torch.Tensor], mel: torch.Tensor, k: int,
+                    sup: int, hop: int, off: int, nf: int, bins_pad: int) -> tuple[int, torch.Tensor]:
+    """Launch ``fused_mel_fold_x3`` on the weights' tensor-core layouts
+    (:func:`fold_layouts`, which :func:`fold_tensors` includes) under its
+    :func:`fold_plan`; the launcher's code and the block maxima [B,
+    ceil(nf/64)], zeroed first where the plan merges them (the compact plan,
+    or more than one mel group)."""
+    name, algorithm = "fused_mel_fold_x3", "x3"
+    if "wcs_tc" not in weights or "melw_tc" not in weights:
+        raise ValueError(f"{name}: weights lack the tensor-core layouts 'wcs_tc'/'melw_tc'; "
+                         "pass fold_tensors(...) or add fold_layouts(...)")
+    basis, mtc = weights["wcs_tc"], weights["melw_tc"]
+    n_mels = mel.shape[-1]
+    planes = _TC_PLANES[algorithm][1]
+    plan = fold_plan(algorithm, hop, sup, n_mels)
+    kp = round_up_to_multiple(k, _TC_CHUNK)
+    want = (bins_pad // (_TC_COLS // 2), kp // _KC, planes, _TC_COLS, _KC)
+    want_mel = (plan.mel_groups * bins_pad // _MEL_STEP, planes, _MEL_MAX, _MEL_STEP)
+    for x in (basis, mtc):
+        if x.device != audio.device or x.dtype != torch.bfloat16 or not x.is_contiguous():
+            raise ValueError(f"{name}: tensor-core weights must be contiguous bfloat16 on {audio.device}, "
+                             f"got {x.dtype} on {x.device}")
+    if tuple(basis.shape) != want or tuple(mtc.shape) != want_mel:
+        raise ValueError(f"{name}: tensor-core weights {tuple(basis.shape)} / {tuple(mtc.shape)} do not match "
+                         f"K={k}, bins_pad={bins_pad}, n_mels={n_mels} (pack_fold_basis, pack_tc_mel)")
+    bsz, t = audio.shape
+    merged = plan.frames != BLOCK_FRAMES or plan.mel_groups > 1
+    bmax = (torch.zeros if merged else torch.empty)((bsz, -(-nf // BLOCK_FRAMES)), dtype=torch.float32,
+                                                    device=audio.device)
+    return getattr(_lib(), name)(
+        audio.data_ptr(), basis.data_ptr(), mtc.data_ptr(), mel.data_ptr(), bmax.data_ptr(),
+        bsz, t, k, kp, sup, hop, off, nf, bins_pad, n_mels, _FoldPlan(*plan), stream_of(audio),
+    ), bmax
 
 
 # ---------------------------------------------------------------------------

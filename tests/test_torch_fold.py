@@ -3,14 +3,23 @@ the JAX package's folded Pallas frontend, run as its own tests run it on the
 CPU (interpret mode). The fold's host design is compared bit for bit with
 the operands the JAX fold hands its kernel (its pallas_call is
 intercepted); the plain version (what the wrapper takes on the CPU) is held
-to the bars of the JAX frontend tests. The CUDA kernels themselves are
-checked on the card by chip_smoke.py (phases 18-19)."""
+to the bars of the JAX frontend tests. The FFMA folds
+(csrc/fused_frontend_fold.cu: fused_mel_fold_f32, fused_mel_fold_bf16) fit
+a block's shared memory at every geometry fold_ok takes, by their
+launcher's own sum. The tensor-core fold's host side
+(csrc/fused_frontend_fold_tc.cu: fused_mel_fold_x3): its staging plan
+(fold_plan) fits a block's shared memory at every geometry fold_ok takes,
+its basis layout (fold_layouts) unpacks to fold_weights bit for bit, and
+the kernel's chunk build and address arithmetic, mirrored, reproduce the
+plain version's s and d bit for bit and its DFT. The CUDA kernels
+themselves are checked on the card by chip_smoke.py (phases 18-19, 22)."""
 import re
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as tnf
 
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
@@ -21,6 +30,12 @@ from modulation_mfcc_tpu_torch.kernels import fused_frontend as ff
 from modulation_mfcc_tpu_torch.models.config import MfccConfig
 from tests.test_torch_frontend import CONFIGS, frontend_kwargs
 from tests.test_torch_frontend_modes import assert_mel_matches, bf16_ulps
+from tests.test_torch_frontend_tc import MEL_WIDTHS, RATES, SHARED_MAX, T_STEPS, WIN_LENS
+
+CSRC = Path(ff.__file__).resolve().parent.parent / "csrc"
+TC_FOLDS = ("x3",)  # the tensor-core fold (the others run on the CUDA cores)
+# the layout and mirror configurations: both CONFIGS and 256 mel bands (two groups of 128)
+FOLD_CONFIGS = CONFIGS | {"16k 256 mels": dict(signal_sample_rate=16_000, maxFreq=8000.0, n_mels=256)}
 
 torch.set_num_threads(1)
 
@@ -168,13 +183,374 @@ def test_fold_guards():
 
 
 def test_fold_kernel_constants_match_wrapper():
-    """The block and tile sizes the wrapper assumes are the fold kernel's."""
-    csrc = Path(ff.__file__).resolve().parent.parent / "csrc"
-    src = (csrc / "fused_frontend_fold.cu").read_text()
-    assert '#include "fused_frontend_common.cuh"' in src
-    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", (csrc / "fused_frontend_common.cuh").read_text()))
+    """The block and tile sizes the wrapper assumes are the fold kernels':
+    the FFMA f32 and bf16 folds' (fused_frontend_fold.cu, which includes no
+    header of the port) and the tensor-core x3 fold's
+    (fused_frontend_fold_tc.cu, tensor_core.cuh)."""
+    src = (CSRC / "fused_frontend_fold.cu").read_text()
+    assert '#include "' not in src
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
     assert int(consts["kBF"]) == ff.BLOCK_FRAMES
     assert int(consts["kBT"]) == ff._BIN_TILE
     assert int(consts["kMelMax"]) == ff._MEL_MAX
+    assert int(consts["kSharedMax"]) == ff.SHARED_MAX
     for alg in ff.FOLD_ALGORITHMS:
-        assert f'extern "C" int fused_mel_fold_{alg}(' in src
+        assert (f'extern "C" int fused_mel_fold_{alg}(' in src) == (alg not in TC_FOLDS)
+    tc_src = (CSRC / "fused_frontend_fold_tc.cu").read_text()
+    assert '#include "tensor_core.cuh"' in tc_src
+    c = fold_constants()
+    assert c["kBF"] == ff.BLOCK_FRAMES and c["kMelCols"] == ff._MEL_MAX and c["kMelStep"] == ff._MEL_STEP
+    assert c["kChunkRows"] == ff._TC_CHUNK and c["kCols"] == ff._TC_COLS and c["kStages"] == ff._TC_STAGES
+    assert c["kCols"] // 2 + 16 == ff._TC_PITCH and c["kSharedMax"] == ff.SHARED_MAX == SHARED_MAX
+    assert c["kMelLimit"] == ff.MEL_LIMIT
+    assert "mma.sync" not in src
+    for alg in ff.FOLD_ALGORITHMS:
+        assert (f'extern "C" int fused_mel_fold_{alg}(' in tc_src) == (alg in TC_FOLDS)
+    assert "mma.sync" in (CSRC / "tensor_core.cuh").read_text() and "mma_bf16" in tc_src
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core fold's host side (x3): plan, layout, and mirrors of the kernel
+# ---------------------------------------------------------------------------
+
+
+def fold_constants() -> dict[str, int]:
+    src = (CSRC / "tensor_core.cuh").read_text() + (CSRC / "fused_frontend_fold_tc.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    consts["kCols"] = 32 * consts["kWN"]  # constexpr int kCols = 32 * kWN
+    consts["kTileBins"] = consts["kCols"] // 2  # constexpr int kTileBins = kCols / 2
+    return consts
+
+
+def fold_grid(sr: int) -> list[tuple[int, int, int]]:
+    """(hop, window support, n_mels) of every geometry of tc_plan's grid
+    (test_torch_frontend_tc.grid: rates 8-48 kHz, the reference's tStep and
+    winLen range, n_fft the smallest power of two ≥ the window and ≥ 512)
+    that fold_ok takes at this rate."""
+    out = []
+    for t_step in T_STEPS:
+        for win_len in WIN_LENS:
+            cfg = MfccConfig(signal_sample_rate=sr, tStep=t_step, winLen=win_len)
+            n_fft = max(512, 1 << (cfg.win_length - 1).bit_length())
+            if ff.fold_ok(n_fft, cfg.hop_length, cfg.win_length):
+                out += [(cfg.hop_length, cfg.win_length, n) for n in MEL_WIDTHS]
+    return out
+
+
+# JAX's fold takes hop 384 (a multiple of 128) with a 3,840-sample window at
+# n_fft 4096; the x3 FFMA fold's span overflowed shared memory there
+JAX_HOP384 = (4096, 384, 3840)
+
+
+def launcher_fold_bytes(c: dict[str, int], algorithm: str, hop: int, sup: int, frames: int, stages: int) -> int:
+    """The launcher's sum (shared_bytes in the source), from the source's
+    constants: barriers, ``stages`` basis chunks, a tile's mel weights, the
+    power tile, two buffers of the chunk's s and d planes and the FP32 span."""
+    planes = 2 if algorithm == "x3" else 1
+    span_pad = -(-((frames - 1) * hop + sup + 1) // 4) * 4
+    return (128 + stages * c["kChunkRows"] * c["kCols"] * planes * 2 + c["kTileBins"] * planes * c["kMelCols"] * 2
+            + planes * frames * (c["kTileBins"] + 16) * 2 + 2 * 2 * planes * c["kChunkRows"] * frames * 2
+            + 4 * span_pad)
+
+
+@pytest.mark.parametrize("sr", RATES)
+@pytest.mark.parametrize("algorithm", TC_FOLDS)
+def test_fold_plan_fits_every_geometry(algorithm, sr):
+    """At every hop, window and mel width of the grid that fold_ok takes at
+    this rate, fold_plan gives a plan within the 227 KB of shared memory a
+    block may use: the full plan (64 frames, four stages) where it fits,
+    else the compact plan (32 frames) with the most stages, four to two,
+    that fit; one mel group per 128 bands. The 16 kHz flagship keeps the
+    full plan; at 32 kHz, hop 320, window 1280 (where the x3 FFMA fold's
+    span overflowed) and at JAX's hop-384 example x3 takes the compact plan."""
+    geoms = fold_grid(sr)
+    if sr == 16_000:
+        geoms.append(JAX_HOP384[1:] + (128,))
+    for hop, sup, n_mels in geoms:
+        plan = ff.fold_plan(algorithm, hop, sup, n_mels)
+        assert plan.shared_bytes <= SHARED_MAX, (hop, sup, n_mels, plan)
+        assert plan.mel_groups == -(-n_mels // 128)
+        full = ff._fold_plan_for(hop, sup, n_mels, 64, 4)
+        if full.shared_bytes <= SHARED_MAX:
+            assert plan == full
+        else:
+            assert plan.frames == 32 and 2 <= plan.stages <= 4
+            assert plan.stages == 4 or ff._fold_plan_for(hop, sup, n_mels, 32,
+                                                         plan.stages + 1).shared_bytes > SHARED_MAX
+    flagship = ff.fold_plan(algorithm, 80, 400, 128)
+    assert (flagship.frames, flagship.stages, flagship.mel_groups) == (64, 4, 1)
+    assert ff.fold_ok(*JAX_HOP384) and ff.fold_ok(2048, 320, 1280)
+    assert ff.fold_plan("x3", 320, 1280).frames == 32 and ff.fold_plan("x3", 384, 3840).frames == 32
+    # the FFMA x3 fold's launcher sum, 4 (span_pad + 20,736 + 16,384) bytes, did not fit there
+    assert 4 * ((63 * 320 + 1281 + 3) // 4 * 4 + 20_736 + 16_384) > SHARED_MAX
+
+
+@pytest.mark.parametrize("algorithm", TC_FOLDS)
+def test_fold_plan_bytes_are_the_launchers(algorithm):
+    """The wrapper's byte sum (fold_plan) equals the launcher's, computed here
+    from the source's constants, at every geometry of the grid fold_ok takes
+    and at JAX's hop-384 example; the plan's frames and stages are the ones
+    the launcher accepts; a width past 512 bands, and the FFMA folds (which
+    have no plan), raise."""
+    c = fold_constants()
+    geoms = [g for sr in RATES for g in fold_grid(sr)] + [JAX_HOP384[1:] + (128,)]
+    for hop, sup, n_mels in geoms:
+        plan = ff.fold_plan(algorithm, hop, sup, n_mels)
+        assert plan.shared_bytes == launcher_fold_bytes(c, algorithm, hop, sup, plan.frames, plan.stages)
+        assert (plan.frames, plan.stages) in ((c["kBF"], c["kStages"]), (c["kBF"] // 2, plan.stages))
+        assert plan.span_pad == -(-((plan.frames - 1) * hop + sup + 1) // 4) * 4
+    with pytest.raises(ValueError, match="512"):
+        ff.fold_plan(algorithm, 80, 400, 513)
+    for alg in ("f32", "bf16"):
+        with pytest.raises(ValueError, match="x3"):
+            ff.fold_plan(alg, 80, 400)
+
+
+def launcher_ffma_bytes(algorithm: str, hop: int, sup: int) -> int:
+    """The FFMA fold launcher's sum (shared_bytes in fused_frontend_fold.cu),
+    from the source's constants: the space the basis slices, the s and d
+    slices and the power tile share (shared_floats), the [kBF][kMelMax] mel
+    accumulator, and the span of (kBF − 1)·hop + sup + 1 samples padded to 4,
+    FP32 for f32 and bf16 for bf16 (whose samples are bf16 values)."""
+    src = (CSRC / "fused_frontend_fold.cu").read_text()
+    c = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert "constexpr int kPitch = kBF + 4;" in src
+    pitch = c["kBF"] + 4
+    tile = c["kBT"] // 2 if algorithm == "f32" else c["kBT"]  # kTile<MODE>
+    shared = max(2 * c["kKC"] * 2 * tile + 2 * c["kKC"] * pitch, tile * pitch)
+    span_pad = -(-((c["kBF"] - 1) * hop + sup + 1) // 4) * 4
+    return 4 * (shared + c["kBF"] * c["kMelMax"]) + (2 if algorithm == "bf16" else 4) * span_pad
+
+
+@pytest.mark.parametrize("sr", RATES)
+@pytest.mark.parametrize("algorithm", ("f32", "bf16"))
+def test_ffma_fold_fits_every_geometry(algorithm, sr):
+    """At every hop and window of the grid that fold_ok takes at this rate
+    (and at JAX's hop-384 example), the FFMA folds' launcher sum, computed
+    here from the source's constants, equals the wrapper's
+    (ffma_fold_bytes) and stays within the 227 KB of shared memory a block
+    may use. bf16 stages its span as bf16, half the bytes: it also fits 48
+    kHz at hop 720 with a 1,440-sample window (chip_smoke.py phase 18),
+    where f32's FP32 span does not."""
+    geoms = [(hop, sup) for hop, sup, _ in fold_grid(sr)]
+    if sr == 16_000:
+        geoms.append(JAX_HOP384[1:])
+    for hop, sup in geoms + [(720, 1440)]:
+        assert ff.ffma_fold_bytes(algorithm, hop, sup) == launcher_ffma_bytes(algorithm, hop, sup), (hop, sup)
+    for hop, sup in geoms:
+        assert ff.ffma_fold_bytes(algorithm, hop, sup) <= SHARED_MAX, (hop, sup)
+    assert ff.fold_ok(2048, 720, 1440)
+    assert (ff.ffma_fold_bytes(algorithm, 720, 1440) <= SHARED_MAX) == (algorithm == "bf16")
+    with pytest.raises(ValueError, match="FFMA"):
+        ff.ffma_fold_bytes("x3", 80, 400)
+
+
+def fold_config_tensors(algorithm: str, name: str) -> tuple[MfccConfig, dict[str, torch.Tensor]]:
+    cfg = MfccConfig(**FOLD_CONFIGS[name])
+    return cfg, ff.fold_tensors(algorithm, "cpu", *design(cfg))
+
+
+@pytest.mark.parametrize("name", FOLD_CONFIGS)
+@pytest.mark.parametrize("algorithm", TC_FOLDS)
+def test_fold_layouts_round_trip(algorithm, name):
+    """pack_fold_basis and pack_tc_mel, then their inverses, give x3's
+    fold_weights bit for bit (the (hi, lo) stacks): rows past K, sine
+    columns at or past im_cols and mel columns past n_mels are zero; each
+    group of 16 columns holds the cosine, then the sine columns of the same
+    8 bins; the FFMA folds (f32, bf16) have no such layout."""
+    cfg, w = fold_config_tensors(algorithm, name)
+    fw = ff.fold_weights(*design(cfg), algorithm)
+    planes = 2 if algorithm == "x3" else 1
+    packed, mel = w["wcs_tc"], w["melw_tc"]
+    k, bins = fw["wc"].shape[-2:]
+    im_cols = fw["ws"].shape[-1]
+    kp = -(-k // 32) * 32
+    assert packed.dtype == mel.dtype == torch.bfloat16
+    assert packed.shape == (bins // 64, kp // 16, planes, 128, 16)
+    assert mel.shape == (-(-cfg.n_mels // 128) * bins // 16, planes, 128, 16)
+    wc, ws = ff.unpack_fold_basis(packed, k, im_cols)
+    assert torch.equal(wc, ff.tc_planes(algorithm, torch.from_numpy(fw["wc"])))
+    assert torch.equal(ws, ff.tc_planes(algorithm, torch.from_numpy(fw["ws"])))
+    assert torch.equal(ff.unpack_tc_mel(mel, cfg.n_mels), ff.tc_planes(algorithm, torch.from_numpy(fw["melw"])))
+    full_c, full_s = ff.unpack_fold_basis(packed, kp, bins)
+    assert not full_c[:, k:].any() and not full_s[:, k:].any() and not full_s[..., im_cols:].any()
+    # column 16 q + i of the interleaved rows: bin 8 q + i, cosine for i < 8, sine after
+    flat = packed.permute(2, 1, 4, 0, 3).reshape(planes, kp, 2 * bins)[:, :k].float()
+    grouped = flat.reshape(planes, k, bins // 8, 2, 8)
+    assert torch.equal(grouped[:, :, :, 0].reshape(planes, k, bins), wc)
+    for alg in ("f32", "bf16"):
+        assert ff.fold_layouts(alg, ff.fold_tensors(alg, "cpu", *design(cfg))) == {}
+
+
+def plain_sd(audio: torch.Tensor, cfg: MfccConfig, algorithm: str, w: dict) -> tuple:
+    """(s, d) [B, nf, K] as the plain version (fused_mel_fold_reference)
+    computes them, in float32 before the mode's rounding (fold_operands)."""
+    return ff.fold_operands(audio, w["wc"].shape[-2], hop=cfg.hop_length,
+                            eff_pad=ff.eff_pad(cfg.n_fft, cfg.win_length), algorithm=algorithm)
+
+
+def staged_span(audio: torch.Tensor, cfg: MfccConfig, b: int, f0: int, frames: int) -> torch.Tensor:
+    """The block's FP32 span as the kernel stages it: x[b, f0·hop + off + i]
+    for i < span_pad, zero outside the buffer."""
+    hop, sup = cfg.hop_length, cfg.win_length
+    span_pad = -(-((frames - 1) * hop + sup + 1) // 4) * 4
+    idx = f0 * hop - ff.eff_pad(cfg.n_fft, cfg.win_length) + torch.arange(span_pad)
+    ok = (idx >= 0) & (idx < audio.shape[1])
+    span = torch.where(ok, audio[b, idx.clamp(0, audio.shape[1] - 1)], 0.0)
+    return span
+
+
+def chunk_planes(span: torch.Tensor, c: int, k: int, sup: int, hop: int, frames: int, planes: int) -> tuple:
+    """build_chunk mirrored: the FP32 (s, d) of rows [32 c, 32 c + 32) of the
+    block's frames, read from the span at f·hop + u and f·hop + sup − u
+    (zero past K), and the chunk's planes as the kernel lays them out, plane
+    q (s planes, then d planes) at q·32·frames, row u = 32 c + 16 j + kk of
+    frame f at (j·frames + f)·16 + kk; x3: (hi, lo); one plane: s, d rounded."""
+    lane = torch.arange(32)
+    u = 32 * c + lane
+    f = torch.arange(frames)[:, None]
+    live = u < k
+    lo = span[(f * hop + u.clamp(max=k - 1))]
+    hi = span[(f * hop + sup - u.clamp(max=k - 1))]
+    sv, dv = torch.where(live, lo + hi, 0.0), torch.where(live, lo - hi, 0.0)
+    buf = torch.zeros(2 * planes * 32 * frames)
+    offs = ((lane // 16) * frames + f) * 16 + lane % 16
+    for q, v in enumerate((sv, dv)):
+        split = [ff._bf16r(v)] if planes == 1 else list(ff._x3_stack(v.numpy()))
+        for pl, x in enumerate(split):
+            buf[(q * planes + pl) * 32 * frames + offs] = torch.as_tensor(x)
+    return sv, dv, buf
+
+
+@pytest.mark.parametrize("name", FOLD_CONFIGS)
+@pytest.mark.parametrize("algorithm", TC_FOLDS)
+def test_fold_chunk_build_mirror(algorithm, name):
+    """The kernel's chunk build, mirrored on noise that ends inside the last
+    block (whose last frames read zeros past the buffer): every block's s
+    and d, read from its staged span by index (the reversed end x[a + sup −
+    u] included, rows past K zero), equal the plain version's s and d bit
+    for bit in both plans (64 and 32 frames a block), and the planes hold
+    their (hi, lo) split, whose hi plane is the bf16 rounding."""
+    cfg, w = fold_config_tensors(algorithm, name)
+    audio = torch.tensor(np.random.default_rng(14).standard_normal((2, 3_001)).astype(np.float32))
+    s_ref, d_ref = plain_sd(audio, cfg, algorithm, w)
+    nf, k = s_ref.shape[1:]
+    kp = -(-k // 32) * 32
+    planes = 2 if algorithm == "x3" else 1
+    for frames in (64, 32):
+        for b in range(audio.shape[0]):
+            for f0 in range(0, nf, frames):
+                span = staged_span(audio, cfg, b, f0, frames)
+                n = min(frames, nf - f0)
+                for c in range(kp // 32):
+                    sv, dv, buf = chunk_planes(span, c, k, cfg.win_length, cfg.hop_length, frames, planes)
+                    rows = slice(32 * c, min(32 * c + 32, k))
+                    width = rows.stop - rows.start
+                    assert torch.equal(sv[:n, :width], s_ref[b, f0 : f0 + n, rows])
+                    assert torch.equal(dv[:n, :width], d_ref[b, f0 : f0 + n, rows])
+                    assert not sv[:, width:].any() and not dv[:, width:].any()
+                    s0 = buf[: 32 * frames].reshape(2, frames, 16).permute(1, 0, 2).reshape(frames, 32)
+                    assert torch.equal(s0, ff._bf16r(sv))
+
+
+def kernel_dft_mirror(buf: torch.Tensor, packed: torch.Tensor, tile: int, c: int, frames: int,
+                      planes: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of fold_chunk's address arithmetic, mirrored in float64:
+    the A fragments of every thread (warp (wm, wn), lane 4g + t, m-tile mt,
+    half h: row 16·MT·wm + 16 mt + 8 h + g, elements 4t..4t+3 of step j) from
+    the chunk's planes (s for even n-tiles, d for odd), the B fragments
+    (column 32 wn + 8 nt + g of the ring stage) from the packed basis, their
+    MMAs (the k relabelling is the same for A and B, so the stored order is
+    the contraction order), and the x3 products (hi·Whi + hi·Wlo + lo·Whi).
+    Returns (re, im) [frames, 64] of the tile's bins as the thread of column
+    2t + e of n-tiles 2 n2 and 2 n2 + 1 holds them: bin 16 wn + 8 n2 + 2t + e."""
+    mt_n = frames // 32
+    kp = packed.shape[1] * 16
+    stage = packed.reshape(-1).double()[(tile * kp + 32 * c) * 128 * planes:][: 32 * 128 * planes]
+    plane = 32 * frames
+    out = torch.zeros(2, frames, 64, dtype=torch.float64)  # re, im
+    g, t = torch.arange(8)[:, None], torch.arange(4)[None, :]
+    e4 = torch.arange(4)
+
+    def mma(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """C[row g_a][col g_b] = sum over (t, element) of A[g_a, t, :]·B[g_b, t, :]."""
+        return torch.einsum("ate,bte->ab", x, y)
+
+    for j in range(2):
+        for wm in range(2):
+            for mt in range(mt_n):
+                for h in range(2):
+                    row = 16 * mt_n * wm + 16 * mt + 8 * h + g              # [8, 1]
+                    a_off = ((j * frames + row) * 16 + 4 * t)[..., None] + e4  # [8, 4, 4]: g, t, element
+                    for wn in range(4):
+                        for nt in range(4):
+                            op = nt & 1
+                            col0 = 32 * wn + g
+                            b_off = ((j * planes) * 128 + col0 + 8 * nt) * 16 + 4 * t
+                            a = [buf[(op * planes + p) * plane + a_off].double() for p in range(planes)]
+                            w = [stage[(b_off + p * 128 * 16)[..., None] + e4] for p in range(planes)]
+                            cval = mma(a[0], w[0])
+                            if planes == 2:
+                                cval = cval + mma(a[0], w[1]) + mma(a[1], w[0])
+                            bins = 16 * wn + 8 * (nt // 2) + torch.arange(8)
+                            out[op, row[:, 0][:, None], bins[None, :]] += cval
+    return out[0], out[1]
+
+
+@pytest.mark.parametrize("name", FOLD_CONFIGS)
+@pytest.mark.parametrize("algorithm", TC_FOLDS)
+def test_fold_kernel_address_mirror(algorithm, name):
+    """The kernel's addressing end to end on one block per plan: the chunk
+    planes (build_chunk) and the packed basis (fold_layouts) read as the
+    threads read them (fold_chunk), summed over the chunks, give the tile's
+    re = s·wc and im = d·ws of the plain version's rounded s and d against
+    the unpacked weights, in float64, to 1e-12 of the largest; and the power
+    tile written at the kernel's offsets, row·kPitch + bin, is the power of
+    the tile's bins in natural order (mel_tile's input)."""
+    cfg, w = fold_config_tensors(algorithm, name)
+    audio = torch.tensor(np.random.default_rng(41).standard_normal((1, 12_000)).astype(np.float32))
+    s_ref, d_ref = plain_sd(audio, cfg, algorithm, w)
+    k, planes = s_ref.shape[-1], (2 if algorithm == "x3" else 1)
+    kp = -(-k // 32) * 32
+    wc, ws = (torch.as_tensor(v).double() for v in (w["wc"], w["ws"]))
+    if planes == 1:
+        wc, ws = wc[None], ws[None]
+    ws = tnf.pad(ws, (0, wc.shape[-1] - ws.shape[-1]))
+
+    def split(x: torch.Tensor) -> list[torch.Tensor]:
+        if planes == 1:
+            return [ff._bf16r(x).double()]
+        return [torch.as_tensor(v).double() for v in ff._x3_stack(x.numpy())]
+
+    def x3(xs, ws_):
+        r = xs[0] @ ws_[0]
+        return r if planes == 1 else r + xs[0] @ ws_[1] + xs[1] @ ws_[0]
+
+    for frames in (64, 32):
+        f0 = frames  # the second block
+        span = staged_span(audio, cfg, 0, f0, frames)
+        s_pl, d_pl = split(s_ref[0, f0 : f0 + frames]), split(d_ref[0, f0 : f0 + frames])
+        for tile in range(wc.shape[-1] // 64):
+            re = torch.zeros(frames, 64, dtype=torch.float64)
+            im = torch.zeros_like(re)
+            for c in range(kp // 32):
+                buf = chunk_planes(span, c, k, cfg.win_length, cfg.hop_length, frames, planes)[2]
+                r, i = kernel_dft_mirror(buf, w["wcs_tc"], tile, c, frames, planes)
+                re += r
+                im += i
+            cols = slice(64 * tile, 64 * tile + 64)
+            want_re = x3(s_pl, [p[:, cols] for p in wc])
+            want_im = x3(d_pl, [p[:, cols] for p in ws])
+            scale = float(max(want_re.abs().max(), want_im.abs().max(), 1e-30))
+            assert float((re - want_re).abs().max()) <= 1e-12 * scale
+            assert float((im - want_im).abs().max()) <= 1e-12 * scale
+            # the power tile: thread (wm, mt, h, g; wn, n2, t, e) writes row·80 + 16 wn + 8 n2 + 2t + e
+            pw = torch.full((frames, 80), float("nan"), dtype=torch.float64)
+            power = re * re + im * im
+            for wn in range(4):
+                for n2 in range(2):
+                    for t in range(4):
+                        for e in range(2):
+                            col = 16 * wn + 8 * n2 + 2 * t + e
+                            pw[:, col] = power[:, col]
+            assert torch.equal(pw[:, :64], power) and torch.isnan(pw[:, 64:]).all()

@@ -158,9 +158,10 @@ def test_plain_versions_compose_like_the_wrappers(audio):
 
 
 def test_wrapper_geometry_matches_cuda_source():
-    """The block and tile sizes the wrappers assume are the kernel's own."""
+    """The block and tile sizes the wrappers assume are the kernels' own
+    (the f32 fold's, fused_frontend_fold.cu; the tail's, fused_frontend.cu)."""
     csrc = Path(ff.__file__).resolve().parent.parent / "csrc"
-    src = (csrc / "fused_frontend_common.cuh").read_text() + (csrc / "fused_frontend.cu").read_text()
+    src = (csrc / "fused_frontend_fold.cu").read_text() + (csrc / "fused_frontend.cu").read_text()
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
     assert int(consts["kBF"]) == ff.BLOCK_FRAMES
     assert int(consts["kBT"]) == ff._BIN_TILE
