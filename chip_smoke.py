@@ -17,13 +17,14 @@ Phases:
      and a line each for the Viterbi kernels', the tensor-core frontend's
      (fused_mel_bf16 is mode 3, fused_mel_f32 mode 4), the tail's,
      sinc_refine_f32's and burg_lpc_f32's (C, elements a lane)
-     instantiations, and the fold kernels' (fused_mel_fold_kernel<mode>,
-     the FFMA folds: f32 is 0, bf16 1; fused_mel_fold_tc_kernel<m-tiles>,
-     x3, the compact plan 1 m-tile); each frontend mode's staging plan
-     (tc_plan) and shared memory a block at both configurations and at
-     phase 24's, the x3 fold's plan (fold_plan) at the flagship, at 256
-     bands and at phase 18's compact-plan geometries, and the blocks an SM
-     holds; the
+     instantiations, and the fold kernels' (fused_mel_fold_kernel, the
+     FFMA bf16 fold; fused_mel_fold_tc_kernel<planes, m-tiles>, x3 with 2
+     planes, f32 with 3, 32-frame plans 1 m-tile); each frontend mode's
+     staging plan (tc_plan) and shared memory a block at both
+     configurations and at phase 24's, the f32 and x3 folds' plans
+     (fold_plan) and the bf16 fold's shared memory at the flagship, at 256
+     bands and at phase 18's wide-span geometries (C8's among them), and
+     the blocks an SM holds; the
      sinc tiling at the
      tracker's bands and the Burg plan (C, warps a frame, blocks an SM)
      over nw 2..3,632
@@ -92,15 +93,16 @@ Phases:
  17  frontend-mode times: the four kernels beside their plain versions at
      128 × 30 s on int16 rows (and fused_mel_f32's time there), mfcc_change
      end to end per spectrum, peak memory
- 18  fold kernels (fused_mel_fold_f32 on the CUDA cores, _bf16 and _x3 on the
-     tensor cores) vs plain versions on the card, 4 × 30 s at both
-     configurations and at 256 mel bands, the bf16 and x3 folds also at 32
-     kHz with hop 320 and window 1280, at 48 kHz with hop 384 and window
-     3840 and at 48 kHz with hop 720 and window 1440 (x3 takes the compact
-     plan there; the last is the widest span, which bf16's FFMA block fits
-     by staging its span as bf16); x3 against the float64 sums of its own
-     products (mode_error_ok), each line with its plan; the f32 fold vs
-     fused_mel_f32
+ 18  fold kernels (fused_mel_fold_f32 and _x3 on the tensor cores, _bf16 on
+     the CUDA cores) vs plain versions on the card, 4 × 30 s at both
+     configurations and at 256 mel bands, and also at 32 kHz with hop 320
+     and window 1280, at 48 kHz with hop 384 and window 3840 and at 48 kHz
+     with hop 720 and window 1440 (f32 and x3 take 32-frame plans there;
+     the last is the widest span, C8's, which f32 fits with one buffer of s
+     and d planes and bf16's FFMA block by staging its span as bf16); f32
+     against its plain version evaluated in float64 and x3 against the
+     float64 sums of its own products (mode_error_ok), each line with its
+     plan; the f32 fold vs fused_mel_f32
  19  the fold path at full size: fused_mel_frontend(fold=True) → peak →
      mfcc_tail on 128 × 30 s at 16 kHz, one launch of each fold kernel,
      against the unfolded MFCC and, through the trajectory tail, the
@@ -119,14 +121,18 @@ Phases:
      float64 DFT's mel lies from it), mfcc_tail_f32
      at full size in both layouts on float32 and
      bf16 mel (checked against its plain version), the fold path and the
-     modulation spectrum end to end, bounds
+     modulation spectrum end to end, bounds (a fold's: its bf16 passes
+     over the folded contraction on the tensor cores, six for f32, whose
+     bound on the FP32 CUDA cores is printed beside it); fused_mel_fold_f32
+     under each rung of its plan ladder at the flagship and at 32 kHz with
+     hop 160, each rung's mel bit for bit the ladder's plan's
  23  the f32 MFCC's distance from the float64 'fft' MFCC at 128 x 30 s
      (phase 19's noise and speech-like batches), enforced for
-     fused_mel_f32: on each batch no further than its plain version's
-     distance times 1.05. Printed beside it: the split's CPU mirror
-     (split3_frontend_mirror) run on the card, and with an FP32 mel (the
-     mel's other candidate; phase 2 prints both on its input),
-     fused_mel_fold_f32, the
+     fused_mel_f32 and fused_mel_fold_f32: on each batch no further than
+     its plain version's distance times 1.05. Printed beside them: the
+     splits' CPU mirrors (split3_frontend_mirror, split3_fold_mirror) run on
+     the card, the unfolded one also with an FP32 mel (the mel's other
+     candidate; phase 2 prints both on its input), the
      plain versions in the one-sum order before the 16-row steps, and the
      other routes ('fft' in float32; 'fused_x3' and 'fused_i24' beside the
      plain versions of their kernels), and the f32 kernel's and its plain
@@ -183,7 +189,8 @@ checkout at DIR instead of this one's, builds its kernels, times its
 frontend kernels at 128 × 30 s at 16 kHz as the frontend rows below are
 timed (fused_mel_f32 on float32 audio of phase 5's and phase 22's batches,
 seeds 0 and 19, in both orders; the f32 fold on both, the bf16 and x3
-folds on seed 19; bf16, x3, i16, i24
+folds on seed 19, with a digest of each fold's mel and maxima there, so
+two packages' folds compare bit for bit; bf16, x3, i16, i24
 and f32 on phase 15's int16 hop rows), mfcc_tail_f32 in both layouts on the
 float32 mel of seed 0 and the bf16 mel of the rows, 'fused' mfcc_change on
 the float32 audio of seed 0 and 'fused_i16' and 'fused_bf16' mfcc_change
@@ -209,6 +216,7 @@ last line is the device JSON. Imports no JAX.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import statistics
@@ -272,7 +280,7 @@ SOURCES = {
     "fused_mel_x3": f"{CSRC}/fused_frontend_tc.cu",
     "fused_mel_i16": f"{CSRC}/fused_frontend_tc.cu",
     "fused_mel_i24": f"{CSRC}/fused_frontend_tc.cu",
-    "fused_mel_fold_f32": f"{CSRC}/fused_frontend_fold.cu",
+    "fused_mel_fold_f32": f"{CSRC}/fused_frontend_fold_tc.cu",
     "fused_mel_fold_bf16": f"{CSRC}/fused_frontend_fold.cu",
     "fused_mel_fold_x3": f"{CSRC}/fused_frontend_fold_tc.cu",
 }
@@ -298,8 +306,9 @@ MODES = ("bf16", "x3", "i16", "i24")  # the frontend modes of phases 14-17
 SPECTRUM = {"f32": "fused", "bf16": "fused_bf16", "x3": "fused_x3", "i16": "fused_i16", "i24": "fused_i24"}
 SPECTRUM_ALG = {v: k for k, v in SPECTRUM.items()}
 FOLD_MODES = ff.FOLD_ALGORITHMS  # the fold kernels of phases 18-22
-TC_FOLDS = ("x3",)               # the tensor-core fold (fold_plan)
-WIDE_FOLDS = ("bf16", "x3")      # the folds phase 18 also runs at FOLD_COMPACT's wide spans
+TC_FOLDS = ("f32", "x3")  # the tensor-core folds (fold_plan); a literal, as --frontend may import an older package
+# the weights each fold kernel reads (phase 22's bytes): the tensor-core folds their layouts
+FOLD_READS = {"f32": ("wcs_tc", "melw_tc"), "x3": ("wcs_tc", "melw_tc"), "bf16": ("wc", "ws", "melw")}
 LONG_SR, LONG_SECONDS = 48_000, 3600
 
 
@@ -1391,13 +1400,14 @@ def plain64(audio: torch.Tensor, cfg: mt.MfccConfig, w: dict, n_samples: int | N
 def mode_error_ok(alg: str, mel_k, bmax_k, mel_p, bmax_p, exact=None) -> tuple[bool, str]:
     """Phase 2's bars (mel ≤ 1e-4 relative above the top_db floor, peak ≤
     1e-5) for i16 and i24, whose power is the plain version's to f32
-    rounding (bit for bit). The f32 fold (no ``exact``) is held to them too.
+    rounding (bit for bit).
 
-    fused_mel_f32 (``exact`` given: plain64 of the same input, its plain
-    version's (mel, block maxima) in float64) runs an exact three-plane bf16
-    split on the tensor cores, whose products are exact and whose hi·hi
-    step sums round far less than the plain version's FP32 GEMMs. Where a
-    bin's power is 80 dB below its utterance's peak, FP32 leaves the plain
+    fused_mel_f32 and fused_mel_fold_f32 (``exact`` given: plain64, or
+    fold64, of the same input, the plain version's (mel, block maxima) in
+    float64) run an exact three-plane bf16 split on the tensor cores (the
+    TPU's own f32, Precision.HIGHEST), whose products are exact and whose
+    hi·hi step sums round far less than the plain version's FP32 GEMMs.
+    Where a bin's power is 80 dB below its utterance's peak, FP32 leaves the plain
     version several times further from float64 than the split (each
     distance is printed), so the two differ there by more than 1e-4 though
     the kernel is the nearer. Its mel bar is therefore stated against the float64 evaluation:
@@ -1710,12 +1720,13 @@ def fold_plain(audio, cfg, alg, w):
                                        eff_pad=ff.eff_pad(cfg.n_fft, cfg.win_length), algorithm=alg)
 
 
-# Phase 18's geometries beyond the flagship's, where fold_plan takes the
-# compact plan (32 frames a block) for x3, whose FFMA kernel's span
-# overflowed shared memory there: 32 kHz with tStep 0.01 and winLen 0.04,
-# JAX's own fold example of hop 384 with a 3,840-sample window at n_fft 4096
-# (here at 48 kHz), and 48 kHz with tStep 0.015 and winLen 0.03, a span of
-# 46,801 samples, which the bf16 fold's FFMA block fits by staging it as bf16
+# Phase 18's geometries beyond the flagship's, where fold_plan takes 32
+# frames a block for f32 and x3, whose FFMA kernels' spans overflowed shared
+# memory there: 32 kHz with tStep 0.01 and winLen 0.04, JAX's own fold
+# example of hop 384 with a 3,840-sample window at n_fft 4096 (here at 48
+# kHz), and 48 kHz with tStep 0.015 and winLen 0.03, a span of 46,801
+# samples (C8), which the f32 fold fits with one buffer of s and d planes
+# and the bf16 fold's FFMA block by staging it as bf16
 FOLD_COMPACT = (("32 kHz, hop 320, window 1280", mt.MfccConfig(signal_sample_rate=32_000, tStep=0.01, winLen=0.04,
                                                                n_fft=2048)),
                 ("48 kHz, hop 384, window 3840", mt.MfccConfig(signal_sample_rate=48_000, tStep=0.008, winLen=0.08,
@@ -1728,7 +1739,7 @@ def fold_plan_text(cfg: mt.MfccConfig, alg: str) -> str:
     if alg not in TC_FOLDS:
         return "FFMA"
     plan = ff.fold_plan(alg, cfg.hop_length, cfg.win_length, cfg.n_mels)
-    return f"{'full' if plan.frames == ff.BLOCK_FRAMES else 'compact'} plan {tuple(plan)}"
+    return f"plan {plan.frames}/{plan.stages}/{plan.buffers} {tuple(plan)}"
 
 
 def x3_exact_fold_mel(audio: torch.Tensor, cfg: mt.MfccConfig, w: dict) -> torch.Tensor:
@@ -1755,27 +1766,36 @@ def x3_exact_fold_mel(audio: torch.Tensor, cfg: mt.MfccConfig, w: dict) -> torch
     return torch.cat(out)
 
 
+def fold64(audio: torch.Tensor, cfg: mt.MfccConfig, w: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """The f32 fold's plain version evaluated in float64: the same function
+    (fused_mel_fold_reference, the DFT in 16-row steps) on the same float32
+    samples and weights, widened exactly; (mel, block maxima)."""
+    return ff.fused_mel_fold_reference(audio.double(), w["wc"].double(), w["ws"].double(), w["melw"].double(),
+                                       hop=cfg.hop_length, eff_pad=ff.eff_pad(cfg.n_fft, cfg.win_length))
+
+
 def fold_exact(audio: torch.Tensor, cfg: mt.MfccConfig, alg: str, w: dict):
     """The float64 evaluation a fold is held against (mode_error_ok):
-    x3_exact_fold_mel for x3; None for bf16 and f32, which are held to their
-    plain versions alone."""
-    return x3_exact_fold_mel(audio, cfg, w) if alg == "x3" else None
+    x3_exact_fold_mel for x3, fold64 for f32; None for bf16, which is held
+    to its plain version alone."""
+    if alg == "x3":
+        return x3_exact_fold_mel(audio, cfg, w)
+    return fold64(audio, cfg, w) if alg == "f32" else None
 
 
 def fold_kernel_checks(dev) -> None:
     """Phase 18: the fold kernels against their plain versions (the
-    unfolded modes' bars, mode_error_ok; x3 as fused_mel_x3, against the
-    float64 sums of its own products), each under the plan it takes, and
-    the f32 fold against fused_mel_f32 on the same audio (the JAX fold
-    test's bar: 1e-5 of the largest mel), also at 256 mel bands (two groups
-    of 128); the bf16 and x3 folds also at FOLD_COMPACT, where x3 takes the
-    compact plan."""
+    unfolded modes' bars, mode_error_ok; f32 as fused_mel_f32, against its
+    plain version in float64; x3 as fused_mel_x3, against the float64 sums
+    of its own products), each under the plan it takes, and the f32 fold
+    against fused_mel_f32 on the same audio (the JAX fold test's bar: 1e-5
+    of the largest mel), also at 256 mel bands (two groups of 128); every
+    fold also at FOLD_COMPACT, where f32 and x3 take 32-frame plans."""
     for name, cfg in (("10k default (packed Nyquist)", DEFAULT_10K), ("16k fmax 8k", FLAGSHIP),
                       ("16k, 256 mel bands", WIDE)) + FOLD_COMPACT:
         sr = cfg.signal_sample_rate
         audio = torch.tensor(speechlike(4, SECONDS * sr, sr, seed=18), device=dev)
-        compact = any(cfg is c for _, c in FOLD_COMPACT)
-        for alg in WIDE_FOLDS if compact else FOLD_MODES:
+        for alg in FOLD_MODES:
             w = fold_weights(cfg, alg, dev)
             reset(ff.LAUNCHES)
             mel_k, bmax_k = fold_kernel(audio, cfg, alg, w)
@@ -1790,7 +1810,7 @@ def fold_kernel_checks(dev) -> None:
             check(ok, f"fused_mel_fold_{alg} {name}")
             del mel_k, bmax_k, mel_p, bmax_p
             torch.cuda.empty_cache()
-        if compact:
+        if any(cfg is c for _, c in FOLD_COMPACT):
             continue
         mel_f, _ = fold_kernel(audio, cfg, "f32", fold_weights(cfg, "f32", dev))
         mel_u, _ = mode_kernel(audio, cfg, "f32", mode_weights(cfg, "f32", dev))
@@ -2039,17 +2059,22 @@ def fold_times(dev, y: torch.Tensor, launches: dict, card: str) -> list[dict]:
         bsz, nf, n_mels = mel_k.shape
         k, bins = w["wc"].shape[-2:]
         im_cols = w["ws"].shape[-1]
-        dft = 2.0 * bsz * nf * k * (bins + im_cols)
+        dft = 2.0 * bsz * nf * k * (bins + im_cols)  # one pass of the folded contraction, K × (bins + im_cols)
         mel_ops = 2.0 * bsz * nf * bins * n_mels
-        t_ops = {"f32": (dft + 2.0 * bsz * nf * k + 3.0 * bsz * nf * bins + mel_ops) / PEAK_FP32_S,
-                 "bf16": (dft + mel_ops) / PEAK_BF16_S, "x3": 3 * (dft + mel_ops) / PEAK_BF16_S}[alg] * 1e3
-        n_bytes = (y.numel() * 4 + sum(v.numel() * 4 for v in w.values())
+        passes = {"f32": 6, "bf16": 1, "x3": 3}[alg]  # bf16 passes on the tensor cores (bf16: its bound there)
+        # bytes: the audio, the weights the kernel reads (FOLD_READS) at their element size, mel and maxima
+        n_bytes = (y.numel() * 4 + sum(w[key].numel() * w[key].element_size() for key in FOLD_READS[alg])
                    + mel_k.numel() * mel_k.element_size() + bmax_k.numel() * 4)
-        t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+        t_bytes, t_ops = n_bytes / PEAK_BYTES_S * 1e3, passes * (dft + mel_ops) / PEAK_BF16_S * 1e3
         b = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        extra = ""
+        if alg == "f32":  # the same function on the FP32 CUDA cores, the parent FFMA kernel's unit
+            ffma = (dft + 2.0 * bsz * nf * k + 3.0 * bsz * nf * bins + mel_ops) / PEAK_FP32_S * 1e3
+            extra = f"; the same function on the FP32 CUDA cores {ffma:.3f} ms, {ffma / t_k:.1%} of it"
         print(f"[22] {kname} ({fold_plan_text(cfg, alg)}): {t_k:.3f} ms, plain {t_p:.3f} ms, unfolded "
-              f"fused_mel_{alg} {t_u:.3f} ms, bound {b[0]:.3f} ms ({b[1]}), {b[0] / t_k:.1%} of it; the fold "
-              f"{t_u / t_k:.3f} × as fast as the unfolded kernel ({card}; {sm_clock()})")
+              f"fused_mel_{alg} {t_u:.3f} ms, bound {b[0]:.3f} ms ({b[1]}, {passes} bf16 pass(es) of K × (bins + "
+              f"im_cols) and the mel), {b[0] / t_k:.1%} of it{extra}; the fold {t_u / t_k:.3f} × as fast as the "
+              f"unfolded kernel ({card}; {sm_clock()})")
         check_late(ok, f"{kname} at full size")
         rows.append(kernel_row(kname, launches[kname], err, (t_k, t_p), b))
         del mel_k, bmax_k
@@ -2088,6 +2113,44 @@ def fold_times(dev, y: torch.Tensor, launches: dict, card: str) -> list[dict]:
     return rows
 
 
+def fold_rungs(dev, y: torch.Tensor, card: str) -> None:
+    """Phase 22: fused_mel_fold_f32 under every rung of its ladder
+    (fold_plan) that fits a block, on 128 × 30 s at the flagship (``y``) and
+    at 32 kHz with hop 160 and window 800, where the ladder takes 64 frames
+    with two stages: each rung's time, and its mel and block maxima against
+    the ladder's own plan's, bit for bit (a plan changes no sum's order)."""
+    cfg32 = mt.MfccConfig(signal_sample_rate=32_000, tStep=0.005, winLen=0.025, n_fft=1024)
+    y32 = speechlike_on_card(BATCH * SECONDS * 32_000, 32_000, seed=22).reshape(BATCH, -1)
+    ladder = ff.fold_plan
+    try:
+        for label, cfg, x in (("16 kHz flagship", FLAGSHIP, y), ("32 kHz, hop 160, window 800", cfg32, y32)):
+            ff.fold_plan = ladder
+            w = fold_weights(cfg, "f32", dev)
+            want = fold_kernel(x, cfg, "f32", w)
+            chosen = ladder("f32", cfg.hop_length, cfg.win_length, cfg.n_mels)
+            parts, equal = [], True
+            for rung in ff._FOLD_LADDER["f32"]:
+                plan = ff._fold_plan_for("f32", cfg.hop_length, cfg.win_length, cfg.n_mels, *rung)
+                if plan.shared_bytes > ff.SHARED_MAX:
+                    continue
+                ff.fold_plan = lambda *_, plan=plan: plan
+                got = fold_kernel(x, cfg, "f32", w)
+                same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                check_late(same, f"fused_mel_fold_f32 plan {rung} at {label} equals the ladder's plan's mel")
+                equal &= same
+                del got
+                t = kernel_ms(lambda: fold_kernel(x, cfg, "f32", w))
+                parts.append(f"{rung[0]}/{rung[1]}/{rung[2]}{' (the ladder)' if plan == chosen else ''} {t:.3f} ms")
+            print(f"[22] fused_mel_fold_f32 by plan (frames/stages/buffers) at {label} on {tuple(x.shape)}: "
+                  + "; ".join(parts) + f"; mel and maxima of each equal the ladder's plan's: {equal} ({card}; "
+                  f"{sm_clock()})")
+            del want
+    finally:
+        ff.fold_plan = ladder
+    del y32
+    torch.cuda.empty_cache()
+
+
 def via_tail(mel_bmax, cfg: mt.MfccConfig, model) -> torch.Tensor:
     """The coef-major MFCC of a frontend's (mel, block maxes), through mfcc_tail_f32."""
     mel, bmax = mel_bmax
@@ -2120,12 +2183,13 @@ def c2_distances(dev, y: torch.Tensor, card: str) -> None:
     two batches (BASELINE.md's bar: max-abs 1e-4, which no float32 route
     meets at this size, ROADMAP C2). fused_mel_f32 runs the exact three-plane
     bf16 split on the tensor cores, its hi·hi sum added in 16-row steps; its
-    plain version is a true FP32 GEMM in those steps. Enforced: on each
-    batch the kernel's MFCC no further from float64 than its plain
-    version's, times 1.05. Printed beside them: the split mirrored in
-    float32 matmuls (split3_frontend_mirror, the CPU tests' proof) run on
-    the card, the fold kernel (its DFT in 16-row FFMA steps) and its plain
-    version, the plain versions in the one-sum order they had before the
+    plain version is a true FP32 GEMM in those steps; fused_mel_fold_f32
+    runs the same split over the folded operands, its plain version the
+    FP32 fold in those steps. Enforced: on each batch each kernel's MFCC no
+    further from float64 than its plain version's, times 1.05. Printed
+    beside them: the splits mirrored in float32 matmuls
+    (split3_frontend_mirror, split3_fold_mirror, the CPU tests' proofs) run
+    on the card, the plain versions in the one-sum order they had before the
     steps, the other routes (x3 and i24 with their kernels' plain versions),
     the f32 kernel's and its plain version's mel through the tail in float64
     (what the tail's FP32 chains add), and the fused design's own floor (its
@@ -2135,14 +2199,17 @@ def c2_distances(dev, y: torch.Tensor, card: str) -> None:
     a, wf = frontend_args(cfg, dev), fold_weights(cfg, "f32", dev)
     ws = {alg: mode_weights(cfg, alg, dev) for alg in ("x3", "i24")}
     kernel, plain = "fused_mel_f32 (kernel)", "fused_mel_f32's plain version"
+    fold_k, fold_p = "fused_mel_fold_f32 (kernel)", "fused_mel_fold_f32's plain version"
     routes = {
         kernel: lambda x: model.trajectories(x, coef_major=True),
         plain: lambda x: via_tail(frontend_plain(x, cfg, a), cfg, model),
         "the split's mirror": lambda x: via_tail(ff.split3_frontend_mirror(
             x, a["wri"], a["melw"], hop=cfg.hop_length, eff_pad=a["eff_pad"]), cfg, model),
         "the split's mirror with an FP32 mel": lambda x: via_tail(split_fp32_mel(x, cfg, a), cfg, model),
-        "fused_mel_fold_f32 (kernel)": lambda x: fold_mfcc(x, cfg, "f32", wf, model.dct),
-        "fused_mel_fold_f32's plain version": lambda x: via_tail(fold_plain(x, cfg, "f32", wf), cfg, model),
+        fold_k: lambda x: fold_mfcc(x, cfg, "f32", wf, model.dct),
+        fold_p: lambda x: via_tail(fold_plain(x, cfg, "f32", wf), cfg, model),
+        "the fold split's mirror": lambda x: via_tail(ff.split3_fold_mirror(
+            x, wf["wc"], wf["ws"], wf["melw"], hop=cfg.hop_length, eff_pad=a["eff_pad"]), cfg, model),
     }
     for label, x in c2_batches(y):
         f64 = model.trajectories(x.double(), spectrum="fft", coef_major=True)
@@ -2158,7 +2225,7 @@ def c2_distances(dev, y: torch.Tensor, card: str) -> None:
         ff._stepped_matmul = lambda u, w: u @ w  # the order before the repair: one K-term sum
         try:
             parts += [f"{name} in one sum {err(fn(x)):.3e}" for name, fn in routes.items()
-                      if "plain" in name or name == "the split's mirror"]
+                      if "plain" in name or name in ("the split's mirror", "the fold split's mirror")]
         finally:
             ff._stepped_matmul = stepped
         parts.append(f"spectrum='fft' {err(model.trajectories(x, spectrum='fft', coef_major=True)):.3e}")
@@ -2182,10 +2249,12 @@ def c2_distances(dev, y: torch.Tensor, card: str) -> None:
         torch.cuda.empty_cache()
         print(f"[23] f32 MFCC on the {label} batch {tuple(x.shape)} against the float64 'fft' MFCC, max-abs "
               f"(BASELINE bar 1e-4; the f32 routes in 16-row steps): " + "; ".join(parts) + f" ({card})")
-        ratio = dist[kernel] / dist[plain]
-        print(f"[23] {label}: fused_mel_f32 {dist[kernel]:.3e} = {ratio:.4f} × its plain version's {dist[plain]:.3e} "
-              f"(bar 1.05)")
-        check(ratio <= 1.05, f"phase 23 {label}: fused_mel_f32 no further from float64 than 1.05 × its plain version")
+        for k_name, p_name in ((kernel, plain), (fold_k, fold_p)):
+            ratio = dist[k_name] / dist[p_name]
+            name = k_name.removesuffix(" (kernel)")
+            print(f"[23] {label}: {name} {dist[k_name]:.3e} = {ratio:.4f} × its plain version's {dist[p_name]:.3e} "
+                  f"(bar 1.05)")
+            check(ratio <= 1.05, f"phase 23 {label}: {name} no further from float64 than 1.05 × its plain version")
         del f64
         torch.cuda.empty_cache()
 
@@ -2202,6 +2271,7 @@ def fold_longform_modspec(dev, card: str) -> list[dict]:
     modspec(dev, y)
     torch.cuda.empty_cache()
     rows = fold_times(dev, y, launches, card)
+    fold_rungs(dev, y, card)
     c2_distances(dev, y, card)
     return rows
 
@@ -2261,6 +2331,11 @@ def frontend_report(root: Path) -> int:
         w = fold_weights(cfg, alg, dev)
         line(f"fused_mel_fold_{alg}, float32, seed 19", lambda: fold_kernel(ys[19], cfg, alg, w))
         del w
+    for alg in FOLD_MODES:  # two packages whose folds compute alike print the same digests
+        mel, bmax = fold_kernel(ys[19], cfg, alg, wf if alg == "f32" else fold_weights(cfg, alg, dev))
+        digest = hashlib.sha256(mel.float().cpu().numpy().tobytes() + bmax.cpu().numpy().tobytes())
+        print(f"[{label}] fused_mel_fold_{alg} mel and block maxima of seed 19: sha256 {digest.hexdigest()[:16]}")
+        del mel, bmax
     dct = torch.tensor(ff.tail_dct(cfg.n_mfcc, cfg.n_mels), device=dev)
 
     def tail_lines(what: str, mel_bmax) -> None:
@@ -3247,17 +3322,14 @@ def shared_report() -> None:
         for alg in TC_FOLDS:
             plan = ff.fold_plan(alg, cfg.hop_length, cfg.win_length, cfg.n_mels)
             check(plan.shared_bytes <= ff.SHARED_MAX, f"fused_mel_fold_{alg} shared memory at {label}")
-            parts.append(f"fused_mel_fold_{alg} {'full' if plan.frames == ff.BLOCK_FRAMES else 'compact'} "
-                         f"{tuple(plan)}, {plan.shared_bytes} bytes "
-                         f"({233_472 // (plan.shared_bytes + 1024)} an SM by shared memory)")
-        for alg in ("f32", "bf16"):
-            n = ff.ffma_fold_bytes(alg, cfg.hop_length, cfg.win_length)
-            check(alg != "bf16" or n <= ff.SHARED_MAX, f"fused_mel_fold_{alg} shared memory at {label}")
-            parts.append(f"fused_mel_fold_{alg} (FFMA) {n} bytes ("
-                         + (f"{233_472 // (n + 1024)} an SM by shared memory)" if n <= ff.SHARED_MAX
-                            else f"above {ff.SHARED_MAX}: the launcher refuses it)"))
-        print(f"[1] {label}: fold plan (frames, stages, span, mel groups, bytes) and shared memory a block at hop "
-              f"{cfg.hop_length}, window {cfg.win_length}, {cfg.n_mels} mel bands: " + "; ".join(parts))
+            parts.append(f"fused_mel_fold_{alg} {plan.frames}/{plan.stages}/{plan.buffers} {tuple(plan)}, "
+                         f"{plan.shared_bytes} bytes ({233_472 // (plan.shared_bytes + 1024)} an SM by shared memory)")
+        n = ff.ffma_fold_bytes("bf16", cfg.hop_length, cfg.win_length)
+        check(n <= ff.SHARED_MAX, f"fused_mel_fold_bf16 shared memory at {label}")
+        parts.append(f"fused_mel_fold_bf16 (FFMA) {n} bytes ({233_472 // (n + 1024)} an SM by shared memory)")
+        print(f"[1] {label}: fold plan (frames/stages/buffers: frames, stages, buffers, span, mel groups, bytes) and "
+              f"shared memory a block at hop {cfg.hop_length}, window {cfg.win_length}, {cfg.n_mels} mel bands: "
+              + "; ".join(parts))
 
 
 def main() -> int:

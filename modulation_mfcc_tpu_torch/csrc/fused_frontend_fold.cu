@@ -1,21 +1,20 @@
-// Folded fused MFCC frontend for Hopper (sm_90a), f32 and bf16 modes: audio
-// -> mel power through the folded real DFT. Plain C launchers, loaded with
-// ctypes (modulation_mfcc_tpu_torch/kernels/_build.py); each returns the
-// cudaError_t of its launch. All arithmetic runs on the CUDA cores (FFMA, no
-// tensor cores, no fast-math intrinsics). The x3 fold runs on the tensor
+// Folded fused MFCC frontend for Hopper (sm_90a), bf16 mode: audio -> mel
+// power through the folded real DFT. A plain C launcher, loaded with ctypes
+// (modulation_mfcc_tpu_torch/kernels/_build.py); it returns the cudaError_t
+// of its launch. All arithmetic runs on the CUDA cores (FFMA, no tensor
+// cores, no fast-math intrinsics). The f32 and x3 folds run on the tensor
 // cores (fused_frontend_fold_tc.cu).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <type_traits>
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// fused_mel_fold_f32, fused_mel_fold_bf16
+// fused_mel_fold_bf16
 //
-// Replace the Pallas folded frontend of modulation_mfcc_tpu/pallas/
+// Replaces the Pallas folded frontend of modulation_mfcc_tpu/pallas/
 // fused_frontend.py (fused_mel_frontend(fold=True) -> _folded_frontend ->
-// pallas_call at :1096, body _fold_kernel), algorithms 'f32' and 'bf16'.
+// pallas_call at :1096, body _fold_kernel), algorithm 'bf16'.
 //
 // The periodic Hann window of the trimmed support (sup samples, even) is
 // symmetric about sup/2, so the windowed real DFT of a frame folds: with a
@@ -32,29 +31,24 @@ namespace {
 // The power is re^2 + im^2 with each product and the sum rounded to nearest
 // (no FMA), as the plain version computes it.
 //
-//   'f32':  FP32 throughout; the DFT sums in steps of kKC = 16 rows, each
-//           step's products into a fresh partial sum that is then added to
-//           the running one, as the plain version does (_stepped_matmul).
-//   'bf16': samples rounded to bf16 as they are staged (the TPU path rounds
-//           the audio before the fold), s and d summed in FP32 and rounded to
-//           bf16 for the products; wc, ws and melw arrive rounded. Each DFT
-//           sum and each mel sum is one FFMA chain in row order, the order of
-//           the plain version's FP32 GEMMs (cuBLAS's FFMA kernels on the
-//           H100): the power, rounded to bf16, then matches the plain
-//           version's bit for bit, where the tensor cores' sums, in any
-//           order tried, moved a mel band across a power of two, two bf16
-//           steps (3 of its ulps) from the plain version (PERF.md §6).
-//           The mel is stored as bf16, the block max taken over the FP32 mel.
+// The samples are rounded to bf16 as they are staged (the TPU path rounds
+// the audio before the fold), s and d summed in FP32 and rounded to bf16 for
+// the products; wc, ws and melw arrive rounded. Each DFT sum and each mel
+// sum is one FFMA chain in row order, the order of the plain version's FP32
+// GEMMs (cuBLAS's FFMA kernels on the H100): the power, rounded to bf16,
+// then matches the plain version's bit for bit, where the tensor cores'
+// sums, in any order tried, moved a mel band across a power of two, two
+// bf16 steps (3 of its ulps) from the plain version (PERF.md §6). The mel
+// is stored as bf16, the block max taken over the FP32 mel.
 //
 // Bound: FFMA throughput on the CUDA cores. A 128 x 30 s batch at 16 kHz
 // (sup 400, 256 live bins) is 158 GFLOP of folded DFT (half the unfolded
 // 315) and 50 GFLOP of mel: about 3.1 ms at 67 TFLOP/s.
 //
-// Design: the FFMA design fused_mel_f32 had before it moved to the tensor
-// cores (fused_frontend_tc.cu). A block owns 64
-// consecutive frames of one utterance and copies the contiguous span they
-// cover, (64 - 1)*hop + sup + 1 samples, into shared memory once: both ends
-// of every frame's fold are read from there, so the design needs no second
+// Design: a block owns 64 consecutive frames of one utterance and copies
+// the contiguous span they cover, (64 - 1)*hop + sup + 1 samples, into
+// shared memory once, as bf16 (its samples are bf16 values): both ends of
+// every frame's fold are read from there, so the design needs no second
 // (reversed) input stream, which the TPU kernel streams from a lane-flipped
 // copy of the audio. The u = 0 term reads x[a + sup], one sample past the
 // support; it is inside the staged span (the span's global reads are zero
@@ -62,13 +56,10 @@ namespace {
 // bounds. Per step of 16 contraction rows the block stages the s and d
 // slices ([u][frame], transposed) from the span and the wc and ws columns of
 // its bin tile (cp.async, double-buffered); a thread keeps an 8-frame by
-// 4-bin tile of re and im of a 128-bin tile in registers, or for f32, which
-// adds the step's partial sums, 8 frames by 2 bins of a 64-bin tile (two
-// blocks an SM). bf16 stages the span as bf16 (its samples are bf16
-// values), half the bytes, so its block fits the 227 KB of shared memory up
-// to spans of 79,104 samples (hop 1,200 with a 2,400-sample window); f32
-// fits up to 43,648. Power, mel and the block max are projected and reduced
-// by project_tile and write_block below.
+// 4-bin tile of re and im of a 128-bin tile in registers, two blocks an SM.
+// The block fits the 227 KB of shared memory up to spans of 79,104 samples
+// (hop 1,200 with a 2,400-sample window). Power, mel and the block max are
+// projected and reduced by project_tile and write_block below.
 // ---------------------------------------------------------------------------
 
 // The block geometry: a block owns kBF consecutive frames of one utterance;
@@ -83,20 +74,11 @@ constexpr int kThreads = 256;
 constexpr int kSharedMax = 232448;  // bytes of shared memory a block may use on the H100
 constexpr int kPitch = kBF + 4;  // row pitch of the [k][frame] and [bin][frame] tiles: 16-byte rows, few bank conflicts
 
-constexpr int kF32 = 0, kBF16 = 1;
-
-// DFT bins a tile holds (re and im columns each). f32 halves the tile: a
-// thread's 8 x 2 running sums and the step's partial sums then take 64
-// registers, which leaves room for two blocks an SM
-template <int MODE> constexpr int kTile = MODE == kF32 ? kBT / 2 : kBT;
-template <int MODE> constexpr int kTileSlice = kKC * 2 * kTile<MODE>;  // floats of one staged basis slice
-template <int MODE> using SpanT = std::conditional_t<MODE == kBF16, __nv_bfloat16, float>;  // a staged sample
+constexpr int kTileSlice = kKC * 2 * kBT;  // floats of one staged basis slice
 
 __device__ __forceinline__ int owned_frame(int warp, int i) { return (i < 4 ? 0 : 28) + 4 * warp + i; }
 
 __device__ __forceinline__ float bf16r(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // 16-byte global -> shared copy that bypasses registers; zero-fills when !valid
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid)
@@ -106,11 +88,11 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool va
 }
 
 // The end of bin tile bt, of TB = 32 NJ bins: the thread's re and im sums
-// -> power (bf16: rounded to bf16), written transposed ([bin][frame]) to
+// -> power rounded to bf16, written transposed ([bin][frame]) to
 // p_s, which may share space with the staged slices; then the power tile
 // projected onto melw's rows bt..bt+TB-1, columns c0..c0+127 (the block's
 // mel group), into the [kBF][kMelMax] accumulator mel_s, in bin order.
-template <int MODE, int NJ>
+template <int NJ>
 __device__ __forceinline__ void project_tile(const float (&re)[8][NJ], const float (&im)[8][NJ], float* p_s,
                                              float* mel_s, const float* __restrict__ melw, int bt, int n_mels,
                                              int c0, int lane, int warp)
@@ -123,7 +105,7 @@ __device__ __forceinline__ void project_tile(const float (&re)[8][NJ], const flo
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
             const float v = __fadd_rn(__fmul_rn(re[i][j], re[i][j]), __fmul_rn(im[i][j], im[i][j]));
-            pw[i] = MODE == kBF16 ? bf16r(v) : v;
+            pw[i] = bf16r(v);
         }
         float* row = p_s + (lane + 32 * j) * kPitch + 4 * warp;
         *reinterpret_cast<float4*>(row) = make_float4(pw[0], pw[1], pw[2], pw[3]);
@@ -159,13 +141,12 @@ __device__ __forceinline__ void project_tile(const float (&re)[8][NJ], const flo
 }
 
 // The end of a block: its valid frames (< nf) of the mel accumulator to
-// mel_out [B, nf, n_mels] columns c0.. (bf16 for 'bf16', rounded to nearest
-// even), and the max over them to bmax[b, blockIdx.x] (mel >= 0, so 0 is
-// neutral): stored with one mel group, else merged by atomicMax on the bits
-// (which order as the values for non-negative floats) into a zeroed bmax.
+// mel_out [B, nf, n_mels] columns c0.. (bf16, rounded to nearest even), and
+// the max over them to bmax[b, blockIdx.x] (mel >= 0, so 0 is neutral):
+// stored with one mel group, else merged by atomicMax on the bits (which
+// order as the values for non-negative floats) into a zeroed bmax.
 // red_s: kThreads/32 floats.
-template <int MODE>
-__device__ __forceinline__ void write_block(const float* mel_s, void* __restrict__ mel_out,
+__device__ __forceinline__ void write_block(const float* mel_s, __nv_bfloat16* __restrict__ mel_out,
                                             float* __restrict__ bmax, float* red_s, int b, int f0, int nf,
                                             int n_mels, int c0, int tid, int lane, int warp)
 {
@@ -178,8 +159,7 @@ __device__ __forceinline__ void write_block(const float* mel_s, void* __restrict
         if (f0 + f < nf) {
             const float v = mel_s[f * kMelMax + m];
             const size_t o = ((size_t)b * nf + f0 + f) * n_mels + c0 + m;
-            if constexpr (MODE == kBF16) static_cast<__nv_bfloat16*>(mel_out)[o] = __float2bfloat16_rn(v);
-            else static_cast<float*>(mel_out)[o] = v;
+            mel_out[o] = __float2bfloat16_rn(v);
             vmax = fmaxf(vmax, v);
         }
     }
@@ -197,20 +177,18 @@ __device__ __forceinline__ void write_block(const float* mel_s, void* __restrict
 }
 
 // floats of the space the basis slices, the s and d slices and the power tile share
-template <int MODE>
 __host__ __device__ constexpr int shared_floats()
 {
-    const int stage = 2 * kTileSlice<MODE> + 2 * kKC * kPitch;  // two steps of slices + s and d
-    const int power = kTile<MODE> * kPitch;
+    const int stage = 2 * kTileSlice + 2 * kKC * kPitch;  // two steps of slices + s and d
+    const int power = kBT * kPitch;
     return stage > power ? stage : power;
 }
 
 // bytes of a launch's shared memory: that space, the mel accumulator and the
-// staged span (span_pad samples)
-template <int MODE>
+// staged span (span_pad bf16 samples)
 __host__ __device__ constexpr long long shared_bytes(int span_pad)
 {
-    return 4LL * (shared_floats<MODE>() + kBF * kMelMax) + (long long)sizeof(SpanT<MODE>) * span_pad;
+    return 4LL * (shared_floats() + kBF * kMelMax) + 2LL * span_pad;
 }
 
 // rows [k0, k0 + kKC) of the TB-bin tile's wc and ws columns -> w_dst
@@ -238,21 +216,21 @@ __device__ __forceinline__ void stage_basis(float* w_dst, const float* __restric
     asm volatile("cp.async.commit_group;\n" ::);
 }
 
-template <int MODE>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_mel_fold_kernel(const float* __restrict__ audio, const float* __restrict__ wc, const float* __restrict__ ws,
-                      const float* __restrict__ melw, void* __restrict__ mel_out, float* __restrict__ bmax, int T,
-                      int K, int sup, int hop, int off, int nf, int bins_pad, int im_cols, int n_mels, int span_pad)
+                      const float* __restrict__ melw, __nv_bfloat16* __restrict__ mel_out, float* __restrict__ bmax,
+                      int T, int K, int sup, int hop, int off, int nf, int bins_pad, int im_cols, int n_mels,
+                      int span_pad)
 {
-    constexpr int TB = kTile<MODE>, NJ = TB / 32, kSl = kTileSlice<MODE>;
-    constexpr int kShared = shared_floats<MODE>();
+    constexpr int TB = kBT, NJ = TB / 32, kSl = kTileSlice;
+    constexpr int kShared = shared_floats();
     extern __shared__ __align__(16) float smem[];
     float* w_s = smem;                         // 2 steps x [kKC][2*TB] basis slices
     float* s_s = w_s + 2 * kSl;                // [kKC][kPitch] s slice, transposed
     float* d_s = s_s + kKC * kPitch;           // [kKC][kPitch] d slice, transposed
     float* p_s = w_s;                          // [TB][kPitch] power tile, transposed
     float* mel_s = w_s + kShared;              // [kBF][kMelMax] mel accumulator
-    auto* span_s = reinterpret_cast<SpanT<MODE>*>(mel_s + kBF * kMelMax);  // [span_pad] audio samples
+    auto* span_s = reinterpret_cast<__nv_bfloat16*>(mel_s + kBF * kMelMax);  // [span_pad] audio samples
     __shared__ float red_s[kThreads / 32];
 
     const int tid = threadIdx.x;
@@ -268,8 +246,7 @@ fused_mel_fold_kernel(const float* __restrict__ audio, const float* __restrict__
     for (int i = tid; i < span_pad; i += kThreads) {
         const long long s = start + i;
         const float v = (s >= 0 && s < T) ? x[s] : 0.0f;
-        if constexpr (MODE == kBF16) span_s[i] = __float2bfloat16_rn(v);
-        else span_s[i] = v;
+        span_s[i] = __float2bfloat16_rn(v);
     }
     for (int i = tid; i < kBF * kMelMax; i += kThreads) mel_s[i] = 0.0f;
 
@@ -289,23 +266,19 @@ fused_mel_fold_kernel(const float* __restrict__ audio, const float* __restrict__
                 const int u = k0 + kk;
                 float sv = 0.0f, dv = 0.0f;  // rows past K meet zero weights
                 if (u < K) {
-                    const float lo = to_float(span_s[f * hop + u]);
-                    const float hi = to_float(span_s[f * hop + sup - u]);
+                    const float lo = __bfloat162float(span_s[f * hop + u]);
+                    const float hi = __bfloat162float(span_s[f * hop + sup - u]);
                     sv = __fadd_rn(lo, hi);
                     dv = __fsub_rn(lo, hi);
                 }
-                s_s[kk * kPitch + f] = MODE == kBF16 ? bf16r(sv) : sv;
-                d_s[kk * kPitch + f] = MODE == kBF16 ? bf16r(dv) : dv;
+                s_s[kk * kPitch + f] = bf16r(sv);
+                d_s[kk * kPitch + f] = bf16r(dv);
             }
             if (step + 1 < n_steps) asm volatile("cp.async.wait_group 1;\n" ::);
             else asm volatile("cp.async.wait_group 0;\n" ::);
             __syncthreads();
             const float* w_cur = w_s + (step & 1) * kSl;
-            // f32: the step's own partial sums, added to re/im after the
-            // step; bf16: re/im themselves, one FFMA chain in row order
-            float pre[8][NJ] = {}, pim[8][NJ] = {};
-            auto& acc_re = MODE == kF32 ? pre : re;
-            auto& acc_im = MODE == kF32 ? pim : im;
+            // re and im: one FFMA chain each, in row order
 #pragma unroll
             for (int kk = 0; kk < kKC; ++kk) {
                 const float4 s_lo = *reinterpret_cast<const float4*>(s_s + kk * kPitch + 4 * warp);
@@ -320,31 +293,26 @@ fused_mel_fold_kernel(const float* __restrict__ audio, const float* __restrict__
                     const float wi = w_cur[kk * 2 * TB + TB + lane + 32 * j];
 #pragma unroll
                     for (int i = 0; i < 8; ++i) {
-                        acc_re[i][j] = fmaf(a[i], wr, acc_re[i][j]);
-                        acc_im[i][j] = fmaf(e[i], wi, acc_im[i][j]);
+                        re[i][j] = fmaf(a[i], wr, re[i][j]);
+                        im[i][j] = fmaf(e[i], wi, im[i][j]);
                     }
                 }
             }
-            if constexpr (MODE == kF32) {
-#pragma unroll
-                for (int i = 0; i < 8; ++i)
-#pragma unroll
-                    for (int j = 0; j < NJ; ++j) {
-                        re[i][j] += pre[i][j];
-                        im[i][j] += pim[i][j];
-                    }
-            }
         }
 
-        project_tile<MODE, NJ>(re, im, p_s, mel_s, melw, bt, n_mels, kMelMax * (int)blockIdx.z, lane, warp);
+        project_tile<NJ>(re, im, p_s, mel_s, melw, bt, n_mels, kMelMax * (int)blockIdx.z, lane, warp);
     }
-    write_block<MODE>(mel_s, mel_out, bmax, red_s, b, f0, nf, n_mels, kMelMax * (int)blockIdx.z, tid, lane, warp);
+    write_block(mel_s, mel_out, bmax, red_s, b, f0, nf, n_mels, kMelMax * (int)blockIdx.z, tid, lane, warp);
 }
 
-template <int MODE>
-int launch_fold(const float* audio, const float* wc, const float* ws, const float* melw, void* mel, float* bmax,
-                int B, int T, int K, int sup, int hop, int off, int nf, int bins_pad, int im_cols, int n_mels,
-                void* stream)
+}  // namespace
+
+// wc [K, bins_pad], ws [K, im_cols], melw [bins_pad, n_mels], bf16-rounded
+// values held as float32, n_mels <= 512 (groups of 128 columns, the grid's
+// z; bmax zeroed where there are more than one); mel bf16
+extern "C" int fused_mel_fold_bf16(const float* audio, const float* wc, const float* ws, const float* melw,
+                                   __nv_bfloat16* mel, float* bmax, int B, int T, int K, int sup, int hop, int off,
+                                   int nf, int bins_pad, int im_cols, int n_mels, void* stream)
 {
     if (B < 1 || T < 1 || nf < 1 || hop < 1 || sup < 2 || sup % 2 || K != sup / 2 + 1 || n_mels < 1 ||
         n_mels > kMelLimit || bins_pad < kBT || bins_pad % kBT || im_cols < kBT || im_cols % kBT ||
@@ -353,35 +321,13 @@ int launch_fold(const float* audio, const float* wc, const float* ws, const floa
     const int n_blocks = (nf + kBF - 1) / kBF;
     const int span = (kBF - 1) * hop + sup + 1;  // + 1: u = 0 reads one sample past the support
     const int span_pad = (span + 3) / 4 * 4;
-    const long long smem = shared_bytes<MODE>(span_pad);
+    const long long smem = shared_bytes(span_pad);
     if (smem > kSharedMax) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(fused_mel_fold_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t err = cudaFuncSetAttribute(fused_mel_fold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return (int)err;
-    fused_mel_fold_kernel<MODE><<<dim3(n_blocks, B, (n_mels + kMelMax - 1) / kMelMax), kThreads, smem,
-                                  (cudaStream_t)stream>>>(audio, wc, ws, melw, mel, bmax, T, K, sup, hop, off, nf,
-                                                          bins_pad, im_cols, n_mels, span_pad);
+    fused_mel_fold_kernel<<<dim3(n_blocks, B, (n_mels + kMelMax - 1) / kMelMax), kThreads, smem,
+                            (cudaStream_t)stream>>>(audio, wc, ws, melw, mel, bmax, T, K, sup, hop, off, nf,
+                                                    bins_pad, im_cols, n_mels, span_pad);
     return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// wc [K, bins_pad], ws [K, im_cols], melw [bins_pad, n_mels], n_mels <= 512
-// (groups of 128 columns, the grid's z; bmax zeroed where there are more
-// than one); mel float32
-extern "C" int fused_mel_fold_f32(const float* audio, const float* wc, const float* ws, const float* melw,
-                                  float* mel, float* bmax, int B, int T, int K, int sup, int hop, int off,
-                                  int nf, int bins_pad, int im_cols, int n_mels, void* stream)
-{
-    return launch_fold<kF32>(audio, wc, ws, melw, mel, bmax, B, T, K, sup, hop, off, nf, bins_pad, im_cols,
-                             n_mels, stream);
-}
-
-// wc, ws and melw as for f32, holding bf16-rounded values; mel bf16
-extern "C" int fused_mel_fold_bf16(const float* audio, const float* wc, const float* ws, const float* melw,
-                                   void* mel, float* bmax, int B, int T, int K, int sup, int hop, int off,
-                                   int nf, int bins_pad, int im_cols, int n_mels, void* stream)
-{
-    return launch_fold<kBF16>(audio, wc, ws, melw, mel, bmax, B, T, K, sup, hop, off, nf, bins_pad, im_cols,
-                              n_mels, stream);
 }

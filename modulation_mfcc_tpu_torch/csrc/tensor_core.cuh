@@ -1,6 +1,6 @@
 // What the tensor-core frontend kernels (fused_frontend_tc.cu: fused_mel_f32,
 // fused_mel_bf16, fused_mel_x3, fused_mel_i16, fused_mel_i24; and
-// fused_frontend_fold_tc.cu: fused_mel_fold_x3) share:
+// fused_frontend_fold_tc.cu: fused_mel_fold_f32, fused_mel_fold_x3) share:
 // the block and tile geometry, the warp-level MMAs, and the end of the
 // frontend, the mel projection on the bf16 tensor cores (one pass for bf16,
 // the three-plane split for f32, x3 arithmetic for the others) and the

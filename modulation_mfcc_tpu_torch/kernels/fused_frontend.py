@@ -40,19 +40,21 @@ per arithmetic mode of the JAX frontend and one tail kernel:
     The tensor-core kernels read their weights in a layout of their own
     (:func:`tc_layouts`: :func:`pack_tc_basis`, :func:`pack_tc_mel`), which
     :func:`mode_tensors` and the ``MfccChange`` module build once.
-  * ``fused_mel_fold_x3`` (csrc/fused_frontend_fold_tc.cu, on the tensor
-    cores) and ``fused_mel_fold_f32`` and ``fused_mel_fold_bf16``
-    (csrc/fused_frontend_fold.cu, FFMA), behind
+  * ``fused_mel_fold_f32`` and ``fused_mel_fold_x3``
+    (csrc/fused_frontend_fold_tc.cu, on the tensor cores) and
+    ``fused_mel_fold_bf16`` (csrc/fused_frontend_fold.cu, FFMA), behind
     ``fused_mel_frontend(fold=True)``, replace the Pallas folded frontend
     (``_folded_frontend`` → ``_fold_kernel``): the windowed real DFT
     folded about the window's centre, re = s·wc and im = d·ws with
-    s, d = x[a+u] ± x[a+sup−u], half the contraction. The x3 fold builds
-    s and d per 32-row chunk in shared memory and reads the cosine and
-    sine bases in a layout of its own (:func:`fold_layouts`, which
-    :func:`fold_tensors` builds), under a staging plan (:func:`fold_plan`).
-    The bf16 fold sums its DFT and mel as FFMA chains in row order, the
-    order of its plain version's FP32 GEMMs, so its bf16 power rounds as
-    the plain version's does.
+    s, d = x[a+u] ± x[a+sup−u], half the contraction. The tensor-core
+    folds build s and d per 32-row chunk in shared memory, split them as
+    their unfolded modes split frames (f32 into three exact bf16 planes,
+    x3 into two), and read the cosine and sine bases in a layout of their
+    own (:func:`fold_layouts`, which :func:`fold_tensors` builds), under a
+    staging plan (:func:`fold_plan`); :func:`split3_fold_mirror` mirrors
+    the f32 fold's arithmetic on the CPU. The bf16 fold sums its DFT and
+    mel as FFMA chains in row order, the order of its plain version's FP32
+    GEMMs, so its bf16 power rounds as the plain version's does.
 
     Bound: the DFT's operations (~315 GFLOP + ~50 GFLOP of mel per
     128 × 30 s batch at 16 kHz and pass), on the unit each mode's arithmetic
@@ -108,12 +110,13 @@ __all__ = [
     "fold_tensors", "fold_layouts", "pack_fold_basis", "unpack_fold_basis", "FoldPlan", "fold_plan",
     "ffma_fold_bytes",
     "pack_tc_mel", "unpack_tc_mel", "fused_mel_frontend", "fused_mel_frontend_reference",
-    "split3_frontend_mirror", "fold_operands", "fused_mel_fold_reference",
+    "split3_frontend_mirror", "fold_operands", "fused_mel_fold_reference", "split3_fold_mirror",
     "mfcc_tail", "mfcc_tail_reference", "fused_mfcc",
 ]
 
 ALGORITHMS = ("f32", "bf16", "x3", "i16", "i24")
 FOLD_ALGORITHMS = ("f32", "bf16", "x3")
+TC_FOLD_ALGORITHMS = ("f32", "x3")  # the folds on the tensor cores (fold_layouts, fold_plan)
 LAUNCHES = ({f"fused_mel_{a}": 0 for a in ALGORITHMS} | {"mfcc_tail_f32": 0}
             | {f"fused_mel_fold_{a}": 0 for a in FOLD_ALGORITHMS})
 
@@ -121,7 +124,7 @@ BLOCK_FRAMES = 64  # frames per frontend block: one bmax entry each (kBF in the 
 _BIN_TILE = 128    # bins_pad must be a multiple (kBT)
 _MEL_MAX = 128     # mel columns of a group (kMelCols; the fold's kMelMax)
 MEL_LIMIT = 512    # mel bands the tensor-core frontend and the tail take (kMelLimit, kTailMelLimit)
-_KC = 16           # contraction rows per step of the f32 sums (kKC in fused_frontend_fold.cu; one bf16 MMA)
+_KC = 16           # contraction rows per step of the f32 sums and per bf16 MMA (kKC in fused_frontend_fold.cu)
 _TC_COLS = 128                                # DFT columns per tile (kCols): re and im of 64 bins
 _TC_STEP = {"f32": 16, "bf16": 16, "x3": 16, "i16": 32, "i24": 32}  # contraction rows per MMA (Mode::kStep)
 _TC_BF16 = ("f32", "bf16", "x3")              # the modes whose basis is bf16 (int8 for the others)
@@ -494,7 +497,7 @@ def fold_weights(
 def fold_tensors(algorithm: str, device, sr: float, n_fft: int = 512, win_length: int | None = None,
                  n_mels: int = 128, fmin: float = 100.0, fmax: float | None = None) -> dict[str, torch.Tensor]:
     """:func:`fold_weights` as tensors on ``device``, with the tensor-core
-    fold kernel's layouts of them (:func:`fold_layouts`; x3 only)."""
+    fold kernel's layouts of them (:func:`fold_layouts`; f32 and x3)."""
     w = fold_weights(sr, n_fft, win_length, n_mels, fmin, fmax, algorithm)
     t = {k: torch.as_tensor(v, device=device) for k, v in w.items()}
     return t | fold_layouts(algorithm, t)
@@ -502,14 +505,14 @@ def fold_tensors(algorithm: str, device, sr: float, n_fft: int = 512, win_length
 
 def pack_fold_basis(wc: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
     """The tensor-core fold kernels' basis layout of the cosine planes ``wc``
-    [P, K, bins_pad] and the sine planes ``ws`` [P, K, im_cols] (bf16: one
-    plane each, the rounded weights held as float32; x3: the (hi, lo)
-    stacks): the sine columns zero-padded to bins_pad, then in groups of 16
-    columns, the 8 cosine columns of 8 bins and the 8 sine columns of the
-    same bins (an MMA n-tile each, so that one thread holds re and im of a
-    bin); K zero-padded to Kp, a multiple of 32; then [bins_pad/64, Kp/16,
-    P, 128, 16] bf16 (exact: the planes are bf16 values), so one 32-row
-    chunk of a 64-bin tile is contiguous."""
+    [P, K, bins_pad] and the sine planes ``ws`` [P, K, im_cols] (f32: the
+    three planes of :func:`_split3`; x3: the (hi, lo) stacks): the sine
+    columns zero-padded to bins_pad, then in groups of 16 columns, the 8
+    cosine columns of 8 bins and the 8 sine columns of the same bins (an MMA
+    n-tile each, so that one thread holds re and im of a bin); K
+    zero-padded to Kp, a multiple of 32; then [bins_pad/64, Kp/16, P, 128,
+    16] bf16 (exact: the planes are bf16 values), so one 32-row chunk of a
+    64-bin tile is contiguous."""
     p, k, bins = wc.shape
     ws = tnf.pad(ws, (0, bins - ws.shape[-1]))
     g = _FOLD_GROUP
@@ -532,68 +535,82 @@ def unpack_fold_basis(packed: torch.Tensor, k: int, im_cols: int) -> tuple[torch
 def fold_layouts(algorithm: str, weights: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     """The tensor-core fold kernel's layouts of the mode's :func:`fold_weights`
     on their device: ``wcs_tc`` (:func:`pack_fold_basis`) and ``melw_tc``
-    (:func:`pack_tc_mel`) for 'x3'; none for 'f32' and 'bf16', whose FFMA
-    kernel reads ``wc``, ``ws`` and ``melw`` as they are."""
-    if algorithm != "x3":
+    (:func:`pack_tc_mel`) of their planes (:func:`tc_planes`) for 'f32' and
+    'x3'; none for 'bf16', whose FFMA kernel reads ``wc``, ``ws`` and
+    ``melw`` as they are."""
+    if algorithm not in TC_FOLD_ALGORITHMS:
         return {}
     return {"wcs_tc": pack_fold_basis(tc_planes(algorithm, weights["wc"]), tc_planes(algorithm, weights["ws"])),
             "melw_tc": pack_tc_mel(tc_planes(algorithm, weights["melw"]))}
 
 
 class FoldPlan(NamedTuple):
-    """The staging plan of a ``fused_mel_fold_x3`` launch (the launcher's
+    """The staging plan of a tensor-core fold launch (the launcher's
     ``FoldPlan``, passed by value in this field order, which it checks)."""
 
-    frames: int        # frames a block: 64 (full plan) or 32 (compact)
-    stages: int        # stages of the basis ring: 4 (full), 2 to 4 (compact)
+    frames: int        # frames a block: 64 or 32 (one MMA tile a warp)
+    stages: int        # stages of the basis ring: 2 to 4
+    buffers: int       # buffers of a chunk's s and d planes: 2, or 1 (f32's last rung)
     span_pad: int      # FP32 samples of the staged span
     mel_groups: int    # groups of 128 mel columns: the grid's z
     shared_bytes: int
 
 
-def _fold_plan_for(hop: int, sup: int, n_mels: int, frames: int, stages: int) -> FoldPlan:
+# Each tensor-core fold's ladder of (frames, stages, buffers), tried in this
+# order: x3's full plan, then 32 frames; f32, whose planes, ring and power
+# tile take half as much again, first gives up stages, then frames, then the
+# second buffer of its s and d planes (48 kHz at hop 720, window 1440).
+_FOLD_LADDER = {
+    "x3": ((BLOCK_FRAMES, _TC_STAGES, 2),) + tuple((BLOCK_FRAMES // 2, s, 2) for s in range(_TC_STAGES, 1, -1)),
+    "f32": tuple((f, s, 2) for f in (BLOCK_FRAMES, BLOCK_FRAMES // 2) for s in range(_TC_STAGES, 1, -1))
+    + ((BLOCK_FRAMES // 2, 2, 1),),
+}
+
+
+def _fold_plan_for(algorithm: str, hop: int, sup: int, n_mels: int, frames: int, stages: int,
+                   buffers: int = 2) -> FoldPlan:
     """The plan with these choices and the launcher's sum of its shared
-    memory (shared_bytes in the source): 128 bytes of barriers, the ring of
-    basis chunks, a tile's mel weights, the power tile, two buffers of the s
-    and d planes of a chunk (two planes each) and the FP32 span."""
-    planes = _TC_PLANES["x3"][1]
+    memory (shared_bytes in the source), all of it dynamic: 128 bytes of
+    barriers and warp maxima, the ring of basis chunks, a tile's mel weights,
+    the power tile, one or two buffers of the s and d planes of a chunk and
+    the FP32 span, each of the bf16 parts in the mode's planes (x3 two, f32
+    three)."""
+    planes = _TC_PLANES[algorithm][1]
     span_pad = -(-((frames - 1) * hop + sup + 1) // 4) * 4
     smem = (128 + stages * _TC_CHUNK * _TC_COLS * planes * 2 + _TC_COLS // 2 * planes * _MEL_MAX * 2
-            + planes * frames * _TC_PITCH * 2 + 2 * 2 * planes * _TC_CHUNK * frames * 2 + 4 * span_pad)
-    return FoldPlan(frames, stages, span_pad, -(-n_mels // _MEL_MAX), smem)
+            + planes * frames * _TC_PITCH * 2 + buffers * 2 * planes * _TC_CHUNK * frames * 2 + 4 * span_pad)
+    return FoldPlan(frames, stages, buffers, span_pad, -(-n_mels // _MEL_MAX), smem)
 
 
 def fold_plan(algorithm: str, hop: int, sup: int, n_mels: int = 128) -> FoldPlan:
-    """The staging plan of ``fused_mel_fold_x3`` at this hop, window support
-    and mel width: the full plan (64 frames a block, four stages) where it
-    fits a block's shared memory, else the compact plan (32 frames) with the
-    most stages, four to two, that fit; raises where none fits, or for
-    another algorithm (the FFMA folds have no plan) or n_mels outside
-    1..512."""
-    if algorithm != "x3":
-        raise ValueError(f"fold_plan: the tensor-core fold is 'x3', got {algorithm!r}")
+    """The staging plan of ``fused_mel_fold_{algorithm}`` (f32 or x3) at this
+    hop, window support and mel width: the first rung of the mode's ladder
+    that fits a block's shared memory (x3: 64 frames with four stages, then
+    32 frames with four to two; f32: 64 frames with four to two stages, then
+    32 frames with four to two, then 32 frames, two stages and one buffer of
+    s and d planes); raises where none fits, for the FFMA fold (bf16, which
+    has no plan) or for n_mels outside 1..512."""
+    if algorithm not in TC_FOLD_ALGORITHMS:
+        raise ValueError(f"fold_plan: the tensor-core folds are {', '.join(TC_FOLD_ALGORITHMS)}, got {algorithm!r}")
     if not 1 <= n_mels <= MEL_LIMIT:
-        raise ValueError(f"fused_mel_fold_x3: n_mels must be in 1..{MEL_LIMIT}, got {n_mels}")
-    plans = [_fold_plan_for(hop, sup, n_mels, BLOCK_FRAMES, _TC_STAGES)]
-    plans += [_fold_plan_for(hop, sup, n_mels, BLOCK_FRAMES // 2, s) for s in range(_TC_STAGES, 1, -1)]
-    return _first_fitting(plans, "fused_mel_fold_x3", f"hop {hop}, window {sup}")
+        raise ValueError(f"fused_mel_fold_{algorithm}: n_mels must be in 1..{MEL_LIMIT}, got {n_mels}")
+    plans = [_fold_plan_for(algorithm, hop, sup, n_mels, *rung) for rung in _FOLD_LADDER[algorithm]]
+    return _first_fitting(plans, f"fused_mel_fold_{algorithm}", f"hop {hop}, window {sup}")
 
 
 def ffma_fold_bytes(algorithm: str, hop: int, sup: int) -> int:
-    """Shared memory a block of the FFMA folds (``fused_mel_fold_f32``,
-    ``fused_mel_fold_bf16``) takes at this hop and window support, the
-    launcher's sum (shared_bytes in csrc/fused_frontend_fold.cu): the space
-    the basis slices, the s and d slices and the power tile share, the
-    [64, 128] FP32 mel accumulator, and the span of 63·hop + sup + 1 samples
-    (padded to 4), FP32 for f32 and bf16 for bf16. The launcher refuses a
-    block past :data:`SHARED_MAX`."""
-    if algorithm not in ("f32", "bf16"):
-        raise ValueError(f"ffma_fold_bytes: the FFMA folds are 'f32' and 'bf16', got {algorithm!r}")
-    tile = _BIN_TILE // 2 if algorithm == "f32" else _BIN_TILE
+    """Shared memory a block of the FFMA fold (``fused_mel_fold_bf16``)
+    takes at this hop and window support, the launcher's sum (shared_bytes
+    in csrc/fused_frontend_fold.cu): the space the basis slices, the s and d
+    slices and the power tile share, the [64, 128] FP32 mel accumulator, and
+    the span of 63·hop + sup + 1 bf16 samples (padded to 4). The launcher
+    refuses a block past :data:`SHARED_MAX`."""
+    if algorithm != "bf16":
+        raise ValueError(f"ffma_fold_bytes: the FFMA fold is 'bf16', got {algorithm!r}")
     pitch = BLOCK_FRAMES + 4
-    shared = max(2 * _KC * 2 * tile + 2 * _KC * pitch, tile * pitch)
+    shared = max(2 * _KC * 2 * _BIN_TILE + 2 * _KC * pitch, _BIN_TILE * pitch)
     span_pad = -(-((BLOCK_FRAMES - 1) * hop + sup + 1) // 4) * 4
-    return 4 * (shared + BLOCK_FRAMES * _MEL_MAX) + (2 if algorithm == "bf16" else 4) * span_pad
+    return 4 * (shared + BLOCK_FRAMES * _MEL_MAX) + 2 * span_pad
 
 
 @lru_cache(maxsize=16)
@@ -718,12 +735,12 @@ def _lib() -> ctypes.CDLL:
     lib.fused_mel_i16.restype = i
     lib.fused_mel_i24.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, plan, p]
     lib.fused_mel_i24.restype = i
-    for alg in ("f32", "bf16"):
+    lib.fused_mel_fold_bf16.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
+    lib.fused_mel_fold_bf16.restype = i
+    for alg in TC_FOLD_ALGORITHMS:
         fn = getattr(lib, f"fused_mel_fold_{alg}")
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, _FoldPlan, p]
         fn.restype = i
-    lib.fused_mel_fold_x3.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, _FoldPlan, p]
-    lib.fused_mel_fold_x3.restype = i
     lib.mfcc_tail_f32.argtypes = [p, i, p, p, p, i, i, i, i, i, p]
     lib.mfcc_tail_f32.restype = i
     return lib
@@ -922,6 +939,23 @@ def fused_mel_fold_reference(
     return _mel_of_power(re * re + im * im, melw, algorithm)
 
 
+def split3_fold_mirror(
+    audio: torch.Tensor, wc: torch.Tensor, ws: torch.Tensor, melw: torch.Tensor, *, hop: int, eff_pad: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mel, block maxima) of ``fused_mel_fold_f32``'s arithmetic mirrored
+    in float32 matmuls (:func:`_split3_matmul`): s and d as the plain fold
+    forms them, against the split cosine and sine bases, power = re² + im²
+    in float32, and the split power against the split mel weights.
+    ``wc``/``ws``/``melw`` are the f32 :func:`fold_weights`; audio float32
+    [B, T]. The fold's counterpart of :func:`split3_frontend_mirror`: it
+    shows on the CPU, and beside the kernel on the card, how far the split
+    lands from float64; no path calls it."""
+    s, d = fold_operands(audio, wc.shape[-2], hop=hop, eff_pad=eff_pad)
+    re, im = _split3_matmul(s, _split3(wc)), _split3_matmul(d, _split3(ws))
+    im = tnf.pad(im, (0, re.shape[-1] - im.shape[-1]))
+    return _with_block_max(_split3_matmul(re * re + im * im, _split3(melw)))
+
+
 def fused_mel_frontend(
     audio: torch.Tensor,
     *,
@@ -1082,8 +1116,8 @@ def _fused_mel_fold(audio: torch.Tensor, *, sr, n_fft, hop, win_length, n_mels, 
     nf = 1 + t // hop
     mel_dtype = torch.bfloat16 if algorithm == "bf16" else torch.float32
     mel = torch.empty((bsz, nf, n_mels), dtype=mel_dtype, device=audio.device)
-    if algorithm == "x3":
-        rc, bmax = _launch_fold_x3(audio, weights, mel, k, sup, hop, -pad, nf, bins_pad)
+    if algorithm in TC_FOLD_ALGORITHMS:
+        rc, bmax = _launch_fold_tc(name, audio, weights, mel, k, sup, hop, -pad, nf, bins_pad)
     else:
         # more than one group of 128 mel columns merges its block maxima by atomicMax
         bmax = (torch.zeros if n_mels > _MEL_MAX else torch.empty)((bsz, -(-nf // BLOCK_FRAMES)),
@@ -1098,14 +1132,14 @@ def _fused_mel_fold(audio: torch.Tensor, *, sr, n_fft, hop, win_length, n_mels, 
     return mel, bmax
 
 
-def _launch_fold_x3(audio: torch.Tensor, weights: dict[str, torch.Tensor], mel: torch.Tensor, k: int,
+def _launch_fold_tc(name: str, audio: torch.Tensor, weights: dict[str, torch.Tensor], mel: torch.Tensor, k: int,
                     sup: int, hop: int, off: int, nf: int, bins_pad: int) -> tuple[int, torch.Tensor]:
-    """Launch ``fused_mel_fold_x3`` on the weights' tensor-core layouts
-    (:func:`fold_layouts`, which :func:`fold_tensors` includes) under its
-    :func:`fold_plan`; the launcher's code and the block maxima [B,
-    ceil(nf/64)], zeroed first where the plan merges them (the compact plan,
-    or more than one mel group)."""
-    name, algorithm = "fused_mel_fold_x3", "x3"
+    """Launch ``fused_mel_fold_f32`` or ``fused_mel_fold_x3`` on the weights'
+    tensor-core layouts (:func:`fold_layouts`, which :func:`fold_tensors`
+    includes) under its :func:`fold_plan`; the launcher's code and the block
+    maxima [B, ceil(nf/64)], zeroed first where the plan merges them (32
+    frames a block, or more than one mel group)."""
+    algorithm = name.removeprefix("fused_mel_fold_")
     if "wcs_tc" not in weights or "melw_tc" not in weights:
         raise ValueError(f"{name}: weights lack the tensor-core layouts 'wcs_tc'/'melw_tc'; "
                          "pass fold_tensors(...) or add fold_layouts(...)")

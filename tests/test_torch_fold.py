@@ -3,16 +3,19 @@ the JAX package's folded Pallas frontend, run as its own tests run it on the
 CPU (interpret mode). The fold's host design is compared bit for bit with
 the operands the JAX fold hands its kernel (its pallas_call is
 intercepted); the plain version (what the wrapper takes on the CPU) is held
-to the bars of the JAX frontend tests. The FFMA folds
-(csrc/fused_frontend_fold.cu: fused_mel_fold_f32, fused_mel_fold_bf16) fit
-a block's shared memory at every geometry fold_ok takes, by their
-launcher's own sum. The tensor-core fold's host side
-(csrc/fused_frontend_fold_tc.cu: fused_mel_fold_x3): its staging plan
-(fold_plan) fits a block's shared memory at every geometry fold_ok takes,
-its basis layout (fold_layouts) unpacks to fold_weights bit for bit, and
-the kernel's chunk build and address arithmetic, mirrored, reproduce the
-plain version's s and d bit for bit and its DFT. The CUDA kernels
-themselves are checked on the card by chip_smoke.py (phases 18-19, 22)."""
+to the bars of the JAX frontend tests. The FFMA fold
+(csrc/fused_frontend_fold.cu: fused_mel_fold_bf16) fits a block's shared
+memory at every geometry fold_ok takes, by its launcher's own sum. The
+tensor-core folds' host side (csrc/fused_frontend_fold_tc.cu:
+fused_mel_fold_f32, fused_mel_fold_x3): each staging plan (fold_plan) is
+the first rung of its mode's ladder that fits a block's shared memory, at
+every geometry fold_ok takes, by the launcher's own sum; the basis layouts
+(fold_layouts) unpack to fold_weights bit for bit; the kernels' chunk build
+and address arithmetic, mirrored, reproduce the plain version's s and d bit
+for bit and the DFT of their planes; and the f32 fold's split arithmetic,
+mirrored in float32 matmuls (split3_fold_mirror), is no further from the
+float64 fold than the plain version. The CUDA kernels themselves are
+checked on the card by chip_smoke.py (phases 18-19, 22-23)."""
 import re
 from pathlib import Path
 
@@ -30,10 +33,11 @@ from modulation_mfcc_tpu_torch.kernels import fused_frontend as ff
 from modulation_mfcc_tpu_torch.models.config import MfccConfig
 from tests.test_torch_frontend import CONFIGS, frontend_kwargs
 from tests.test_torch_frontend_modes import assert_mel_matches, bf16_ulps
-from tests.test_torch_frontend_tc import MEL_WIDTHS, RATES, SHARED_MAX, T_STEPS, WIN_LENS
+from tests.test_torch_frontend_tc import MEL_WIDTHS, RATES, SHARED_MAX, T_STEPS, WIN_LENS, split_bar
 
 CSRC = Path(ff.__file__).resolve().parent.parent / "csrc"
-TC_FOLDS = ("x3",)  # the tensor-core fold (the others run on the CUDA cores)
+TC_FOLDS = ("x3", "f32")  # the tensor-core folds (bf16 runs on the CUDA cores)
+PLANES = {"x3": 2, "f32": 3}  # bf16 planes of each tensor-core fold's split
 # the layout and mirror configurations: both CONFIGS and 256 mel bands (two groups of 128)
 FOLD_CONFIGS = CONFIGS | {"16k 256 mels": dict(signal_sample_rate=16_000, maxFreq=8000.0, n_mels=256)}
 
@@ -184,8 +188,8 @@ def test_fold_guards():
 
 def test_fold_kernel_constants_match_wrapper():
     """The block and tile sizes the wrapper assumes are the fold kernels':
-    the FFMA f32 and bf16 folds' (fused_frontend_fold.cu, which includes no
-    header of the port) and the tensor-core x3 fold's
+    the FFMA bf16 fold's (fused_frontend_fold.cu, which includes no header
+    of the port) and the tensor-core f32 and x3 folds'
     (fused_frontend_fold_tc.cu, tensor_core.cuh)."""
     src = (CSRC / "fused_frontend_fold.cu").read_text()
     assert '#include "' not in src
@@ -210,7 +214,7 @@ def test_fold_kernel_constants_match_wrapper():
 
 
 # ---------------------------------------------------------------------------
-# The tensor-core fold's host side (x3): plan, layout, and mirrors of the kernel
+# The tensor-core folds' host side (f32, x3): plans, layouts, and mirrors of the kernel
 # ---------------------------------------------------------------------------
 
 
@@ -240,109 +244,141 @@ def fold_grid(sr: int) -> list[tuple[int, int, int]]:
 # JAX's fold takes hop 384 (a multiple of 128) with a 3,840-sample window at
 # n_fft 4096; the x3 FFMA fold's span overflowed shared memory there
 JAX_HOP384 = (4096, 384, 3840)
+# 48 kHz at tStep 0.015, winLen 0.03: the widest span of phase 18 (ROADMAP
+# C8), where the f32 FFMA fold's block did not fit
+C8 = (2048, 720, 1440)
+# each tensor-core fold's ladder of (frames, stages, buffers), first fit first
+LADDER = {"x3": [(64, 4, 2), (32, 4, 2), (32, 3, 2), (32, 2, 2)],
+          "f32": [(64, 4, 2), (64, 3, 2), (64, 2, 2), (32, 4, 2), (32, 3, 2), (32, 2, 2), (32, 2, 1)]}
 
 
-def launcher_fold_bytes(c: dict[str, int], algorithm: str, hop: int, sup: int, frames: int, stages: int) -> int:
+def launcher_fold_bytes(c: dict[str, int], algorithm: str, hop: int, sup: int, frames: int, stages: int,
+                        buffers: int) -> int:
     """The launcher's sum (shared_bytes in the source), from the source's
     constants: barriers, ``stages`` basis chunks, a tile's mel weights, the
-    power tile, two buffers of the chunk's s and d planes and the FP32 span."""
-    planes = 2 if algorithm == "x3" else 1
+    power tile, ``buffers`` buffers of the chunk's s and d planes and the
+    FP32 span, the bf16 parts in the mode's planes."""
+    planes = PLANES[algorithm]
     span_pad = -(-((frames - 1) * hop + sup + 1) // 4) * 4
     return (128 + stages * c["kChunkRows"] * c["kCols"] * planes * 2 + c["kTileBins"] * planes * c["kMelCols"] * 2
-            + planes * frames * (c["kTileBins"] + 16) * 2 + 2 * 2 * planes * c["kChunkRows"] * frames * 2
+            + planes * frames * (c["kTileBins"] + 16) * 2 + buffers * 2 * planes * c["kChunkRows"] * frames * 2
             + 4 * span_pad)
+
+
+def first_rung(algorithm: str, hop: int, sup: int, n_mels: int) -> tuple[int, int, int]:
+    """The first rung of the mode's ladder whose launcher sum fits a block."""
+    c = fold_constants()
+    return next(r for r in LADDER[algorithm] if launcher_fold_bytes(c, algorithm, hop, sup, *r) <= SHARED_MAX)
 
 
 @pytest.mark.parametrize("sr", RATES)
 @pytest.mark.parametrize("algorithm", TC_FOLDS)
 def test_fold_plan_fits_every_geometry(algorithm, sr):
     """At every hop, window and mel width of the grid that fold_ok takes at
-    this rate, fold_plan gives a plan within the 227 KB of shared memory a
-    block may use: the full plan (64 frames, four stages) where it fits,
-    else the compact plan (32 frames) with the most stages, four to two,
-    that fit; one mel group per 128 bands. The 16 kHz flagship keeps the
-    full plan; at 32 kHz, hop 320, window 1280 (where the x3 FFMA fold's
-    span overflowed) and at JAX's hop-384 example x3 takes the compact plan."""
+    this rate, fold_plan gives the first rung of the mode's ladder whose
+    launcher sum (from the source's constants) fits the 227 KB of shared
+    memory a block may use, with that sum as its bytes; one mel group per
+    128 bands. x3's ladder is unchanged: 64 frames with four stages, then 32
+    frames with four to two; its flagship keeps 64/4. f32, whose three
+    planes need more room, first gives up stages, then frames, then the
+    second buffer of its s and d planes: its flagship takes 64/3 (64/4
+    needs 249,232 bytes), and C8's 48 kHz hop 720 / window 1440, where even
+    32/2 needs 233,424, fits with one buffer (32/2/1)."""
+    c = fold_constants()
     geoms = fold_grid(sr)
     if sr == 16_000:
         geoms.append(JAX_HOP384[1:] + (128,))
+    if sr == 48_000:
+        geoms.append(C8[1:] + (128,))
     for hop, sup, n_mels in geoms:
         plan = ff.fold_plan(algorithm, hop, sup, n_mels)
-        assert plan.shared_bytes <= SHARED_MAX, (hop, sup, n_mels, plan)
+        rung = first_rung(algorithm, hop, sup, n_mels)
+        assert (plan.frames, plan.stages, plan.buffers) == rung, (hop, sup, n_mels, plan)
+        assert plan.shared_bytes == launcher_fold_bytes(c, algorithm, hop, sup, *rung) <= SHARED_MAX
         assert plan.mel_groups == -(-n_mels // 128)
-        full = ff._fold_plan_for(hop, sup, n_mels, 64, 4)
-        if full.shared_bytes <= SHARED_MAX:
-            assert plan == full
-        else:
-            assert plan.frames == 32 and 2 <= plan.stages <= 4
-            assert plan.stages == 4 or ff._fold_plan_for(hop, sup, n_mels, 32,
-                                                         plan.stages + 1).shared_bytes > SHARED_MAX
     flagship = ff.fold_plan(algorithm, 80, 400, 128)
-    assert (flagship.frames, flagship.stages, flagship.mel_groups) == (64, 4, 1)
-    assert ff.fold_ok(*JAX_HOP384) and ff.fold_ok(2048, 320, 1280)
-    assert ff.fold_plan("x3", 320, 1280).frames == 32 and ff.fold_plan("x3", 384, 3840).frames == 32
-    # the FFMA x3 fold's launcher sum, 4 (span_pad + 20,736 + 16,384) bytes, did not fit there
+    want = {"x3": (64, 4, 2), "f32": (64, 3, 2)}[algorithm]
+    assert (flagship.frames, flagship.stages, flagship.buffers, flagship.mel_groups) == want + (1,)
+    assert ff.fold_ok(*JAX_HOP384) and ff.fold_ok(2048, 320, 1280) and ff.fold_ok(*C8)
+    assert ff.fold_plan(algorithm, 320, 1280).frames == 32 and ff.fold_plan(algorithm, 384, 3840).frames == 32
+    c8 = ff.fold_plan(algorithm, *C8[1:])
+    assert (c8.frames, c8.stages, c8.buffers) == {"x3": (32, 4, 2), "f32": (32, 2, 1)}[algorithm]
+    assert launcher_fold_bytes(c, "f32", *C8[1:], 32, 2, 2) == 233_424 > SHARED_MAX
+    assert launcher_fold_bytes(c, "f32", 80, 400, 64, 4, 2) == 249_232 > SHARED_MAX
+    # the FFMA x3 fold's launcher sum, 4 (span_pad + 20,736 + 16,384) bytes, did not fit at 32 kHz, hop 320
     assert 4 * ((63 * 320 + 1281 + 3) // 4 * 4 + 20_736 + 16_384) > SHARED_MAX
 
 
 @pytest.mark.parametrize("algorithm", TC_FOLDS)
 def test_fold_plan_bytes_are_the_launchers(algorithm):
     """The wrapper's byte sum (fold_plan) equals the launcher's, computed here
-    from the source's constants, at every geometry of the grid fold_ok takes
-    and at JAX's hop-384 example; the plan's frames and stages are the ones
-    the launcher accepts; a width past 512 bands, and the FFMA folds (which
-    have no plan), raise."""
+    from the source's constants, at every geometry of the grid fold_ok takes,
+    at JAX's hop-384 example and at C8's; the plan's rungs are the ones the
+    launcher accepts (plan_holds); over the grid the rungs taken are, for x3,
+    64/4 at 49 geometries and 32/4 at 5 (its plans before the f32 fold moved
+    to the tensor cores), for f32 64/3 at 34, 64/2 at 11, 32/4 at 5, 32/3 at
+    3 (hop 384 among them) and 32/2 with one buffer at C8 alone; a width past
+    512 bands, and the FFMA fold (bf16, which has no plan), raise."""
     c = fold_constants()
-    geoms = [g for sr in RATES for g in fold_grid(sr)] + [JAX_HOP384[1:] + (128,)]
-    for hop, sup, n_mels in geoms:
-        plan = ff.fold_plan(algorithm, hop, sup, n_mels)
-        assert plan.shared_bytes == launcher_fold_bytes(c, algorithm, hop, sup, plan.frames, plan.stages)
-        assert (plan.frames, plan.stages) in ((c["kBF"], c["kStages"]), (c["kBF"] // 2, plan.stages))
-        assert plan.span_pad == -(-((plan.frames - 1) * hop + sup + 1) // 4) * 4
+    src = (CSRC / "fused_frontend_fold_tc.cu").read_text()
+    assert "(long long)buffers * 2 * planes * kChunkRows * frames * 2" in src and "4LL * span_pad" in src
+    assert f"launch_fold<{PLANES[algorithm]}>(" in src.split(f'fused_mel_fold_{algorithm}(', 1)[1].split("}", 1)[0]
+    hs = sorted({(hop, sup) for sr in RATES for hop, sup, _ in fold_grid(sr)})
+    taken = {}
+    for hop, sup in hs + [JAX_HOP384[1:], C8[1:]]:
+        for n_mels in (128, 256):
+            plan = ff.fold_plan(algorithm, hop, sup, n_mels)
+            rung = (plan.frames, plan.stages, plan.buffers)
+            assert plan.shared_bytes == launcher_fold_bytes(c, algorithm, hop, sup, *rung)
+            assert rung in LADDER[algorithm] and rung[0] in (c["kBF"], c["kBF"] // 2)
+            assert 2 <= plan.stages <= c["kStages"]
+            assert plan.span_pad == -(-((plan.frames - 1) * hop + sup + 1) // 4) * 4
+        taken[rung] = taken.get(rung, 0) + 1
+    want = {"x3": {(64, 4, 2): 49, (32, 4, 2): 5},
+            "f32": {(64, 3, 2): 34, (64, 2, 2): 11, (32, 4, 2): 5, (32, 3, 2): 3, (32, 2, 1): 1}}[algorithm]
+    assert taken == want
     with pytest.raises(ValueError, match="512"):
         ff.fold_plan(algorithm, 80, 400, 513)
-    for alg in ("f32", "bf16"):
-        with pytest.raises(ValueError, match="x3"):
-            ff.fold_plan(alg, 80, 400)
+    with pytest.raises(ValueError, match="tensor-core"):
+        ff.fold_plan("bf16", 80, 400)
 
 
-def launcher_ffma_bytes(algorithm: str, hop: int, sup: int) -> int:
+def launcher_ffma_bytes(hop: int, sup: int) -> int:
     """The FFMA fold launcher's sum (shared_bytes in fused_frontend_fold.cu),
     from the source's constants: the space the basis slices, the s and d
     slices and the power tile share (shared_floats), the [kBF][kMelMax] mel
-    accumulator, and the span of (kBF − 1)·hop + sup + 1 samples padded to 4,
-    FP32 for f32 and bf16 for bf16 (whose samples are bf16 values)."""
+    accumulator, and the span of (kBF − 1)·hop + sup + 1 bf16 samples (the
+    samples are bf16 values) padded to 4."""
     src = (CSRC / "fused_frontend_fold.cu").read_text()
     c = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
-    assert "constexpr int kPitch = kBF + 4;" in src
+    assert "constexpr int kPitch = kBF + 4;" in src and "constexpr int kTileSlice = kKC * 2 * kBT;" in src
+    assert "2LL * span_pad" in src
     pitch = c["kBF"] + 4
-    tile = c["kBT"] // 2 if algorithm == "f32" else c["kBT"]  # kTile<MODE>
-    shared = max(2 * c["kKC"] * 2 * tile + 2 * c["kKC"] * pitch, tile * pitch)
+    shared = max(2 * c["kKC"] * 2 * c["kBT"] + 2 * c["kKC"] * pitch, c["kBT"] * pitch)
     span_pad = -(-((c["kBF"] - 1) * hop + sup + 1) // 4) * 4
-    return 4 * (shared + c["kBF"] * c["kMelMax"]) + (2 if algorithm == "bf16" else 4) * span_pad
+    return 4 * (shared + c["kBF"] * c["kMelMax"]) + 2 * span_pad
 
 
 @pytest.mark.parametrize("sr", RATES)
-@pytest.mark.parametrize("algorithm", ("f32", "bf16"))
+@pytest.mark.parametrize("algorithm", ("bf16",))
 def test_ffma_fold_fits_every_geometry(algorithm, sr):
     """At every hop and window of the grid that fold_ok takes at this rate
-    (and at JAX's hop-384 example), the FFMA folds' launcher sum, computed
+    (and at JAX's hop-384 example), the FFMA fold's launcher sum, computed
     here from the source's constants, equals the wrapper's
     (ffma_fold_bytes) and stays within the 227 KB of shared memory a block
-    may use. bf16 stages its span as bf16, half the bytes: it also fits 48
-    kHz at hop 720 with a 1,440-sample window (chip_smoke.py phase 18),
-    where f32's FP32 span does not."""
+    may use. It stages its span as bf16, half the bytes of FP32: it also
+    fits 48 kHz at hop 720 with a 1,440-sample window (C8, chip_smoke.py
+    phase 18). The f32 and x3 folds have no FFMA kernel."""
     geoms = [(hop, sup) for hop, sup, _ in fold_grid(sr)]
     if sr == 16_000:
         geoms.append(JAX_HOP384[1:])
-    for hop, sup in geoms + [(720, 1440)]:
-        assert ff.ffma_fold_bytes(algorithm, hop, sup) == launcher_ffma_bytes(algorithm, hop, sup), (hop, sup)
-    for hop, sup in geoms:
+    for hop, sup in geoms + [C8[1:]]:
+        assert ff.ffma_fold_bytes(algorithm, hop, sup) == launcher_ffma_bytes(hop, sup), (hop, sup)
         assert ff.ffma_fold_bytes(algorithm, hop, sup) <= SHARED_MAX, (hop, sup)
-    assert ff.fold_ok(2048, 720, 1440)
-    assert (ff.ffma_fold_bytes(algorithm, 720, 1440) <= SHARED_MAX) == (algorithm == "bf16")
-    with pytest.raises(ValueError, match="FFMA"):
-        ff.ffma_fold_bytes("x3", 80, 400)
+    assert ff.fold_ok(*C8)
+    for alg in TC_FOLDS:
+        with pytest.raises(ValueError, match="FFMA"):
+            ff.ffma_fold_bytes(alg, 80, 400)
 
 
 def fold_config_tensors(algorithm: str, name: str) -> tuple[MfccConfig, dict[str, torch.Tensor]]:
@@ -353,14 +389,15 @@ def fold_config_tensors(algorithm: str, name: str) -> tuple[MfccConfig, dict[str
 @pytest.mark.parametrize("name", FOLD_CONFIGS)
 @pytest.mark.parametrize("algorithm", TC_FOLDS)
 def test_fold_layouts_round_trip(algorithm, name):
-    """pack_fold_basis and pack_tc_mel, then their inverses, give x3's
-    fold_weights bit for bit (the (hi, lo) stacks): rows past K, sine
-    columns at or past im_cols and mel columns past n_mels are zero; each
-    group of 16 columns holds the cosine, then the sine columns of the same
-    8 bins; the FFMA folds (f32, bf16) have no such layout."""
+    """pack_fold_basis and pack_tc_mel, then their inverses, give the
+    planes of the mode's fold_weights bit for bit (x3: the (hi, lo) stacks;
+    f32: the three planes of its exact split): rows past K, sine columns at
+    or past im_cols and mel columns past n_mels are zero; each group of 16
+    columns holds the cosine, then the sine columns of the same 8 bins; the
+    FFMA fold (bf16) has no such layout."""
     cfg, w = fold_config_tensors(algorithm, name)
     fw = ff.fold_weights(*design(cfg), algorithm)
-    planes = 2 if algorithm == "x3" else 1
+    planes = PLANES[algorithm]
     packed, mel = w["wcs_tc"], w["melw_tc"]
     k, bins = fw["wc"].shape[-2:]
     im_cols = fw["ws"].shape[-1]
@@ -378,8 +415,9 @@ def test_fold_layouts_round_trip(algorithm, name):
     flat = packed.permute(2, 1, 4, 0, 3).reshape(planes, kp, 2 * bins)[:, :k].float()
     grouped = flat.reshape(planes, k, bins // 8, 2, 8)
     assert torch.equal(grouped[:, :, :, 0].reshape(planes, k, bins), wc)
-    for alg in ("f32", "bf16"):
-        assert ff.fold_layouts(alg, ff.fold_tensors(alg, "cpu", *design(cfg))) == {}
+    assert ff.fold_layouts("bf16", ff.fold_tensors("bf16", "cpu", *design(cfg))) == {}
+    if algorithm == "f32":  # the split is exact: its planes sum to the float32 weights
+        assert torch.equal(wc.sum(0), torch.from_numpy(fw["wc"])) and torch.equal(ws.sum(0), torch.from_numpy(fw["ws"]))
 
 
 def plain_sd(audio: torch.Tensor, cfg: MfccConfig, algorithm: str, w: dict) -> tuple:
@@ -405,7 +443,7 @@ def chunk_planes(span: torch.Tensor, c: int, k: int, sup: int, hop: int, frames:
     block's frames, read from the span at f·hop + u and f·hop + sup − u
     (zero past K), and the chunk's planes as the kernel lays them out, plane
     q (s planes, then d planes) at q·32·frames, row u = 32 c + 16 j + kk of
-    frame f at (j·frames + f)·16 + kk; x3: (hi, lo); one plane: s, d rounded."""
+    frame f at (j·frames + f)·16 + kk; x3: (hi, lo); f32: (hi, mid, lo)."""
     lane = torch.arange(32)
     u = 32 * c + lane
     f = torch.arange(frames)[:, None]
@@ -416,7 +454,7 @@ def chunk_planes(span: torch.Tensor, c: int, k: int, sup: int, hop: int, frames:
     buf = torch.zeros(2 * planes * 32 * frames)
     offs = ((lane // 16) * frames + f) * 16 + lane % 16
     for q, v in enumerate((sv, dv)):
-        split = [ff._bf16r(v)] if planes == 1 else list(ff._x3_stack(v.numpy()))
+        split = list(ff._split3(v)) if planes == 3 else list(ff._x3_stack(v.numpy()))
         for pl, x in enumerate(split):
             buf[(q * planes + pl) * 32 * frames + offs] = torch.as_tensor(x)
     return sv, dv, buf
@@ -430,13 +468,14 @@ def test_fold_chunk_build_mirror(algorithm, name):
     and d, read from its staged span by index (the reversed end x[a + sup −
     u] included, rows past K zero), equal the plain version's s and d bit
     for bit in both plans (64 and 32 frames a block), and the planes hold
-    their (hi, lo) split, whose hi plane is the bf16 rounding."""
+    their split (x3: (hi, lo); f32: (hi, mid, lo), which sum to s and d
+    exactly), whose hi plane is the bf16 rounding."""
     cfg, w = fold_config_tensors(algorithm, name)
     audio = torch.tensor(np.random.default_rng(14).standard_normal((2, 3_001)).astype(np.float32))
     s_ref, d_ref = plain_sd(audio, cfg, algorithm, w)
     nf, k = s_ref.shape[1:]
     kp = -(-k // 32) * 32
-    planes = 2 if algorithm == "x3" else 1
+    planes = PLANES[algorithm]
     for frames in (64, 32):
         for b in range(audio.shape[0]):
             for f0 in range(0, nf, frames):
@@ -449,8 +488,14 @@ def test_fold_chunk_build_mirror(algorithm, name):
                     assert torch.equal(sv[:n, :width], s_ref[b, f0 : f0 + n, rows])
                     assert torch.equal(dv[:n, :width], d_ref[b, f0 : f0 + n, rows])
                     assert not sv[:, width:].any() and not dv[:, width:].any()
-                    s0 = buf[: 32 * frames].reshape(2, frames, 16).permute(1, 0, 2).reshape(frames, 32)
-                    assert torch.equal(s0, ff._bf16r(sv))
+                    sp = buf.reshape(2 * planes, 2, frames, 16).permute(0, 2, 1, 3).reshape(2 * planes, frames, 32)
+                    assert torch.equal(sp[0], ff._bf16r(sv)) and torch.equal(sp[planes], ff._bf16r(dv))
+                    if planes == 3:
+                        assert torch.equal(sp[:3].sum(0), sv) and torch.equal(sp[3:].sum(0), dv)
+
+
+# (operand plane, basis plane) of each product the kernel keeps, in its order
+PRODUCTS = {2: ((0, 0), (0, 1), (1, 0)), 3: ((0, 0), (0, 1), (1, 0), (0, 2), (1, 1), (2, 0))}
 
 
 def kernel_dft_mirror(buf: torch.Tensor, packed: torch.Tensor, tile: int, c: int, frames: int,
@@ -461,7 +506,8 @@ def kernel_dft_mirror(buf: torch.Tensor, packed: torch.Tensor, tile: int, c: int
     the chunk's planes (s for even n-tiles, d for odd), the B fragments
     (column 32 wn + 8 nt + g of the ring stage) from the packed basis, their
     MMAs (the k relabelling is the same for A and B, so the stored order is
-    the contraction order), and the x3 products (hi·Whi + hi·Wlo + lo·Whi).
+    the contraction order), and the mode's products (x3: hi·Whi + hi·Wlo +
+    lo·Whi; f32: hi·Whi + hi·Wmid + mid·Whi + hi·Wlo + mid·Wmid + lo·Whi).
     Returns (re, im) [frames, 64] of the tile's bins as the thread of column
     2t + e of n-tiles 2 n2 and 2 n2 + 1 holds them: bin 16 wn + 8 n2 + 2t + e."""
     mt_n = frames // 32
@@ -489,9 +535,7 @@ def kernel_dft_mirror(buf: torch.Tensor, packed: torch.Tensor, tile: int, c: int
                             b_off = ((j * planes) * 128 + col0 + 8 * nt) * 16 + 4 * t
                             a = [buf[(op * planes + p) * plane + a_off].double() for p in range(planes)]
                             w = [stage[(b_off + p * 128 * 16)[..., None] + e4] for p in range(planes)]
-                            cval = mma(a[0], w[0])
-                            if planes == 2:
-                                cval = cval + mma(a[0], w[1]) + mma(a[1], w[0])
+                            cval = sum(mma(a[i], w[pw]) for i, pw in PRODUCTS[planes])
                             bins = 16 * wn + 8 * (nt // 2) + torch.arange(8)
                             out[op, row[:, 0][:, None], bins[None, :]] += cval
     return out[0], out[1]
@@ -510,21 +554,18 @@ def test_fold_kernel_address_mirror(algorithm, name):
     cfg, w = fold_config_tensors(algorithm, name)
     audio = torch.tensor(np.random.default_rng(41).standard_normal((1, 12_000)).astype(np.float32))
     s_ref, d_ref = plain_sd(audio, cfg, algorithm, w)
-    k, planes = s_ref.shape[-1], (2 if algorithm == "x3" else 1)
+    k, planes = s_ref.shape[-1], PLANES[algorithm]
     kp = -(-k // 32) * 32
-    wc, ws = (torch.as_tensor(v).double() for v in (w["wc"], w["ws"]))
-    if planes == 1:
-        wc, ws = wc[None], ws[None]
+    wc, ws = (ff.tc_planes(algorithm, torch.as_tensor(w[key])).double() for key in ("wc", "ws"))
     ws = tnf.pad(ws, (0, wc.shape[-1] - ws.shape[-1]))
 
     def split(x: torch.Tensor) -> list[torch.Tensor]:
-        if planes == 1:
-            return [ff._bf16r(x).double()]
+        if planes == 3:
+            return list(ff._split3(x).double())
         return [torch.as_tensor(v).double() for v in ff._x3_stack(x.numpy())]
 
     def x3(xs, ws_):
-        r = xs[0] @ ws_[0]
-        return r if planes == 1 else r + xs[0] @ ws_[1] + xs[1] @ ws_[0]
+        return sum(xs[i] @ ws_[pw] for i, pw in PRODUCTS[planes])
 
     for frames in (64, 32):
         f0 = frames  # the second block
@@ -554,3 +595,25 @@ def test_fold_kernel_address_mirror(algorithm, name):
                             col = 16 * wn + 8 * n2 + 2 * t + e
                             pw[:, col] = power[:, col]
             assert torch.equal(pw[:, :64], power) and torch.isnan(pw[:, 64:]).all()
+
+
+@pytest.mark.parametrize("name", FOLD_CONFIGS)
+def test_split3_fold_mirror_no_further_than_plain(name):
+    """fused_mel_fold_f32's arithmetic mirrored (split3_fold_mirror: s and d
+    split into three exact bf16 planes, six products in float32 matmuls, the
+    hi·hi sums added per 16-row step, the power split the same way against
+    the mel weights' planes) on 2 × 24,000 samples of noise: its mel is no
+    further from the plain fold evaluated in float64 than the plain fold
+    (FP32 in 16-row steps) is, above the top_db floor, and its peak within
+    1e-5 of the plain version's: chip_smoke.py's bar for the kernel
+    (mode_error_ok), which it holds as it holds fused_mel_f32."""
+    cfg, w = fold_config_tensors("f32", name)
+    audio = torch.tensor(noise(cfg))
+    kw = dict(hop=cfg.hop_length, eff_pad=ff.eff_pad(cfg.n_fft, cfg.win_length))
+    mel, bmax = ff.split3_fold_mirror(audio, w["wc"], w["ws"], w["melw"], **kw)
+    want, want_bmax = ff.fused_mel_fold_reference(audio, w["wc"], w["ws"], w["melw"], **kw)
+    exact, _ = ff.fused_mel_fold_reference(audio.double(), w["wc"].double(), w["ws"].double(), w["melw"].double(),
+                                           **kw)
+    _, peak, rel_exact, plain_exact = split_bar(mel, bmax, want, want_bmax, exact)
+    assert mel.shape == want.shape and mel.dtype == torch.float32 and bmax.shape == want_bmax.shape
+    assert rel_exact <= plain_exact and peak <= 1e-5

@@ -7,9 +7,10 @@ the running sum; the bar is BASELINE.md's max-abs ≤ 1e-4 at the MFCC
 against the float64 'fft' path, and no further from it than the JAX
 package's own f32 Pallas frontend (run as its tests run it, in interpret
 mode). fused_mel_f32 itself runs an exact three-plane bf16 split on the
-tensor cores; its arithmetic, mirrored in float32 matmuls
-(split3_frontend_mirror), is held to the same bars here, which is the proof
-that the split keeps the f32 mode's accuracy. The kernels themselves are
+tensor cores, and fused_mel_fold_f32 the same split over the folded
+operands; their arithmetic, mirrored in float32 matmuls
+(split3_frontend_mirror, split3_fold_mirror), is held to the same bars here,
+which is the proof that the split keeps the f32 mode's accuracy. The kernels themselves are
 held to their plain versions on the card by chip_smoke.py, which also
 prints these distances at 128 × 30 s and holds fused_mel_f32 there to its
 plain version's distance."""
@@ -39,14 +40,20 @@ def noise(n_utt: int) -> torch.Tensor:
 
 def port_mfcc(x: torch.Tensor, route: str, dct: torch.Tensor) -> torch.Tensor:
     """Coef-major f32 MFCC [B, 13, nf] through the plain version of the
-    unfolded ('fused') or the folded frontend, or through fused_mel_f32's
-    split mirrored ('split'), the peak from its block maxima."""
+    unfolded ('fused') or the folded frontend ('fold'), or through
+    fused_mel_f32's or fused_mel_fold_f32's split mirrored ('split', 'fold
+    split'), the peak from its block maxima."""
     if route == "fused":
         return ff.fused_mfcc(x, transposed=True, **KW)
     if route == "split":
         wri, melw = (torch.tensor(a) for a in ff.frontend_weights(
             16_000.0, 512, KW["win_length"], 128, 100.0, KW["fmax"]))
         mel, bmax = ff.split3_frontend_mirror(x, wri, melw, hop=KW["hop"], eff_pad=ff.eff_pad(512, KW["win_length"]))
+    elif route == "fold split":
+        w = {k: torch.tensor(v) for k, v in ff.fold_weights(16_000.0, 512, KW["win_length"], 128, 100.0,
+                                                             KW["fmax"]).items()}
+        mel, bmax = ff.split3_fold_mirror(x, w["wc"], w["ws"], w["melw"], hop=KW["hop"],
+                                          eff_pad=ff.eff_pad(512, KW["win_length"]))
     else:
         mel, bmax = ff.fused_mel_frontend(x, fold=True, **KW)
     peak = 10.0 * torch.log10(torch.clamp(bmax.amax(dim=1), min=1e-10))
@@ -82,13 +89,13 @@ def routes16(batch16, model):
     return mfcc
 
 
-@pytest.mark.parametrize("route", ["fused", "fold", "split"])
+@pytest.mark.parametrize("route", ["fused", "fold", "split", "fold split"])
 def test_f32_mfcc_within_bar_at_16x30s(batch16, routes16, route):
     """≤ 1e-4 against the float64 'fft' MFCC over 16 × 30 s (96,016 frames)
     of noise. Summed as one K-term product, the unfolded frontend's plain
     version misses (2.5e-4 on this input); in 16-row steps both FP32 routes
-    meet it (measured 8.5e-5 unfolded, 7.0e-5 folded), and so does the
-    tensor-core kernel's split. The bar is a max over the frames, so it
+    meet it (measured 8.5e-5 unfolded, 7.0e-5 folded), and so do the
+    tensor-core kernels' splits, unfolded and folded. The bar is a max over the frames, so it
     binds harder as they grow: PERF.md §6 has the distances at 128 × 30 s on
     the card, where of the float32 routes only the split meets it on noise."""
     want = batch16[1]
@@ -97,16 +104,22 @@ def test_f32_mfcc_within_bar_at_16x30s(batch16, routes16, route):
     assert max_abs(got, want) <= 1e-4
 
 
-@pytest.mark.parametrize("route", ["fused", "fold", "split"])
+@pytest.mark.parametrize("route", ["fused", "fold", "split", "fold split"])
 def test_f32_mfcc_no_further_than_jax_pallas(model, route):
     """On 2 × 30 s of noise, each f32 route's plain version, and the
-    kernel's split mirrored, is no further from the float64 'fft' MFCC than
+    kernels' splits mirrored, is no further from the float64 'fft' MFCC than
     the JAX package's f32 Pallas frontend (measured 6.0e-5 unfolded and
-    5.3e-5 folded, against JAX's 1.04e-4)."""
+    5.3e-5 folded, against JAX's 1.04e-4); the fold's split than the JAX
+    package's f32 Pallas fold."""
     x = noise(2)
     want = model.trajectories(x.double(), spectrum="fft", coef_major=True)
     with pltpu.force_tpu_interpret_mode():
-        jax_mfcc = np.asarray(jax_ff.fused_mfcc(jnp.asarray(x.numpy()), transposed=True, **KW))
+        if route == "fold split":  # the JAX fold, through the JAX tail as fused_mfcc runs it
+            mel, bmax = jax_ff.fused_mel_frontend(jnp.asarray(x.numpy()), fold=True, **KW)
+            peak = 10.0 * jnp.log10(jnp.maximum(jnp.max(bmax, axis=(1, 2, 3)), 1e-10))
+            jax_mfcc = np.asarray(jax_ff.mfcc_tail(mel, peak, 13, transposed=True))[..., : want.shape[-1]]
+        else:
+            jax_mfcc = np.asarray(jax_ff.fused_mfcc(jnp.asarray(x.numpy()), transposed=True, **KW))
     got = port_mfcc(x, route, model.dct)
     assert got.shape == jax_mfcc.shape == tuple(want.shape)
     assert max_abs(got, want) <= max_abs(jax_mfcc, want)
