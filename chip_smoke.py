@@ -14,14 +14,17 @@ Phases:
   0  card, power limit, versions, TF32 flags (exits 2 without CUDA)
   1  kernel build (the native decode loader's g++ build beside it, timed
      apart), with ptxas's report (registers, spills) of every kernel,
-     and a line each for the Viterbi kernels', the tensor-core frontend's
-     (fused_mel_bf16 is mode 3, fused_mel_f32 mode 4), the tail's,
+     and a line each for the Viterbi kernels' (the wide ones past 1,024
+     bins too), the tensor-core frontend's
+     (fused_mel_bf16 is mode 3, fused_mel_f32 mode 4; the last template
+     argument the A source: 0 the span's copies, 1 shifted, 2 streamed), the tail's,
      sinc_refine_f32's and burg_lpc_f32's (C, elements a lane)
      instantiations, and the fold kernels' (fused_mel_fold_kernel, the
      FFMA bf16 fold; fused_mel_fold_tc_kernel<planes, m-tiles>, x3 with 2
      planes, f32 with 3, 32-frame plans 1 m-tile); each frontend mode's
-     staging plan (tc_plan) and shared memory a block at both
-     configurations and at phase 24's, the f32 and x3 folds' plans
+     staging plan (tc_plan: full, compact or streamed) and shared memory
+     a block at both configurations and at phase 24's, each mode's streamed
+     plan, the f32 and x3 folds' plans
      (fold_plan) and the bf16 fold's shared memory at the flagship, at 256
      bands and at phase 18's wide-span geometries (C8's among them), and
      the blocks an SM holds; the
@@ -66,7 +69,12 @@ Phases:
      memory), a batch of one; and the backtrace alone on crafted rows that
      set its traps (an out-of-band source tying an in-band one at a lower
      index, −0 against +0, two out-of-band sums that round together), each
-     line naming the backtrace's layout
+     line naming the backtrace's layout; past 1,024 bins (the wide kernels)
+     dense, pyin-banded and narrow-banded trellises at 1,201, 3,601 and
+     6,001 bins and one at 14,497 (the forward's m from the history), bit
+     for bit with the launch counts; batched_f0 pyin at resolution 0.01
+     (3,601 bins) on 2 × 10 s end to end against the plain engine, both
+     kernels timed there beside their plain versions and bounds
  12  pyin path at full size: batched_f0 pyin on the phase-7 batch, one launch
      of each Viterbi kernel, states and f0 identical to the plain engine on
      the card, against the CPU; the decode of that call makes no device→host
@@ -141,14 +149,23 @@ Phases:
      against its plain version (phase 2's and 14's bars) at 11.025 (n_fft
      512), 22.05, 32, 44.1 and 48 kHz (n_fft 1024, 1024, 2048, 2048; hop
      int(0.005 sr), window int(0.025 sr); f32 and f32 on int16 rows take
-     the compact plan there) and at 16 kHz with 256 mel bands and 40 MFCCs,
-     f32 also at 512 bands, with the plan printed; mfcc_tail_f32 in both
-     layouts on float32 and bf16 mel at 256 and 512 bands, 40 coefficients;
-     the fold kernels at 256 bands are in phase 18
+     the compact plan there), at 44.1 kHz with a 20 ms hop and 48 kHz with
+     a 30 ms hop and a 64 ms window (n_fft 2048, 4096; f32 on the streamed
+     plan at both, x3 at the second) and at 16 kHz with 256 mel bands and
+     40 MFCCs, f32 also at 512 bands, with the plan printed; mfcc_tail_f32
+     in both layouts on float32 and bf16 mel at 256 and 512 bands, 40
+     coefficients; every mode forced onto the streamed plan at the flagship
+     (_launch_tc's plan argument), its mel against the full plan's
+     (bit-identical or the max-abs, printed) and its plain version; 'fused'
+     mfcc_change on 4 × 30 s at both long hops against the float64 'fft'
+     path (phase 15's bar); the fold kernels at 256 bands are in phase 18
  25  'fused' mfcc_change at 128 x 30 s at 44.1 kHz (n_fft 2048) and 11.025
      kHz: one launch of each kernel, times as phase 5, the distance from the
      float64 'fft' MFCC, fused_mel_f32 no further than 1.05 x its plain
-     version's (phase 23's rule)
+     version's (phase 23's rule); the streamed plan's times at 128 x 30 s:
+     fused_mel_f32 and fused_mel_x3 at the flagship under the full and the
+     streamed plan, and at phase 24's long hops, beside plain versions and
+     bounds
  26  the verify harness (modmfcc-torch verify) on the card at 10 and 16
      kHz: all eleven surfaces pass against the float64 oracles
  27  envelope times on 32 x 30 s at 16 kHz: batched_envelope RMS and Hilb,
@@ -969,6 +986,9 @@ def tracker_paths(dev, card: str) -> list[dict]:
     del xr
     torch.cuda.empty_cache()
     viterbi_kernel_checks(dev)
+    wide_viterbi_checks(dev)
+    wide_pyin(dev, card)
+    torch.cuda.empty_cache()
     vit_launches, vit_inputs = pyin_path(dev, y_np, batch)
     ms, errs, bounds = pyin_times(batch, vit_inputs, card)
     return rows + [kernel_row(k, vit_launches[k], errs[k], ms[k], bounds[k]) for k in VK.LAUNCHES]
@@ -1108,6 +1128,115 @@ def viterbi_kernel_checks(dev) -> None:
               f"{VK.backtrace_layout(n, 21)}: state paths max |Δ| {err} (bar 0); the plain path is the designed "
               f"one {designed}")
         check(err == 0 and designed, f"viterbi_bwd_f32 on the {kind} traps")
+
+
+# Phase 11's trellises past 1,024 bins (C10): librosa's C2-C7 at resolution
+# 0.05 and F0Config's 75-600 Hz and C2-C7 at 0.01, each dense (h = n - 1,
+# a short NF), banded with pyin's band there over a floor, and with a band
+# narrow enough for shared memory; and 14,497 bins, one past the forward's
+# m in shared memory (its 'history' layout). (n, pyin's h, dense NF)
+WIDE_BINS = ((1201, 43, 6), (3601, 215, 6), (6001, 215, 4))
+HISTORY_BINS = 14_497
+
+
+def wide_trellis(n: int, h: int | None, nf: int, batch: int, seed: int, dev) -> tuple:
+    """A trellis made on the card, (log_obs [B, NF, 2n], delta0, log_tri,
+    c_stay, c_sw): h None a random column-normalized log_tri (the dense
+    recursion), else a random band of half-width h over the floor C =
+    -87.3, C also at a fifth of the band's entries off the diagonal and the
+    band reaching h (banded_trellis's 'floor' at n bins)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if h is None:
+        tri = torch.rand((n, n), generator=g, device=dev)
+        lt = torch.log(tri / tri.sum(0) + 1e-30)
+        del tri
+    else:
+        idx = torch.arange(n, device=dev)
+        dist = (idx[:, None] - idx[None, :]).abs()
+        inside = dist <= h
+        lt = torch.where(inside, torch.rand((n, n), generator=g, device=dev) * -10.0, -87.3)
+        lt = torch.where(inside & (dist > 0) & (torch.rand((n, n), generator=g, device=dev) < 0.2), -87.3, lt)
+        lt = torch.where(dist == h, -5.0, lt)
+        del dist, inside
+    log_obs = torch.log(torch.rand((batch, nf, 2 * n), generator=g, device=dev) + 1e-12)
+    delta0 = torch.log(torch.rand((batch, 2 * n), generator=g, device=dev) + 1e-12)
+    c_stay, c_sw = float(np.log(np.float32(0.99))), float(np.log(np.float32(0.01)))
+    return log_obs, delta0, lt.contiguous(), c_stay, c_sw
+
+
+def wide_viterbi_checks(dev) -> None:
+    """Phase 11 past 1,024 bins: both kernels bit for bit against their
+    plain versions on WIDE_BINS' dense, pyin-banded and narrow-banded
+    trellises and at HISTORY_BINS, each line naming both layouts, the
+    launch counters moving on each."""
+    cases = [(n, h_case, nf if h_case is None else 100, 2)
+             for n, h_pyin, nf in WIDE_BINS for h_case in (None, h_pyin, 2)]
+    cases.append((HISTORY_BINS, 2, 12, 1))
+    for i, (n, h, nf, batch) in enumerate(cases):
+        args = wide_trellis(n, h, nf, batch, seed=110 + i, dev=dev)
+        band = VK.viterbi_band(args[2])
+        check(band[0] == (n - 1 if h is None else h), f"the band of the {n}-bin trellis")
+        fwd, bwd = VK.band_layout(n, band[0]), VK.backtrace_layout(n, band[0])
+        reset(VK.LAUNCHES)
+        err, path_err, _ = viterbi_compare(args, band)
+        launched = dict(VK.LAUNCHES)
+        print(f"[11] {'dense' if h is None else 'banded'} trellis n={n} NF={nf} batch {batch}, h={band[0]}, band in "
+              f"{fwd} ({VK.forward_bytes(n, band[0], fwd)} bytes), backtrace's in {bwd} "
+              f"({VK.backtrace_bytes(n, band[0], bwd)} bytes): δ max |Δ| {err:.3e}, state paths max |Δ| "
+              f"{path_err:.0f} (bars 0, 0); launches {launched}")
+        check(err == 0.0 and path_err == 0.0, f"Viterbi kernels on the {n}-bin trellis h={band[0]}")
+        check(launched == {"viterbi_fwd_f32": 2, "viterbi_bwd_f32": 2}, f"Viterbi kernels launched at n={n}")
+        del args
+        torch.cuda.empty_cache()
+    check(VK.band_layout(HISTORY_BINS, 2) == "history", "the forward's history layout at 14,497 bins")
+
+
+def wide_pyin(dev, card: str) -> None:
+    """Phase 11: batched_f0 pyin at resolution 0.01 (75-600 Hz: 3,601 bins,
+    h = 215) on 2 × 10 s at 16 kHz end to end: one launch of each Viterbi
+    kernel, f0 and states identical to the plain engine on the card; both
+    kernels timed on its trellis beside their plain versions and bounds."""
+    sr, cfg = TRACK_SR, mt.F0Config(method="pyin", resolution=0.01)
+    y = speechlike(2, 10 * sr, sr, seed=111)
+    batch = mt.pad_batch(list(y), bucket_multiple=1, device=dev)
+    reset(VK.LAUNCHES)
+    with spy(Y, "viterbi_decode") as calls:
+        f0, valid = mt.batched_f0(batch, sr, cfg)
+        torch.cuda.synchronize()
+    launches = dict(VK.LAUNCHES)
+    *args, band = calls[0][0]
+    n = args[2].shape[0]
+    tracker = mt.PyinTracker(cfg, sr).to(dev)
+    f0_k, st_k = tracker(batch.samples, return_states=True)
+    f0_p, st_p = tracker(batch.samples, return_states=True, viterbi_engine="plain")
+    torch.cuda.synchronize()
+    same = torch.equal(f0_k, f0_p) and torch.equal(st_k, st_p) and torch.equal(f0_k, f0)
+    e2e = cuda_ms(lambda: mt.batched_f0(batch, sr, cfg))
+    print(f"[11] batched_f0 pyin at resolution 0.01 on {tuple(batch.samples.shape)}: {n} bins, band h={band[0]} "
+          f"(forward's in {VK.band_layout(n, band[0])}, backtrace's in {VK.backtrace_layout(n, band[0])}), f0 "
+          f"{tuple(f0.shape)}, voiced {float((f0 > 0).float().mean()):.3f}, launches {launches}; vs "
+          f"viterbi_engine='plain' on the card: f0 and states identical {same}; end to end {e2e:.3f} ms ({card})")
+    check(n == 3601 and band[0] == 215, "pyin's 3,601 bins at resolution 0.01")
+    check(launches == {"viterbi_fwd_f32": 1, "viterbi_bwd_f32": 1}, "one launch of each Viterbi kernel at 3,601 bins")
+    check(bool(torch.isfinite(f0).all()) and bool(valid.all()) and same, "pyin at resolution 0.01 vs the plain engine")
+    delta_f, hist = VK.viterbi_forward_reference(*args)
+    rest = args[2:]
+    t_f = (cuda_ms(lambda: VK.viterbi_forward(*args, band)), cuda_ms(lambda: VK.viterbi_forward_reference(*args), 3))
+    t_b = (cuda_ms(lambda: VK.viterbi_backtrace(hist, delta_f, *rest, band)),
+           cuda_ms(lambda: VK.viterbi_backtrace_reference(hist, delta_f, *rest), 3))
+    log_obs = args[0]
+    nb, nf, _ = log_obs.shape
+    h = band[0]
+    v = np.arange(n)
+    pairs = int((np.minimum(n - 1, v + h) - np.maximum(0, v - h) + 1).sum())
+    state_bytes = nb * 2 * n * 4
+    b_f = bound(log_obs.numel() * 4 + 2 * state_bytes + hist.numel() * 4 + pairs * 4,
+                nb * (nf - 1) * (4 * pairs + 18 * n))
+    # the backtrace reads only the band of log_tri: the pairs the forward's bound counts
+    b_b = bound(hist.numel() * 4 + state_bytes + pairs * 4 + nb * nf * 4, nb * (nf - 1) * 5 * n)
+    for name, (t_k, t_p), b in (("viterbi_fwd_f32", t_f, b_f), ("viterbi_bwd_f32", t_b, b_b)):
+        print(f"[11] {name} at {n} bins on that trellis {tuple(log_obs.shape)}: {t_k:.3f} ms, plain {t_p:.3f} ms, "
+              f"bound {b[0]:.3f} ms ({b[1]}; {b[0] / t_k:.1%}) ({card})")
 
 
 def backtrace_traps(kind: str, rng: np.random.Generator, dev, n: int = 361, h: int = 21, steps: int = 300,
@@ -1299,7 +1428,7 @@ def pyin_times(batch: mt.AudioBatch, captured: tuple, card: str):
           f"({card})")
     bounds = {
         "viterbi_fwd_f32": fwd_banded,
-        "viterbi_bwd_f32": bound(hist.numel() * 4 + state_bytes + log_tri.numel() * 4 + nb * nf * 4,
+        "viterbi_bwd_f32": bound(hist.numel() * 4 + state_bytes + pairs * 4 + nb * nf * 4,
                                  nb * (nf - 1) * 5 * n),
     }
     return ms, {"viterbi_fwd_f32": fwd_err, "viterbi_bwd_f32": bwd_err}, bounds
@@ -2404,12 +2533,57 @@ def frontend_report(root: Path) -> int:
 GEOMETRIES = (("11.025 kHz", 11_025, 512), ("22.05 kHz", 22_050, 1024), ("32 kHz", 32_000, 1024),
               ("44.1 kHz", 44_100, 2048), ("48 kHz", 48_000, 2048))
 WIDE = mt.MfccConfig(signal_sample_rate=16_000, maxFreq=8000.0, n_mels=256, n_mfcc=40)  # C4: past 128 and 32
+# long hops (C9), where the span outgrows the full and compact plans:
+# fused_mel_f32 takes the streamed plan at both, fused_mel_x3 at the second
+LONG_HOPS = (("44.1 kHz, 20 ms hop", mt.MfccConfig(signal_sample_rate=44_100, n_fft=2048, tStep=0.02)),
+             ("48 kHz, 30 ms hop, 64 ms window",
+              mt.MfccConfig(signal_sample_rate=48_000, n_fft=4096, tStep=0.03, winLen=0.064)))
 
 
 def geometry_configs() -> list[tuple[str, mt.MfccConfig]]:
-    """Phase 24's configurations: GEOMETRIES, then WIDE."""
-    return [(label, mt.MfccConfig(signal_sample_rate=sr, n_fft=n_fft)) for label, sr, n_fft in GEOMETRIES] + [
-        ("16 kHz, 256 mel bands, 40 MFCCs", WIDE)]
+    """Phase 24's configurations: GEOMETRIES, LONG_HOPS, then WIDE."""
+    return ([(label, mt.MfccConfig(signal_sample_rate=sr, n_fft=n_fft)) for label, sr, n_fft in GEOMETRIES]
+            + list(LONG_HOPS) + [("16 kHz, 256 mel bands, 40 MFCCs", WIDE)])
+
+
+def rung(plan) -> str:
+    """The ladder rung of a tc_plan: full, compact or streamed."""
+    return "streamed" if plan.streamed else "compact" if plan.shifted else "full"
+
+
+def tc_kp(w: dict, alg: str) -> int:
+    """Kp of a mode's tensor-core basis layout."""
+    return w["wri_tc" if alg in ("f32", "bf16", "x3") else "planes_tc"].shape[1] * ff._TC_STEP[alg]
+
+
+def streamed_plan(alg: str, cfg: mt.MfccConfig, kp: int):
+    """The streamed rung at this geometry, whatever tc_plan takes there."""
+    return ff._plan_for(alg, cfg.hop_length, kp, cfg.n_mels, ff.BLOCK_FRAMES, False, ff._TC_STAGES, streamed=True)
+
+
+def mel_under_plan(audio, cfg: mt.MfccConfig, alg: str, w: dict, plan, n_samples=None):
+    """fused_mel_{alg}'s (mel, block maxima) under ``plan`` (_launch_tc's
+    private plan argument, which the launcher checks), launched as
+    fused_mel_frontend launches it; no launch counted."""
+    t, buf_len, off = ff._geometry(audio, cfg.hop_length, cfg.n_fft, cfg.win_length, n_samples)
+    nf = 1 + t // cfg.hop_length
+    k = (w["planes"] if alg in ("i16", "i24") else w["wri"]).shape[-2]
+    bins_pad, n_mels = w["melw"].shape[-2:]
+    mel = torch.empty((audio.shape[0], nf, n_mels), dtype=torch.bfloat16 if alg == "bf16" else torch.float32,
+                      device=audio.device)
+    rc, bmax = ff._launch_tc(f"fused_mel_{alg}", audio, int(audio.dtype == torch.int16), w, mel, buf_len, k,
+                             cfg.hop_length, off, nf, bins_pad, n_mels, plan=plan)
+    ff.raise_on(rc, f"fused_mel_{alg}")
+    return mel, bmax
+
+
+def same_mel(a: tuple, b: tuple) -> str:
+    """'bit-identical', or the max-abs of two (mel, block maxima) pairs."""
+    if all(x.shape == y.shape and torch.equal(x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32),
+                                              y.view(torch.int16 if y.dtype == torch.bfloat16 else torch.int32))
+           for x, y in zip(a, b)):
+        return "bit-identical"
+    return f"max-abs {max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b)):.3e}"
 
 
 def geometry_checks(dev) -> None:
@@ -2427,7 +2601,7 @@ def geometry_checks(dev) -> None:
         algs = ("f32",) if cfg.n_mels == 512 else ff.ALGORITHMS
         for alg in algs:
             w = mode_weights(cfg, alg, dev)
-            kp = w["wri_tc" if alg in ("f32", "bf16", "x3") else "planes_tc"].shape[1] * ff._TC_STEP[alg]
+            kp = tc_kp(w, alg)
             plan = ff.tc_plan(alg, cfg.hop_length, kp, cfg.n_mels)
             for label, (x, ns) in inputs.items():
                 if label == "float32" and alg != "f32":
@@ -2440,7 +2614,7 @@ def geometry_checks(dev) -> None:
                 ex = plain64(x, cfg, w, ns) if alg == "f32" else x3_exact_mel(x, cfg, w, ns) if alg == "x3" else None
                 ok, text = mode_error_ok(alg, mel_k, bmax_k, mel_p, bmax_p, ex)
                 print(f"[24] {name}: fused_mel_{alg} on {label} {tuple(x.shape)}, hop {cfg.hop_length}, Kp {kp}, "
-                      f"{cfg.n_mels} mel bands, plan {tuple(plan)}: {text}")
+                      f"{cfg.n_mels} mel bands, {rung(plan)} plan {tuple(plan)}: {text}")
                 check(ok, f"fused_mel_{alg} {name} {label}")
                 del mel_k, bmax_k, mel_p, bmax_p, ex
             torch.cuda.empty_cache()
@@ -2459,6 +2633,66 @@ def geometry_checks(dev) -> None:
                 print(f"[24] {name}: mfcc_tail_f32 on {kind} mel {tuple(m.shape)}, {cfg.n_mfcc} coefficients, "
                       f"{'coef' if transposed else 'frame'}-major, vs plain: max-abs {err:.3e} (bar 1e-4)")
                 check(out_k.shape == out_p.shape and err <= 1e-4, f"mfcc_tail_f32 {name} {kind} {transposed}")
+    streamed_rung_checks(dev)
+    long_hop_paths(dev)
+
+
+def streamed_rung_checks(dev) -> None:
+    """Phase 24: every mode under the streamed plan forced at the 16 kHz
+    flagship (4 × 30 s: f32 on float32 audio, every mode on int16 hop rows),
+    its mel and block maxima against the full plan's (printed: bit-identical
+    or the max-abs) and against its plain version by phases 2's and 14's
+    bars."""
+    cfg = FLAGSHIP
+    sr = cfg.signal_sample_rate
+    y = speechlike(4, SECONDS * sr, sr, seed=24) * 0.5
+    pcm = np.round(y * 32767.0).astype(np.int16)
+    inputs = {"float32": (torch.tensor(y, device=dev), None), "int16 rows": (rows_of(pcm, cfg, dev), pcm.shape[1])}
+    for alg in ff.ALGORITHMS:
+        w = mode_weights(cfg, alg, dev)
+        kp = tc_kp(w, alg)
+        full, streamed = ff.tc_plan(alg, cfg.hop_length, kp, cfg.n_mels), streamed_plan(alg, cfg, kp)
+        check(rung(full) == "full", f"fused_mel_{alg} keeps the full plan at the flagship")
+        for label, (x, ns) in inputs.items():
+            if label == "float32" and alg != "f32":
+                continue
+            got = mel_under_plan(x, cfg, alg, w, streamed, ns)
+            want = mel_under_plan(x, cfg, alg, w, full, ns)
+            mel_p, bmax_p = mode_plain(x, cfg, alg, w, ns)
+            torch.cuda.synchronize()
+            ex = plain64(x, cfg, w, ns) if alg == "f32" else x3_exact_mel(x, cfg, w, ns) if alg == "x3" else None
+            ok, text = mode_error_ok(alg, *got, mel_p, bmax_p, ex)
+            print(f"[24] 16 kHz flagship: fused_mel_{alg} on {label} under the streamed plan forced "
+                  f"{tuple(streamed)} against the full plan {tuple(full)}: {same_mel(got, want)}; against its plain "
+                  f"version: {text}")
+            check(ok, f"fused_mel_{alg} streamed at the flagship {label}")
+            del got, want, mel_p, bmax_p, ex
+        torch.cuda.empty_cache()
+
+
+def long_hop_paths(dev) -> None:
+    """Phase 24: 'fused' mfcc_change at each of LONG_HOPS on 4 × 30 s of
+    float32 audio end to end (fused_mel_f32 on the streamed plan): one
+    launch of each MFCC kernel, against the float64 'fft' path by phase
+    15's bar (1e-4)."""
+    for label, cfg in LONG_HOPS:
+        sr = cfg.signal_sample_rate
+        y = torch.tensor(speechlike(4, SECONDS * sr, sr, seed=241), device=dev)
+        kp = -(-cfg.win_length // 32) * 32
+        plan = ff.tc_plan("f32", cfg.hop_length, kp, cfg.n_mels)
+        reset(ff.LAUNCHES)
+        tot = mt.mfcc_change(y, cfg)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ff.LAUNCHES.items() if v}
+        want = mt.mfcc_change(y.double(), cfg, spectrum="fft")
+        err = float((tot.double() - want).abs().max())
+        print(f"[24] {label}: mfcc_change 'fused' on [4, {y.shape[1]}] float32, fused_mel_f32 {rung(plan)} plan "
+              f"{tuple(plan)}, launches {launches}; vs the float64 'fft' path max-abs {err:.3e} (bar 1e-4)")
+        check(rung(plan) == "streamed", f"fused_mel_f32 streamed at {label}")
+        check(launches == {"fused_mel_f32": 1, "mfcc_tail_f32": 1}, f"{label}: one launch of each MFCC kernel")
+        check(tot.shape == want.shape and bool(torch.isfinite(tot).all()) and err <= 1e-4, f"{label} vs fft")
+        del y, tot, want
+        torch.cuda.empty_cache()
 
 
 def f64_distance(model, x: torch.Tensor, routes: dict, chunk: int = 16) -> dict[str, float]:
@@ -2557,6 +2791,50 @@ def rate_paths(dev, card: str) -> None:
         check(ratio <= 1.05, f"phase 25 {label}: fused_mel_f32 no further from float64 than 1.05 × its plain version")
         del y, model, a
         torch.cuda.empty_cache()
+    streamed_times(dev, card)
+
+
+def streamed_times(dev, card: str) -> None:
+    """Phase 25: the streamed plan's times at 128 × 30 s. At the 16 kHz
+    flagship fused_mel_f32 (float32 audio) and fused_mel_x3 (int16 hop rows)
+    under the full plan and forced onto the streamed one (their mel and
+    maxima bit-identical, or the max-abs, printed); at LONG_HOPS under
+    tc_plan's plan (f32 streamed at both, x3 at the second; x3's compact
+    plan at the first forced onto the streamed one too); each beside its
+    plain version (median of 3) and its bound, as phases 5 and 17 bound
+    them."""
+    for label, cfg in [("16 kHz flagship", FLAGSHIP)] + list(LONG_HOPS):
+        sr = cfg.signal_sample_rate
+        y = speechlike(BATCH, SECONDS * sr, sr, seed=25) * 0.5
+        pcm = np.round(y * 32767.0).astype(np.int16)
+        for alg, x, ns in (("f32", torch.tensor(y, device=dev), None), ("x3", rows_of(pcm, cfg, dev), pcm.shape[1])):
+            w = mode_weights(cfg, alg, dev)
+            kp = tc_kp(w, alg)
+            plan = ff.tc_plan(alg, cfg.hop_length, kp, cfg.n_mels)
+            plans = [plan] + ([streamed_plan(alg, cfg, kp)] if rung(plan) != "streamed" else [])
+            mels = [mel_under_plan(x, cfg, alg, w, p, ns) for p in plans]
+            times = [kernel_ms(lambda: mel_under_plan(x, cfg, alg, w, p, ns)) for p in plans]
+            t_p = cuda_ms(lambda: mode_plain(x, cfg, alg, w, ns), reps=3)
+            mel = mels[0][0]
+            bsz, nf, n_mels = mel.shape
+            k, bins = w["wri"].shape[-2], w["melw"].shape[-2]
+            weights = sum(w[key].numel() * w[key].element_size() for key in ("wri", "melw"))
+            n_bytes = x.numel() * x.element_size() + weights + mel.numel() * 4 + mels[0][1].numel() * 4
+            if alg == "f32":
+                b = split3_bound(n_bytes, bsz * nf, k, bins, n_mels, dft_passes=6)
+            else:
+                t_ops = 3 * (2.0 * bsz * nf * k * 2 * bins + 2.0 * bsz * nf * bins * n_mels) / PEAK_BF16_S * 1e3
+                t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+                b = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+            parts = [f"{rung(p)} plan {tuple(p)} {t:.3f} ms ({b[0] / t:.1%} of the bound)"
+                     for p, t in zip(plans, times)]
+            same = f"; the streamed plan's mel against the {rung(plan)} plan's: {same_mel(mels[1], mels[0])}" if (
+                len(plans) > 1) else ""
+            print(f"[25] {label} (hop {cfg.hop_length}, Kp {kp}, bins_pad {bins}): fused_mel_{alg} on "
+                  f"{'float32' if ns is None else 'int16 rows'} {tuple(x.shape)}: " + "; ".join(parts)
+                  + f"; plain {t_p:.3f} ms; bound {b[0]:.3f} ms ({b[1]}){same} ({card}; {sm_clock()})")
+            del mels, x, w
+            torch.cuda.empty_cache()
 
 
 def verify_on_card() -> None:
@@ -3310,12 +3588,15 @@ def shared_report() -> None:
         for alg in ff.ALGORITHMS:
             plan = ff.tc_plan(alg, cfg.hop_length, kp, cfg.n_mels)
             check(plan.shared_bytes <= ff.SHARED_MAX, f"fused_mel_{alg} shared memory at hop {cfg.hop_length}")
-            parts.append(f"fused_mel_{alg} {'full' if plan.frames == ff.BLOCK_FRAMES else 'compact'} "
-                         f"{tuple(plan)}, {plan.shared_bytes} bytes "
+            parts.append(f"fused_mel_{alg} {rung(plan)} {tuple(plan)}, {plan.shared_bytes} bytes "
                          f"({233_472 // (plan.shared_bytes + 1024)} an SM by shared memory)")
-        print(f"[1] {label}: plan (frames, shifted, stages, copies, span, mel groups, bytes) and shared memory a "
-              f"block at hop {cfg.hop_length}, Kp {kp}, {cfg.n_mels} mel bands (at most {ff.SHARED_MAX}): "
+        print(f"[1] {label}: plan (frames, shifted, streamed, stages, copies, span, mel groups, bytes) and shared "
+              f"memory a block at hop {cfg.hop_length}, Kp {kp}, {cfg.n_mels} mel bands (at most {ff.SHARED_MAX}): "
               + "; ".join(parts))
+    kp = -(-FLAGSHIP.win_length // 32) * 32
+    print("[1] the streamed plan of each mode, the same at every hop and window (phase 24 forces it at the "
+          "flagship): " + "; ".join(f"fused_mel_{alg} {tuple(streamed_plan(alg, FLAGSHIP, kp))}"
+                                    for alg in ff.ALGORITHMS))
     fold_geoms = [("16k flagship", FLAGSHIP), ("16k, 256 mel bands", WIDE)] + list(FOLD_COMPACT)
     for label, cfg in fold_geoms:
         parts = []
@@ -3359,7 +3640,8 @@ def main() -> int:
     print(f"[1] built {so.name} from {native.SOURCE.relative_to(native.SOURCE.parents[1])} (g++ "
           f"{' '.join(native.GXX_FLAGS)}, beside nvcc) and loaded it in {native_s:.3f} s")
     for line in ptxas_lines(lib_path.with_suffix(".ptxas.txt").read_text(),
-                            ("viterbi_fwd_f32_kernel", "viterbi_bwd_f32_kernel", "fused_mel_tc_kernel",
+                            ("viterbi_fwd_f32_kernel", "viterbi_bwd_f32_kernel", "viterbi_fwd_wide_kernel",
+                             "viterbi_bwd_wide_kernel", "fused_mel_tc_kernel",
                              "fused_mel_fold_tc_kernel", "fused_mel_fold_kernel", "mfcc_tail_kernel",
                              "sinc_refine_f32_kernel", "burg_lpc_f32_kernel")):
         print(f"[1] ptxas {line}")

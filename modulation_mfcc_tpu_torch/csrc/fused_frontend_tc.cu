@@ -12,7 +12,7 @@
 // The staging plan of a launch (kernels/fused_frontend.tc_plan, passed by
 // value in this field order); the launcher checks it against its own sum.
 struct TcPlan {
-    int frames, shifted, stages, n_copies, span_pad, mel_groups, shared_bytes;
+    int frames, shifted, streamed, stages, n_copies, span_pad, mel_groups, shared_bytes;
 };
 
 namespace {
@@ -104,8 +104,9 @@ using namespace tc;
 //
 // Design: a block owns 64 consecutive frames of one utterance (8 warps) and
 // one group of 128 mel columns.
-//  * The A operand (frames) never exists in device memory, nor as a frame
-//    tile in shared memory: the block stages its audio span once, already
+//  * The A operand (frames) never exists in device memory, nor (but in
+//    the streamed plan below) as a frame tile in shared memory: the block
+//    stages its audio span once, already
 //    in the MMA's element type (bf16: one plane; x3: the bf16 hi and lo
 //    planes; f32: hi, mid and lo; i16, i24: the two or three int8 digit
 //    planes), and each thread loads its A fragments
@@ -131,19 +132,32 @@ using namespace tc;
 //    over all tiles (registers and spills of each mode: chip_smoke.py
 //    phase 1). x3, f32, i16 and i24 take one block of 8 warps an SM (f32:
 //    its three-plane stages, mel weights, power tile and span come to
-//    211-219 KB of shared memory in the full plan, kernels/fused_frontend.tc_plan);
+//    211-219 KB of shared memory in the full plan at 16 kHz, kernels/fused_frontend.tc_plan);
 //    bf16, with one sum and a one-plane mel, fits in 128 registers and
 //    takes two, which beat 128-frame blocks of 64-frame warp tiles on the
 //    H100 (one block an SM, half the weight stream a frame).
 //  * The staging plan (TcPlan; its one owner is kernels/fused_frontend.
-//    tc_plan) fits the block in the 227 KB of shared memory at every rate,
-//    hop and window the reference configures. The full plan is the above:
-//    64 frames (MT = 2 MMA tiles of 16 a warp), the span in its shifted
-//    copies, four stages. Where that does not fit (large hops: the span is
-//    63 hop + Kp; odd hops: four copies), the compact plan takes 32 frames
-//    (MT = 1), one span copy whose rows each thread aligns in registers
-//    (two aligned 8-byte loads and a funnel shift, SHIFT), and two to four
-//    stages. Two blocks then share a block maximum, merged by atomicMax.
+//    tc_plan) is the first of three rungs that fits the block in the 227 KB
+//    of shared memory. The full plan is the above: 64 frames (MT = 2 MMA
+//    tiles of 16 a warp), the span in its shifted copies, four stages.
+//    Where that does not fit (large hops: the span is 63 hop + Kp; odd
+//    hops: four copies), the compact plan takes 32 frames (MT = 1), one
+//    span copy whose rows each thread aligns in registers (two aligned
+//    8-byte loads and a funnel shift, kShifted), and two to four stages.
+//    Two blocks then share a block maximum, merged by atomicMax. The span
+//    still grows with the hop and the window: at 22.05 kHz and more with a
+//    30 ms hop (44.1 kHz from 15 ms), f32's and x3's compact plans do not
+//    fit either. The streamed plan (kStream) stages no span: each stage of
+//    the ring holds, beside its basis chunk, the A tile of that chunk, 64
+//    frames x 32 rows in the mode's planes, written by the threads from the
+//    audio while the chunk before it is multiplied (load_a_tile before the
+//    MMAs, store_a_tile after), so its shared memory is the same at every
+//    hop and window (f32: 227,456 bytes). Each frame's fragments hold the
+//    same elements in the same 16-row MMAs as in the other plans, so every
+//    plan computes the same mel bit for bit (chip_smoke.py phase 24). The
+//    tile is staged again for every bin tile, with one chunk of MMAs to hide
+//    its loads: forced at the 16 kHz flagship it takes 1.18 x the full
+//    plan's time (PERF.md §6).
 //  * More than 128 mel bands (up to kMelLimit): the grid's z is the mel
 //    group, each group a block of its own that recomputes the DFT and
 //    projects onto the group's 128 columns of the weights.
@@ -203,6 +217,13 @@ template <int MODE> constexpr int kChunkBytes =
     kChunkRows * kCols * Mode<MODE>::kBasisPlanes * (int)sizeof(typename Mode<MODE>::T);
 template <int MODE> constexpr int kMelBytes = kTileBins * Mode<MODE>::kMelPlanes * kMelCols * 2;  // a tile's mel weights
 template <int MODE, int MT> constexpr int kPowerBytes = Mode<MODE>::kMelPlanes * 32 * MT * kPitch * 2;
+// the streamed plan's A tile of a stage: [plane][kBF frames][kChunkRows]
+template <int MODE> constexpr int kATileBytes =
+    Mode<MODE>::kSpanPlanes * kBF * kChunkRows * (int)sizeof(typename Mode<MODE>::T);
+// where a block reads its A fragments: the span in shifted copies (full
+// plan), one span copy aligned in registers (compact), or the A tile of each
+// stage (streamed)
+enum ASource { kCopies, kShifted, kStream };
 
 __device__ __forceinline__ float load_sample(const float* x, long long s) { return x[s]; }
 __device__ __forceinline__ float load_sample(const int16_t* x, long long s)
@@ -251,6 +272,60 @@ __device__ __forceinline__ void planes_of(float v, float s, int8_t (&p)[3])
     p[2] = static_cast<int8_t>(x - 256.0f * q1);
 }
 
+// the bits of one plane element, for packing a fragment's 8 bytes
+__device__ __forceinline__ uint32_t bits_of(__nv_bfloat16 e) { return __bfloat16_as_ushort(e); }
+__device__ __forceinline__ uint32_t bits_of(int8_t e) { return static_cast<uint8_t>(e); }
+
+// The streamed plan's A tile of the chunk at contraction row k0: frame f
+// (0 .. kBF - 1), row r at sample start + f hop + k0 + r of the utterance x
+// (zero outside its T samples). A thread takes kAUnits units of kAl
+// consecutive rows (8 bytes of a plane) of one frame: load_a_tile reads
+// their samples into registers, store_a_tile writes their planes (planes_of,
+// as the span's staging) to the tile, [plane][frame][kChunkRows], the 8-byte
+// unit u of frame f at u ^ 4 ((f >> 1) & 1) for bf16 planes: a half warp's
+// fragment loads, rows g .. g + 3 at units 4j + t, then meet no bank twice.
+template <int MODE> constexpr int kAUnits = kBF * kChunkRows / kAl<MODE> / kThreads;
+
+template <int MODE, typename In>
+__device__ __forceinline__ void load_a_tile(float (&v)[kAUnits<MODE>][kAl<MODE>], const In* x, int T,
+                                            long long start, int hop, int k0, int tid)
+{
+    constexpr int al = kAl<MODE>, per_row = kChunkRows / al;
+#pragma unroll
+    for (int k = 0; k < kAUnits<MODE>; ++k) {
+        const int i = tid + kThreads * k, f = i / per_row, u = i % per_row;
+        const long long s0 = start + (long long)f * hop + k0 + al * u;
+#pragma unroll
+        for (int e = 0; e < al; ++e) {
+            const long long smp = s0 + e;
+            v[k][e] = (smp >= 0 && smp < T) ? load_sample(x, smp) : 0.0f;
+        }
+    }
+}
+
+template <int MODE>
+__device__ __forceinline__ void store_a_tile(typename Mode<MODE>::T* tile, const float (&v)[kAUnits<MODE>][kAl<MODE>],
+                                             float s, int tid)
+{
+    using E = typename Mode<MODE>::T;
+    constexpr int al = kAl<MODE>, per_row = kChunkRows / al, planes = Mode<MODE>::kSpanPlanes;
+#pragma unroll
+    for (int k = 0; k < kAUnits<MODE>; ++k) {
+        const int i = tid + kThreads * k, f = i / per_row, u = i % per_row;
+        const int us = sizeof(E) == 2 ? u ^ (((f >> 1) & 1) << 2) : u;
+        E p[al][planes];
+#pragma unroll
+        for (int e = 0; e < al; ++e) planes_of(v[k][e], s, p[e]);
+#pragma unroll
+        for (int q = 0; q < planes; ++q) {
+            uint32_t w[2] = {0u, 0u};
+#pragma unroll
+            for (int e = 0; e < al; ++e) w[e / (al / 2)] |= bits_of(p[e][q]) << (8 * (int)sizeof(E) * (e % (al / 2)));
+            *reinterpret_cast<uint2*>(tile + (q * kBF + f) * kChunkRows + al * us) = make_uint2(w[0], w[1]);
+        }
+    }
+}
+
 // the exact int32 sums -> the DFT value, FP32 in the JAX order (i24)
 __device__ __forceinline__ float recombine(int d1, int d2, int d3, float inv)
 {
@@ -277,27 +352,31 @@ template <int MT> struct Acc<kF32, MT> : Acc<kX3, MT> {};
 
 // one chunk (kChunkRows contraction rows from k0) of the tile's DFT; LO_ZERO:
 // the samples' f32 lo plane is zero (int16 input), so lo.hi is skipped.
-// a_off: the 8-byte aligned offset of each of the thread's A rows; SHIFT:
-// the row starts a_sh[mt][h] bytes (0 .. 7) past it, and its 8 bytes are cut
-// from the 16 of two aligned loads
-template <int MODE, int MT, bool SHIFT, bool LO_ZERO>
-__device__ __forceinline__ void dft_chunk(Acc<MODE, MT>& acc, const typename Mode<MODE>::T* span,
-                                          int span_plane, const int (&a_off)[MT][2], const int (&a_sh)[MT][2],
+// a: the span (kCopies, kShifted; planes a_plane elements apart) or the
+// stage's A tile (kStream: k0 is then the tile's row 0, and step j of the
+// thread's rows sits at j ^ a_flip, store_a_tile's swizzle); a_off: the
+// 8-byte aligned offset of each of the thread's A rows; kShifted: the row
+// starts a_sh[mt][h] bytes (0 .. 7) past it, and its 8 bytes are cut from
+// the 16 of two aligned loads
+template <int MODE, int MT, int AS, bool LO_ZERO>
+__device__ __forceinline__ void dft_chunk(Acc<MODE, MT>& acc, const typename Mode<MODE>::T* a_src, int a_plane,
+                                          const int (&a_off)[MT][2], const int (&a_sh)[MT][2], int a_flip,
                                           const typename Mode<MODE>::T* stage, int k0, int col0, int t)
 {
     using M = Mode<MODE>;
 #pragma unroll
     for (int j = 0; j < kChunkRows / M::kStep; ++j) {
         uint32_t a[M::kSpanPlanes][MT][4];
+        const int kj = AS == kStream ? M::kStep * (j ^ a_flip) : k0 + M::kStep * j;
 #pragma unroll
         for (int p = 0; p < M::kSpanPlanes - (LO_ZERO ? 1 : 0); ++p)
 #pragma unroll
             for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
                 for (int h = 0; h < 2; ++h) {
-                    const auto* row = span + p * span_plane + a_off[mt][h] + k0 + M::kStep * j;
+                    const auto* row = a_src + p * a_plane + a_off[mt][h] + kj;
                     const uint2 v = *reinterpret_cast<const uint2*>(row);
-                    if constexpr (SHIFT) {
+                    if constexpr (AS == kShifted) {
                         const uint2 u = *reinterpret_cast<const uint2*>(row + kAl<MODE>);
                         const bool up = a_sh[mt][h] >= 4;
                         const int bits = 8 * (a_sh[mt][h] & 3);
@@ -351,7 +430,7 @@ __device__ __forceinline__ void dft_chunk(Acc<MODE, MT>& acc, const typename Mod
     }
 }
 
-template <int MODE, typename In, int MT, bool SHIFT>
+template <int MODE, typename In, int MT, int AS>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* __restrict__ wtc,
                     const __nv_bfloat16* __restrict__ mtc, const float* __restrict__ sc,
@@ -363,16 +442,18 @@ fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* 
     constexpr int BF = 32 * MT;  // frames a block
     constexpr bool kFixed = MODE == kI16 || MODE == kI24;
     constexpr bool kLoZero = MODE == kF32 && std::is_same<In, int16_t>::value;
-    // the full plan's ring is a constant; the compact plan's comes with it
+    // the full and streamed plans' rings are a constant; the compact plan's comes with it
     const int stages = MT == kMT ? kStages : plan_stages;
+    // a stage: the basis chunk, then (streamed) the chunk's A tile
+    constexpr int kStage = kChunkBytes<MODE> + (AS == kStream ? kATileBytes<MODE> : 0);
     extern __shared__ __align__(128) unsigned char smem[];
     uint64_t* full = reinterpret_cast<uint64_t*>(smem);                 // [stages] chunk barriers
     uint64_t* mel_bar = full + kStages;                                  // the tile's mel weights
-    unsigned char* ring = smem + 128;                                    // stages x kChunkBytes
-    auto* mel_w = reinterpret_cast<__nv_bfloat16*>(ring + stages * kChunkBytes<MODE>);  // [steps][planes][128][16]
+    float* red_s = reinterpret_cast<float*>(smem + 64);                  // [kThreads / 32] warp maxima
+    unsigned char* ring = smem + 128;                                    // stages x kStage
+    auto* mel_w = reinterpret_cast<__nv_bfloat16*>(ring + stages * kStage);  // [steps][planes][128][16]
     auto* pw = reinterpret_cast<__nv_bfloat16*>(reinterpret_cast<unsigned char*>(mel_w) + kMelBytes<MODE>);
     E* span = reinterpret_cast<E*>(reinterpret_cast<unsigned char*>(pw) + kPowerBytes<MODE, MT>);
-    __shared__ float red_s[kThreads / 32];
 
     const int tid = threadIdx.x;
     const int lane = tid & 31;
@@ -395,6 +476,7 @@ fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* 
         mbar::fence_init();
     }
     // the span in the planes' element type: copy c holds span[i + c * 2^shift_log2]
+    // (streamed: span_plane is 0, and the stages' A tiles take its place)
     const long long start = (long long)f0 * hop + off;
     for (int i = tid; i < span_plane; i += kThreads) {
         const int c = i / span_pad;
@@ -410,25 +492,38 @@ fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* 
     auto issue = [&](int q) {  // chunk q of the (tile, chunk) sequence -> its stage
         const int tile = q / n_chunks, chunk = q % n_chunks;
         const E* src = wtc + ((size_t)tile * Kp + (size_t)chunk * kChunkRows) * kCols * M::kBasisPlanes;
-        bulk_load(ring + (q % stages) * kChunkBytes<MODE>, src, kChunkBytes<MODE>, full + q % stages);
+        bulk_load(ring + (q % stages) * kStage, src, kChunkBytes<MODE>, full + q % stages);
     };
     if (tid == 0)
         for (int q = 0; q < stages - 1 && q < total; ++q) issue(q);
+    // streamed: the A tile of chunk q of the sequence, in its stage
+    auto a_tile = [&](int q) { return reinterpret_cast<E*>(ring + (q % stages) * kStage + kChunkBytes<MODE>); };
+    float a_next[kAUnits<MODE>][kAl<MODE>];  // streamed: the samples of the tile stages - 1 chunks ahead
+    if constexpr (AS == kStream)
+        for (int q = 0; q < stages - 1 && q < total; ++q) {
+            load_a_tile<MODE>(a_next, x, T, start, hop, (q % n_chunks) * kChunkRows, tid);
+            store_a_tile<MODE>(a_tile(q), a_next, s, tid);
+        }
 
     // this thread's A rows: their offsets into a plane, in the copy that
-    // aligns them to 8 bytes (SHIFT: one copy, the offset rounded down to 8
-    // bytes and the remainder a_sh in bytes)
+    // aligns them to 8 bytes (kShifted: one copy, the offset rounded down to
+    // 8 bytes and the remainder a_sh in bytes; kStream: the row of the tile,
+    // the swizzle's flip for bf16 planes)
     const int wm = warp / kWN, wn = warp % kWN;
     int a_off[MT][2], a_sh[MT][2];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-            const int e = (16 * MT * wm + 16 * mt + 8 * h + g) * hop;
+            const int row = 16 * MT * wm + 16 * mt + 8 * h + g;
+            const int e = row * hop;
             const int r = e & (kAl<MODE> - 1);
-            a_off[mt][h] = (SHIFT ? 0 : (r >> shift_log2) * span_pad) + e - r + kAl<MODE> * t;
-            a_sh[mt][h] = SHIFT ? r * (int)sizeof(E) : 0;
+            a_off[mt][h] = AS == kStream ? row * kChunkRows + kAl<MODE> * t
+                                         : (AS == kShifted ? 0 : (r >> shift_log2) * span_pad) + e - r + kAl<MODE> * t;
+            a_sh[mt][h] = AS == kShifted ? r * (int)sizeof(E) : 0;
         }
+    const int a_flip = AS == kStream && sizeof(E) == 2 ? (g >> 1) & 1 : 0;
+    const int a_plane = AS == kStream ? kBF * kChunkRows : span_plane;
     const int col0 = 32 * wn + g;
 
     float mel_hh[MT][4][4], mel_sm[MT][4][4];
@@ -472,10 +567,18 @@ fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* 
                 if (q + stages - 1 < total) issue(q + stages - 1);
                 if (chunk == 0) bulk_load(mel_w, mtc_g + (size_t)tile * kMelBytes<MODE> / 2, kMelBytes<MODE>, mel_bar);
             }
+            // streamed: chunk q + stages - 1's samples are read before the MMAs
+            // and written to its stage (whose chunk q - 1 every warp is done
+            // with) after them, so their latency hides behind chunk q
+            const int qa = q + stages - 1;
+            if constexpr (AS == kStream)
+                if (qa < total) load_a_tile<MODE>(a_next, x, T, start, hop, (qa % n_chunks) * kChunkRows, tid);
             mbar::wait(full + q % stages, (q / stages) & 1);
-            dft_chunk<MODE, MT, SHIFT, kLoZero>(acc, span, span_plane, a_off, a_sh,
-                                               reinterpret_cast<const E*>(ring + (q % stages) * kChunkBytes<MODE>),
-                                               chunk * kChunkRows, col0, t);
+            const E* stage = reinterpret_cast<const E*>(ring + (q % stages) * kStage);
+            dft_chunk<MODE, MT, AS, kLoZero>(acc, AS == kStream ? a_tile(q) : span, a_plane, a_off, a_sh, a_flip,
+                                            stage, chunk * kChunkRows, col0, t);
+            if constexpr (AS == kStream)
+                if (qa < total) store_a_tile<MODE>(a_tile(qa), a_next, s, tid);
         }
 
         // power of each (frame, bin) this thread holds, rounded to bf16 (x3, i16,
@@ -535,8 +638,9 @@ fused_mel_tc_kernel(const In* __restrict__ audio, const typename Mode<MODE>::T* 
 }
 
 // the launch's shared memory, and the plan's fields it rests on, recomputed
-// from the plan's choices (frames, shifted, stages) as tc_plan computes them;
-// false where the plan disagrees or does not fit
+// from the plan's choices (frames, shifted, streamed, stages) as tc_plan
+// computes them; false where the plan is none of the three rungs, disagrees
+// or does not fit
 template <int MODE>
 int gcd_log2(int hop)  // log2 gcd(hop, kAl): the shift between span copies
 {
@@ -550,28 +654,29 @@ bool plan_holds(const TcPlan& p, int Kp, int hop, int n_mels)
 {
     constexpr int al = kAl<MODE>;
     using E = typename Mode<MODE>::T;
-    const bool full = p.frames == kBF && !p.shifted && p.stages == kStages;
-    const bool compact = p.frames == kBF / 2 && p.shifted && p.stages >= 2 && p.stages <= kStages;
-    if (!full && !compact) return false;
-    const int n_copies = p.shifted ? 1 : al >> gcd_log2<MODE>(hop);
-    const int span_pad = ((p.frames - 1) * hop + Kp + (p.shifted ? al : 0) + 15) / 16 * 16;
-    const long long smem = 128 + (long long)p.stages * kChunkBytes<MODE> + kMelBytes<MODE> +
-                           (long long)Mode<MODE>::kMelPlanes * p.frames * kPitch * 2 +
+    const bool full = p.frames == kBF && !p.shifted && !p.streamed && p.stages == kStages;
+    const bool compact = p.frames == kBF / 2 && p.shifted && !p.streamed && p.stages >= 2 && p.stages <= kStages;
+    const bool streamed = p.frames == kBF && !p.shifted && p.streamed == 1 && p.stages == kStages;
+    if (!full && !compact && !streamed) return false;
+    const int n_copies = streamed ? 0 : p.shifted ? 1 : al >> gcd_log2<MODE>(hop);
+    const int span_pad = streamed ? 0 : ((p.frames - 1) * hop + Kp + (p.shifted ? al : 0) + 15) / 16 * 16;
+    const long long smem = 128 + (long long)p.stages * (kChunkBytes<MODE> + (streamed ? kATileBytes<MODE> : 0)) +
+                           kMelBytes<MODE> + (long long)Mode<MODE>::kMelPlanes * p.frames * kPitch * 2 +
                            (long long)Mode<MODE>::kSpanPlanes * n_copies * span_pad * (long long)sizeof(E);
     return p.n_copies == n_copies && p.span_pad == span_pad && p.shared_bytes == smem &&
            smem <= kSharedMax && p.mel_groups == (n_mels + kMelCols - 1) / kMelCols;
 }
 
-template <int MODE, typename In, int MT, bool SHIFT>
+template <int MODE, typename In, int MT, int AS>
 cudaError_t launch_plan(const In* audio, const void* wtc, const void* mtc, const float* sc, const float* corr,
                         void* mel, float* bmax, int B, int T, int Kp, int hop, int off, int nf, int bins_pad,
                         int n_mels, const TcPlan& p, void* stream)
 {
     using E = typename Mode<MODE>::T;
-    cudaError_t err = cudaFuncSetAttribute(fused_mel_tc_kernel<MODE, In, MT, SHIFT>,
+    cudaError_t err = cudaFuncSetAttribute(fused_mel_tc_kernel<MODE, In, MT, AS>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, p.shared_bytes);
     if (err != cudaSuccess) return err;
-    fused_mel_tc_kernel<MODE, In, MT, SHIFT>
+    fused_mel_tc_kernel<MODE, In, MT, AS>
         <<<dim3((nf + p.frames - 1) / p.frames, B, p.mel_groups), kThreads, p.shared_bytes, (cudaStream_t)stream>>>(
             audio, static_cast<const E*>(wtc), static_cast<const __nv_bfloat16*>(mtc), sc, corr, mel, bmax, T, Kp,
             hop, off, nf, bins_pad, n_mels, p.span_pad, p.n_copies, gcd_log2<MODE>(hop), p.stages);
@@ -583,14 +688,18 @@ cudaError_t launch_in(const In* audio, const void* wtc, const void* mtc, const f
                       void* mel, float* bmax, int B, int T, int Kp, int hop, int off, int nf, int bins_pad,
                       int n_mels, const TcPlan& p, void* stream)
 {
-    return p.shifted ? launch_plan<MODE, In, 1, true>(audio, wtc, mtc, sc, corr, mel, bmax, B, T, Kp, hop, off, nf,
-                                                      bins_pad, n_mels, p, stream)
-                     : launch_plan<MODE, In, kMT, false>(audio, wtc, mtc, sc, corr, mel, bmax, B, T, Kp, hop, off,
-                                                         nf, bins_pad, n_mels, p, stream);
+    if (p.shifted)
+        return launch_plan<MODE, In, 1, kShifted>(audio, wtc, mtc, sc, corr, mel, bmax, B, T, Kp, hop, off, nf,
+                                                  bins_pad, n_mels, p, stream);
+    if (p.streamed)
+        return launch_plan<MODE, In, kMT, kStream>(audio, wtc, mtc, sc, corr, mel, bmax, B, T, Kp, hop, off, nf,
+                                                   bins_pad, n_mels, p, stream);
+    return launch_plan<MODE, In, kMT, kCopies>(audio, wtc, mtc, sc, corr, mel, bmax, B, T, Kp, hop, off, nf,
+                                               bins_pad, n_mels, p, stream);
 }
 
 // bmax: zeroed where the plan merges block maxima (compact, or more than one
-// mel group)
+// mel group; the streamed plan's blocks own 64 frames, as the full plan's)
 template <int MODE>
 int launch_tc(const void* audio, int audio_i16, const void* wtc, const void* mtc, const float* sc,
               const float* corr, void* mel, float* bmax, int B, int T, int Kp, int hop, int off, int nf,

@@ -13,8 +13,10 @@
 
 namespace {
 
-constexpr int kMaxBins = 1024;     // n; the backtrace keeps n / 32 sources per lane
-constexpr int kMaxThreads = 1024;  // a forward block: one thread a target
+constexpr int kRingBins = 1024;    // the widest n of the backtrace's ring of (m, sel) rows, n / 32 sources a
+                                   // lane; past it the wide backtrace (viterbi_bwd_wide_kernel)
+constexpr int kMaxThreads = 1024;  // a forward block: one thread a target, up to this many targets; past them
+                                   // each thread owns ceil(n / 1024) (viterbi_fwd_wide_kernel)
 constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kSmemLimit = 232448; // bytes of shared memory a block may opt in to on sm_90
 constexpr int kMaxRegBand = 64;    // the widest band (2h + 1 sources) a thread holds in registers,
@@ -87,8 +89,10 @@ __device__ __forceinline__ float warp_max(float x) { return key_value(__reduce_m
 
 // Where a forward block reads the band: kRegs (each thread holds its target's
 // band in registers, KW > 0 sources wide), kShared ([2h+1][n] staged in
-// shared memory, the target fastest: conflict-free), kL2 (log_tri itself)
-enum BandAt { kRegs, kShared, kL2 };
+// shared memory, the target fastest: conflict-free), kL2 (log_tri itself),
+// kHist (log_tri itself, and each source's m recomputed from the history
+// row, where n is too large for m in shared memory: the wide forward only)
+enum BandAt { kRegs, kShared, kL2, kHist };
 
 // float2 slots of one m buffer: n sources, and for kRegs the KW - 1 guard
 // slots (-inf) that let every thread read KW sources from v - h on
@@ -124,6 +128,17 @@ __device__ __forceinline__ void fetch_row(float* ring, const float* obs, int r, 
     asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// band[k][w] = log_tri[w - h + k, w], C past the matrix's edges (width 2h + 1, n targets)
+__device__ __forceinline__ void stage_fwd_band(float* band, const float* log_tri, int n, int h, float floor_c,
+                                               int tid, int nt)
+{
+    const int width = 2 * h + 1;
+    for (int i = tid; i < width * n; i += nt) {
+        const int k = i / n, w = i - k * n, u = w - h + k;
+        band[i] = (u >= 0 && u < n) ? log_tri[(size_t)u * n + w] : floor_c;
+    }
+}
+
 template <int KW, BandAt AT>
 __global__ void __launch_bounds__(AT == kRegs ? kMaxRegThreads : kMaxThreads)
 viterbi_fwd_f32_kernel(const float* __restrict__ log_obs, const float* __restrict__ delta0,
@@ -157,11 +172,7 @@ viterbi_fwd_f32_kernel(const float* __restrict__ log_obs, const float* __restric
         for (int i = v; i < 2 * stride; i += nt)
             if (i % stride < lead || i % stride >= lead + n) m[i] = make_float2(-INFINITY, -INFINITY);
     }
-    if constexpr (AT == kShared)
-        for (int i = v; i < width * n; i += nt) {
-            const int k = i / n, w = i - k * n, u = w - h + k;
-            band[i] = (u >= 0 && u < n) ? log_tri[(size_t)u * n + w] : floor_c;
-        }
+    if constexpr (AT == kShared) stage_fwd_band(band, log_tri, n, h, floor_c, v, nt);
     for (int i = v; i < 4 * kMaxWarps; i += nt) wmax[i] = -INFINITY;  // and so stay past the last warp
     __syncthreads();
 
@@ -262,6 +273,143 @@ cudaError_t launch_fwd(const float* log_obs, const float* delta0, const float* l
     return cudaGetLastError();
 }
 
+// The wide forward, n > kMaxThreads: one block of kMaxThreads per
+// utterance, each thread owning the targets v = tid + kMaxThreads i, each
+// reduced as the one-target kernel reduces it (the same adds, then maxima,
+// so the same bits). m sits in shared memory as [2][n] (m_v, m_u) pairs
+// while it fits (n up to about 14,000); past that (kHist) each source's m is
+// recomputed from the history row delta_t, which the block wrote a step
+// earlier (the same FP32 operations as its owner's). The observations are
+// read with __ldg before the band loop of their target, no ring. The band:
+// kShared where [2h+1][n] fits beside m, else log_tri from L2. Bound as the
+// narrow kernel: the sequential steps, one SM an utterance. At pyin's
+// resolution 0.01 (n = 3,601, h = 215) the band of a step is 6.2 MB of L2
+// reads, which one SM takes at about 21 GB/s (8 reads in flight a thread
+// in place of 2 moved it 3 %): 0.3 ms a step (PERF.md §6).
+
+// bytes of dynamic shared memory: two m buffers of (m_v, m_u) pairs (not for
+// kHist), the per-warp maxima (two buffers, two halves) and the staged band
+constexpr size_t fwd_wide_smem_bytes(int n, int h, BandAt at)
+{
+    return sizeof(float) * ((at == kHist ? 0 : (size_t)4 * n) + 4 * kMaxWarps +
+                            (at == kShared ? (size_t)(2 * h + 1) * n : 0));
+}
+
+template <BandAt AT>
+__global__ void __launch_bounds__(kMaxThreads)
+viterbi_fwd_wide_kernel(const float* __restrict__ log_obs, const float* __restrict__ delta0,
+                        const float* __restrict__ log_tri, float* hist,
+                        float* __restrict__ delta_f, int nf, int n, int h, float floor_c, float c_stay, float c_sw)
+{
+    constexpr bool kMShared = AT != kHist;
+    extern __shared__ float smem[];
+    const int two_n = 2 * n;
+    float2* m = reinterpret_cast<float2*>(smem);                  // kMShared: [2][n]
+    float* wmax = smem + (kMShared ? 4 * (size_t)n : 0);          // [2][2][kMaxWarps]
+    float* band = wmax + 4 * kMaxWarps;                           // kShared: [width][n]
+    const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const float* obs = log_obs + (size_t)b * nf * two_n;
+    float* hb = hist + (size_t)b * (nf - 1) * two_n;
+    float* df = delta_f + (size_t)b * two_n;
+
+    if constexpr (AT == kShared) stage_fwd_band(band, log_tri, n, h, floor_c, tid, kMaxThreads);
+    for (int i = tid; i < 4 * kMaxWarps; i += kMaxThreads) wmax[i] = -INFINITY;
+    __syncthreads();
+
+    // delta_0 -> the history (or delta_f), m and the warp maxima, buffer 0
+    float mv = -INFINITY, mu = -INFINITY;
+    for (int v = tid; v < n; v += kMaxThreads) {
+        const float dv = delta0[(size_t)b * two_n + v], du = delta0[(size_t)b * two_n + n + v];
+        float* row = nf == 1 ? df : hb;
+        row[v] = dv;
+        row[n + v] = du;
+        const float a = fmaxf(dv + c_stay, du + c_sw), c = fmaxf(dv + c_sw, du + c_stay);
+        if constexpr (kMShared) m[v] = make_float2(a, c);
+        mv = fmaxf(mv, a);
+        mu = fmaxf(mu, c);
+    }
+    mv = warp_max(mv);
+    mu = warp_max(mu);
+    if (lane == 0) {
+        wmax[warp] = mv;
+        wmax[kMaxWarps + warp] = mu;
+    }
+    __syncthreads();
+
+    for (int t = 0; t + 1 < nf; ++t) {
+        const int cur = t & 1, nxt = cur ^ 1;
+        const float2* mc = m + (size_t)cur * n;            // kMShared: mc[u] = (m_v[u], m_u[u])
+        const float* dc = hb + (size_t)t * two_n;          // kHist: delta_t, whose sources give m
+        const float* wm = wmax + cur * 2 * kMaxWarps;
+        const float gv = warp_max(wm[lane]), gu = warp_max(wm[kMaxWarps + lane]);
+        const float* orow = obs + (size_t)(t + 1) * two_n;
+        float* row = t + 2 == nf ? df : hb + (size_t)(t + 1) * two_n;
+        mv = -INFINITY;
+        mu = -INFINITY;
+        for (int v = tid; v < n; v += kMaxThreads) {
+            const float lo_v = __ldg(orow + v), lo_u = __ldg(orow + n + v);
+            const int u0 = max(0, v - h), u1 = min(n - 1, v + h);
+            const float* col = AT == kShared ? band + (size_t)(u0 - v + h) * n + v : log_tri + (size_t)u0 * n + v;
+            auto source = [&](int u) -> float2 {  // (m_v[u], m_u[u])
+                if constexpr (kMShared) {
+                    return mc[u];
+                } else {
+                    const float dv = dc[u], du = dc[n + u];
+                    return make_float2(fmaxf(dv + c_stay, du + c_sw), fmaxf(dv + c_sw, du + c_stay));
+                }
+            };
+            // two chains a half (max is exact in any order)
+            float av0 = -INFINITY, av1 = -INFINITY, au0 = -INFINITY, au1 = -INFINITY;
+            int u = u0;
+#pragma unroll 2
+            for (; u < u1; u += 2, col += 2 * (size_t)n) {
+                const float w0 = AT == kShared ? col[0] : __ldg(col);
+                const float w1 = AT == kShared ? col[n] : __ldg(col + n);
+                const float2 p0 = source(u), p1 = source(u + 1);
+                av0 = fmaxf(av0, p0.x + w0);
+                au0 = fmaxf(au0, p0.y + w0);
+                av1 = fmaxf(av1, p1.x + w1);
+                au1 = fmaxf(au1, p1.y + w1);
+            }
+            if (u == u1) {
+                const float w0 = AT == kShared ? col[0] : __ldg(col);
+                const float2 p0 = source(u);
+                av0 = fmaxf(av0, p0.x + w0);
+                au0 = fmaxf(au0, p0.y + w0);
+            }
+            const float dv = fmaxf(fmaxf(av0, av1), gv + floor_c) + lo_v;
+            const float du = fmaxf(fmaxf(au0, au1), gu + floor_c) + lo_u;
+            row[v] = dv;
+            row[n + v] = du;
+            const float a = fmaxf(dv + c_stay, du + c_sw), c = fmaxf(dv + c_sw, du + c_stay);
+            if constexpr (kMShared) m[(size_t)nxt * n + v] = make_float2(a, c);
+            mv = fmaxf(mv, a);
+            mu = fmaxf(mu, c);
+        }
+        mv = warp_max(mv);
+        mu = warp_max(mu);
+        if (lane == 0) {
+            wmax[nxt * 2 * kMaxWarps + warp] = mv;
+            wmax[nxt * 2 * kMaxWarps + kMaxWarps + warp] = mu;
+        }
+        __syncthreads();  // row t + 1 of the history, m and the maxima of buffer nxt are complete
+    }
+}
+
+template <BandAt AT>
+cudaError_t launch_fwd_wide(const float* log_obs, const float* delta0, const float* log_tri, float* hist,
+                            float* delta_f, int nb, int nf, int n, int h, float floor_c, float c_stay, float c_sw,
+                            cudaStream_t stream)
+{
+    const size_t smem = fwd_wide_smem_bytes(n, h, AT);
+    cudaError_t err = cudaFuncSetAttribute(viterbi_fwd_wide_kernel<AT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return err;
+    viterbi_fwd_wide_kernel<AT><<<nb, kMaxThreads, smem, stream>>>(log_obs, delta0, log_tri, hist, delta_f, nf, n, h,
+                                                                    floor_c, c_stay, c_sw);
+    return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
 // viterbi_bwd_f32
 //
@@ -352,6 +500,42 @@ __device__ __forceinline__ void keep_first_max(float& val, int& idx, int& sel, f
     }
 }
 
+// the chain warp's last state: the first argmax of delta_f's 2n states
+__device__ __forceinline__ int last_state(const float* df, int n, int lane)
+{
+    float best = -INFINITY;
+    int bi = INT_MAX, unused = 0;
+    for (int i = lane; i < 2 * n; i += 32) keep_first_max(best, bi, unused, df[i], i, 0);
+    return warp_first_max(best, bi, 0).idx;
+}
+
+// step s's state nxt: lane s mod 32 keeps it until the warp stores the 32
+// states it holds together, after every 32nd step and the last
+__device__ __forceinline__ void put_state(int& mine, int nxt, int s, int steps, int lane, int* pb, int nf)
+{
+    mine = lane == (s & 31) ? nxt : mine;
+    if ((s & 31) == 31 || s == steps - 1) {
+        const int s_lane = (s & ~31) + lane;  // the step whose state this lane holds
+        if (s_lane <= s) pb[nf - 2 - s_lane] = mine;
+    }
+}
+
+// the backtrace's band, [n][2h + 1]: entry (pos - h + j, pos) at [pos][j], C
+// past the matrix's edges; every thread of the block calls it
+__device__ __forceinline__ void stage_bwd_band(float* band, const float* log_tri, int n, int h, float floor_c,
+                                               int tid)
+{
+    const int width = 2 * h + 1;
+    for (int i = tid; i < n * width; i += kBwdThreads) band[i] = floor_c;
+    __syncthreads();
+    // entry (u, pos = u - h + k): consecutive threads read consecutive pos of row u
+#pragma unroll 4
+    for (int i = tid; i < n * width; i += kBwdThreads) {
+        const int u = i / width, k = i - u * width, pos = u - h + k;
+        if (pos >= 0 && pos < n) band[pos * width + 2 * h - k] = log_tri[(size_t)u * n + pos];
+    }
+}
+
 template <int KP>
 __device__ __forceinline__ void load_row(float (&dv)[KP], float (&du)[KP], const float* row, bool valid, int n,
                                          int lane)
@@ -389,16 +573,7 @@ viterbi_bwd_f32_kernel(const float* __restrict__ hist, const float* __restrict__
         }
         mbar::fence_init();
     }
-    if constexpr (kBanded) {
-        for (int i = tid; i < n * width; i += kBwdThreads) band[i] = floor_c;
-        __syncthreads();
-        // entry (u, pos = u - h + k): consecutive threads read consecutive pos of row u
-#pragma unroll 4
-        for (int i = tid; i < n * width; i += kBwdThreads) {
-            const int u = i / width, k = i - u * width, pos = u - h + k;
-            if (pos >= 0 && pos < n) band[pos * width + 2 * h - k] = log_tri[(size_t)u * n + pos];
-        }
-    }
+    if constexpr (kBanded) stage_bwd_band(band, log_tri, n, h, floor_c, tid);
     __syncthreads();
 
     if (warp > 0) {
@@ -448,12 +623,8 @@ viterbi_bwd_f32_kernel(const float* __restrict__ hist, const float* __restrict__
         return;
     }
 
-    // the chain warp. Last state: first argmax of delta_f over all 2n states
-    const float* df = delta_f + (size_t)b * 2 * n;
-    float best = -INFINITY;
-    int bi = INT_MAX, unused = 0;
-    for (int i = lane; i < 2 * n; i += 32) keep_first_max(best, bi, unused, df[i], i, 0);
-    int nxt = warp_first_max(best, bi, 0).idx;
+    // the chain warp
+    int nxt = last_state(delta_f + (size_t)b * 2 * n, n, lane);
     if (lane == 0) pb[nf - 1] = nxt;
     int mine = 0;  // lane l keeps the state of step 32 q + l until the warp stores the 32 together
     for (int s = 0; s < steps; ++s) {
@@ -505,11 +676,7 @@ viterbi_bwd_f32_kernel(const float* __restrict__ hist, const float* __restrict__
         }
         mbar::arrive(empty + slot);
         nxt = in.idx + n * in.sel;
-        mine = lane == (s & 31) ? nxt : mine;
-        if ((s & 31) == 31 || s == steps - 1) {
-            const int s_lane = (s & ~31) + lane;  // the step whose state this lane holds
-            if (s_lane <= s) pb[nf - 2 - s_lane] = mine;
-        }
+        put_state(mine, nxt, s, steps, lane, pb, nf);
     }
 }
 
@@ -529,22 +696,148 @@ cudaError_t launch_bwd(const float* hist, const float* delta_f, const float* log
     return cudaGetLastError();
 }
 
+// The wide backtrace, n > kRingBins: past the widest KP, the producers
+// stream each history row in pieces of 32 sources a warp and keep nothing
+// of it but the first maximum of the C candidates of each case (the ring
+// holds only those, kSlots rows ahead). The chain warp reads its 2h + 1
+// in-band sources of the row straight from the history (L2), forms their m
+// and sel as the producers would (the same FP32 operations, so the same
+// bits), and scores them against the band: staged in shared memory as
+// [n][2h + 1] where it fits (kBanded), else row pos of log_tri transposed
+// from L2, its in-band entries. Shared memory: the barriers, the C
+// candidates and the band, none of it a history row, so any n that device
+// memory holds.
+
+// bytes of dynamic shared memory: two mbarriers and 8 words of C candidates
+// a slot, and the band where it is staged
+constexpr size_t bwd_wide_smem_bytes(int n, int h, bool banded)
+{
+    return (size_t)kSlots * (16 + 32) + (banded ? sizeof(float) * (size_t)n * (2 * h + 1) : 0);
+}
+
+template <bool BANDED>
+__global__ void __launch_bounds__(kBwdThreads)
+viterbi_bwd_wide_kernel(const float* __restrict__ hist, const float* __restrict__ delta_f,
+                        const float* __restrict__ log_tri, const float* __restrict__ log_tri_t,
+                        int* __restrict__ path, int nf, int n, int h, float floor_c, float c_stay, float c_sw)
+{
+    extern __shared__ __align__(16) unsigned char smem_b[];
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem_b);            // [kSlots]
+    uint64_t* empty = full + kSlots;                                 // [kSlots]
+    int4* cands = reinterpret_cast<int4*>(empty + kSlots);           // [kSlots][2]: (val, idx, sel) of each case
+    float* band = reinterpret_cast<float*>(cands + 2 * kSlots);      // BANDED: [n][width]
+    const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int width = 2 * h + 1, steps = nf - 1;
+    const float* hb = hist + (size_t)b * steps * 2 * n;
+    int* pb = path + (size_t)b * nf;
+
+    if (tid == 0) {
+        for (int i = 0; i < kSlots; ++i) {
+            mbar::init(full + i, 32);
+            mbar::init(empty + i, 32);
+        }
+        mbar::fence_init();
+    }
+    if constexpr (BANDED) stage_bwd_band(band, log_tri, n, h, floor_c, tid);
+    __syncthreads();
+
+    if (warp > 0) {
+        // a producer: steps s = warp - 1, + kProducers, ...; step s reads history row nf - 2 - s
+        for (int s = warp - 1; s < steps; s += kProducers) {
+            const float* row = hb + (size_t)(steps - 1 - s) * 2 * n;
+            const int slot = s % kSlots, use = s / kSlots;
+            float v0 = -INFINITY, v1 = -INFINITY;
+            int i0 = INT_MAX, i1 = INT_MAX, e0 = 0, e1 = 0;
+            for (int u = lane; u < n; u += 32) {
+                const float dv = __ldg(row + u), du = __ldg(row + n + u);
+                const float fv = dv + c_stay, fu = du + c_sw;  // next state voiced: (a, c) = (c_stay, c_sw)
+                const float gv = dv + c_sw, gu = du + c_stay;  // unvoiced: (c_sw, c_stay)
+                keep_first_max(v0, i0, e0, fmaxf(fv, fu) + floor_c, u, fu > fv);
+                keep_first_max(v1, i1, e1, fmaxf(gv, gu) + floor_c, u, gu > gv);
+            }
+            const Best c0 = warp_first_max(v0, i0, e0), c1 = warp_first_max(v1, i1, e1);
+            if (use > 0) mbar::wait(empty + slot, (use - 1) & 1);
+            if (lane == 0) {
+                cands[2 * slot] = make_int4(__float_as_int(c0.val), c0.idx, c0.sel, 0);
+                cands[2 * slot + 1] = make_int4(__float_as_int(c1.val), c1.idx, c1.sel, 0);
+            }
+            mbar::arrive(full + slot);
+        }
+        return;
+    }
+
+    // the chain warp
+    int nxt = last_state(delta_f + (size_t)b * 2 * n, n, lane);
+    if (lane == 0) pb[nf - 1] = nxt;
+    int mine = 0;  // lane l keeps the state of step 32 q + l until the warp stores the 32 together
+    for (int s = 0; s < steps; ++s) {
+        const int slot = s % kSlots, use = s / kSlots;
+        const bool voiced = nxt < n;
+        const int pos = voiced ? nxt : nxt - n;
+        const float a = voiced ? c_stay : c_sw, c = voiced ? c_sw : c_stay;
+        const float* d = hb + (size_t)(steps - 1 - s) * 2 * n;
+        const float* col = BANDED ? band + (size_t)pos * width + h - pos : log_tri_t + (size_t)pos * n;
+        float val = -INFINITY;
+        int idx = INT_MAX, sel = 0;
+        for (int u = max(0, pos - h) + lane; u <= min(n - 1, pos + h); u += 32) {
+            const float fa = __ldg(d + u) + a, fc = __ldg(d + n + u) + c;
+            const float w = BANDED ? col[u] : __ldg(col + u);
+            keep_first_max(val, idx, sel, fmaxf(fa, fc) + w, u, fc > fa);
+        }
+        Best in = warp_first_max(val, idx, sel);
+        mbar::wait(full + slot, use & 1);
+        const int4 cand = cands[2 * slot + (voiced ? 0 : 1)];
+        const float cv = __int_as_float(cand.x);
+        if (cv > in.val || (cv == in.val && cand.y < in.idx)) {
+            in.idx = cand.y;
+            in.sel = cand.z;
+        }
+        mbar::arrive(empty + slot);
+        nxt = in.idx + n * in.sel;
+        put_state(mine, nxt, s, steps, lane, pb, nf);
+    }
+}
+
+template <bool BANDED>
+cudaError_t launch_bwd_wide(const float* hist, const float* delta_f, const float* log_tri, const float* log_tri_t,
+                            int* path, int nb, int nf, int n, int h, float floor_c, float c_stay, float c_sw,
+                            cudaStream_t stream)
+{
+    const size_t smem = bwd_wide_smem_bytes(n, h, BANDED);
+    cudaError_t err = cudaFuncSetAttribute(viterbi_bwd_wide_kernel<BANDED>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    viterbi_bwd_wide_kernel<BANDED><<<nb, kBwdThreads, smem, stream>>>(hist, delta_f, log_tri, log_tri_t, path, nf,
+                                                                       n, h, floor_c, c_stay, c_sw);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
-// (h, floor_c): the band of log_tri (see viterbi_fwd_f32 above). The layout:
-// the band in registers up to kMaxRegBand sources a target in blocks of at
-// most kMaxRegThreads; else staged in shared memory when it is narrower
-// than the matrix and fits; else log_tri from L2. kernels/viterbi.py
-// band_layout mirrors the rule.
+// (h, floor_c): the band of log_tri (see viterbi_fwd_f32 above). The layout,
+// up to kMaxThreads targets: the band in registers up to kMaxRegBand sources
+// a target in blocks of at most kMaxRegThreads; else staged in shared memory
+// when it is narrower than the matrix and fits; else log_tri from L2. Past
+// them (the wide forward): the band staged in shared memory when it is
+// narrower than the matrix and fits beside m; else log_tri from L2 with m in
+// shared memory where it fits; else m recomputed from the history (kHist).
+// kernels/viterbi.py band_layout mirrors the rule.
 extern "C" int viterbi_fwd_f32(const float* log_obs, const float* delta0, const float* log_tri,
                                float* hist, float* delta_f, int nb, int nf, int n, int h, float floor_c,
                                float c_stay, float c_sw, void* stream)
 {
-    if (nb < 1 || nf < 1 || n < 1 || n > kMaxBins || h < 0 || h >= n) return (int)cudaErrorInvalidValue;
+    if (nb < 1 || nf < 1 || n < 1 || h < 0 || h >= n) return (int)cudaErrorInvalidValue;
     const int width = 2 * h + 1;
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
-    if (width <= kMaxRegBand && n <= kMaxRegThreads) {
+    if (n > kMaxThreads) {
+        if (width <= n && fwd_wide_smem_bytes(n, h, kShared) <= (size_t)kSmemLimit)
+            err = launch_fwd_wide<kShared>(log_obs, delta0, log_tri, hist, delta_f, nb, nf, n, h, floor_c, c_stay, c_sw, s);
+        else if (fwd_wide_smem_bytes(n, h, kL2) <= (size_t)kSmemLimit)
+            err = launch_fwd_wide<kL2>(log_obs, delta0, log_tri, hist, delta_f, nb, nf, n, h, floor_c, c_stay, c_sw, s);
+        else
+            err = launch_fwd_wide<kHist>(log_obs, delta0, log_tri, hist, delta_f, nb, nf, n, h, floor_c, c_stay, c_sw, s);
+    } else if (width <= kMaxRegBand && n <= kMaxRegThreads) {
         if (width <= 16)
             err = launch_fwd<16, kRegs>(log_obs, delta0, log_tri, hist, delta_f, nb, nf, n, h, floor_c, c_stay, c_sw, s);
         else if (width <= 32)
@@ -562,18 +855,27 @@ extern "C" int viterbi_fwd_f32(const float* log_obs, const float* delta0, const 
 }
 
 // (h, floor_c): the band of log_tri, as for viterbi_fwd_f32. The layout: the
-// band staged in shared memory when it fits beside the ring of (m, sel) rows;
-// else log_tri_t (log_tri transposed, row v = log_tri[:, v]) read from L2,
-// and log_tri_t may be null otherwise. kernels/viterbi.py backtrace_layout
-// mirrors the rule.
+// band staged in shared memory when it fits beside the ring of (m, sel) rows
+// (up to kRingBins bins) or beside the C candidates (the wide backtrace, past
+// them); else log_tri_t (log_tri transposed, row v = log_tri[:, v]) read from
+// L2, and log_tri_t may be null otherwise. kernels/viterbi.py
+// backtrace_layout mirrors the rule.
 extern "C" int viterbi_bwd_f32(const float* hist, const float* delta_f, const float* log_tri,
                                const float* log_tri_t, int* path, int nb, int nf, int n, int h, float floor_c,
                                float c_stay, float c_sw, void* stream)
 {
-    if (nb < 1 || nf < 1 || n < 1 || n > kMaxBins || h < 0 || h >= n) return (int)cudaErrorInvalidValue;
+    if (nb < 1 || nf < 1 || n < 1 || h < 0 || h >= n) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (n > kRingBins) {
+        const bool banded = bwd_wide_smem_bytes(n, h, true) <= (size_t)kSmemLimit;
+        if (!banded && !log_tri_t) return (int)cudaErrorInvalidValue;
+        return (int)(banded ? launch_bwd_wide<true>(hist, delta_f, log_tri, log_tri_t, path, nb, nf, n, h, floor_c,
+                                                    c_stay, c_sw, s)
+                            : launch_bwd_wide<false>(hist, delta_f, log_tri, log_tri_t, path, nb, nf, n, h, floor_c,
+                                                     c_stay, c_sw, s));
+    }
     const bool banded = bwd_smem_bytes(n, h, true) <= (size_t)kSmemLimit;
     if (!banded && !log_tri_t) return (int)cudaErrorInvalidValue;
-    cudaStream_t s = (cudaStream_t)stream;
     const int kp = (n + 31) / 32;
     cudaError_t err;
 #define VITERBI_BWD(KP) launch_bwd<KP>(hist, delta_f, log_tri, log_tri_t, path, nb, nf, n, h, floor_c, c_stay, c_sw, banded, s)

@@ -367,55 +367,65 @@ class TcPlan(NamedTuple):
     """The staging plan of a tensor-core frontend launch (the launcher's
     ``TcPlan``, passed by value in this field order, which it checks)."""
 
-    frames: int        # frames a block: 64 (full plan) or 32 (compact)
+    frames: int        # frames a block: 64 (full, streamed) or 32 (compact)
     shifted: int       # 1: one span copy, rows aligned in registers (compact)
-    stages: int        # stages of the basis ring: 4 (full), 2 to 4 (compact)
-    n_copies: int      # span copies, copy c shifted by c·gcd(hop, 8 bytes)
-    span_pad: int      # elements of a span copy
+    streamed: int      # 1: no span; each stage holds its chunk's A tile beside the basis (streamed)
+    stages: int        # stages of the ring: 4 (full, streamed), 2 to 4 (compact)
+    n_copies: int      # span copies, copy c shifted by c·gcd(hop, 8 bytes); 0 (streamed)
+    span_pad: int      # elements of a span copy; 0 (streamed)
     mel_groups: int    # groups of 128 mel columns: the grid's z
     shared_bytes: int
 
 
-def _plan_for(algorithm: str, hop: int, kp: int, n_mels: int, frames: int, shifted: bool, stages: int) -> TcPlan:
+def _plan_for(algorithm: str, hop: int, kp: int, n_mels: int, frames: int, shifted: bool, stages: int,
+              streamed: bool = False) -> TcPlan:
     """The plan with these choices and the launcher's sum of its shared
-    memory: 128 bytes of barriers, the ring of basis chunks, a tile's mel
-    weights, the power tile and the span planes in their copies."""
+    memory: 128 bytes of barriers and warp maxima, the ring of basis chunks
+    (streamed: each stage with its chunk's A tile, the planes of 64 frames ×
+    32 rows), a tile's mel weights, the power tile and the span planes in
+    their copies (none when streamed)."""
     span_planes, basis_planes, mel_planes = _TC_PLANES[algorithm]
     esize = 2 if algorithm in _TC_BF16 else 1
     al = 8 // esize
-    n_copies = 1 if shifted else al // int(np.gcd(hop, al))
-    span_pad = -(-((frames - 1) * hop + kp + (al if shifted else 0)) // 16) * 16
-    chunk = _TC_CHUNK * _TC_COLS * basis_planes * esize
+    n_copies = 0 if streamed else 1 if shifted else al // int(np.gcd(hop, al))
+    span_pad = 0 if streamed else -(-((frames - 1) * hop + kp + (al if shifted else 0)) // 16) * 16
+    stage = _TC_CHUNK * _TC_COLS * basis_planes * esize + (span_planes * frames * _TC_CHUNK * esize if streamed else 0)
     mel = _TC_COLS // 2 * mel_planes * _MEL_MAX * 2
     power = mel_planes * frames * _TC_PITCH * 2
-    smem = 128 + stages * chunk + mel + power + span_planes * n_copies * span_pad * esize
-    return TcPlan(frames, int(shifted), stages, n_copies, span_pad, -(-n_mels // _MEL_MAX), smem)
+    smem = 128 + stages * stage + mel + power + span_planes * n_copies * span_pad * esize
+    return TcPlan(frames, int(shifted), int(streamed), stages, n_copies, span_pad, -(-n_mels // _MEL_MAX), smem)
 
 
 def tc_plan(algorithm: str, hop: int, kp: int, n_mels: int = 128) -> TcPlan:
     """The staging plan of the tensor-core kernel in ``algorithm`` at this
-    hop, padded support Kp and mel width: the full plan (64 frames a block,
-    the span in its shifted copies, four stages) where it fits a block's
-    shared memory, else the compact plan (32 frames, one span copy whose
-    rows the threads align in registers) with the most stages, four to two,
-    that fit; raises where none fits or n_mels is outside 1..512."""
+    hop, padded support Kp and mel width, the first of three rungs that fits
+    a block's shared memory: the full plan (64 frames a block, the span in
+    its shifted copies, four stages); else the compact plan (32 frames, one
+    span copy whose rows the threads align in registers) with the most
+    stages, four to two, that fit; else the streamed plan (64 frames, four
+    stages, no span: each stage holds its chunk's A tile), whose bytes do
+    not depend on the hop or Kp and fit every mode (f32: 227,456). The span
+    of the first two grows with the hop and the window, so at long hops
+    (f32 from 22.05 kHz with a 30 ms hop, x3 at 44.1-48 kHz with 30 ms)
+    only the streamed plan fits. Raises for n_mels outside 1..512."""
     if algorithm not in ALGORITHMS:
         raise ValueError(f"Unknown algorithm {algorithm!r}; one of {', '.join(ALGORITHMS)}")
     if not 1 <= n_mels <= MEL_LIMIT:
         raise ValueError(f"fused_mel_{algorithm}: n_mels must be in 1..{MEL_LIMIT}, got {n_mels}")
     plans = [_plan_for(algorithm, hop, kp, n_mels, BLOCK_FRAMES, False, _TC_STAGES)]
     plans += [_plan_for(algorithm, hop, kp, n_mels, BLOCK_FRAMES // 2, True, s) for s in range(_TC_STAGES, 1, -1)]
+    plans += [_plan_for(algorithm, hop, kp, n_mels, BLOCK_FRAMES, False, _TC_STAGES, streamed=True)]
     return _first_fitting(plans, f"fused_mel_{algorithm}", f"hop {hop}, Kp {kp}")
 
 
 def _first_fitting(plans: list, name: str, where: str):
-    """The first of ``plans`` (full, then compact with four to two stages)
-    within a block's shared memory; raises where none fits."""
+    """The first of ``plans`` (a ladder, its last rung the smallest) within
+    a block's shared memory; raises where none fits."""
     for plan in plans:
         if plan.shared_bytes <= SHARED_MAX:
             return plan
-    raise ValueError(f"{name}: no staging plan fits {SHARED_MAX} bytes of shared memory at {where} (the compact "
-                     f"plan needs {plans[-1].shared_bytes})")
+    raise ValueError(f"{name}: no staging plan fits {SHARED_MAX} bytes of shared memory at {where} (the last "
+                     f"rung needs {plans[-1].shared_bytes})")
 
 
 def fold_ok(n_fft: int, hop: int, win_length: int | None) -> bool:
@@ -1028,13 +1038,15 @@ def fused_mel_frontend(
 
 def _launch_tc(name: str, audio: torch.Tensor, is_i16: int, weights: dict[str, torch.Tensor], mel: torch.Tensor,
                buf_len: int, k: int, hop: int, off: int, nf: int, bins_pad: int,
-               n_mels: int) -> tuple[int, torch.Tensor]:
+               n_mels: int, plan: TcPlan | None = None) -> tuple[int, torch.Tensor]:
     """Launch ``fused_mel_f32``, ``fused_mel_bf16``, ``fused_mel_x3``,
     ``fused_mel_i16`` or ``fused_mel_i24`` on the weights' tensor-core
     layouts (:func:`tc_layouts`, which :func:`mode_tensors` includes) under
-    its :func:`tc_plan`; the launcher's code and the block maxima [B,
-    ceil(nf/64)], zeroed first where the plan merges them (the compact
-    plan, or more than one mel group)."""
+    its :func:`tc_plan`, or under ``plan`` (another rung of the ladder,
+    which the launcher checks; chip_smoke.py compares the rungs); the
+    launcher's code and the block maxima [B, ceil(nf/64)], zeroed first
+    where the plan merges them (the compact plan, or more than one mel
+    group)."""
     algorithm = name.removeprefix("fused_mel_")
     basis_key = "wri_tc" if algorithm in _TC_BF16 else "planes_tc"
     if basis_key not in weights or "melw_tc" not in weights:
@@ -1049,7 +1061,7 @@ def _launch_tc(name: str, audio: torch.Tensor, is_i16: int, weights: dict[str, t
         if t.device != audio.device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"{name}: tensor-core weights must be contiguous {dtype} on {audio.device}, "
                              f"got {t.dtype} on {t.device}")
-    plan = tc_plan(algorithm, hop, kp, n_mels)
+    plan = tc_plan(algorithm, hop, kp, n_mels) if plan is None else plan
     want_mel = (plan.mel_groups * bins_pad // _MEL_STEP, mel_planes, _MEL_MAX, _MEL_STEP)
     if tuple(basis.shape) != want or kp < k or kp % _TC_CHUNK or tuple(mtc.shape) != want_mel:
         raise ValueError(f"{name}: tensor-core weights {tuple(basis.shape)} / {tuple(mtc.shape)} do not match "

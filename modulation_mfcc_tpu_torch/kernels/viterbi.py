@@ -18,7 +18,8 @@ modulation_mfcc_tpu/pallas/viterbi.py:
   (:func:`viterbi_band`): with C = min(log_tri) and every entry farther than
   h from the diagonal equal to C, the max over the out-of-band sources is
   fl(max(m) + C), exactly, so a step reads 2h + 1 sources a target instead
-  of n (pyin's transition: h = 21 of n = 361);
+  of n (pyin's transition: h = 21 of n = 361). Past 1,024 bins each of a
+  block's 1,024 threads owns ⌈n/1,024⌉ targets (:func:`band_layout`);
 * ``viterbi_bwd_f32`` (wrapper :func:`viterbi_backtrace`) replaces
   ``viterbi_decode_pallas`` → ``_bwd_kernel`` and ``viterbi_decode_batched``
   → ``_bwd_kernel_b``: the reverse backtrace over that history, first
@@ -26,7 +27,14 @@ modulation_mfcc_tpu/pallas/viterbi.py:
   same band: a step's first maximum is that of the union of fl(m[u] + C)
   over every source (reduced off the chain of dependent steps) and the 2h + 1
   in-band scores at the next state's bin, read from the band staged in
-  shared memory (:func:`backtrace_layout`).
+  shared memory (:func:`backtrace_layout`). Past 1,024 bins the producers
+  stream each history row in pieces and keep only the C candidates, and
+  the chain reads its in-band sources from the history itself, so no
+  shared-memory buffer grows with n.
+
+Both take any n that device memory holds (tested to 6,001 bins: librosa's
+C2-C7 at resolution 0.01; pyin's n_bins = ⌊12·⌈1/resolution⌉·log2(fmax/
+fmin)⌋ + 1).
 
 The TPU had a per-signal and a batched kernel of each pass only because of
 ``vmap``; here the grid carries the batch, so a single signal is a batch of
@@ -54,7 +62,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 from modulation_mfcc_tpu_torch.kernels._launch import check_cuda, raise_on, route, stream_of
 
 __all__ = [
-    "LAUNCHES", "MAX_BINS", "viterbi_band", "band_layout", "backtrace_layout", "backtrace_band",
+    "LAUNCHES", "viterbi_band", "band_layout", "backtrace_layout", "forward_bytes", "backtrace_bytes", "backtrace_band",
     "viterbi_forward", "viterbi_backtrace", "viterbi_decode", "viterbi_forward_reference",
     "viterbi_forward_banded_reference", "viterbi_backtrace_reference", "viterbi_backtrace_banded_reference",
     "viterbi_decode_reference",
@@ -62,8 +70,9 @@ __all__ = [
 
 LAUNCHES = {"viterbi_fwd_f32": 0, "viterbi_bwd_f32": 0}
 
-MAX_BINS = 1024  # kMaxBins in the .cu: the backtrace holds n / 32 sources per lane
-# the forward launcher's layout rule (csrc/viterbi.cu), mirrored by band_layout
+# the launchers' layout rules (csrc/viterbi.cu), mirrored by band_layout and backtrace_layout
+_MAX_THREADS = 1024     # kMaxThreads: a forward block's threads, one a target up to this many targets
+_RING_BINS = 1024       # kRingBins: the widest n of the backtrace's ring of (m, sel) rows
 _MAX_WARPS = 32         # kMaxWarps: the forward's per-warp maxima
 _SMEM_LIMIT = 232448    # kSmemLimit: shared-memory bytes a block may opt in to on sm_90
 _MAX_REG_BAND = 64      # kMaxRegBand: the widest band a thread holds in registers,
@@ -117,28 +126,61 @@ def viterbi_band(log_tri) -> Band:
     return (int(h), floor) if ok else (n - 1, float("-inf"))
 
 
+def forward_bytes(n: int, h: int, layout: str) -> int:
+    """The shared memory of a ``viterbi_fwd_f32`` block in ``layout`` (the
+    launcher's sums, fwd_smem_bytes and fwd_wide_smem_bytes): up to 1,024
+    bins, two m buffers of (m_v, m_u) pairs with the register layout's
+    guard slots, the warp maxima, the ring of observation rows and the
+    staged band; past them, m (not for 'history'), the maxima and the band."""
+    width = 2 * h + 1
+    band = width * n if layout == "shared" else 0
+    if n <= _MAX_THREADS:
+        kw = next(w for w in (16, 32, 48, 64) if width <= w) if layout == "registers" else 0
+        stride = n + max(kw - 1, 0)  # m_stride: the register layout's guard slots
+        return 4 * (4 * stride + 4 * _MAX_WARPS + 2 * _AHEAD * (-(-n // 32) * 32) + band)
+    return 4 * ((0 if layout == "history" else 4 * n) + 4 * _MAX_WARPS + band)
+
+
 def band_layout(n: int, h: int) -> str:
     """Where ``viterbi_fwd_f32`` keeps the band of an n-bin transition of
-    half-width h (the launcher's rule): 'registers' (each thread its
-    target's 2h + 1 sources, up to 64, in blocks of at most 512 threads),
-    else 'shared' (staged as [2h + 1, n], when narrower than the matrix and
-    the block's shared memory holds it with m, the maxima and the ring of
-    observation rows), else 'L2' (log_tri itself)."""
-    width, threads = 2 * h + 1, -(-n // 32) * 32
-    if width <= _MAX_REG_BAND and n <= _MAX_REG_THREADS:
+    half-width h (the launcher's rule). Up to 1,024 bins (a thread a
+    target): 'registers' (each thread its target's 2h + 1 sources, up to
+    64, in blocks of at most 512 threads), else 'shared' (staged as
+    [2h + 1, n], when narrower than the matrix and the block's shared memory
+    holds it with m, the maxima and the ring of observation rows), else
+    'L2' (log_tri itself). Past them (each thread ⌈n/1,024⌉ targets):
+    'shared' when the band fits beside m and the maxima, else 'L2' while m
+    fits (n up to 14,496), else 'history' (log_tri from L2, and each
+    source's m recomputed from the history row the block wrote a step
+    before)."""
+    width = 2 * h + 1
+    if n <= _MAX_THREADS and width <= _MAX_REG_BAND and n <= _MAX_REG_THREADS:
         return "registers"
-    if width <= n and 4 * (4 * n + 4 * _MAX_WARPS + 2 * _AHEAD * threads + width * n) <= _SMEM_LIMIT:
+    if width <= n and forward_bytes(n, h, "shared") <= _SMEM_LIMIT:
         return "shared"
-    return "L2"
+    if n <= _MAX_THREADS or forward_bytes(n, h, "L2") <= _SMEM_LIMIT:
+        return "L2"
+    return "history"
+
+
+def backtrace_bytes(n: int, h: int, layout: str) -> int:
+    """The shared memory of a ``viterbi_bwd_f32`` block in ``layout`` (the
+    launcher's sums, bwd_smem_bytes and bwd_wide_smem_bytes): per slot two
+    mbarriers and 8 words of C candidates, up to 1,024 bins the ring's
+    (m, sel) pairs of both cases (16n bytes a slot), and the band where it
+    is staged ('shared')."""
+    ring = 16 * n if n <= _RING_BINS else 0
+    return _SLOTS * (48 + ring) + (4 * n * (2 * h + 1) if layout == "shared" else 0)
 
 
 def backtrace_layout(n: int, h: int) -> str:
     """Where ``viterbi_bwd_f32`` reads the transition of an n-bin band of
     half-width h (the launcher's rule): 'shared' (the band staged as [n,
-    2h + 1] beside the ring of 8 rows of (m, sel) pairs and their barriers
-    and C candidates, when both fit in a block's shared memory), else 'L2'
-    (log_tri transposed, every source scored)."""
-    return "shared" if _SLOTS * (48 + 16 * n) + 4 * n * (2 * h + 1) <= _SMEM_LIMIT else "L2"
+    2h + 1] beside the barriers, the C candidates and, up to 1,024 bins,
+    the ring of 8 rows of (m, sel) pairs, when they fit in a block's shared
+    memory), else 'L2' (log_tri transposed: up to 1,024 bins every source
+    scored, past them the in-band entries of row pos)."""
+    return "shared" if backtrace_bytes(n, h, "shared") <= _SMEM_LIMIT else "L2"
 
 
 def backtrace_band(log_tri: torch.Tensor, band: Band) -> torch.Tensor:
@@ -338,11 +380,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_bins(name: str, n: int) -> None:
-    if n > MAX_BINS:
-        raise ValueError(f"{name}: the kernel takes at most {MAX_BINS} pitch bins, got {n}")
-
-
 def viterbi_forward(
     log_obs: torch.Tensor, delta0: torch.Tensor, log_tri: torch.Tensor, c_stay: float, c_sw: float,
     band: Band | None = None,
@@ -357,7 +394,6 @@ def viterbi_forward(
     check_cuda("viterbi_forward", log_obs, delta0, log_tri)
     batched, (obs, d0) = _batched(log_obs, delta0, ndim=2)
     n = _check_shapes("viterbi_forward", obs, d0, log_tri)
-    _check_bins("viterbi_forward", n)
     h, floor = _band_of(log_tri) if band is None else band
     _check_band("viterbi_forward", (h, floor), n)
     nb, nf = obs.shape[:2]
@@ -391,7 +427,6 @@ def viterbi_backtrace(
     check_cuda("viterbi_backtrace", hist, delta_f, log_tri)
     batched, (hb, df) = _batched(hist, delta_f, ndim=2)
     n = _check_shapes("viterbi_backtrace", hb, df, log_tri)
-    _check_bins("viterbi_backtrace", n)
     h, floor = _band_of(log_tri) if band is None else band
     _check_band("viterbi_backtrace", (h, floor), n)
     log_tri_t = _transposed(log_tri).data_ptr() if backtrace_layout(n, h) == "L2" else None

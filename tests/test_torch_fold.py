@@ -33,7 +33,10 @@ from modulation_mfcc_tpu_torch.kernels import fused_frontend as ff
 from modulation_mfcc_tpu_torch.models.config import MfccConfig
 from tests.test_torch_frontend import CONFIGS, frontend_kwargs
 from tests.test_torch_frontend_modes import assert_mel_matches, bf16_ulps
-from tests.test_torch_frontend_tc import MEL_WIDTHS, RATES, SHARED_MAX, T_STEPS, WIN_LENS, split_bar
+from tests.test_torch_frontend_tc import NARROW_MEL_WIDTHS as MEL_WIDTHS
+from tests.test_torch_frontend_tc import NARROW_T_STEPS as T_STEPS
+from tests.test_torch_frontend_tc import NARROW_WIN_LENS as WIN_LENS
+from tests.test_torch_frontend_tc import RATES, SHARED_MAX, split_bar
 
 CSRC = Path(ff.__file__).resolve().parent.parent / "csrc"
 TC_FOLDS = ("x3", "f32")  # the tensor-core folds (bf16 runs on the CUDA cores)
@@ -227,10 +230,12 @@ def fold_constants() -> dict[str, int]:
 
 
 def fold_grid(sr: int) -> list[tuple[int, int, int]]:
-    """(hop, window support, n_mels) of every geometry of tc_plan's grid
-    (test_torch_frontend_tc.grid: rates 8-48 kHz, the reference's tStep and
-    winLen range, n_fft the smallest power of two ≥ the window and ≥ 512)
-    that fold_ok takes at this rate."""
+    """(hop, window support, n_mels) of every geometry of the narrower grid
+    tc_plan's plans were first pinned on (test_torch_frontend_tc's NARROW_*:
+    rates 8-48 kHz, tStep to 10 ms, winLen to 40 ms, n_fft the smallest
+    power of two ≥ the window and ≥ 512) that fold_ok takes at this rate.
+    On the wider grid the f32 and x3 folds find no plan at 44.1 and 48 kHz
+    with 20-25 ms hops (hop 882 with a 1,764-sample window and more)."""
     out = []
     for t_step in T_STEPS:
         for win_len in WIN_LENS:

@@ -167,3 +167,28 @@ def test_wrapper_geometry_matches_cuda_source():
     assert int(consts["kBT"]) == ff._BIN_TILE
     assert int(consts["kMelMax"]) == ff._MEL_MAX
     assert int(consts["kTailMelLimit"]) == ff.MEL_LIMIT
+
+
+@pytest.mark.parametrize("kw, seconds", [
+    (dict(signal_sample_rate=44_100, n_fft=2048, tStep=0.02), 2.0),
+    (dict(signal_sample_rate=48_000, n_fft=4096, tStep=0.03, winLen=0.064), 3.0),
+], ids=["44.1k hop 882", "48k hop 1440 window 3072"])
+def test_mfcc_change_matches_jax_fft_at_long_hops(kw, seconds):
+    """At a 20 ms hop at 44.1 kHz and a 30 ms hop with a 64 ms window at
+    48 kHz, where fused_mel_f32 takes the streamed plan on the card (the
+    span outgrows the other rungs), the port's default mfcc_change on the
+    CPU (the plain version of its 'fused' spectrum) matches the JAX
+    package's default 'fft' mfcc_change within 1e-5, inside this file's
+    1e-4 MFCC bar (measured 1.4e-6 and 1.7e-6)."""
+    from modulation_mfcc_tpu.models import modulation as jax_mod
+    from modulation_mfcc_tpu.models.config import MfccConfig as JaxMfccConfig
+    from modulation_mfcc_tpu_torch import mfcc_change
+
+    cfg = MfccConfig(**kw)
+    kp = -(-cfg.win_length // 32) * 32
+    assert ff.tc_plan("f32", cfg.hop_length, kp, cfg.n_mels).streamed == 1
+    y = np.random.default_rng(20260816).standard_normal((2, int(seconds * cfg.signal_sample_rate))).astype(np.float32)
+    want = np.asarray(jax_mod.mfcc_change(jnp.asarray(y), JaxMfccConfig(**kw), spectrum="fft"))
+    got = mfcc_change(torch.tensor(y), cfg).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape == (2, 1 + y.shape[1] // cfg.hop_length)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)

@@ -4,10 +4,11 @@ fused_mel_f32, fused_mel_bf16, fused_mel_x3, fused_mel_i16 and fused_mel_i24
 (kernels/fused_frontend.tc_layouts), built once per set of weights; here
 each layout unpacks to the mode's weights exactly, the kernel's address
 arithmetic (mirrored in Python) reads the frames from its staged span (in
-shifted copies, or one copy whose rows the threads align in registers) and
-the weights from those layouts, its staging plan (tc_plan) fits a block's
-shared memory at every rate, hop, window and mel width the reference
-configures, and the wrapper's constants are the source's; i16's digits and epilogue, mirrored,
+shifted copies, or one copy whose rows the threads align in registers) or
+from the A tile each stage of the streamed plan holds, and the weights from
+those layouts, its staging plan (tc_plan: full, compact, then streamed)
+fits a block's shared memory at every rate, hop, window and mel width of
+the grid below, and the wrapper's constants are the source's; i16's digits and epilogue, mirrored,
 give the plain version's DFT bit for bit, and bf16's epilogue, mirrored,
 meets phase 14's bar against its plain version. f32's three-plane split is
 exact for every operand it splits, and its arithmetic, mirrored in float32
@@ -15,6 +16,7 @@ matmuls (_split3_matmul), meets phase 2's bar against the plain version and
 the JAX frontend's tolerances. The kernels themselves run only on the card:
 chip_smoke.py holds them against their plain versions (phases 2, 14, 15,
 17, 23)."""
+import hashlib
 import math
 import re
 from pathlib import Path
@@ -37,28 +39,44 @@ PLANES = {"f32": (3, 3, 3), "bf16": (1, 1, 1), "x3": (2, 2, 2), "i16": (2, 3, 2)
 MODE_OF = {"f32": "kF32", "bf16": "kBF16", "x3": "kX3", "i16": "kI16", "i24": "kI24"}
 SHARED_MAX = 232_448  # bytes of shared memory a block may use on the H100
 # the address mirror's configurations: both CONFIGS, an odd hop (55 at the
-# 11.025 kHz default), a large one (220 at 44.1 kHz, n_fft 2048) and 256 mel
-# bands (two groups of 128)
+# 11.025 kHz default), a large one (220 at 44.1 kHz, n_fft 2048), 256 mel
+# bands (two groups of 128), and two hops where f32 takes the streamed plan:
+# 882 at 44.1 kHz (tStep 0.02), 1440 at 48 kHz with a 3,072-sample window
+# (tStep 0.03, winLen 0.064, n_fft 4096)
+STREAMED_CONFIGS = {
+    "44.1k hop 882": dict(signal_sample_rate=44_100, n_fft=2048, tStep=0.02),
+    "48k hop 1440 window 3072": dict(signal_sample_rate=48_000, n_fft=4096, tStep=0.03, winLen=0.064),
+}
 GEOMETRY_CONFIGS = CONFIGS | {
     "11.025k hop 55": dict(signal_sample_rate=11_025),
     "44.1k hop 220": dict(signal_sample_rate=44_100, n_fft=2048),
     "16k 256 mels": dict(signal_sample_rate=16_000, maxFreq=8000.0, n_mels=256),
-}
-# the grid every mode's plan must fit: rates 8-48 kHz, the reference's tStep
-# and winLen range, n_fft = max(512, the smallest power of two ≥ the window)
+} | STREAMED_CONFIGS
+# the grid every mode's plan must fit: rates 8-48 kHz, tStep 2.5-30 ms and
+# winLen 15-64 ms (both free keys of the reference's config; a 15-30 ms hop
+# is common), 40-512 mel bands, n_fft = max(512, the smallest power of two
+# ≥ the window). The plans were first pinned on a narrower grid (tStep to
+# 10 ms, winLen to 40 ms, 40-256 bands); NARROW_PLANS is the sha256 of
+# repr([(algorithm, sr, hop, Kp, n_mels, plan without its streamed field)])
+# over it, in ALGORITHMS, RATES, tStep, winLen, n_mels order, as tc_plan
+# gave them before the streamed rung existed: every geometry there keeps its
+# plan.
 RATES = (8_000, 10_000, 11_025, 12_000, 16_000, 22_050, 24_000, 32_000, 44_100, 48_000)
-T_STEPS, WIN_LENS, MEL_WIDTHS = (0.0025, 0.005, 0.01), (0.015, 0.025, 0.04), (40, 80, 128, 256)
+T_STEPS = (0.0025, 0.005, 0.01, 0.0125, 0.015, 0.02, 0.025, 0.03)
+WIN_LENS, MEL_WIDTHS = (0.015, 0.025, 0.04, 0.064), (40, 80, 128, 256, 512)
+NARROW_T_STEPS, NARROW_WIN_LENS, NARROW_MEL_WIDTHS = (0.0025, 0.005, 0.01), (0.015, 0.025, 0.04), (40, 80, 128, 256)
+NARROW_PLANS = "f393c0fe64491fc16cdaf61efed2a47b273fae3a497189dab64b71b4ca5a6934"
 
 
-def grid(sr: int) -> list[tuple[int, int, int]]:
+def grid(sr: int, t_steps=T_STEPS, win_lens=WIN_LENS, mel_widths=MEL_WIDTHS) -> list[tuple[int, int, int]]:
     """(hop, Kp, n_mels) of every geometry of the grid at this rate: Kp the
     window support padded to 32 rows (the layouts' rule)."""
     out = []
-    for t_step in T_STEPS:
-        for win_len in WIN_LENS:
+    for t_step in t_steps:
+        for win_len in win_lens:
             cfg = MfccConfig(signal_sample_rate=sr, tStep=t_step, winLen=win_len)
             assert max(512, 1 << (cfg.win_length - 1).bit_length()) >= cfg.win_length
-            out += [(cfg.hop_length, -(-cfg.win_length // 32) * 32, n) for n in MEL_WIDTHS]
+            out += [(cfg.hop_length, -(-cfg.win_length // 32) * 32, n) for n in mel_widths]
     return out
 
 
@@ -147,6 +165,51 @@ def a_fragment(span: np.ndarray, plane_base: int, e: int, al: int, shifted: bool
     return np.array([lo, hi], np.uint64).astype(np.uint32).view(np.uint8)
 
 
+def stream_fragments(algorithm: str, hop: int, kp: int) -> None:
+    """The streamed plan's A tiles, mirrored from the source: load_a_tile
+    and store_a_tile write each chunk's tile (thread tid's unit i = tid +
+    256 k: frame i // (32 / kAl), unit i % (32 / kAl), its kAl samples f·hop
+    + k0 + kAl·u .. at [plane][frame][32], the 8-byte unit u at u ^ 4·((f >>
+    1) & 1) for bf16 planes), and dft_chunk reads a thread's fragment of row
+    f at step j from f·32 + kAl·t + kStep·(j ^ flip), flip = (g >> 1) & 1 for
+    bf16 planes. Every tile element is written once, each fragment holds
+    frame f's samples f·hop + k0 + kStep·j + kAl·t .., every element is
+    read, and a half warp's 8-byte stores and loads each meet no bank twice
+    (sixteen distinct 8-byte units modulo 16)."""
+    al = 8 if BASIS[algorithm] == "planes" else 4  # elements per 8-byte load (kAl)
+    step, frames, rows, threads = ff._TC_STEP[algorithm], 64, ff._TC_CHUNK, 256
+    per_row, units = rows // al, frames * rows // al // threads
+    signal = np.arange((frames - 1) * hop + kp + rows, dtype=np.int64)  # sample index = value
+    swz = (lambda f: 4 * ((f >> 1) & 1)) if al == 4 else (lambda f: 0)
+    for k0 in range(0, kp, rows):
+        tile = np.full(frames * rows, -1, np.int64)
+        for k in range(units):
+            for half in range(threads // 16):
+                tids = np.arange(16 * half, 16 * half + 16)
+                i = tids + threads * k
+                f, u = i // per_row, i % per_row
+                at = f * rows + al * (u ^ swz(f))  # element offset of each lane's unit
+                assert len(set((at // al) % 16)) == 16  # the stores' 8-byte units: conflict-free
+                for e in range(al):
+                    assert (tile[at + e] == -1).all()
+                    tile[at + e] = signal[f * hop + k0 + al * u + e]
+        assert (tile >= 0).all()
+        read = np.zeros_like(tile, dtype=bool)
+        for j in range(rows // step):
+            for row0 in range(0, frames, 8):  # a warp's rows 16 MT wm + 16 mt + 8 h + g, g = 0 .. 7
+                for g_half in (0, 4):
+                    g = np.repeat(np.arange(g_half, g_half + 4), 4)
+                    t = np.tile(np.arange(4), 4)
+                    f = row0 + g
+                    flip = (g >> 1) & 1 if al == 4 else 0 * g
+                    at = f * rows + al * t + step * (j ^ flip)
+                    assert len(set((at // al) % 16)) == 16  # the half warp's loads: conflict-free
+                    for e in range(al):
+                        np.testing.assert_array_equal(tile[at + e], f * hop + k0 + step * j + al * t + e)
+                        read[at + e] = True
+        assert read.all()
+
+
 @pytest.mark.parametrize("name", GEOMETRY_CONFIGS)
 @pytest.mark.parametrize("algorithm", ff.ALGORITHMS)
 def test_tc_kernel_addressing_reads_frames_and_weights(algorithm, name):
@@ -156,11 +219,14 @@ def test_tc_kernel_addressing_reads_frames_and_weights(algorithm, name):
     the load is aligned (full plan; the 10 kHz default's hop of 50 needs 2
     copies for bf16, 4 for int8), or cut from two aligned loads of the one
     copy (compact plan: 32 frames a block; f32 at the odd hop of 55 and at
-    hop 220); its B fragment of column n is the interleaved basis column n
-    at rows k..k+7 of the pre-arranged chunk; a mel step's B fragment is the
-    mel weight of bin 16j + 4t + i of the block's group of 128 mel columns
-    (256 bands: two groups). Every element of every frame, basis row and mel
-    bin is read, and read right."""
+    hop 220), or read from the A tile of the chunk's stage (streamed plan:
+    f32 at hop 882 of 44.1 kHz, f32 and x3 at hop 1440 of 48 kHz with a
+    3,072-sample window; stream_fragments); its B fragment of column n is
+    the interleaved basis column n at rows k..k+7 of the pre-arranged
+    chunk; a mel step's B fragment is the mel weight of bin 16j + 4t + i of
+    the block's group of 128 mel columns (256 bands: two groups). Every
+    element of every frame, basis row and mel bin is read, and read
+    right."""
     cfg, w = tensors(algorithm, name)
     hop = cfg.hop_length
     al = 8 if BASIS[algorithm] == "planes" else 4  # elements per 8-byte load (kAl)
@@ -170,19 +236,25 @@ def test_tc_kernel_addressing_reads_frames_and_weights(algorithm, name):
     kp = ks * step
     plan = ff.tc_plan(algorithm, hop, kp, cfg.n_mels)
     assert plan.shared_bytes <= SHARED_MAX and plan.mel_groups == -(-cfg.n_mels // 128)
-    # A: the span of a block, in n_copies copies (copy c shifted by c·gcd) or one
-    gcd = math.gcd(hop, al)
-    assert plan.n_copies == (1 if plan.shifted else al // gcd)
-    assert plan.span_pad == -(-((plan.frames - 1) * hop + kp + (al if plan.shifted else 0)) // 16) * 16
-    dtype = np.uint8 if al == 8 else np.uint16
-    signal = np.random.default_rng(hop).integers(0, np.iinfo(dtype).max, plan.span_pad + al, dtype=dtype)
-    copies = np.stack([signal[c * gcd : c * gcd + plan.span_pad] for c in range(plan.n_copies)]).reshape(-1)
-    for k0 in range(0, kp, step):
-        for f in range(plan.frames):
-            for t in range(4):
-                e = f * hop + al * t + k0
-                got = a_fragment(copies, 0, e, al, bool(plan.shifted), plan.span_pad, gcd)
-                np.testing.assert_array_equal(got, signal[e : e + al].view(np.uint8))
+    assert bool(plan.streamed) == (name in STREAMED_CONFIGS and (algorithm == "f32" or "48k" in name
+                                                                and algorithm == "x3"))
+    if plan.streamed:
+        assert (plan.frames, plan.shifted, plan.stages, plan.n_copies, plan.span_pad) == (64, 0, 4, 0, 0)
+        stream_fragments(algorithm, hop, kp)
+    else:
+        # A: the span of a block, in n_copies copies (copy c shifted by c·gcd) or one
+        gcd = math.gcd(hop, al)
+        assert plan.n_copies == (1 if plan.shifted else al // gcd)
+        assert plan.span_pad == -(-((plan.frames - 1) * hop + kp + (al if plan.shifted else 0)) // 16) * 16
+        dtype = np.uint8 if al == 8 else np.uint16
+        signal = np.random.default_rng(hop).integers(0, np.iinfo(dtype).max, plan.span_pad + al, dtype=dtype)
+        copies = np.stack([signal[c * gcd : c * gcd + plan.span_pad] for c in range(plan.n_copies)]).reshape(-1)
+        for k0 in range(0, kp, step):
+            for f in range(plan.frames):
+                for t in range(4):
+                    e = f * hop + al * t + k0
+                    got = a_fragment(copies, 0, e, al, bool(plan.shifted), plan.span_pad, gcd)
+                    np.testing.assert_array_equal(got, signal[e : e + al].view(np.uint8))
     # B: the basis as the kernel reads each chunk's stage
     flat = packed.reshape(-1)
     inter = ff._interleave(ff.tc_planes(algorithm, w[BASIS[algorithm]]))
@@ -421,43 +493,95 @@ def test_tc_shared_memory_fits_a_block(algorithm, name):
 
 
 def launcher_bytes(c: dict[str, int], algorithm: str, hop: int, kp: int, frames: int, shifted: bool,
-                   stages: int) -> int:
+                   stages: int, streamed: bool = False) -> int:
     """The launcher's sum (plan_holds in the source), from the source's
-    constants: barriers, ``stages`` basis chunks, a tile's mel weights, the
-    power tile of ``frames`` rows and the span planes, in their shifted
-    copies, or one copy with kAl elements of slack when ``shifted``."""
+    constants: barriers and warp maxima, ``stages`` basis chunks (each with
+    the planes of a kBF × kChunkRows A tile when ``streamed``), a tile's mel
+    weights, the power tile of ``frames`` rows and the span planes, in their
+    shifted copies, or one copy with kAl elements of slack when ``shifted``,
+    or none when ``streamed``."""
     span_planes, basis_planes, mel_planes = PLANES[algorithm]
     esize = 1 if BASIS[algorithm] == "planes" else 2
     al = 8 // esize
-    n_copies = 1 if shifted else al // math.gcd(hop, al)
+    n_copies = 0 if streamed else 1 if shifted else al // math.gcd(hop, al)
     span_pad = -(-((frames - 1) * hop + kp + (al if shifted else 0)) // 16) * 16
-    return (128 + stages * c["kChunkRows"] * c["kCols"] * basis_planes * esize
+    a_tile = span_planes * c["kBF"] * c["kChunkRows"] * esize if streamed else 0
+    return (128 + stages * (c["kChunkRows"] * c["kCols"] * basis_planes * esize + a_tile)
             + c["kCols"] // 2 * mel_planes * c["kMelCols"] * 2 + mel_planes * frames * (c["kCols"] // 2 + 16) * 2
             + span_planes * n_copies * span_pad * esize)
+
+
+def plan_rung(plan: ff.TcPlan) -> str:
+    return "streamed" if plan.streamed else "compact" if plan.shifted else "full"
 
 
 @pytest.mark.parametrize("sr", RATES)
 @pytest.mark.parametrize("algorithm", ff.ALGORITHMS)
 def test_tc_plan_fits_every_geometry(algorithm, sr):
     """At every hop, window and mel width of the grid at this rate, tc_plan
-    gives a plan within the 227 KB of shared memory a block may use: the
-    full plan (64 frames, the span's copies, four stages) where it fits,
-    else the compact plan (32 frames, one copy aligned in registers) with
-    the most stages, four to two, that fit; one mel group per 128 bands. The
-    16 kHz flagship (hop 80, Kp 416, 128 bands) keeps the full plan."""
+    gives a plan within the 227 KB of shared memory a block may use, the
+    first rung of the ladder that fits: the full plan (64 frames, the span's
+    copies, four stages); else the compact plan (32 frames, one copy aligned
+    in registers) with the most stages, four to two, that fit; else the
+    streamed plan (64 frames, four stages, each stage with its chunk's A
+    tile, no span), which f32 takes from 22.05 kHz with a 30 ms hop and x3
+    at 44.1 and 48 kHz with 30 ms; one mel group per 128 bands. The 16 kHz
+    flagship (hop 80, Kp 416, 128 bands) keeps the full plan."""
     for hop, kp, n_mels in grid(sr):
         plan = ff.tc_plan(algorithm, hop, kp, n_mels)
         assert plan.shared_bytes <= SHARED_MAX, (hop, kp, n_mels, plan)
         assert plan.mel_groups == -(-n_mels // 128)
         full = ff._plan_for(algorithm, hop, kp, n_mels, 64, False, 4)
+        compact = [ff._plan_for(algorithm, hop, kp, n_mels, 32, True, s) for s in (4, 3, 2)]
         if full.shared_bytes <= SHARED_MAX:
             assert plan == full
+        elif compact[-1].shared_bytes <= SHARED_MAX:
+            assert (plan.frames, plan.shifted, plan.streamed, plan.n_copies) == (32, 1, 0, 1) and 2 <= plan.stages <= 4
+            assert plan == next(p for p in compact if p.shared_bytes <= SHARED_MAX)
         else:
-            assert (plan.frames, plan.shifted, plan.n_copies) == (32, 1, 1) and 2 <= plan.stages <= 4
-            assert plan.stages == 4 or ff._plan_for(algorithm, hop, kp, n_mels, 32, True,
-                                                    plan.stages + 1).shared_bytes > SHARED_MAX
+            assert (plan.frames, plan.shifted, plan.streamed, plan.stages, plan.n_copies, plan.span_pad) == (
+                64, 0, 1, 4, 0, 0)
+            assert algorithm in ("f32", "x3") and (sr >= 22_050 if algorithm == "f32" else sr >= 44_100)
     flagship = ff.tc_plan(algorithm, 80, 416, 128)
-    assert (flagship.frames, flagship.shifted, flagship.stages, flagship.mel_groups) == (64, 0, 4, 1)
+    assert (flagship.frames, flagship.shifted, flagship.streamed, flagship.stages, flagship.mel_groups) == (
+        64, 0, 0, 4, 1)
+    for t_step, win_len in ((0.03, 0.025), (0.03, 0.064)):
+        cfg = MfccConfig(signal_sample_rate=48_000, tStep=t_step, winLen=win_len)
+        kp = -(-cfg.win_length // 32) * 32
+        assert (plan_rung(ff.tc_plan(algorithm, cfg.hop_length, kp)) == "streamed") == (algorithm in ("f32", "x3"))
+
+
+def test_tc_plan_keeps_the_narrow_grids_plans():
+    """Every geometry of the narrower grid the plans were first pinned on
+    keeps the plan it had before the streamed rung (NARROW_PLANS, a digest
+    of those plans); none of them is streamed."""
+    rows = []
+    for alg in ff.ALGORITHMS:
+        for sr in RATES:
+            for hop, kp, n in grid(sr, NARROW_T_STEPS, NARROW_WIN_LENS, NARROW_MEL_WIDTHS):
+                plan = ff.tc_plan(alg, hop, kp, n)
+                assert not plan.streamed
+                rows.append((alg, sr, hop, kp, n, tuple(v for k, v in plan._asdict().items() if k != "streamed")))
+    assert len(rows) == 5 * 10 * 3 * 3 * 4
+    assert hashlib.sha256(repr(rows).encode()).hexdigest() == NARROW_PLANS
+
+
+@pytest.mark.parametrize("algorithm", ff.ALGORITHMS)
+def test_tc_streamed_plan_bytes_do_not_move_with_hop_or_window(algorithm):
+    """The streamed plan's shared memory depends on neither the hop nor Kp:
+    the same bytes at the flagship (hop 80, Kp 416), where the hop exceeds
+    Kp (hop 4,800, Kp 1,216: frames do not overlap), at Kp 4,096 and at
+    48 kHz with a 30 ms hop and a 64 ms window; every mode's is within a
+    block's shared memory (f32 227,456 bytes, x3 151,680), and the launcher
+    sums the same. At hop 4,800 the span of 63 hops leaves every mode no
+    other rung, and tc_plan takes it."""
+    c = kernel_constants()
+    want = {"f32": 227_456, "x3": 151_680, "bf16": 75_904, "i16": 118_912, "i24": 127_104}[algorithm]
+    for hop, kp in ((80, 416), (4800, 1216), (80, 4096), (1440, 3072), (1440, 4096)):
+        plan = ff._plan_for(algorithm, hop, kp, 128, 64, False, 4, streamed=True)
+        assert plan.shared_bytes == want == launcher_bytes(c, algorithm, hop, kp, 64, False, 4, streamed=True)
+        assert (plan.n_copies, plan.span_pad) == (0, 0) and want <= SHARED_MAX
+    assert plan_rung(ff.tc_plan(algorithm, 4800, 1216)) == "streamed"  # a span of 63 hops outgrows every mode
 
 
 @pytest.mark.parametrize("algorithm", ff.ALGORITHMS)
@@ -472,7 +596,7 @@ def test_tc_plan_bytes_are_the_launchers(algorithm):
         for hop, kp, n_mels in grid(sr):
             plan = ff.tc_plan(algorithm, hop, kp, n_mels)
             assert plan.shared_bytes == launcher_bytes(c, algorithm, hop, kp, plan.frames, bool(plan.shifted),
-                                                       plan.stages)
+                                                       plan.stages, bool(plan.streamed))
             assert (plan.frames, plan.stages) in ((c["kBF"], c["kStages"]), (c["kBF"] // 2, plan.stages))
     with pytest.raises(ValueError, match="512"):
         ff.tc_plan(algorithm, 80, 416, 513)

@@ -127,16 +127,23 @@ def test_wrappers_raise_on_devices_without_a_kernel():
 
 def test_wrapper_limits_match_cuda_source():
     src = (CSRC / "viterbi.cu").read_text()
-    assert int(re.search(r"constexpr int kMaxBins = (\d+);", src).group(1)) == V.MAX_BINS
     const = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert (const["kMaxThreads"], const["kRingBins"]) == (V._MAX_THREADS, V._RING_BINS)
     assert re.search(r"constexpr int kMaxWarps = kMaxThreads / 32;", src) and const["kMaxThreads"] // 32 == V._MAX_WARPS
     assert (const["kSmemLimit"], const["kMaxRegBand"], const["kMaxRegThreads"], const["kAhead"]) == (
         V._SMEM_LIMIT, V._MAX_REG_BAND, V._MAX_REG_THREADS, V._AHEAD)
+    assert "kMaxBins" not in src and not hasattr(V, "MAX_BINS")  # no limit on n: past 1,024 the wide kernels
     # the launcher's layout rule and the shared memory it counts, which band_layout mirrors
-    assert "if (width <= kMaxRegBand && n <= kMaxRegThreads) {" in src
+    assert "if (n > kMaxThreads) {" in src and "if (n > kRingBins) {" in src
+    assert "if (width <= n && fwd_wide_smem_bytes(n, h, kShared) <= (size_t)kSmemLimit)" in src
+    assert "else if (fwd_wide_smem_bytes(n, h, kL2) <= (size_t)kSmemLimit)" in src
+    assert "} else if (width <= kMaxRegBand && n <= kMaxRegThreads) {" in src
     assert "} else if (width <= n && fwd_smem_bytes(n, h, 0, kShared) <= (size_t)kSmemLimit) {" in src
     assert ("sizeof(float) * ((size_t)4 * m_stride(n, kw) + 4 * kMaxWarps + (size_t)kAhead * 2 * fwd_threads(n) +\n"
             "                            (at == kShared ? (size_t)(2 * h + 1) * n : 0))") in src
+    assert ("sizeof(float) * ((at == kHist ? 0 : (size_t)4 * n) + 4 * kMaxWarps +\n"
+            "                            (at == kShared ? (size_t)(2 * h + 1) * n : 0))") in src
+    assert "if (nb < 1 || nf < 1 || n < 1 || h < 0 || h >= n) return (int)cudaErrorInvalidValue;" in src
     for name in V.LAUNCHES:
         assert f'extern "C" int {name}(' in src
 
@@ -266,11 +273,17 @@ def test_banded_step_matches_dense_and_pallas(kind):
 
 @pytest.mark.parametrize("n,h,layout", [(361, 21, "registers"), (361, 31, "registers"), (361, 32, "shared"),
                                         (361, 73, "shared"), (361, 74, "L2"), (600, 2, "shared"),
-                                        (1024, 20, "shared"), (1024, 22, "L2"), (40, 39, "L2")])
+                                        (1024, 20, "shared"), (1024, 22, "L2"), (40, 39, "L2"),
+                                        (1025, 0, "shared"), (1025, 21, "shared"), (1201, 43, "L2"),
+                                        (6001, 2, "shared"), (6001, 3, "L2"), (14496, 0, "L2"),
+                                        (14497, 0, "history"), (20000, 215, "history")])
 def test_band_layout(n, h, layout):
-    """The launcher's layout by size: registers up to 64 sources in blocks
-    of at most 512 threads, shared memory for a band narrower than the
-    matrix that fits beside m, the maxima and the row ring, else L2."""
+    """The launcher's layout by size: up to 1,024 bins registers up to 64
+    sources in blocks of at most 512 threads, shared memory for a band
+    narrower than the matrix that fits beside m, the maxima and the row
+    ring, else L2; past them (each thread ⌈n/1,024⌉ targets, no row ring)
+    the band in shared memory where it fits beside m and the maxima, else
+    L2 while m fits (14,496 bins), else m from the history."""
     assert V.band_layout(n, h) == layout
 
 
@@ -398,11 +411,14 @@ def test_banded_backtrace_traps(kind):
 
 @pytest.mark.parametrize("n,h,layout", [(361, 21, "shared"), (361, 63, "shared"), (361, 64, "L2"),
                                         (361, 360, "L2"), (130, 129, "shared"), (40, 39, "shared"),
-                                        (600, 20, "shared"), (1024, 0, "shared"), (1024, 20, "L2")])
+                                        (600, 20, "shared"), (1024, 0, "shared"), (1024, 20, "L2"),
+                                        (1025, 20, "shared"), (1201, 23, "shared"), (1201, 24, "L2"),
+                                        (6001, 4, "shared"), (6001, 5, "L2"), (6001, 6000, "L2")])
 def test_backtrace_layout(n, h, layout):
-    """The backtrace launcher's layout by size: the band in shared memory
-    when it fits beside the ring of 8 rows of (m, sel) pairs (pyin's 62 KB
-    band does), else the transposed log_tri from L2."""
+    """The backtrace launcher's layout by size: up to 1,024 bins the band in
+    shared memory when it fits beside the ring of 8 rows of (m, sel) pairs
+    (pyin's 62 KB band does), past them beside the C candidates alone (the
+    wide backtrace keeps no row), else the transposed log_tri from L2."""
     assert V.backtrace_layout(n, h) == layout
 
 
@@ -414,8 +430,10 @@ def test_backtrace_layout_matches_cuda_source():
     assert (const["kSlots"], const["kSmemLimit"]) == (V._SLOTS, V._SMEM_LIMIT)
     assert ("return (size_t)kSlots * (16 + 32 + 16 * (size_t)n) + (banded ? sizeof(float) * n * (2 * h + 1) : 0);"
             in src)
+    assert ("return (size_t)kSlots * (16 + 32) + (banded ? sizeof(float) * (size_t)n * (2 * h + 1) : 0);" in src)
     assert "const bool banded = bwd_smem_bytes(n, h, true) <= (size_t)kSmemLimit;" in src
-    assert "if (!banded && !log_tri_t) return (int)cudaErrorInvalidValue;" in src
+    assert "const bool banded = bwd_wide_smem_bytes(n, h, true) <= (size_t)kSmemLimit;" in src
+    assert src.count("if (!banded && !log_tri_t) return (int)cudaErrorInvalidValue;") == 2
 
 
 def test_backtrace_band_layout():
@@ -440,3 +458,84 @@ def test_transposed_cache_follows_the_tensor():
     t[1, 2] = 5.0
     again = V._transposed(t)
     assert again is not first and torch.equal(again, t.t())
+
+
+# ---------------------------------------------------------------------------
+# Past 1,024 bins (pyin at fine resolutions)
+# ---------------------------------------------------------------------------
+
+# (n, pyin's band at 16 kHz, hop 10 ms): 75-600 Hz at resolution 0.025 and
+# 0.01; librosa's C2-C7 (65.406-2093 Hz) at 0.05 and 0.01; one bin past 1,024
+WIDE = {1025: 21, 1201: 43, 1441: 86, 3601: 215, 6001: 215}
+
+
+def test_wide_bins_are_pyins():
+    """The wide sizes are pyin's own: n_bins = ⌊12·⌈1/resolution⌉·log2(fmax/
+    fmin)⌋ + 1 and the designed band (pyin_band) at 75-600 Hz and C2-C7."""
+    for (fmin, fmax, res), n in (((75.0, 600.0, 0.025), 1441), ((75.0, 600.0, 0.01), 3601),
+                                 ((65.406, 2093.0, 0.05), 1201), ((65.406, 2093.0, 0.01), 6001)):
+        g = Y.pyin_geometry(16_000.0, fmin, fmax, resolution=res)
+        assert g.n_bins == n and Y.pyin_band(g, torch.float32)[0] == WIDE[n]
+
+
+@pytest.mark.parametrize("n", WIDE)
+def test_layouts_fit_past_1024_bins(n):
+    """At 1,025 to 6,001 bins, with pyin's band, a narrow band, no band
+    (h = 0) and the dense matrix (h = n − 1), both launchers' layouts fit a
+    block's shared memory (forward_bytes, backtrace_bytes: the sums of the
+    source's fwd_wide_smem_bytes and bwd_wide_smem_bytes), the forward
+    keeps m in shared memory (14,496 bins and less), and neither holds a
+    history row: the backtrace's bytes without the band are its barriers and
+    C candidates alone, 384."""
+    for h in sorted({0, 2, WIDE[n], n - 1}):
+        fwd, bwd = V.band_layout(n, h), V.backtrace_layout(n, h)
+        assert fwd in ("shared", "L2") and V.forward_bytes(n, h, fwd) <= V._SMEM_LIMIT, (h, fwd)
+        assert V.forward_bytes(n, h, "L2") == 4 * (4 * n + 4 * V._MAX_WARPS)
+        assert bwd in ("shared", "L2") and V.backtrace_bytes(n, h, bwd) <= V._SMEM_LIMIT, (h, bwd)
+        assert V.backtrace_bytes(n, h, "L2") == V._SLOTS * 48 == 384
+        assert (fwd == "shared") == (2 * h + 1 <= n and 4 * (4 * n + 4 * V._MAX_WARPS + (2 * h + 1) * n) <= 232_448)
+        assert (bwd == "shared") == (384 + 4 * n * (2 * h + 1) <= 232_448)
+    assert V.forward_bytes(14_497, 0, "history") == 4 * 4 * V._MAX_WARPS
+    assert V.forward_bytes(1024, 20, "shared") == 4 * (4 * 1024 + 4 * 32 + 8 * 1024 + 41 * 1024)  # unchanged below
+
+
+@pytest.mark.parametrize("kind", ["dense", "banded"])
+def test_plain_viterbi_matches_pallas_at_1201_bins(kind):
+    """Past 1,024 bins the plain versions the kernels are held to on the
+    card still equal JAX's Pallas Viterbi (interpret mode) bit for bit: δ
+    history, δ_f and the decoded path on a dense trellis of 1,201 bins
+    (librosa's C2-C7 at resolution 0.05) and on a banded one (h = 43 over a
+    floor, pyin's band there); the kernels' banded steps, written plainly,
+    equal the dense plain versions on the banded one."""
+    nf = 6
+    if kind == "dense":
+        log_obs, delta0, lt = trellis(1201, nf, seed=37, batch=2)
+        c_stay, c_sw = C_STAY, C_SW
+    else:
+        rng = np.random.default_rng(41)
+        n, h, floor = 1201, 43, -87.3
+        dist = np.abs(np.arange(n)[:, None] - np.arange(n)[None, :])
+        lt = np.full((n, n), floor, np.float32)
+        lt[dist <= h] = rng.uniform(-10.0, 0.0, int((dist <= h).sum()))
+        lt[(dist <= h) & (dist > 0) & (rng.random((n, n)) < 0.2)] = floor
+        lt[dist == h] = -5.0
+        log_obs = np.log(rng.random((2, nf, 2 * n)) + 1e-12).astype(np.float32)
+        delta0 = np.log(rng.random((2, 2 * n)) + 1e-12).astype(np.float32)
+        c_stay, c_sw = C_STAY, C_SW
+    args = (torch.tensor(log_obs), torch.tensor(delta0), torch.tensor(lt), c_stay, c_sw)
+    band = V.viterbi_band(lt)
+    assert band[0] == (1200 if kind == "dense" else 43)
+    got_f, got_hist = V.viterbi_forward(*args, band)
+    path = V.viterbi_decode(*args, band)
+    assert path.shape == (2, nf) and got_hist.shape == (2, nf - 1, 2402)
+    for b in range(2):
+        jf, jhist = viterbi_forward_pallas(jnp.asarray(log_obs[b]), jnp.asarray(delta0[b]), jnp.asarray(lt),
+                                           c_stay, c_sw, interpret=True)
+        assert same_bits(got_f[b], jf) and same_bits(got_hist[b], jhist)
+        jpath = viterbi_decode_pallas(jnp.asarray(log_obs[b]), jnp.asarray(delta0[b]), jnp.asarray(lt), c_stay, c_sw,
+                                      interpret=True)
+        assert np.array_equal(path[b].numpy(), np.asarray(jpath))
+    if kind == "banded":
+        bf, bhist = V.viterbi_forward_banded_reference(*args, band)
+        assert same_bits(bf, got_f) and same_bits(bhist, got_hist)
+        assert torch.equal(V.viterbi_backtrace_banded_reference(got_hist, got_f, *args[2:], band), path)

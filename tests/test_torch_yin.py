@@ -163,15 +163,22 @@ F64_CASES = {
     "minimum": ("speech", {"pad_mode": "minimum"}),
     "collision_44k_2048": ("collision", dict(fmin=65.0, fmax=2093.0, frame_length=2048)),
     "collision_44k_2047": ("collision", dict(fmin=65.0, fmax=2093.0, frame_length=2047)),
+    # past 1,024 pitch bins (the CUDA kernels' wide layouts): 75-600 Hz at
+    # resolution 0.025 (1,441 bins), librosa's C2-C7 at 0.05 (1,201 bins)
+    "bins_1441": ("speech_0.5s", {"resolution": 0.025}),
+    "bins_1201": ("speech_0.5s", dict(fmin=65.406, fmax=2093.0, resolution=0.05)),
 }
 
 
 def case_signal(kind: str) -> tuple[np.ndarray, int, int]:
     """(signal, sr, hop in samples): 10 ms hops, 512 at 44.1 kHz. 'live_edges'
     is the speech rolled by half a second, so that it starts and ends on
-    voiced samples (which 'linear_ramp' ramps towards)."""
-    if kind in ("speech", "live_edges"):
+    voiced samples (which 'linear_ramp' ramps towards); 'speech_0.5s' its
+    0.5 s from 0.2 s on (the wide trellises decode densely on the CPU)."""
+    if kind in ("speech", "live_edges", "speech_0.5s"):
         sig, sr = speechlike_sig()
+        if kind == "speech_0.5s":
+            return sig[sr // 5 : sr // 5 + sr // 2], sr, 100
         return (np.roll(sig, sr // 2) if kind == "live_edges" else sig), sr, 100
     sig, sr = collision_sig()
     return sig, sr, 512
