@@ -14,8 +14,8 @@ Phases:
   0  card, power limit, versions, TF32 flags (exits 2 without CUDA)
   1  kernel build (the native decode loader's g++ build beside it, timed
      apart), with ptxas's report (registers, spills) of every kernel,
-     and a line each for the Viterbi kernels' (the wide ones past 1,024
-     bins too), the tensor-core frontend's
+     and a line each for the Viterbi kernels' (the wide and toeplitz ones
+     past 1,024 bins too), the tensor-core frontend's
      (fused_mel_bf16 is mode 3, fused_mel_f32 mode 4; the last template
      argument the A source: 0 the span's copies, 1 shifted, 2 streamed), the tail's,
      sinc_refine_f32's and burg_lpc_f32's (C, elements a lane)
@@ -70,11 +70,17 @@ Phases:
      set its traps (an out-of-band source tying an in-band one at a lower
      index, −0 against +0, two out-of-band sums that round together), each
      line naming the backtrace's layout; past 1,024 bins (the wide kernels)
-     dense, pyin-banded and narrow-banded trellises at 1,201, 3,601 and
+     dense, randomly banded and narrow-banded trellises at 1,201, 3,601 and
      6,001 bins and one at 14,497 (the forward's m from the history), bit
-     for bit with the launch counts; batched_f0 pyin at resolution 0.01
-     (3,601 bins) on 2 × 10 s end to end against the plain engine, both
-     kernels timed there beside their plain versions and bounds
+     for bit with the launch counts; the 'toeplitz' layout (the window in
+     shared memory, a cluster an utterance) on pyin's own transitions at
+     1,201, 3,601 and 6,001 bins and a triangle band at 14,497 made on the
+     card, the forward at every cluster size with a plan and by the rule,
+     bit for bit; batched_f0 pyin at resolution 0.01 (3,601 bins) on 2 × 10 s
+     end to end against the plain engine (toeplitz, on a cluster), its time
+     and peak memory beside the same call in the wide layouts; both kernels
+     timed on pyin's trellises at 3,601 and 6,001 bins (C2-C7), the forward
+     at every cluster size, beside their plain versions and bounds
  12  pyin path at full size: batched_f0 pyin on the phase-7 batch, one launch
      of each Viterbi kernel, states and f0 identical to the plain engine on
      the card, against the CPU; the decode of that call makes no device→host
@@ -987,6 +993,7 @@ def tracker_paths(dev, card: str) -> list[dict]:
     torch.cuda.empty_cache()
     viterbi_kernel_checks(dev)
     wide_viterbi_checks(dev)
+    toeplitz_checks(dev)
     wide_pyin(dev, card)
     torch.cuda.empty_cache()
     vit_launches, vit_inputs = pyin_path(dev, y_np, batch)
@@ -1158,10 +1165,17 @@ def wide_trellis(n: int, h: int | None, nf: int, batch: int, seed: int, dev) -> 
         lt = torch.where(inside & (dist > 0) & (torch.rand((n, n), generator=g, device=dev) < 0.2), -87.3, lt)
         lt = torch.where(dist == h, -5.0, lt)
         del dist, inside
-    log_obs = torch.log(torch.rand((batch, nf, 2 * n), generator=g, device=dev) + 1e-12)
-    delta0 = torch.log(torch.rand((batch, 2 * n), generator=g, device=dev) + 1e-12)
-    c_stay, c_sw = float(np.log(np.float32(0.99))), float(np.log(np.float32(0.01)))
-    return log_obs, delta0, lt.contiguous(), c_stay, c_sw
+    return (*random_obs(n, nf, batch, g), lt.contiguous(), *SWITCH)
+
+
+# (c_stay, c_sw) of the random trellises: log(0.99) and log(0.01) in float32
+SWITCH = (float(np.log(np.float32(0.99))), float(np.log(np.float32(0.01))))
+
+
+def random_obs(n: int, nf: int, batch: int, g: torch.Generator) -> tuple[torch.Tensor, torch.Tensor]:
+    """(log_obs [B, NF, 2n], delta0 [B, 2n]): logs of uniform noise, made on the card."""
+    log_obs = torch.log(torch.rand((batch, nf, 2 * n), generator=g, device=g.device) + 1e-12)
+    return log_obs, torch.log(torch.rand((batch, 2 * n), generator=g, device=g.device) + 1e-12)
 
 
 def wide_viterbi_checks(dev) -> None:
@@ -1191,11 +1205,105 @@ def wide_viterbi_checks(dev) -> None:
     check(VK.band_layout(HISTORY_BINS, 2) == "history", "the forward's history layout at 14,497 bins")
 
 
+# Phase 11's Toeplitz trellises (the 'toeplitz' layout): pyin's own log_tri
+# at 16 kHz, (fmin, fmax, resolution) -> its bins, and a librosa triangle of
+# 2 x 215 + 1 bins (pyin's at resolution 0.01) over 14,497 bins, made on
+# the card; every cluster size up to 16 that has a plan
+TOEPLITZ_PYIN = ((65.406, 2093.0, 0.05), (75.0, 600.0, 0.01), (65.406, 2093.0, 0.01))
+TOEPLITZ_CLUSTERS = (1, 2, 4, 8, 16)
+
+
+def triangle_log_tri(n: int, h: int, dev) -> torch.Tensor:
+    """librosa's transition_local triangle (window 2h + 1, each row
+    truncated at the matrix's edges and normalised by its own sum) over n
+    bins, log(· + tiny) in float32, made on the card; every row's sum is
+    taken from the prefix sums of the one window, so the interior rows are
+    the same floats."""
+    win = torch.tensor(Y._triang_window(2 * h + 1), dtype=torch.float64, device=dev)
+    prefix = torch.cat([win.new_zeros(1), torch.cumsum(win, 0)])
+    u = torch.arange(n, device=dev)
+    row_sum = prefix[torch.clamp(n - 1 - u + h, max=2 * h) + 1] - prefix[torch.clamp(h - u, min=0)]
+    k = u[None, :] - u[:, None] + h  # column v of row u: window entry v - u + h
+    inside = (k >= 0) & (k <= 2 * h)
+    tri = torch.where(inside, win[k.clamp(0, 2 * h)], 0.0) / row_sum[:, None]
+    del k, inside
+    return torch.log(tri + float(torch.finfo(torch.float32).tiny)).to(torch.float32)
+
+
+def clusters_of(n: int, band) -> list[int]:
+    """The cluster sizes with a plan for this Toeplitz band."""
+    return [g for g in TOEPLITZ_CLUSTERS if VK.cluster_plan(n, band[0], band.rows, g) is not None]
+
+
+def toeplitz_checks(dev) -> None:
+    """Phase 11, the 'toeplitz' layout: both kernels bit for bit against
+    their plain versions on pyin's own transitions at 1,201, 3,601 and 6,001
+    bins and a triangle band at 14,497 (random observations), the forward at
+    every cluster size with a plan and by the rule, each line naming the
+    layout, the cluster and the bytes; launch counts moving on each."""
+    cases = [(Y._log_tri(Y.pyin_geometry(float(TRACK_SR), *geo[:2], resolution=geo[2]), torch.float32), 100, 2)
+             for geo in TOEPLITZ_PYIN]
+    cases.append((None, 12, 1))
+    for i, (lt_np, nf, batch) in enumerate(cases):
+        lt = triangle_log_tri(HISTORY_BINS, 215, dev) if lt_np is None else torch.tensor(lt_np, device=dev)
+        n = lt.shape[0]
+        band = VK.viterbi_band(lt)
+        h = band[0]
+        fwd, bwd = VK.band_layout(n, h, band.rows), VK.backtrace_layout(n, h, band.rows)
+        check(band.rows == (h, n - 1 - h) and fwd == bwd == "toeplitz", f"the Toeplitz band of {n} bins")
+        args = (*random_obs(n, nf, batch, torch.Generator(device=dev).manual_seed(130 + i)), lt, *SWITCH)
+        f_p, h_p = VK.viterbi_forward_reference(*args)
+        path_p = VK.viterbi_backtrace_reference(h_p, f_p, *args[2:])
+        rule = VK.cluster_plan(n, h, band.rows)
+        for g in [None, *clusters_of(n, band)]:
+            reset(VK.LAUNCHES)
+            got = VK.viterbi_forward(*args, band, cluster=g)
+            torch.cuda.synchronize()
+            ok = same_bits(got[0], f_p) and same_bits(got[1], h_p)
+            err = 0.0
+            if not ok:  # inf where they differ only in bits (±0)
+                err = max(float((got[0] - f_p).abs().max()), float((got[1] - h_p).abs().max())) or float("inf")
+            plan = rule if g is None else VK.cluster_plan(n, h, band.rows, g)
+            print(f"[11] Toeplitz trellis n={n} NF={nf} batch {batch}, h={h}, forward in {fwd}, cluster "
+                  f"{plan.g}{' (the rule)' if g is None else ''}, ranks {plan.bounds}, {plan.smem} bytes a block: δ "
+                  f"max |Δ| {err:.3e} (bar 0); launches {dict(VK.LAUNCHES)}")
+            check(ok and VK.LAUNCHES["viterbi_fwd_f32"] == 1, f"viterbi_fwd_f32 toeplitz at n={n}, cluster {plan.g}")
+        reset(VK.LAUNCHES)
+        path_k = VK.viterbi_backtrace(h_p, f_p, *args[2:], band)
+        dec_k = VK.viterbi_decode(*args, band)
+        torch.cuda.synchronize()
+        path_err = float(torch.maximum((path_k - path_p).abs(), (dec_k - path_p).abs()).max())
+        print(f"[11] Toeplitz trellis n={n}: backtrace in {bwd} ({VK.backtrace_bytes(n, h, bwd)} bytes), state paths "
+              f"max |Δ| {path_err:.0f} (bar 0); launches {dict(VK.LAUNCHES)}")
+        check(path_err == 0.0 and VK.LAUNCHES == {"viterbi_fwd_f32": 1, "viterbi_bwd_f32": 2},
+              f"viterbi_bwd_f32 toeplitz at n={n}")
+        del args, lt, f_p, h_p
+        torch.cuda.empty_cache()
+
+
+def viterbi_bounds(log_obs: torch.Tensor, hist: torch.Tensor, n: int, h: int) -> tuple[tuple, tuple]:
+    """(forward, backtrace) bounds of one trellis: the banded work, as phase 13 counts it."""
+    nb, nf, _ = log_obs.shape
+    v = np.arange(n)
+    pairs = int((np.minimum(n - 1, v + h) - np.maximum(0, v - h) + 1).sum())
+    state_bytes = nb * 2 * n * 4
+    b_f = bound(log_obs.numel() * 4 + 2 * state_bytes + hist.numel() * 4 + pairs * 4,
+                nb * (nf - 1) * (4 * pairs + 18 * n))
+    # the backtrace reads only the band of log_tri: the pairs the forward's bound counts
+    b_b = bound(hist.numel() * 4 + state_bytes + pairs * 4 + nb * nf * 4, nb * (nf - 1) * 5 * n)
+    return b_f, b_b
+
+
 def wide_pyin(dev, card: str) -> None:
     """Phase 11: batched_f0 pyin at resolution 0.01 (75-600 Hz: 3,601 bins,
     h = 215) on 2 × 10 s at 16 kHz end to end: one launch of each Viterbi
-    kernel, f0 and states identical to the plain engine on the card; both
-    kernels timed on its trellis beside their plain versions and bounds."""
+    kernel, the forward in the 'toeplitz' layout on a cluster, f0 and states
+    identical to the plain engine on the card, its time and peak memory
+    beside the same call with the band given as a plain (h, C) pair (the
+    wide layouts and the transposed log_tri); then at 3,601 and 6,001 bins
+    (librosa's C2-C7 at 0.01) both kernels timed on pyin's trellis beside
+    their plain versions and bounds, the forward at every cluster size with
+    a plan and in the wide layout."""
     sr, cfg = TRACK_SR, mt.F0Config(method="pyin", resolution=0.01)
     y = speechlike(2, 10 * sr, sr, seed=111)
     batch = mt.pad_batch(list(y), bucket_multiple=1, device=dev)
@@ -1206,37 +1314,72 @@ def wide_pyin(dev, card: str) -> None:
     launches = dict(VK.LAUNCHES)
     *args, band = calls[0][0]
     n = args[2].shape[0]
+    plan = VK.cluster_plan(n, band[0], band.rows)
     tracker = mt.PyinTracker(cfg, sr).to(dev)
     f0_k, st_k = tracker(batch.samples, return_states=True)
     f0_p, st_p = tracker(batch.samples, return_states=True, viterbi_engine="plain")
     torch.cuda.synchronize()
     same = torch.equal(f0_k, f0_p) and torch.equal(st_k, st_p) and torch.equal(f0_k, f0)
     e2e = cuda_ms(lambda: mt.batched_f0(batch, sr, cfg))
+    peak = peak_gib(lambda: mt.batched_f0(batch, sr, cfg))[1] * 1024  # MiB above what was live, warmed
+    fwd, bwd = VK.band_layout(n, band[0], band.rows), VK.backtrace_layout(n, band[0], band.rows)
     print(f"[11] batched_f0 pyin at resolution 0.01 on {tuple(batch.samples.shape)}: {n} bins, band h={band[0]} "
-          f"(forward's in {VK.band_layout(n, band[0])}, backtrace's in {VK.backtrace_layout(n, band[0])}), f0 "
+          f"rows {band.rows} (forward's in {fwd}, cluster {plan.g}, ranks {plan.bounds}; backtrace's in {bwd}), f0 "
           f"{tuple(f0.shape)}, voiced {float((f0 > 0).float().mean()):.3f}, launches {launches}; vs "
-          f"viterbi_engine='plain' on the card: f0 and states identical {same}; end to end {e2e:.3f} ms ({card})")
+          f"viterbi_engine='plain' on the card: f0 and states identical {same}; end to end {e2e:.3f} ms, peak "
+          f"memory above what was live before the call {peak:.1f} MiB ({card})")
     check(n == 3601 and band[0] == 215, "pyin's 3,601 bins at resolution 0.01")
+    check(fwd == bwd == "toeplitz" and plan.g > 1, "pyin at resolution 0.01 in the toeplitz layout on a cluster")
     check(launches == {"viterbi_fwd_f32": 1, "viterbi_bwd_f32": 1}, "one launch of each Viterbi kernel at 3,601 bins")
     check(bool(torch.isfinite(f0).all()) and bool(valid.all()) and same, "pyin at resolution 0.01 vs the plain engine")
+    design = Y.pyin_band
+    Y.pyin_band = lambda *a: tuple(design(*a))  # the band without its window: the wide layouts
+    try:
+        f0_w = mt.batched_f0(batch, sr, cfg)[0]
+        e2e_w = cuda_ms(lambda: mt.batched_f0(batch, sr, cfg), reps=3)
+        peak_w = peak_gib(lambda: mt.batched_f0(batch, sr, cfg))[1] * 1024
+    finally:
+        Y.pyin_band = design
+    print(f"[11] the same call with the band as a plain (h, C) pair (forward's in {VK.band_layout(n, band[0])}, "
+          f"backtrace's in {VK.backtrace_layout(n, band[0])}, log_tri transposed): end to end {e2e_w:.3f} ms, peak "
+          f"memory above what was live before the call {peak_w:.1f} MiB; f0 identical {torch.equal(f0_w, f0)} "
+          f"({card})")
+    check(torch.equal(f0_w, f0), "pyin at resolution 0.01 in the wide layouts")
+    viterbi_times(args, band, "75-600 Hz", card)
+    cfg6 = mt.F0Config(method="pyin", resolution=0.01, minPitch=65.406, maxPitch=2093.0)
+    with spy(Y, "viterbi_decode") as calls:
+        mt.batched_f0(batch, sr, cfg6)
+    *args6, band6 = calls[0][0]
+    check(args6[2].shape[0] == 6001 and band6.rows == (215, 5785), "pyin's 6,001 bins at C2-C7, resolution 0.01")
+    viterbi_times(args6, band6, "C2-C7", card)
+
+
+def viterbi_times(args: list, band, what: str, card: str) -> None:
+    """Phase 11: both kernels timed on one pyin trellis, the forward at every
+    cluster size with a plan (and the rule's) and in the wide layout (the
+    band as a plain pair), beside their plain versions and bounds."""
+    log_obs = args[0]
+    n, h = args[2].shape[0], band[0]
     delta_f, hist = VK.viterbi_forward_reference(*args)
     rest = args[2:]
-    t_f = (cuda_ms(lambda: VK.viterbi_forward(*args, band)), cuda_ms(lambda: VK.viterbi_forward_reference(*args), 3))
-    t_b = (cuda_ms(lambda: VK.viterbi_backtrace(hist, delta_f, *rest, band)),
-           cuda_ms(lambda: VK.viterbi_backtrace_reference(hist, delta_f, *rest), 3))
-    log_obs = args[0]
-    nb, nf, _ = log_obs.shape
-    h = band[0]
-    v = np.arange(n)
-    pairs = int((np.minimum(n - 1, v + h) - np.maximum(0, v - h) + 1).sum())
-    state_bytes = nb * 2 * n * 4
-    b_f = bound(log_obs.numel() * 4 + 2 * state_bytes + hist.numel() * 4 + pairs * 4,
-                nb * (nf - 1) * (4 * pairs + 18 * n))
-    # the backtrace reads only the band of log_tri: the pairs the forward's bound counts
-    b_b = bound(hist.numel() * 4 + state_bytes + pairs * 4 + nb * nf * 4, nb * (nf - 1) * 5 * n)
-    for name, (t_k, t_p), b in (("viterbi_fwd_f32", t_f, b_f), ("viterbi_bwd_f32", t_b, b_b)):
-        print(f"[11] {name} at {n} bins on that trellis {tuple(log_obs.shape)}: {t_k:.3f} ms, plain {t_p:.3f} ms, "
-              f"bound {b[0]:.3f} ms ({b[1]}; {b[0] / t_k:.1%}) ({card})")
+    b_f, b_b = viterbi_bounds(log_obs, hist, n, h)
+    plain_f = cuda_ms(lambda: VK.viterbi_forward_reference(*args), 3)
+    rule = VK.cluster_plan(n, h, band.rows).g
+    for g in clusters_of(n, band):
+        t_k = cuda_ms(lambda: VK.viterbi_forward(*args, band, cluster=g))
+        print(f"[11] viterbi_fwd_f32 at {n} bins ({what}) on pyin's trellis {tuple(log_obs.shape)}, toeplitz, cluster "
+              f"{g}{' (the rule)' if g == rule else ''}: {t_k:.3f} ms, plain {plain_f:.3f} ms, bound {b_f[0]:.3f} ms "
+              f"({b_f[1]}; {b_f[0] / t_k:.2%}) ({card})")
+    wide = tuple(band)
+    t_w = cuda_ms(lambda: VK.viterbi_forward(*args, wide), 3)
+    print(f"[11] viterbi_fwd_f32 at {n} bins ({what}), the band as a plain pair ({VK.band_layout(n, h)}): {t_w:.3f} ms "
+          f"({b_f[0] / t_w:.2%} of the bound) ({card})")
+    t_b = cuda_ms(lambda: VK.viterbi_backtrace(hist, delta_f, *rest, band))
+    plain_b = cuda_ms(lambda: VK.viterbi_backtrace_reference(hist, delta_f, *rest), 3)
+    t_bw = cuda_ms(lambda: VK.viterbi_backtrace(hist, delta_f, *rest, wide), 3)
+    print(f"[11] viterbi_bwd_f32 at {n} bins ({what}) on that trellis: toeplitz {t_b:.3f} ms, the band as a plain pair "
+          f"({VK.backtrace_layout(n, h)}) {t_bw:.3f} ms, plain {plain_b:.3f} ms, bound {b_b[0]:.3f} ms ({b_b[1]}; "
+          f"{b_b[0] / t_b:.2%}) ({card})")
 
 
 def backtrace_traps(kind: str, rng: np.random.Generator, dev, n: int = 361, h: int = 21, steps: int = 300,
@@ -3641,7 +3784,8 @@ def main() -> int:
           f"{' '.join(native.GXX_FLAGS)}, beside nvcc) and loaded it in {native_s:.3f} s")
     for line in ptxas_lines(lib_path.with_suffix(".ptxas.txt").read_text(),
                             ("viterbi_fwd_f32_kernel", "viterbi_bwd_f32_kernel", "viterbi_fwd_wide_kernel",
-                             "viterbi_bwd_wide_kernel", "fused_mel_tc_kernel",
+                             "viterbi_bwd_wide_kernel", "viterbi_fwd_toeplitz_kernel", "viterbi_bwd_toeplitz_kernel",
+                             "fused_mel_tc_kernel",
                              "fused_mel_fold_tc_kernel", "fused_mel_fold_kernel", "mfcc_tail_kernel",
                              "sinc_refine_f32_kernel", "burg_lpc_f32_kernel")):
         print(f"[1] ptxas {line}")

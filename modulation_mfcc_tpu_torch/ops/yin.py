@@ -37,7 +37,7 @@ import scipy.stats
 import torch
 import torch.nn.functional as tnf
 
-from modulation_mfcc_tpu_torch.kernels.viterbi import viterbi_band, viterbi_decode, viterbi_decode_reference
+from modulation_mfcc_tpu_torch.kernels.viterbi import Band, viterbi_band, viterbi_decode, viterbi_decode_reference
 from modulation_mfcc_tpu_torch.ops.framing import frame_by_slices
 from modulation_mfcc_tpu_torch.utils.helpers import next_pow2
 
@@ -169,10 +169,13 @@ def _log_tri(g: PyinGeometry, dtype: torch.dtype) -> np.ndarray:
 
 
 @lru_cache(maxsize=16)
-def pyin_band(g: PyinGeometry, dtype: torch.dtype) -> tuple[int, float]:
-    """(h, C) of the designed ``log_tri`` (kernels/viterbi.viterbi_band),
-    on the host: the band the Viterbi forward kernel works on, known before
-    any tensor reaches the card (pyin's triangle: h = 21 of n = 361)."""
+def pyin_band(g: PyinGeometry, dtype: torch.dtype) -> Band:
+    """The band (h, C) of the designed ``log_tri`` (kernels/viterbi.viterbi_band),
+    on the host: the band the Viterbi kernels work on, known before any
+    tensor reaches the card (pyin's triangle: h = 21 of n = 361), with its
+    Toeplitz window and interior rows [h, n − 1 − h] (librosa's triangle
+    shifted, bit for bit), which past 1,024 bins take the kernels' 'toeplitz'
+    layout."""
     return viterbi_band(_log_tri(g, dtype))
 
 

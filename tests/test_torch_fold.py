@@ -622,3 +622,27 @@ def test_split3_fold_mirror_no_further_than_plain(name):
     _, peak, rel_exact, plain_exact = split_bar(mel, bmax, want, want_bmax, exact)
     assert mel.shape == want.shape and mel.dtype == torch.float32 and bmax.shape == want_bmax.shape
     assert rel_exact <= plain_exact and peak <= 1e-5
+
+
+# ROADMAP C11: the (rate, hop, window, mode) geometries where the f32 and x3
+# folds find no staging plan, all at hops above 128 that are not multiples
+# of 128, n_fft 2048
+C11 = [(44_100, 882, 1764, "f32"), (44_100, 1102, 1102, "f32"), (44_100, 1102, 1102, "x3"),
+       (48_000, 960, 1920, "f32"), (48_000, 1200, 1200, "f32"), (48_000, 1200, 1200, "x3")]
+
+
+@pytest.mark.parametrize("sr,hop,win,algorithm", C11)
+def test_c11_geometries_are_past_jax_fold(sr, hop, win, algorithm):
+    """At each C11 geometry the port's fold_ok takes the geometry and its
+    plan ladder has no rung (fold_plan raises: on CUDA the fold raises),
+    while JAX's fused_mel_frontend(..., fold=True) raises there too, on the
+    hop (modulation_mfcc_tpu/pallas/fused_frontend.py:619-620) before its
+    fold branch: the port raises where JAX raises, so C11 is no fault of
+    the port against JAX."""
+    n_fft = 2048
+    assert ff.fold_ok(n_fft, hop, win)
+    with pytest.raises(ValueError, match="no staging plan fits"):
+        ff.fold_plan(algorithm, hop, win)
+    with pytest.raises(ValueError, match=f"hop {hop} > 128 must be a multiple of 128"):
+        jax_ff.fused_mel_frontend(jnp.zeros((1, 4 * n_fft), jnp.float32), sr=float(sr), n_fft=n_fft, hop=hop,
+                                  win_length=win, algorithm=algorithm, fold=True)

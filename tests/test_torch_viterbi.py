@@ -146,6 +146,26 @@ def test_wrapper_limits_match_cuda_source():
     assert "if (nb < 1 || nf < 1 || n < 1 || h < 0 || h >= n) return (int)cudaErrorInvalidValue;" in src
     for name in V.LAUNCHES:
         assert f'extern "C" int {name}(' in src
+    # the toeplitz layout: its constants, the launchers' checks and rule, and the block's bytes (cluster_partition)
+    assert (const["kToeThreads"], const["kToeGroup"], const["kMaxCluster"], const["kRuleCluster"],
+            const["kToeSlice"]) == (V._TOE_THREADS, V._TOE_GROUP, V._MAX_CLUSTER, V._RULE_CLUSTER, V._TOE_SLICE)
+    assert "constexpr int kToeWarps = kToeThreads / 32;" in src and V._TOE_WARPS == V._TOE_THREADS // 32
+    assert src.count("if (toeplitz && (lo != h || hi != n - 1 - h || lo > hi)) return (int)cudaErrorInvalidValue;") == 2
+    assert "if (n > kMaxThreads && toeplitz && toe_plan(n, h, lo, hi, cluster, plan)) {" in src
+    assert "if (cluster && (!toeplitz || n <= kMaxThreads)) return (int)cudaErrorInvalidValue;" in src
+    assert "if (n > kRingBins && toeplitz && bwd_toe_smem_bytes(h) <= (size_t)kSmemLimit)" in src
+    assert ("return sizeof(float) * (size_t)(kspan + 4 * lm + 8L * ng + 4L * ne + 4L * g * kToeWarps + 4L * ne + e);"
+            in src)
+    assert "a = imax(t0, u - h) / 4 * 4;" in src and "return z > imax(t0, u - h) ? (z + 3) / 4 * 4 - a : 0;" in src
+    assert "const long lm = 4L * ng + kspan;" in src
+    assert "k0 = (h + 1) % 4 == 0 ? 0 : (h + 1) % 4 - 4;\n    kspan = (2 * h + 1 - k0 + 31) / 32 * 32;" in src
+    assert ("return (size_t)kSlots * (16 + 32) + sizeof(float) * (2 * h + 1);" in src)
+    assert ("p.split = 8 * ng <= kToeThreads ? 8 : 4 * ng <= kToeThreads ? 4 : 2 * ng <= kToeThreads ? 2 : 1;"
+            in src)
+    assert const["kEdgeCost"] == V._EDGE_COST
+    assert src.count("(long)kspan * a + kEdgeCost * e > cost") == 1
+    assert src.count("(long)kspan * (z1 - z) + kEdgeCost * e > cost") == 1
+    assert "for (int g = 1; g <= kRuleCluster; g *= 2) {" in src and "if (widest <= kToeSlice) break;" in src
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +192,9 @@ def test_band_of_pyin_transition(sr):
     assert Y.pyin_band(Y.pyin_geometry(sr), torch.float32) == (21, TINY_LOG)
     assert V.viterbi_band(torch.tensor(lt)) == (21, TINY_LOG)
     assert V.band_layout(n, 21) == "registers"
+    # its window changes nothing up to 1,024 bins: the same layouts
+    rows = V.viterbi_band(torch.tensor(lt)).rows
+    assert rows == (21, 339) and V.band_layout(n, 21, rows) == "registers" and V.backtrace_layout(n, 21, rows) == "shared"
 
 
 def test_band_of_random_matrix_is_dense():
@@ -497,6 +520,17 @@ def test_layouts_fit_past_1024_bins(n):
         assert (bwd == "shared") == (384 + 4 * n * (2 * h + 1) <= 232_448)
     assert V.forward_bytes(14_497, 0, "history") == 4 * 4 * V._MAX_WARPS
     assert V.forward_bytes(1024, 20, "shared") == 4 * (4 * 1024 + 4 * 32 + 8 * 1024 + 41 * 1024)  # unchanged below
+    # pyin's Toeplitz band: the toeplitz layouts, the forward's block the launcher's sum for the rule's plan
+    h = WIDE[n]
+    rows = (h, n - 1 - h)
+    plan = V.cluster_plan(n, h, rows)
+    assert V.band_layout(n, h, rows) == V.backtrace_layout(n, h, rows) == "toeplitz"
+    kspan = -(-(2 * h + 1 - plan.k0) // 32) * 32
+    lm = 4 * plan.ng + kspan
+    want = 4 * (kspan + 4 * lm + 8 * plan.ng + 4 * 2 * h + 4 * plan.g * 16 + 4 * 2 * h + plan.emax)
+    assert V.forward_bytes(n, h, "toeplitz", rows) == plan.smem == want <= V._SMEM_LIMIT
+    assert V.backtrace_bytes(n, h, "toeplitz") == 384 + 4 * (2 * h + 1)
+    assert plan.g == {1025: 4, 1201: 4, 1441: 4, 3601: 16, 6001: 16}[n]
 
 
 @pytest.mark.parametrize("kind", ["dense", "banded"])
