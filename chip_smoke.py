@@ -89,7 +89,8 @@ Phases:
      bounds for its banded work and for the dense function, the path end to
      end with its stage split (CMNDF, candidates and observations, forward,
      backtrace), peak memory, and the device time by kernel of one call
-     (torch.profiler)
+     (torch.profiler through utils.obs.kernel_profile: every kernel the
+     call launched in the trace, or the loss reported)
  14  frontend-mode kernels (fused_mel_bf16, _x3, _i16, _i24 on the tensor
      cores, and fused_mel_f32 on int16 input) vs plain versions on the card, both
      configurations, float32, int16 and int16 hop-rows input, a quiet
@@ -206,6 +207,22 @@ Phases:
      union equals (a)'s mod_cepstr records. The kernels line carries each
      kernel's launches in (a) (the Viterbi kernels': the pyin sweep's) as
      ``extras_sweep_launches``
+ 30  the public surface closed against the JAX package: (a) extract_mfcc on
+     a 30 s utterance at 16 kHz under the flagship configuration and under
+     MfccConfig(), on CUDA by default, one launch of each MFCC kernel, bit
+     for bit extract_mfcc_matrix, against the CPU within 1e-5 of the
+     coefficients' peak, timed; extract_modulation equal to
+     extract_mfcc_change; (b) utils.obs.profile_trace around a warmed
+     flagship mfcc_change at 128 x 30 s in the script's own, minutes-old
+     process, 8 windows: all but at most two hold every kernel the call
+     launched, the frontend's and the tail's among them, and a window that
+     lost records says so; a plain torch.profiler window beside them (how
+     many of the call's kernel records it loses); the call with and
+     without the profiler, the trace's size; (c) mfcc_change(frame_mask=...)
+     on phase 28's padded batch, every row against itself alone on the card
+     and the first, shortest, longest and last against the CPU (1e-5); (d)
+     melspectrogram(window='hamming') on the card against the CPU (1e-5 of
+     the peak)
 
 ``--frontend DIR`` runs none of these phases. It drives the package of the
 checkout at DIR instead of this one's, builds its kernels, times its
@@ -284,6 +301,7 @@ from modulation_mfcc_tpu_torch.ops import pitch as P  # noqa: E402
 from modulation_mfcc_tpu_torch.ops import yin as Y  # noqa: E402
 from modulation_mfcc_tpu_torch.ops.resample import resample_poly_device  # noqa: E402
 from modulation_mfcc_tpu_torch.parallel.batch import batched_mfcc_change  # noqa: E402
+from modulation_mfcc_tpu_torch.utils.obs import PROFILER_PAD, kernel_profile, profile_trace  # noqa: E402
 from modulation_mfcc_tpu_torch.parallel import streaming  # noqa: E402
 from modulation_mfcc_tpu_torch.parallel.corpus import CorpusSweep, sweep_mfcc_change  # noqa: E402
 
@@ -1499,20 +1517,64 @@ def pyin_path(dev, y_np: np.ndarray, batch: mt.AudioBatch) -> tuple[dict, tuple]
     return launches, calls[0][0]  # the trellis and its band
 
 
-def device_breakdown(fn, top: int = 10) -> tuple[float, list[tuple[str, float]]]:
-    """(device-busy ms, the ``top`` kernels by device time [(name, ms)]) of
-    one call of ``fn`` under torch.profiler, after a warm-up call."""
-    from torch.profiler import ProfilerActivity, profile
+def traced_launches(events: list[dict]) -> tuple[list[dict], list[dict], int, int]:
+    """(the kernel launches a Chrome trace holds after utils.obs's pad, the
+    kernel events of those launches, the pad's launches, those of them
+    whose kernel event is missing). Launches are the CUDA API's kernel
+    launch calls, each paired with its kernel by correlation id; without a
+    pad range every launch counts as the block's."""
+    pad = [e for e in events if e.get("name") == PROFILER_PAD and e.get("cat") == "user_annotation"]
+    pad_end = max((e["ts"] + e["dur"] for e in pad), default=float("-inf"))
+    calls = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "Launch" in e.get("name", "") and "Kernel" in e.get("name", "")]
+    kernels = {e["args"].get("correlation"): e for e in events if e.get("cat") == "kernel"}
+    block = [e for e in calls if e["ts"] >= pad_end]
+    pad_calls = [e for e in calls if e["ts"] < pad_end]
+    lost_pad = sum(e["args"].get("correlation") not in kernels for e in pad_calls)
+    traced = [kernels[e["args"]["correlation"]] for e in block if e["args"].get("correlation") in kernels]
+    return block, traced, len(pad_calls), lost_pad
 
+
+@contextmanager
+def obs_events():
+    """The utils.obs events logged while the block runs [(event, fields)],
+    each still printed."""
+    from modulation_mfcc_tpu_torch.utils import obs
+
+    seen, log = [], obs.log_event
+
+    def spy(event: str, **fields) -> None:
+        seen.append((event, fields))
+        log(event, **fields)
+
+    obs.log_event = spy
+    try:
+        yield seen
+    finally:
+        obs.log_event = log
+
+
+def trace_events(prof) -> list[dict]:
+    with tempfile.TemporaryDirectory() as d:
+        prof.export_chrome_trace(os.path.join(d, "trace.json"))
+        return json.loads(Path(d, "trace.json").read_text())["traceEvents"]
+
+
+def device_breakdown(fn, top: int = 10) -> tuple[float, list[tuple[str, float]], int, int, tuple[int, int]]:
+    """(device-busy ms, the ``top`` kernels by device time [(name, ms)], the
+    call's kernel launches, the kernel events traced of them, (the pad's
+    launches, those the profiler lost)) of one call of ``fn`` inside
+    utils.obs.kernel_profile, after a warm-up call."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with kernel_profile() as prof:
         fn()
-        torch.cuda.synchronize()
-    kernels = [(e.key[:70], e.self_device_time_total / 1e3) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    kernels.sort(key=lambda kv: -kv[1])
-    return sum(t for _, t in kernels), kernels[:top]
+    launched, kernels, pad, lost_pad = traced_launches(trace_events(prof))
+    by_name: dict[str, float] = {}
+    for k in kernels:
+        by_name[k["name"][:70]] = by_name.get(k["name"][:70], 0.0) + k["dur"] / 1e3
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    return sum(by_name.values()), ranked[:top], len(launched), len(kernels), (pad, lost_pad)
 
 
 def pyin_times(batch: mt.AudioBatch, captured: tuple, card: str):
@@ -1548,9 +1610,16 @@ def pyin_times(batch: mt.AudioBatch, captured: tuple, card: str):
     print(f"[13] batched_f0 pyin end to end: {e2e:.3f} ms = {hours / (e2e / 1e3):.3f} audio-h/s; within it {split}, "
           f"the rest {e2e - sum(parts.values()):.3f} ms; peak memory {peak:.2f} GiB ({card})")
 
-    busy, top = device_breakdown(lambda: mt.batched_f0(batch, TRACK_SR, cfg))
-    print(f"[13] torch.profiler, one batched_f0 pyin call: device busy {busy:.3f} ms; by kernel: "
+    with obs_events() as seen:
+        busy, top, launched, traced, (pad, lost_pad) = device_breakdown(lambda: mt.batched_f0(batch, TRACK_SR, cfg))
+    reported = sum(f["lost"] for e, f in seen if e == "profile.kernel_records_lost")
+    print(f"[13] torch.profiler (utils.obs.kernel_profile), one batched_f0 pyin call: device busy {busy:.3f} ms; "
+          f"{traced} of its {launched} kernel launches traced (the window's pad of {pad} launches lost {lost_pad}; "
+          f"records lost as reported {reported}); "
+          f"by kernel: "
           + "; ".join(f"{name} {t:.3f} ms" for name, t in top))
+    check_late(launched > 0 and (traced < launched) == (reported > 0),
+               "phase 13's profile holds every kernel the call launched, or says it lost some")
 
     log_obs, _, log_tri = args[:3]
     nb, nf, two_n = log_obs.shape
@@ -3335,13 +3404,16 @@ def workbench_session(dev, card: str) -> None:
         check(f0.shape == t.shape and np.isfinite(f0).sum() > len(t) // 2, "pyin f0 velocity")
 
 
-def analysis_workflow(dev, card: str) -> None:
-    """Phase 28: the reference's analysis workflow on the card."""
+def analysis_workflow(dev, card: str) -> mt.AudioBatch:
+    """Phase 28: the reference's analysis workflow on the card; its padded
+    batch, on the host (phase 30 reads it)."""
     batch, _ = mfcc39_batch(dev, card)
     peaks_at_batch_width(batch)
+    padded = mt.AudioBatch(batch.samples.cpu(), batch.lengths.cpu())
     del batch
     torch.cuda.empty_cache()
     workbench_session(dev, card)
+    return padded
 
 
 # ---------------------------------------------------------------------------
@@ -3678,6 +3750,205 @@ def sweep_extras_and_distributed(dev, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 30: the public surface closed against the JAX package
+# ---------------------------------------------------------------------------
+
+SURFACE_REL = 1e-5  # phase 30's bar, relative to the peak, for float32 results the card and the CPU compute apart
+
+
+def rel_to_peak(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max-abs difference, that over the peak |want|), the card's result
+    brought to the CPU."""
+    err = float((got.cpu().double() - want.double()).abs().max())
+    return err, err / float(want.abs().max())
+
+
+def extract_mfcc_phase(y: np.ndarray, card: str) -> None:
+    """Phase 30 (a): extract_mfcc on one utterance under the flagship
+    configuration and under MfccConfig() (cfg left out): on CUDA by
+    default, one launch of each MFCC kernel, bit for bit
+    extract_mfcc_matrix on the card, against the port on the CPU within
+    SURFACE_REL of the coefficients' peak; its time; extract_modulation
+    equal to extract_mfcc_change."""
+    for label, cfg, args in (("flagship", FLAGSHIP, (FLAGSHIP,)), ("MfccConfig()", DEFAULT_10K, ())):
+        reset(ff.LAUNCHES)
+        t, m = mt.extract_mfcc(y, *args)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ff.LAUNCHES.items() if v}
+        t_m, m_m = mt.models.modulation.extract_mfcc_matrix(y, cfg)
+        t_c, m_c = mt.extract_mfcc(y, *args, device="cpu")
+        nf = 1 + len(y) // cfg.hop_length
+        err, rel = rel_to_peak(m, m_c)
+        ms = cuda_ms(lambda: mt.extract_mfcc(y, *args))
+        print(f"[30] extract_mfcc on {len(y) / FLAGSHIP.signal_sample_rate:.0f} s ({len(y)} samples) under {label}: "
+              f"{tuple(m.shape)} on {m.device}, launches {launches}; bit for bit extract_mfcc_matrix on the card "
+              f"{torch.equal(m, m_m)}; vs the CPU max-abs {err:.3e} dB, {rel:.3e} of the peak "
+              f"{float(m_c.abs().max()):.3f} (bar {SURFACE_REL:g}); {ms:.3f} ms ({card})")
+        check(m.device.type == "cuda" and m.shape == m_c.shape == (nf, cfg.n_mfcc) and bool(torch.isfinite(m).all()),
+              f"extract_mfcc under {label}: on CUDA, [NF, n_mfcc], finite")
+        check(launches == {"fused_mel_f32": 1, "mfcc_tail_f32": 1}, f"extract_mfcc under {label}: one launch each")
+        check(np.array_equal(t, t_m) and np.array_equal(t, t_c) and torch.equal(m, m_m),
+              f"extract_mfcc under {label} is extract_mfcc_matrix")
+        check(rel <= SURFACE_REL, f"extract_mfcc under {label} vs the CPU")
+    tot, t = mt.extract_modulation(y)
+    want, t_w = mt.extract_mfcc_change(y)
+    print(f"[30] extract_modulation on the same utterance (MfccConfig()): {tuple(tot.shape)}, equal to "
+          f"extract_mfcc_change {torch.equal(tot, want) and np.array_equal(t, t_w)}")
+    check(tot.device.type == "cuda" and torch.equal(tot, want) and np.array_equal(t, t_w),
+          "extract_modulation is extract_mfcc_change")
+
+
+TRACED_KERNELS = ("fused_mel_tc_kernel", "mfcc_tail_kernel")  # the __global__ names of fused_mel_f32, mfcc_tail_f32
+
+
+def profiled_mfcc_change(y: torch.Tensor) -> dict:
+    """One flagship mfcc_change of ``y`` inside utils.obs.profile_trace: its
+    ms (CUDA events), the block's host seconds (the pad's count, the pad
+    and the trace's writing included), its launches, the trace's bytes and
+    events, the call's kernel launches and the kernel events traced of
+    them, the pad's launches lost, and the kernel names holding
+    TRACED_KERNELS."""
+    with tempfile.TemporaryDirectory() as d:
+        reset(ff.LAUNCHES)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        with profile_trace(d):
+            start.record()
+            mt.mfcc_change(y, FLAGSHIP)
+            end.record()
+        wall = time.perf_counter() - t0
+        files = list(Path(d).glob("*.pt.trace.json"))
+        check(len(files) == 1, f"profile_trace wrote one trace under its directory: {[f.name for f in files]}")
+        events = json.loads(files[0].read_text())["traceEvents"]
+        size = files[0].stat().st_size
+    launched, kernels, pad, lost_pad = traced_launches(events)
+    names = [k["name"] for k in kernels]
+    return {"ms": start.elapsed_time(end), "wall_s": wall, "launches": {k: v for k, v in ff.LAUNCHES.items() if v},
+            "bytes": size, "events": len(events), "launched": len(launched), "traced": len(kernels),
+            "pad": pad, "lost_pad": lost_pad,
+            "ours": {base: sorted({k for k in names if base in k}) for base in TRACED_KERNELS}}
+
+
+def flagship_batch() -> torch.Tensor:
+    sr = FLAGSHIP.signal_sample_rate
+    return speechlike_on_card(BATCH * SECONDS * sr, sr, seed=30).reshape(BATCH, SECONDS * sr)
+
+
+def unpadded_records(y: torch.Tensor) -> tuple[int, int]:
+    """(kernel launches, of them traced) of one flagship mfcc_change in a
+    plain torch.profiler window, without kernel_profile's pad."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        mt.mfcc_change(y, FLAGSHIP)
+        torch.cuda.synchronize()
+    launched, kernels, _, _ = traced_launches(trace_events(prof))
+    return len(launched), len(kernels)
+
+
+TRACE_WINDOWS = 8  # phase 30 (b)'s profile_trace windows, each after an untraced call
+
+
+def traced_mfcc_change(card: str) -> None:
+    """Phase 30 (b): profile_trace around a warmed flagship mfcc_change at
+    128 x 30 s in this script's process, minutes old by now, in
+    TRACE_WINDOWS windows, each after an untraced call: at least all but
+    two traces hold every kernel the call launched, the tensor-core
+    frontend's and the tail's __global__ kernels (launched through ctypes)
+    among them, and every window that lost any said so
+    (``profile.kernel_records_lost``). Beside them the same call in a plain
+    torch.profiler window, which in a process this old loses its first
+    launches' records (the ones utils.obs.kernel_profile's pad takes); the
+    call's time with and without the profiler, and the trace's size."""
+    y = flagship_batch()
+    ms = cuda_ms(lambda: mt.mfcc_change(y, FLAGSHIP))
+    runs = []
+    for _ in range(TRACE_WINDOWS):
+        mt.mfcc_change(y, FLAGSHIP)
+        with obs_events() as seen:
+            r = profiled_mfcc_change(y)
+        r["reported"] = sum(f["lost"] for e, f in seen if e == "profile.kernel_records_lost")
+        runs.append(r)
+    mt.mfcc_change(y, FLAGSHIP)
+    plain_launched, plain_traced = unpadded_records(y)
+    whole = [r for r in runs if r["traced"] == r["launched"] > 0]
+    r = whole[0] if whole else runs[0]
+    print(f"[30] profile_trace around a warmed mfcc_change at [{BATCH}, {SECONDS * FLAGSHIP.signal_sample_rate}] in "
+          f"this process, {TRACE_WINDOWS} windows: every kernel of the call traced in {len(whole)}; per window traced/"
+          f"launched (pad launches, of them lost; records lost as reported) "
+          + ", ".join(f"{q['traced']}/{q['launched']} ({q['pad']}, {q['lost_pad']}; {q['reported']})" for q in runs)
+          + f". A plain torch.profiler window, no pad: {plain_traced} of {plain_launched} traced ({card})")
+    print(f"[30] one whole trace: {r['events']} events, {r['bytes']} bytes; launches {r['launches']}; the frontend's "
+          f"kernel {r['ours']['fused_mel_tc_kernel']}, the tail's {r['ours']['mfcc_tail_kernel']}; the call "
+          f"{r['ms']:.3f} ms under profile_trace (CUDA events; median over the windows "
+          f"{statistics.median(q['ms'] for q in runs):.3f}; the block {r['wall_s']:.3f} s on the host clock, the pad's "
+          f"count, the pad and the trace's writing included), {ms:.3f} ms without (median of 5) ({card})")
+    check(all(q["launches"] == {"fused_mel_f32": 1, "mfcc_tail_f32": 1} for q in runs)
+          and len(whole) >= TRACE_WINDOWS - 2 and all(all(q["ours"].values()) for q in whole),
+          "profile_trace: every kernel of the call in the trace, the frontend's and the tail's among them")
+    check(all((q["traced"] < q["launched"]) == (q["reported"] > 0) for q in runs),
+          "profile_trace: a window that lost kernel records said so, and no other did")
+
+
+def masked_and_hamming(dev, padded: mt.AudioBatch) -> None:
+    """Phase 30 (c): mfcc_change(frame_mask=...) on phase 28's padded batch
+    on the card, phase 15's rule: every row against that row run alone on
+    the card (each row sets its own top_db peak from its own row of the
+    mask; the filters run unmasked), 1e-5; and its first, shortest, longest
+    and last rows against the port on the CPU, 1e-5. (d)
+    melspectrogram(window='hamming') on frames of 4 x 30 s on the card
+    against the CPU, both spectra, SURFACE_REL of the peak."""
+    from modulation_mfcc_tpu_torch.ops import spectral
+    from modulation_mfcc_tpu_torch.ops.framing import frame_signal
+
+    cfg = FLAGSHIP
+    x = padded.samples.to(dev)
+    mask = mt.frame_validity_mask(padded.lengths.to(dev), x.shape[-1], cfg)
+    reset(ff.LAUNCHES)
+    got = mt.mfcc_change(x, cfg, frame_mask=mask)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ff.LAUNCHES.items() if v}
+    alone = max(float((got[i] - mt.mfcc_change(x[i:i + 1], cfg, frame_mask=mask[i:i + 1])[0]).abs().max())
+                for i in range(x.shape[0]))
+    lens = padded.lengths.numpy()
+    rows = sorted({0, int(lens.argmin()), int(lens.argmax()), x.shape[0] - 1})
+    want = mt.mfcc_change(padded.samples[rows], cfg, frame_mask=mask[rows].cpu())
+    err = float((got[rows].cpu() - want).abs().max())
+    sr = cfg.signal_sample_rate
+    print(f"[30] mfcc_change(frame_mask=...) on phase 28's padded batch {tuple(x.shape)} "
+          f"({lens.min() / sr:.2f}-{lens.max() / sr:.2f} s): {tuple(got.shape)}, "
+          f"launches {launches}; all {x.shape[0]} rows vs each row alone on the card max-abs {alone:.3e} (bar 1e-5); "
+          f"rows {rows} (first, shortest, longest, last) vs the CPU max-abs {err:.3e} (bar 1e-5)")
+    check(got.shape == mask.shape and bool(torch.isfinite(got).all()) and launches == {
+        "fused_mel_f32": 1, "mfcc_tail_f32": 1} and alone <= 1e-5 and err <= 1e-5,
+          "mfcc_change(frame_mask=...): every row vs itself alone, sampled rows vs the CPU")
+    del x, got
+    frames = frame_signal(speechlike_on_card(4 * SECONDS * cfg.signal_sample_rate, cfg.signal_sample_rate, seed=31)
+                          .reshape(4, -1), cfg.n_fft, cfg.hop_length)
+    kw = dict(sr=cfg.signal_sample_rate, n_fft=cfg.n_fft, n_mels=cfg.n_mels, fmin=cfg.minFreq, fmax=cfg.maxFreq,
+              window="hamming", win_length=cfg.win_length)
+    for use_fft in (True, False):
+        mel = spectral.melspectrogram(frames, use_fft=use_fft, **kw)
+        mel_c = spectral.melspectrogram(frames.cpu(), use_fft=use_fft, **kw)
+        err, rel = rel_to_peak(mel, mel_c)
+        print(f"[30] melspectrogram(window='hamming', use_fft={use_fft}) on {tuple(frames.shape)} frames: "
+              f"{tuple(mel.shape)}, vs the CPU max-abs {err:.3e}, {rel:.3e} of the peak (bar {SURFACE_REL:g})")
+        check(mel.is_cuda and mel.shape == mel_c.shape and rel <= SURFACE_REL, "melspectrogram hamming vs the CPU")
+
+
+def public_surface(dev, card: str, padded: mt.AudioBatch) -> None:
+    """Phase 30."""
+    t0 = time.perf_counter()
+    sr = FLAGSHIP.signal_sample_rate
+    extract_mfcc_phase(speechlike(1, SECONDS * sr, sr, seed=30)[0], card)
+    traced_mfcc_change(card)
+    torch.cuda.empty_cache()
+    masked_and_hamming(dev, padded)
+    torch.cuda.empty_cache()
+    print(f"[30] phase 30 took {time.perf_counter() - t0:.3f} s (host clock)")
+
+
 def build_native_loader() -> tuple[Path, float]:
     """The native decode loader's library, built and loaded; (path, seconds)."""
     t0 = time.perf_counter()
@@ -3808,9 +4079,10 @@ def main() -> int:
     verify_on_card()
     envelope_times(dev, card)
     torch.cuda.empty_cache()
-    analysis_workflow(dev, card)
+    padded = analysis_workflow(dev, card)
     torch.cuda.empty_cache()
     p29 = sweep_extras_and_distributed(dev, card)
+    public_surface(dev, card, padded)
     rows = [r | {"extras_sweep_launches": p29.get(r["name"], 0)} for r in rows]
     print(json.dumps({"kernels": rows}))
     print(card_line())

@@ -10,6 +10,7 @@ Entry points compute on CUDA unless given ``device="cpu"`` (or a CPU tensor).
 
     import modulation_mfcc_tpu_torch as mt
     tot, times = mt.extract_mfcc_change(y)                    # one utterance, on CUDA
+    times, m = mt.extract_mfcc(y)                              # its MFCC matrix [NF, n_mfcc]
     tot = mt.mfcc_change(batch_on_cuda, mt.MfccConfig(signal_sample_rate=16000, maxFreq=8000.0))
     f0, t = mt.extract_f0(y, 16000, mt.F0Config())            # Praat ac, interpolated + filtered
     t, (f1, f2, f3) = mt.extract_formants(y, 16000, mt.FormantConfig())
@@ -59,6 +60,7 @@ from modulation_mfcc_tpu_torch.models.formants import FormantTracker, extract_fo
 from modulation_mfcc_tpu_torch.models.modulation import (
     MfccChange,
     extract_mfcc_change,
+    extract_mfcc_matrix,
     mfcc_change,
     mfcc_trajectories,
     modulation_spectrum,
@@ -75,8 +77,23 @@ from modulation_mfcc_tpu_torch.parallel.batch import AudioBatch, frame_validity_
 from modulation_mfcc_tpu_torch.parallel.features_batch import batched_envelope, batched_f0, batched_formants
 from modulation_mfcc_tpu_torch.parallel.streaming import chunked_mfcc_change
 
+# the API names of BASELINE.json, as the JAX package defines them
+extract_modulation = extract_mfcc_change
+
+
+def extract_mfcc(y, cfg: MfccConfig | None = None, **kw):
+    """(times, mfcc [NF, n_mfcc]): the librosa-semantics MFCC matrix of one
+    utterance (or [B, NF, n_mfcc] of a batch), :func:`extract_mfcc_matrix`
+    under ``cfg`` (default ``MfccConfig()``); ``kw`` as it takes them
+    (``spectrum``, ``device``: CUDA unless given the CPU or a CPU tensor)."""
+    return extract_mfcc_matrix(y, cfg or MfccConfig(), **kw)
+
+
+__version__ = "0.1.0"
+
 __all__ = [
-    "MfccConfig", "MfccChange", "extract_mfcc_change", "mfcc_change", "mfcc_trajectories",
+    "MfccConfig", "MfccChange", "extract_mfcc_change", "extract_mfcc", "extract_modulation", "mfcc_change",
+    "mfcc_trajectories",
     "F0Config", "PitchTracker", "PyinTracker", "pyin_f0", "extract_f0", "FormantConfig", "FormantTracker",
     "extract_formants", "formants_with_gating", "AudioBatch", "pad_batch", "batched_f0",
     "batched_formants", "modulation_spectrum", "modulation_spectrum_axes", "resample_device",

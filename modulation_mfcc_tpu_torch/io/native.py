@@ -134,17 +134,18 @@ def resample_native(x: np.ndarray, up: int, down: int) -> np.ndarray:
 class NativeBatchLoader:
     """Threaded decode and resample of many files to ``target_sr``: submit
     (index, path) pairs, then iterate (index, samples or None) in the order
-    files finish. A file that fails to decode, or whose rate is none of
-    :data:`COMMON_RATES`, yields None. ``want_i16=True``: 16-bit PCM files that need no resampling
-    come back as raw np.int16 (the corpus upload grid), every other file as
-    float32."""
+    files finish. A file that fails to decode, or whose rate is neither
+    ``target_sr`` nor one of ``source_rates`` (default :data:`COMMON_RATES`),
+    yields None. ``want_i16=True``: 16-bit PCM files that need no
+    resampling come back as raw np.int16 (the corpus upload grid), every
+    other file as float32."""
 
     COMMON_RATES = (8000, 11025, 16000, 22050, 32000, 44100, 48000, 96000)
 
-    def __init__(self, target_sr: int, n_threads: int = 4, want_i16: bool = False):
+    def __init__(self, target_sr: int, n_threads: int = 4, source_rates=None, want_i16: bool = False):
         self._lib = load_library()
         self._h = self._lib.modmfcc_loader_create2(n_threads, target_sr, int(want_i16))
-        for orig in self.COMMON_RATES:
+        for orig in source_rates or self.COMMON_RATES:
             if orig == target_sr:
                 continue
             g = math.gcd(int(orig), int(target_sr))

@@ -24,7 +24,7 @@ import torch.nn.functional as tnf
 from modulation_mfcc_tpu_torch.models.config import AmplitudeConfig
 from modulation_mfcc_tpu_torch.models.pitch_adaptive import praat_style_intensity
 from modulation_mfcc_tpu_torch.ops.filters import apply_filter
-from modulation_mfcc_tpu_torch.ops.framing import frame_by_slices, frame_signal, hop_window_sums
+from modulation_mfcc_tpu_torch.ops.framing import frame_signal, hop_window_sums
 from modulation_mfcc_tpu_torch.ops.hilbert import hilbert_envelope
 from modulation_mfcc_tpu_torch.utils.helpers import resolve_device
 
@@ -43,7 +43,7 @@ def rms_envelope(y: torch.Tensor, frame_length: int, hop_length: int, *, center:
     w, h = int(frame_length), int(hop_length)
     n = y.shape[-1]
     if w // h > 64:
-        frames = frame_signal(y, w, h) if center else frame_by_slices(y, 0, 1 + (n - w) // h, w, h)
+        frames = frame_signal(y, w, h, center=center)
         return torch.sqrt(torch.mean(frames * frames, dim=-1))
     pad = w // 2 if center else 0
     nf = 1 + (n + 2 * pad - w) // h

@@ -170,6 +170,7 @@ class MfccChange(torch.nn.Module):
         self,
         y: torch.Tensor,
         *,
+        frame_mask: torch.Tensor | None = None,
         frame_lengths: torch.Tensor | None = None,
         spectrum: str = "fused",
         masked_fir: bool = False,
@@ -186,19 +187,27 @@ class MfccChange(torch.nn.Module):
         every length to be at least :func:`min_frames_for_fir`; ``False``
         the scan filters, which take any length. The 'fir' and 'sg'
         out-filters have one masked form each, used either way.
+
+        ``frame_mask`` [..., n_frames] (1 = valid) sets the frames whose mel
+        power the top_db peak is taken over, as in :meth:`trajectories`;
+        without ``frame_lengths`` the filters then run unmasked over every
+        frame. Given ``frame_lengths`` and no ``frame_mask``, the mask is
+        derived from the lengths.
         """
         cfg = self.cfg
-        frame_mask = None
+        if frame_mask is not None:
+            frame_mask = torch.as_tensor(frame_mask, device=y.device)
         if frame_lengths is not None:
             if masked_fir and (self.traj_filter.min_len is None
                                or (self.out_filter is not None and self.out_filter.min_len is None)):
                 raise ValueError("masked_fir=True needs FIR operators for the Butterworth filters")
-            t = int(n_samples) if y.ndim == 3 else y.shape[-1]
-            nf = n_frames_centered(t, cfg.n_fft, cfg.hop_length)
             frame_lengths = torch.as_tensor(frame_lengths, device=y.device)
-            frame_mask = (
-                torch.arange(nf, device=y.device)[None, :] < frame_lengths[:, None]
-            ).to(torch.float32)
+            if frame_mask is None:
+                t = int(n_samples) if y.ndim == 3 else y.shape[-1]
+                nf = n_frames_centered(t, cfg.n_fft, cfg.hop_length)
+                frame_mask = (
+                    torch.arange(nf, device=y.device)[None, :] < frame_lengths[:, None]
+                ).to(torch.float32)
         # coef-major trajectories, so the filters run along the last (time) axis
         m = self.trajectories(y, frame_mask=frame_mask, spectrum=spectrum, coef_major=True, n_samples=n_samples)
         return self.trajectory_tail(m, frame_lengths=frame_lengths, masked_fir=masked_fir)
@@ -271,6 +280,7 @@ def mfcc_change(
     y: torch.Tensor,
     cfg: MfccConfig,
     *,
+    frame_mask: torch.Tensor | None = None,
     frame_lengths: torch.Tensor | None = None,
     spectrum: str = "fused",
     masked_fir: bool = False,
@@ -279,7 +289,8 @@ def mfcc_change(
     """Total MFCC change over time, [..., n_frames] (see
     :meth:`MfccChange.forward`), computed on ``y``'s device."""
     return _model(cfg, y.device)(
-        y, frame_lengths=frame_lengths, spectrum=spectrum, masked_fir=masked_fir, n_samples=n_samples
+        y, frame_mask=frame_mask, frame_lengths=frame_lengths, spectrum=spectrum, masked_fir=masked_fir,
+        n_samples=n_samples,
     )
 
 
@@ -392,11 +403,15 @@ def extract_mfcc_matrix(
     device=None,
 ):
     """(times, mfcc [NF, n_mfcc]) for one utterance (or [B, NF, n_mfcc] for
-    a batch), on ``device`` as in :func:`extract_mfcc_change`."""
+    a batch), on ``device`` as in :func:`extract_mfcc_change`. One
+    utterance runs as a batch of one, its peak over its valid frames."""
     device = resolve_device(device, y)
     y = torch.as_tensor(y, dtype=torch.float32, device=device)
-    mask = torch.ones((1, 1 + y.shape[-1] // cfg.hop_length), device=device) if y.ndim == 1 else None
-    return change_times(y.shape[-1], cfg), mfcc_trajectories(y, cfg, spectrum=spectrum, frame_mask=mask)
+    t = change_times(y.shape[-1], cfg)
+    if y.ndim != 1:
+        return t, mfcc_trajectories(y, cfg, spectrum=spectrum)
+    mask = torch.ones((1, 1 + y.shape[-1] // cfg.hop_length), device=device)
+    return t, mfcc_trajectories(y[None], cfg, spectrum=spectrum, frame_mask=mask)[0]
 
 
 def modulation_spectrum_axes(

@@ -3,8 +3,10 @@
 Semantics match librosa's centered STFT framing used by the reference's MFCC
 call (script/mfcc.py:387): the signal is padded by ``n_fft // 2`` zeros on
 both sides (``center=True, pad_mode='constant'``) and frames of ``n_fft``
-samples are taken every ``hop`` samples. Frame counts and time anchors are
-computed on the host from static lengths.
+samples are taken every ``hop`` samples; :func:`frame_signal` also takes
+``center=False`` and ``pad_mode='reflect'``. ``_pad_signal`` is np.pad on the
+device, for framing and for pyin's every pad mode (ops/yin.py). Frame counts
+and time anchors are computed on the host from static lengths.
 """
 from __future__ import annotations
 
@@ -30,19 +32,78 @@ def frame_by_slices(
     return x[..., start0:].unfold(-1, W, H)[..., :nf, :]
 
 
-def frame_signal(x: torch.Tensor, frame_length: int, hop: int) -> torch.Tensor:
-    """Slice ``x[..., T]`` into centered overlapping frames
-    ``[..., n_frames, frame_length]``: ``frame_length // 2`` zeros are padded
-    on each side first (librosa ``center=True, pad_mode='constant'``)."""
-    pad = frame_length // 2
-    nf = n_frames_centered(x.shape[-1], frame_length, hop)
-    return frame_by_slices(tnf.pad(x, (pad, pad)), 0, nf, frame_length, hop)
+_COPY_MODES = ("edge", "reflect", "symmetric", "wrap")  # np.pad modes that copy samples
+_VALUE_MODES = ("linear_ramp", "maximum", "mean", "median", "minimum")  # modes that compute pad values
+PAD_MODES = ("constant", *_COPY_MODES, *_VALUE_MODES)
+
+
+def _median(x: torch.Tensor) -> torch.Tensor:
+    """np.median over the last axis (keepdims): the mean of the two middle
+    values of an even-length row (torch.median takes the lower one)."""
+    s = torch.sort(x, dim=-1).values
+    n = x.shape[-1]
+    return (s[..., (n - 1) // 2 : (n - 1) // 2 + 1] + s[..., n // 2 : n // 2 + 1]) / 2
+
+
+def _pad_signal(x: torch.Tensor, pad: int, mode: str) -> torch.Tensor:
+    """np.pad(x, pad, mode) along the last axis, on x's device: zeros for
+    'constant'; for the modes that copy samples, a gather at np.pad's own
+    indices; for the value modes, np.pad's values over the whole row
+    (stat_length=None): its max, min, mean or median on both sides, or for
+    'linear_ramp' (end value 0) the ramp i·(edge/pad), i = 0..pad−1, from the
+    outer end towards each edge sample, as np.linspace(0, edge, pad,
+    endpoint=False) computes it."""
+    if mode not in PAD_MODES:
+        raise ValueError(f"pad_mode {mode!r} not in {PAD_MODES}")
+    if mode == "constant":
+        return tnf.pad(x, (pad, pad))
+    if mode in _COPY_MODES:
+        idx = np.pad(np.arange(x.shape[-1]), pad, mode=mode)
+        return x[..., torch.as_tensor(idx, device=x.device)]
+    if mode == "linear_ramp":
+        ramp = torch.arange(pad, dtype=x.dtype, device=x.device)
+        left = ramp * (x[..., :1] / pad)
+        right = torch.flip(ramp * (x[..., -1:] / pad), dims=(-1,))
+        return torch.cat([left, x, right], dim=-1)
+    stat = {
+        "maximum": lambda v: torch.amax(v, dim=-1, keepdim=True),
+        "minimum": lambda v: torch.amin(v, dim=-1, keepdim=True),
+        "mean": lambda v: torch.mean(v, dim=-1, keepdim=True),
+        "median": _median,
+    }[mode](x)
+    side = stat.expand(*x.shape[:-1], pad)
+    return torch.cat([side, x, side], dim=-1)
+
+
+def frame_signal(
+    x: torch.Tensor, frame_length: int, hop: int, *, center: bool = True, pad_mode: str = "constant"
+) -> torch.Tensor:
+    """Slice ``x[..., T]`` into overlapping frames ``[..., n_frames,
+    frame_length]``. With ``center=True`` ``frame_length // 2`` samples are
+    padded on each side first (librosa's convention): zeros for
+    ``pad_mode='constant'`` (the librosa>=0.10 default the reference's MFCC
+    call uses), the mirrored signal for ``'reflect'``."""
+    n = x.shape[-1]
+    if center:
+        if pad_mode not in ("constant", "reflect"):
+            raise ValueError(f"Unsupported pad_mode {pad_mode!r}")
+        x = _pad_signal(x, frame_length // 2, pad_mode)
+    nf = 1 + (x.shape[-1] - frame_length) // hop
+    if nf <= 0:
+        raise ValueError(f"Signal of length {n} too short for frame_length={frame_length}")
+    return frame_by_slices(x, 0, nf, frame_length, hop)
 
 
 def frame_times_mfcc(n_frames: int, t_step: float, win_len: float) -> np.ndarray:
     """Time anchors of the reference's MFCC-change output (script/mfcc.py:390):
     ``T = round((arange(1, n_frames+1) * tStep) + winLen/2, 4)``, float64."""
     return np.round(np.arange(1, n_frames + 1) * t_step + win_len / 2.0, 4)
+
+
+def frame_times_centered(n_frames: int, hop: int, sr: float) -> np.ndarray:
+    """librosa ``frames_to_time`` anchors of centered frames: frame i at
+    ``i * hop / sr`` seconds, float64."""
+    return np.arange(n_frames) * (hop / sr)
 
 
 def hop_window_sums(series: torch.Tensor, nf: int, window: int, hop: int) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Window functions (host-side design, float64 numpy).
 
 The MFCC path uses librosa's default periodic Hann window
-(``scipy.signal.get_window('hann', win_length, fftbins=True)``); the window
-is folded into the DFT bases at design time and never applied on device.
+(``scipy.signal.get_window('hann', win_length, fftbins=True)``), or a
+Hamming window by name (:func:`get_window`); the window is folded into the
+DFT bases at design time and never applied on device.
 The display spectrogram uses a Gaussian (:func:`gaussian`); the trackers
 use Praat's tapers: AC_HANNING and the Gaussian of
 :func:`praat_gauss` (pitch), the same Gaussian (formants) and a Kaiser-20
@@ -20,6 +21,16 @@ def hann(m: int, periodic: bool = True) -> np.ndarray:
     denom = m if periodic else m - 1
     n = np.arange(m)
     return 0.5 - 0.5 * np.cos(2.0 * np.pi * n / denom)
+
+
+def hamming(m: int, periodic: bool = True) -> np.ndarray:
+    """Periodic (fftbins=True) or symmetric Hamming window, float64; matches
+    ``scipy.signal.get_window('hamming', m, fftbins=periodic)``."""
+    if m == 1:
+        return np.ones(1)
+    denom = m if periodic else m - 1
+    n = np.arange(m)
+    return 0.54 - 0.46 * np.cos(2.0 * np.pi * n / denom)
 
 
 def gaussian(m: int, std: float) -> np.ndarray:
@@ -56,7 +67,7 @@ def kaiser(m: int, beta: float, periodic: bool = False) -> np.ndarray:
     return np.kaiser(m, beta)
 
 
-_WINDOWS = {"hann": hann}
+_WINDOWS = {"hann": hann, "hamming": hamming}
 
 
 def get_window(name: str, m: int, periodic: bool = True) -> np.ndarray:

@@ -38,15 +38,12 @@ import torch
 import torch.nn.functional as tnf
 
 from modulation_mfcc_tpu_torch.kernels.viterbi import Band, viterbi_band, viterbi_decode, viterbi_decode_reference
-from modulation_mfcc_tpu_torch.ops.framing import frame_by_slices
+from modulation_mfcc_tpu_torch.ops.framing import PAD_MODES, _pad_signal, frame_by_slices  # pyin_f0 takes PAD_MODES
 from modulation_mfcc_tpu_torch.utils.helpers import next_pow2
 
 __all__ = ["PyinGeometry", "pyin_geometry", "pyin_constants", "pyin_observations", "pyin_f0", "yin_cmndf"]
 
 VITERBI_ENGINES = ("auto", "plain")
-_COPY_MODES = ("edge", "reflect", "symmetric", "wrap")  # np.pad modes that copy samples
-_VALUE_MODES = ("linear_ramp", "maximum", "mean", "median", "minimum")  # modes that compute pad values
-PAD_MODES = ("constant", *_COPY_MODES, *_VALUE_MODES)
 
 
 # ---------------------------------------------------------------------------
@@ -377,44 +374,6 @@ def pyin_observations(
 # ---------------------------------------------------------------------------
 # pyin
 # ---------------------------------------------------------------------------
-
-
-def _median(x: torch.Tensor) -> torch.Tensor:
-    """np.median over the last axis (keepdims): the mean of the two middle
-    values of an even-length row (torch.median takes the lower one)."""
-    s = torch.sort(x, dim=-1).values
-    n = x.shape[-1]
-    return (s[..., (n - 1) // 2 : (n - 1) // 2 + 1] + s[..., n // 2 : n // 2 + 1]) / 2
-
-
-def _pad_signal(x: torch.Tensor, pad: int, mode: str) -> torch.Tensor:
-    """np.pad(x, pad, mode) along the last axis, on x's device: zeros for
-    'constant'; for the modes that copy samples, a gather at np.pad's own
-    indices; for the value modes, np.pad's values over the whole row
-    (stat_length=None): its max, min, mean or median on both sides, or for
-    'linear_ramp' (end value 0) the ramp i·(edge/pad), i = 0..pad−1, from the
-    outer end towards each edge sample, as np.linspace(0, edge, pad,
-    endpoint=False) computes it."""
-    if mode not in PAD_MODES:
-        raise ValueError(f"pad_mode {mode!r} not in {PAD_MODES}")
-    if mode == "constant":
-        return tnf.pad(x, (pad, pad))
-    if mode in _COPY_MODES:
-        idx = np.pad(np.arange(x.shape[-1]), pad, mode=mode)
-        return x[..., torch.as_tensor(idx, device=x.device)]
-    if mode == "linear_ramp":
-        ramp = torch.arange(pad, dtype=x.dtype, device=x.device)
-        left = ramp * (x[..., :1] / pad)
-        right = torch.flip(ramp * (x[..., -1:] / pad), dims=(-1,))
-        return torch.cat([left, x, right], dim=-1)
-    stat = {
-        "maximum": lambda v: torch.amax(v, dim=-1, keepdim=True),
-        "minimum": lambda v: torch.amin(v, dim=-1, keepdim=True),
-        "mean": lambda v: torch.mean(v, dim=-1, keepdim=True),
-        "median": _median,
-    }[mode](x)
-    side = stat.expand(*x.shape[:-1], pad)
-    return torch.cat([side, x, side], dim=-1)
 
 
 def pyin_f0(

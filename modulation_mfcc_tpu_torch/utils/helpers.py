@@ -5,6 +5,11 @@ import numpy as np
 import torch
 
 
+def cdiv(a: int, b: int) -> int:
+    """Ceiling division."""
+    return -(-a // b)
+
+
 def round_up_to_multiple(x: int, m: int) -> int:
     """Round ``x`` up to the nearest multiple of ``m``."""
     return ((x + m - 1) // m) * m

@@ -120,3 +120,35 @@ def test_batch_loader_matches_jax(tmp_path, want_i16, built):
         assert abs(len(x) - target) < 10
         spec = np.abs(np.fft.rfft(x[:8192] * np.hanning(8192)))
         assert abs(np.argmax(spec) * target / 8192 - 220) < 5
+
+
+def test_batch_loader_source_rates_match_jax(tmp_path, built):
+    """A 24 kHz file, outside COMMON_RATES: given source_rates=(24000,) the
+    loader decodes it to 16 kHz equal to JAX's loader given the same rates
+    (bit for bit), its tone intact; with the default rates both yield
+    None for it. A file already at the target rate needs no taps."""
+    paths = []
+    for i, sr in enumerate([24_000, 16_000]):
+        p = str(tmp_path / f"f{i}.wav")
+        write_wav(p, 0.4 * np.sin(2 * np.pi * 330 * np.arange(sr) / sr), sr)
+        paths.append(p)
+
+    def load(mod, **kw):
+        loader = mod.NativeBatchLoader(16_000, n_threads=2, **kw)
+        for i, p in enumerate(paths):
+            loader.submit(i, p)
+        got = dict(iter(loader))
+        loader.close()
+        return got
+
+    got, want = load(native, source_rates=(24_000,)), load(jax_native, source_rates=(24_000,))
+    assert set(got) == set(want) == {0, 1}
+    for i in (0, 1):
+        assert got[i].dtype == want[i].dtype == np.float32
+        np.testing.assert_array_equal(got[i], want[i])
+    assert abs(len(got[0]) - 16_000) < 10
+    spec = np.abs(np.fft.rfft(got[0][:8192] * np.hanning(8192)))
+    assert abs(np.argmax(spec) * 16_000 / 8192 - 330) < 5
+    default, jax_default = load(native), load(jax_native)
+    assert default[0] is None and jax_default[0] is None
+    np.testing.assert_array_equal(default[1], got[1])

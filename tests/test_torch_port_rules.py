@@ -250,6 +250,8 @@ def test_cuda_request_without_cuda_raises(tmp_path):
     calls = {
         "extract_mfcc_change": lambda **kw: mt.extract_mfcc_change(y, **kw),
         "extract_mfcc_matrix": lambda **kw: mt.models.modulation.extract_mfcc_matrix(y, **kw),
+        "extract_mfcc": lambda **kw: mt.extract_mfcc(y, **kw),
+        "extract_modulation": lambda **kw: mt.extract_modulation(y, **kw),
         "extract_f0": lambda **kw: mt.extract_f0(y, 16_000, **kw),
         "extract_f0 pyin": lambda **kw: mt.extract_f0(y, 16_000, mt.F0Config(method="pyin"), **kw),
         "batched_f0 pyin": lambda **kw: mt.batched_f0(mt.pad_batch([y], **kw), 16_000, mt.F0Config(method="pyin")),
