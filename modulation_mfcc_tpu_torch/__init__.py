@@ -41,41 +41,44 @@ The CUDA kernels build with nvcc at first use (kernels/_build.py).
 ``modmfcc-torch verify`` (cli.py) holds every tracker to its float64 oracle
 (oracle.py).
 """
-from modulation_mfcc_tpu_torch.models.config import (
-    AmplitudeConfig,
-    DerivationConfig,
-    EmaConfig,
-    F0Config,
-    FormantConfig,
-    MfccConfig,
-    PipelineConfig,
-    config_from_reference_json,
-    config_to_reference_json,
-    load_config,
-    save_config,
-)
-from modulation_mfcc_tpu_torch.models.envelope import extract_envelope
-from modulation_mfcc_tpu_torch.models.features import cmvn, delta, mfcc_with_deltas
-from modulation_mfcc_tpu_torch.models.formants import FormantTracker, extract_formants, formants_with_gating
-from modulation_mfcc_tpu_torch.models.modulation import (
-    MfccChange,
-    extract_mfcc_change,
-    extract_mfcc_matrix,
-    mfcc_change,
-    mfcc_trajectories,
-    modulation_spectrum,
-    modulation_spectrum_axes,
-)
-from modulation_mfcc_tpu_torch.models.pipeline import extract_feature
-from modulation_mfcc_tpu_torch.models.pitch import PitchTracker, PyinTracker, extract_f0
-from modulation_mfcc_tpu_torch.models.workbench import AnalysisSession
-from modulation_mfcc_tpu_torch.ops.derivatives import velocity
-from modulation_mfcc_tpu_torch.ops.peaks import peak_mask, peaks_in_interval
-from modulation_mfcc_tpu_torch.ops.resample import resample_device
-from modulation_mfcc_tpu_torch.ops.yin import pyin_f0
-from modulation_mfcc_tpu_torch.parallel.batch import AudioBatch, frame_validity_mask, pad_batch
-from modulation_mfcc_tpu_torch.parallel.features_batch import batched_envelope, batched_f0, batched_formants
-from modulation_mfcc_tpu_torch.parallel.streaming import chunked_mfcc_change
+from modulation_mfcc_tpu_torch.utils import obs as _obs
+
+with _obs.setup_span("setup.import"):  # the package's own imports (torch is loaded by then)
+    from modulation_mfcc_tpu_torch.models.config import (
+        AmplitudeConfig,
+        DerivationConfig,
+        EmaConfig,
+        F0Config,
+        FormantConfig,
+        MfccConfig,
+        PipelineConfig,
+        config_from_reference_json,
+        config_to_reference_json,
+        load_config,
+        save_config,
+    )
+    from modulation_mfcc_tpu_torch.models.envelope import extract_envelope
+    from modulation_mfcc_tpu_torch.models.features import cmvn, delta, mfcc_with_deltas
+    from modulation_mfcc_tpu_torch.models.formants import FormantTracker, extract_formants, formants_with_gating
+    from modulation_mfcc_tpu_torch.models.modulation import (
+        MfccChange,
+        extract_mfcc_change,
+        extract_mfcc_matrix,
+        mfcc_change,
+        mfcc_trajectories,
+        modulation_spectrum,
+        modulation_spectrum_axes,
+    )
+    from modulation_mfcc_tpu_torch.models.pipeline import extract_feature
+    from modulation_mfcc_tpu_torch.models.pitch import PitchTracker, PyinTracker, extract_f0
+    from modulation_mfcc_tpu_torch.models.workbench import AnalysisSession
+    from modulation_mfcc_tpu_torch.ops.derivatives import velocity
+    from modulation_mfcc_tpu_torch.ops.peaks import peak_mask, peaks_in_interval
+    from modulation_mfcc_tpu_torch.ops.resample import resample_device
+    from modulation_mfcc_tpu_torch.ops.yin import pyin_f0
+    from modulation_mfcc_tpu_torch.parallel.batch import AudioBatch, frame_validity_mask, pad_batch
+    from modulation_mfcc_tpu_torch.parallel.features_batch import batched_envelope, batched_f0, batched_formants
+    from modulation_mfcc_tpu_torch.parallel.streaming import chunked_mfcc_change
 
 # the API names of BASELINE.json, as the JAX package defines them
 extract_modulation = extract_mfcc_change

@@ -17,6 +17,8 @@ import subprocess
 from functools import lru_cache
 from pathlib import Path
 
+from modulation_mfcc_tpu_torch.utils import obs
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -64,24 +66,26 @@ def build(verbose: bool = False) -> Path:
         if verbose and report.exists():
             print(report.read_text(), end="")
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{out.stem}.{os.getpid()}"
-    nvcc = _nvcc()
-    sources = sorted(CSRC.glob("*.cu"))
-    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
-    reports = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(sources, objs)])
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]])
-    for o in objs:
-        o.unlink()
-    report.write_text("".join(reports))
-    if verbose:
-        print("".join(reports), end="")
-    os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
+    with obs.setup_span("setup.library.build"):
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{out.stem}.{os.getpid()}"
+        nvcc = _nvcc()
+        sources = sorted(CSRC.glob("*.cu"))
+        objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+        reports = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(sources, objs)])
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]])
+        for o in objs:
+            o.unlink()
+        report.write_text("".join(reports))
+        if verbose:
+            print("".join(reports), end="")
+        os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
     return out
 
 
 @lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """The built library, loaded once per process."""
-    return ctypes.CDLL(str(build()))
+    with obs.setup_span("setup.library"):
+        return ctypes.CDLL(str(build()))

@@ -101,6 +101,7 @@ from modulation_mfcc_tpu_torch.kernels._launch import check_cuda, raise_on, rout
 from modulation_mfcc_tpu_torch.ops.framing import frame_by_slices
 from modulation_mfcc_tpu_torch.ops.spectral import dct_matrix, dft_bases, mel_filterbank
 from modulation_mfcc_tpu_torch.ops.windows import hann
+from modulation_mfcc_tpu_torch.utils import obs
 from modulation_mfcc_tpu_torch.utils.helpers import dequantize_samples, round_up_to_multiple
 
 __all__ = [
@@ -1062,6 +1063,8 @@ def _launch_tc(name: str, audio: torch.Tensor, is_i16: int, weights: dict[str, t
             raise ValueError(f"{name}: tensor-core weights must be contiguous {dtype} on {audio.device}, "
                              f"got {t.dtype} on {t.device}")
     plan = tc_plan(algorithm, hop, kp, n_mels) if plan is None else plan
+    if obs.recording():
+        obs.annotate(tc_plan="streamed" if plan.streamed else "compact" if plan.shifted else "full")
     want_mel = (plan.mel_groups * bins_pad // _MEL_STEP, mel_planes, _MEL_MAX, _MEL_STEP)
     if tuple(basis.shape) != want or kp < k or kp % _TC_CHUNK or tuple(mtc.shape) != want_mel:
         raise ValueError(f"{name}: tensor-core weights {tuple(basis.shape)} / {tuple(mtc.shape)} do not match "
@@ -1273,15 +1276,18 @@ def fused_mfcc(
         weights = mode_tensors(algorithm, audio.device, sr, n_fft, win_length, n_mels, fmin, fmax)
     if dct is None:
         dct = torch.as_tensor(tail_dct(n_mfcc, n_mels), dtype=torch.float32, device=audio.device)
-    mel, bmax = fused_mel_frontend(
-        audio, sr=sr, n_fft=n_fft, hop=hop, win_length=win_length, algorithm=algorithm,
-        n_samples=n_samples, weights=weights,
-    )
-    if frame_mask is not None:
-        valid = frame_mask[..., : mel.shape[1], None] > 0
-        pmax = torch.amax(torch.where(valid, mel.float(), 0.0), dim=(1, 2))
-    else:
-        pmax = torch.amax(bmax, dim=1)
-    peak = 10.0 * torch.log10(torch.clamp(pmax, min=1e-10))
-    out = mfcc_tail(mel, peak, dct.shape[1], transposed=transposed, dct=dct)
+    with obs.span("frontend.mel"):
+        mel, bmax = fused_mel_frontend(
+            audio, sr=sr, n_fft=n_fft, hop=hop, win_length=win_length, algorithm=algorithm,
+            n_samples=n_samples, weights=weights,
+        )
+    with obs.span("frontend.peak"):
+        if frame_mask is not None:
+            valid = frame_mask[..., : mel.shape[1], None] > 0
+            pmax = torch.amax(torch.where(valid, mel.float(), 0.0), dim=(1, 2))
+        else:
+            pmax = torch.amax(bmax, dim=1)
+        peak = 10.0 * torch.log10(torch.clamp(pmax, min=1e-10))
+    with obs.span("frontend.tail"):
+        out = mfcc_tail(mel, peak, dct.shape[1], transposed=transposed, dct=dct)
     return out[0] if single else out

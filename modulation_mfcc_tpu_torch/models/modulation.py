@@ -49,6 +49,7 @@ from modulation_mfcc_tpu_torch.ops.masked import (
 )
 from modulation_mfcc_tpu_torch.ops.savgol import savgol_filter
 from modulation_mfcc_tpu_torch.ops.spectral import analysis_window, mfcc_from_frames, power_spectrum_fft
+from modulation_mfcc_tpu_torch.utils import obs
 from modulation_mfcc_tpu_torch.utils.helpers import resolve_device
 
 __all__ = [
@@ -142,29 +143,32 @@ class MfccChange(torch.nn.Module):
         cfg = self.cfg
         if spectrum not in SPECTRA:
             raise ValueError(f"Unknown spectrum {spectrum!r}; one of {', '.join(SPECTRA)}")
-        if spectrum in FUSED:
-            alg = FUSED[spectrum]
-            return fused_mfcc(
-                y, sr=cfg.signal_sample_rate, n_fft=cfg.n_fft, hop=cfg.hop_length,
-                win_length=cfg.win_length, n_mels=cfg.n_mels, frame_mask=frame_mask,
-                transposed=coef_major, algorithm=alg, n_samples=n_samples,
-                weights=self.frontend_weights(alg), dct=self.dct,
+        with obs.span("frontend") as sp:
+            if sp:
+                sp.set(algorithm=FUSED.get(spectrum, spectrum))
+            if spectrum in FUSED:
+                alg = FUSED[spectrum]
+                return fused_mfcc(
+                    y, sr=cfg.signal_sample_rate, n_fft=cfg.n_fft, hop=cfg.hop_length,
+                    win_length=cfg.win_length, n_mels=cfg.n_mels, frame_mask=frame_mask,
+                    transposed=coef_major, algorithm=alg, n_samples=n_samples,
+                    weights=self.frontend_weights(alg), dct=self.dct,
+                )
+            if y.ndim == 3 or not y.is_floating_point():
+                raise ValueError("hop rows and int16 audio need a fused spectrum; fft/matmul take float [..., T]")
+            m = mfcc_from_frames(
+                frame_signal(y, cfg.n_fft, cfg.hop_length),
+                sr=cfg.signal_sample_rate,
+                n_fft=cfg.n_fft,
+                n_mfcc=cfg.n_mfcc,
+                n_mels=cfg.n_mels,
+                fmin=cfg.minFreq,
+                fmax=cfg.maxFreq,
+                win_length=cfg.win_length,
+                use_fft=(spectrum == "fft"),
+                mask=None if frame_mask is None else frame_mask[..., :, None],
             )
-        if y.ndim == 3 or not y.is_floating_point():
-            raise ValueError("hop rows and int16 audio need a fused spectrum; fft/matmul take float [..., T]")
-        m = mfcc_from_frames(
-            frame_signal(y, cfg.n_fft, cfg.hop_length),
-            sr=cfg.signal_sample_rate,
-            n_fft=cfg.n_fft,
-            n_mfcc=cfg.n_mfcc,
-            n_mels=cfg.n_mels,
-            fmin=cfg.minFreq,
-            fmax=cfg.maxFreq,
-            win_length=cfg.win_length,
-            use_fft=(spectrum == "fft"),
-            mask=None if frame_mask is None else frame_mask[..., :, None],
-        )
-        return m.transpose(-1, -2) if coef_major else m
+            return m.transpose(-1, -2) if coef_major else m
 
     def forward(
         self,
@@ -220,25 +224,36 @@ class MfccChange(torch.nn.Module):
         final filter; with ``frame_lengths`` [B] the length-masked forms
         (see :meth:`forward`)."""
         cfg = self.cfg
-        if cfg.removeFirst:
-            m = m[..., 1:, :]
-        n_coef = m.shape[-2]
+        with obs.span("trajectory"):
+            if cfg.removeFirst:
+                m = m[..., 1:, :]
+            n_coef = m.shape[-2]
+            lengths = None if frame_lengths is None else frame_lengths[:, None]
+            with obs.span("trajectory.filter"):
+                if lengths is None:
+                    filt = self.traj_filter(m)
+                else:
+                    filt = self._masked_filter(self.traj_filter, m, lengths, masked_fir)
+            with obs.span("trajectory.diff"):
+                if lengths is None:
+                    diff = np_gradient(filt) if cfg.diffMethod == "grad" else savgol_filter(filt, 3, 2, deriv=1)
+                elif cfg.diffMethod == "grad":
+                    diff = masked_gradient(filt, lengths)
+                else:
+                    diff = masked_savgol(filt, 3, 2, lengths, deriv=1)
+                tot = torch.sqrt(torch.sum(diff * diff, dim=-2)) / n_coef
+            with obs.span("trajectory.out"):
+                return self._out_filter(tot, frame_lengths, masked_fir)
+
+    def _out_filter(self, tot: torch.Tensor, frame_lengths: torch.Tensor | None, masked_fir: bool) -> torch.Tensor:
+        """The final filter over tot [..., NF], length-masked with ``frame_lengths``."""
+        cfg = self.cfg
         if frame_lengths is None:
-            filt = self.traj_filter(m)
-            diff = np_gradient(filt) if cfg.diffMethod == "grad" else savgol_filter(filt, 3, 2, deriv=1)
-            tot = torch.sqrt(torch.sum(diff * diff, dim=-2)) / n_coef
             if self.out_kind == "iir":
                 return self.out_filter(tot)
             if self.out_kind == "fir":
                 return F.filtfilt(*self.out_fir, tot)
             return savgol_filter(tot, cfg.outFiltLen, cfg.outFiltPolyOrd, deriv=0)
-        lengths = frame_lengths[:, None]
-        filt = self._masked_filter(self.traj_filter, m, lengths, masked_fir)
-        if cfg.diffMethod == "grad":
-            diff = masked_gradient(filt, lengths)
-        else:
-            diff = masked_savgol(filt, 3, 2, lengths, deriv=1)
-        tot = torch.sqrt(torch.sum(diff * diff, dim=-2)) / n_coef
         if self.out_kind == "iir":
             return self._masked_filter(self.out_filter, tot, frame_lengths, masked_fir)
         if self.out_kind == "fir":
@@ -257,7 +272,8 @@ class MfccChange(torch.nn.Module):
 @lru_cache(maxsize=8)
 def _model(cfg: MfccConfig, device: torch.device) -> MfccChange:
     """One :class:`MfccChange` per configuration and device."""
-    return MfccChange(cfg).to(device)
+    with obs.setup_span("setup.model"):
+        return MfccChange(cfg).to(device)
 
 
 def mfcc_trajectories(

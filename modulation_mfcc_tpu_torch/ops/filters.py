@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as tnf
 
 from modulation_mfcc_tpu_torch.ops.savgol import savgol_filter
+from modulation_mfcc_tpu_torch.utils import obs
 
 # ---------------------------------------------------------------------------
 # Host-side design
@@ -93,6 +94,7 @@ class FirFiltfiltDesign:
 
 
 @lru_cache(maxsize=64)
+@obs.setup_span("setup.fir_operator")
 def _operator_cache(sos_bytes: bytes, n_sections: int, padlen: int):
     sos = np.frombuffer(sos_bytes, dtype=np.float64).reshape(n_sections, 6).copy()
     # slowest pole sets the kernel truncation length

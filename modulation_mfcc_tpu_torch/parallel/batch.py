@@ -15,6 +15,7 @@ from modulation_mfcc_tpu_torch.models.config import MfccConfig
 from modulation_mfcc_tpu_torch.models.modulation import mfcc_change
 from modulation_mfcc_tpu_torch.ops.framing import n_frames_centered
 from modulation_mfcc_tpu_torch.parallel.mesh import DeviceMesh, all_reduce, axis_index, axis_size, gather_rows, shard_rows
+from modulation_mfcc_tpu_torch.utils import obs
 from modulation_mfcc_tpu_torch.utils.helpers import dequantize_samples, resolve_device, round_up_to_multiple
 
 __all__ = ["AudioBatch", "pad_batch", "dequantize_samples", "frame_validity_mask", "batched_mfcc_change",
@@ -81,24 +82,30 @@ def batched_mfcc_change(
     sample count then required; fused spectra only): int16 rows go straight
     into the fused kernel, which dequantizes while it stages them.
     """
-    if batch.samples.ndim == 3:
-        if n_samples is None:
-            raise ValueError("hop-rows batch requires n_samples")
-        samples = batch.samples
-        t_pad = int(n_samples)
-    else:
-        samples = batch.samples if spectrum.startswith("fused") else dequantize_samples(batch.samples)
-        t_pad = samples.shape[-1]
-        n_samples = None
-    lengths = torch.as_tensor(batch.lengths, device=samples.device)
-    mask = frame_validity_mask(lengths, t_pad, cfg)
-    if uniform_lengths:
-        return mfcc_change(samples, cfg, spectrum=spectrum, n_samples=n_samples), mask
-    nf_real = 1 + lengths // cfg.hop_length
-    tot = mfcc_change(
-        samples, cfg, frame_lengths=nf_real, spectrum=spectrum, masked_fir=masked_fir, n_samples=n_samples,
-    )
-    return tot, mask
+    with obs.span("batched_mfcc_change") as sp:
+        if sp:
+            sp.set(batch=batch.samples.shape[0], layout="hop_rows" if batch.samples.ndim == 3 else "flat",
+                   dtype=str(batch.samples.dtype).removeprefix("torch."),
+                   route="uniform" if uniform_lengths else "masked_fir" if masked_fir else "scan")
+        if batch.samples.ndim == 3:
+            if n_samples is None:
+                raise ValueError("hop-rows batch requires n_samples")
+            samples = batch.samples
+            t_pad = int(n_samples)
+        else:
+            samples = batch.samples if spectrum.startswith("fused") else dequantize_samples(batch.samples)
+            t_pad = samples.shape[-1]
+            n_samples = None
+        lengths = torch.as_tensor(batch.lengths, device=samples.device)
+        with obs.span("frame_mask"):
+            mask = frame_validity_mask(lengths, t_pad, cfg)
+        if uniform_lengths:
+            return mfcc_change(samples, cfg, spectrum=spectrum, n_samples=n_samples), mask
+        nf_real = 1 + lengths // cfg.hop_length
+        tot = mfcc_change(
+            samples, cfg, frame_lengths=nf_real, spectrum=spectrum, masked_fir=masked_fir, n_samples=n_samples,
+        )
+        return tot, mask
 
 
 def sharded_mfcc_change(

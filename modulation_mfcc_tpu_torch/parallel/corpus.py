@@ -323,12 +323,12 @@ def sweep_mfcc_change(paths: list[str], sweep: CorpusSweep) -> dict:
         shared = [todo]
         dist.broadcast_object_list(shared, src=0)
         todo = shared[0]
-    if lead:
-        os.makedirs(sweep.out_dir, exist_ok=True)
-        log_event("corpus.start", files=len(paths), todo=len(todo), resumed=len(paths) - len(todo))
-
     f0cfg, acfg, fmcfg = sweep.f0_cfg or F0Config(), sweep.amp_cfg or AmplitudeConfig(), sweep.formant_cfg or FormantConfig()
     env_per_file = "envelope" in feats and acfg.method == "RMSpraat"
+    if lead:
+        os.makedirs(sweep.out_dir, exist_ok=True)
+        if env_per_file:  # RMSpraat's envelopes run file by file, host-synchronous
+            log_event("corpus.envelope_per_file")
     batched = tuple(f for f in feats if not (f == "envelope" and env_per_file))
     sr = float(cfg.signal_sample_rate)
 
@@ -375,8 +375,6 @@ def sweep_mfcc_change(paths: list[str], sweep: CorpusSweep) -> dict:
         paths_b, lengths_np, tot_d, extras_d, rows = pending.popleft()
         per_file_hops = []
         if env_per_file:  # host-synchronous, after the next batch is dispatched
-            if lead:
-                log_event("corpus.envelope_per_file", method=acfg.method)
             vals, valid, hop_s = (gathered(t, len(paths_b)) for t in _rmspraat_rows(*rows, sr, acfg, width_max))
             extras_d = extras_d | {"envelope": (vals, valid)}
             per_file_hops = [hop_s]
@@ -429,6 +427,4 @@ def sweep_mfcc_change(paths: list[str], sweep: CorpusSweep) -> dict:
     report["stages"] = {k: round(v, 4) for k, v in stats.items()}
     if stats["upload_busy_s"] > 0:
         report["stages"]["link_mbps"] = round(stats["upload_mb"] / stats["upload_busy_s"], 1)
-    if lead:
-        log_event("corpus.finish", **report)
     return report

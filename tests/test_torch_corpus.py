@@ -418,6 +418,19 @@ def test_extras_sweep_matches_jax(tiny_corpus, tmp_path, variant):
     assert {"f0", "f0_times", "envelope", "envelope_times"} <= set(rec.files)
 
 
+def test_per_file_envelopes_are_logged_once_a_sweep(tiny_corpus, tmp_path, capsys):
+    """A sweep of two batches with RMSpraat envelopes says once that they
+    run file by file, and logs nothing else (its report is returned)."""
+    from modulation_mfcc_tpu_torch.models.config import AmplitudeConfig
+
+    sweep = corpus.CorpusSweep(str(tmp_path), cfg=MfccConfig(), batch_size=1, bucket_multiple=32_768, device="cpu",
+                               spectrum="fft", features=("mod_cepstr", "envelope"), use_native_loader=False,
+                               amp_cfg=AmplitudeConfig(method="RMSpraat"))
+    rep = corpus.sweep_mfcc_change(tiny_corpus[:2], sweep)
+    events = [json.loads(line)["event"] for line in capsys.readouterr().err.splitlines() if line.startswith("{")]
+    assert rep["items"] == 2 and events == ["corpus.envelope_per_file"]
+
+
 def test_native_loader_sweep_equals_python_loader(tiny_corpus, tmp_path, capsys):
     """The native loader (the default) and the Python reader give the same
     records (the native int16 passthrough and the Python grid check meet on
