@@ -17,7 +17,8 @@ Phases:
      and a line each for the Viterbi kernels' (the wide and toeplitz ones
      past 1,024 bins too), the tensor-core frontend's
      (fused_mel_bf16 is mode 3, fused_mel_f32 mode 4; the last template
-     argument the A source: 0 the span's copies, 1 shifted, 2 streamed), the tail's,
+     argument the A source: 0 the span's copies, 1 shifted, 2 streamed), the
+     FFT frontend's (fused_mel_fft_kernel<log2 M, input>), the tail's,
      sinc_refine_f32's and burg_lpc_f32's (C, elements a lane)
      instantiations, and the fold kernels' (fused_mel_fold_kernel, the
      FFMA bf16 fold; fused_mel_fold_tc_kernel<planes, m-tiles>, x3 with 2
@@ -31,14 +32,24 @@ Phases:
      sinc tiling at the
      tracker's bands and the Burg plan (C, warps a frame, blocks an SM)
      over nw 2..3,632
-  2  MFCC kernels vs plain versions on the card, both configurations; the
+  2  MFCC kernels vs plain versions on the card, both configurations (the
+     'f32' route there, fused_mel_fft_f32, bit for bit its mirror
+     fft_frontend_mirror, within 1e-4 relative above the top_db floor of
+     the function in float64 from float64 constants and no further from it
+     than the plain version; the tensor-core fused_mel_f32 to the split's); the
      tail in both layouts on float32 and bf16 mel, with 32 coefficients, and
      on 126 mel bands (the tile copied by the threads)
   3  MFCC path at full size (mfcc_change, 128 × 30 s at 16 kHz), launch counts
+     (fused_mel_fft_f32, not fused_mel_f32), two utterances bit for bit the
+     FFT kernel's mirror
   4  single utterances (masked-FIR route, host-tail route)
   5  MFCC times, kernels beside their plain versions and bounds
-     (fused_mel_f32: the split's tensor-core bound and the FFMA bound of
-     the same function); the SM clock
+     (fused_mel_fft_f32 beside its least-work bound, the tensor-core
+     fused_mel_f32 and the library's rfft and mel matmul, library_ms;
+     fused_mel_f32: the split's tensor-core bound and the FFMA bound of
+     the same function); the SM clock; the tail timed on the mel each
+     frontend kernel has just written, after a synchronise and an L2
+     flush, and after another tail
   6  tracker kernels vs plain versions on the card: sinc_refine_f32 on the
      pitch tracker's own autocorrelation (4 × 30 s at 16 kHz, also at
      veryAccurate depth 70 and at the 10 kHz band), also against the float64
@@ -143,7 +154,7 @@ Phases:
      hop 160, each rung's mel bit for bit the ladder's plan's
  23  the f32 MFCC's distance from the float64 'fft' MFCC at 128 x 30 s
      (phase 19's noise and speech-like batches), enforced for
-     fused_mel_f32 and fused_mel_fold_f32: on each batch no further than
+     fused_mel_fft_f32, fused_mel_f32 and fused_mel_fold_f32: on each batch no further than
      its plain version's distance times 1.05. Printed beside them: the
      splits' CPU mirrors (split3_frontend_mirror, split3_fold_mirror) run on
      the card, the unfolded one also with an FP32 mel (the mel's other
@@ -155,8 +166,8 @@ Phases:
  24  every rate and width the reference configures: each frontend mode
      against its plain version (phase 2's and 14's bars) at 11.025 (n_fft
      512), 22.05, 32, 44.1 and 48 kHz (n_fft 1024, 1024, 2048, 2048; hop
-     int(0.005 sr), window int(0.025 sr); f32 and f32 on int16 rows take
-     the compact plan there), at 44.1 kHz with a 20 ms hop and 48 kHz with
+     int(0.005 sr), window int(0.025 sr); f32 takes the FFT kernel there,
+     and fused_mel_f32 runs beside it on its plan, the compact one), at 44.1 kHz with a 20 ms hop and 48 kHz with
      a 30 ms hop and a 64 ms window (n_fft 2048, 4096; f32 on the streamed
      plan at both, x3 at the second) and at 16 kHz with 256 mel bands and
      40 MFCCs, f32 also at 512 bands, with the plan printed; mfcc_tail_f32
@@ -168,7 +179,8 @@ Phases:
      path (phase 15's bar); the fold kernels at 256 bands are in phase 18
  25  'fused' mfcc_change at 128 x 30 s at 44.1 kHz (n_fft 2048) and 11.025
      kHz: one launch of each kernel, times as phase 5, the distance from the
-     float64 'fft' MFCC, fused_mel_f32 no further than 1.05 x its plain
+     float64 'fft' MFCC, the 'f32' kernel (fused_mel_fft_f32 at both
+     rates) no further than 1.05 x its plain
      version's (phase 23's rule); the streamed plan's times at 128 x 30 s:
      fused_mel_f32 and fused_mel_x3 at the flagship under the full and the
      streamed plan, and at phase 24's long hops, beside plain versions and
@@ -192,7 +204,7 @@ Phases:
  29  the sweep's tracker extras, the loaders, the distributed paths and the
      CLI's sweep: (a) phase 16's corpus with mod_cepstr, mfcc39, f0, envelope
      and formants ('fused', native loader): audio-h/s, stages, launches of
-     fused_mel_f32, mfcc_tail_f32, sinc_refine_f32 and burg_lpc_f32, the
+     fused_mel_fft_f32, mfcc_tail_f32, sinc_refine_f32 and burg_lpc_f32, the
      native loader given every file, resume, 12 records against each file
      alone on the card (formants and bandwidths on the file's row of its
      batch, resampled as the sweep resamples it, to 95 % within 0.05 Hz;
@@ -227,7 +239,7 @@ Phases:
 ``--frontend DIR`` runs none of these phases. It drives the package of the
 checkout at DIR instead of this one's, builds its kernels, times its
 frontend kernels at 128 × 30 s at 16 kHz as the frontend rows below are
-timed (fused_mel_f32 on float32 audio of phase 5's and phase 22's batches,
+timed (the 'f32' route, fused_mel_fft_f32 where the package has it, on float32 audio of phase 5's and phase 22's batches,
 seeds 0 and 19, in both orders; the f32 fold on both, the bf16 and x3
 folds on seed 19, with a digest of each fold's mel and maxima there, so
 two packages' folds compare bit for bit; bf16, x3, i16, i24
@@ -268,6 +280,7 @@ from concurrent.futures import ThreadPoolExecutor
 from contextlib import ExitStack, contextmanager
 from dataclasses import replace
 from fractions import Fraction
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -300,6 +313,7 @@ from modulation_mfcc_tpu_torch.ops import lpc as L  # noqa: E402
 from modulation_mfcc_tpu_torch.ops import pitch as P  # noqa: E402
 from modulation_mfcc_tpu_torch.ops import yin as Y  # noqa: E402
 from modulation_mfcc_tpu_torch.ops.resample import resample_poly_device  # noqa: E402
+from modulation_mfcc_tpu_torch.ops.spectral import analysis_window, mel_filterbank  # noqa: E402
 from modulation_mfcc_tpu_torch.parallel.batch import batched_mfcc_change  # noqa: E402
 from modulation_mfcc_tpu_torch.utils.obs import PROFILER_PAD, kernel_profile, profile_trace  # noqa: E402
 from modulation_mfcc_tpu_torch.parallel import streaming  # noqa: E402
@@ -311,6 +325,7 @@ BATCH, SECONDS = 128, 30
 TRACK_BATCH, TRACK_SR, LPC_SR = 32, 16_000, 11_000.0
 CSRC = "modulation_mfcc_tpu_torch/csrc"
 SOURCES = {
+    "fused_mel_fft_f32": f"{CSRC}/fused_frontend_fft.cu",
     "fused_mel_f32": f"{CSRC}/fused_frontend_tc.cu",
     "mfcc_tail_f32": f"{CSRC}/fused_frontend.cu",
     "sinc_refine_f32": f"{CSRC}/sinc_refine.cu",
@@ -326,6 +341,7 @@ SOURCES = {
     "fused_mel_fold_x3": f"{CSRC}/fused_frontend_fold_tc.cu",
 }
 REPLACES = {
+    "fused_mel_fft_f32": "modulation_mfcc_tpu/pallas/fused_frontend.py:990 (_kernel, _kernel_pipe, f32; where fft_ok)",
     "fused_mel_f32": "modulation_mfcc_tpu/pallas/fused_frontend.py:990",
     "mfcc_tail_f32": "modulation_mfcc_tpu/pallas/fused_frontend.py:1190",
     "sinc_refine_f32": "modulation_mfcc_tpu/pallas/sinc_refine.py:150",
@@ -507,6 +523,59 @@ def frontend_plain(audio, cfg, a):
     )
 
 
+def f32_kernel(cfg: mt.MfccConfig) -> str:
+    """The kernel the 'f32' frontend launches at this geometry:
+    fused_mel_fft_f32 where fft_ok takes it, else fused_mel_f32."""
+    fft = ff.fft_ok(cfg.n_fft, cfg.hop_length, cfg.win_length, cfg.n_mels)
+    return "fused_mel_fft_f32" if fft else "fused_mel_f32"
+
+
+def kernel_of(alg: str, cfg: mt.MfccConfig) -> str:
+    """The frontend kernel mode ``alg`` launches at this geometry."""
+    return f32_kernel(cfg) if alg == "f32" else f"fused_mel_{alg}"
+
+
+def tc_f32(audio, cfg: mt.MfccConfig, w: dict, n_samples=None):
+    """fused_mel_f32, the tensor-core kernel, at a geometry where fft_ok
+    routes 'f32' to the FFT kernel: launched under its tc_plan
+    (mel_under_plan); no launch counted."""
+    return mel_under_plan(audio, cfg, "f32", w, ff.tc_plan("f32", cfg.hop_length, tc_kp(w, "f32"), cfg.n_mels),
+                          n_samples)
+
+
+def fft_mirror(audio, cfg: mt.MfccConfig, w: dict, n_samples=None):
+    """fused_mel_fft_f32's mirror (fft_frontend_mirror), on the CPU."""
+    return ff.fft_frontend_mirror(audio.cpu(), *(w[k].cpu() for k in ff.FFT_KEYS), hop=cfg.hop_length,
+                                  eff_pad=ff.eff_pad(cfg.n_fft, cfg.win_length), n_samples=n_samples)
+
+
+def same_as_mirror(got: tuple, audio, cfg: mt.MfccConfig, w: dict, n_samples=None, rows: int = 2) -> bool:
+    """fused_mel_fft_f32's (mel, block maxima) of the first ``rows``
+    utterances equal its mirror's bit for bit."""
+    want = fft_mirror(audio[:rows], cfg, w, n_samples)
+    return all(same_bits(g[:rows].cpu(), x) for g, x in zip(got, want))
+
+
+def library_mel(audio: torch.Tensor, cfg: mt.MfccConfig, window: torch.Tensor, mel_t: torch.Tensor) -> torch.Tensor:
+    """The same mel from PyTorch's library calls, ROADMAP E.1's yardstick
+    (library_ms; the port never calls it): centred frames, the window,
+    cuFFT's torch.fft.rfft, the power and the dense mel matmul."""
+    x = tnf.pad(audio, (cfg.n_fft // 2, cfg.n_fft // 2)).unfold(-1, cfg.n_fft, cfg.hop_length)
+    spec = torch.fft.rfft(x * window, dim=-1)
+    return (spec.real.square() + spec.imag.square()) @ mel_t
+
+
+def least_work_bound(cfg: mt.MfccConfig, frames: int, n_bytes: float) -> tuple[float, str]:
+    """(least ms, what binds it) of the frontend function, benchmark/roofline/
+    frontend.py's count: the window, a real FFT (2.5 N log2 N), 3 flops a
+    weighted bin, 2 a mel weight, on the FP32 CUDA cores; or the audio read
+    and the mel written once."""
+    m = mel_filterbank(cfg.signal_sample_rate, cfg.n_fft, cfg.n_mels, cfg.minFreq, cfg.maxFreq)
+    ops = frames * (cfg.win_length + 2.5 * cfg.n_fft * np.log2(cfg.n_fft) + 3.0 * np.count_nonzero(m.any(axis=0))
+                    + 2.0 * np.count_nonzero(m))
+    return bound(n_bytes, ops)
+
+
 def split_fp32_mel(audio: torch.Tensor, cfg: mt.MfccConfig, a: dict):
     """The f32 mel's other candidate, mirrored: the split's DFT
     (_split3_matmul) and the plain version's FP32 projection of its power,
@@ -542,7 +611,15 @@ def mfcc_kernel_checks(dev) -> None:
         mel_p, bmax_p = frontend_plain(audio, cfg, a)
         torch.cuda.synchronize()
         exact = plain64(audio, cfg, a["w"])
-        ok, text = mode_error_ok("f32", mel_k, bmax_k, mel_p, bmax_p, exact)
+        check(f32_kernel(cfg) == "fused_mel_fft_f32", f"{name}: 'f32' takes the FFT kernel")
+        same = same_as_mirror((mel_k, bmax_k), audio, cfg, a["w"], rows=audio.shape[0])
+        print(f"[2] {name}: fused_mel_fft_f32 vs its mirror (fft_frontend_mirror): "
+              f"{'bit-identical' if same else 'DIFFERENT'}")
+        check(same, f"fused_mel_fft_f32 {name} bit for bit its mirror")
+        ok, text = fft_error_ok(mel_k, bmax_k, mel_p, bmax_p, float64_mel(audio, cfg))
+        print(f"[2] {name}: fused_mel_fft_f32 vs plain: {text}")
+        check(ok, f"fused_mel_fft_f32 {name}")
+        ok, text = mode_error_ok("f32", *tc_f32(audio, cfg, a["w"]), mel_p, bmax_p, exact)
         print(f"[2] {name}: fused_mel_f32 vs plain: {text}")
         check(ok, f"fused_mel_f32 {name}")
         cands = {"(a) the split's mel, the kernel's": ff.split3_frontend_mirror(
@@ -583,7 +660,8 @@ def mfcc_path(dev, card: str) -> list[dict]:
     torch.cuda.synchronize()
     launches = dict(ff.LAUNCHES)
     print(f"[3] launches in the main path: {launches}")
-    check(launches["fused_mel_f32"] > 0 and launches["mfcc_tail_f32"] > 0, "every kernel launched in the main path")
+    check(launches["fused_mel_fft_f32"] > 0 and launches["fused_mel_f32"] == 0 and launches["mfcc_tail_f32"] > 0,
+          "every kernel launched in the main path (the FFT kernel, not the tensor-core one)")
     nf = 1 + y.shape[1] // cfg.hop_length
     check(tot.shape == (BATCH, nf) and bool(torch.isfinite(tot).all()), "finite [B, nf] output")
     tot_plain = mt.mfcc_change(y, cfg, spectrum="matmul")
@@ -617,21 +695,27 @@ def mfcc_path(dev, card: str) -> list[dict]:
     mel_p, bmax_p = frontend_plain(y, cfg, a)
     mel_k, bmax_k = frontend_kernel(y, cfg, a)
     mel_abs = float((mel_k - mel_p).abs().max())
-    ok, text = mode_error_ok("f32", mel_k, bmax_k, mel_p, bmax_p, plain64(y, cfg, a["w"]))
+    tc_abs = float((tc_f32(y, cfg, a["w"])[0] - mel_p).abs().max())
+    ok, text = fft_error_ok(mel_k, bmax_k, mel_p, bmax_p, float64_mel(y, cfg))
+    same = same_as_mirror((mel_k, bmax_k), y, cfg, a["w"])
+    check(same, "fused_mel_fft_f32 at full size: utterances 0-1 bit for bit its mirror")
     torch.cuda.empty_cache()
     pk = peak_db(bmax_k)
     tail_k = ff.mfcc_tail(mel_k, pk, cfg.n_mfcc, transposed=True, dct=a["dct"])
     tail_p = ff.mfcc_tail_reference(mel_k, pk, a["dct"], transposed=True)
     tail_abs = float((tail_k - tail_p).abs().max())
-    print(f"[3] fused_mel_f32 at full size vs plain: {text}; mfcc_tail_f32 (coef-major) vs plain: max-abs "
-          f"{tail_abs:.3e} (bar 1e-4)")
+    print(f"[3] fused_mel_fft_f32 at full size vs plain: {text}; utterances 0-1 bit for bit its mirror; "
+          f"mfcc_tail_f32 (coef-major) vs plain: max-abs {tail_abs:.3e} (bar 1e-4)")
     check(ok and tail_abs <= 1e-4, "full-size kernels vs plain")
     del mel_p, tail_p
+    window = torch.tensor(analysis_window(cfg.n_fft, "hann", cfg.win_length), dtype=torch.float32, device=dev)
+    mel_t = torch.tensor(mel_filterbank(sr, cfg.n_fft, cfg.n_mels, cfg.minFreq, cfg.maxFreq).T,
+                         dtype=torch.float32, device=dev).contiguous()
+    lib_ms = kernel_ms(lambda: library_mel(y, cfg, window, mel_t))
+    plain_ms = kernel_ms(lambda: frontend_plain(y, cfg, a))  # both f32 kernels' plain version
     ms = {
-        "fused_mel_f32": (
-            kernel_ms(lambda: frontend_kernel(y, cfg, a)),
-            kernel_ms(lambda: frontend_plain(y, cfg, a)),
-        ),
+        "fused_mel_fft_f32": (kernel_ms(lambda: frontend_kernel(y, cfg, a)), plain_ms),
+        "fused_mel_f32": (kernel_ms(lambda: tc_f32(y, cfg, a["w"])), plain_ms),
         "mfcc_tail_f32": (
             cuda_ms(lambda: ff.mfcc_tail(mel_k, pk, cfg.n_mfcc, transposed=True, dct=a["dct"])),
             cuda_ms(lambda: ff.mfcc_tail_reference(mel_k, pk, a["dct"], transposed=True)),
@@ -644,6 +728,7 @@ def mfcc_path(dev, card: str) -> list[dict]:
     for k, (t_k, t_p) in ms.items():
         print(f"[5] {k}: {t_k:.3f} ms, plain {t_p:.3f} ms at [{BATCH}, {SECONDS * sr}] ({card}; SM clock, "
               f"power, throttle reasons: {sm_clock()})")
+    tail_after_each(y, cfg, a, mel_k, pk, card)
     print(f"[5] mfcc_change end to end: {e2e:.3f} ms = {hours / (e2e / 1e3):.3f} audio-h/s; "
           f"plain spectrum {e2e_plain:.3f} ms = {hours / (e2e_plain / 1e3):.3f} audio-h/s ({card})")
     print(f"[5] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -656,19 +741,75 @@ def mfcc_path(dev, card: str) -> list[dict]:
     ffma = bound(f32_bytes, 2 * bsz * nfr * k_sup * two_bins + 3 * bsz * nfr * (two_bins // 2)
                  + 2 * bsz * nfr * (two_bins // 2) * n_mels)
     bounds = {
+        "fused_mel_fft_f32": least_work_bound(cfg, bsz * nfr, y.numel() * 4 + mel_bytes),
         "fused_mel_f32": split3_bound(f32_bytes, bsz * nfr, k_sup, two_bins // 2, n_mels, dft_passes=6),
         "mfcc_tail_f32": bound(
             mel_bytes + bsz * 4 + a["dct"].numel() * 4 + tail_k.numel() * 4,
             bsz * nfr * n_mels * (2 * n_mfcc + 3),
         ),
     }
+    b_fft = bounds["fused_mel_fft_f32"]
+    print(f"[5] fused_mel_fft_f32 (the 'f32' route here): {ms['fused_mel_fft_f32'][0]:.3f} ms against its least-work "
+          f"bound {b_fft[0]:.4f} ms ({b_fft[1]}; the kernel's share {b_fft[0] / ms['fused_mel_fft_f32'][0]:.1%}), the "
+          f"tensor-core fused_mel_f32 {ms['fused_mel_f32'][0]:.3f} ms, the library's rfft and mel matmul (library_ms) "
+          f"{lib_ms:.3f} ms ({card})")
     print(f"[5] fused_mel_f32 bounds: the split's six bf16 passes on the tensor cores {bounds['fused_mel_f32'][0]:.3f} "
           f"ms ({bounds['fused_mel_f32'][1]}; the kernel's share {bounds['fused_mel_f32'][0] / ms['fused_mel_f32'][0]:.1%}), "
           f"the same function on the FP32 CUDA cores {ffma[0]:.3f} ms ({ffma[1]}); mfcc_tail_f32 "
           f"{bounds['mfcc_tail_f32'][0]:.3f} ms ({bounds['mfcc_tail_f32'][1]}; its share "
           f"{bounds['mfcc_tail_f32'][0] / ms['mfcc_tail_f32'][0]:.1%})")
-    errs = {"fused_mel_f32": mel_abs, "mfcc_tail_f32": tail_abs}
-    return [kernel_row(k, launches[k], errs[k], ms[k], bounds[k]) for k in ("fused_mel_f32", "mfcc_tail_f32")]
+    errs = {"fused_mel_fft_f32": mel_abs, "fused_mel_f32": tc_abs, "mfcc_tail_f32": tail_abs}
+    rows = [kernel_row(k, launches[k], errs[k], ms[k], bounds[k]) for k in ("fused_mel_fft_f32", "fused_mel_f32",
+                                                                           "mfcc_tail_f32")]
+    rows[0]["library_ms"] = lib_ms
+    return rows
+
+
+def tail_after_each(y: torch.Tensor, cfg: mt.MfccConfig, a: dict, mel_k: torch.Tensor, pk: torch.Tensor,
+                    card: str) -> None:
+    """Phase 5: mfcc_tail_f32 timed alone (events around its launch, the
+    median of 20 after one) in the places the pipeline and the benchmark put
+    it: on the mel that fused_mel_fft_f32 (then fused_mel_f32) has just
+    written, enqueued behind it with no synchronise between (the pipeline's
+    order: the write-back of its last mel lines is still in L2); on the
+    same mel after a synchronise and an L2 flush (a 256 MB write, five times
+    the L2); and right after another tail on it (kernel_ms's steady state).
+    The SM clock, power and throttle reasons are read after each set."""
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=y.device)
+
+    def tail(mel: torch.Tensor) -> torch.Tensor:
+        return ff.mfcc_tail(mel, pk, cfg.n_mfcc, transposed=True, dct=a["dct"])
+
+    def timed(before) -> float:
+        times = []
+        for _ in range(21):
+            mel = before()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            tail(mel)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+            del mel
+        return statistics.median(times[1:])
+
+    def flushed() -> torch.Tensor:
+        flush.fill_(1.0)
+        torch.cuda.synchronize()
+        return mel_k
+
+    cases = {
+        "right after fused_mel_fft_f32 wrote it": lambda: frontend_kernel(y, cfg, a)[0],
+        "right after fused_mel_f32 wrote it": lambda: tc_f32(y, cfg, a["w"])[0],
+        "after a synchronise and an L2 flush": flushed,
+        "right after another tail on it": lambda: (tail(mel_k), mel_k)[1],
+    }
+    for label, before in cases.items():
+        ms = timed(before)
+        print(f"[5] mfcc_tail_f32 on the mel {label}: {ms:.4f} ms ({card}; SM clock, power, throttle reasons: "
+              f"{sm_clock()})")
+    del flush
+    torch.cuda.empty_cache()
 
 
 def split3_bound(n_bytes: float, frames: int, k: int, bins: int, n_mels: int, dft_passes: int) -> tuple[float, str]:
@@ -1652,8 +1793,12 @@ def pyin_times(batch: mt.AudioBatch, captured: tuple, card: str):
 
 
 def mode_weights(cfg: mt.MfccConfig, alg: str, dev) -> dict:
-    return ff.mode_tensors(alg, dev, cfg.signal_sample_rate, cfg.n_fft, cfg.win_length, cfg.n_mels,
-                           cfg.minFreq, cfg.maxFreq)
+    """The mode's mode_tensors at this geometry, with the tensor-core
+    layouts for 'f32' where it takes the FFT kernel too (tc_f32 launches the
+    tensor-core kernel beside it)."""
+    w = ff.mode_tensors(alg, dev, cfg.signal_sample_rate, cfg.n_fft, cfg.win_length, cfg.n_mels, cfg.minFreq,
+                        cfg.maxFreq, hop=cfg.hop_length)
+    return w | ff.tc_layouts(alg, w) if alg == "f32" else w
 
 
 def mode_kernel(audio, cfg, alg, w, n_samples=None):
@@ -1802,6 +1947,44 @@ def mode_error_ok(alg: str, mel_k, bmax_k, mel_p, bmax_p, exact=None) -> tuple[b
                                                    f"{peak_rel:.3e} (bar 1e-5)")
 
 
+def float64_mel(audio: torch.Tensor, cfg: mt.MfccConfig, n_samples: int | None = None):
+    """(mel, block maxima) of the 'f32' frontend's function in float64 from
+    float64 constants, fused_mel_fft_f32's yardstick: the same float32 (or
+    dequantised int16) samples, centred frames, the float64 analysis
+    window, cuFFT's float64 rfft, the power, and the design's mel weights
+    (their float32 values, widened) over every bin; 16 utterances at a
+    time."""
+    from modulation_mfcc_tpu_torch.utils.helpers import dequantize_samples
+
+    x = dequantize_samples(audio)
+    if x.ndim == 3:  # hop rows: the audio sits at eff_pad
+        pad = ff.eff_pad(cfg.n_fft, cfg.win_length)
+        x = x.reshape(x.shape[0], -1)[:, pad : pad + n_samples]
+    window = torch.tensor(analysis_window(cfg.n_fft, "hann", cfg.win_length), dtype=torch.float64, device=x.device)
+    bank = mel_filterbank(cfg.signal_sample_rate, cfg.n_fft, cfg.n_mels, cfg.minFreq, cfg.maxFreq)
+    mel_t = torch.tensor(bank.astype(np.float32).T, device=x.device).double()
+    return ff._with_block_max(torch.cat([library_mel(x[i : i + 16].double(), cfg, window, mel_t)
+                                         for i in range(0, x.shape[0], 16)]))
+
+
+def fft_error_ok(mel_k, bmax_k, mel_p, bmax_p, exact) -> tuple[bool, str]:
+    """fused_mel_fft_f32's bars against ``exact`` (float64_mel: the
+    function in float64 from float64 constants): above the top_db floor its
+    mel within 1e-4 relative of it and no further from it than the plain
+    version (the stepped FP32 DFT); its peak within 1e-6 of it, and within
+    1e-5 of the plain version's (the f32 mode's peak bar). The kernel's FFT
+    runs in FP64, so it is the float64 function to the float32 rounding of
+    its power and mel sum (~3e-7 above the floor on the CPU tests' signals),
+    where the plain version, and an FFT in FP32, land 1e-4 to 5e-4 away."""
+    rel_k, peak_k, _ = mel_errors(mel_k, bmax_k, *exact)
+    rel_p, peak_p, _ = mel_errors(mel_p, bmax_p, *exact)
+    peak_rel = mel_errors(mel_k.float(), bmax_k, mel_p.float(), bmax_p)[1]
+    return rel_k <= min(1e-4, rel_p) and peak_k <= 1e-6 and peak_rel <= 1e-5, (
+        f"against the float64 function: mel rel err above the top_db floor kernel {rel_k:.3e}, plain {rel_p:.3e} "
+        f"(bar: kernel ≤ 1e-4 and ≤ plain), peak kernel {peak_k:.3e} (bar 1e-6), plain {peak_p:.3e}; against the "
+        f"plain version: peak rel err {peak_rel:.3e} (bar 1e-5)")
+
+
 def is_pow2(s: torch.Tensor) -> bool:
     return bool((torch.frexp(s)[0] == 0.5).all())
 
@@ -1831,13 +2014,14 @@ def mode_kernel_checks(dev) -> None:
                 mel_k, bmax_k = mode_kernel(x, cfg, alg, w, ns)
                 mel_p, bmax_p = mode_plain(x, cfg, alg, w, ns)
                 torch.cuda.synchronize()
-                ex = plain64(x, cfg, w, ns) if alg == "f32" else None
+                fft = alg == "f32" and f32_kernel(cfg) == "fused_mel_fft_f32"
+                ex = (float64_mel(x, cfg, ns) if fft else plain64(x, cfg, w, ns)) if alg == "f32" else None
                 if alg == "x3":
                     key = "float32" if label == "float32" else "int16"
                     if key not in exact:
                         exact[key] = x3_exact_mel(x, cfg, w, ns)
                     ex = exact[key]
-                ok, text = mode_error_ok(alg, mel_k, bmax_k, mel_p, bmax_p, ex)
+                ok, text = (fft_error_ok if fft else partial(mode_error_ok, alg))(mel_k, bmax_k, mel_p, bmax_p, ex)
                 extra = ""
                 if label == "int16":
                     flat_k = (mel_k, bmax_k)
@@ -1849,8 +2033,9 @@ def mode_kernel_checks(dev) -> None:
                     sc = ff.quant_scales(x, "i16", w["sw"])
                     extra += f"; s16 powers of two {is_pow2(sc[:, 0])} ({sc[:, 0].tolist()})"
                     ok = ok and is_pow2(sc[:, 0])
-                print(f"[14] {name}: fused_mel_{alg} on {label} {tuple(x.shape)} vs plain: {text}{extra}")
-                check(ok, f"fused_mel_{alg} {name} {label}")
+                kname = kernel_of(alg, cfg)
+                print(f"[14] {name}: {kname} on {label} {tuple(x.shape)} vs plain: {text}{extra}")
+                check(ok, f"{kname} {name} {label}")
 
 
 def modes_path(dev) -> tuple[dict, torch.Tensor, int]:
@@ -1871,7 +2056,7 @@ def modes_path(dev) -> tuple[dict, torch.Tensor, int]:
         tot = mt.mfcc_change(rows, cfg, spectrum=SPECTRUM[alg], n_samples=n)
         torch.cuda.synchronize()
         counts = dict(ff.LAUNCHES)
-        kname = f"fused_mel_{alg}"
+        kname = kernel_of(alg, cfg)
         launches[kname] = counts[kname]
         others = {k: v for k, v in counts.items() if k not in (kname, "mfcc_tail_f32")}
         err = float((tot.double() - want).abs().max())
@@ -1944,7 +2129,7 @@ def sweep_phase(dev, card: str) -> None:
             out = os.path.join(tmp, spec)
             reset(ff.LAUNCHES)
             rep = sweep_mfcc_change(paths, CorpusSweep(out, cfg=cfg, spectrum=spec, device=dev))
-            kname = f"fused_mel_{SPECTRUM_ALG[spec]}"
+            kname = kernel_of(SPECTRUM_ALG[spec], cfg)
             n_launch = ff.LAUNCHES[kname]
             print(f"[16] sweep {spec!r}: {rep['items']} files, {rep['audio_hours']} h in {rep['elapsed_sec']} s = "
                   f"{rep['audio_hours_per_sec']} audio-h/s; {kname} launches {n_launch}; stages {rep['stages']} "
@@ -2017,11 +2202,14 @@ def modes_times(dev, rows: torch.Tensor, n: int, launches: dict, card: str) -> l
     w = mode_weights(cfg, "f32", dev)
     mel_k, bmax_k = mode_kernel(rows, cfg, "f32", w, n)
     t_k = kernel_ms(lambda: mode_kernel(rows, cfg, "f32", w, n))
+    t_tc = kernel_ms(lambda: tc_f32(rows, cfg, w, n))
     bsz, nf, n_mels = mel_k.shape
     n_bytes = rows.numel() * 2 + (w["wri"].numel() + w["melw"].numel()) * 4 + mel_k.numel() * 4 + bmax_k.numel() * 4
     b = split3_bound(n_bytes, bsz * nf, w["wri"].shape[0], w["melw"].shape[0], n_mels, dft_passes=5)
-    print(f"[17] fused_mel_f32 on the rows: {t_k:.3f} ms, bound {b[0]:.3f} ms ({b[1]}; five bf16 passes of the DFT, "
-          f"six of the mel), {b[0] / t_k:.1%} of it ({card}; {sm_clock()})")
+    b_fft = least_work_bound(cfg, bsz * nf, rows.numel() * 2 + mel_k.numel() * 4)
+    print(f"[17] {f32_kernel(cfg)} on the rows: {t_k:.3f} ms, least-work bound {b_fft[0]:.4f} ms ({b_fft[1]}), "
+          f"{b_fft[0] / t_k:.1%} of it; fused_mel_f32 {t_tc:.3f} ms, bound {b[0]:.3f} ms ({b[1]}; five bf16 passes "
+          f"of the DFT, six of the mel), {b[0] / t_tc:.1%} of it ({card}; {sm_clock()})")
     del mel_k, bmax_k
     e2e = cuda_ms(lambda: model(rows, spectrum="fused", n_samples=n))
     print(f"[17] mfcc_change spectrum='fused' on the rows end to end {e2e:.3f} ms = "
@@ -2313,7 +2501,7 @@ def modspec(dev, y: torch.Tensor) -> None:
     m_want = mt.mfcc_trajectories(y.double(), cfg, spectrum="fft")
     peak = want.amax(dim=(1, 2, 3))
     for spec in ("fused", "fused_bf16"):
-        kname = f"fused_mel_{SPECTRUM_ALG[spec]}"
+        kname = kernel_of(SPECTRUM_ALG[spec], cfg)
         reset(ff.LAUNCHES)
         got = mt.modulation_spectrum(y, cfg, spectrum=spec)
         torch.cuda.synchronize()
@@ -2539,10 +2727,12 @@ def c2_distances(dev, y: torch.Tensor, card: str) -> None:
     model = mt.MfccChange(cfg).to(dev)
     a, wf = frontend_args(cfg, dev), fold_weights(cfg, "f32", dev)
     ws = {alg: mode_weights(cfg, alg, dev) for alg in ("x3", "i24")}
-    kernel, plain = "fused_mel_f32 (kernel)", "fused_mel_f32's plain version"
+    kernel, plain = "fused_mel_fft_f32 (kernel)", "the 'f32' plain version"
+    tc_k = "fused_mel_f32 (kernel)"
     fold_k, fold_p = "fused_mel_fold_f32 (kernel)", "fused_mel_fold_f32's plain version"
     routes = {
         kernel: lambda x: model.trajectories(x, coef_major=True),
+        tc_k: lambda x: via_tail(tc_f32(x, cfg, a["w"]), cfg, model),
         plain: lambda x: via_tail(frontend_plain(x, cfg, a), cfg, model),
         "the split's mirror": lambda x: via_tail(ff.split3_frontend_mirror(
             x, a["wri"], a["melw"], hop=cfg.hop_length, eff_pad=a["eff_pad"]), cfg, model),
@@ -2580,7 +2770,7 @@ def c2_distances(dev, y: torch.Tensor, card: str) -> None:
         # each route's mel through the tail's function in float64, which shows what the
         # tail's FP32 chains (the plain version's order) add
         tail64 = []
-        for name, mel_bmax in (("fused_mel_f32 (kernel)", frontend_kernel(x, cfg, a)),
+        for name, mel_bmax in (("fused_mel_fft_f32 (kernel)", frontend_kernel(x, cfg, a)),
                                ("its plain version", frontend_plain(x, cfg, a))):
             m, bm = mel_bmax
             t64 = ff.mfcc_tail_reference(m.double(), peak_db(bm).double(), model.dct.double(), transposed=True)
@@ -2590,7 +2780,7 @@ def c2_distances(dev, y: torch.Tensor, card: str) -> None:
         torch.cuda.empty_cache()
         print(f"[23] f32 MFCC on the {label} batch {tuple(x.shape)} against the float64 'fft' MFCC, max-abs "
               f"(BASELINE bar 1e-4; the f32 routes in 16-row steps): " + "; ".join(parts) + f" ({card})")
-        for k_name, p_name in ((kernel, plain), (fold_k, fold_p)):
+        for k_name, p_name in ((kernel, plain), (tc_k, plain), (fold_k, fold_p)):
             ratio = dist[k_name] / dist[p_name]
             name = k_name.removesuffix(" (kernel)")
             print(f"[23] {label}: {name} {dist[k_name]:.3e} = {ratio:.4f} × its plain version's {dist[p_name]:.3e} "
@@ -2664,8 +2854,10 @@ def frontend_report(root: Path) -> int:
 
     ys = {s: torch.tensor(speechlike(BATCH, SECONDS * sr, sr, seed=s), device=dev) for s in (0, 19)}
     w32, wf = mode_weights(cfg, "f32", dev), fold_weights(cfg, "f32", dev)
+    # the kernel 'f32' takes in that package (one without the FFT kernel has only the tensor-core one)
+    f32_name = f32_kernel(cfg) if hasattr(ff, "fft_ok") else "fused_mel_f32"
     for s in (0, 19, 19, 0):
-        line(f"fused_mel_f32, float32, seed {s}", lambda: mode_kernel(ys[s], cfg, "f32", w32))
+        line(f"{f32_name}, float32, seed {s}", lambda: mode_kernel(ys[s], cfg, "f32", w32))
     for s in (0, 19):
         line(f"fused_mel_fold_f32, float32, seed {s}", lambda: fold_kernel(ys[s], cfg, "f32", wf))
     for alg in ("bf16", "x3"):
@@ -2818,17 +3010,25 @@ def geometry_checks(dev) -> None:
             for label, (x, ns) in inputs.items():
                 if label == "float32" and alg != "f32":
                     continue
+                kname = kernel_of(alg, cfg)
                 reset(ff.LAUNCHES)
                 mel_k, bmax_k = mode_kernel(x, cfg, alg, w, ns)
                 torch.cuda.synchronize()
-                check(ff.LAUNCHES[f"fused_mel_{alg}"] == 1, f"fused_mel_{alg} {name} launched")
+                check(ff.LAUNCHES[kname] == 1, f"{kname} {name} launched")
                 mel_p, bmax_p = mode_plain(x, cfg, alg, w, ns)
                 ex = plain64(x, cfg, w, ns) if alg == "f32" else x3_exact_mel(x, cfg, w, ns) if alg == "x3" else None
-                ok, text = mode_error_ok(alg, mel_k, bmax_k, mel_p, bmax_p, ex)
-                print(f"[24] {name}: fused_mel_{alg} on {label} {tuple(x.shape)}, hop {cfg.hop_length}, Kp {kp}, "
-                      f"{cfg.n_mels} mel bands, {rung(plan)} plan {tuple(plan)}: {text}")
-                check(ok, f"fused_mel_{alg} {name} {label}")
-                del mel_k, bmax_k, mel_p, bmax_p, ex
+                runs = [(kname, (mel_k, bmax_k))]
+                if kname == "fused_mel_fft_f32":  # the tensor-core kernel's plan at this geometry too
+                    runs.append(("fused_mel_f32", tc_f32(x, cfg, w, ns)))
+                for rname, got in runs:
+                    fft = rname == "fused_mel_fft_f32"
+                    ok, text = (partial(fft_error_ok, exact=float64_mel(x, cfg, ns)) if fft
+                                else partial(mode_error_ok, alg, exact=ex))(*got, mel_p, bmax_p)
+                    where = "" if fft else f", {rung(plan)} plan {tuple(plan)}"
+                    print(f"[24] {name}: {rname} on {label} {tuple(x.shape)}, hop {cfg.hop_length}, Kp {kp}, "
+                          f"{cfg.n_mels} mel bands{where}: {text}")
+                    check(ok, f"{rname} {name} {label}")
+                del mel_k, bmax_k, mel_p, bmax_p, ex, runs
             torch.cuda.empty_cache()
         if cfg.n_mels <= 128:
             continue
@@ -2943,7 +3143,8 @@ def rate_paths(dev, card: str) -> None:
         torch.cuda.synchronize()
         launches = {k: v for k, v in ff.LAUNCHES.items() if v}
         nf = 1 + y.shape[1] // cfg.hop_length
-        check(launches == {"fused_mel_f32": 1, "mfcc_tail_f32": 1}, f"{label}: one launch of each MFCC kernel")
+        kname = f32_kernel(cfg)
+        check(launches == {kname: 1, "mfcc_tail_f32": 1}, f"{label}: one launch of each MFCC kernel")
         check(tot.shape == (BATCH, nf) and bool(torch.isfinite(tot).all()), f"{label}: finite [B, nf] output")
         model = mt.MfccChange(cfg).to(dev)
         a = frontend_args(cfg, dev)
@@ -2952,8 +3153,7 @@ def rate_paths(dev, card: str) -> None:
         mel_k, bmax_k = frontend_kernel(y, cfg, a)
         pk = peak_db(bmax_k)
         ms = {
-            "fused_mel_f32": (kernel_ms(lambda: frontend_kernel(y, cfg, a)),
-                              kernel_ms(lambda: frontend_plain(y, cfg, a))),
+            kname: (kernel_ms(lambda: frontend_kernel(y, cfg, a)), kernel_ms(lambda: frontend_plain(y, cfg, a))),
             "mfcc_tail_f32": (cuda_ms(lambda: ff.mfcc_tail(mel_k, pk, cfg.n_mfcc, transposed=True, dct=a["dct"])),
                               cuda_ms(lambda: ff.mfcc_tail_reference(mel_k, pk, a["dct"], transposed=True))),
         }
@@ -2981,26 +3181,27 @@ def rate_paths(dev, card: str) -> None:
         k_sup, two_bins = a["wri"].shape
         f32_bytes = (y.numel() * 4 + (a["wri"].numel() + a["melw"].numel()) * 4 + mel_k.numel() * 4
                      + bmax_k.numel() * 4)
-        b_f32 = split3_bound(f32_bytes, bsz * nfr, k_sup, two_bins // 2, n_mels, dft_passes=6)
+        b_f32 = (least_work_bound(cfg, bsz * nfr, y.numel() * 4 + mel_k.numel() * 4) if kname == "fused_mel_fft_f32"
+                 else split3_bound(f32_bytes, bsz * nfr, k_sup, two_bins // 2, n_mels, dft_passes=6))
         print(f"[25] {label} (hop {cfg.hop_length}, window {cfg.win_length}, n_fft {n_fft}, Kp {kp}, bins_pad "
               f"{two_bins // 2}): mfcc_change 'fused' on [{BATCH}, {y.shape[1]}] float32, launches {launches}; "
-              f"fused_mel_f32 plan {tuple(plan)}")
+              f"fused_mel_f32's plan there {tuple(plan)}")
         for k, (t_k, t_p) in ms.items():
             print(f"[25] {label}: {k}: {t_k:.3f} ms, plain {t_p:.3f} ms ({card}; SM clock, power, throttle "
                   f"reasons: {sm_clock()})")
-        print(f"[25] {label}: fused_mel_f32 bound {b_f32[0]:.3f} ms ({b_f32[1]}; the kernel's share "
-              f"{b_f32[0] / ms['fused_mel_f32'][0]:.1%}); mfcc_change end to end: {e2e:.3f} ms = "
+        print(f"[25] {label}: {kname} bound {b_f32[0]:.3f} ms ({b_f32[1]}; the kernel's share "
+              f"{b_f32[0] / ms[kname][0]:.1%}); mfcc_change end to end: {e2e:.3f} ms = "
               f"{hours / (e2e / 1e3):.3f} audio-h/s; plain spectrum {e2e_plain:.3f} ms = "
               f"{hours / (e2e_plain / 1e3):.3f} audio-h/s ({card})")
         del mel_k, bmax_k, tot
         torch.cuda.empty_cache()
-        kernel, plain = "fused_mel_f32 (kernel)", "fused_mel_f32's plain version"
+        kernel, plain = f"{kname} (kernel)", "the 'f32' plain version"
         dist = f64_distance(model, y, {kernel: lambda x: model.trajectories(x, coef_major=True),
                                        plain: lambda x: via_tail(frontend_plain(x, cfg, a), cfg, model)})
         ratio = dist[kernel] / dist[plain]
-        print(f"[25] {label}: the MFCC against the float64 'fft' MFCC, max-abs: fused_mel_f32 {dist[kernel]:.3e} = "
+        print(f"[25] {label}: the MFCC against the float64 'fft' MFCC, max-abs: {kname} {dist[kernel]:.3e} = "
               f"{ratio:.4f} × its plain version's {dist[plain]:.3e} (bar 1.05)")
-        check(ratio <= 1.05, f"phase 25 {label}: fused_mel_f32 no further from float64 than 1.05 × its plain version")
+        check(ratio <= 1.05, f"phase 25 {label}: {kname} no further from float64 than 1.05 × its plain version")
         del y, model, a
         torch.cuda.empty_cache()
     streamed_times(dev, card)
@@ -3211,7 +3412,7 @@ def mfcc39_batch(dev, card: str) -> tuple[mt.AudioBatch, np.ndarray]:
     launches = {k: v for k, v in ff.LAUNCHES.items() if v}
     print(f"[28] mfcc39 on {tuple(batch.samples.shape)} ({WF_BATCH} utterances, {hours:.4f} audio-h unpadded): "
           f"output {tuple(out.shape)}, launches {launches}")
-    check(launches == {"fused_mel_f32": 1, "mfcc_tail_f32": 1}, "mfcc39: one launch of each MFCC kernel")
+    check(launches == {f32_kernel(cfg): 1, "mfcc_tail_f32": 1}, "mfcc39: one launch of each MFCC kernel")
     nf = mask.shape[-1]
     check(out.shape == (WF_BATCH, nf, 3 * cfg.n_mfcc) and bool(torch.isfinite(out).all()), "mfcc39 shape")
     valid = mask.cpu().numpy().astype(bool)
@@ -3344,7 +3545,7 @@ def workbench_session(dev, card: str) -> None:
         launches = {k: v for c in (ff.LAUNCHES, SK.LAUNCHES, BK.LAUNCHES, VK.LAUNCHES) for k, v in c.items() if v}
         print(f"[28] workbench: {len(s.curves)} curves of {len(WF_FEATURES)} features and 2 EMA channels at "
               f"derivations 0-2 ({', '.join(WF_METHODS)}) in {session_s:.3f} s (host clock); launches {launches}")
-        check(all(launches.get(k, 0) >= 1 for k in ("fused_mel_f32", "mfcc_tail_f32", "sinc_refine_f32",
+        check(all(launches.get(k, 0) >= 1 for k in ("fused_mel_fft_f32", "mfcc_tail_f32", "sinc_refine_f32",
                                                      "burg_lpc_f32")), "workbench: the MFCC, sinc and Burg kernels")
         worst = 0.0
         for c, feature, d, dcfg in derived:
@@ -3422,7 +3623,7 @@ def analysis_workflow(dev, card: str) -> mt.AudioBatch:
 
 EXTRAS = ("mod_cepstr", "mfcc39", "f0", "envelope", "formants")
 COUNTERS = (ff.LAUNCHES, SK.LAUNCHES, BK.LAUNCHES, VK.LAUNCHES)
-EXTRA_KERNELS = ("fused_mel_f32", "mfcc_tail_f32", "sinc_refine_f32", "burg_lpc_f32")
+EXTRA_KERNELS = ("fused_mel_fft_f32", "mfcc_tail_f32", "sinc_refine_f32", "burg_lpc_f32")
 
 
 def launch_counts() -> dict[str, int]:
@@ -3698,7 +3899,7 @@ def distributed(dev, card: str, tmp: str) -> None:
     print(f"[29] per-shard step, {n_t} shards of the hour in turn on this card (halos {g.pad} + {g.halo_r} samples "
           f"sliced from the whole signal, the max of the 4 peaks): max-abs {err:.3e} from whole-file (bar 1e-5); "
           f"launches {dict(ff.LAUNCHES)}; {time.perf_counter() - t0:.3f} s (host clock)")
-    check(err <= 1e-5 and ff.LAUNCHES["fused_mel_f32"] == n_t and ff.LAUNCHES["mfcc_tail_f32"] == n_t,
+    check(err <= 1e-5 and ff.LAUNCHES[f32_kernel(cfg)] == n_t and ff.LAUNCHES["mfcc_tail_f32"] == n_t,
           "four-shard step vs whole-file")
 
 
@@ -3787,7 +3988,7 @@ def extract_mfcc_phase(y: np.ndarray, card: str) -> None:
               f"{float(m_c.abs().max()):.3f} (bar {SURFACE_REL:g}); {ms:.3f} ms ({card})")
         check(m.device.type == "cuda" and m.shape == m_c.shape == (nf, cfg.n_mfcc) and bool(torch.isfinite(m).all()),
               f"extract_mfcc under {label}: on CUDA, [NF, n_mfcc], finite")
-        check(launches == {"fused_mel_f32": 1, "mfcc_tail_f32": 1}, f"extract_mfcc under {label}: one launch each")
+        check(launches == {f32_kernel(cfg): 1, "mfcc_tail_f32": 1}, f"extract_mfcc under {label}: one launch each")
         check(np.array_equal(t, t_m) and np.array_equal(t, t_c) and torch.equal(m, m_m),
               f"extract_mfcc under {label} is extract_mfcc_matrix")
         check(rel <= SURFACE_REL, f"extract_mfcc under {label} vs the CPU")
@@ -3799,7 +4000,7 @@ def extract_mfcc_phase(y: np.ndarray, card: str) -> None:
           "extract_modulation is extract_mfcc_change")
 
 
-TRACED_KERNELS = ("fused_mel_tc_kernel", "mfcc_tail_kernel")  # the __global__ names of fused_mel_f32, mfcc_tail_f32
+TRACED_KERNELS = ("fused_mel_fft_kernel", "mfcc_tail_kernel")  # the __global__ names of fused_mel_fft_f32, mfcc_tail_f32
 
 
 def profiled_mfcc_change(y: torch.Tensor) -> dict:
@@ -3880,11 +4081,11 @@ def traced_mfcc_change(card: str) -> None:
           + ", ".join(f"{q['traced']}/{q['launched']} ({q['pad']}, {q['lost_pad']}; {q['reported']})" for q in runs)
           + f". A plain torch.profiler window, no pad: {plain_traced} of {plain_launched} traced ({card})")
     print(f"[30] one whole trace: {r['events']} events, {r['bytes']} bytes; launches {r['launches']}; the frontend's "
-          f"kernel {r['ours']['fused_mel_tc_kernel']}, the tail's {r['ours']['mfcc_tail_kernel']}; the call "
+          f"kernel {r['ours'][TRACED_KERNELS[0]]}, the tail's {r['ours']['mfcc_tail_kernel']}; the call "
           f"{r['ms']:.3f} ms under profile_trace (CUDA events; median over the windows "
           f"{statistics.median(q['ms'] for q in runs):.3f}; the block {r['wall_s']:.3f} s on the host clock, the pad's "
           f"count, the pad and the trace's writing included), {ms:.3f} ms without (median of 5) ({card})")
-    check(all(q["launches"] == {"fused_mel_f32": 1, "mfcc_tail_f32": 1} for q in runs)
+    check(all(q["launches"] == {f32_kernel(FLAGSHIP): 1, "mfcc_tail_f32": 1} for q in runs)
           and len(whole) >= TRACE_WINDOWS - 2 and all(all(q["ours"].values()) for q in whole),
           "profile_trace: every kernel of the call in the trace, the frontend's and the tail's among them")
     check(all((q["traced"] < q["launched"]) == (q["reported"] > 0) for q in runs),
@@ -3921,7 +4122,7 @@ def masked_and_hamming(dev, padded: mt.AudioBatch) -> None:
           f"launches {launches}; all {x.shape[0]} rows vs each row alone on the card max-abs {alone:.3e} (bar 1e-5); "
           f"rows {rows} (first, shortest, longest, last) vs the CPU max-abs {err:.3e} (bar 1e-5)")
     check(got.shape == mask.shape and bool(torch.isfinite(got).all()) and launches == {
-        "fused_mel_f32": 1, "mfcc_tail_f32": 1} and alone <= 1e-5 and err <= 1e-5,
+        f32_kernel(cfg): 1, "mfcc_tail_f32": 1} and alone <= 1e-5 and err <= 1e-5,
           "mfcc_change(frame_mask=...): every row vs itself alone, sampled rows vs the CPU")
     del x, got
     frames = frame_signal(speechlike_on_card(4 * SECONDS * cfg.signal_sample_rate, cfg.signal_sample_rate, seed=31)
@@ -4056,7 +4257,7 @@ def main() -> int:
     for line in ptxas_lines(lib_path.with_suffix(".ptxas.txt").read_text(),
                             ("viterbi_fwd_f32_kernel", "viterbi_bwd_f32_kernel", "viterbi_fwd_wide_kernel",
                              "viterbi_bwd_wide_kernel", "viterbi_fwd_toeplitz_kernel", "viterbi_bwd_toeplitz_kernel",
-                             "fused_mel_tc_kernel",
+                             "fused_mel_tc_kernel", "fused_mel_fft_kernel",
                              "fused_mel_fold_tc_kernel", "fused_mel_fold_kernel", "mfcc_tail_kernel",
                              "sinc_refine_f32_kernel", "burg_lpc_f32_kernel")):
         print(f"[1] ptxas {line}")

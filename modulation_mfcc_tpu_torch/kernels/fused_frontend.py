@@ -1,8 +1,32 @@
 """Fused spectral frontend: audio → mel power → MFCC, through CUDA kernels.
 
 Hand-written kernels carry the MFCC stage on the GPU, one frontend kernel
-per arithmetic mode of the JAX frontend and one tail kernel:
+per arithmetic mode of the JAX frontend (two for 'f32') and one tail kernel:
 
+  * ``fused_mel_fft_f32`` (csrc/fused_frontend_fft.cu) is the 'f32' mode's
+    CUDA route wherever :func:`fft_ok` takes the geometry (n_fft a power of
+    two from 256 to 2048, a hop whose 64-frame span fits shared memory, up
+    to 512 bands: every configuration the benchmark runs). It stands for
+    the same Pallas kernel as ``fused_mel_f32``
+    (pallas/fused_frontend.py ``_launch`` → ``_kernel``/``_kernel_pipe``,
+    algorithm 'f32') and computes the same function on the CUDA cores with
+    FFT structure: the windowed frames of a 64-frame block read from its
+    audio span in shared memory, an n_fft/2-point complex FFT of the packed
+    even and odd samples in Stockham passes of radix 16 (then 2, 4 or 8),
+    the split post-pass to the real spectrum's live bins and their power,
+    all in FP64 from float64 constants; the power rounded once to float32;
+    the mel as a sparse FP32 sum of each band's weights in increasing bin
+    order, and the block maximum. In FP32 an FFT lands twice as far as the
+    stepped FP32 DFT from the float64 function at mel entries near the
+    top_db floor; in FP64 it is that function to the float32 rounding of
+    the power and the mel sum. Its constants (window, twiddles, band table)
+    are :func:`fft_weights`, built from the same ``melw``;
+    :func:`fft_frontend_mirror` runs its operations in its order and
+    precision, and the kernel equals it bit for bit. Bound: FP64 and
+    shared-memory issue (~10 GFLOP of least work per 128 × 30 s batch at
+    16 kHz, against ~1.9 TFLOP of bf16 tensor-core work in the six-pass
+    kernel). The tensor-core kernel keeps every other geometry (a
+    non-power-of-two n_fft, the long hops) and the other modes.
   * ``fused_mel_f32``, ``fused_mel_bf16``, ``fused_mel_x3``,
     ``fused_mel_i16``, ``fused_mel_i24`` (csrc/fused_frontend_tc.cu, the
     modes of one kernel on the tensor cores), all behind
@@ -38,8 +62,10 @@ per arithmetic mode of the JAX frontend and one tail kernel:
         projection runs as x3 on the bf16 tensor cores.
 
     The tensor-core kernels read their weights in a layout of their own
-    (:func:`tc_layouts`: :func:`pack_tc_basis`, :func:`pack_tc_mel`), which
-    :func:`mode_tensors` and the ``MfccChange`` module build once.
+    (:func:`tc_layouts`: :func:`pack_tc_basis`, :func:`pack_tc_mel`);
+    :func:`kernel_layouts` picks what the mode's kernel reads at a geometry
+    (those layouts, or the FFT kernel's constants), and :func:`mode_tensors`
+    and the ``MfccChange`` module build it once through it.
   * ``fused_mel_fold_f32`` and ``fused_mel_fold_x3``
     (csrc/fused_frontend_fold_tc.cu, on the tensor cores) and
     ``fused_mel_fold_bf16`` (csrc/fused_frontend_fold.cu, FFMA), behind
@@ -59,7 +85,8 @@ per arithmetic mode of the JAX frontend and one tail kernel:
     Bound: the DFT's operations (~315 GFLOP + ~50 GFLOP of mel per
     128 × 30 s batch at 16 kHz and pass), on the unit each mode's arithmetic
     runs on (bf16 tensor cores for f32's six passes, bf16 and x3, int8 for
-    i16 and i24).
+    i16 and i24). 'f32' launches ``fused_mel_f32`` only where
+    :func:`fft_ok` refuses the geometry.
   * ``mfcc_tail_f32`` (wrapper :func:`mfcc_tail`) replaces the Pallas tail
     kernels (``mfcc_tail`` → ``_tail_kernel_t`` / ``_tail_kernel``):
     10·log10(max(mel, 1e-10)), the clip at peak − 80 dB, and the DCT-II,
@@ -73,7 +100,8 @@ Every frontend takes float32 or int16 audio (int16 is dequantized as
 v·2⁻¹⁵, exact), flat [B, T] or as hop rows [B, rows, hop]
 (:func:`pack_hop_rows`, the corpus sweep's upload format) with
 ``n_samples``. Beside each wrapper is its plain PyTorch version
-(:func:`fused_mel_frontend_reference`, :func:`fused_mel_fold_reference`,
+(:func:`fused_mel_frontend_reference`, the stepped FP32 DFT that both 'f32'
+kernels stand beside; :func:`fused_mel_fold_reference`,
 :func:`mfcc_tail_reference`). A
 wrapper takes the plain version only for a tensor on the CPU; for a CUDA
 tensor it launches the kernel or raises. ``LAUNCHES`` counts kernel
@@ -99,7 +127,7 @@ import torch.nn.functional as tnf
 
 from modulation_mfcc_tpu_torch.kernels._launch import check_cuda, raise_on, route, stream_of
 from modulation_mfcc_tpu_torch.ops.framing import frame_by_slices
-from modulation_mfcc_tpu_torch.ops.spectral import dct_matrix, dft_bases, mel_filterbank
+from modulation_mfcc_tpu_torch.ops.spectral import analysis_window, dct_matrix, dft_bases, mel_filterbank
 from modulation_mfcc_tpu_torch.ops.windows import hann
 from modulation_mfcc_tpu_torch.utils import obs
 from modulation_mfcc_tpu_torch.utils.helpers import dequantize_samples, round_up_to_multiple
@@ -112,13 +140,15 @@ __all__ = [
     "ffma_fold_bytes",
     "pack_tc_mel", "unpack_tc_mel", "fused_mel_frontend", "fused_mel_frontend_reference",
     "split3_frontend_mirror", "fold_operands", "fused_mel_fold_reference", "split3_fold_mirror",
+    "FFT_SIZES", "FFT_KEYS", "fft_radices", "fft_shared_bytes", "fft_ok", "fft_weights", "fft_frontend_mirror",
+    "kernel_layouts",
     "mfcc_tail", "mfcc_tail_reference", "fused_mfcc",
 ]
 
 ALGORITHMS = ("f32", "bf16", "x3", "i16", "i24")
 FOLD_ALGORITHMS = ("f32", "bf16", "x3")
 TC_FOLD_ALGORITHMS = ("f32", "x3")  # the folds on the tensor cores (fold_layouts, fold_plan)
-LAUNCHES = ({f"fused_mel_{a}": 0 for a in ALGORITHMS} | {"mfcc_tail_f32": 0}
+LAUNCHES = ({f"fused_mel_{a}": 0 for a in ALGORITHMS} | {"fused_mel_fft_f32": 0, "mfcc_tail_f32": 0}
             | {f"fused_mel_fold_{a}": 0 for a in FOLD_ALGORITHMS})
 
 BLOCK_FRAMES = 64  # frames per frontend block: one bmax entry each (kBF in the .cu)
@@ -137,6 +167,10 @@ _TC_PITCH = 80                      # bf16 elements per row of the power tile (k
 _FOLD_GROUP = 8                     # bins a cosine (then sine) column group of the fold basis (an MMA n-tile)
 _MEL_STEP = 16                      # bins per MMA of the mel projection (kMelStep)
 SHARED_MAX = 232_448                # bytes of shared memory a block may use on the H100 (kSharedMax)
+FFT_SIZES = (256, 512, 1024, 2048)  # the n_fft the FFT kernel takes: M = n_fft/2 from 2^7 to 2^10 (kFftMinLog..)
+FFT_KEYS = ("fft_tab", "fft_bands", "fft_w")  # its constants (fft_weights)
+_FFT_THREADS = 256  # threads a block of the FFT kernel (kFftThreads)
+_FFT_RADIX = 16     # points a thread holds in each pass of the FFT (kFftRadix)
 ROWS_BLKF = 1024   # the JAX frontend's default frame block, which sizes a hop-rows batch
 _TAIL_ROWS = 16    # spare hop rows after the last block (JAX _TAIL_ROWS)
 _I24_FULL = 127.0 * 65536.0 - 33000.0  # 24-bit quantization full scale (exact in f32)
@@ -145,6 +179,19 @@ _I24_FULL = 127.0 * 65536.0 - 33000.0  # 24-bit quantization full scale (exact i
 # ---------------------------------------------------------------------------
 # Host design (numpy, verbatim from the JAX frontend)
 # ---------------------------------------------------------------------------
+
+
+def _mel_design(sr: float, n_fft: int, n_mels: int, fmin: float, fmax: float | None) -> tuple[np.ndarray, int, bool]:
+    """(the mel bank [n_mels, n_fft/2 + 1], the bins up to the last one some
+    filter weights, whether the Nyquist bin rides the DC slot): the JAX
+    frontend's trim and packing rule, which both frontends' constants share.
+    Packed when every bin is live, half a multiple of 128 and DC dead."""
+    m_full = mel_filterbank(sr, n_fft, n_mels, fmin, fmax)
+    nz = np.flatnonzero(np.abs(m_full).sum(axis=0) > 0)
+    half = n_fft // 2
+    n_bins = int(nz[-1]) + 1 if nz.size else half + 1
+    packed = bool(n_bins == half + 1 and half % 128 == 0 and nz.size and int(nz[0]) >= 1)
+    return m_full, n_bins, packed
 
 
 @lru_cache(maxsize=32)
@@ -168,19 +215,10 @@ def frontend_weights(
     pw = (n_fft - win_length) // 2
     sup = win_length
     wr, wi = dft_bases(n_fft, "hann", win_length)
-    n_bins_full = wr.shape[1]
     wr = wr[pw : pw + sup]
     wi = wi[pw : pw + sup]
-    m_full = mel_filterbank(sr, n_fft, n_mels, fmin, fmax)
-    nz = np.flatnonzero(np.abs(m_full).sum(axis=0) > 0)
-    n_bins = int(nz[-1]) + 1 if nz.size else n_bins_full
+    m_full, n_bins, packed = _mel_design(sr, n_fft, n_mels, fmin, fmax)
     half = n_fft // 2
-    packed = (
-        n_bins == half + 1
-        and half % 128 == 0
-        and nz.size
-        and int(nz[0]) >= 1
-    )
     if packed:
         bins_pad = half
         wr_eff = wr[:, :half].copy()
@@ -285,12 +323,29 @@ def mode_weights(
 
 
 def mode_tensors(algorithm: str, device, sr: float, n_fft: int = 512, win_length: int | None = None,
-                 n_mels: int = 128, fmin: float = 100.0, fmax: float | None = None) -> dict[str, torch.Tensor]:
-    """:func:`mode_weights` as tensors on ``device``, with the tensor-core
-    kernel's layouts of them (:func:`tc_layouts`)."""
-    w = mode_weights(algorithm, sr, n_fft, win_length, n_mels, fmin, fmax)
-    t = {k: torch.as_tensor(v, device=device) for k, v in w.items()}
-    return t | tc_layouts(algorithm, t)
+                 n_mels: int = 128, fmin: float = 100.0, fmax: float | None = None,
+                 hop: int = 80) -> dict[str, torch.Tensor]:
+    """:func:`mode_weights` as tensors on ``device``, with what the mode's
+    CUDA kernel reads at this geometry (:func:`kernel_layouts`)."""
+    t = {k: torch.as_tensor(v, device=device)
+         for k, v in mode_weights(algorithm, sr, n_fft, win_length, n_mels, fmin, fmax).items()}
+    return t | kernel_layouts(algorithm, t, hop, sr, n_fft, win_length, n_mels, fmin, fmax)
+
+
+def kernel_layouts(algorithm: str, weights: dict[str, torch.Tensor], hop: int, sr: float, n_fft: int = 512,
+                   win_length: int | None = None, n_mels: int = 128, fmin: float = 100.0,
+                   fmax: float | None = None) -> dict[str, torch.Tensor]:
+    """What the mode's CUDA kernel reads beside ``weights`` (its
+    :func:`mode_weights` as tensors) at this geometry, on their device: for
+    'f32' where :func:`fft_ok` takes it, the FFT kernel's constants
+    (:func:`fft_weights`, keyed :data:`FFT_KEYS`); else the tensor-core
+    layouts (:func:`tc_layouts`). :func:`mode_tensors` and the ``MfccChange``
+    module both build what this returns, and nothing else."""
+    if algorithm == "f32" and fft_ok(n_fft, hop, win_length, n_mels):
+        dev = weights["melw"].device
+        design = fft_weights(sr, n_fft, win_length, n_mels, fmin, fmax)
+        return {k: torch.tensor(v, device=dev) for k, v in design.items()}
+    return tc_layouts(algorithm, weights)
 
 
 def _interleave(w: torch.Tensor) -> torch.Tensor:
@@ -474,14 +529,11 @@ def fold_weights(
     w_full = hann(sup, periodic=True)
     w[: sup // 2] = w_full[: sup // 2]
     w[sup // 2] = 0.5 * w_full[sup // 2]
-    m_full = mel_filterbank(sr, n_fft, n_mels, fmin, fmax)
-    nz = np.flatnonzero(np.abs(m_full).sum(axis=0) > 0)
-    n_bins = int(nz[-1]) + 1 if nz.size else half + 1
+    m_full, n_bins, packed = _mel_design(sr, n_fft, n_mels, fmin, fmax)
     th = 2.0 * np.pi * np.outer(np.arange(k_half) + pw, np.arange(n_bins)) / n_fft
     c = w[:, None] * np.cos(th)
     s = -w[:, None] * np.sin(th)
     s[sup // 2, :] = 0.0  # the self-point is cosine-only
-    packed = n_bins == half + 1 and half % 128 == 0 and nz.size and int(nz[0]) >= 1
     if packed:
         re_cols = half
         c[:, 0] = c[:, half]  # the Nyquist cosine column rides the DC slot
@@ -624,6 +676,110 @@ def ffma_fold_bytes(algorithm: str, hop: int, sup: int) -> int:
     return 4 * (shared + BLOCK_FRAMES * _MEL_MAX) + 2 * span_pad
 
 
+def fft_radices(m: int) -> tuple[int, ...]:
+    """The radices of the FFT kernel's passes over an m-point complex FFT:
+    16 while 16 divides what is left, then the rest (2, 4 or 8)."""
+    out, ns = [], 1
+    while ns < m:
+        out.append(min(_FFT_RADIX, m // ns))
+        ns *= out[-1]
+    return tuple(out)
+
+
+def fft_shared_bytes(n_fft: int, hop: int) -> int:
+    """Shared memory a block of ``fused_mel_fft_f32`` takes, the launcher's
+    sum: the exchange of a round's frames (256·16/M frames of M = n_fft/2
+    complex float64 points, one of padding every 16), the round's power rows
+    (M + 1 floats), eight warp maxima and the tile's audio span (63·hop +
+    n_fft floats), each part a multiple of 16 bytes. The constants stay in
+    device memory and the mel is staged in the exchange's space, so the
+    band count moves nothing."""
+    m = n_fft // 2
+    frames = _FFT_THREADS * _FFT_RADIX // m
+
+    def r16(n: int) -> int:
+        return -(-n // 16) * 16
+
+    return (frames * (m + m // 16) * 16 + r16(frames * (m + 1) * 4) + 4 * _FFT_THREADS // 32
+            + r16(((BLOCK_FRAMES - 1) * hop + n_fft) * 4))
+
+
+def fft_ok(n_fft: int, hop: int, win_length: int | None, n_mels: int) -> bool:
+    """Whether the 'f32' frontend takes the FFT kernel (``fused_mel_fft_f32``)
+    at this geometry: n_fft a power of two from 256 to 2048, a window within
+    it, up to :data:`MEL_LIMIT` bands, and a hop whose 64-frame span fits a
+    block's shared memory with the rest (:func:`fft_shared_bytes`). Every
+    other geometry keeps the tensor-core kernel (``fused_mel_f32``)."""
+    sup = win_length or n_fft
+    return (n_fft in FFT_SIZES and 1 <= sup <= n_fft and hop >= 1 and 1 <= n_mels <= MEL_LIMIT
+            and fft_shared_bytes(n_fft, hop) <= SHARED_MAX)
+
+
+@lru_cache(maxsize=32)
+def fft_weights(
+    sr: float,
+    n_fft: int = 512,
+    win_length: int | None = None,
+    n_mels: int = 128,
+    fmin: float = 100.0,
+    fmax: float | None = None,
+) -> dict[str, np.ndarray]:
+    """The FFT kernel's constants, M = n_fft/2:
+
+    * ``fft_tab`` float64 [3M + 257, 2]: the analysis window in pairs
+      (w[2m], w[2m + 1]), zero outside the support; W_M^k = (cos 2πk/M,
+      −sin 2πk/M), k < M; W_N^k, k ≤ M/2; each computed in float64 (the
+      kernel's FFT runs in FP64); W_N^(M−k) = (−W_N^k.re, W_N^k.im) past
+      M/2; then the second pass's twiddles [16, 16], entry (r, j) that of W_M^k with
+      k = r·j·M/(16·R) mod M (R its radix), so a half warp reads
+      consecutive entries;
+    * ``fft_bands`` int32 [n_mels + 2, 2]: row 0 the live bins [lo, hi),
+      row 1 + m band m's first bin less lo and the offset of its weights,
+      the last row (0, number of weights); band m's weights run from its
+      offset to the next band's;
+    * ``fft_w`` float32: each band's weights over its bins, from its first
+      nonzero bin to its last, in increasing bin order, the values of
+      :func:`frontend_weights`' ``melw`` (the Nyquist row read back from the
+      DC slot where it is packed).
+    """
+    if n_fft not in FFT_SIZES:
+        raise ValueError(f"fused_mel_fft_f32: n_fft must be one of {FFT_SIZES}, got {n_fft}")
+    m = n_fft // 2
+    win = analysis_window(n_fft, "hann", win_length or n_fft)
+    k = np.arange(m + 1, dtype=np.float64)
+    tab = np.empty((3 * m + 1 + _FFT_RADIX**2, 2), np.float64)
+    tab[:m] = win.reshape(m, 2)
+    tab[m : 2 * m, 0], tab[m : 2 * m, 1] = np.cos(2.0 * np.pi * k[:m] / m), -np.sin(2.0 * np.pi * k[:m] / m)
+    h = m // 2 + 1  # W_N^k for k ≤ M/2; past it W_N^(M−k) = (−W.x, W.y), as the kernel pairs bins k and M − k
+    tab[2 * m : 2 * m + h, 0], tab[2 * m : 2 * m + h, 1] = np.cos(np.pi * k[:h] / m), -np.sin(np.pi * k[:h] / m)
+    tab[2 * m + h : 3 * m + 1] = tab[2 * m + m - h : 2 * m - 1 : -1] * (-1.0, 1.0)
+    q = np.arange(_FFT_RADIX)
+    tab[3 * m + 1 :] = tab[m + np.outer(q, q).reshape(-1) * (m // (_FFT_RADIX * fft_radices(m)[1])) % m]
+    melw = frontend_weights(sr, n_fft, win_length, n_mels, fmin, fmax)[1]
+    rows = np.zeros((m + 1, n_mels), np.float32)  # the weights by true bin 0..M
+    if _mel_design(sr, n_fft, n_mels, fmin, fmax)[2]:
+        rows[1:m], rows[m] = melw[1:m], melw[0]
+    else:
+        rows[: min(m + 1, melw.shape[0])] = melw[: m + 1]
+    bands = np.zeros((n_mels + 2, 2), np.int32)
+    spans, weights = [], []
+    for c in range(n_mels):
+        nz = np.flatnonzero(rows[:, c])
+        spans.append((int(nz[0]), int(nz[-1]) + 1) if nz.size else None)
+        bands[1 + c, 1] = sum(w.size for w in weights)
+        if nz.size:
+            weights.append(rows[nz[0] : nz[-1] + 1, c])
+    live = [s for s in spans if s]
+    lo, hi = (min(s[0] for s in live), max(s[1] for s in live)) if live else (0, 0)
+    bands[0] = lo, hi
+    bands[1:-1, 0] = [s[0] - lo if s else 0 for s in spans]
+    w = np.concatenate(weights) if weights else np.zeros(0, np.float32)
+    bands[-1, 1] = w.size
+    if w.size > 2 * (m + 1):
+        raise ValueError(f"fused_mel_fft_f32: {w.size} mel weights, more than two a bin")
+    return {"fft_tab": tab, "fft_bands": bands, "fft_w": w.astype(np.float32)}
+
+
 @lru_cache(maxsize=16)
 def tail_dct(n_mfcc: int, n_mels: int) -> np.ndarray:
     """DCT-II ortho as [n_mels, n_mfcc] float32 (the live columns of the JAX
@@ -752,6 +908,8 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, f"fused_mel_fold_{alg}")
         fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, _FoldPlan, p]
         fn.restype = i
+    lib.fused_mel_fft_f32.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.fused_mel_fft_f32.restype = i
     lib.mfcc_tail_f32.argtypes = [p, i, p, p, p, i, i, i, i, i, p]
     lib.mfcc_tail_f32.restype = i
     return lib
@@ -889,6 +1047,127 @@ def split3_frontend_mirror(
     return _with_block_max(_split3_matmul(re * re + im * im, _split3(melw)))
 
 
+def _cmul(ar: torch.Tensor, ai: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(a·w) in the FFT kernel's rounding (cmul): four products, then a
+    difference and a sum, each rounded to float32."""
+    return ar * wr - ai * wi, ar * wi + ai * wr
+
+
+def _dft_dif(vr: torch.Tensor, vi: torch.Tensor, tw: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The R-point DFTs over the last axis [..., R] as the kernel's registers
+    run them (dft_dif): radix-2 decimation in frequency, each butterfly a
+    sum and a difference times W_2h^k, where W is 1 (no product), −i (a swap
+    and a sign) or read from the table ``tw`` [R, 2] (W_R^e); the outputs in
+    bit-reversed order."""
+    r = vr.shape[-1]
+    vr, vi = vr.clone(), vi.clone()
+    h = r // 2
+    while h >= 1:
+        for b in range(0, r, 2 * h):
+            for k in range(h):
+                i, j = b + k, b + k + h
+                ar, ai, cr, ci = vr[..., i], vi[..., i], vr[..., j], vi[..., j]
+                dr, di = ar - cr, ai - ci
+                vr[..., i], vi[..., i] = ar + cr, ai + ci
+                e = k * (r // (2 * h))
+                if e == 0:
+                    vr[..., j], vi[..., j] = dr, di
+                elif 4 * e == r:
+                    vr[..., j], vi[..., j] = di, -dr
+                else:
+                    vr[..., j], vi[..., j] = _cmul(dr, di, tw[e, 0], tw[e, 1])
+        h //= 2
+    return vr, vi
+
+
+def _bitrev(r: int) -> list[int]:
+    bits = r.bit_length() - 1
+    return [int(format(k, f"0{bits}b")[::-1], 2) if bits else 0 for k in range(r)]
+
+
+def _fft_pass(zr: torch.Tensor, zi: torch.Tensor, r: int, ns: int, tw: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One Stockham pass of radix ``r`` over [..., M] (the kernel's
+    stockham_pass; pass 0 when ns = 1): butterfly j reads points j + q·M/r,
+    multiplies point q ≥ 1 by W_M^(q·(j mod ns)·M/(ns·r)) (ns > 1), takes
+    their r-point DFT and writes output k to (j / ns)·ns·r + j mod ns + k·ns."""
+    m = zr.shape[-1]
+    nb = m // r
+    j = torch.arange(nb, device=zr.device)
+    q = torch.arange(r, device=zr.device)
+    idx = j[:, None] + q[None, :] * nb
+    vr, vi = zr[..., idx], zi[..., idx]
+    if ns > 1:
+        e = q[None, 1:] * (j % ns)[:, None] * (m // (ns * r))
+        vr[..., 1:], vi[..., 1:] = _cmul(vr[..., 1:], vi[..., 1:], tw[e, 0], tw[e, 1])
+    vr, vi = _dft_dif(vr, vi, tw[:: m // r])
+    perm = _bitrev(r)
+    out = (j // ns * ns * r + j % ns)[:, None] + q[None, :] * ns
+    yr, yi = torch.empty_like(zr), torch.empty_like(zi)
+    yr[..., out], yi[..., out] = vr[..., perm], vi[..., perm]
+    return yr, yi
+
+
+def fft_frontend_mirror(
+    audio: torch.Tensor, tab: torch.Tensor, bands: torch.Tensor, w: torch.Tensor, *, hop: int, eff_pad: int,
+    n_samples: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mel, block maxima) of ``fused_mel_fft_f32``'s arithmetic in PyTorch,
+    each operation the kernel's in its order and precision: frames of
+    n_fft = 2M samples (zero outside the audio), windowed into M complex
+    points z[m] = (x[2m]·w[2m], x[2m + 1]·w[2m + 1]); the M-point FFT in the
+    kernel's passes (:func:`fft_radices`, :func:`_fft_pass`) and twiddles;
+    the split post-pass X[k] = E + W_N^k·O, E = (Z[k] + conj Z[M−k])/2,
+    O = −i (Z[k] − conj Z[M−k])/2, and power X.re² + X.im² on the live bins,
+    all in the table's float64, the power then rounded to float32; each
+    band's mel the float32 sum of its weights times those powers in
+    increasing bin order, from zero. ``tab``/``bands``/``w`` are
+    :func:`fft_weights`' ``fft_tab``/``fft_bands``/``fft_w``; audio as for
+    :func:`fused_mel_frontend`. The kernel computes the same numbers bit for
+    bit (tests/test_torch_frontend_fft.py on the card); no path calls it."""
+    dev = audio.device
+    tab, bands, w = tab.to(dev, torch.float64), bands.to(dev, torch.long), w.to(dev)
+    m = (tab.shape[0] - 1 - _FFT_RADIX**2) // 3
+    n_fft = 2 * m
+    win, tw, post = tab[:m], tab[m : 2 * m], tab[2 * m : 3 * m + 1]
+    (lo, hi), starts, offs = bands[0].tolist(), bands[1:-1, 0], bands[1:, 1]
+    counts = offs[1:] - offs[:-1]
+    bsz = audio.shape[0]
+    if audio.ndim == 3:
+        t, flat = int(n_samples), dequantize_samples(audio).reshape(bsz, -1)
+        left = n_fft // 2 - eff_pad  # the rows hold the audio at eff_pad: FFT point 0 sits pw before it
+    else:
+        t, flat = audio.shape[1], dequantize_samples(audio)
+        left = n_fft // 2
+    nf = 1 + t // hop
+    right = max(0, (nf - 1) * hop + n_fft - left - flat.shape[1])
+    x = frame_by_slices(tnf.pad(flat, (left, right)), 0, nf, n_fft, hop)
+    k = torch.arange(lo, hi, device=dev)
+    c_max = int(counts.max()) if counts.numel() else 0
+    mels = []
+    for u in range(bsz):  # an utterance at a time keeps the FFT's scratch small
+        zr, zi = x[u, :, 0::2] * win[:, 0], x[u, :, 1::2] * win[:, 1]
+        ns = 1
+        for r in fft_radices(m):
+            zr, zi = _fft_pass(zr, zi, r, ns, tw)
+            ns *= r
+        ar, ai = zr[:, k % m], zi[:, k % m]
+        br, bi = zr[:, (m - k) % m], -zi[:, (m - k) % m]
+        er, ei = 0.5 * (ar + br), 0.5 * (ai + bi)
+        dr, di = ar - br, ai - bi
+        orr, oi = 0.5 * di, -(0.5 * dr)
+        pr, pi = _cmul(orr, oi, post[k, 0], post[k, 1])
+        xr, xi = er + pr, ei + pi
+        p = (xr * xr + xi * xi).float()
+        mel = torch.zeros((nf, starts.shape[0]), dtype=torch.float32, device=dev)
+        for j in range(c_max):
+            on = j < counts
+            idx = torch.where(on, starts + j, 0)
+            wj = w[torch.where(on, offs[:-1] + j, 0)] if w.numel() else torch.zeros_like(mel[0])
+            mel = torch.where(on, mel + wj * p[:, idx], mel)
+        mels.append(mel)
+    return _with_block_max(torch.stack(mels))
+
+
 def _with_block_max(mel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(mel, the max of each 64-frame block of it [B, ceil(nf/64)])."""
     bsz, nf = mel.shape[:2]
@@ -995,6 +1274,11 @@ def fused_mel_frontend(
     with ``fold``) on the audio's device (a module's buffers); designed
     from the other arguments when None.
 
+    On a CUDA tensor 'f32' launches ``fused_mel_fft_f32`` where
+    :func:`fft_ok` takes the geometry, else ``fused_mel_f32``; ``weights``
+    then carry what that kernel reads (:func:`kernel_layouts`). On the CPU
+    every mode takes its plain version.
+
     ``fold=True`` takes the folded real DFT (``fused_mel_fold_*``): float32
     flat audio, :data:`FOLD_ALGORITHMS`, and a geometry :func:`fold_ok`
     accepts; anything else raises.
@@ -1006,32 +1290,38 @@ def fused_mel_frontend(
         return _fused_mel_fold(audio, sr=sr, n_fft=n_fft, hop=hop, win_length=win_length, n_mels=n_mels,
                                fmin=fmin, fmax=fmax, algorithm=algorithm, weights=weights)
     if weights is None:
-        weights = mode_tensors(algorithm, audio.device, sr, n_fft, win_length, n_mels, fmin, fmax)
+        weights = mode_tensors(algorithm, audio.device, sr, n_fft, win_length, n_mels, fmin, fmax, hop=hop)
     fixed = algorithm in ("i16", "i24")
     wri, melw = weights["planes" if fixed else "wri"], weights["melw"]
-    pad = eff_pad(n_fft, win_length)
     if not route(audio, "fused_mel_frontend"):
         return fused_mel_frontend_reference(
-            audio, wri, melw, hop=hop, eff_pad=pad, algorithm=algorithm, n_samples=t,
+            audio, wri, melw, hop=hop, eff_pad=eff_pad(n_fft, win_length), algorithm=algorithm, n_samples=t,
             sw=weights.get("sw"), corr=weights.get("corr"),
         )
-    name = f"fused_mel_{algorithm}"
+    n_mels = melw.shape[-1]
+    fft = algorithm == "f32" and fft_ok(n_fft, hop, win_length, n_mels)
+    name = "fused_mel_fft_f32" if fft else f"fused_mel_{algorithm}"
     if not audio.is_contiguous():
         raise ValueError(f"{name}: audio must be contiguous")
-    check_cuda(name, melw, *([] if fixed else [wri]))
-    k, two_bins = wri.shape[-2:]
-    bins_pad, n_mels = melw.shape[-2:]
-    if two_bins != 2 * bins_pad or bins_pad % _BIN_TILE or not 1 <= n_mels <= MEL_LIMIT:
-        raise ValueError(
-            f"{name}: weights {tuple(wri.shape)} / melw {tuple(melw.shape)} need "
-            f"2·bins_pad columns, bins_pad a multiple of {_BIN_TILE}, n_mels in 1..{MEL_LIMIT}"
-        )
     bsz = audio.shape[0]
     nf = 1 + t // hop
     mel_dtype = torch.bfloat16 if algorithm == "bf16" else torch.float32
     mel = torch.empty((bsz, nf, n_mels), dtype=mel_dtype, device=audio.device)
-    rc, bmax = _launch_tc(name, audio, int(audio.dtype == torch.int16), weights, mel, buf_len, k, hop, off, nf,
-                          bins_pad, n_mels)
+    is_i16 = int(audio.dtype == torch.int16)
+    if fft:
+        # the sample of frame 0's first FFT point: the support starts pw points into the n_fft
+        start = off - (n_fft - (win_length or n_fft)) // 2
+        rc, bmax = _launch_fft(audio, is_i16, weights, mel, buf_len, n_fft, hop, start, nf)
+    else:
+        k, two_bins = wri.shape[-2:]
+        bins_pad = melw.shape[-2]
+        check_cuda(name, melw, *([] if fixed else [wri]))
+        if two_bins != 2 * bins_pad or bins_pad % _BIN_TILE or not 1 <= n_mels <= MEL_LIMIT:
+            raise ValueError(
+                f"{name}: weights {tuple(wri.shape)} / melw {tuple(melw.shape)} need "
+                f"2·bins_pad columns, bins_pad a multiple of {_BIN_TILE}, n_mels in 1..{MEL_LIMIT}"
+            )
+        rc, bmax = _launch_tc(name, audio, is_i16, weights, mel, buf_len, k, hop, off, nf, bins_pad, n_mels)
     raise_on(rc, name)
     LAUNCHES[name] += 1
     return mel, bmax
@@ -1042,7 +1332,8 @@ def _launch_tc(name: str, audio: torch.Tensor, is_i16: int, weights: dict[str, t
                n_mels: int, plan: TcPlan | None = None) -> tuple[int, torch.Tensor]:
     """Launch ``fused_mel_f32``, ``fused_mel_bf16``, ``fused_mel_x3``,
     ``fused_mel_i16`` or ``fused_mel_i24`` on the weights' tensor-core
-    layouts (:func:`tc_layouts`, which :func:`mode_tensors` includes) under
+    layouts (:func:`tc_layouts`, which :func:`mode_tensors` includes where
+    the mode takes this kernel: :func:`kernel_layouts`) under
     its :func:`tc_plan`, or under ``plan`` (another rung of the ladder,
     which the launcher checks; chip_smoke.py compares the rungs); the
     launcher's code and the block maxima [B, ceil(nf/64)], zeroed first
@@ -1064,7 +1355,7 @@ def _launch_tc(name: str, audio: torch.Tensor, is_i16: int, weights: dict[str, t
                              f"got {t.dtype} on {t.device}")
     plan = tc_plan(algorithm, hop, kp, n_mels) if plan is None else plan
     if obs.recording():
-        obs.annotate(tc_plan="streamed" if plan.streamed else "compact" if plan.shifted else "full")
+        obs.annotate(route="tc", tc_plan="streamed" if plan.streamed else "compact" if plan.shifted else "full")
     want_mel = (plan.mel_groups * bins_pad // _MEL_STEP, mel_planes, _MEL_MAX, _MEL_STEP)
     if tuple(basis.shape) != want or kp < k or kp % _TC_CHUNK or tuple(mtc.shape) != want_mel:
         raise ValueError(f"{name}: tensor-core weights {tuple(basis.shape)} / {tuple(mtc.shape)} do not match "
@@ -1094,6 +1385,36 @@ def _launch_tc(name: str, audio: torch.Tensor, is_i16: int, weights: dict[str, t
     return lib.fused_mel_i24(
         audio.data_ptr(), is_i16, basis.data_ptr(), sc.data_ptr(), mtc.data_ptr(), mel.data_ptr(),
         bmax.data_ptr(), bsz, buf_len, kp, hop, off, nf, bins_pad, n_mels, cplan, stream_of(audio),
+    ), bmax
+
+
+def _launch_fft(audio: torch.Tensor, is_i16: int, weights: dict[str, torch.Tensor], mel: torch.Tensor,
+                buf_len: int, n_fft: int, hop: int, start: int, nf: int) -> tuple[int, torch.Tensor]:
+    """Launch ``fused_mel_fft_f32`` on the weights' FFT constants
+    (:func:`fft_weights`, which :func:`mode_tensors` includes where
+    :func:`fft_ok` takes the geometry: :func:`kernel_layouts`); ``start`` is
+    the sample of frame 0's first FFT point. The launcher's code and the
+    block maxima [B, ceil(nf/64)]."""
+    name = "fused_mel_fft_f32"
+    if any(key not in weights for key in FFT_KEYS):
+        raise ValueError(f"{name}: weights lack the FFT constants {FFT_KEYS}; pass mode_tensors(...) or add "
+                         "fft_weights(...)")
+    tab, bands, w = (weights[key] for key in FFT_KEYS)
+    m, n_mels = n_fft // 2, mel.shape[-1]
+    for x, dtype in ((tab, torch.float64), (bands, torch.int32), (w, torch.float32)):
+        if x.device != audio.device or x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"{name}: FFT constants must be contiguous {dtype} on {audio.device}, got {x.dtype} "
+                             f"on {x.device}")
+    if tab.shape != (3 * m + 1 + _FFT_RADIX**2, 2) or bands.shape != (n_mels + 2, 2) or w.numel() > 2 * (m + 1):
+        raise ValueError(f"{name}: FFT constants {tuple(tab.shape)} / {tuple(bands.shape)} / {tuple(w.shape)} do "
+                         f"not match n_fft={n_fft}, n_mels={n_mels} (fft_weights)")
+    if obs.recording():
+        obs.annotate(route="fft")
+    bsz = audio.shape[0]
+    bmax = torch.empty((bsz, -(-nf // BLOCK_FRAMES)), dtype=torch.float32, device=audio.device)
+    return _lib().fused_mel_fft_f32(
+        audio.data_ptr(), is_i16, tab.data_ptr(), bands.data_ptr(), w.data_ptr(), mel.data_ptr(), bmax.data_ptr(),
+        bsz, buf_len, n_fft, hop, start, nf, n_mels, fft_shared_bytes(n_fft, hop), stream_of(audio),
     ), bmax
 
 
@@ -1273,7 +1594,7 @@ def fused_mfcc(
     if single:
         audio = audio[None, :]
     if weights is None:
-        weights = mode_tensors(algorithm, audio.device, sr, n_fft, win_length, n_mels, fmin, fmax)
+        weights = mode_tensors(algorithm, audio.device, sr, n_fft, win_length, n_mels, fmin, fmax, hop=hop)
     if dct is None:
         dct = torch.as_tensor(tail_dct(n_mfcc, n_mels), dtype=torch.float32, device=audio.device)
     with obs.span("frontend.mel"):

@@ -102,6 +102,35 @@ def test_fused_mel_frontend_matches_jax(audio, name):
     assert bmax.shape == (2, -(-nf // ff.BLOCK_FRAMES))
 
 
+@pytest.mark.parametrize("name", CONFIGS)
+def test_fft_mirror_matches_jax(audio, name):
+    """The FFT kernel's arithmetic (fft_frontend_mirror; the kernel equals it
+    bit for bit on the card) against the JAX f32 frontend at the bars its
+    plain version meets: mel within 1e-5 of the largest mel value and within
+    1e-4 relative above the top_db floor; the per-utterance peak within
+    1e-6 of the float64 peak of the same design."""
+    cfg = MfccConfig(**CONFIGS[name])
+    kw = frontend_kwargs(cfg)
+    with pltpu.force_tpu_interpret_mode():
+        jmel, jbmax = jax_ff.fused_mel_frontend(jnp.asarray(audio), **kw)
+    design = (cfg.signal_sample_rate, cfg.n_fft, cfg.win_length, cfg.n_mels, cfg.minFreq, cfg.maxFreq)
+    w = ff.fft_weights(*design)
+    mel, bmax = ff.fft_frontend_mirror(torch.tensor(audio), *(torch.tensor(w[k]) for k in ff.FFT_KEYS),
+                                       hop=cfg.hop_length, eff_pad=ff.eff_pad(cfg.n_fft, cfg.win_length))
+    mel, nf = mel.numpy(), 1 + audio.shape[1] // cfg.hop_length
+    jmel = np.asarray(jmel)[:, :nf]
+    assert mel.shape == jmel.shape
+    jpeak = np.asarray(jbmax).max(axis=(1, 2, 3))
+    np.testing.assert_allclose(mel, jmel, rtol=0, atol=1e-5 * jpeak.max())
+    live = jmel > 1e-8 * jpeak[:, None, None]
+    np.testing.assert_allclose(mel[live], jmel[live], rtol=1e-4, atol=0)
+    wri, melw = (torch.tensor(a, dtype=torch.float64) for a in ff.frontend_weights(*design))
+    _, bmax64 = ff.fused_mel_frontend_reference(torch.tensor(audio, dtype=torch.float64), wri, melw,
+                                                hop=cfg.hop_length, eff_pad=ff.eff_pad(cfg.n_fft, cfg.win_length))
+    np.testing.assert_allclose(bmax.amax(dim=1).numpy(), bmax64.amax(dim=1).numpy(), rtol=1e-6, atol=0)
+    assert bmax.shape == (2, -(-nf // ff.BLOCK_FRAMES))
+
+
 @pytest.mark.parametrize("masked", [False, True], ids=["peak", "masked_peak"])
 @pytest.mark.parametrize("transposed", [False, True], ids=["frame_major", "coef_major"])
 @pytest.mark.parametrize("name", CONFIGS)
@@ -159,7 +188,10 @@ def test_plain_versions_compose_like_the_wrappers(audio):
 
 def test_wrapper_geometry_matches_cuda_source():
     """The block and tile sizes the wrappers assume are the kernels' own
-    (the f32 fold's, fused_frontend_fold.cu; the tail's, fused_frontend.cu)."""
+    (the f32 fold's, fused_frontend_fold.cu; the tail's, fused_frontend.cu;
+    the FFT kernel's, fused_frontend_fft.cu: its frames a block, threads,
+    points a thread, staged mel columns, band limit, shared memory and the
+    n_fft it takes)."""
     csrc = Path(ff.__file__).resolve().parent.parent / "csrc"
     src = (csrc / "fused_frontend_fold.cu").read_text() + (csrc / "fused_frontend.cu").read_text()
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
@@ -167,6 +199,11 @@ def test_wrapper_geometry_matches_cuda_source():
     assert int(consts["kBT"]) == ff._BIN_TILE
     assert int(consts["kMelMax"]) == ff._MEL_MAX
     assert int(consts["kTailMelLimit"]) == ff.MEL_LIMIT
+    fft = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", (csrc / "fused_frontend_fft.cu").read_text())}
+    assert fft["kBF"] == ff.BLOCK_FRAMES and fft["kFftMelCols"] == ff._MEL_MAX and fft["kMelLimit"] == ff.MEL_LIMIT
+    assert fft["kFftThreads"] == ff._FFT_THREADS and fft["kFftRadix"] == ff._FFT_RADIX
+    assert fft["kSharedMax"] == ff.SHARED_MAX
+    assert ff.FFT_SIZES == tuple(2 << k for k in range(fft["kFftMinLog"], fft["kFftMaxLog"] + 1))
 
 
 @pytest.mark.parametrize("kw, seconds", [

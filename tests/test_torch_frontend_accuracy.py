@@ -10,7 +10,9 @@ mode). fused_mel_f32 itself runs an exact three-plane bf16 split on the
 tensor cores, and fused_mel_fold_f32 the same split over the folded
 operands; their arithmetic, mirrored in float32 matmuls
 (split3_frontend_mirror, split3_fold_mirror), is held to the same bars here,
-which is the proof that the split keeps the f32 mode's accuracy. The kernels themselves are
+which is the proof that the split keeps the f32 mode's accuracy; so is the
+FFT kernel fused_mel_fft_f32's (fft_frontend_mirror, which the kernel equals
+bit for bit on the card), the 'f32' mode's route at these geometries. The kernels themselves are
 held to their plain versions on the card by chip_smoke.py, which also
 prints these distances at 128 × 30 s and holds fused_mel_f32 there to its
 plain version's distance."""
@@ -40,12 +42,17 @@ def noise(n_utt: int) -> torch.Tensor:
 
 def port_mfcc(x: torch.Tensor, route: str, dct: torch.Tensor) -> torch.Tensor:
     """Coef-major f32 MFCC [B, 13, nf] through the plain version of the
-    unfolded ('fused') or the folded frontend ('fold'), or through
+    unfolded ('fused') or the folded frontend ('fold'), through
     fused_mel_f32's or fused_mel_fold_f32's split mirrored ('split', 'fold
-    split'), the peak from its block maxima."""
+    split'), or through fused_mel_fft_f32's FFT mirrored ('fft'), the peak
+    from its block maxima."""
     if route == "fused":
         return ff.fused_mfcc(x, transposed=True, **KW)
-    if route == "split":
+    if route == "fft":
+        w = ff.fft_weights(16_000.0, 512, KW["win_length"], 128, 100.0, KW["fmax"])
+        mel, bmax = ff.fft_frontend_mirror(x, *(torch.tensor(w[k]) for k in ff.FFT_KEYS), hop=KW["hop"],
+                                           eff_pad=ff.eff_pad(512, KW["win_length"]))
+    elif route == "split":
         wri, melw = (torch.tensor(a) for a in ff.frontend_weights(
             16_000.0, 512, KW["win_length"], 128, 100.0, KW["fmax"]))
         mel, bmax = ff.split3_frontend_mirror(x, wri, melw, hop=KW["hop"], eff_pad=ff.eff_pad(512, KW["win_length"]))
@@ -89,13 +96,14 @@ def routes16(batch16, model):
     return mfcc
 
 
-@pytest.mark.parametrize("route", ["fused", "fold", "split", "fold split"])
+@pytest.mark.parametrize("route", ["fused", "fold", "split", "fold split", "fft"])
 def test_f32_mfcc_within_bar_at_16x30s(batch16, routes16, route):
     """≤ 1e-4 against the float64 'fft' MFCC over 16 × 30 s (96,016 frames)
     of noise. Summed as one K-term product, the unfolded frontend's plain
     version misses (2.5e-4 on this input); in 16-row steps both FP32 routes
     meet it (measured 8.5e-5 unfolded, 7.0e-5 folded), and so do the
-    tensor-core kernels' splits, unfolded and folded. The bar is a max over the frames, so it
+    tensor-core kernels' splits, unfolded and folded, and the FFT kernel's
+    mirror (its float32 rounding grows as log N). The bar is a max over the frames, so it
     binds harder as they grow: PERF.md §6 has the distances at 128 × 30 s on
     the card, where of the float32 routes only the split meets it on noise."""
     want = batch16[1]
@@ -104,7 +112,7 @@ def test_f32_mfcc_within_bar_at_16x30s(batch16, routes16, route):
     assert max_abs(got, want) <= 1e-4
 
 
-@pytest.mark.parametrize("route", ["fused", "fold", "split", "fold split"])
+@pytest.mark.parametrize("route", ["fused", "fold", "split", "fold split", "fft"])
 def test_f32_mfcc_no_further_than_jax_pallas(model, route):
     """On 2 × 30 s of noise, each f32 route's plain version, and the
     kernels' splits mirrored, is no further from the float64 'fft' MFCC than

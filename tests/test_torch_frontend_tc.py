@@ -81,9 +81,13 @@ def grid(sr: int, t_steps=T_STEPS, win_lens=WIN_LENS, mel_widths=MEL_WIDTHS) -> 
 
 
 def tensors(algorithm: str, name: str) -> tuple[MfccConfig, dict[str, torch.Tensor]]:
+    """The mode's weights with the tensor-core kernel's layouts, which
+    mode_tensors builds where the mode takes that kernel ('f32' only where
+    fft_ok refuses the geometry: here they are added for it)."""
     cfg = MfccConfig(**GEOMETRY_CONFIGS[name])
-    return cfg, ff.mode_tensors(algorithm, "cpu", cfg.signal_sample_rate, cfg.n_fft, cfg.win_length, cfg.n_mels,
-                                cfg.minFreq, cfg.maxFreq)
+    w = ff.mode_tensors(algorithm, "cpu", cfg.signal_sample_rate, cfg.n_fft, cfg.win_length, cfg.n_mels,
+                        cfg.minFreq, cfg.maxFreq, hop=cfg.hop_length)
+    return cfg, w | ff.tc_layouts(algorithm, w)
 
 
 @pytest.mark.parametrize("name", CONFIGS)
@@ -94,7 +98,10 @@ def test_tc_layouts_round_trip(algorithm, name):
     (tc_planes: f32 packs the three planes of its float32 weights, whose
     sum is those weights): bf16 holds the bf16, x3 and f32 planes exactly;
     bf16 packs one plane of each; the padded rows and mel columns are zero;
-    mode_tensors and the MfccChange module carry the same layouts."""
+    mode_tensors and the MfccChange module carry the same layouts where the
+    mode takes the kernel ('f32' at a non-power-of-two n_fft; at these
+    geometries it takes the FFT kernel and the module carries its constants
+    instead)."""
     cfg, w = tensors(algorithm, name)
     mw = ff.mode_weights(algorithm, cfg.signal_sample_rate, cfg.n_fft, cfg.win_length, cfg.n_mels, cfg.minFreq,
                          cfg.maxFreq)
@@ -113,6 +120,13 @@ def test_tc_layouts_round_trip(algorithm, name):
     assert kp % 32 == 0 and kp - k < 32
     assert not ff.unpack_tc_basis(algorithm, packed, kp)[:, k:].float().any()
     module = MfccChange(cfg).frontend_weights(algorithm)
+    if algorithm == "f32":
+        assert not any(k.endswith("_tc") for k in module) and all(k in module for k in ff.FFT_KEYS)
+        cfg = MfccConfig(**GEOMETRY_CONFIGS[name], n_fft=400)
+        module = MfccChange(cfg).frontend_weights(algorithm)
+        w = ff.mode_tensors(algorithm, "cpu", cfg.signal_sample_rate, cfg.n_fft, cfg.win_length, cfg.n_mels,
+                            cfg.minFreq, cfg.maxFreq, hop=cfg.hop_length)
+        packed, mel = w[f"{basis}_tc"], w["melw_tc"]
     assert torch.equal(module[f"{basis}_tc"], packed) and torch.equal(module["melw_tc"], mel)
 
 
@@ -306,14 +320,19 @@ def test_tc_modes_raise_off_the_card():
 def test_tc_launch_needs_the_layouts(algorithm, monkeypatch):
     """The launcher never repacks the weights: on the kernel's route, weights
     without their tensor-core layouts raise before anything is launched,
-    naming the layouts and mode_tensors."""
+    naming the layouts and mode_tensors ('f32' takes this kernel where
+    fft_ok refuses the geometry: a 400-point n_fft here)."""
     monkeypatch.setattr(ff, "route", lambda t, name: True)
-    _, w = tensors(algorithm, "16k")
+    if algorithm == "f32":
+        n_fft, w = 400, ff.mode_tensors("f32", "cpu", 16_000, 400, 400, fmax=8000.0)
+    else:
+        n_fft, (_, w) = 512, tensors(algorithm, "16k")
     bare = {k: v for k, v in w.items() if not k.endswith("_tc")}
     x = torch.zeros((1, 4000), dtype=torch.float32)
     before = dict(ff.LAUNCHES)
     with pytest.raises(ValueError, match="tensor-core layouts.*mode_tensors"):
-        ff.fused_mel_frontend(x, sr=16_000, hop=80, win_length=400, fmax=8000.0, algorithm=algorithm, weights=bare)
+        ff.fused_mel_frontend(x, sr=16_000, n_fft=n_fft, hop=80, win_length=400, fmax=8000.0, algorithm=algorithm,
+                              weights=bare)
     assert dict(ff.LAUNCHES) == before
 
 

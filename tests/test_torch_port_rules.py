@@ -368,8 +368,8 @@ def test_build_is_true_fp32_for_sm90a():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
-        "burg.cu", "fused_frontend.cu", "fused_frontend_fold.cu", "fused_frontend_fold_tc.cu", "fused_frontend_tc.cu",
-        "sinc_refine.cu", "viterbi.cu"]
+        "burg.cu", "fused_frontend.cu", "fused_frontend_fft.cu", "fused_frontend_fold.cu", "fused_frontend_fold_tc.cu",
+        "fused_frontend_tc.cu", "sinc_refine.cu", "viterbi.cu"]
     assert _build.library_path().parent == _build.BUILD_DIR
     assert "modulation_mfcc_tpu_torch/_build/" in (REPO / ".gitignore").read_text()
 
