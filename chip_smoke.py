@@ -235,6 +235,17 @@ Phases:
      and the first, shortest, longest and last against the CPU (1e-5); (d)
      melspectrogram(window='hamming') on the card against the CPU (1e-5 of
      the peak)
+ 31  the masked routes' trajectory kernels at timit16k.short's size: 1,024
+     int16 speech-like utterances of one 65,536-sample bucket as hop rows,
+     'fused'; on the scan route (1.02-4.10 s) masked_sosfiltfilt_f64
+     launched twice a call and masked_grad_norm_f32 once, on the masked FIR
+     route (lengths of at least min_frames_for_fir frames) the norm once
+     (counters reset before each call); every launch's operands held to the
+     plain version: the filter to the float64 loop bit for bit (float32
+     rows; float64 rows give the same result in float64), the norm to its
+     torch ops within GRAD_NORM_RTOL; their times (a loop of 20 launches)
+     beside the plain versions' and the least-work bounds of
+     benchmark/roofline/scan.py's count (the valid frames)
 
 ``--frontend DIR`` runs none of these phases. It drives the package of the
 checkout at DIR instead of this one's, builds its kernels, times its
@@ -339,6 +350,8 @@ SOURCES = {
     "fused_mel_fold_f32": f"{CSRC}/fused_frontend_fold_tc.cu",
     "fused_mel_fold_bf16": f"{CSRC}/fused_frontend_fold.cu",
     "fused_mel_fold_x3": f"{CSRC}/fused_frontend_fold_tc.cu",
+    "masked_sosfiltfilt_f64": f"{CSRC}/masked_scan.cu",
+    "masked_grad_norm_f32": f"{CSRC}/masked_scan.cu",
 }
 REPLACES = {
     "fused_mel_fft_f32": "modulation_mfcc_tpu/pallas/fused_frontend.py:990 (_kernel, _kernel_pipe, f32; where fft_ok)",
@@ -355,6 +368,8 @@ REPLACES = {
     "fused_mel_fold_f32": "modulation_mfcc_tpu/pallas/fused_frontend.py:1096 (_folded_frontend, _fold_kernel, f32)",
     "fused_mel_fold_bf16": "modulation_mfcc_tpu/pallas/fused_frontend.py:1096 (_folded_frontend, _fold_kernel, bf16)",
     "fused_mel_fold_x3": "modulation_mfcc_tpu/pallas/fused_frontend.py:1096 (_folded_frontend, _fold_kernel, x3)",
+    "masked_sosfiltfilt_f64": "modulation_mfcc_tpu/ops/masked.py:123 (masked_sosfiltfilt, a lax.scan)",
+    "masked_grad_norm_f32": "modulation_mfcc_tpu/ops/masked.py:203 (masked_gradient) and the norm after it",
 }
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bytes/s, FP32 CUDA-core FLOP/s,
 # dense bf16 tensor-core FLOP/s and int8 tensor-core OP/s
@@ -3622,12 +3637,19 @@ def analysis_workflow(dev, card: str) -> mt.AudioBatch:
 # ---------------------------------------------------------------------------
 
 EXTRAS = ("mod_cepstr", "mfcc39", "f0", "envelope", "formants")
-COUNTERS = (ff.LAUNCHES, SK.LAUNCHES, BK.LAUNCHES, VK.LAUNCHES)
 EXTRA_KERNELS = ("fused_mel_fft_f32", "mfcc_tail_f32", "sinc_refine_f32", "burg_lpc_f32")
 
 
+def counters() -> tuple[dict, ...]:
+    """Every kernel module's launch counter (masked_scan imported here, not
+    at the top, as --frontend may drive a package without it)."""
+    from modulation_mfcc_tpu_torch.kernels import masked_scan as MS
+
+    return ff.LAUNCHES, SK.LAUNCHES, BK.LAUNCHES, VK.LAUNCHES, MS.LAUNCHES
+
+
 def launch_counts() -> dict[str, int]:
-    return {k: v for c in COUNTERS for k, v in c.items()}
+    return {k: v for c in counters() for k, v in c.items()}
 
 
 @contextmanager
@@ -3743,7 +3765,7 @@ def extras_sweep(dev, card: str, paths: list[str], hours: float, tmp: str) -> tu
     cfg = FLAGSHIP
     out = os.path.join(tmp, "extras")
     sweep = CorpusSweep(out, cfg=cfg, spectrum="fused", features=EXTRAS, device=dev)
-    reset(*COUNTERS)
+    reset(*counters())
     with native_spy() as submitted:
         rep = sweep_mfcc_change(paths, sweep)
     launches = launch_counts()
@@ -3793,7 +3815,7 @@ def extras_sweep(dev, card: str, paths: list[str], hours: float, tmp: str) -> tu
                               ("envelope RMSpraat", paths[:8], dict(features=("mod_cepstr", "envelope"),
                                                                      amp_cfg=mt.AmplitudeConfig(method="RMSpraat")))):
         d = os.path.join(tmp, label.replace(" ", "_"))
-        reset(*COUNTERS)
+        reset(*counters())
         rep = sweep_mfcc_change(subset, CorpusSweep(d, cfg=cfg, spectrum="fused", device=dev, **kw))
         got = {k: v for k, v in launch_counts().items() if v}
         key = kw["features"][1]
@@ -4150,6 +4172,122 @@ def public_surface(dev, card: str, padded: mt.AudioBatch) -> None:
     print(f"[30] phase 30 took {time.perf_counter() - t0:.3f} s (host clock)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: the masked routes' trajectory kernels at timit16k.short's size
+# ---------------------------------------------------------------------------
+
+SCAN_BATCH, SCAN_BUCKET = 1024, 65_536  # timit16k.short: 1,024 utterances of one 4.1 s bucket a batch
+# the gradient norm against its torch ops (tests/test_torch_masked_scan.py): C = 12 squares summed in another
+# order, each order within C - 1 units of roundoff, the root and the division two more each way
+GRAD_NORM_RTOL = ((12 - 1) + 4) * 2.0**-24
+
+
+def once_ms(fn) -> tuple[object, float]:
+    """(fn's result, its CUDA-event ms), one call."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def launch_ms(fn, n: int = 20) -> float:
+    """ms a launch of ``fn``, over a loop of ``n`` (median of 5), so the
+    wrapper's host work hides behind the kernels before it."""
+    return cuda_ms(lambda: [fn() for _ in range(n)]) / n
+
+
+def timit_batch(pcm: torch.Tensor, lengths: torch.Tensor) -> mt.AudioBatch:
+    """``pcm`` [B, SCAN_BUCKET] int16 zeroed at and past each of ``lengths``,
+    as hop rows."""
+    cfg = FLAGSHIP
+    pcm = pcm.masked_fill(torch.arange(SCAN_BUCKET, device=pcm.device)[None, :] >= lengths[:, None], 0)
+    rows = ff.pack_hop_rows(pcm, n_fft=cfg.n_fft, hop=cfg.hop_length, win_length=cfg.win_length)
+    return mt.AudioBatch(rows.contiguous(), lengths)
+
+
+def scan_route(dev, card: str) -> list[dict]:
+    """Phase 31 (see the module docstring); the two kernels' rows."""
+    from modulation_mfcc_tpu_torch.kernels import masked_scan as MS
+    from modulation_mfcc_tpu_torch.models import modulation as MM
+    from modulation_mfcc_tpu_torch.ops.masked import masked_gradient, masked_sosfiltfilt
+
+    cfg, hop = FLAGSHIP, FLAGSHIP.hop_length
+    min_frames = MM.min_frames_for_fir(cfg)
+    y = speechlike_on_card(SCAN_BATCH * SCAN_BUCKET, cfg.signal_sample_rate, seed=31)
+    pcm = (y.clamp(-1.5, 1.5) * (32767 / 1.5)).round().to(torch.int16).view(SCAN_BATCH, SCAN_BUCKET)
+    del y
+    g = torch.Generator().manual_seed(31)
+    lengths = {"scan": torch.randint(SCAN_BUCKET // 4 + 1, SCAN_BUCKET + 1, (SCAN_BATCH,), generator=g),
+               "fir": torch.randint((min_frames - 1) * hop, SCAN_BUCKET + 1, (SCAN_BATCH,), generator=g)}
+    check(1 + int(lengths["scan"].min()) // hop < min_frames <= 1 + int(lengths["fir"].min()) // hop,
+          "phase 31: the scan batch has an utterance under min_frames_for_fir frames, the FIR batch none")
+    calls = {}
+    for route, n in lengths.items():
+        batch = timit_batch(pcm, n.to(dev))
+        kw = dict(spectrum="fused", masked_fir=route == "fir", n_samples=SCAN_BUCKET)
+        batched_mfcc_change(batch, cfg, **kw)
+        torch.cuda.synchronize()
+        reset(MS.LAUNCHES)
+        with spy(MM, "masked_sosfiltfilt_f64") as filt, spy(MM, "masked_grad_norm") as norm:
+            tot, _ = batched_mfcc_change(batch, cfg, **kw)
+        torch.cuda.synchronize()
+        want = {"masked_sosfiltfilt_f64": 0 if route == "fir" else 2, "masked_grad_norm_f32": 1}
+        print(f"[31] {route} route: {SCAN_BATCH} int16 utterances of {int(n.min())}-{int(n.max())} samples as hop "
+              f"rows, 'fused': launches {dict(MS.LAUNCHES)} (want {want}), tot_change {tuple(tot.shape)} finite "
+              f"{bool(torch.isfinite(tot).all())} ({card})")
+        check(MS.LAUNCHES == want and bool(torch.isfinite(tot).all()), f"phase 31 {route} route launches")
+        calls[route] = filt, norm
+    # the filter: its two launches of a scan-route call (the 12 trajectories, then tot_change)
+    ms = plain_ms = least_bytes = least_ops = err = 0.0
+    for args, _, _, _ in calls["scan"][0]:
+        sos, zi, padlen, x, frames = args
+        got = MS.masked_sosfiltfilt_f64(*args)
+        length = frames[:, None] if x.ndim == 3 else frames
+        want, t_plain = once_ms(lambda: masked_sosfiltfilt(sos, zi, padlen, x.double(), length).to(torch.float32))
+        got64 = MS.masked_sosfiltfilt_f64(sos, zi, padlen, x.double(), frames)
+        rows_a = x.shape[1] if x.ndim == 3 else 1
+        t_kernel = launch_ms(lambda: MS.masked_sosfiltfilt_f64(*args))
+        print(f"[31] masked_sosfiltfilt_f64 on {tuple(x.shape)} (strides {x.stride()}), padlen {padlen}, "
+              f"{sos.shape[0]} sections: bit for bit the float64 loop {same_bits(got, want)}, float64 rows give it "
+              f"in float64 {torch.equal(got64, got.double())}; {t_kernel:.4f} ms a launch, the loop {t_plain:.3f} "
+              f"ms once ({card})")
+        check(same_bits(got, want) and torch.equal(got64, got.double()),
+              f"phase 31 masked_sosfiltfilt_f64 on {tuple(x.shape)} bit for bit the loop")
+        valid = float(frames.sum())
+        ms, plain_ms = ms + t_kernel, plain_ms + t_plain
+        least_bytes += 8.0 * rows_a * valid  # each row's valid frames read and written once, float32
+        least_ops += 9.0 * 2 * sos.shape[0] * rows_a * valid  # 9 flops a section a frame each way
+    rows = [kernel_row("masked_sosfiltfilt_f64", 2, 0.0, (ms, plain_ms), bound(least_bytes, least_ops))]
+    # the norm: its launch on each masked route
+    for route in ("scan", "fir"):
+        (args, _, _, _), = calls[route][1]
+        x, frames = args
+        got = MS.masked_grad_norm(x, frames)
+
+        def plain():
+            d = masked_gradient(x, frames[:, None])
+            return torch.sqrt(torch.sum(d * d, dim=-2)) / x.shape[-2]
+
+        want = plain()
+        close = bool(torch.allclose(got, want, rtol=GRAD_NORM_RTOL, atol=0.0))
+        same64 = torch.equal(MS.masked_grad_norm(x.double(), frames), got.double())
+        e = float((got - want).abs().max())
+        t_kernel, t_plain = launch_ms(lambda: MS.masked_grad_norm(x, frames)), cuda_ms(plain)
+        print(f"[31] masked_grad_norm_f32 on the {route} route's {tuple(x.shape)}: within {GRAD_NORM_RTOL:.3e} "
+              f"relative of its torch ops {close} (max-abs {e:.3e}), float64 rows give it in float64 {same64}; "
+              f"{t_kernel:.4f} ms a launch, the torch ops {t_plain:.4f} ms ({card})")
+        check(close and same64, f"phase 31 masked_grad_norm_f32 on the {route} route against its torch ops")
+        if route == "scan":
+            c, valid = x.shape[1], float(frames.sum())
+            # c trajectories read and tot written once, float32; a frame's difference, halving, square and sum
+            # for each, then the root and the division
+            b = bound(4.0 * (c + 1) * valid, (4.0 * c + 2) * valid)
+            rows.append(kernel_row("masked_grad_norm_f32", 1, e, (t_kernel, t_plain), b))
+    return rows
+
+
 def build_native_loader() -> tuple[Path, float]:
     """The native decode loader's library, built and loaded; (path, seconds)."""
     t0 = time.perf_counter()
@@ -4284,6 +4422,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     p29 = sweep_extras_and_distributed(dev, card)
     public_surface(dev, card, padded)
+    torch.cuda.empty_cache()
+    rows += scan_route(dev, card)
     rows = [r | {"extras_sweep_launches": p29.get(r["name"], 0)} for r in rows]
     print(json.dumps({"kernels": rows}))
     print(card_line())

@@ -36,15 +36,14 @@ import scipy.signal as sps
 import torch
 
 from modulation_mfcc_tpu_torch.kernels.fused_frontend import fused_mfcc, kernel_layouts, mode_weights, tail_dct
+from modulation_mfcc_tpu_torch.kernels.masked_scan import masked_grad_norm, masked_sosfiltfilt_f64
 from modulation_mfcc_tpu_torch.models.config import MfccConfig
 from modulation_mfcc_tpu_torch.ops import filters as F
 from modulation_mfcc_tpu_torch.ops.derivatives import np_gradient
 from modulation_mfcc_tpu_torch.ops.framing import frame_signal, frame_times_mfcc, n_frames_centered
 from modulation_mfcc_tpu_torch.ops.masked import (
     masked_filtfilt,
-    masked_gradient,
     masked_savgol,
-    masked_sosfiltfilt,
     masked_sosfiltfilt_fir,
 )
 from modulation_mfcc_tpu_torch.ops.savgol import savgol_filter
@@ -235,15 +234,17 @@ class MfccChange(torch.nn.Module):
                 if lengths is None:
                     filt = self.traj_filter(m)
                 else:
-                    filt = self._masked_filter(self.traj_filter, m, lengths, masked_fir)
+                    filt = self._masked_filter(self.traj_filter, m, frame_lengths, masked_fir,
+                                               "trajectory.filter.scan")
             with obs.span("trajectory.diff"):
-                if lengths is None:
-                    diff = np_gradient(filt) if cfg.diffMethod == "grad" else savgol_filter(filt, 3, 2, deriv=1)
-                elif cfg.diffMethod == "grad":
-                    diff = masked_gradient(filt, lengths)
+                if lengths is not None and cfg.diffMethod == "grad":
+                    tot = masked_grad_norm(filt, frame_lengths)  # both masked routes: one kernel on CUDA
                 else:
-                    diff = masked_savgol(filt, 3, 2, lengths, deriv=1)
-                tot = torch.sqrt(torch.sum(diff * diff, dim=-2)) / n_coef
+                    if lengths is None:
+                        diff = np_gradient(filt) if cfg.diffMethod == "grad" else savgol_filter(filt, 3, 2, deriv=1)
+                    else:
+                        diff = masked_savgol(filt, 3, 2, lengths, deriv=1)
+                    tot = torch.sqrt(torch.sum(diff * diff, dim=-2)) / n_coef
             with obs.span("trajectory.out"):
                 return self._out_filter(tot, frame_lengths, masked_fir)
 
@@ -257,18 +258,26 @@ class MfccChange(torch.nn.Module):
                 return F.filtfilt(*self.out_fir, tot)
             return savgol_filter(tot, cfg.outFiltLen, cfg.outFiltPolyOrd, deriv=0)
         if self.out_kind == "iir":
-            return self._masked_filter(self.out_filter, tot, frame_lengths, masked_fir)
+            return self._masked_filter(self.out_filter, tot, frame_lengths, masked_fir, "trajectory.out.scan")
         if self.out_kind == "fir":
             return masked_filtfilt(*self.out_fir, tot, frame_lengths)
         return masked_savgol(tot, cfg.outFiltLen, cfg.outFiltPolyOrd, frame_lengths, deriv=0)
 
     @staticmethod
-    def _masked_filter(filt: F.FiltFilt, x: torch.Tensor, lengths: torch.Tensor, fir: bool) -> torch.Tensor:
+    def _masked_filter(filt: F.FiltFilt, x: torch.Tensor, frame_lengths: torch.Tensor, fir: bool,
+                       scan_span: str) -> torch.Tensor:
+        """The Butterworth ``filt`` over x [B, T] or [B, C, T], each
+        utterance's edges at its ``frame_lengths`` [B]: the FIR operator
+        with ``fir``, else the scan in float64 (kernels/masked_scan: the CUDA
+        kernel on the card, the plain per-sample loop on the CPU) inside the
+        span ``scan_span``."""
         if fir:
-            return masked_sosfiltfilt_fir(filt, x, lengths)
-        # the scan is a loop of small launches, bound by their count: float64
-        # costs nothing there and keeps the recursion's rounding out of the result
-        return masked_sosfiltfilt(filt.sos, filt.zi, filt.padlen, x.double(), lengths).to(x.dtype)
+            return masked_sosfiltfilt_fir(filt, x, frame_lengths[:, None] if x.ndim == 3 else frame_lengths)
+        with obs.span(scan_span) as sp:
+            if sp:
+                sp.set(rows=x.shape[0] * (x.shape[1] if x.ndim == 3 else 1), frames=x.shape[-1],
+                       route="kernel" if x.is_cuda else "loop")
+            return masked_sosfiltfilt_f64(filt.sos, filt.zi, filt.padlen, x, frame_lengths)
 
 
 @lru_cache(maxsize=8)

@@ -166,7 +166,10 @@ def odd_ext(x: torch.Tensor, n: int) -> torch.Tensor:
 
 def sosfilt(sos: np.ndarray, x: torch.Tensor, zi: torch.Tensor | None = None) -> torch.Tensor:
     """Cascaded biquads along the last axis (scipy.signal.sosfilt), direct form
-    II transposed, one time step at a time (short signals only).
+    II transposed, one time step at a time: about ten tensor ops a sample a
+    section, the same count at any batch size. The plain version of the
+    scan filters; on CUDA the masked scan of padded batches runs as the
+    kernel of kernels/masked_scan.py instead.
 
     ``zi`` has shape [ns, ..., 2] broadcastable against x's leading dims
     (scipy convention); None means zero initial state.

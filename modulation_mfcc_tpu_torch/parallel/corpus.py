@@ -343,8 +343,9 @@ def sweep_mfcc_change(paths: list[str], sweep: CorpusSweep) -> dict:
     # overlap, so the fields explain the wall time without summing to it
     # (dispatch_busy_s: the main loop's host time dispatching a batch,
     # which returns before the card is done with the kernels but runs the
-    # scan filters of short-file batches and the Praat path finder as loops
-    # of small launches)
+    # Praat path finder as a loop of small launches; the scan filters of
+    # short-file batches are two kernel launches on CUDA, a per-sample loop
+    # only on the CPU)
     stats = {
         "decode_busy_s": 0.0, "assemble_busy_s": 0.0, "upload_busy_s": 0.0,
         "upload_mb": 0.0, "dispatch_busy_s": 0.0, "fetch_wait_s": 0.0, "write_busy_s": 0.0,

@@ -11,8 +11,9 @@ import pytest
 import torch
 
 import modulation_mfcc_tpu_torch as mt
-from modulation_mfcc_tpu_torch.kernels import _build, burg, sinc_refine, viterbi
+from modulation_mfcc_tpu_torch.kernels import _build, burg, masked_scan, sinc_refine, viterbi
 from modulation_mfcc_tpu_torch.kernels import fused_frontend as ff
+from modulation_mfcc_tpu_torch.ops import filters
 
 torch.set_num_threads(1)
 
@@ -224,12 +225,13 @@ def test_kernel_module_imports_without_nvcc_or_triton():
     run builds nothing and needs no toolchain."""
     proc = _run(
         "import sys; sys.modules['triton'] = None\n"
-        "from modulation_mfcc_tpu_torch.kernels import fused_frontend as ff, _build, burg, sinc_refine, viterbi\n"
+        "from modulation_mfcc_tpu_torch.kernels import fused_frontend as ff, _build, burg, masked_scan, sinc_refine,"
+        " viterbi\n"
         "import modulation_mfcc_tpu_torch\n"
         "from modulation_mfcc_tpu_torch import dryrun\n"
         "from modulation_mfcc_tpu_torch.io import native\n"
         "assert _build.load_library.cache_info().currsize == 0 and native.load_library.cache_info().currsize == 0\n"
-        "assert all(m._lib.cache_info().currsize == 0 for m in (ff, burg, sinc_refine, viterbi))\n"
+        "assert all(m._lib.cache_info().currsize == 0 for m in (ff, burg, masked_scan, sinc_refine, viterbi))\n"
         "print('ok')\n",
         PATH="/nonexistent",
     )
@@ -361,6 +363,13 @@ def test_wrappers_raise_on_devices_without_a_kernel():
             ff.fused_mel_frontend(audio, sr=16_000, hop=80, win_length=400, fmax=8000.0, algorithm=alg, fold=True)
     with pytest.raises(ValueError, match="no kernel"):
         mt.modulation_spectrum(audio, mt.MfccConfig(signal_sample_rate=16_000, maxFreq=8000.0))
+    sos, zi, padlen = filters.design_butter_sos(6, (0.12,), "lowpass")
+    with pytest.raises(ValueError, match="no kernel"):
+        masked_scan.masked_sosfiltfilt_f64(sos, zi, padlen, torch.empty((2, 12, 400), device="meta"),
+                                           torch.empty(2, dtype=torch.int64, device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        masked_scan.masked_grad_norm(torch.empty((2, 12, 400), device="meta"),
+                                     torch.empty(2, dtype=torch.int64, device="meta"))
 
 
 def test_build_is_true_fp32_for_sm90a():
@@ -369,7 +378,7 @@ def test_build_is_true_fp32_for_sm90a():
     assert "fast_math" not in flags and "fast-math" not in flags
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
         "burg.cu", "fused_frontend.cu", "fused_frontend_fft.cu", "fused_frontend_fold.cu", "fused_frontend_fold_tc.cu",
-        "fused_frontend_tc.cu", "sinc_refine.cu", "viterbi.cu"]
+        "fused_frontend_tc.cu", "masked_scan.cu", "sinc_refine.cu", "viterbi.cu"]
     assert _build.library_path().parent == _build.BUILD_DIR
     assert "modulation_mfcc_tpu_torch/_build/" in (REPO / ".gitignore").read_text()
 

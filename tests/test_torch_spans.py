@@ -20,6 +20,13 @@ CFG = mt.MfccConfig(signal_sample_rate=16000, maxFreq=8000.0)
 CALL = ["batched_mfcc_change", "frame_mask", "frontend", "frontend.mel", "frontend.peak", "frontend.tail",
         "trajectory", "trajectory.filter", "trajectory.diff", "trajectory.out"]
 ROUTES = {"uniform": {"uniform_lengths": True}, "masked_fir": {"masked_fir": True}, "scan": {}}
+# the scan route's filter spans, each under the layer it runs in
+SCAN = {"trajectory.filter": "trajectory.filter.scan", "trajectory.out": "trajectory.out.scan"}
+
+
+def call_spans(route: str) -> list[str]:
+    """A call's spans in order of entry on ``route``."""
+    return [n for name in CALL for n in ((name, SCAN[name]) if route == "scan" and name in SCAN else (name,))]
 # a range's duration against its span's host time: the range opens before
 # the span's clock reads and closes after it (some µs a span)
 RANGE_TOL_MS = 0.25
@@ -61,15 +68,20 @@ def test_no_profiler_records_nothing(batch):
 def test_a_call_is_one_span_tree(batch, route):
     """One root with the call's attributes; every other span under it, its
     parent the layer above (``frontend.mel`` under ``frontend``), inside
-    its parent's interval."""
+    its parent's interval; on the scan route a span of each scan filter,
+    its rows, frames and route (the loop, on the CPU)."""
     before = obs.spans()
     profiled(lambda: batched_mfcc_change(batch, CFG, **ROUTES[route]))
     recs = new_spans(before)
-    assert [r.name for r in recs] == CALL
+    assert [r.name for r in recs] == call_spans(route)
     root, by_id = recs[0], {r.id: r for r in recs}
     assert root.parent is None and root.root == root.id
     assert root.attrs == {"batch": 2, "layout": "flat", "dtype": "float32", "route": route}
     assert by_id[root.id + 2].attrs == {"algorithm": "f32"}
+    nf = 1 + batch.samples.shape[-1] // CFG.hop_length
+    assert {r.name: r.attrs for r in recs if r.name.endswith(".scan")} == (
+        {"trajectory.filter.scan": {"rows": 2 * 12, "frames": nf, "route": "loop"},
+         "trajectory.out.scan": {"rows": 2, "frames": nf, "route": "loop"}} if route == "scan" else {})
     for r in recs[1:]:
         up = by_id[r.parent]
         assert up.name == (r.name.rsplit(".", 1)[0] if "." in r.name else root.name)
